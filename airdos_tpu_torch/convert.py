@@ -7,12 +7,17 @@
 - ``step_tables_to_device``: the packed fused-step tables that tracking
   builds on the host (last-frame points, local-map candidates and their
   descriptors) -> device tensors.
+- ``vocabulary_from`` / ``map_from``: airdos_tpu's Vocabulary and SlamMap
+  (point table, keyframes, covisibility, spanning tree, observations)
+  copied into the port's, so that one mapping step can run on identical
+  state in both packages.
 
 Nothing here imports jax: airdos_tpu objects are read through their
 dataclass fields and numpy arrays.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -61,3 +66,51 @@ def step_tables_to_device(last_f32: np.ndarray, desc_p: np.ndarray,
             desc_to_tensor(desc_p, device),
             to_device(cand_f32, device, np.float32),
             desc_to_tensor(desc_c, device))
+
+
+def vocabulary_from(voc, device="cpu"):
+    """A Vocabulary of either package -> this package's, on `device`."""
+    from airdos_tpu_torch.bow.vocabulary import Vocabulary
+    return Vocabulary(k=int(voc.k), depth=int(voc.depth),
+                      node_desc32=np.array(voc.node_desc32, np.uint32),
+                      children=np.array(voc.children, np.int32),
+                      word_id=np.array(voc.word_id, np.int32),
+                      weights=np.array(voc.weights, np.float32),
+                      n_words=int(voc.n_words),
+                      feature_level=int(voc.feature_level), device=device)
+
+
+_POINT_COLUMNS = ("pos", "desc32", "normal", "min_dist", "max_dist", "n_obs",
+                  "visible", "found", "bad", "ref_kf", "first_kf")
+
+
+def _host_copy(v):
+    return np.array(v, copy=True) if isinstance(v, np.ndarray) \
+        else copy.deepcopy(v)
+
+
+def map_from(src):
+    """A SlamMap of either package -> an independent copy as this
+    package's SlamMap: every point column and observation dict, and every
+    keyframe attribute (poses, measurements, feature->point table,
+    covisibility, spanning tree, culling state, BoW) by value.  Human
+    trajectories are not carried (ROADMAP port queue: human layer)."""
+    from airdos_tpu_torch.slam.map import KeyFrame, SlamMap
+    if src.trajectories:
+        raise NotImplementedError("human trajectories are not ported yet "
+                                  "(ROADMAP port queue: human layer)")
+    m = SlamMap()
+    sp, pt = src.points, m.points
+    n = int(sp.n)
+    pt.alloc(n)
+    for name in _POINT_COLUMNS:
+        getattr(pt, name)[:n] = getattr(sp, name)[:n]
+    pt.obs[:n] = [dict(o) for o in sp.obs[:n]]
+    for kid, skf in src.kfs.items():
+        kf = KeyFrame.__new__(KeyFrame)
+        for k, v in vars(skf).items():
+            setattr(kf, k, _host_copy(v))
+        m.kfs[kid] = kf
+    m.next_kf_id = src.next_kf_id
+    m.max_kf_id = src.max_kf_id
+    return m

@@ -4,9 +4,16 @@
 // (_hamming_kernel / hamming_matrix_pallas), which every matcher of the
 // tracking path calls through hamming_matrix_auto: stereo (N = M = 1536
 // slots at 1500 features), the motion-model projection match (1536 x 1536)
-// and the local-map match (2048 x 1536).
+// and the local-map match (2048 x 1536).  The mapping pass reaches the
+// same Pallas kernel under jax.vmap: triangulation (4 neighbours, 1536 x
+// 1536 slots each, the new keyframe's descriptors shared) and fusion (8
+// targets + the keyframe, 2048 points x 1536 slots, the point descriptors
+// shared).
+// Here the vmap is the grid's z dimension: one launch covers the batch,
+// and a shared operand has a batch stride of 0.
 //
-// out[i, j] = sum_k popc(a[i, k] ^ b[j, k]) over the 8 32-bit words.
+// out[z, i, j] = sum_k popc(a[z, i, k] ^ b[z, j, k]) over the 8 32-bit
+// words.
 //
 // What bounds it on an H100: the inputs are tiny (N*32 + M*32 bytes) and
 // the int32 output is written once (N*M*4 bytes: 9.4 MB at 1536 x 1536,
@@ -40,10 +47,14 @@ constexpr int kRowsPerThread = kTileN / kRowGroups;
 
 __global__ void __launch_bounds__(kTileM * kRowGroups)
 hamming_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
-               int32_t* __restrict__ out, int n, int m) {
+               int32_t* __restrict__ out, int n, int m, int64_t stride_a,
+               int64_t stride_b) {
   __shared__ uint32_t sa[kTileN][kWords];
   __shared__ uint32_t sb[kTileM][kWords];
 
+  a += blockIdx.z * stride_a;
+  b += blockIdx.z * stride_b;
+  out += blockIdx.z * static_cast<int64_t>(n) * m;
   const int row0 = blockIdx.y * kTileN;
   const int col0 = blockIdx.x * kTileM;
   const int tid = threadIdx.y * kTileM + threadIdx.x;
@@ -78,14 +89,20 @@ hamming_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
 
 }  // namespace
 
-extern "C" int airdos_hamming_matrix(const void* a, const void* b, void* out,
-                                     int n, int m, void* stream) {
-  if (n > 0 && m > 0) {
+// a: [batch or 1, n, 8], b: [batch or 1, m, 8] words, out: [batch, n, m];
+// stride_a / stride_b are the operands' batch strides in words (0 for an
+// operand shared by the whole batch).  The 2-D matrix is batch 1.
+extern "C" int airdos_hamming_matrix_batched(const void* a, const void* b,
+                                             void* out, int n, int m,
+                                             int batch, int64_t stride_a,
+                                             int64_t stride_b, void* stream) {
+  if (n > 0 && m > 0 && batch > 0) {
     const dim3 block(kTileM, kRowGroups);
-    const dim3 grid((m + kTileM - 1) / kTileM, (n + kTileN - 1) / kTileN);
+    const dim3 grid((m + kTileM - 1) / kTileM, (n + kTileN - 1) / kTileN,
+                    batch);
     hamming_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
-        static_cast<int32_t*>(out), n, m);
+        static_cast<int32_t*>(out), n, m, stride_a, stride_b);
   }
   return static_cast<int>(cudaGetLastError());
 }

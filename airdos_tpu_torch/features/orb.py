@@ -131,6 +131,11 @@ class OrbExtractor:
     def scales(self) -> Tuple[float, ...]:
         return tuple(self.scale_factor ** l for l in range(self.n_levels))
 
+    @property
+    def sigma2(self) -> np.ndarray:
+        """Per-level measurement variance (scale^2), reference mvLevelSigma2."""
+        return np.asarray([s * s for s in self.scales], np.float32)
+
     def _extract_from_pyramid(self, pyr) -> OrbFeatures:
         out_xy, out_resp, out_ang, out_oct, out_desc = [], [], [], [], []
         for lvl in range(self.n_levels):

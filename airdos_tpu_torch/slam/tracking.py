@@ -1,14 +1,17 @@
 """Tracking: the per-frame state machine, static stereo, offline.
 
 Rebuild of the reference's Tracking (src/Tracking.cc) as airdos_tpu runs
-it with no local mapper: init -> (fused motion-model | reference-KF)
-tracking -> track-local-map -> keyframe decision -> close-point creation.
+it offline: init -> (fused motion-model | reference-KF) tracking ->
+track-local-map -> keyframe decision -> close-point creation, handing each
+new keyframe to the local mapper when there is one (``local_mapper=None``
+is airdos_tpu's tracking-only configuration).  Reference-KF tracking
+matches by BoW once System has a keyframe database, else by a wide
+projection search.
 
 Host Python owns the state machine and the integer bookkeeping; the dense
-steps (front end, projection matching, pose LM) run on the front end's
-torch device.  Outside this slice: a local mapper, BoW reference-KF
-tracking and relocalization raise NotImplementedError naming their ROADMAP
-port-queue item; the temporary visual-odometry points of
+steps (front end, projection and BoW matching, pose LM) run on the front
+end's torch device.  Relocalization raises NotImplementedError naming its
+ROADMAP port-queue item; the temporary visual-odometry points of
 localization-only mode and the human-pose grabbing are not here.
 """
 from __future__ import annotations
@@ -17,15 +20,18 @@ import enum
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from airdos_tpu_torch.config import SlamConfig
 from airdos_tpu_torch.convert import desc_to_tensor, step_tables_to_device, \
     to_device
 from airdos_tpu_torch.geometry.se3 import se3_exp_np, se3_log_np
+from airdos_tpu_torch.matching.bow_match import match_by_bow
 from airdos_tpu_torch.slam.frame import Frame, FrontEnd
 from airdos_tpu_torch.slam.fused import (local_map_step, make_full_track_step,
                                          motion_model_step)
 from airdos_tpu_torch.slam.map import KeyFrame, SlamMap
+from airdos_tpu_torch.solvers.pose_opt import pose_optimize
 from airdos_tpu_torch.utils.obs import span
 
 
@@ -51,15 +57,11 @@ class FrameRecord:
 class Tracking:
     def __init__(self, config: SlamConfig, frontend: FrontEnd,
                  slam_map: SlamMap, local_mapper=None):
-        if local_mapper is not None:
-            raise NotImplementedError(
-                "the local mapping pass is not ported yet (ROADMAP port "
-                "queue: mapping pass); construct Tracking with "
-                "local_mapper=None")
         self.config = config
         self.frontend = frontend
         self.device = frontend.device
         self.map = slam_map
+        self.local_mapper = local_mapper
         self.state = TrackState.NO_IMAGES_YET
 
         cam = config.camera
@@ -86,6 +88,7 @@ class Tracking:
         self._scale_factors_dev = to_device(self.scale_factors, self.device)
 
         self.profiler = None             # set by System (per-stage spans)
+        self.keyframe_db = None          # set by System once the vocab exists
         self._full_step = None           # built at the first fused frame
         self.last_frame: Optional[Frame] = None
         self.velocity: Optional[tuple] = None       # (R, t) of Tcl (cur<-last)
@@ -187,6 +190,8 @@ class Tracking:
         frame.mp_idx[good] = pids
         frame.ref_kf_id = kf.id
         self.last_kf_id = kf.id
+        if self.local_mapper is not None:
+            self.local_mapper.recent_points.extend(pids.tolist())
         self.state = TrackState.OK
 
     def _reset(self):
@@ -195,6 +200,8 @@ class Tracking:
         self.velocity = None
         self.last_kf_id = -1
         self.records = []
+        if self.local_mapper is not None:
+            self.local_mapper.recent_points = []
 
     # ==================================================== fused fast path
     def _candidate_arrays(self, frame: Frame, local_kfs: List[int]):
@@ -356,8 +363,20 @@ class Tracking:
                                     out.point_of_feat.cpu().numpy(),
                                     int(out.n_real_inliers))
 
+    def _frame_nodes(self, frame: Frame) -> np.ndarray:
+        """Per-feature vocabulary node ids at the grouping level (lazily
+        computed and cached on the frame; Frame::ComputeBoW semantics)."""
+        nodes = getattr(frame, "feat_nodes", None)
+        if nodes is None:
+            _, _, nodes = self.keyframe_db.voc.transform(frame.desc32,
+                                                         frame.valid)
+            frame.feat_nodes = nodes
+        return nodes
+
     def _track_reference_keyframe(self, frame: Frame) -> bool:
-        """TrackReferenceKeyFrame (reference Tracking.cc:827-869).  Without
+        """SearchByBoW against the reference KF + motion-only pose opt
+        (reference Tracking::TrackReferenceKeyFrame, Tracking.cc:827-869;
+        ORBmatcher::SearchByBoW KF<->Frame, ORBmatcher.cc:159-288).  Without
         a vocabulary it is the wide projection search from the reference
         KF's points, as in airdos_tpu."""
         if frame.ref_kf_id is None:
@@ -365,11 +384,35 @@ class Tracking:
         kf = self.map.kfs.get(self.last_kf_id)
         if kf is None:
             return False
-        if self.config.vocabulary_path:
-            raise NotImplementedError(
-                "BoW reference-keyframe tracking is not ported yet (ROADMAP "
-                "port queue: relocalization and loop closing)")
+        if self.keyframe_db is not None:
+            return self._track_ref_kf_bow(frame, kf)
         return self._track_ref_kf_projection(frame, kf)
+
+    def _track_ref_kf_bow(self, frame: Frame, kf) -> bool:
+        pt = self.map.points
+        self.keyframe_db.ensure_bow(kf)
+        fnodes = self._frame_nodes(frame)
+        d = self.device
+        fd = frame.dev
+        m = match_by_bow(
+            desc_to_tensor(kf.desc32, d), to_device(kf.feat_nodes, d, np.int64),
+            to_device(kf.valid & (kf.mp_idx >= 0), d),
+            to_device(kf.angle, d, np.float32),
+            fd["desc32"], to_device(fnodes, d, np.int64), fd["valid"],
+            fd["angle"])
+        idx2 = m.idx2.cpu().numpy()
+        n_matches = 0
+        for f1 in np.nonzero(idx2 >= 0)[0]:
+            pid = int(kf.mp_idx[f1])
+            if pid >= 0 and not pt.bad[pid]:
+                frame.mp_idx[int(idx2[f1])] = pid
+                n_matches += 1
+        if n_matches < 15:
+            frame.mp_idx[:] = -1
+            return False
+        frame.set_pose(self.last_frame.Rcw, self.last_frame.tcw)
+        n_real = self._opt_pose_with_assoc(frame)
+        return n_real >= 10
 
     def _track_ref_kf_projection(self, frame: Frame, kf) -> bool:
         frame.set_pose(self.last_frame.Rcw, self.last_frame.tcw)
@@ -402,6 +445,35 @@ class Tracking:
             "relocalization is not ported yet (ROADMAP port queue: "
             "relocalization and loop closing); tracking was lost with more "
             "than 5 keyframes in the map")
+
+    def _opt_pose_with_assoc(self, frame: Frame) -> int:
+        """Motion-only BA over the frame's current associations; outliers
+        lose their association.  Returns the inlier count."""
+        pt = self.map.points
+        n = frame.n_slots
+        xw = np.zeros((n, 3), np.float32)
+        valid = np.zeros(n, bool)
+        rows = np.nonzero(frame.mp_idx >= 0)[0]
+        if len(rows) < 6:
+            return 0
+        pids = frame.mp_idx[rows]
+        live = ~pt.bad[pids]
+        xw[rows[live]] = pt.pos[pids[live]]
+        valid[rows[live]] = True
+        obs = np.concatenate([frame.xy_un, frame.u_right[:, None]],
+                             axis=1).astype(np.float32)
+        d = self.device
+        res = pose_optimize(
+            to_device(frame.Rcw, d, np.float32),
+            to_device(frame.tcw, d, np.float32), to_device(xw, d),
+            to_device(obs, d), to_device(self.inv_sigma2[frame.octave], d),
+            to_device(valid, d), self.fx, self.fy, self.cx, self.cy, self.bf)
+        flat = torch.cat([res.R.reshape(-1), res.t,
+                          res.inlier.to(res.t.dtype)]).cpu().numpy()
+        inlier = flat[12:] > 0.5
+        frame.set_pose(flat[:9].reshape(3, 3), flat[9:12])
+        frame.mp_idx[valid & ~inlier] = -1
+        return int(inlier.sum())
 
     # ======================================================= local map
     def _local_keyframes(self, frame: Frame) -> List[int]:
@@ -563,7 +635,13 @@ class Tracking:
                 pids = self.map.create_points(kf, ids,
                                               frame.unproject_features(ids))
                 frame.mp_idx[ids] = pids
-        self.map.update_connections(kf)
+                if self.local_mapper is not None:
+                    self.local_mapper.recent_points.extend(pids.tolist())
+
+        if self.local_mapper is not None:
+            self.local_mapper.process_new_keyframe(kf)
+        else:
+            self.map.update_connections(kf)
 
     # ========================================================== misc
     def _update_velocity(self, frame: Frame):
@@ -600,16 +678,28 @@ class Tracking:
 
     # ------------------------------------------------------------ export
     def trajectory_tum(self):
-        """Camera trajectory via relative-pose chaining over keyframe poses
-        (System::SaveTrajectoryTUM semantics).  No keyframe is culled in
-        this slice, so every record's reference keyframe is live."""
+        """Camera trajectory via relative-pose chaining over (possibly
+        re-optimized) keyframe poses (System::SaveTrajectoryTUM semantics).
+        A record whose reference keyframe was culled walks up the spanning
+        tree through each culled keyframe's Tcp, accumulating
+        T = Tcp_1 * Tcp_2 * ... on the right (reference System.cc:371:
+        Trw = Trw * pKF->mTcp)."""
         ts, Rwcs, twcs = [], [], []
         for rec in self.records:
             kf = self.map.kfs.get(rec.ref_kf_id)
             if kf is None:
                 continue
-            Rcw = rec.Tcr_R @ kf.Rcw
-            tcw = rec.Tcr_R @ kf.tcw + rec.Tcr_t
+            Rrel = np.eye(3, dtype=np.float32)
+            trel = np.zeros(3, np.float32)
+            while kf.bad and kf.parent is not None and kf.Tcp is not None:
+                Rt, tt = kf.Tcp
+                Rrel, trel = Rrel @ Rt, Rrel @ tt + trel
+                kf = self.map.kfs[kf.parent]
+            # unchained, Rrel and trel are exact identities and this is
+            # Tcr * Trw bit for bit.  (airdos_tpu drops trel where Rrel is
+            # within 1e-8 of the identity; here it is always applied.)
+            Rcw = rec.Tcr_R @ Rrel @ kf.Rcw
+            tcw = rec.Tcr_R @ (Rrel @ kf.tcw + trel) + rec.Tcr_t
             ts.append(rec.timestamp)
             Rwcs.append(Rcw.T)
             twcs.append(-Rcw.T @ tcw)

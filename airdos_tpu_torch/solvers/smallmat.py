@@ -1,9 +1,11 @@
-"""Closed-form small-matrix inverses.
+"""Small-matrix solves that stay on the device.
 
 The pose LM solves a damped 6x6 system 40 times per call.  The closed
 forms below keep that solve inside a handful of elementwise ops on the
 device (no LAPACK call, no host sync), and the LM's trace-scaled damping
 floor (solvers/pose_opt.py) was tuned to their precision in airdos_tpu.
+The local BA solves its damped-SPD reduced camera system with
+``cho_solve_dense``.
 """
 from __future__ import annotations
 
@@ -50,3 +52,19 @@ def inv6x6(M: torch.Tensor) -> torch.Tensor:
     bot_left = -Si @ CAi
     return torch.cat([torch.cat([top_left, top_right], dim=-1),
                       torch.cat([bot_left, Si], dim=-1)], dim=-2)
+
+
+def cho_solve_dense(H: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve H x = b for damped-SPD H via Cholesky (no pivoting).
+    H: [D, D]; b: [D] or [D, K].
+
+    cholesky_ex leaves the factorization status on the device (no host
+    sync inside an LM loop); where it failed the result is NaN, as
+    jax.lax.linalg.cholesky gives, so the caller's cost guard rejects the
+    step."""
+    L, info = torch.linalg.cholesky_ex(H)
+    L = torch.where(info == 0, L, torch.full_like(L, float("nan")))
+    b2 = b[:, None] if b.dim() == 1 else b
+    y = torch.linalg.solve_triangular(L, b2, upper=False)
+    x = torch.linalg.solve_triangular(L.transpose(-1, -2), y, upper=True)
+    return x[:, 0] if b.dim() == 1 else x

@@ -6,8 +6,9 @@ Both packages get the same numpy frames.  Stated tolerances:
   of pixels;
 - the fused step on one recorded input tuple: R within 1e-4 (Frobenius),
   t within 1e-4 m, match assignments >= 99% equal;
-- the 14-frame tracking-only run: the same OK state and branch per frame,
-  the same keyframe count, ATE within 10% or 2 mm of airdos_tpu's.
+- the 14-frame tracking-only run (``Tracking(..., local_mapper=None)`` in
+  both packages): the same OK state and branch per frame, the same
+  keyframe count, ATE within 10% or 2 mm of airdos_tpu's.
 """
 import dataclasses
 import subprocess
@@ -33,6 +34,8 @@ from airdos_tpu_torch.io.synthetic import SyntheticStereoWorld as TorchWorld
 from airdos_tpu_torch.slam.fused import make_full_track_step
 from airdos_tpu_torch.slam.system import System
 from airdos_tpu_torch.slam.frame import FrontEnd as TorchFrontEnd
+from airdos_tpu_torch.slam.map import SlamMap as TorchMap
+from airdos_tpu_torch.slam.tracking import Tracking
 
 N_FRAMES = 14
 
@@ -77,14 +80,15 @@ def jax_run(frames):
 
 @pytest.fixture(scope="module")
 def torch_run(frames):
-    slam = System(config_from(small_config()))
+    cfg = config_from(small_config())
+    trk = Tracking(cfg, TorchFrontEnd(cfg), TorchMap(), local_mapper=None)
     per = []
     for data, _, _ in frames:
-        slam.track_stereo(data)
-        per.append((slam.tracking.state.name, slam.tracking.last_branch))
-    _, _, t_est = slam.tracking.trajectory_tum()
+        trk.track(data)
+        per.append((trk.state.name, trk.last_branch))
+    _, _, t_est = trk.trajectory_tum()
     gt = np.asarray([twc for _, _, twc in frames])
-    return dict(slam=slam, per=per, n_kfs=slam.map.n_keyframes(),
+    return dict(trk=trk, per=per, n_kfs=trk.map.n_keyframes(),
                 ate=ate_rmse(t_est, gt[:len(t_est)]))
 
 
