@@ -7,9 +7,10 @@ reference).  The layout mirrors it module for module:
 - Host Python owns the tracking state machine and the map bookkeeping, as
   numpy arrays (the same code as the JAX package).
 - Dense per-frame work (pyramid, FAST, rBRIEF, Hamming matching, stereo
-  SAD, pose LM) is eager PyTorch on the device the caller names
-  (``System(config, device="cuda")``); the all-pairs Hamming matrix is a
-  CUDA C++ kernel written for sm_90a (``csrc/hamming.cu``).
+  SAD, pose LM) and the mapping pass are eager PyTorch on the card
+  (``System(config)``; ``device="cpu"`` runs the plain versions on the
+  CPU); the all-pairs Hamming matrix and the local BA's segment sums are
+  CUDA C++ kernels written for sm_90a (``csrc/``).
 
 This package imports torch and never jax.
 """

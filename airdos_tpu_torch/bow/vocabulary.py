@@ -21,7 +21,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from airdos_tpu_torch.convert import desc_to_tensor
+from airdos_tpu_torch.convert import desc_to_tensor, resolve_device
 from airdos_tpu_torch.ops.hamming_kernels import _popcount32
 
 
@@ -44,9 +44,10 @@ class Vocabulary:
     # getParentNode(wid, levelsup) semantics; see airdos_tpu's Vocabulary)
     feature_level: int = 4
     # torch device of the descent
-    device: Any = dataclasses.field(default="cpu", compare=False)
+    device: Any = dataclasses.field(default="cuda", compare=False)
 
     def __post_init__(self):
+        self.device = resolve_device(self.device)
         self._group_of_node = self._build_group_table()
         self._tables = None
 
@@ -67,12 +68,10 @@ class Vocabulary:
         """The tree on the device, uploaded once: children, node words
         (uint32 values in int64), word ids, groups."""
         if self._tables is None:
-            d = torch.device(self.device)
-            self._tables = (
-                torch.from_numpy(self.children.astype(np.int64)).to(d),
-                torch.from_numpy(self.node_desc32.astype(np.int64)).to(d),
-                torch.from_numpy(self.word_id.astype(np.int64)).to(d),
-                torch.from_numpy(self._group_of_node.astype(np.int64)).to(d))
+            self._tables = tuple(
+                torch.from_numpy(x.astype(np.int64)).to(self.device)
+                for x in (self.children, self.node_desc32, self.word_id,
+                          self._group_of_node))
         return self._tables
 
     def _transform_device(self, desc32: torch.Tensor):
@@ -135,7 +134,7 @@ class Vocabulary:
                             feature_level=self.feature_level)
 
     @classmethod
-    def load_npz(cls, path: str | Path, device="cpu") -> "Vocabulary":
+    def load_npz(cls, path: str | Path, device="cuda") -> "Vocabulary":
         z = np.load(path)
         return cls(k=int(z["k"]), depth=int(z["depth"]),
                    node_desc32=z["node_desc32"], children=z["children"],
@@ -147,7 +146,7 @@ class Vocabulary:
 
 def train_vocabulary(descriptors_u8: np.ndarray, k: int = 10, depth: int = 4,
                      seed: int = 0, max_iters: int = 8,
-                     device="cpu") -> Vocabulary:
+                     device="cuda") -> Vocabulary:
     """Hierarchical binary k-means (bit-majority medoids), like DBoW2's
     create().  descriptors_u8: [N, 32] uint8 training set.  Host numpy,
     the same steps and random draws as airdos_tpu; the idf weights come

@@ -2,6 +2,8 @@
 
 - ``config_from``: any SlamConfig-shaped dataclass (airdos_tpu's included)
   -> this package's SlamConfig, through a ``dataclasses.asdict`` round trip.
+- ``resolve_device``: the device an entry point was given, checked (the
+  default is the card; without one it raises and names ``device="cpu"``).
 - ``desc_to_tensor`` / ``desc_to_numpy``: uint32 descriptor words <-> the
   int32 bit-view tensors the port computes with.
 - ``step_tables_to_device``: the packed fused-step tables that tracking
@@ -40,6 +42,16 @@ def config_from(cfg) -> SlamConfig:
     return SlamConfig(**kw, **d)
 
 
+def resolve_device(device) -> torch.device:
+    """torch.device(device); a CUDA device where torch sees none raises.
+    The entry points run on the card unless the caller names the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(dev)!r}: torch sees no CUDA device; "
+                           'pass device="cpu" to run on the CPU')
+    return dev
+
+
 def desc_to_tensor(desc32: np.ndarray, device) -> torch.Tensor:
     """uint32 [N, 8] descriptor words -> int32 bit-view tensor on device."""
     a = np.ascontiguousarray(desc32, dtype=np.uint32).view(np.int32)
@@ -68,7 +80,7 @@ def step_tables_to_device(last_f32: np.ndarray, desc_p: np.ndarray,
             desc_to_tensor(desc_c, device))
 
 
-def vocabulary_from(voc, device="cpu"):
+def vocabulary_from(voc, device="cuda"):
     """A Vocabulary of either package -> this package's, on `device`."""
     from airdos_tpu_torch.bow.vocabulary import Vocabulary
     return Vocabulary(k=int(voc.k), depth=int(voc.depth),

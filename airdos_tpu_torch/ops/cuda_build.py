@@ -8,6 +8,7 @@ modules import on machines without nvcc or a card.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -15,6 +16,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
@@ -71,3 +74,11 @@ def library(source: Path, signatures) -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _libs[source] = lib
     return lib
+
+
+def on_device(device: torch.device):
+    """The context a launch on `device` needs: none when it is already the
+    current CUDA device (the common case), else torch.cuda.device."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)

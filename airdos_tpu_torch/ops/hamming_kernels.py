@@ -11,6 +11,10 @@ reaches the kernel under jax.vmap, call ``hamming_matrix_batched``.  Both:
 - on a CPU tensor run the plain torch version (``hamming_matrix_ref``,
   ``hamming_matrix_batched_ref``).
 
+``hamming_matrix_and_popc`` repeats the kernel's arithmetic (popc(a) +
+popc(b) - 2 popc(a & b), the AND-popcount of a binary tensor-core MMA) in
+plain torch, so that the CPU tests hold it to the XOR form.
+
 Descriptors are [N, 8] int32 tensors holding the bit patterns of the
 uint32 words (see ops/brief.pack_u32).  The kernel design and what bounds
 it are described at the top of the CUDA source.
@@ -32,6 +36,7 @@ _SIGNATURES = {
 }
 _MAX_ROW_BLOCKS = 65535          # gridDim.y limit; 64 rows per block
 _MAX_BATCH = 65535               # gridDim.z limit
+_kernel = None                   # the bound C entry point, once loaded
 
 _launches = 0
 _batched_launches = 0
@@ -59,10 +64,6 @@ def build():
     return cuda_build.build(_SOURCE)
 
 
-def _library():
-    return cuda_build.library(_SOURCE, _SIGNATURES)
-
-
 def _popcount32(x: torch.Tensor) -> torch.Tensor:
     """SWAR popcount of the low 32 bits of an int64 tensor."""
     x = x - ((x >> 1) & 0x55555555)
@@ -80,6 +81,22 @@ def hamming_matrix_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         x = (a[:, None, k] ^ b[None, :, k]).to(torch.int64) & 0xFFFFFFFF
         acc += _popcount32(x)
     return acc.to(torch.int32)
+
+
+def hamming_matrix_and_popc(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The kernel's arithmetic in plain torch: popc(a) + popc(b) -
+    2 popc(a & b) per pair, the AND-popcount summed over the 8 words as
+    one binary MMA sums its k = 256 bits.  Equal to hamming_matrix_ref.
+    a [N, 8], b [M, 8] int32 -> int32 [N, M]."""
+    a64 = a.to(torch.int64) & 0xFFFFFFFF
+    b64 = b.to(torch.int64) & 0xFFFFFFFF
+    both = torch.zeros((a.shape[0], b.shape[0]), dtype=torch.int64,
+                       device=a.device)
+    for k in range(a.shape[1]):
+        both += _popcount32(a64[:, None, k] & b64[None, :, k])
+    pa = _popcount32(a64).sum(1)
+    pb = _popcount32(b64).sum(1)
+    return (pa[:, None] + pb[None, :] - 2 * both).to(torch.int32)
 
 
 def hamming_matrix_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -134,21 +151,30 @@ def hamming_matrix_batched_cuda(a: torch.Tensor,
     return out
 
 
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """x contiguous and starting on 16 bytes: the kernel reads each
+    descriptor as two 16-byte vectors."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def _launch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The one launch path of both wrappers (operands already checked):
     a [B or 1, n, 8], b [B or 1, m, 8] -> [B, n, m] on the current
     stream."""
+    global _kernel
+    if _kernel is None:
+        _kernel = cuda_build.library(
+            _SOURCE, _SIGNATURES).airdos_hamming_matrix_batched
     B = max(a.shape[0], b.shape[0])
     n, m = a.shape[1], b.shape[1]
-    a = a.contiguous()
-    b = b.contiguous()
+    a, b = _aligned(a), _aligned(b)
     out = torch.empty((B, n, m), dtype=torch.int32, device=a.device)
-    fn = _library().airdos_hamming_matrix_batched
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), n, m, B,
-                 n * 8 if a.shape[0] > 1 else 0,
-                 m * 8 if b.shape[0] > 1 else 0, stream)
+    with cuda_build.on_device(a.device):
+        err = _kernel(a.data_ptr(), b.data_ptr(), out.data_ptr(), n, m, B,
+                      n * 8 if a.shape[0] > 1 else 0,
+                      m * 8 if b.shape[0] > 1 else 0,
+                      torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"hamming kernel launch failed: cudaError {err}")
     return out

@@ -34,8 +34,9 @@ _SOURCE = cuda_build.CSRC / "segment_sum.cu"
 _SIGNATURES = {
     "airdos_segment_sum": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                            ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_void_p],
+                           ctypes.c_int, ctypes.c_void_p],
 }
+_kernel = None                   # the bound C entry point, once loaded
 
 _launches = 0
 
@@ -88,7 +89,7 @@ def segment_sum_ref(vals: torch.Tensor, key: torch.Tensor,
 
 def segment_sum_cuda(vals: torch.Tensor, seg: Segments) -> torch.Tensor:
     """Launch the sm_90a kernel on the current stream."""
-    global _launches
+    global _launches, _kernel
     if not vals.is_cuda or vals.dtype != torch.float32 or vals.dim() != 2:
         raise ValueError("vals must be a CUDA float32 [rows, k] tensor, got "
                          f"{vals.dtype} {tuple(vals.shape)} on {vals.device}")
@@ -96,21 +97,22 @@ def segment_sum_cuda(vals: torch.Tensor, seg: Segments) -> torch.Tensor:
         if x.device != vals.device or x.dtype != torch.int32 or x.dim() != 1:
             raise ValueError(f"{name} must be an int32 vector on "
                              f"{vals.device}, got {x.dtype} on {x.device}")
-    if seg.perm.shape[0] != vals.shape[0] or seg.offsets.shape[0] != seg.n + 1:
+    rows, k = vals.shape
+    if seg.perm.shape[0] != rows or seg.offsets.shape[0] != seg.n + 1:
         raise ValueError(f"segments of {seg.perm.shape[0]} rows / "
                          f"{seg.offsets.shape[0] - 1} segments for "
-                         f"{vals.shape[0]} rows / {seg.n} segments")
-    k = vals.shape[1]
-    if seg.n * k >= 2 ** 31 or vals.shape[0] * k >= 2 ** 31:
+                         f"{rows} rows / {seg.n} segments")
+    if seg.n * k >= 2 ** 31 or rows * k >= 2 ** 31:
         raise ValueError(f"{seg.n} segments x {k} exceeds the kernel's grid")
+    if _kernel is None:
+        _kernel = cuda_build.library(_SOURCE, _SIGNATURES).airdos_segment_sum
     vals = vals.contiguous()
     out = torch.empty((seg.n, k), dtype=torch.float32, device=vals.device)
-    fn = cuda_build.library(_SOURCE, _SIGNATURES).airdos_segment_sum
-    with torch.cuda.device(vals.device):
-        stream = torch.cuda.current_stream(vals.device).cuda_stream
-        err = fn(vals.data_ptr(), seg.perm.contiguous().data_ptr(),
-                 seg.offsets.contiguous().data_ptr(), out.data_ptr(), seg.n, k,
-                 stream)
+    with cuda_build.on_device(vals.device):
+        err = _kernel(vals.data_ptr(), seg.perm.contiguous().data_ptr(),
+                      seg.offsets.contiguous().data_ptr(), out.data_ptr(),
+                      rows, seg.n, k,
+                      torch.cuda.current_stream(vals.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"segment_sum kernel launch failed: cudaError {err}")
     _launches += 1

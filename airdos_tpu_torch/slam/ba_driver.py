@@ -161,7 +161,7 @@ def _locked(map_lock):
 
 class StaticLocalBA:
     def __init__(self, config: SlamConfig, slam_map: SlamMap, extractor,
-                 device="cpu", map_lock=None):
+                 device, map_lock=None):
         self.config = config
         self.map = slam_map
         self.device = torch.device(device)
@@ -290,7 +290,7 @@ class StaticLocalBA:
 
 class Triangulator:
     def __init__(self, config: SlamConfig, slam_map: SlamMap, extractor,
-                 local_mapper, device="cpu", map_lock=None):
+                 local_mapper, device, map_lock=None):
         self.config = config
         self.map = slam_map
         self.local_mapper = local_mapper
@@ -407,7 +407,7 @@ class Triangulator:
 
 class Fuser:
     def __init__(self, config: SlamConfig, slam_map: SlamMap, extractor,
-                 device="cpu", map_lock=None):
+                 device, map_lock=None):
         self.config = config
         self.map = slam_map
         self.device = torch.device(device)

@@ -15,7 +15,8 @@ import numpy as np
 import torch
 
 from airdos_tpu_torch.config import SlamConfig
-from airdos_tpu_torch.convert import desc_to_numpy, desc_to_tensor, to_device
+from airdos_tpu_torch.convert import (desc_to_numpy, desc_to_tensor,
+                                      resolve_device, to_device)
 from airdos_tpu_torch.features.orb import OrbExtractor
 from airdos_tpu_torch.geometry.camera import StereoCamera
 from airdos_tpu_torch.geometry.se3 import project_so3_np
@@ -26,9 +27,9 @@ from airdos_tpu_torch.ops.pyramid import build_pyramid, level_shapes
 class FrontEnd:
     """Owns the per-frame device front end on one torch device."""
 
-    def __init__(self, config: SlamConfig, device="cpu"):
+    def __init__(self, config: SlamConfig, device="cuda"):
         self.config = config
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.camera = StereoCamera.from_config(config.camera)
         orb = config.orb
         self.extractor = OrbExtractor(orb.n_features, orb.scale_factor,

@@ -1,7 +1,7 @@
 """System facade — the public API (reference: src/System.cc, System.h:75-149).
 
     cfg = SlamConfig()                      # or SlamConfig.from_yaml(...)
-    slam = System(cfg, device="cuda")
+    slam = System(cfg)                      # on the card; device="cpu"
     for data in sequence:                   # io.datasets.FrameData
         slam.track_stereo(data)
     slam.before_end("map_dump_dir")         # optional SaveMap metadata dump
@@ -56,7 +56,7 @@ def _check_scope(config: SlamConfig) -> None:
 
 
 class System:
-    def __init__(self, config: SlamConfig, device="cpu"):
+    def __init__(self, config: SlamConfig, device="cuda"):
         _check_scope(config)
         self.config = config
         self.map = SlamMap()

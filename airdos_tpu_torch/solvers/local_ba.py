@@ -11,9 +11,9 @@ between (5.991 mono / 7.815 stereo), Huber kernel in the first phase.
 - The Gauss-Newton blocks are summed per camera, per point and per
   (point, camera) pair with the deterministic segment sum of
   ``ops/segment_kernels`` (airdos_tpu's scatter-adds; a float
-  ``index_add_`` on CUDA is order-nondeterministic).  The sorted-segment
-  index is built once per call: the edge table is fixed across its 15
-  steps.
+  ``index_add_`` on CUDA is order-nondeterministic): three launches a
+  step, 45 a solve.  The sorted-segment index is built once per call: the
+  edge table is fixed across its 15 steps.
 - Every landmark 3x3 block is marginalised; the reduced camera system
   (6C x 6C) is solved densely by Cholesky.
 - Each LM step is accepted or rejected with ``torch.where`` on the device:
@@ -132,13 +132,18 @@ def local_bundle_adjust(
             w_h = torch.ones_like(chi2)
         w = e_info * w_h * active
 
-        # --- assemble blocks via the five segment sums ------------------
-        Hcc = segment_sum(torch.einsum("eik,e,eil->ekl", Jc, w, Jc)
-                          .reshape(E, 36), seg_cam).reshape(C, 6, 6)
-        Hpp = segment_sum(torch.einsum("eik,e,eil->ekl", Jp, w, Jp)
-                          .reshape(E, 9), seg_pt).reshape(P, 3, 3)
-        bc = segment_sum(-torch.einsum("eik,e,ei->ek", Jc, w, e), seg_cam)
-        bp = segment_sum(-torch.einsum("eik,e,ei->ek", Jp, w, e), seg_pt)
+        # --- assemble blocks via three segment sums ---------------------
+        # airdos_tpu's five scatter-adds; the blocks that share a key sum
+        # side by side, each column in its own order, so the bits are those
+        # of separate sums
+        cam_sums = segment_sum(torch.cat(
+            [torch.einsum("eik,e,eil->ekl", Jc, w, Jc).reshape(E, 36),
+             -torch.einsum("eik,e,ei->ek", Jc, w, e)], dim=1), seg_cam)
+        pt_sums = segment_sum(torch.cat(
+            [torch.einsum("eik,e,eil->ekl", Jp, w, Jp).reshape(E, 9),
+             -torch.einsum("eik,e,ei->ek", Jp, w, e)], dim=1), seg_pt)
+        Hcc, bc = cam_sums[:, :36].reshape(C, 6, 6), cam_sums[:, 36:]
+        Hpp, bp = pt_sums[:, :9].reshape(P, 3, 3), pt_sums[:, 9:]
         # per-edge camera-point coupling W = Jc^T w Jp  [E, 6, 3]
         Wcp = torch.einsum("eik,e,eil->ekl", Jc, w, Jp)
 

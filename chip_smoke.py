@@ -18,11 +18,17 @@ Run from the repository root.  Phases, each of which fails the run:
    budgets of bench.py's static configuration: every frame OK, >= 5
    keyframes inserted, ATE < 0.02 m, triangulation created points, the
    static BA solved at every keyframe after the third, batched Hamming
-   launches on every keyframe frame after the first, 75 segment_sum
-   launches per BA solve;
+   launches on every keyframe frame after the first, 45 segment_sum
+   launches per BA solve (3 per Gauss-Newton step);
 5. kernel: each kernel against its plain torch version, with per-call
    times of both (CUDA events, median of 20 samples of 10 back-to-back
-   calls) and the kernel's device time (torch.profiler):
+   calls) and the kernel's device time (torch.profiler), its bound (the
+   larger of its bytes over 3.35 TB/s and its operations over the card's
+   peak rate) and the device time's share of it, and at the path's shapes
+   one PyTorch library call that computes the same function, timed the
+   same ways and used nowhere in the port (segment_sum: index_add_;
+   Hamming: torch.cdist(p=0) on the descriptors unpacked to float {0, 1}
+   [.., 256], unpacked outside the timed window):
    - the 2-D Hamming kernel at 1536x1536, 2048x1536 and a ragged
      1500x1337 of random words: exact equality;
    - every kernel at every shape phases 3 and 4 launched it with, on the
@@ -107,10 +113,11 @@ def _cuda_ms(fn, reps: int = 20, inner: int = 10) -> float:
     return statistics.median(times)
 
 
-def _device_ms(fn, kernel: str, reps: int = 20):
-    """Mean device time (ms) of the kernels whose name holds `kernel` over
-    reps calls of fn(), from torch.profiler's CUDA trace; None when the
-    trace holds no such kernel."""
+def _device_ms(fn, kernel: str = "", reps: int = 20):
+    """Mean device time (ms) per call of the kernels whose name holds
+    `kernel` (all of fn's kernels by default) over reps calls of fn(),
+    from torch.profiler's CUDA trace; None when the trace holds no such
+    kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -271,12 +278,80 @@ def _check_on_path_inputs(name, args):
     return err, (lambda: kernel(a, b)), (lambda: plain(a, b))
 
 
+# H100 SXM peaks (NVIDIA's data sheet, dense): HBM3 rate, the int8
+# tensor-core rate (the table lists no binary rate; a 1-bit AND + popcount
+# is counted as two operations against it) and float32 outside the tensor
+# cores
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
+FP32_FLOPS = 67e12
+
+
+def _bound(name, shape, args):
+    """The least time (ms) the card could take for one call at `shape` on
+    these inputs, and what bounds it: the larger of the bytes the function
+    must move (each input read once, the output written once) over the HBM
+    rate and its operations over the peak rate for their type.  A segment
+    sum reads only the rows its segments hold (this run's data)."""
+    if name == "segment_sum":
+        rows, k, n = shape
+        kept = int(args[1].offsets[-1])
+        nbytes = 4 * (kept * (k + 1) + (n + 1) + n * k)
+        t_ops = kept * k / FP32_FLOPS
+    else:
+        ba, bb, n, m = shape
+        nbytes = 32 * (ba * n + bb * m) + 4 * max(ba, bb) * n * m
+        t_ops = 2 * 256 * max(ba, bb) * n * m / INT8_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_bytes, t_ops) * 1e3, \
+        ("bytes" if t_bytes >= t_ops else "operations"), nbytes
+
+
+def _unpack_bits(w):
+    """int32 descriptor words [..., 8] -> float32 {0, 1} [..., 256]."""
+    import torch
+    shifts = torch.arange(32, dtype=torch.int32, device=w.device)
+    return ((w[..., None] >> shifts) & 1).flatten(-2).to(torch.float32)
+
+
+def _library_call(name, args):
+    """One PyTorch call that computes the kernel's function on the same
+    inputs (never called by the port), with its inputs prepared outside
+    the timed call, and its name.  segment_sum: index_add_ into a
+    preallocated buffer (the rows keyed n land in its last row); Hamming:
+    torch.cdist(p=0), the count of differing bits, on the unpacked
+    descriptors."""
+    import torch
+    if name == "segment_sum":
+        vals, seg = args
+        acc = torch.zeros((seg.n + 1, vals.shape[1]), dtype=vals.dtype,
+                          device=vals.device)
+        return (lambda: acc.index_add_(0, seg.key, vals)), "index_add_"
+    a, b = args
+    if name == "hamming_matrix":
+        x, y = _unpack_bits(a), _unpack_bits(b)
+    else:
+        B = max(a.shape[0], b.shape[0])
+        x = _unpack_bits(a).expand(B, -1, -1).contiguous()
+        y = _unpack_bits(b).expand(B, -1, -1).contiguous()
+    return (lambda: torch.cdist(x, y, p=0)), "cdist(p=0)"
+
+
+def _fmt_ms(ms) -> str:
+    return f"{ms:.4f} ms" if ms is not None else "not measured"
+
+
+def _share(bound_ms, dev_ms) -> str:
+    return f"{bound_ms / dev_ms:.3f}" if dev_ms else "not measured"
+
+
 def phase_kernel(smi: str):
     """Each kernel against its plain version: the 2-D Hamming kernel at
     three fixed shapes of random words, then every kernel at every shape
     the main paths launched it with, on the first inputs the path gave it
-    at that shape.  Returns per kernel (max abs err over all checks, ms,
-    plain ms) at its most launched path shape."""
+    at that shape, beside its bound and one library call.  Returns per
+    kernel the max abs err over all checks and the measurements at its
+    most launched path shape."""
     import torch
     hk, _ = _counters()
     rng = np.random.default_rng(SEED)
@@ -292,16 +367,18 @@ def phase_kernel(smi: str):
         ms = _cuda_ms(lambda: hk.hamming_matrix(a, b))
         plain_ms = _cuda_ms(lambda: hk.hamming_matrix_ref(a, b))
         dev_ms = _device_ms(lambda: hk.hamming_matrix(a, b), "hamming_kernel")
-        dev = f"{dev_ms:.4f} ms" if dev_ms is not None else "not measured"
+        bound_ms, bound_by, _ = _bound("hamming_matrix", (1, 1, n, m), None)
         print(f"[kernel] hamming {n}x{m} random words: exact; per call kernel "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events, median of "
-              f"20 x 10 back-to-back calls); kernel device time {dev} "
-              f"(torch.profiler, mean of 20) on {smi}", flush=True)
+              f"20 x 10 back-to-back calls); kernel device time "
+              f"{_fmt_ms(dev_ms)} (torch.profiler, mean of 20); bound "
+              f"{bound_ms * 1e3:.2f} us ({bound_by}), device share of bound "
+              f"{_share(bound_ms, dev_ms)} on {smi}", flush=True)
 
     out = {}
     for name, tag in (("hamming_matrix", "hamming_kernel"),
                       ("hamming_matrix_batched", "hamming_kernel"),
-                      ("segment_sum", "segment_sum_kernel")):
+                      ("segment_sum", "segment_sum_")):
         shapes = _PATH.get(name, {})
         if not shapes:
             _fail(f"{name}: no launch recorded on the main paths")
@@ -312,11 +389,17 @@ def phase_kernel(smi: str):
             n_launch, args = shapes[shape]
             err, kernel, plain = _check_on_path_inputs(name, args)
             errs[name] = max(errs.get(name, err), err)
+            library, lib_name = _library_call(name, args)
             ms, plain_ms = _cuda_ms(kernel), _cuda_ms(plain)
+            lib_ms = _cuda_ms(library)
             dev_ms = _device_ms(kernel, tag)
+            lib_dev_ms = _device_ms(library)
+            bound_ms, bound_by, nbytes = _bound(name, shape, args)
             if i == 0:
-                out[name] = (ms, plain_ms)
-            dev = f"{dev_ms:.4f} ms" if dev_ms is not None else "not measured"
+                out[name] = dict(ms=ms, plain_ms=plain_ms, device_ms=dev_ms,
+                                 bound_ms=bound_ms, bound_by=bound_by,
+                                 library_ms=lib_ms,
+                                 library_device_ms=lib_dev_ms)
             extra = ""
             if name == "segment_sum":
                 longest = int(args[1].offsets.diff().max())
@@ -326,9 +409,14 @@ def phase_kernel(smi: str):
                 what = "exact"
             print(f"[kernel] {name} {_fmt_shape(name, shape)}, {n_launch} "
                   f"launches on the main paths, on the path's inputs: {what}; "
-                  f"per call kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
-                  f"kernel device time {dev}{extra} on {smi}", flush=True)
-    return {name: (errs[name],) + times for name, times in out.items()}
+                  f"per call kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"library {lib_name} {lib_ms:.4f} ms; device time kernel "
+                  f"{_fmt_ms(dev_ms)}, library {_fmt_ms(lib_dev_ms)}; bound "
+                  f"{bound_ms * 1e3:.2f} us ({bound_by}: {nbytes / 1e6:.3f} "
+                  f"MB at 3.35 TB/s), device share of bound "
+                  f"{_share(bound_ms, dev_ms)}{extra} on {smi}", flush=True)
+    return {name: dict(max_abs_err=errs[name], **row)
+            for name, row in out.items()}
 
 
 def _bench_config():
@@ -522,9 +610,9 @@ def phase_mapping(smi: str, frames, twc):
         _fail(f"mapping: no batched Hamming launch at keyframe frames "
               f"{no_batched}")
     seg_off = [i for i, p in enumerate(per)
-               if p["d"]["segment_sum"] != 75 * p["solves"]]
+               if p["d"]["segment_sum"] != 45 * p["solves"]]
     if seg_off:
-        _fail(f"mapping: segment_sum launches != 75 per BA solve at frames "
+        _fail(f"mapping: segment_sum launches != 45 per BA solve at frames "
               f"{seg_off}")
     idle = [k for k, v in counts.items() if v <= 0]
     if idle:
@@ -688,13 +776,13 @@ def phase_profile(smi: str):
                         else "not measured")
 
     n_ham, ham_ms = kernel_ms("hamming_kernel")
-    n_seg, seg_ms = kernel_ms("segment_sum_kernel")
+    n_seg, seg_ms = kernel_ms("segment_sum_")
     print(f"[profile] frames {N_FRAMES - 2}-{N_FRAMES - 1} under "
           f"torch.profiler: {len(evs) / 2:.0f} device kernels per frame, "
           f"device busy {busy_ms:.2f} ms per frame, wall {wall_ms:.2f} ms "
           f"per frame (the profiler slows the host), busy share "
           f"{busy_ms / wall_ms:.4f}; hamming_kernel {n_ham} launches, mean "
-          f"device time {ham_ms}; segment_sum_kernel {n_seg} launches, mean "
+          f"device time {ham_ms}; segment_sum {n_seg} launches, mean "
           f"device time {seg_ms}; on {smi}")
     OUT_DIR.mkdir(exist_ok=True)
     out = OUT_DIR / "profile_slice.txt"
@@ -727,12 +815,10 @@ def main():
                                           "airdos_tpu/ops/pallas_kernels.py:43"),
                "segment_sum": ("airdos_tpu_torch/csrc/segment_sum.cu",
                                "airdos_tpu/solvers/local_ba.py:119")}
-    kernels = []
-    for name, (source, replaces) in sources.items():
-        err, ms, plain_ms = rows[name]
-        kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+    kernels = [{"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[name],
+                **rows[name]}
+               for name, (source, replaces) in sources.items()]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

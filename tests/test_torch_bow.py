@@ -33,7 +33,7 @@ def feats():
     cfg.orb.n_features = 600
     cfg.orb.n_levels = 4
     cfg.device.max_keypoints = 1024
-    fe = FrontEnd(cfg)
+    fe = FrontEnd(cfg, device="cpu")
     world = SyntheticStereoWorld(seed=0, n_points=200, cam=cfg.camera)
     seq = [d for d, _, _ in world.sequence(3, dt=0.1, yaw_rate=0.008)]
     return [fe.build_frame(seq[i]) for i in (0, 2)]
@@ -46,8 +46,8 @@ def vocabs(feats):
     train = d.view(np.uint8).reshape(len(d), 32)
     assert len(train) >= 200
     # System's scene vocabulary: k=8, depth=3
-    return jax_train(train, k=8, depth=3), train_vocabulary(train, k=8,
-                                                            depth=3)
+    return jax_train(train, k=8, depth=3), train_vocabulary(
+        train, k=8, depth=3, device="cpu")
 
 
 def test_train_vocabulary_builds_the_same_tree(vocabs):
@@ -75,9 +75,9 @@ def test_transform_is_identical(vocabs, feats, frame):
 def test_vocabulary_carried_across_and_through_npz(vocabs, feats, tmp_path):
     jv, tv = vocabs
     f = feats[1]
-    cv = vocabulary_from(jv)
+    cv = vocabulary_from(jv, device="cpu")
     tv.save_npz(tmp_path / "voc.npz")
-    lv = Vocabulary.load_npz(tmp_path / "voc.npz")
+    lv = Vocabulary.load_npz(tmp_path / "voc.npz", device="cpu")
     want = tv.transform(f.desc32, f.valid)
     for v in (cv, lv):
         got = v.transform(f.desc32, f.valid)

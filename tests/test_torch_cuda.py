@@ -87,6 +87,104 @@ def test_segment_sum_kernel_bitwise_and_deterministic(cuda, s, k):
     assert torch.equal(got1, got2)
 
 
+_RAGGED = [1, 15, 17, 127, 1500, 1536, 2048]
+
+
+def _special(rng, kind, shape):
+    """uint32 words: random, all ones, or random with the sign bit set
+    (negative int32 bit views); the first rows stay random."""
+    w = _words(rng, shape)
+    if kind == "ones":
+        w[..., 3:, :] = 0xFFFFFFFF
+    elif kind == "sign":
+        w[..., 3:, :] |= np.uint32(0x80000000)
+    return w
+
+
+@pytest.mark.parametrize("m", _RAGGED)
+@pytest.mark.parametrize("n", _RAGGED)
+def test_hamming_kernel_exact_at_ragged_shapes(cuda, n, m):
+    rng = np.random.default_rng(n * 4099 + m)
+    kind_a, kind_b = ("ones", "sign") if (n + m) % 2 else ("sign", "sign")
+    ta = torch.from_numpy(_special(rng, kind_a, (n, 8)).view(np.int32)).to(cuda)
+    tb = torch.from_numpy(_special(rng, kind_b, (m, 8)).view(np.int32)).to(cuda)
+    got = hk.hamming_matrix(ta, tb)
+    torch.cuda.synchronize()
+    assert got.shape == (n, m)
+    assert torch.equal(got, hk.hamming_matrix_ref(ta, tb))
+
+
+@pytest.mark.parametrize("kind", ["random", "ones", "sign"])
+@pytest.mark.parametrize("ba,bb,n,m", [(1, 4, 1500, 17), (1, 9, 2048, 1536),
+                                       (4, 1, 127, 1500), (3, 3, 15, 2048),
+                                       (2, 2, 1, 1)])
+def test_batched_hamming_kernel_exact_at_ragged_shapes(cuda, ba, bb, n, m,
+                                                       kind):
+    rng = np.random.default_rng(ba * 17 + bb * 5 + n + m)
+    ta = torch.from_numpy(_special(rng, kind, (ba, n, 8)).view(np.int32))
+    tb = torch.from_numpy(_special(rng, kind, (bb, m, 8)).view(np.int32))
+    got = hk.hamming_matrix_batched(ta.to(cuda), tb.to(cuda))
+    torch.cuda.synchronize()
+    assert got.shape == (max(ba, bb), n, m)
+    assert torch.equal(got, hk.hamming_matrix_batched_ref(ta.to(cuda),
+                                                          tb.to(cuda)))
+
+
+def test_hamming_kernel_takes_operands_not_on_16_bytes(cuda):
+    """The kernel reads descriptors as 16-byte vectors; an operand that
+    starts 4 bytes into its storage is copied first, and the result is
+    exact."""
+    rng = np.random.default_rng(5)
+    flat = torch.from_numpy(_words(rng, (1 + 300 * 8,)).view(np.int32)).to(cuda)
+    a = flat[1:].view(300, 8)
+    assert a.data_ptr() % 16 != 0
+    b = torch.from_numpy(_words(rng, (257, 8)).view(np.int32)).to(cuda)
+    got = hk.hamming_matrix(a, b)
+    got_batched = hk.hamming_matrix_batched(a[None], b[None])
+    torch.cuda.synchronize()
+    want = hk.hamming_matrix_ref(a, b)
+    assert torch.equal(got, want) and torch.equal(got_batched[0], want)
+
+
+def _segment_case(rng, case, k):
+    """(keys, keep, n_segments) of one segment_sum card case."""
+    if case == "one long segment":        # longer than a shared-memory chunk
+        return np.zeros(5000, np.int64), np.ones(5000, bool), 1
+    if case == "empty segments":          # every other camera sees nothing
+        key = 2 * rng.integers(0, 12, 8192)
+        return key, np.ones(8192, bool), 24
+    if case == "rows keyed n":            # padding, dropped
+        key = rng.integers(0, 24, 8192)
+        keep = rng.random(8192) > 0.3
+        return key, keep, 24
+    if case == "many short segments":     # the point-keyed shape
+        return rng.integers(0, 2048, 8192), rng.random(8192) > 0.1, 2048
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("k", [3, 9, 12, 18, 42])
+@pytest.mark.parametrize("case", ["one long segment", "empty segments",
+                                  "rows keyed n", "many short segments"])
+def test_segment_sum_kernel_cases_bitwise_and_deterministic(cuda, case, k):
+    import airdos_tpu_torch.ops.segment_kernels as sk
+    rng = np.random.default_rng(k)
+    key, keep, s = _segment_case(rng, case, k)
+    # magnitudes over six decades, so that the order of the adds shows
+    vals = (rng.normal(0, 1, (len(key), k)) *
+            10.0 ** rng.uniform(-3, 3, (len(key), 1))).astype(np.float32)
+    seg = sk.make_segments(torch.from_numpy(key).to(cuda), s,
+                           torch.from_numpy(keep).to(cuda))
+    tv = torch.from_numpy(vals).to(cuda)
+    got1 = sk.segment_sum(tv, seg)
+    got2 = sk.segment_sum(tv, seg)
+    torch.cuda.synchronize()
+    want = sk.segment_sum_ref(torch.from_numpy(vals), seg.key.cpu(), s)
+    assert torch.equal(got1.cpu(), want)
+    assert torch.equal(got1, got2)
+    if case == "empty segments":
+        assert (got1[1::2] == 0).all()
+
+
 def test_mapping_system_runs_are_byte_identical_on_the_card(cuda, tmp_path):
     from airdos_tpu_torch.config import SlamConfig
     from airdos_tpu_torch.io.synthetic import SyntheticStereoWorld, small_camera

@@ -113,7 +113,7 @@ def jax_run(frames):
 
 @pytest.fixture(scope="module")
 def port_run(frames):
-    slam = System(config_from(small_config()))
+    slam = System(config_from(small_config()), device="cpu")
     per = []
     for data, _, _ in frames[:N_E2E]:
         slam.track_stereo(data)
@@ -206,6 +206,43 @@ def test_segment_sum_rows_outside_keep_join_no_segment():
     _check_segment_sum(1000)
 
 
+@pytest.mark.parametrize("widths,S", [((36, 6), 24), ((9, 3), 300)])
+def test_segment_sum_of_side_by_side_blocks_equals_separate_sums(widths, S):
+    """The local BA sums Hcc | bc (42 columns) and Hpp | bp (12) in one
+    launch each: every column keeps its own order, so the bits are those
+    of separate sums."""
+    rng = np.random.default_rng(sum(widths) + S)
+    E = 4096
+    key = torch.from_numpy(rng.integers(0, S, E))
+    seg = make_segments(key, S, torch.from_numpy(rng.random(E) > 0.2))
+    # magnitudes over six decades, so that the order of the adds shows
+    parts = [torch.from_numpy((rng.normal(0, 1, (E, w)) *
+                               10.0 ** rng.uniform(-3, 3, (E, 1)))
+                              .astype(np.float32)) for w in widths]
+    both = segment_sum(torch.cat(parts, dim=1), seg)
+    assert both.shape == (S, sum(widths))
+    assert torch.equal(both, torch.cat([segment_sum(p, seg) for p in parts],
+                                       dim=1))
+    assert torch.equal(segment_sum_ref(torch.cat(parts, dim=1), seg.key, S),
+                       both)
+
+
+def test_local_bundle_adjust_sums_three_blocks_a_step(monkeypatch):
+    """45 segment sums a solve: 15 steps x (camera blocks Hcc | bc, 42
+    columns; point blocks Hpp | bp, 12; coupling Wagg, 18)."""
+    import airdos_tpu_torch.solvers.local_ba as lba
+    widths = []
+
+    def counted(vals, seg):
+        widths.append(vals.shape[1])
+        return segment_sum(vals, seg)
+
+    monkeypatch.setattr(lba, "segment_sum", counted)
+    arrays, intr = _ba_problem(False)
+    lba.local_bundle_adjust(*(_t(a) for a in arrays), *intr)
+    assert widths == [42, 12, 18] * 15
+
+
 # ------------------------------------------------ triangulation / fusion
 def _snapshot(jax_run):
     """Independent copies of the snapshot map for each package."""
@@ -294,7 +331,7 @@ def test_batched_fuse_candidates_matches_jax_vmap(jax_run):
 
 # ----------------------------------------------------------- drivers
 def _port_ext(jax_slam):
-    return FrontEnd(config_from(jax_slam.config)).extractor
+    return FrontEnd(config_from(jax_slam.config), device="cpu").extractor
 
 
 def _assert_same_map(jm, tm, pos_tol=1e-4, tol=1e-4):
@@ -324,7 +361,8 @@ def test_static_local_ba_driver_matches_jax(jax_run):
     slam = jax_run["slam"]
     jbd.StaticLocalBA(slam.config, jmap, slam.frontend.extractor)(
         jmap.kfs[kf_id])
-    ba = tbd.StaticLocalBA(config_from(slam.config), tmap, _port_ext(slam))
+    ba = tbd.StaticLocalBA(config_from(slam.config), tmap, _port_ext(slam),
+                           device="cpu")
     ba(tmap.kfs[kf_id])
     assert ba.n_solves == 1
     n = jmap.points.n
@@ -341,7 +379,7 @@ def test_triangulator_driver_matches_jax(jax_run):
     n_j = jbd.Triangulator(slam.config, jmap, slam.frontend.extractor,
                            jlm)(jmap.kfs[kf_id])
     n_t = tbd.Triangulator(config_from(slam.config), tmap, _port_ext(slam),
-                           tlm)(tmap.kfs[kf_id])
+                           tlm, device="cpu")(tmap.kfs[kf_id])
     assert n_j > 0 and n_t == n_j
     assert tlm.recent_points == jlm.recent_points
     pos_tol = np.full(jmap.points.n, 1e-4)
@@ -353,8 +391,8 @@ def test_fuser_driver_matches_jax(jax_run):
     jmap, tmap, kf_id = _snapshot(jax_run)
     slam = jax_run["slam"]
     jbd.Fuser(slam.config, jmap, slam.frontend.extractor)(jmap.kfs[kf_id])
-    tbd.Fuser(config_from(slam.config), tmap, _port_ext(slam))(
-        tmap.kfs[kf_id])
+    tbd.Fuser(config_from(slam.config), tmap, _port_ext(slam),
+              device="cpu")(tmap.kfs[kf_id])
     _assert_same_map(jmap, tmap)
     np.testing.assert_array_equal(tmap.points.desc32, jmap.points.desc32)
 
@@ -427,7 +465,7 @@ def test_offline_system_runs_the_mapping_pass(port_run, tmp_path):
 
 
 def _dump(frames, tmp_path, tag):
-    slam = System(config_from(small_config()))
+    slam = System(config_from(small_config()), device="cpu")
     for data, _, _ in frames:
         slam.track_stereo(data)
     traj = tmp_path / f"traj_{tag}.txt"

@@ -164,6 +164,38 @@ def test_hamming_matches_jax_on_ragged_shapes(rng, n, m):
     np.testing.assert_array_equal(_n(got), want)
 
 
+def _special_words(rng, kind, n):
+    if kind == "zeros":
+        return np.zeros((n, 8), np.uint32)
+    if kind == "ones":
+        return np.full((n, 8), 0xFFFFFFFF, np.uint32)
+    w = _desc_u32(rng, n)
+    if kind == "sign":                    # negative as int32 bit views
+        w |= np.uint32(0x80000000)
+    return w
+
+
+@pytest.mark.parametrize("kind_a,kind_b", [
+    ("zeros", "zeros"), ("ones", "ones"), ("ones", "zeros"),
+    ("sign", "ones"), ("sign", "sign"), ("random", "random")])
+def test_and_popcount_identity_matches_xor_popcount(rng, kind_a, kind_b):
+    """popc(a) + popc(b) - 2 popc(a & b) == popc(a ^ b): the arithmetic of
+    the binary tensor-core kernel, in plain torch, against the XOR form,
+    on int32 bit views with the sign bit set, all-ones and all-zeros
+    words and random words (each side also holds random rows)."""
+    a = np.concatenate([_special_words(rng, kind_a, 40), _desc_u32(rng, 9)])
+    b = np.concatenate([_special_words(rng, kind_b, 33), _desc_u32(rng, 7)])
+    ta, tb = _t(a.view(np.int32)), _t(b.view(np.int32))
+    got = hk.hamming_matrix_and_popc(ta, tb)
+    assert got.dtype == torch.int32 and got.shape == (49, 40)
+    want = hk.hamming_matrix_ref(ta, tb)
+    assert torch.equal(got, want)
+    # against numpy's XOR popcount on the uint32 words
+    x = a[:, None, :] ^ b[None, :, :]
+    bits = np.unpackbits(x.view(np.uint8), axis=-1).sum(-1)
+    np.testing.assert_array_equal(_n(got), bits)
+
+
 def test_hamming_cpu_tensors_take_the_plain_version(rng):
     a = _t(_desc_u32(rng, 64).view(np.int32))
     hk.reset_launches()

@@ -81,7 +81,8 @@ def jax_run(frames):
 @pytest.fixture(scope="module")
 def torch_run(frames):
     cfg = config_from(small_config())
-    trk = Tracking(cfg, TorchFrontEnd(cfg), TorchMap(), local_mapper=None)
+    trk = Tracking(cfg, TorchFrontEnd(cfg, device="cpu"), TorchMap(),
+                   local_mapper=None)
     per = []
     for data, _, _ in frames:
         trk.track(data)
@@ -132,7 +133,7 @@ def test_fused_step_matches_jax_on_recorded_inputs(jax_run):
      forward, backward) = jax.device_get(step_args)
 
     cfg = config_from(small_config())
-    step = make_full_track_step(TorchFrontEnd(cfg), cfg)
+    step = make_full_track_step(TorchFrontEnd(cfg, device="cpu"), cfg)
     out = step(torch.from_numpy(np.array(imL)),
                torch.from_numpy(np.array(imR)),
                torch.from_numpy(np.array(prior)),
@@ -207,4 +208,37 @@ def test_out_of_slice_configs_raise(section, field, value):
     cfg = config_from(small_config())
     setattr(getattr(cfg, section) if section else cfg, field, value)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        System(cfg)
+        System(cfg, device="cpu")
+
+
+def _entry_point(name, tmp_path):
+    """A call of one of the port's entry points, naming no device."""
+    from airdos_tpu_torch.bow.vocabulary import Vocabulary, train_vocabulary
+    from airdos_tpu_torch.convert import vocabulary_from
+    cfg = config_from(small_config())
+    train = np.random.default_rng(0).integers(0, 256, (300, 32),
+                                              dtype=np.uint8)
+    if name == "System":
+        return lambda: System(cfg)
+    if name == "FrontEnd":
+        return lambda: TorchFrontEnd(cfg)
+    if name == "train_vocabulary":
+        return lambda: train_vocabulary(train, k=4, depth=2)
+    voc = train_vocabulary(train, k=4, depth=2, device="cpu")
+    if name == "vocabulary_from":
+        return lambda: vocabulary_from(voc)
+    voc.save_npz(tmp_path / "voc.npz")
+    return lambda: Vocabulary.load_npz(tmp_path / "voc.npz")
+
+
+@pytest.mark.parametrize("name", ["System", "FrontEnd", "train_vocabulary",
+                                  "vocabulary_from", "load_npz"])
+def test_entry_points_default_to_the_card(name, tmp_path):
+    """Without a device argument the port runs on the card; where torch
+    sees none it raises and names the CPU option, never falling back."""
+    call = _entry_point(name, tmp_path)
+    if torch.cuda.is_available():
+        assert call().device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        call()
