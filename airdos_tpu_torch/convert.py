@@ -10,9 +10,9 @@
   builds on the host (last-frame points, local-map candidates and their
   descriptors) -> device tensors.
 - ``vocabulary_from`` / ``map_from``: airdos_tpu's Vocabulary and SlamMap
-  (point table, keyframes, covisibility, spanning tree, observations)
-  copied into the port's, so that one mapping step can run on identical
-  state in both packages.
+  (point table, keyframes, covisibility, spanning tree, observations,
+  human trajectories) copied into the port's, so that one mapping step
+  can run on identical state in both packages.
 
 Nothing here imports jax: airdos_tpu objects are read through their
 dataclass fields and numpy arrays.
@@ -105,12 +105,10 @@ def map_from(src):
     """A SlamMap of either package -> an independent copy as this
     package's SlamMap: every point column and observation dict, and every
     keyframe attribute (poses, measurements, feature->point table,
-    covisibility, spanning tree, culling state, BoW) by value.  Human
-    trajectories are not carried (ROADMAP port queue: human layer)."""
-    from airdos_tpu_torch.slam.map import KeyFrame, SlamMap
-    if src.trajectories:
-        raise NotImplementedError("human trajectories are not ported yet "
-                                  "(ROADMAP port queue: human layer)")
+    covisibility, spanning tree, culling state, BoW) and every human
+    trajectory with its poses by value."""
+    from airdos_tpu_torch.slam.map import (HumanPose, HumanTrajectory,
+                                           KeyFrame, SlamMap)
     m = SlamMap()
     sp, pt = src.points, m.points
     n = int(sp.n)
@@ -123,6 +121,17 @@ def map_from(src):
         for k, v in vars(skf).items():
             setattr(kf, k, _host_copy(v))
         m.kfs[kid] = kf
+    for tid, straj in src.trajectories.items():
+        traj = HumanTrajectory(tid)
+        for k, v in vars(straj).items():
+            if k != "poses":
+                setattr(traj, k, _host_copy(v))
+        traj.poses = [HumanPose(**{f.name: _host_copy(getattr(hp, f.name))
+                                   for f in dataclasses.fields(HumanPose)})
+                      for hp in straj.poses]
+        m.trajectories[tid] = traj
+    m.optimized_track_ids = set(src.optimized_track_ids)
+    m.current_track_ids = list(src.current_track_ids)
     m.next_kf_id = src.next_kf_id
     m.max_kf_id = src.max_kf_id
     return m

@@ -11,6 +11,10 @@ which would make offline runs differ byte for byte, so here:
   (the BA's padding and invalid edges, whose blocks are exact zeros) are
   keyed past the last segment and summed nowhere, so no segment holds a
   long run of them;
+- ``make_compact_segments(key, keep)`` does the same over the distinct
+  values of a sparse key (the human BA's flat (row, col) positions in its
+  dense normal equations, airdos_tpu/solvers/human_ba.py:296-342, where
+  one position collects many edges' entries);
 - ``segment_sum(vals, seg)`` on a CUDA tensor launches the sm_90a kernel
   of ``csrc/segment_sum.cu`` (built with nvcc at first use into
   ``airdos_tpu_torch/_build/``, bound through ctypes) or raises, and
@@ -76,6 +80,18 @@ def make_segments(key: torch.Tensor, n: int,
     offsets = torch.searchsorted(sorted_key, bounds)
     return Segments(key=key, perm=perm.to(torch.int32),
                     offsets=offsets.to(torch.int32), n=n)
+
+
+def make_compact_segments(key: torch.Tensor, keep: torch.Tensor):
+    """The sorted-segment index of the distinct kept values of `key` (any
+    non-negative int64, e.g. flat positions in a dense matrix): segment s
+    holds the kept rows whose key is the s-th smallest distinct kept key.
+    Returns (Segments, the distinct keys [n] in increasing order).  Reads
+    the number of distinct keys on the host, once."""
+    key = key.to(torch.int64)
+    uniq = torch.unique(key[keep])
+    slot = torch.searchsorted(uniq, key)
+    return make_segments(slot, uniq.shape[0], keep), uniq
 
 
 def segment_sum_ref(vals: torch.Tensor, key: torch.Tensor,

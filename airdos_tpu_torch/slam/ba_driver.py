@@ -1,6 +1,6 @@
 """Host-side drivers: assemble device problems from the map and write back.
 
-Rebuild of airdos_tpu/slam/ba_driver.py's static mapping drivers:
+Rebuild of airdos_tpu/slam/ba_driver.py's offline mapping drivers:
 
 - StaticLocalBA: LocalBundleAdjustment protocol (reference
   Optimizer.cc:431-731) — local covisible KFs + their points + fixed
@@ -9,12 +9,16 @@ Rebuild of airdos_tpu/slam/ba_driver.py's static mapping drivers:
   (LocalMapping.cc:221-466), all neighbours in one batched device call.
 - Fuser: SearchInNeighbors both directions (LocalMapping.cc:468-548) in
   one batched device call.
+- HumanLocalBA: LocalBundleAdjustmentHumanTrajactory (Optimizer.cc:1496-
+  2224) — the static window plus the long human trajectories it sees,
+  with the bIsLost / bIsBad / bOptimized flags written back.  Synchronous
+  (offline); airdos_tpu's online thread and chunked schedule are not
+  ported (ROADMAP port queue: online mode).
 
 Each driver assembles its problem on the host, runs it on the device with
 no host read inside, and copies its result back once.  ``map_lock`` guards
-assembly and write-back (None offline).  The human-trajectory BA and the
-global BA are not ported yet (ROADMAP port queue: human layer;
-relocalization and loop closing).
+assembly and write-back (None offline).  The global BA is not ported yet
+(ROADMAP port queue: relocalization and loop closing).
 
 Problems keep airdos_tpu's padded sizes (the sticky power-of-two buckets
 below).  Eager torch compiles nothing, so the buckets no longer save
@@ -34,7 +38,9 @@ from airdos_tpu_torch.config import SlamConfig
 from airdos_tpu_torch.convert import desc_to_tensor, to_device
 from airdos_tpu_torch.matching.epipolar import triangulate_pair
 from airdos_tpu_torch.matching.fuse import fuse_candidates
-from airdos_tpu_torch.slam.map import KeyFrame, SlamMap
+from airdos_tpu_torch.slam.map import (BODY1, BODY2, MAIN_SKELETON, N_PARTS,
+                                       TH_LONG_TRAJECTORY, KeyFrame, SlamMap)
+from airdos_tpu_torch.solvers.human_ba import human_bundle_adjust
 from airdos_tpu_torch.solvers.local_ba import local_bundle_adjust
 from airdos_tpu_torch.utils.obs import span
 
@@ -551,3 +557,269 @@ class Fuser:
             m.update_point_descriptors(kf_pids)
             m.update_points_normal_depth(kf_pids)
             m.update_connections(kf)
+
+
+def select_window_trajectories(trajectories, window_ids, max_trajectories):
+    """Human trajectories observed in the local window, long enough for BA
+    (> TH_LONG_TRAJECTORY poses), most recently observed first, so with
+    more than max_trajectories humans the visible tracks win over stale
+    ones (reference collects the local KFs' observed trajectories,
+    Optimizer.cc:1500-1538)."""
+    cands = []
+    for traj in trajectories.values():
+        if len(traj) <= TH_LONG_TRAJECTORY:
+            continue
+        window_poses = [hp.kf_id for hp in traj.poses
+                        if hp.kf_id in window_ids]
+        if window_poses:
+            cands.append((max(window_poses), traj))
+    cands.sort(key=lambda c: -c[0])
+    return [traj for _, traj in cands[:max_trajectories]]
+
+
+class HumanLocalBA:
+    """Driver of the human-trajectory BA: selects the covisibility window
+    and the long trajectories whose poses reference its keyframes, runs
+    the device solver, and writes back keyframe poses, points, joints,
+    limb lengths, motion models and the outlier flags."""
+
+    def __init__(self, config: SlamConfig, slam_map: SlamMap, extractor,
+                 device, map_lock=None):
+        self.config = config
+        self.map = slam_map
+        self.device = torch.device(device)
+        self.map_lock = map_lock
+        self.profiler = None
+        self.n_runs = 0            # completed BA passes (write-back done)
+        cam = config.camera
+        self.fx, self.fy, self.cx, self.cy, self.bf = \
+            cam.fx, cam.fy, cam.cx, cam.cy, cam.bf
+        self.inv_sigma2 = (1.0 / extractor.sigma2).astype(np.float32)
+        dev = config.device
+        self.max_cams = 128
+        self._cb = _StickyBucket(
+            min(2 * (dev.max_local_kfs + dev.max_fixed_kfs), self.max_cams),
+            self.max_cams)
+        self.P = dev.max_local_points
+        self.E = dev.max_ba_edges
+        self.T = dev.max_trajectories
+        self.L = dev.max_trajectory_len
+        # the dense reduced system is O((T L 42)^3) to solve: T and L pad to
+        # the window's demand in grow-only buckets, starting at min(8, cap)
+        self._tb = _StickyBucket(min(8, self.T), self.T)
+        self._lb = _StickyBucket(min(8, self.L), self.L)
+
+    def __call__(self, slam_map: SlamMap, current_kf_id: int):
+        with _locked(self.map_lock), span(self.profiler, "hba.assemble"):
+            problem = self._assemble(current_kf_id)
+        if problem is None:
+            return
+        with span(self.profiler, "hba.solve"):
+            res = self._solve(problem)
+        with _locked(self.map_lock), span(self.profiler, "hba.writeback"):
+            self._write_back(problem, res)
+        self.n_runs += 1
+
+    def _assemble(self, current_kf_id: int):
+        m = self.map
+        pt = m.points
+        kf = m.kfs.get(current_kf_id)
+        if kf is None:
+            return None
+        dev = self.config.device
+        local_ids = [kf.id] + [k for k in kf.ordered_covis
+                               if not m.kfs[k].bad][: dev.max_local_kfs - 1]
+        local_set = set(local_ids)
+
+        # local points + all outside observers anchoring the problem (see
+        # StaticLocalBA)
+        point_ids = collect_window_points(m, local_ids, self.P)
+        sel = point_slot_lookup(m, point_ids)
+        fixed_ids = find_fixed_observers(
+            m, local_set, sel, self.max_cams - len(local_ids),
+            "HumanLocalBA")
+        fset = set(fixed_ids)
+        cam_ids = local_ids + fixed_ids
+        cam_index = {kid: i for i, kid in enumerate(cam_ids)}
+        window_ids = local_set | fset
+
+        trajs = select_window_trajectories(m.trajectories, window_ids,
+                                           self.T)
+        if not trajs:
+            return None
+
+        # pose windows first, so T and L pad to the actual problem
+        windows = []
+        for traj in trajs:
+            if self.config.optimizer.use_fast_human_ba:
+                # the whole trajectory enters the graph (Optimizer::
+                # LocalBundleAdjustmentHumanTrajactoryFast, Optimizer.cc:
+                # 736-1493), capped by the padded window
+                win = list(range(len(traj.poses)))[-self.L:]
+            else:
+                # the last L poses whose reference KF is in the window
+                # (Optimizer.cc:1496-2224)
+                win = [i for i, hp in enumerate(traj.poses)
+                       if hp.kf_id in window_ids][-self.L:]
+            windows.append(win)
+
+        C, P, E = self._cb.fit(len(cam_ids)), self.P, self.E
+        T = self._tb.fit(len(trajs))
+        L = self._lb.fit(max((len(w) for w in windows), default=2))
+        cam_R = np.tile(np.eye(3, dtype=np.float32), (C, 1, 1))
+        cam_t = np.zeros((C, 3), np.float32)
+        cam_fixed = np.ones(C, bool)
+        for kid, i in cam_index.items():
+            k = m.kfs[kid]
+            cam_R[i] = k.Rcw
+            cam_t[i] = k.tcw
+            cam_fixed[i] = (kid in fset) or kid == 0
+
+        pts = np.zeros((P, 3), np.float32)
+        pvalid = np.zeros(P, bool)
+        pts[:len(point_ids)] = pt.pos[point_ids]
+        pvalid[:len(point_ids)] = True
+
+        ec, ep, eo, ei, ref_p, ref_kf, _ = assemble_edges(
+            m, cam_ids, sel, self.inv_sigma2)
+        es_cam, es_pt, es_obs, es_info, es_valid, n_e = pad_edge_table(
+            ec, ep, eo, ei, E)
+
+        joints = np.zeros((T, L, N_PARTS, 3), np.float32)
+        joint_exists = np.zeros((T, L, N_PARTS), bool)
+        jo_cam = np.full((T, L), -1, np.int32)
+        jo_obs = np.full((T, L, N_PARTS, 3), -1.0, np.float32)
+        jo_valid = np.zeros((T, L, N_PARTS), bool)
+        seg_len = np.zeros((T, N_PARTS), np.float32)
+        seg_free = np.zeros((T, N_PARTS), bool)
+        seg_edge_valid = np.zeros((T, L, N_PARTS), bool)
+        mot_R = np.tile(np.eye(3, dtype=np.float32), (T, 1, 1))
+        mot_t = np.zeros((T, 3), np.float32)
+        traj_valid = np.zeros(T, bool)
+        pose_dt = np.full((T, L), 1.0, np.float32)
+        motion_edge_valid = np.zeros((T, L, 5), bool)
+        for t, traj in enumerate(trajs):
+            win = windows[t]
+            if len(win) < 2:
+                continue
+            traj_valid[t] = True
+            mot_R[t] = traj.motion_R
+            mot_t[t] = traj.motion_t
+            seg_len[t] = traj.segment_len
+            # bad and unoptimized segments stay fixed (Optimizer.cc:1744-1760)
+            seg_free[t] = ~(traj.segment_bad & ~traj.segment_optimized)
+            for li, pi in enumerate(win):
+                hp = traj.poses[pi]
+                joints[t, li] = hp.joints_w[:N_PARTS]
+                joint_exists[t, li] = True
+                ci = cam_index.get(hp.kf_id)
+                if ci is not None and hp.in_keyframe and hp.obs_uvd is not None:
+                    jo_cam[t, li] = ci
+                    jo_obs[t, li] = hp.obs_uvd[:N_PARTS, :3]
+                    jo_valid[t, li] = ~hp.bad[:N_PARTS]
+                seg_edge_valid[t, li] = True
+                if li + 1 < len(win):
+                    dt = traj.poses[win[li + 1]].timestamp - hp.timestamp
+                    pose_dt[t, li] = max(dt, 1e-3)
+                    motion_edge_valid[t, li] = True
+        if not traj_valid.any():
+            return None
+
+        return dict(
+            cam_index=cam_index, cam_fixed=cam_fixed, point_ids=point_ids,
+            n_e=n_e, ref_p=ref_p, ref_kf=ref_kf, trajs=trajs,
+            traj_valid=traj_valid, pose_windows=windows,
+            seg_edge_valid=seg_edge_valid, jo_valid=jo_valid,
+            motion_edge_valid=motion_edge_valid,
+            arrays=(cam_R, cam_t, cam_fixed, pts, pvalid,
+                    es_cam, es_pt, es_obs, es_info, es_valid,
+                    joints, joint_exists, jo_cam, jo_obs, jo_valid,
+                    seg_len, seg_free, seg_edge_valid,
+                    mot_R, mot_t, traj_valid, pose_dt, motion_edge_valid))
+
+    def _solve(self, problem):
+        """One device solve and one copy back: every result field packed
+        into a single float tensor."""
+        opt = self.config.optimizer
+        arrays = problem["arrays"]
+        C, P, E = arrays[0].shape[0], arrays[3].shape[0], arrays[5].shape[0]
+        T, L = arrays[10].shape[:2]
+        d = self.device
+        res = human_bundle_adjust(
+            *(to_device(a, d) for a in arrays),
+            opt.sigma_static, opt.sigma_human, opt.sigma_rigidity,
+            opt.sigma_motion, opt.th_huber_motion, opt.th_ransac_motion,
+            opt.th_ransac_rigidity,
+            self.fx, self.fy, self.cx, self.cy, self.bf,
+            use_huber=bool(opt.is_huber))
+        flat = torch.cat([x.reshape(-1).to(torch.float32) for x in res]) \
+            .cpu().numpy()
+        shapes = ((C, 3, 3), (C, 3), (P, 3), (T, L, N_PARTS, 3),
+                  (T, N_PARTS), (T, 3, 3), (T, 3), (E,), (T, L, N_PARTS),
+                  (T, L, N_PARTS), (T, L - 1, 5))
+        out, o = [], 0
+        for i, sh in enumerate(shapes):
+            n = int(np.prod(sh))
+            a = flat[o:o + n].reshape(sh)
+            out.append(a > 0.5 if i >= 7 else a)   # the four inlier flags
+            o += n
+        return type(res)(*out)
+
+    def _write_back(self, problem, res):
+        m = self.map
+        pt = m.points
+        cam_index = problem["cam_index"]
+        cam_fixed = problem["cam_fixed"]
+        point_ids = problem["point_ids"]
+        n_e = problem["n_e"]
+        ref_p, ref_kf = problem["ref_p"], problem["ref_kf"]
+        for kid, i in cam_index.items():
+            # a KF culled while the solve was in flight stays where the
+            # culler left it (reference: pKF->isBad() recheck)
+            k = m.kfs.get(kid)
+            if k is not None and not k.bad and not cam_fixed[i]:
+                k.set_pose(res.cam_R[i], res.cam_t[i])
+        alive = ~pt.bad[point_ids]
+        pt.pos[point_ids[alive]] = res.points[:len(point_ids)][alive]
+        for i in np.nonzero(~res.static_inlier[:n_e])[0]:
+            if not pt.bad[int(ref_p[i])]:
+                m.erase_observation(int(ref_p[i]), int(ref_kf[i]))
+        m.update_points_normal_depth(point_ids[alive])
+
+        seg_edge_valid = problem["seg_edge_valid"]
+        rig_bad = seg_edge_valid & ~res.rigid_inlier         # [T, L, S]
+        rig_ok = seg_edge_valid & res.rigid_inlier
+        proj_bad = problem["jo_valid"] & ~res.key_inlier
+        # motion edges connect pose l -> l+1: L-1 rows
+        mot_in = res.motion_inlier
+        mot_bad = problem["motion_edge_valid"][:, :mot_in.shape[1]] & ~mot_in
+        for t, traj in enumerate(problem["trajs"]):
+            if not problem["traj_valid"][t]:
+                continue
+            win = problem["pose_windows"][t]
+            traj.motion_R = res.mot_R[t]
+            traj.motion_t = res.mot_t[t]
+            traj.segment_len = res.seg_len[t]
+            traj.optimized = True
+            m.optimized_track_ids.add(traj.track_id)
+            # rigidity outliers: a segment is bIsBad whenever a window pose
+            # broke it, bOptimized whenever one passed
+            traj.segment_bad |= rig_bad[t, :len(win)].any(axis=0)
+            traj.segment_optimized |= rig_ok[t, :len(win)].any(axis=0)
+            for li, pi in enumerate(win):
+                hp = traj.poses[pi]
+                hp.joints_w[:N_PARTS] = res.joints[t, li]
+                hp.optimized[:N_PARTS] = True
+                # both-bad rigidity endpoints become bIsBad joints
+                first_bad = np.zeros(18, bool)
+                second_bad = np.zeros(18, bool)
+                first_bad[BODY1[rig_bad[t, li]]] = True
+                second_bad[BODY2[rig_bad[t, li]]] = True
+                hp.bad[:18] |= first_bad & second_bad
+                # projection outliers -> bIsBad
+                hp.bad[:N_PARTS] |= proj_bad[t, li]
+                # motion outliers -> bIsLost on the first pose's joint
+                if li < mot_bad.shape[1]:
+                    mb = mot_bad[t, li]
+                    hp.lost[MAIN_SKELETON[mb]] = True
+                    traj.bad_count += int(mb.sum())

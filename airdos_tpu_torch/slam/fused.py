@@ -1,9 +1,11 @@
 """Fused per-frame tracking step.
 
 One call runs the whole tracked frame on the device: the stereo front end
-of both images, the motion-model projection match (with the reference's
-x2-window retry) and pose LM, then the local-map projection match and pose
-LM.  The device result leaves in one copy of one packed int32 tensor.
+of both images (masked with System.IsMask, with the disparity probed at
+the detections' torso joints when the human layer wants it), the
+motion-model projection match (with the reference's x2-window retry) and
+pose LM, then the local-map projection match and pose LM.  The device
+result leaves in one copy of one packed int32 tensor.
 
 Two host syncs happen per step and no others: the read of the motion
 match count that decides the retry (a ``lax.cond`` in airdos_tpu), and the
@@ -11,7 +13,7 @@ final copy of the packed result.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -104,30 +106,36 @@ class FullTrackResult(NamedTuple):
     feat_i32: np.ndarray   # [N, 4]: octave valid motion_pof local_pof
     desc32: np.ndarray     # [N, 8] uint32
     scalars: np.ndarray    # [17]: R(9) t(3) n_motion n_inliers pad(3)
+    disparity: Optional[np.ndarray]   # [MAX_HUMANS * N_TORSO] or None
 
 
-def _pack(feat_f32, feat_i32, desc32, scalars) -> torch.Tensor:
+def _pack(feat_f32, feat_i32, desc32, scalars, disparity) -> torch.Tensor:
     """One int32 tensor holding every result leaf (float leaves as bit
     views), so the result crosses to the host in a single copy."""
-    return torch.cat([feat_f32.contiguous().view(torch.int32).reshape(-1),
-                      feat_i32.to(torch.int32).reshape(-1),
-                      desc32.contiguous().reshape(-1),
-                      scalars.contiguous().view(torch.int32)])
+    leaves = [feat_f32.contiguous().view(torch.int32).reshape(-1),
+              feat_i32.to(torch.int32).reshape(-1),
+              desc32.contiguous().reshape(-1),
+              scalars.contiguous().view(torch.int32)]
+    if disparity is not None:
+        leaves.append(disparity.contiguous().view(torch.int32))
+    return torch.cat(leaves)
 
 
-def _unpack(flat: np.ndarray, n: int) -> FullTrackResult:
-    o1, o2, o3 = 8 * n, 12 * n, 20 * n
+def _unpack(flat: np.ndarray, n: int, with_disparity: bool) -> FullTrackResult:
+    o1, o2, o3, o4 = 8 * n, 12 * n, 20 * n, 20 * n + 17
     return FullTrackResult(
         feat_f32=flat[:o1].view(np.float32).reshape(n, 8),
         feat_i32=flat[o1:o2].reshape(n, 4),
         desc32=flat[o2:o3].view(np.uint32).reshape(n, 8),
-        scalars=flat[o3:].view(np.float32))
+        scalars=flat[o3:o4].view(np.float32),
+        disparity=flat[o4:].view(np.float32) if with_disparity else None)
 
 
 def make_full_track_step(frontend, config):
     """Build the per-frame tracking step.  The returned function takes the
-    uint8 images and the packed host-built tables, all as device tensors,
-    and returns a host FullTrackResult."""
+    uint8 images and masks (None: no mask), the torso-joint probes and the
+    packed host-built tables, all as device tensors, and returns a host
+    FullTrackResult."""
     cam = config.camera
     fx, fy, cx, cy, bf = (float(cam.fx), float(cam.fy), float(cam.cx),
                           float(cam.cy), float(cam.bf))
@@ -146,13 +154,15 @@ def make_full_track_step(frontend, config):
     pw_trans = 1.0 / opt.motion_prior_sigma_t ** 2 \
         if opt.motion_prior_sigma_t > 0 else 0.0
 
-    def step(imL_u8, imR_u8,
+    def step(imL_u8, imR_u8, maskL_u8, maskR_u8,
+             torso_px,                # [MAX_HUMANS * N_TORSO, 2]
              prior_pack,              # [12]: R(9) t(3)
              last_f32,                # [Np, 8]: xw(3) ang oct valid real pad
              desc_p,
              cand_f32,                # [Pc, 9]: xw(3) normal(3) maxd mind valid
              desc_c,
-             forward: bool, backward: bool) -> FullTrackResult:
+             forward: bool, backward: bool,
+             with_disparity: bool) -> FullTrackResult:
         R_prior = prior_pack[:9].reshape(3, 3)
         t_prior = prior_pack[9:12]
         xw_p = last_f32[:, 0:3]
@@ -166,7 +176,8 @@ def make_full_track_step(frontend, config):
         mind_c = cand_f32[:, 7]
         valid_c = cand_f32[:, 8] > 0
 
-        fL, fR, sm, xy_un = frontend._build_impl(imL_u8, imR_u8)
+        fL, fR, sm, xy_un, disp = frontend._build_impl(
+            imL_u8, imR_u8, maskL_u8, maskR_u8, torso_px, with_disparity)
         isig = inv_sigma2[fL.octave]
 
         def motion(th):
@@ -208,8 +219,8 @@ def make_full_track_step(frontend, config):
             m.n_matches.to(torch.float32)[None],
             loc.n_real_inliers.to(torch.float32)[None],
             torch.zeros(3, dtype=torch.float32, device=dev)])
-        packed = _pack(feat_f32, feat_i32, fL.desc32, scalars)
+        packed = _pack(feat_f32, feat_i32, fL.desc32, scalars, disp)
         flat = packed.cpu().numpy()      # host sync 2: the one result copy
-        return _unpack(flat, fL.xy.shape[0])
+        return _unpack(flat, fL.xy.shape[0], with_disparity)
 
     return step

@@ -3,17 +3,20 @@
     cfg = SlamConfig()                      # or SlamConfig.from_yaml(...)
     slam = System(cfg)                      # on the card; device="cpu"
     for data in sequence:                   # io.datasets.FrameData
-        slam.track_stereo(data)
+        slam.track_stereo_human(data)       # or track_stereo(...)
     slam.before_end("map_dump_dir")         # optional SaveMap metadata dump
     slam.shutdown()
     slam.save_trajectory_tum("traj.txt")
 
-This runs airdos_tpu's offline static System: tracking, and at each new
+This runs airdos_tpu's offline System: tracking, and at each new
 keyframe, inline, the local-mapping pass (point culling, triangulation,
 fusion, Schur local BA, keyframe culling, the scene vocabulary trained at
 the first keyframes, and the keyframe database that BoW reference-KF
-tracking reads).  The rest of airdos_tpu's System raises
-NotImplementedError naming the ROADMAP item that brings it.
+tracking reads).  With Human.ok the human layer runs too: masked ORB
+extraction (System.IsMask), stereo human association, human poses
+entering the map, and the human-trajectory BA every Camera.fps frames.
+The rest of airdos_tpu's System raises NotImplementedError naming the
+ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -27,7 +30,8 @@ import numpy as np
 from airdos_tpu_torch.config import SlamConfig
 from airdos_tpu_torch.io.datasets import FrameData
 from airdos_tpu_torch.io.tum import write_trajectory_kitti, write_trajectory_tum
-from airdos_tpu_torch.slam.ba_driver import Fuser, StaticLocalBA, Triangulator
+from airdos_tpu_torch.slam.ba_driver import (Fuser, HumanLocalBA,
+                                             StaticLocalBA, Triangulator)
 from airdos_tpu_torch.slam.frame import FrontEnd
 from airdos_tpu_torch.slam.local_mapping import LocalMapper
 from airdos_tpu_torch.slam.map import SlamMap
@@ -37,11 +41,6 @@ from airdos_tpu_torch.utils.obs import EventLog, Profiler, span
 
 def _check_scope(config: SlamConfig) -> None:
     limits = (
-        (config.human.ok, "human.ok: the human layer (ROADMAP port queue, "
-                          "human layer)"),
-        (config.system.is_mask, "system.is_mask: masked extraction belongs "
-                                "to the human layer (ROADMAP port queue, "
-                                "human layer)"),
         (not config.system.is_offline, "is_offline=False: online mode "
                                        "(ROADMAP port queue, online mode)"),
         (bool(config.vocabulary_path), "vocabulary_path: loading a DBoW2 "
@@ -72,6 +71,11 @@ class System:
             config, self.map, ext, self.local_mapper, device=self.device)
         self.local_mapper.fuser = Fuser(config, self.map, ext,
                                         device=self.device)
+        self.human_ba = HumanLocalBA(config, self.map, ext,
+                                     device=self.device) \
+            if config.human.ok else None
+        self._frame_count = 0
+        self._last_human_ba_frame = 0
         # place recognition: a scene vocabulary trained lazily from the
         # first keyframes' descriptors, then the keyframe database
         self.vocabulary = None
@@ -81,10 +85,16 @@ class System:
         self.events = EventLog()
         self.static_ba.profiler = self.profiler
         self.tracking.profiler = self.profiler
+        if self.human_ba is not None:
+            self.human_ba.profiler = self.profiler
 
     # ----------------------------------------------------------------- api
     def track_stereo(self, data: FrameData):
         """TrackStereo — static-only stereo tracking."""
+        return self._track(data)
+
+    def track_stereo_human(self, data: FrameData):
+        """TrackStereoHuman — stereo + dynamic-human pipeline."""
         return self._track(data)
 
     def _init_place_recognition(self):
@@ -157,6 +167,20 @@ class System:
         if (self.tracking.state == TrackState.OK and prev_kf is not None
                 and prev_kf.frame_id == frame.index):
             self._mapping_pipeline(prev_kf)
+
+        # human-trajectory local BA every max_frames frames (OffLineTrack,
+        # Tracking.cc:705-717): synchronous and deterministic offline
+        if (self.human_ba is not None
+                and not self.config.optimizer.is_static_only
+                and self.tracking.state == TrackState.OK
+                and self._frame_count - self._last_human_ba_frame >=
+                self.tracking.max_frames
+                and self.map.long_trajectories()):
+            with span(self.profiler, "human_ba"):
+                self.human_ba(self.map, self.tracking.last_kf_id)
+            self._last_human_ba_frame = self._frame_count
+
+        self._frame_count += 1
         dt = time.perf_counter() - t0
         self.track_times.append(dt)
         self.events.emit("frame", index=data.index,
@@ -219,10 +243,21 @@ class System:
                     ur = kf.u_right[fid]
                     isig = 1.0 / (self.frontend.extractor.sigma2[kf.octave[fid]])
                     f.write(f"{pid} {kf_id} {u:.3f} {v:.3f} {ur:.3f} {isig:.5f}\n")
-        # no human trajectories without the human layer: the files exist,
-        # empty, as airdos_tpu writes them for a static run
-        (out / "HMTraj.txt").write_text("")
-        (out / "Motion.txt").write_text("")
+        with open(out / "HMTraj.txt", "w") as f:
+            for tid, traj in sorted(self.map.trajectories.items()):
+                for i, hp in enumerate(traj.poses):
+                    for j in range(hp.joints_w.shape[0]):
+                        p = hp.joints_w[j]
+                        f.write(f"{tid} {i} {j} {hp.timestamp:.6f} "
+                                f"{p[0]:.6f} {p[1]:.6f} {p[2]:.6f} "
+                                f"{int(hp.bad[j])} {int(hp.lost[j])} "
+                                f"{int(hp.optimized[j])}\n")
+        with open(out / "Motion.txt", "w") as f:
+            for tid, traj in sorted(self.map.trajectories.items()):
+                R, t = traj.motion_R, traj.motion_t
+                row = " ".join(f"{v:.7f}" for v in
+                               np.hstack([R, t[:, None]]).reshape(-1))
+                f.write(f"{tid} {row}\n")
 
     def shutdown(self):
         """Offline mode runs no background work; waits for the device to

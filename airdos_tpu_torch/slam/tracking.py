@@ -1,18 +1,18 @@
-"""Tracking: the per-frame state machine, static stereo, offline.
+"""Tracking: the per-frame state machine, stereo, offline.
 
 Rebuild of the reference's Tracking (src/Tracking.cc) as airdos_tpu runs
 it offline: init -> (fused motion-model | reference-KF) tracking ->
 track-local-map -> keyframe decision -> close-point creation, handing each
 new keyframe to the local mapper when there is one (``local_mapper=None``
-is airdos_tpu's tracking-only configuration).  Reference-KF tracking
-matches by BoW once System has a keyframe database, else by a wide
-projection search.
+is airdos_tpu's tracking-only configuration), then the human-pose
+grabbing of the human layer.  Reference-KF tracking matches by BoW once
+System has a keyframe database, else by a wide projection search.
 
 Host Python owns the state machine and the integer bookkeeping; the dense
 steps (front end, projection and BoW matching, pose LM) run on the front
 end's torch device.  Relocalization raises NotImplementedError naming its
 ROADMAP port-queue item; the temporary visual-odometry points of
-localization-only mode and the human-pose grabbing are not here.
+localization-only mode are not here.
 """
 from __future__ import annotations
 
@@ -30,7 +30,7 @@ from airdos_tpu_torch.matching.bow_match import match_by_bow
 from airdos_tpu_torch.slam.frame import Frame, FrontEnd
 from airdos_tpu_torch.slam.fused import (local_map_step, make_full_track_step,
                                          motion_model_step)
-from airdos_tpu_torch.slam.map import KeyFrame, SlamMap
+from airdos_tpu_torch.slam.map import HumanPose, KeyFrame, SlamMap
 from airdos_tpu_torch.solvers.pose_opt import pose_optimize
 from airdos_tpu_torch.utils.obs import span
 
@@ -140,6 +140,11 @@ class Tracking:
                 with span(self.profiler, "track.kf"):
                     if self._need_new_keyframe(frame):
                         self._create_new_keyframe(frame)
+                    elif self.config.human.ok and frame.humans and \
+                            not self.config.optimizer.is_keyframe_only:
+                        # IsKeyFrameOnly=0: human poses enter on EVERY
+                        # tracked frame (reference Tracking.cc:493)
+                        self._grab_human_poses(frame, kf=None)
                 # mark outliers as free slots (reference: Track() end)
                 frame.mp_idx[frame.outlier] = -1
             else:
@@ -192,6 +197,8 @@ class Tracking:
         self.last_kf_id = kf.id
         if self.local_mapper is not None:
             self.local_mapper.recent_points.extend(pids.tolist())
+        if self.config.human.ok and frame.humans:
+            self._grab_human_poses(frame, kf=kf)
         self.state = TrackState.OK
 
     def _reset(self):
@@ -300,11 +307,12 @@ class Tracking:
             cand_f32[:, 8] = valid_c
 
         with span(self.profiler, "track.step"):
-            imL, imR = self.frontend.upload(data)
+            torso_px, want_disp = self.frontend.disparity_probes(data)
             tables = step_tables_to_device(last_f32, desc_p, cand_f32, desc_c,
                                            self.device)
-            host = self._full_step(imL, imR, to_device(prior_pack, self.device),
-                                   *tables, forward, backward)
+            host = self._full_step(*self.frontend.upload(data), torso_px,
+                                   to_device(prior_pack, self.device),
+                                   *tables, forward, backward, want_disp)
         frame = Frame.from_track_result(self.frontend, data, host)
         sc = host.scalars
         frame.set_pose(sc[:9].reshape(3, 3), sc[9:12])
@@ -642,6 +650,32 @@ class Tracking:
             self.local_mapper.process_new_keyframe(kf)
         else:
             self.map.update_connections(kf)
+
+        if self.config.human.ok and frame.humans:
+            self._grab_human_poses(frame, kf=kf)
+
+    # ========================================================== humans
+    def _grab_human_poses(self, frame: Frame, kf: Optional[KeyFrame]):
+        """GrabHumanPoseKF / GrabHumanPose (Tracking.cc:1221-1293)."""
+        vis = []
+        ref_id = kf.id if kf is not None else \
+            (frame.ref_kf_id if frame.ref_kf_id is not None else self.last_kf_id)
+        for obs in frame.humans:
+            hp = HumanPose(
+                track_id=obs.track_id, timestamp=frame.timestamp,
+                kf_id=ref_id,
+                joints_w=frame.unproject_human(obs).astype(np.float32),
+                bad=obs.bad.copy(), lost=np.zeros(18, bool),
+                optimized=np.zeros(18, bool),
+                obs_uvd=np.concatenate(
+                    [obs.kp_left, obs.kp_right[:, :1], obs.depth[:, None]],
+                    axis=1).astype(np.float32),
+                confidence=obs.conf_left.copy(),
+                in_keyframe=kf is not None)
+            if obs.track_id >= 0:
+                self.map.add_human_pose(hp)
+                vis.append(obs.track_id)
+        self.map.current_track_ids = vis
 
     # ========================================================== misc
     def _update_velocity(self, frame: Frame):

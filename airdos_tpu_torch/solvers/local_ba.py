@@ -29,7 +29,8 @@ from typing import NamedTuple
 import torch
 
 from airdos_tpu_torch.geometry.se3 import se3_compose, se3_exp, so3_hat
-from airdos_tpu_torch.ops.segment_kernels import make_segments, segment_sum
+from airdos_tpu_torch.ops.segment_kernels import (Segments, make_segments,
+                                                  segment_sum)
 from airdos_tpu_torch.solvers.smallmat import cho_solve_dense, inv3x3
 
 CHI2_MONO = 5.991
@@ -75,6 +76,82 @@ def _proj_residual(Rc, tc, xw, obs, fx, fy, cx, cy, bf, is_stereo):
     return e, Jc, Jp, z
 
 
+class StaticSegments(NamedTuple):
+    """The sorted-segment indices of the static edges' three reductions,
+    made once per solve (the edge table is fixed across its steps)."""
+    cam: Segments           # by camera
+    pt: Segments            # by point
+    pc: Segments            # by (point, camera)
+
+
+def static_segments(e_cam, e_pt, C: int, P: int,
+                    base: torch.Tensor) -> StaticSegments:
+    """Edges outside `base` (padding, invalid points) have weight 0 in
+    every step and add exact zeros, so they join no segment: all padding
+    would otherwise key to camera 0 and point 0 and make those segments
+    long."""
+    return StaticSegments(cam=make_segments(e_cam, C, base),
+                          pt=make_segments(e_pt, P, base),
+                          pc=make_segments(e_pt * C + e_cam, P * C, base))
+
+
+class SchurBlocks(NamedTuple):
+    S: torch.Tensor         # [C, C, 6, 6] reduced camera system
+    b: torch.Tensor         # [C, 6] its right-hand side
+    Hpp_inv: torch.Tensor   # [P, 3, 3] damped landmark blocks, inverted
+    bp: torch.Tensor        # [P, 3]
+    Wagg: torch.Tensor      # [P, C, 6, 3] camera-point coupling per pair
+
+
+def schur_reduce(e, Jc, Jp, w, segs: StaticSegments, point_valid, lam,
+                 C: int, P: int) -> SchurBlocks:
+    """The projection edges' Gauss-Newton blocks, every landmark
+    marginalised: three segment sums (airdos_tpu's five scatter-adds; the
+    blocks that share a key sum side by side, each column in its own
+    order, so the bits are those of separate sums)."""
+    E = e.shape[0]
+    dtype, dev = e.dtype, e.device
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    cam_sums = segment_sum(torch.cat(
+        [torch.einsum("eik,e,eil->ekl", Jc, w, Jc).reshape(E, 36),
+         -torch.einsum("eik,e,ei->ek", Jc, w, e)], dim=1), segs.cam)
+    pt_sums = segment_sum(torch.cat(
+        [torch.einsum("eik,e,eil->ekl", Jp, w, Jp).reshape(E, 9),
+         -torch.einsum("eik,e,ei->ek", Jp, w, e)], dim=1), segs.pt)
+    Hcc, bc = cam_sums[:, :36].reshape(C, 6, 6), cam_sums[:, 36:]
+    Hpp, bp = pt_sums[:, :9].reshape(P, 3, 3), pt_sums[:, 9:]
+    # per-edge camera-point coupling W = Jc^T w Jp  [E, 6, 3]
+    Wcp = torch.einsum("eik,e,eil->ekl", Jc, w, Jp)
+
+    # damp + invert landmark blocks
+    tr = Hpp.diagonal(dim1=1, dim2=2).sum(-1)
+    Hpp = Hpp + (lam * eye3)[None] * \
+        torch.clamp(tr[:, None, None] / 3.0, min=1e-3)
+    Hpp = Hpp + 1e-6 * eye3[None]
+    Hpp_inv = inv3x3(Hpp)
+    Hpp_inv = torch.where(point_valid[:, None, None], Hpp_inv,
+                          torch.zeros_like(Hpp_inv))
+
+    # Schur: S = Hcc - sum_p (sum_{e in p, cam ci} W_e Hpp^-1)
+    #                        (sum_{e' in p, cam cj} W_e')^T
+    Wagg = segment_sum(Wcp.reshape(E, 18), segs.pc).reshape(P, C, 6, 3)
+    Aagg = torch.einsum("pckl,plm->pckm", Wagg, Hpp_inv)
+    S_corr = torch.einsum("pikm,pjlm->ijkl", Aagg, Wagg)   # [C, C, 6, 6]
+    diag_c = torch.arange(C, device=dev)
+    S = torch.zeros((C, C, 6, 6), dtype=dtype, device=dev)
+    S[diag_c, diag_c] = Hcc
+    S = S - S_corr
+    b_corr = torch.einsum("pckm,pm->ck", Aagg, bp)
+    return SchurBlocks(S=S, b=bc - b_corr, Hpp_inv=Hpp_inv, bp=bp, Wagg=Wagg)
+
+
+def back_substitute(blocks: SchurBlocks, dx_c, pv) -> torch.Tensor:
+    """The landmarks' steps: dx_p = Hpp^-1 (bp - sum_c Wagg_pc^T dx_c),
+    zero where pv [P, 1] is 0."""
+    WTdx = torch.einsum("pckl,ck->pl", blocks.Wagg, dx_c)
+    return torch.einsum("plm,pm->pl", blocks.Hpp_inv, blocks.bp - WTdx) * pv
+
+
 def local_bundle_adjust(
         cam_R: torch.Tensor,        # [C, 3, 3] Tcw rotations (local + fixed)
         cam_t: torch.Tensor,        # [C, 3]
@@ -90,25 +167,18 @@ def local_bundle_adjust(
         iters1: int = 5, iters2: int = 10) -> LocalBAResult:
     C = cam_R.shape[0]
     P = points.shape[0]
-    E = e_obs.shape[0]
     dtype, dev = points.dtype, points.device
     e_cam = e_cam.to(torch.int64)
     e_pt = e_pt.to(torch.int64)
     is_stereo = e_obs[:, 2] >= 0
     delta_h = torch.where(is_stereo, 2.795483, 2.447749).to(dtype)
     chi_th = torch.where(is_stereo, CHI2_STEREO, CHI2_MONO).to(dtype)
-    eye3 = torch.eye(3, dtype=dtype, device=dev)
     eye6 = torch.eye(6, dtype=dtype, device=dev)
     diag_c = torch.arange(C, device=dev)
 
-    # the sorted-segment index of each reduction, once per call.  Edges
-    # outside `base` (padding, invalid points) have weight 0 in every step
-    # and add exact zeros, so they join no segment: all padding would
-    # otherwise key to camera 0 and point 0 and make those segments long.
+    # the sorted-segment index of each reduction, once per call
     base = e_valid & point_valid[e_pt]
-    seg_cam = make_segments(e_cam, C, base)
-    seg_pt = make_segments(e_pt, P, base)
-    seg_pc = make_segments(e_pt * C + e_cam, P * C, base)
+    segs = static_segments(e_cam, e_pt, C, P, base)
 
     cam_free = (~cam_fixed).to(dtype)
     free_mask = cam_free[:, None, None, None] * cam_free[None, :, None, None]
@@ -131,46 +201,12 @@ def local_bundle_adjust(
         else:
             w_h = torch.ones_like(chi2)
         w = e_info * w_h * active
-
-        # --- assemble blocks via three segment sums ---------------------
-        # airdos_tpu's five scatter-adds; the blocks that share a key sum
-        # side by side, each column in its own order, so the bits are those
-        # of separate sums
-        cam_sums = segment_sum(torch.cat(
-            [torch.einsum("eik,e,eil->ekl", Jc, w, Jc).reshape(E, 36),
-             -torch.einsum("eik,e,ei->ek", Jc, w, e)], dim=1), seg_cam)
-        pt_sums = segment_sum(torch.cat(
-            [torch.einsum("eik,e,eil->ekl", Jp, w, Jp).reshape(E, 9),
-             -torch.einsum("eik,e,ei->ek", Jp, w, e)], dim=1), seg_pt)
-        Hcc, bc = cam_sums[:, :36].reshape(C, 6, 6), cam_sums[:, 36:]
-        Hpp, bp = pt_sums[:, :9].reshape(P, 3, 3), pt_sums[:, 9:]
-        # per-edge camera-point coupling W = Jc^T w Jp  [E, 6, 3]
-        Wcp = torch.einsum("eik,e,eil->ekl", Jc, w, Jp)
-
-        # damp + invert landmark blocks
-        tr = Hpp.diagonal(dim1=1, dim2=2).sum(-1)
-        Hpp = Hpp + (lam * eye3)[None] * \
-            torch.clamp(tr[:, None, None] / 3.0, min=1e-3)
-        Hpp = Hpp + 1e-6 * eye3[None]
-        Hpp_inv = inv3x3(Hpp)
-        Hpp_inv = torch.where(point_valid[:, None, None], Hpp_inv,
-                              torch.zeros_like(Hpp_inv))
-
-        # Schur: S = Hcc - sum_p (sum_{e in p, cam ci} W_e Hpp^-1)
-        #                        (sum_{e' in p, cam cj} W_e')^T
-        Wagg = segment_sum(Wcp.reshape(E, 18), seg_pc).reshape(P, C, 6, 3)
-        Aagg = torch.einsum("pckl,plm->pckm", Wagg, Hpp_inv)
-        S_corr = torch.einsum("pikm,pjlm->ijkl", Aagg, Wagg)   # [C, C, 6, 6]
-        S = torch.zeros((C, C, 6, 6), dtype=dtype, device=dev)
-        S[diag_c, diag_c] = Hcc
-        S = S - S_corr
-        b_corr = torch.einsum("pckm,pm->ck", Aagg, bp)
-        b_red = bc - b_corr
+        blocks = schur_reduce(e, Jc, Jp, w, segs, point_valid, lam, C, P)
 
         # freeze fixed cameras: identity rows/cols, zero rhs
-        S = S * free_mask
+        S = blocks.S * free_mask
         S[diag_c, diag_c] = S[diag_c, diag_c] + fixed_diag
-        b_red = b_red * cam_free[:, None]
+        b_red = blocks.b * cam_free[:, None]
 
         # dense solve on the reduced system
         Sd = S.permute(0, 2, 1, 3).reshape(6 * C, 6 * C)
@@ -179,13 +215,9 @@ def local_bundle_adjust(
         dx_c = cho_solve_dense(Sd, b_red.reshape(-1)).reshape(C, 6)
         dx_c = dx_c * cam_free[:, None]
 
-        # back-substitute points: dx_p = Hpp^-1 (bp - sum_c Wagg_pc^T dx_c)
-        WTdx = torch.einsum("pckl,ck->pl", Wagg, dx_c)
-        dx_p = torch.einsum("plm,pm->pl", Hpp_inv, bp - WTdx) * pv
-
         dR, dt = se3_exp(dx_c)
         Rn, tn = se3_compose(dR, dt, R, t)
-        return Rn, tn, pts + dx_p
+        return Rn, tn, pts + back_substitute(blocks, dx_c, pv)
 
     def run_phase(R, t, pts, active, n_iters: int, use_huber: bool):
         def cost(R, t, pts):

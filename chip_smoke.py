@@ -20,7 +20,20 @@ Run from the repository root.  Phases, each of which fails the run:
    static BA solved at every keyframe after the third, batched Hamming
    launches on every keyframe frame after the first, 45 segment_sum
    launches per BA solve (3 per Gauss-Newton step);
-5. kernel: each kernel against its plain torch version, with per-call
+5. human: the AirDOS flagship on bench.py sections 2-3's crowd scene
+   (SyntheticStereoWorld(seed=2, n_points=500, n_humans=10, crowd=True),
+   trajectory(27, 0.1, yaw_rate=0.005), humans rendered): System with
+   bench.py's _cfg(True) (masked extraction, stereo human association,
+   the human-trajectory BA every Camera.fps = 5 frames, 8 trajectories x
+   8 poses), then the polluted static run (no mask, no human layer) on
+   the same frames: every flagship frame OK, >= 1 long trajectory
+   optimized, a human BA solve at every cadence tick with long
+   trajectories, 45 segment_sum launches per static BA solve and 60 per
+   human BA solve (4 per Gauss-Newton step), ATE_human < 0.6 ATE_static
+   and < 0.03 m; prints both ATEs, the human BA's reduced dimension D, the
+   per-frame latency of tracking, keyframe and human-BA frames and the
+   median human_ba span;
+6. kernel: each kernel against its plain torch version, with per-call
    times of both (CUDA events, median of 20 samples of 10 back-to-back
    calls) and the kernel's device time (torch.profiler), its bound (the
    larger of its bytes over 3.35 TB/s and its operations over the card's
@@ -31,21 +44,29 @@ Run from the repository root.  Phases, each of which fails the run:
    [.., 256], unpacked outside the timed window):
    - the 2-D Hamming kernel at 1536x1536, 2048x1536 and a ragged
      1500x1337 of random words: exact equality;
-   - every kernel at every shape phases 3 and 4 launched it with, on the
+   - every kernel at every shape phases 3-5 launched it with, on the
      first inputs the path gave it at that shape (recorded while the paths
      ran): Hamming exact, batched Hamming (triangulation B=4 x 1536x1536,
      fusion B=9 x 2048x1536 at this budget) exact, segment_sum bit-equal
      to its plain version (index_add_) on a CPU copy and two launches
      bit-equal to each other;
-6. determinism: two card runs of the mapping System on the small camera
-   over 8 frames give byte-identical TUM and KF/MP/Match dumps;
-7. agreement: the mapping System on the small camera over 6 frames on the
+7. determinism: two card runs of the mapping System on the small camera
+   over 8 frames give byte-identical TUM and KF/MP/Match dumps, and two
+   card runs of the human System (small camera, seed 3, 2 humans, masked,
+   Camera.fps 3: three human BA solves in 10 frames) byte-identical TUM
+   and KF/MP/Match/HMTraj/Motion dumps;
+8. agreement: the mapping System on the small camera over 6 frames on the
    CPU (plain versions) and on the card: the same branches and keyframes,
-   poses within 5 mm / 1e-3.
+   poses within 5 mm / 1e-3; the human System of phase 7 on the CPU and
+   on the card: the same branches and trajectories, cameras within 1e-4
+   m, and after the first human BA solve the joints with an inlier
+   projection edge within 5e-3 m (the gaps of the other joints and at the
+   end of the run are printed: PERF.md says why they are not held).
 
 Each path's kernel launch counts are set to 0 just before the path is
 driven and read just after; launches made to compare a kernel with its
-plain version are not counted.  The last lines are one JSON line listing
+plain version are not counted; the kernels line's launches add up the
+mapping and human paths' counts.  The last lines are one JSON line listing
 the kernels, the nvidia-smi line, and {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, on any failure, including when no
 CUDA device is present.
@@ -53,8 +74,10 @@ CUDA device is present.
 With --profile, phases 1-2 run and then phase_profile instead of the rest:
 synchronized stage timers over the 28 bench frames (tracking stages per
 fused frame, triangulation / fusion / BA solve per keyframe) and a
-torch.profiler trace of the last two frames; it checks nothing and prints
-no result line.
+torch.profiler trace of the last two frames, then the crowd-27 flagship
+run's human BA stages (assembly, solve, write-back) and one more solve of
+its last window under torch.profiler (device busy time and the kernels
+that hold it); it checks nothing and prints no result line.
 """
 from __future__ import annotations
 
@@ -73,6 +96,7 @@ from pathlib import Path
 import numpy as np
 
 N_FRAMES = 28
+N_CROWD = 27          # bench.py sections 2-3: 7 warm-up + 20 timed frames
 SEED = 0
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 # kernel name -> {shape: [launches, first inputs]} on the main paths
@@ -451,6 +475,61 @@ def _small_config():
     return cfg
 
 
+def _human_bench_config():
+    """bench.py's _cfg(True): the flagship's budgets, offline."""
+    cfg = _bench_config()
+    cfg.human.ok = True
+    cfg.human.is_seg = True
+    cfg.system.is_mask = True
+    cfg.camera.fps = 5.0
+    cfg.device.max_trajectories = 8
+    cfg.device.max_trajectory_len = 8
+    return cfg
+
+
+def _polluted_config():
+    """bench.py's cfg_polluted: the static pipeline, no mask, on the crowd
+    frames."""
+    cfg = _bench_config()
+    cfg.camera.fps = 5.0
+    return cfg
+
+
+def _small_human_config():
+    """The human System of tests/test_torch_human_system.py: the small
+    camera, masked, Camera.fps 3 (a human BA every 3 frames)."""
+    cfg = _small_config()
+    cfg.human.ok = True
+    cfg.human.is_seg = True
+    cfg.system.is_mask = True
+    cfg.camera.fps = 3.0
+    cfg.device.max_trajectories = 2
+    cfg.device.max_trajectory_len = 16
+    return cfg
+
+
+def _small_human_frames(n: int):
+    from airdos_tpu_torch.io.synthetic import SyntheticStereoWorld
+    world = SyntheticStereoWorld(seed=3, n_points=200,
+                                 cam=_small_human_config().camera, n_humans=2)
+    return [d for d, _, _ in world.sequence(n, dt=0.1, yaw_rate=0.008)]
+
+
+def _crowd_frames(n: int):
+    """bench.py sections 2-3's crowd scene at 640x360 with the humans
+    rendered, and its ground truth camera centres."""
+    from airdos_tpu_torch.io.synthetic import SyntheticStereoWorld
+    t0 = time.perf_counter()
+    world = SyntheticStereoWorld(seed=2, n_points=500, n_humans=10,
+                                 crowd=True)
+    Rwc, twc = world.trajectory(n, 0.1, yaw_rate=0.005)
+    frames = [world.frame(i, Rwc[i], twc[i], i * 0.1, with_humans=True)
+              for i in range(n)]
+    print(f"[frames] rendered {n} crowd frames 640x360 in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return frames, twc
+
+
 def _small_frames(n: int):
     from airdos_tpu_torch.io.synthetic import SyntheticStereoWorld
     cfg = _small_config()
@@ -480,9 +559,11 @@ def _sync() -> None:
 def _run(slam, frames):
     """Track frames with a System; per frame (state, branch, seconds)."""
     per = []
+    track = slam.track_stereo_human if slam.config.human.ok \
+        else slam.track_stereo
     for data in frames:
         t0 = time.perf_counter()
-        slam.track_stereo(data)
+        track(data)
         _sync()
         per.append((slam.tracking.state.name, slam.tracking.last_branch,
                     time.perf_counter() - t0))
@@ -634,6 +715,105 @@ def phase_mapping(smi: str, frames, twc):
     return counts
 
 
+def _reduced_dim(args) -> int:
+    """The human BA's reduced dimension from its arguments: 6 C + 3 T L 14
+    + 14 T + 6 T (cameras, joints, limb lengths, motions)."""
+    C = args[0].shape[0]
+    T, L = args[10].shape[:2]
+    return 6 * C + 42 * T * L + 20 * T
+
+
+def phase_human(smi: str, frames, twc):
+    """The flagship System (bench.py _cfg(True), offline) and the polluted
+    static System on the crowd frames."""
+    from airdos_tpu_torch.slam import ba_driver
+    from airdos_tpu_torch.slam.system import System
+
+    dims = []
+    solver = ba_driver.human_bundle_adjust
+
+    def recorded(*args, **kwargs):
+        dims.append(_reduced_dim(args))
+        return solver(*args, **kwargs)
+
+    slam = System(_human_bench_config(), device="cuda")
+    per = []
+    ba_driver.human_bundle_adjust = recorded
+    try:
+        _reset_counts()
+        for data in frames:
+            c0, s0 = _counts(), slam.static_ba.n_solves
+            h0, tick0 = slam.human_ba.n_runs, slam._last_human_ba_frame
+            t0 = time.perf_counter()
+            slam.track_stereo_human(data)
+            _sync()
+            dt = time.perf_counter() - t0
+            c1 = _counts()
+            kf = slam.map.kfs.get(slam.tracking.last_kf_id)
+            per.append(dict(state=slam.tracking.state.name,
+                            branch=slam.tracking.last_branch, ms=dt * 1e3,
+                            kf=kf is not None and kf.frame_id == data.index,
+                            static=slam.static_ba.n_solves - s0,
+                            human=slam.human_ba.n_runs - h0,
+                            tick=slam._last_human_ba_frame != tick0,
+                            humans=len(slam.tracking.last_frame.humans),
+                            d={k: c1[k] - c0[k] for k in c1}))
+        counts = _counts()
+    finally:
+        ba_driver.human_bundle_adjust = solver
+    slam.shutdown()
+    for i, p in enumerate(per):
+        print(f"[human] frame {i:2d} {p['state']} {p['branch']:5s} "
+              f"{'KF' if p['kf'] else '  '} {'HBA' if p['human'] else '   '} "
+              f"{p['ms']:9.2f} ms humans {p['humans']} BA solves static "
+              f"{p['static']} human {p['human']} launches {p['d']}")
+    bad = [i for i, p in enumerate(per) if p["state"] != "OK"]
+    if bad:
+        _fail(f"human: flagship frames not OK: {bad}")
+    n_opt = sum(t.optimized for t in slam.map.trajectories.values())
+    if n_opt < 1:
+        _fail("human: no long trajectory optimized")
+    missed = [i for i, p in enumerate(per) if p["tick"] and p["human"] != 1]
+    if missed or not any(p["tick"] for p in per):
+        _fail(f"human: no human BA solve at cadence ticks {missed}")
+    seg_off = [i for i, p in enumerate(per) if p["d"]["segment_sum"]
+               != 45 * p["static"] + 60 * p["human"]]
+    if seg_off:
+        _fail(f"human: segment_sum launches != 45 per static and 60 per "
+              f"human BA solve at frames {seg_off}")
+    idle = [k for k, v in counts.items() if v <= 0]
+    if idle:
+        _fail(f"human: kernels never launched on the main path: {idle}")
+    ate_human = _ate(slam.tracking, twc)
+    spans = slam.profiler.report()
+
+    static = System(_polluted_config(), device="cuda")
+    _run(static, frames)
+    ate_static = _ate(static.tracking, twc)
+    print(f"[human] crowd-{len(frames)}: flagship ATE {ate_human:.6f} m, "
+          f"polluted static ATE {ate_static:.6f} m (ratio "
+          f"{ate_human / ate_static:.3f}); keyframes {len(slam.map.kfs)}, "
+          f"trajectories {len(slam.map.trajectories)} ({n_opt} optimized), "
+          f"human BA solves {slam.human_ba.n_runs}, reduced dimension D "
+          f"{sorted(set(dims))}; launches {counts}")
+    if not (ate_human < 0.6 * ate_static and ate_human < 0.03):
+        _fail(f"human: flagship ATE {ate_human} m vs static {ate_static} m "
+              f"(needs < 0.6x and < 0.03 m)")
+    hba = [p["ms"] for p in per if p["human"]]
+    kf_ms = [p["ms"] for i, p in enumerate(per)
+             if p["kf"] and not p["human"] and i > 0]
+    track_ms = [p["ms"] for p in per if not p["kf"] and not p["human"]]
+    print(f"[human] per-frame ms tracking frames: {_ms_stats(track_ms)}; "
+          f"keyframe frames after the first: {_ms_stats(kf_ms)}; human-BA "
+          f"frames: {_ms_stats(hba)} on {smi}")
+    print("[human] spans (median ms): " + ", ".join(
+        f"{k} {v['median_s'] * 1e3:.2f} (n {v['n']})"
+        for k, v in sorted(spans.items())
+        if k.startswith(("human_ba", "hba.", "map.static_ba", "track.step"))),
+        flush=True)
+    return counts
+
+
 def phase_determinism():
     """Two card runs of the mapping System: byte-identical outputs."""
     from airdos_tpu_torch.slam.system import System
@@ -661,6 +841,30 @@ def phase_determinism():
           f"KF/MP/Match byte-identical ({sum(map(len, outs[0]))} bytes)",
           flush=True)
 
+    names = ("KF.txt", "MP.txt", "Match.txt", "HMTraj.txt", "Motion.txt")
+    frames = _small_human_frames(10)
+    outs = []
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
+        for tag in ("a", "b"):
+            slam = System(_small_human_config(), device="cuda")
+            _run(slam, frames)
+            traj = Path(tmp) / f"traj_{tag}.txt"
+            dump = Path(tmp) / f"dump_{tag}"
+            slam.save_trajectory_tum(traj)
+            slam.before_end(dump)
+            outs.append([traj.read_bytes()] + [(dump / f).read_bytes()
+                                               for f in names])
+            if slam.human_ba.n_runs < 2:
+                _fail(f"determinism: the human run made "
+                      f"{slam.human_ba.n_runs} human BA solves, not >= 2")
+    if outs[0] != outs[1]:
+        diff = [f for f, a, b in zip(("traj",) + names, *outs) if a != b]
+        _fail(f"determinism: two human card runs differ in {diff}")
+    print(f"[determinism] human System, small camera, 10 frames, "
+          f"{slam.human_ba.n_runs} human BA solves, two card runs: TUM and "
+          f"KF/MP/Match/HMTraj/Motion byte-identical "
+          f"({sum(map(len, outs[0]))} bytes)", flush=True)
+
 
 def phase_cpu_agreement():
     """The same small-camera frames through the mapping System on the CPU
@@ -686,6 +890,53 @@ def phase_cpu_agreement():
           f"branches equal, keyframes {gpu.map.n_keyframes()}, BA solves "
           f"{gpu.static_ba.n_solves}, max |dt| {dt:.2e} m, max |dR| "
           f"{dR:.2e}", flush=True)
+
+    frames = _small_human_frames(10)
+    runs = []
+    for device in ("cpu", "cuda"):
+        slam = System(_small_human_config(), device=device)
+        first = {}
+        write_back = slam.human_ba._write_back
+
+        def snapshot(problem, res, write_back=write_back, first=first):
+            write_back(problem, res)
+            if not first:        # the joints after the first solve
+                first.update({t.track_id: np.stack(
+                    [hp.joints_w[:14] for hp in t.poses])
+                    for t in problem["trajs"]})
+                first["observed"] = {t.track_id: np.stack(
+                    [hp.in_keyframe & ~hp.bad[:14] for hp in t.poses])
+                    for t in problem["trajs"]}
+        slam.human_ba._write_back = snapshot
+        runs.append((slam, _run(slam, frames), first))
+    (cpu, per_cpu, f_cpu), (gpu, per_gpu, f_gpu) = runs
+    if [p[:2] for p in per_cpu] != [p[:2] for p in per_gpu]:
+        _fail(f"human: CPU and GPU branches differ: {per_cpu} vs {per_gpu}")
+    shape = {k: len(t) for k, t in cpu.map.trajectories.items()}
+    if shape != {k: len(t) for k, t in gpu.map.trajectories.items()}:
+        _fail("human: CPU and GPU trajectories differ")
+    _, _, t_c = cpu.tracking.trajectory_tum()
+    _, _, t_g = gpu.tracking.trajectory_tum()
+    dt = float(np.abs(t_c - t_g).max())
+    obs_gap, other_gap = [0.0], [0.0]
+    for tid, observed in f_cpu.pop("observed").items():
+        g = np.linalg.norm(f_cpu[tid] - f_gpu[tid], axis=-1)
+        obs_gap.append(float(g[observed].max(initial=0.0)))
+        other_gap.append(float(g[~observed].max(initial=0.0)))
+    end = np.concatenate([np.linalg.norm(
+        a.joints_w[:14] - b.joints_w[:14], axis=-1).ravel()
+        for tid in cpu.map.trajectories for a, b in zip(
+            cpu.map.trajectories[tid].poses, gpu.map.trajectories[tid].poses)])
+    print(f"[agree] human System, small camera, 10 frames, "
+          f"{gpu.human_ba.n_runs} human BA solves: CPU and GPU branches and "
+          f"trajectories equal, cameras max |dt| {dt:.2e} m; after the "
+          f"first solve joints with an inlier projection edge max gap "
+          f"{max(obs_gap):.2e} m, other joints {max(other_gap):.2e} m; end "
+          f"of run joint gap median {np.median(end):.2e} m, max "
+          f"{end.max():.2e} m", flush=True)
+    if dt > 1e-4 or max(obs_gap) > 5e-3:
+        _fail(f"human: CPU vs GPU cameras {dt} m or observed joints "
+              f"{max(obs_gap)} m beyond 1e-4 / 5e-3 m")
 
 
 def phase_profile(smi: str):
@@ -791,6 +1042,42 @@ def phase_profile(smi: str):
                    + "\n" + ka.table(sort_by="count", row_limit=25))
     print(f"[profile] tables in {out}", flush=True)
 
+    # the flagship's human BA stages: assembly and write-back on the host,
+    # the solve ending in its one copy back (a device sync)
+    crowd, _ = _crowd_frames(N_CROWD)
+    slam = System(_human_bench_config(), device="cuda")
+    _run(slam, crowd)
+    stages = slam.profiler.report()
+    print(f"[profile] crowd-{N_CROWD} flagship, {slam.human_ba.n_runs} human "
+          f"BA solves; spans (median / max ms): " + ", ".join(
+              f"{k} {v['median_s'] * 1e3:.2f} / "
+              f"{max(slam.profiler.stages[k]) * 1e3:.2f}"
+              for k, v in sorted(stages.items())
+              if k.startswith(("human_ba", "hba."))) + f" on {smi}",
+          flush=True)
+
+    # one more solve of the last window under torch.profiler: the solve's
+    # device busy time against its wall time, and the kernels that hold it
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        slam.human_ba(slam.map, slam.tracking.last_kf_id)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    per_kernel = collections.defaultdict(float)
+    for e in evs:
+        per_kernel[e.name] += e.time_range.elapsed_us() / 1e3
+    busy_ms = sum(per_kernel.values())
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
+    print(f"[profile] one human BA solve under torch.profiler: wall "
+          f"{wall_ms:.2f} ms (the profiler slows the host), {len(evs)} "
+          f"device kernels, device busy {busy_ms:.2f} ms (share "
+          f"{busy_ms / wall_ms:.4f}); most device time: " + "; ".join(
+              f"{name[:60]} {ms:.2f} ms" for name, ms in top) +
+          f" on {smi}", flush=True)
+
 
 def main():
     smi = phase_environment()
@@ -801,9 +1088,12 @@ def main():
     if sys.argv[1:]:
         _fail(f"usage: python3 chip_smoke.py [--profile], got {sys.argv[1:]}")
     frames, twc = _bench_frames(N_FRAMES)
+    crowd, crowd_twc = _crowd_frames(N_CROWD)
     with _path_recording():
         phase_slice(smi, frames, twc)
         launches = phase_mapping(smi, frames, twc)
+        human = phase_human(smi, crowd, crowd_twc)
+    launches = {k: launches[k] + human[k] for k in launches}
     rows = phase_kernel(smi)
     phase_determinism()
     phase_cpu_agreement()
@@ -814,7 +1104,8 @@ def main():
                "hamming_matrix_batched": ("airdos_tpu_torch/csrc/hamming.cu",
                                           "airdos_tpu/ops/pallas_kernels.py:43"),
                "segment_sum": ("airdos_tpu_torch/csrc/segment_sum.cu",
-                               "airdos_tpu/solvers/local_ba.py:119")}
+                               "airdos_tpu/solvers/local_ba.py:119, "
+                               "airdos_tpu/solvers/human_ba.py:271")}
     kernels = [{"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],
                 **rows[name]}

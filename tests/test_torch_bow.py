@@ -23,6 +23,7 @@ from airdos_tpu_torch.matching.bow_match import match_by_bow
 from airdos_tpu_torch.slam.frame import FrontEnd
 from airdos_tpu_torch.slam.keyframe_db import KeyFrameDatabase
 from airdos_tpu_torch.slam.map import KeyFrame, SlamMap
+from test_torch_ops import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

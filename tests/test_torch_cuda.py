@@ -217,3 +217,124 @@ def test_mapping_system_runs_are_byte_identical_on_the_card(cuda, tmp_path):
                    [(tmp_path / f"dump_{tag}" / f).read_bytes()
                     for f in ("KF.txt", "MP.txt", "Match.txt")])
     assert out[0] == out[1]
+
+
+def _human_problem(rng, C=4, P=80, L=6):
+    """tests/test_human_ba.py's build_problem (one walking human seen from
+    static cameras, static points), without JAX: the arguments of
+    human_bundle_adjust."""
+    from airdos_tpu_torch.slam.map import BODY1, BODY2
+    skel = np.array([
+        [0.00, -0.70, 0.00], [0.00, -0.50, 0.00], [-0.20, -0.50, 0.00],
+        [-0.25, -0.25, 0.00], [-0.28, 0.00, 0.00], [0.20, -0.50, 0.00],
+        [0.25, -0.25, 0.00], [0.28, 0.00, 0.00], [-0.12, 0.10, 0.00],
+        [-0.14, 0.50, 0.00], [-0.15, 0.90, 0.00], [0.12, 0.10, 0.00],
+        [0.14, 0.50, 0.00], [0.15, 0.90, 0.00]], np.float32)
+    fx, cx, cy, bf = 400.0, 160.0, 120.0, 100.0
+    cam_t = np.stack([[-0.3 * c, 0, 0] for c in range(C)]).astype(np.float32)
+    pts = rng.uniform([-4, -3, 4], [4, 3, 20], (P, 3)).astype(np.float32)
+
+    def project(x, c):
+        xc = x + cam_t[c]
+        u = fx * xc[:, 0] / xc[:, 2] + cx
+        return np.stack([u, fx * xc[:, 1] / xc[:, 2] + cy,
+                         u - bf / xc[:, 2]], 1)
+
+    es_cam = np.repeat(np.arange(C), P).astype(np.int32)
+    es_pt = np.tile(np.arange(P), C).astype(np.int32)
+    es_obs = np.concatenate([project(pts, c) for c in range(C)])
+    es_obs = (es_obs + rng.normal(0, 0.3, es_obs.shape)).astype(np.float32)
+    joints = np.stack([skel + [0.5 + 0.2 * l, 0.2, 8.0 - 0.1 * l]
+                       for l in range(L)])[None].astype(np.float32)
+    jo_cam = (np.arange(L) % C)[None].astype(np.int32)
+    jo_obs = np.stack([project(joints[0, l], jo_cam[0, l])
+                       for l in range(L)])[None]
+    jo_obs = (jo_obs + rng.normal(0, 0.5, jo_obs.shape)).astype(np.float32)
+    joints0 = joints + rng.normal(0, 0.05, joints.shape).astype(np.float32)
+    seg0 = np.linalg.norm(joints0[0, 0, BODY1] - joints0[0, 0, BODY2],
+                          axis=1)[None]
+    ones = np.ones((1, L, 14), bool)
+    cam_fixed = np.arange(C) < 2
+    arrays = (np.tile(np.eye(3, dtype=np.float32), (C, 1, 1)), cam_t,
+              cam_fixed, pts + rng.normal(0, 0.05, pts.shape).astype(np.float32),
+              np.ones(P, bool), es_cam, es_pt, es_obs,
+              np.ones(C * P, np.float32), np.ones(C * P, bool),
+              joints0, ones, jo_cam, jo_obs, ones, seg0.astype(np.float32),
+              np.ones((1, 14), bool), ones, np.eye(3, dtype=np.float32)[None],
+              np.zeros((1, 3), np.float32), np.ones(1, bool),
+              np.full((1, L), 0.5, np.float32), np.ones((1, L, 5), bool))
+    return arrays, (1.0, 0.5, 20.0, 20.0, 1.0, 4.0, 1.0,
+                    fx, fx, cx, cy, bf)
+
+
+def test_human_bundle_adjust_card_matches_cpu(cuda):
+    """The card's solve against the CPU's on one problem: inlier flags
+    equal, joints within 1e-2 m (median 1e-4 m: the float32 floor that
+    tests/test_torch_human.py states), cameras within 1e-5 m; 60
+    segment-sum launches; two card solves bit-equal."""
+    import airdos_tpu_torch.ops.segment_kernels as sk
+    from airdos_tpu_torch.solvers.human_ba import human_bundle_adjust
+    arrays, scalars = _human_problem(np.random.default_rng(0))
+    cpu = human_bundle_adjust(*(torch.from_numpy(a) for a in arrays),
+                              *scalars)
+    before = sk.launches()
+    card = [human_bundle_adjust(*(torch.from_numpy(a).to(cuda)
+                                  for a in arrays), *scalars)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert sk.launches() == before + 120
+    for a, b in zip(card[0], card[1]):
+        assert torch.equal(a, b)
+    got = [x.cpu() for x in card[0]]
+    for i in (7, 8, 9, 10):                   # the four inlier-flag arrays
+        assert torch.equal(got[i], cpu[i]), i
+    assert (got[1] - cpu.cam_t).abs().max() < 1e-5
+    gap = (got[3] - cpu.joints).norm(dim=-1)
+    assert gap.max() < 1e-2 and gap.median() < 1e-4
+
+
+def test_compact_human_scatter_at_full_width(cuda):
+    """The human families' scatter at bench.py's full width (24 cameras,
+    8 trajectories x 8 poses: 174,496 rows of one column) on the card:
+    bit-equal to the plain version on a CPU copy and launch to launch."""
+    import airdos_tpu_torch.ops.segment_kernels as sk
+    from airdos_tpu_torch.solvers import human_ba as hba
+    T, L, C = 8, 8, 24
+    rng = np.random.default_rng(8)
+    exists = torch.ones((T, L, 14), dtype=torch.bool, device=cuda)
+    jo_cam = torch.from_numpy(rng.integers(-1, C, (T, L))).to(cuda)
+    ed = hba.human_edges(jo_cam, torch.zeros((T, L, 14, 3), device=cuda),
+                         exists, exists, exists,
+                         torch.ones(T, dtype=torch.bool, device=cuda),
+                         torch.full((T, L), 0.2, device=cuda),
+                         torch.ones((T, L, 5), dtype=torch.bool,
+                                    device=cuda), C)
+    D = 6 * C + 42 * T * L + 20 * T
+    keys, keep = hba.scatter_keys(ed.gidx, (ed.hp_valid, ed.rg_valid,
+                                            ed.mo_valid), D)
+    assert keys.shape[0] == 174496
+    seg, pos = sk.make_compact_segments(keys, keep)
+    vals = torch.from_numpy((rng.normal(0, 1, (keys.shape[0], 1)) *
+                             10.0 ** rng.uniform(-3, 3, (keys.shape[0], 1)))
+                            .astype(np.float32)).to(cuda)
+    got1, got2 = sk.segment_sum(vals, seg), sk.segment_sum(vals, seg)
+    torch.cuda.synchronize()
+    want = sk.segment_sum_ref(vals.cpu(), seg.key.cpu(), seg.n)
+    assert torch.equal(got1.cpu(), want) and torch.equal(got1, got2)
+    assert int(pos.max()) < D * D + D and seg.n == pos.shape[0]
+
+
+def test_patch_disparity_ties_on_the_card(cuda):
+    """SAD minima tie on a texture that repeats every 16 px: the card's
+    argmin takes the first, as the CPU's does."""
+    from airdos_tpu_torch.ops.disparity import patch_disparity
+    rng = np.random.default_rng(4)
+    imL = np.tile(rng.integers(0, 255, (60, 16)), (1, 8)).astype(np.float32)
+    imR = np.roll(imL, -5, axis=1)
+    px = torch.tensor([[100.0, 30.0], [90.5, 20.5], [101.5, 40.0],
+                       [60.0, 29.5], [3.0, 10.0], [-4.0, 2.0]])
+    cpu = patch_disparity(torch.from_numpy(imL), torch.from_numpy(imR), px)
+    card = patch_disparity(torch.from_numpy(imL).to(cuda),
+                           torch.from_numpy(imR).to(cuda), px.to(cuda))
+    assert torch.equal(card.cpu(), cpu)
+    assert (cpu[:4].round() == 5).all() and (cpu[4:] == -1).all()

@@ -73,6 +73,7 @@ from airdos_tpu_torch.solvers.local_ba import local_bundle_adjust
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from test_local_ba import make_problem  # noqa: E402
 from test_system_e2e import small_config  # noqa: E402
+from test_torch_ops import one_torch_thread  # noqa: E402,F401 (autouse)
 
 N_E2E = 10          # frames of the end-to-end comparison
 SNAP_FRAME = 11     # the keyframe whose mapping step the drivers compare

@@ -21,6 +21,7 @@ import airdos_tpu_torch.matching.stereo as tstereo
 from airdos_tpu.features.orb import OrbExtractor
 from airdos_tpu.io.synthetic import SyntheticStereoWorld, small_camera
 from airdos_tpu.ops.pyramid import build_pyramid, level_shapes
+from test_torch_ops import one_torch_thread  # noqa: F401 (autouse)
 
 N_LEVELS = 4
 SCALES = np.asarray([1.2 ** l for l in range(N_LEVELS)], np.float32)

@@ -38,6 +38,19 @@ from airdos_tpu_torch.io.synthetic import SyntheticStereoWorld
 ROOT = Path(__file__).resolve().parents[1]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU ops on one intra-op thread.  The suite runs in
+    several pytest workers at once (ROADMAP's Tier-1 line: -n 6); with
+    torch's default of an OpenMP thread per core in every worker, each
+    parallel op waits on descheduled threads and a port System run slows
+    down tens of times.  The other port test files import this fixture."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def image():
     """A rendered 320x240 synthetic frame as the front end sees it: cast to

@@ -17,6 +17,7 @@ from airdos_tpu.solvers.pose_opt import pose_optimize as jax_pose_optimize
 import airdos_tpu_torch.geometry.se3 as tse3
 import airdos_tpu_torch.solvers.smallmat as tsm
 from airdos_tpu_torch.solvers.pose_opt import pose_optimize
+from test_torch_ops import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _t(a):

@@ -36,6 +36,7 @@ from airdos_tpu_torch.slam.system import System
 from airdos_tpu_torch.slam.frame import FrontEnd as TorchFrontEnd
 from airdos_tpu_torch.slam.map import SlamMap as TorchMap
 from airdos_tpu_torch.slam.tracking import Tracking
+from test_torch_ops import one_torch_thread  # noqa: F401 (autouse)
 
 N_FRAMES = 14
 
@@ -129,16 +130,15 @@ def test_fused_step_matches_jax_on_recorded_inputs(jax_run):
     trk = jax_run["trk"]
     step_args, want_disp = trk._last_step_args
     ref = jax.device_get(trk._full_step(*step_args, with_disparity=want_disp))
-    (imL, imR, _, _, _, prior, last_f32, desc_p, cand_f32, desc_c,
-     forward, backward) = jax.device_get(step_args)
+    (imL, imR, maskL, maskR, torso_px, prior, last_f32, desc_p, cand_f32,
+     desc_c, forward, backward) = jax.device_get(step_args)
 
     cfg = config_from(small_config())
     step = make_full_track_step(TorchFrontEnd(cfg, device="cpu"), cfg)
-    out = step(torch.from_numpy(np.array(imL)),
-               torch.from_numpy(np.array(imR)),
-               torch.from_numpy(np.array(prior)),
+    t = lambda a: torch.from_numpy(np.array(a))     # noqa: E731
+    out = step(t(imL), t(imR), t(maskL), t(maskR), t(torso_px), t(prior),
                *step_tables_to_device(last_f32, desc_p, cand_f32, desc_c, "cpu"),
-               bool(forward), bool(backward))
+               bool(forward), bool(backward), bool(want_disp))
 
     R_ref, t_ref = ref.scalars[:9].reshape(3, 3), ref.scalars[9:12]
     R_out, t_out = out.scalars[:9].reshape(3, 3), out.scalars[9:12]
@@ -198,8 +198,6 @@ def test_port_import_leaves_jax_out():
 
 
 @pytest.mark.parametrize("section,field,value", [
-    ("human", "ok", True),
-    ("system", "is_mask", True),
     ("system", "is_offline", False),
     (None, "vocabulary_path", "voc.npz"),
     (None, "enable_loop_closing", True),
@@ -209,6 +207,29 @@ def test_out_of_slice_configs_raise(section, field, value):
     setattr(getattr(cfg, section) if section else cfg, field, value)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         System(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("section,field", [("human", "ok"),
+                                           ("system", "is_mask")])
+def test_human_layer_configs_build_and_track(section, field):
+    """The human layer's switches are in the port's scope: the System
+    builds and tracks a frame with humans in view."""
+    cfg = config_from(small_config())
+    setattr(getattr(cfg, section), field, True)
+    slam = System(cfg, device="cpu")
+    assert (slam.human_ba is not None) == cfg.human.ok
+    world = TorchWorld(seed=3, n_points=200, cam=cfg.camera, n_humans=2)
+    data, _, _ = next(world.sequence(1, dt=0.1, yaw_rate=0.008))
+    assert data.seg_left is not None and data.seg_left.any()
+    frame = slam.track_stereo_human(data)
+    assert slam.tracking.state.name == "OK"
+    # masked extraction keeps features off the humans; the human layer
+    # associates the stereo detections
+    assert len(frame.humans) == (len(data.humans_left) if cfg.human.ok else 0)
+    if cfg.system.is_mask:
+        seg = data.seg_left > 0
+        xy = np.round(frame.xy[frame.valid]).astype(int)
+        assert not seg[xy[:, 1], xy[:, 0]].any()
 
 
 def _entry_point(name, tmp_path):
