@@ -7,10 +7,9 @@ arrays.  The descent of a whole frame's descriptors runs batched on the
 vocabulary's torch device (plain torch; its Hopper kernel is ROADMAP
 Hopper queue item 6).  Training (binary k-medoids by bit majority) is
 host numpy and gives the same tree as airdos_tpu from the same
-descriptors and seed.
-
-Loading the DBoW2 text and binary files is not ported yet (ROADMAP port
-queue: relocalization and loop closing).
+descriptors and seed.  The DBoW2 text (ORBvoc.txt) and binary
+(to_binary.cc) files load with numpy host parsers, as in airdos_tpu; the
+text loader keeps a ``<path>.npz`` cache beside the file.
 """
 from __future__ import annotations
 
@@ -234,4 +233,120 @@ def train_vocabulary(descriptors_u8: np.ndarray, k: int = 10, depth: int = 4,
         counts[w] = len(docs)
     idf = np.log(n_docs / np.maximum(counts, 1e-9)).clip(0.01, None)
     voc.weights = idf.astype(np.float32)
+    return voc
+
+
+def _from_node_records(k: int, depth: int, parents, descs_u8, wts, leaf,
+                       device="cuda") -> Vocabulary:
+    """Assemble a Vocabulary from per-node records in DBoW2 file order
+    (node ids 1..n implied by order; word ids in leaf read order).
+    Vectorized: per-record Python loops cost minutes at ORBvoc scale
+    (~10^6 records)."""
+    parents = np.asarray(parents, np.int64)
+    leaf = np.asarray(leaf, bool)
+    wts = np.asarray(wts, np.float32)
+    n = len(parents) + 1   # + root
+    node_desc = np.zeros((n, 32), np.uint8)
+    if n > 1:
+        node_desc[1:] = np.asarray(descs_u8, np.uint8)
+    # children slots: records appear in id order, so a stable sort by
+    # parent gives each child its within-parent rank = position - first
+    # occurrence of that parent in the sorted order
+    children = np.full((n, k), -1, np.int32)
+    if n > 1:
+        ids = np.arange(1, n, dtype=np.int64)
+        order = np.argsort(parents, kind="stable")
+        ps = parents[order]
+        newp = np.empty(len(ps), bool)
+        newp[0] = True
+        newp[1:] = ps[1:] != ps[:-1]
+        first = np.maximum.accumulate(np.where(newp, np.arange(len(ps)), 0))
+        rank = np.arange(len(ps)) - first
+        if rank.size and int(rank.max()) >= k:
+            raise ValueError(f"node with more than k={k} children")
+        children[ps, rank] = ids[order].astype(np.int32)
+    word_id = np.full(n, -1, np.int32)
+    leaf_rows = np.nonzero(leaf)[0]
+    word_id[leaf_rows + 1] = np.arange(len(leaf_rows), dtype=np.int32)
+    return Vocabulary(k=k, depth=depth, node_desc32=_pack_u32(node_desc),
+                      children=children, word_id=word_id,
+                      weights=np.asarray(wts[leaf_rows], np.float32),
+                      n_words=int(len(leaf_rows)), device=device)
+
+
+_NODE_RECORD = np.dtype([("parent", "<i4"), ("desc", "u1", 32),
+                         ("weight", "<f4"), ("leaf", "u1")])
+_BINARY_HEADER = "<u4, <u4, <i4, <i4, <i4, <i4"
+
+
+def load_dbow2_binary(path: str | Path, device="cuda") -> Vocabulary:
+    """Load the DBoW2 binary format written by saveToBinaryFile /
+    Vocabulary/to_binary.cc (reference TemplatedVocabulary.h:1671-1716):
+    little-endian header [u32 n_nodes_incl_root, u32 size_node, i32 k,
+    i32 L, i32 scoring, i32 weighting], then one 41-byte record per
+    non-root node in id order: [i32 parent, 32xu8 descriptor, f32 weight,
+    u8 is_leaf]."""
+    raw = Path(path).read_bytes()
+    _, size_node, k, depth, _, _ = np.frombuffer(raw[:24],
+                                                 dtype=_BINARY_HEADER)[0]
+    if size_node != _NODE_RECORD.itemsize:
+        raise ValueError(f"unexpected DBoW2 node size {size_node}")
+    n_rec = (len(raw) - 24) // size_node
+    nodes = np.frombuffer(raw[24:24 + n_rec * size_node], dtype=_NODE_RECORD)
+    return _from_node_records(int(k), int(depth), nodes["parent"],
+                              nodes["desc"], nodes["weight"],
+                              nodes["leaf"] != 0, device=device)
+
+
+def save_dbow2_binary(voc: Vocabulary, path: str | Path):
+    """Write the DBoW2 binary format (see load_dbow2_binary): node records
+    in id order, scoring 0 (L1_NORM) and weighting 0 (TF_IDF), the DBoW2
+    defaults ORBvoc uses."""
+    n = len(voc.word_id)
+    parent = np.zeros(n, np.int32)
+    pids, slots = np.nonzero(voc.children >= 0)
+    parent[voc.children[pids, slots]] = pids
+    desc_u8 = voc.node_desc32.view(np.uint8).reshape(n, 32) \
+        if voc.node_desc32.dtype == np.uint32 else voc.node_desc32
+    nodes = np.zeros(n - 1, dtype=_NODE_RECORD)
+    nodes["parent"] = parent[1:]
+    nodes["desc"] = desc_u8[1:]
+    is_leaf = voc.word_id[1:] >= 0
+    nodes["leaf"] = is_leaf
+    wts = np.zeros(n - 1, np.float32)
+    wts[is_leaf] = voc.weights[voc.word_id[1:][is_leaf]]
+    nodes["weight"] = wts
+    with open(path, "wb") as f:
+        f.write(np.asarray([(n, _NODE_RECORD.itemsize, voc.k, voc.depth, 0,
+                             0)], dtype=_BINARY_HEADER).tobytes())
+        f.write(nodes.tobytes())
+
+
+def load_dbow2_text(path: str | Path, cache: bool = True,
+                    device="cuda") -> Vocabulary:
+    """Load the DBoW2 text format (first line: k L scoring weighting; then
+    one node per line: parent_id is_leaf d0..d31 weight), as written by
+    TemplatedVocabulary::saveToTextFile: the ORBvoc.txt format.  Parsed in
+    bulk with np.loadtxt; a one-time ``<path>.npz`` cache beside the file
+    makes later loads a single npz read."""
+    path = Path(path)
+    cache_path = path.with_suffix(path.suffix + ".npz")
+    if cache and cache_path.exists() and \
+            cache_path.stat().st_mtime >= path.stat().st_mtime:
+        return Vocabulary.load_npz(cache_path, device=device)
+    with open(path) as f:
+        header = f.readline().split()
+        k, depth = int(header[0]), int(header[1])
+        data = np.loadtxt(f, dtype=np.float64, ndmin=2)
+    if data.size == 0:
+        data = data.reshape(0, 35)
+    voc = _from_node_records(k, depth, data[:, 0].astype(np.int64),
+                             data[:, 2:34].astype(np.uint8),
+                             data[:, 34].astype(np.float32), data[:, 1] != 0,
+                             device=device)
+    if cache:
+        try:
+            voc.save_npz(cache_path)
+        except OSError:
+            pass          # read-only vocabulary directory: no cache
     return voc

@@ -10,9 +10,13 @@
   builds on the host (last-frame points, local-map candidates and their
   descriptors) -> device tensors.
 - ``vocabulary_from`` / ``map_from``: airdos_tpu's Vocabulary and SlamMap
-  (point table, keyframes, covisibility, spanning tree, observations,
-  human trajectories) copied into the port's, so that one mapping step
-  can run on identical state in both packages.
+  (point table, keyframes, covisibility, spanning tree, loop edges, BoW
+  vectors, observations, human trajectories) copied into the port's, so
+  that one mapping step can run on identical state in both packages;
+- ``loop_closer_state_from``: an airdos_tpu LoopCloser's detection state
+  (consistent groups, last loop keyframe, the RANSAC generator's state)
+  copied into the port's, so both packages' loop closers continue from
+  one point.
 
 Nothing here imports jax: airdos_tpu objects are read through their
 dataclass fields and numpy arrays.
@@ -105,8 +109,10 @@ def map_from(src):
     """A SlamMap of either package -> an independent copy as this
     package's SlamMap: every point column and observation dict, and every
     keyframe attribute (poses, measurements, feature->point table,
-    covisibility, spanning tree, culling state, BoW) and every human
-    trajectory with its poses by value."""
+    covisibility, spanning tree, loop edges, culling state, BoW vector,
+    word and node ids) and every human trajectory with its poses by value.
+    A keyframe's membership of the source's keyframe database is not
+    carried: the copy is in no database until one adds it."""
     from airdos_tpu_torch.slam.map import (HumanPose, HumanTrajectory,
                                            KeyFrame, SlamMap)
     m = SlamMap()
@@ -119,7 +125,8 @@ def map_from(src):
     for kid, skf in src.kfs.items():
         kf = KeyFrame.__new__(KeyFrame)
         for k, v in vars(skf).items():
-            setattr(kf, k, _host_copy(v))
+            if k != "_in_db":
+                setattr(kf, k, _host_copy(v))
         m.kfs[kid] = kf
     for tid, straj in src.trajectories.items():
         traj = HumanTrajectory(tid)
@@ -135,3 +142,15 @@ def map_from(src):
     m.next_kf_id = src.next_kf_id
     m.max_kf_id = src.max_kf_id
     return m
+
+
+def loop_closer_state_from(src, dst) -> None:
+    """Copy a LoopCloser's detection state (either package's) into dst:
+    the covisibility groups that count consecutive detections, the last
+    loop keyframe, the closed-loop count and the numpy Generator the Sim3
+    RANSAC draws its samples from."""
+    dst._consistent_groups = [(set(g), int(c))
+                              for g, c in src._consistent_groups]
+    dst._last_loop_kf = src._last_loop_kf
+    dst.n_loops_closed = src.n_loops_closed
+    dst.rng.bit_generator.state = copy.deepcopy(src.rng.bit_generator.state)

@@ -132,6 +132,85 @@ def se3_inverse(R, t):
     return Rt, -_mv(Rt, t)
 
 
+def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion [..., 4] (x, y, z, w — TUM order) -> rotation matrix."""
+    q = q / torch.clamp(torch.linalg.norm(q, dim=-1, keepdim=True), min=1e-12)
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w),
+                     2 * (x * z + y * w)], dim=-1),
+        torch.stack([2 * (x * y + z * w), 1 - 2 * (x * x + z * z),
+                     2 * (y * z - x * w)], dim=-1),
+        torch.stack([2 * (x * z - y * w), 2 * (y * z + x * w),
+                     1 - 2 * (x * x + y * y)], dim=-1),
+    ], dim=-2)
+
+
+# ---------------------------------------------------------------- Sim(3)
+
+def sim3_compose(Ra, ta, sa, Rb, tb, sb):
+    """x -> sa Ra (sb Rb x + tb) + ta."""
+    return torch.matmul(Ra, Rb), sa[..., None] * _mv(Ra, tb) + ta, sa * sb
+
+
+def sim3_inverse(R, t, s):
+    Rt = R.transpose(-1, -2)
+    s_inv = 1.0 / s
+    return Rt, -s_inv[..., None] * _mv(Rt, t), s_inv
+
+
+def _sim3_V(w: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+    """The Sim(3) V matrix [..., 3, 3] of g2o's sim3.h (t = V upsilon) in
+    its three regimes."""
+    s = torch.exp(sigma)
+    theta2 = torch.sum(w * w, dim=-1)
+    theta = torch.sqrt(theta2 + _EPS * _EPS)
+    W = so3_hat(w)
+    W2 = torch.matmul(W, W)
+    one = torch.ones_like(sigma)
+    small_s = torch.abs(sigma) < 1e-6
+    small_t = theta2 < 1e-8
+    sigma_safe = torch.where(small_s, one, sigma)
+    a = torch.where(small_s & small_t, one, sigma * sigma + theta2)
+    s_cos = s * torch.cos(theta)
+    s_sin = s * torch.sin(theta)
+    c1 = (s - 1.0) / sigma_safe
+    B_gen = (sigma * s_sin + theta * (1.0 - s_cos)) / (theta * a)
+    C_gen = (c1 - ((s_cos - 1.0) * sigma + s_sin * theta) / a) / \
+        torch.where(small_t, one, theta2)
+    # sigma ~ 0: V is the SE(3) left Jacobian
+    B_se3 = torch.where(small_t, 0.5 - theta2 / 24.0,
+                        (1.0 - torch.cos(theta)) / (theta2 + _EPS))
+    C_se3 = torch.where(small_t, 1.0 / 6.0 - theta2 / 120.0,
+                        (theta - torch.sin(theta)) / (theta2 * theta + _EPS))
+    # sigma != 0, theta ~ 0
+    B_sig = ((sigma - 1.0) * s + 1.0) / (sigma_safe * sigma_safe)
+    A = torch.where(small_s, one, c1)
+    B = torch.where(small_s, B_se3, torch.where(small_t, B_sig, B_gen))
+    C = torch.where(small_s, C_se3,
+                    torch.where(small_t, torch.zeros_like(C_gen), C_gen))
+    return A[..., None, None] * _eye_like(W) + B[..., None, None] * W + \
+        C[..., None, None] * W2
+
+
+def sim3_exp(xi: torch.Tensor):
+    """Tangent [..., 7] ([upsilon, omega, sigma]) -> (R, t, s)."""
+    v, w, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6]
+    return so3_exp(w), _mv(_sim3_V(w, sigma), v), torch.exp(sigma)
+
+
+def sim3_log(R, t, s):
+    """(R, t, s) -> tangent [..., 7], the inverse of sim3_exp: V from
+    (w, sigma), then V v = t solved.  (airdos_tpu rebuilds V column by
+    column by probing sim3_exp with the basis vectors: the same values, in
+    three times the operations.)"""
+    w = so3_log(R)
+    sigma = torch.log(s)
+    V = _sim3_V(w, sigma)
+    v = torch.linalg.solve(V, t[..., None])[..., 0]
+    return torch.cat([v, w, sigma[..., None]], dim=-1)
+
+
 # ------------------------------------------------------- numpy (host-side)
 def se3_log_np(R, t):
     """Host-side SE3 log for single poses (the per-frame velocity

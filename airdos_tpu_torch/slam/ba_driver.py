@@ -14,11 +14,16 @@ Rebuild of airdos_tpu/slam/ba_driver.py's offline mapping drivers:
   with the bIsLost / bIsBad / bOptimized flags written back.  Synchronous
   (offline); airdos_tpu's online thread and chunked schedule are not
   ported (ROADMAP port queue: online mode).
+- GlobalBA: GlobalBundleAdjustemnt after a loop closure (Optimizer.cc:
+  52-230, LoopClosing.cc:645-749): every keyframe and every live point,
+  in airdos_tpu's schedule of four solver calls of five steps.
+  Synchronous; airdos_tpu's background thread and its abort
+  (``launch`` / ``interrupt`` / ``join``) belong to online mode (ROADMAP
+  port queue: online mode).
 
 Each driver assembles its problem on the host, runs it on the device with
 no host read inside, and copies its result back once.  ``map_lock`` guards
-assembly and write-back (None offline).  The global BA is not ported yet
-(ROADMAP port queue: relocalization and loop closing).
+assembly and write-back (None offline).
 
 Problems keep airdos_tpu's padded sizes (the sticky power-of-two buckets
 below).  Eager torch compiles nothing, so the buckets no longer save
@@ -40,6 +45,7 @@ from airdos_tpu_torch.matching.epipolar import triangulate_pair
 from airdos_tpu_torch.matching.fuse import fuse_candidates
 from airdos_tpu_torch.slam.map import (BODY1, BODY2, MAIN_SKELETON, N_PARTS,
                                        TH_LONG_TRAJECTORY, KeyFrame, SlamMap)
+from airdos_tpu_torch.solvers.global_ba import global_bundle_adjust
 from airdos_tpu_torch.solvers.human_ba import human_bundle_adjust
 from airdos_tpu_torch.solvers.local_ba import local_bundle_adjust
 from airdos_tpu_torch.utils.obs import span
@@ -435,6 +441,76 @@ class Fuser:
         self._pb = _StickyBucket(
             _steady_start(config.orb.n_features, 1.5, 1024, self.P), self.P)
 
+    # airdos_tpu's Fuser.warmup compiles the single-target program outside
+    # the map lock before a loop correction; eager torch compiles nothing,
+    # so the port has no warmup.
+
+    def _fuse_into(self, point_ids: List[int], target: KeyFrame,
+                   prefer_candidates: bool = False):
+        """Fuse map points into one keyframe (the loop-closing path's
+        SearchAndFuse, reference LoopClosing.cc:587): one launch of the
+        batched fuse with a batch of one target.  prefer_candidates: a
+        conflict keeps the candidate point instead of the more-observed
+        one."""
+        m = self.map
+        pt = m.points
+        point_ids = [p for p in point_ids if not pt.bad[p]
+                     and target.id not in pt.obs[p]][: self.P]
+        if not point_ids:
+            return
+        n = len(point_ids)
+        P = self._pb.fit(n)
+        ids = np.asarray(point_ids)
+        xw = np.zeros((P, 3), np.float32)
+        desc = np.zeros((P, 8), np.uint32)
+        normal = np.zeros((P, 3), np.float32)
+        mind = np.zeros(P, np.float32)
+        maxd = np.zeros(P, np.float32)
+        valid = np.zeros((1, P), bool)
+        xw[:n] = pt.pos[ids]
+        desc[:n] = pt.desc32[ids]
+        normal[:n] = pt.normal[ids]
+        mind[:n] = pt.min_dist[ids]
+        maxd[:n] = pt.max_dist[ids]
+        valid[0, :n] = True
+        d = self.device
+
+        def one(a, dtype=None):
+            return to_device(np.asarray(a)[None], d, dtype)
+
+        feat_idx = fuse_candidates(
+            to_device(xw, d), desc_to_tensor(desc, d), to_device(valid, d),
+            to_device(normal, d), to_device(maxd, d), to_device(mind, d),
+            one(target.Rcw, np.float32), one(target.tcw, np.float32),
+            one(target.Ow, np.float32), one(target.xy_un),
+            one(target.u_right), one(target.octave, np.int64),
+            desc_to_tensor(target.desc32[None], d), one(target.valid),
+            self.fx, self.fy, self.cx, self.cy, self.bf,
+            self.width, self.height,
+            to_device(self.scale_factors, d), to_device(self.sigma2, d),
+            self.log_scale, self.n_levels).feat_idx[0].cpu().numpy()
+        touched = []
+        for i in np.nonzero(feat_idx[:n] >= 0)[0]:
+            fid = int(feat_idx[i])
+            pid = int(ids[i])
+            if pt.bad[pid]:
+                continue
+            existing = int(target.mp_idx[fid])
+            if existing >= 0 and not pt.bad[existing]:
+                if existing == pid:
+                    continue
+                if prefer_candidates or pt.n_obs[pid] >= pt.n_obs[existing]:
+                    m.replace_point(existing, pid)
+                    touched.append(pid)
+                else:
+                    m.replace_point(pid, existing)
+                    touched.append(existing)
+            else:
+                m.add_observation(pid, target, fid)
+                touched.append(pid)
+        m.update_point_descriptors(touched)
+        m.update_points_normal_depth(touched)
+
     def _assemble_neighborhood(self, kf: KeyFrame, targets: List[KeyFrame]):
         m = self.map
         pt = m.points
@@ -823,3 +899,170 @@ class HumanLocalBA:
                     mb = mot_bad[t, li]
                     hp.lost[MAIN_SKELETON[mb]] = True
                     traj.bad_count += int(mb.sum())
+
+
+def solve_global_ba(cam_R, cam_t, cam_fixed, pts, pvalid,
+                    e_cam, e_pt, e_obs, e_info, e_valid, fx, fy, cx, cy, bf,
+                    n_iters: int = 20, chunk: int = 5, cg_iters: int = 48):
+    """airdos_tpu's GlobalBA schedule (slam/ba_driver.py:1256-1274) on
+    device tensors: solver calls of `chunk` steps, the first with
+    chunk // 2 Huber steps then the rest plain, the later ones plain only.
+    Each call is a fresh global_bundle_adjust (lambda restarts at 1e-6,
+    the inlier set and the starting cost are recomputed), so the chunks
+    are not one 20-step solve.  launches_per_step(cg_iters) segment sums
+    a step.  Returns (R, t, points) on the device."""
+    R, t, ps = cam_R, cam_t, pts
+    for ci in range(max(1, -(-n_iters // chunk))):
+        i1 = chunk // 2 if ci == 0 else 0          # Huber phase only first
+        res = global_bundle_adjust(
+            R, t, cam_fixed, ps, pvalid, e_cam, e_pt, e_obs, e_info, e_valid,
+            fx, fy, cx, cy, bf, iters1=i1, iters2=chunk - i1,
+            cg_iters=cg_iters)
+        R, t, ps = res.R, res.t, res.points
+    return R, t, ps
+
+
+def propagate_to_children(m: SlamMap, old_pose, new_pose) -> None:
+    """Give every live keyframe that a solve did not hold (a key of neither
+    dict) its pose before (old_pose) and after (new_pose): it keeps its
+    pose relative to its spanning-tree parent, or stays where it is when
+    the parent was not moved.  Children have larger ids than parents, so
+    increasing-id order corrects the parent first."""
+    for k in sorted((k for k in m.kfs.values() if not k.bad),
+                    key=lambda k: k.id):
+        if k.id in new_pose:
+            continue
+        old_pose[k.id] = (k.Rcw.copy(), k.tcw.copy())
+        par = k.parent
+        if par is None or par not in new_pose:
+            new_pose[k.id] = (k.Rcw.copy(), k.tcw.copy())
+            continue
+        Rp_o, tp_o = old_pose[par]
+        Rp_n, tp_n = new_pose[par]
+        Rcp = k.Rcw @ Rp_o.T
+        tcp = k.tcw - Rcp @ tp_o
+        new_pose[k.id] = (Rcp @ Rp_n, Rcp @ tp_n + tcp)
+
+
+class GlobalBA:
+    """Full-map bundle adjustment (reference Optimizer::GlobalBundleAdjustemnt
+    + LoopClosing::RunGlobalBundleAdjustment, Optimizer.cc:52-230,
+    LoopClosing.cc:645-749): EVERY keyframe (KF0 fixed) and EVERY live map
+    point, sized to the map through grow-only buckets (matrix-free Schur
+    + PCG, O(edges) memory), not truncated."""
+
+    def __init__(self, config: SlamConfig, slam_map: SlamMap, extractor,
+                 device, max_kfs: int = 4096, max_points: int = 1 << 20,
+                 max_edges: int = 1 << 22):
+        self.config = config
+        self.map = slam_map
+        self.device = torch.device(device)
+        self.profiler = None
+        self.n_runs = 0               # completed passes (write-back done)
+        cam = config.camera
+        self.fx, self.fy, self.cx, self.cy, self.bf = \
+            cam.fx, cam.fy, cam.cx, cam.cy, cam.bf
+        self.inv_sigma2 = (1.0 / extractor.sigma2).astype(np.float32)
+        self.max_kfs = max_kfs
+        self.max_points = max_points
+        self._cb = _StickyBucket(16, max_kfs)
+        self._pb = _StickyBucket(1024, max_points)
+        self._eb = _StickyBucket(4096, max_edges)
+
+    def __call__(self, n_iters: int = 20):
+        """assemble -> chunked solve -> write-back (with propagation to
+        keyframes and points the problem did not hold)."""
+        with span(self.profiler, "gba.assemble"):
+            problem = self._assemble()
+        if problem is None:
+            return
+        with span(self.profiler, "gba.solve"):
+            out = self._solve(problem, n_iters)
+        with span(self.profiler, "gba.writeback"):
+            self._write_back(problem, out)
+        self.n_runs += 1
+
+    def _assemble(self):
+        m = self.map
+        pt = m.points
+        kfs = sorted((k for k in m.kfs.values() if not k.bad),
+                     key=lambda k: k.id)
+        if len(kfs) < 2:
+            return None
+        if len(kfs) > self.max_kfs:
+            warnings.warn(f"GlobalBA: map has {len(kfs)} keyframes, above "
+                          f"the {self.max_kfs} budget; truncating")
+            kfs = kfs[: self.max_kfs]
+        cam_index = {k.id: i for i, k in enumerate(kfs)}
+        point_ids = np.asarray(pt.live_ids(),
+                               dtype=np.int64)[: self.max_points]
+        if len(point_ids) < 10:
+            return None
+        C = self._cb.fit(len(kfs))
+        P = self._pb.fit(len(point_ids))
+
+        cam_R = np.tile(np.eye(3, dtype=np.float32), (C, 1, 1))
+        cam_t = np.zeros((C, 3), np.float32)
+        cam_fixed = np.ones(C, bool)
+        for k in kfs:
+            i = cam_index[k.id]
+            cam_R[i] = k.Rcw
+            cam_t[i] = k.tcw
+            cam_fixed[i] = (k.id == 0)
+        pts = np.zeros((P, 3), np.float32)
+        pvalid = np.zeros(P, bool)
+        pts[:len(point_ids)] = pt.pos[point_ids]
+        pvalid[:len(point_ids)] = True
+
+        sel = point_slot_lookup(m, point_ids)
+        ec, ep, eo, ei, _, _, _ = assemble_edges(
+            m, [k.id for k in kfs], sel, self.inv_sigma2)
+        e_cam, e_pt, e_obs, e_info, e_valid, _ = pad_edge_table(
+            ec, ep, eo, ei, self._eb.fit(len(ec)))
+        return dict(cam_index=cam_index, point_ids=point_ids,
+                    cam_R0=cam_R.copy(), cam_t0=cam_t.copy(),
+                    arrays=(cam_R, cam_t, cam_fixed, pts, pvalid,
+                            e_cam, e_pt, e_obs, e_info, e_valid))
+
+    def _solve(self, problem, n_iters: int = 20):
+        """The chunked solve on the device and one copy back."""
+        d = self.device
+        arrays = [to_device(a, d) for a in problem["arrays"]]
+        R, t, ps = solve_global_ba(*arrays, self.fx, self.fy, self.cx,
+                                   self.cy, self.bf, n_iters=n_iters)
+        C, P = R.shape[0], ps.shape[0]
+        flat = torch.cat([R.reshape(-1), t.reshape(-1),
+                          ps.reshape(-1)]).cpu().numpy()
+        return (flat[:9 * C].reshape(C, 3, 3),
+                flat[9 * C:12 * C].reshape(C, 3), flat[12 * C:].reshape(P, 3))
+
+    def _write_back(self, problem, res):
+        """Write solved poses and points; keyframes and points the problem
+        did not hold are moved with their parent / reference keyframe
+        (reference LoopClosing.cc:682-743, the mTcwBefGBA walk)."""
+        m = self.map
+        pt = m.points
+        cam_index = problem["cam_index"]
+        point_ids = problem["point_ids"]
+        R_out, t_out, pts_out = res
+        R0, t0 = problem["cam_R0"], problem["cam_t0"]
+        old_pose = {kid: (R0[i], t0[i]) for kid, i in cam_index.items()}
+        new_pose = {kid: (R_out[i], t_out[i]) for kid, i in cam_index.items()}
+        propagate_to_children(m, old_pose, new_pose)
+        for k in m.kfs.values():
+            if k.bad or k.id not in new_pose or k.id == 0:
+                continue
+            k.set_pose(*new_pose[k.id])
+        pt.pos[point_ids] = pts_out[:len(point_ids)]
+        solved = set(point_ids.tolist())
+        for p in pt.live_ids():
+            p = int(p)
+            if p in solved:
+                continue
+            ref = int(pt.ref_kf[p])
+            if ref not in old_pose:
+                continue
+            Ro, to = old_pose[ref]
+            Rn, tn = new_pose[ref]
+            pt.pos[p] = Rn.T @ (Ro @ pt.pos[p] + to - tn)
+        m.update_points_normal_depth(point_ids)

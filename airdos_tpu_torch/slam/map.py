@@ -499,6 +499,7 @@ def load_map(path) -> "SlamMap":
         kf.children = set(kb["children"])
         kf.loop_edges = set(kb["loop_edges"])
         kf.n_slots = kf.xy.shape[0]
+        kf._ow = None
         kf.not_erase = False
         kf.to_be_erased = False
         kf.bow = None

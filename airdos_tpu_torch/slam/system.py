@@ -8,14 +8,18 @@
     slam.shutdown()
     slam.save_trajectory_tum("traj.txt")
 
-This runs airdos_tpu's offline System: tracking, and at each new
-keyframe, inline, the local-mapping pass (point culling, triangulation,
-fusion, Schur local BA, keyframe culling, the scene vocabulary trained at
-the first keyframes, and the keyframe database that BoW reference-KF
-tracking reads).  With Human.ok the human layer runs too: masked ORB
+This runs airdos_tpu's offline System: tracking (relocalizing when
+LOST), and at each new keyframe, inline, the local-mapping pass (point
+culling, triangulation, fusion, Schur local BA, keyframe culling, the
+scene vocabulary trained at the first keyframes, or the one
+``vocabulary_path`` names, and the keyframe database that BoW tracking
+and relocalization read), then, with ``enable_loop_closing``, loop
+closing (detection, Sim3, correction through the essential graph and the
+global BA).  With Human.ok the human layer runs too: masked ORB
 extraction (System.IsMask), stereo human association, human poses
 entering the map, and the human-trajectory BA every Camera.fps frames.
-The rest of airdos_tpu's System raises NotImplementedError naming the
+``save_map`` / ``load_map`` checkpoint the map in airdos_tpu's format.
+Online mode (``is_offline=False``) raises NotImplementedError naming the
 ROADMAP item that brings it.
 """
 from __future__ import annotations
@@ -30,7 +34,7 @@ import numpy as np
 from airdos_tpu_torch.config import SlamConfig
 from airdos_tpu_torch.io.datasets import FrameData
 from airdos_tpu_torch.io.tum import write_trajectory_kitti, write_trajectory_tum
-from airdos_tpu_torch.slam.ba_driver import (Fuser, HumanLocalBA,
+from airdos_tpu_torch.slam.ba_driver import (Fuser, GlobalBA, HumanLocalBA,
                                              StaticLocalBA, Triangulator)
 from airdos_tpu_torch.slam.frame import FrontEnd
 from airdos_tpu_torch.slam.local_mapping import LocalMapper
@@ -40,18 +44,9 @@ from airdos_tpu_torch.utils.obs import EventLog, Profiler, span
 
 
 def _check_scope(config: SlamConfig) -> None:
-    limits = (
-        (not config.system.is_offline, "is_offline=False: online mode "
-                                       "(ROADMAP port queue, online mode)"),
-        (bool(config.vocabulary_path), "vocabulary_path: loading a DBoW2 "
-                                       "vocabulary (ROADMAP port queue, "
-                                       "relocalization and loop closing)"),
-        (config.loop_closing_active, "loop closing (ROADMAP port queue, "
-                                     "relocalization and loop closing)"),
-    )
-    for hit, what in limits:
-        if hit:
-            raise NotImplementedError(f"not ported yet: {what}")
+    if not config.system.is_offline:
+        raise NotImplementedError("not ported yet: is_offline=False: online "
+                                  "mode (ROADMAP port queue, online mode)")
 
 
 class System:
@@ -67,6 +62,7 @@ class System:
         ext = self.frontend.extractor
         self.static_ba = StaticLocalBA(config, self.map, ext,
                                        device=self.device)
+        self.global_ba = GlobalBA(config, self.map, ext, device=self.device)
         self.local_mapper.triangulator = Triangulator(
             config, self.map, ext, self.local_mapper, device=self.device)
         self.local_mapper.fuser = Fuser(config, self.map, ext,
@@ -76,17 +72,32 @@ class System:
             if config.human.ok else None
         self._frame_count = 0
         self._last_human_ba_frame = 0
-        # place recognition: a scene vocabulary trained lazily from the
-        # first keyframes' descriptors, then the keyframe database
-        self.vocabulary = None
-        self.keyframe_db = None
         self.track_times: List[float] = []
         self.profiler = Profiler()
         self.events = EventLog()
         self.static_ba.profiler = self.profiler
+        self.global_ba.profiler = self.profiler
         self.tracking.profiler = self.profiler
+        self.tracking.events = self.events
         if self.human_ba is not None:
             self.human_ba.profiler = self.profiler
+        # place recognition: the vocabulary vocabulary_path names (by
+        # suffix, as the reference's System.cc:56-67), or a scene
+        # vocabulary trained lazily from the first keyframes' descriptors;
+        # then the keyframe database and the loop closer
+        self.vocabulary = None
+        self.keyframe_db = None
+        self.loop_closer = None
+        if config.vocabulary_path:
+            from airdos_tpu_torch.bow.vocabulary import (Vocabulary,
+                                                         load_dbow2_binary,
+                                                         load_dbow2_text)
+            p = str(config.vocabulary_path)
+            load = (Vocabulary.load_npz if p.endswith(".npz")
+                    else load_dbow2_binary if p.endswith(".bin")
+                    else load_dbow2_text)
+            self.vocabulary = load(p, device=self.device)
+            self._init_place_recognition()
 
     # ----------------------------------------------------------------- api
     def track_stereo(self, data: FrameData):
@@ -99,9 +110,16 @@ class System:
 
     def _init_place_recognition(self):
         from airdos_tpu_torch.slam.keyframe_db import KeyFrameDatabase
+        from airdos_tpu_torch.slam.loop_closing import LoopCloser
         self.keyframe_db = KeyFrameDatabase(self.vocabulary, self.map)
         self.tracking.keyframe_db = self.keyframe_db
         self.local_mapper.keyframe_db = self.keyframe_db
+        self.loop_closer = LoopCloser(self.config, self.map, self.keyframe_db,
+                                      self.frontend.extractor, self.device,
+                                      fuser=self.local_mapper.fuser,
+                                      global_ba=self.global_ba)
+        self.loop_closer.profiler = self.profiler
+        self.loop_closer.events = self.events
         for kf in self.map.kfs.values():
             if not kf.bad:
                 self.keyframe_db.add(kf)
@@ -142,7 +160,12 @@ class System:
             lm.cull_keyframes(prev_kf)
         with span(self.profiler, "map.vocab"):
             self._maybe_train_vocabulary()
-        if self.keyframe_db is not None and not prev_kf.bad:
+        if self.keyframe_db is None or prev_kf.bad:
+            return
+        if self.config.loop_closing_active:
+            with span(self.profiler, "map.loop_closing"):
+                self.loop_closer.process(prev_kf)
+        else:
             self.keyframe_db.add(prev_kf)
 
     def _to_gray(self, img: np.ndarray) -> np.ndarray:
@@ -258,6 +281,31 @@ class System:
                 row = " ".join(f"{v:.7f}" for v in
                                np.hstack([R, t[:, None]]).reshape(-1))
                 f.write(f"{tid} {row}\n")
+
+    def save_map(self, path: str):
+        """Checkpoint the whole map (keyframes, points, humans) to one .npz
+        in airdos_tpu's format."""
+        from airdos_tpu_torch.slam.map import save_map
+        save_map(self.map, path)
+
+    def load_map(self, path: str):
+        """Resume from a checkpoint (this package's or airdos_tpu's):
+        tracking starts LOST and relocalizes against the loaded map.  The
+        keyframe database is rebuilt from the loaded keyframes (a System
+        without a vocabulary trains its scene vocabulary from them);
+        airdos_tpu leaves its database as it was, so a fresh airdos_tpu
+        System stays LOST after load_map."""
+        from airdos_tpu_torch.slam.map import load_map
+        self.map.__dict__.update(load_map(path).__dict__)
+        self.tracking.state = TrackState.LOST
+        self.tracking.last_kf_id = max(self.map.kfs) if self.map.kfs else -1
+        if self.vocabulary is None:
+            self._maybe_train_vocabulary()
+        elif self.keyframe_db is not None:
+            self.keyframe_db.clear()
+            for kf in self.map.kfs.values():
+                if not kf.bad:
+                    self.keyframe_db.add(kf)
 
     def shutdown(self):
         """Offline mode runs no background work; waits for the device to

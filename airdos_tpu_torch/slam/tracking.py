@@ -9,10 +9,12 @@ grabbing of the human layer.  Reference-KF tracking matches by BoW once
 System has a keyframe database, else by a wide projection search.
 
 Host Python owns the state machine and the integer bookkeeping; the dense
-steps (front end, projection and BoW matching, pose LM) run on the front
-end's torch device.  Relocalization raises NotImplementedError naming its
-ROADMAP port-queue item; the temporary visual-odometry points of
-localization-only mode are not here.
+steps (front end, projection and BoW matching, EPnP RANSAC, pose LM) run
+on the front end's torch device.  A LOST frame relocalizes: BoW
+candidates -> SearchByBoW -> EPnP RANSAC -> pose LM -> projective
+expansion, accepted at >= 50 inliers.  The temporary visual-odometry
+points of localization-only mode are not here (ROADMAP port queue:
+online mode).
 """
 from __future__ import annotations
 
@@ -27,10 +29,12 @@ from airdos_tpu_torch.convert import desc_to_tensor, step_tables_to_device, \
     to_device
 from airdos_tpu_torch.geometry.se3 import se3_exp_np, se3_log_np
 from airdos_tpu_torch.matching.bow_match import match_by_bow
+from airdos_tpu_torch.matching.projection import match_last_frame
 from airdos_tpu_torch.slam.frame import Frame, FrontEnd
 from airdos_tpu_torch.slam.fused import (local_map_step, make_full_track_step,
                                          motion_model_step)
 from airdos_tpu_torch.slam.map import HumanPose, KeyFrame, SlamMap
+from airdos_tpu_torch.solvers.epnp import epnp_ransac
 from airdos_tpu_torch.solvers.pose_opt import pose_optimize
 from airdos_tpu_torch.utils.obs import span
 
@@ -94,6 +98,10 @@ class Tracking:
         self.velocity: Optional[tuple] = None       # (R, t) of Tcl (cur<-last)
         self.last_branch = "none"                   # which track path ran
         self.last_kf_id = -1
+        self.last_reloc_frame = -1e9
+        self.reloc_tried = 0             # candidates the last attempt tried
+        self.reloc_inliers = 0           # its last EPnP RANSAC inlier count
+        self.events = None               # set by System (its EventLog)
         self.records: List[FrameRecord] = []
         self.n_inliers = 0
         self.max_local_points = config.device.max_local_points
@@ -104,7 +112,12 @@ class Tracking:
         frame = None
         fast_ok = None
         self._reanchor_last_frame()
-        if self.state == TrackState.OK and self.velocity is not None:
+        # the motion model is unusable right after relocalization (the
+        # velocity spans a lost pose): reference-KF tracking for two frames
+        # (reference Tracking.cc:587: mnId < mnLastRelocFrameId + 2)
+        just_relocalized = data.index < self.last_reloc_frame + 2
+        if self.state == TrackState.OK and self.velocity is not None \
+                and not just_relocalized:
             frame, fast_ok = self._track_fast(data)
         if frame is None:
             frame = self.frontend.build_frame(data)
@@ -449,10 +462,147 @@ class Tracking:
         return n_real >= 10
 
     def _relocalization(self, frame: Frame) -> bool:
-        raise NotImplementedError(
-            "relocalization is not ported yet (ROADMAP port queue: "
-            "relocalization and loop closing); tracking was lost with more "
-            "than 5 keyframes in the map")
+        """BoW candidate retrieval + EPnP-RANSAC + pose refinement
+        (reference Tracking::Relocalization, Tracking.cc:1493-1654),
+        falling back to reference-KF tracking when there is no database."""
+        if self.keyframe_db is not None and self.map.kfs:
+            if self._relocalize_bow(frame):
+                self.last_reloc_frame = frame.index
+                if self.events is not None:
+                    self.events.emit("relocalized", frame=frame.index,
+                                     ref_kf=frame.ref_kf_id)
+                return True
+        if self.last_frame is None:
+            return False
+        return self._track_reference_keyframe(frame)
+
+    def _relocalize_bow(self, frame: Frame) -> bool:
+        """The reference protocol: BoW candidates -> per candidate
+        SearchByBoW >= 15 -> EPnP RANSAC -> pose opt -> projective
+        expansion at 10 px / ORB distance 100 when < 50 inliers -> re-opt
+        -> a narrow 3 px / 64 expansion when still 30..50 -> accepted only
+        with >= 50 inliers.  The RANSAC samples come from
+        np.random.default_rng(frame index), as in airdos_tpu."""
+        db = self.keyframe_db
+        bow, _, fnodes = db.voc.transform(frame.desc32, frame.valid)
+        frame.feat_nodes = fnodes
+        cands = db.detect_reloc_candidates(bow)
+        pt = self.map.points
+        rng = np.random.default_rng(frame.index)
+        d = self.device
+        fd = frame.dev
+        self.reloc_tried = 0
+        self.reloc_inliers = 0
+        # every candidate until one passes (Tracking.cc:1516-1654)
+        for kid in cands:
+            kf = self.map.kfs.get(kid)
+            if kf is None or kf.bad:
+                continue
+            self.reloc_tried += 1
+            db.ensure_bow(kf)
+            m = match_by_bow(
+                desc_to_tensor(kf.desc32, d),
+                to_device(kf.feat_nodes, d, np.int64), to_device(kf.valid, d),
+                to_device(kf.angle, d, np.float32),
+                fd["desc32"], to_device(fnodes, d, np.int64), fd["valid"],
+                fd["angle"])
+            idx2 = m.idx2.cpu().numpy()
+            rows = []
+            for f1 in np.nonzero(idx2 >= 0)[0]:
+                pid = int(kf.mp_idx[f1])
+                if pid >= 0 and not pt.bad[pid]:
+                    rows.append((pid, int(idx2[f1])))
+            if len(rows) < 15:
+                continue
+            n = len(rows)
+            pw = pt.pos[[r[0] for r in rows]].astype(np.float32)
+            feat_ids = np.asarray([r[1] for r in rows])
+            uv = frame.xy_un[feat_ids].astype(np.float32)
+            max_err2 = (5.991 / self.inv_sigma2[frame.octave[feat_ids]]) \
+                .astype(np.float32)
+            samples = rng.integers(
+                0, n, (self.config.device.ransac_hypotheses, 4)) \
+                .astype(np.int32)
+            res = epnp_ransac(to_device(pw, d), to_device(uv, d),
+                              torch.ones(n, dtype=torch.bool, device=d),
+                              to_device(max_err2, d), to_device(samples, d),
+                              self.fx, self.fy, self.cx, self.cy)
+            flat = torch.cat([res.R.reshape(-1), res.t,
+                              res.inliers.to(res.t.dtype)]).cpu().numpy()
+            inl = flat[12:] > 0.5
+            self.reloc_inliers = int(inl.sum())
+            if int(inl.sum()) < 10:
+                continue
+            frame.mp_idx[:] = -1
+            frame.set_pose(flat[:9].reshape(3, 3), flat[9:12])
+            for (pid, fid), keep in zip(rows, inl):
+                if keep:
+                    frame.mp_idx[fid] = pid
+            n_good = self._opt_pose_with_assoc(frame)
+            if n_good < 10:
+                frame.mp_idx[:] = -1
+                continue
+            if n_good < 50:
+                # first projective expansion: 10 px window, ORB dist 100
+                added = self._reloc_expand(frame, kf, th=10.0, orb_dist=100)
+                if n_good + added >= 50:
+                    n_good = self._opt_pose_with_assoc(frame)
+                    if 30 < n_good < 50:
+                        # narrow second expansion: 3 px window, ORB dist 64
+                        self._reloc_expand(frame, kf, th=3.0, orb_dist=64)
+                        n_good = self._opt_pose_with_assoc(frame)
+            if n_good >= 50:
+                frame.ref_kf_id = kid
+                return True
+            frame.mp_idx[:] = -1
+        return False
+
+    def _reloc_expand(self, frame: Frame, kf, th: float, orb_dist: int) -> int:
+        """Project the candidate KF's map points not yet matched into the
+        frame and add matches within th px and Hamming <= orb_dist
+        (ORBmatcher::SearchByProjection's relocalization variant,
+        ORBmatcher.cc:1472-1599)."""
+        pt = self.map.points
+        already = set(int(p) for p in frame.mp_idx[frame.mp_idx >= 0])
+        xw = np.zeros((kf.n_slots, 3), np.float32)
+        valid = np.zeros(kf.n_slots, bool)
+        desc_p = np.zeros((kf.n_slots, 8), np.uint32)
+        for fid in np.nonzero(kf.mp_idx >= 0)[0]:
+            pid = int(kf.mp_idx[fid])
+            if pid in already or pt.bad[pid]:
+                continue
+            xw[fid] = pt.pos[pid]
+            desc_p[fid] = pt.desc32[pid]
+            valid[fid] = True
+        if not valid.any():
+            return 0
+        d = self.device
+        fd = frame.dev
+        out = match_last_frame(
+            to_device(xw, d), desc_to_tensor(desc_p, d),
+            to_device(kf.octave, d, np.int64),
+            to_device(kf.angle, d, np.float32), to_device(valid, d),
+            to_device(frame.Rcw, d, np.float32),
+            to_device(frame.tcw, d, np.float32),
+            fd["xy_un"], fd["u_right"], fd["octave"], fd["angle"],
+            fd["desc32"], to_device(frame.valid, d),
+            to_device(frame.mp_idx >= 0, d),
+            self.fx, self.fy, self.cx, self.cy, self.bf,
+            self.width, self.height,
+            self._scale_factors_dev, th, False, False)
+        both = torch.stack([out.feat_idx, out.dist.to(torch.int64)]) \
+            .cpu().numpy()
+        feat_idx, dist = both[0], both[1]
+        added = 0
+        for src in np.nonzero(feat_idx >= 0)[0]:
+            if dist[src] > orb_dist:
+                continue
+            pid = int(kf.mp_idx[src])
+            fid = int(feat_idx[src])
+            if pid >= 0 and not pt.bad[pid] and frame.mp_idx[fid] < 0:
+                frame.mp_idx[fid] = pid
+                added += 1
+        return added
 
     def _opt_pose_with_assoc(self, frame: Frame) -> int:
         """Motion-only BA over the frame's current associations; outliers

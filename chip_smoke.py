@@ -33,7 +33,31 @@ Run from the repository root.  Phases, each of which fails the run:
    and < 0.03 m; prints both ATEs, the human BA's reduced dimension D, the
    per-frame latency of tracking, keyframe and human-BA frames and the
    median human_ba span;
-6. kernel: each kernel against its plain torch version, with per-call
+6. reloc: the blackout of tests/test_relocalization.py at the bench
+   budget on the static-28 frames (no new rendering): frames 0-17, three
+   all-zero frames, five repeats of frame 17: every frame before the
+   blackout OK, LOST during it, OK at the end having relocalized at frame
+   >= 21 (BoW candidates -> SearchByBoW -> EPnP RANSAC -> pose LM), a
+   Hamming launch in the relocalizing frame, no TUM step > 0.12 m, ATE <
+   max(2 x the uninterrupted run's on the same frames, 0.05 m); prints
+   the EPnP inliers, the candidates tried and the frame's latency;
+7. loop: tests/test_loop_closure.py's pillar orbit (84 frames, Camera.fps
+   5, enable_loop_closing) at the bench budget: every frame OK, a loop
+   closed with a loop edge, ATE < 0.15 m, and per frame 45 segment_sum
+   launches per static BA solve plus 2020 per loop closure (20 for the
+   essential graph, one a step; 2000 for the global BA, 100 a step in four
+   calls of five steps); prints the loop's (keyframe, candidate, matches,
+   loop points), the loop spans and the per-frame latency medians;
+8. map scale: the global BA in GlobalBA's schedule over
+   tests/test_global_ba.py's corridor at C = 1000 keyframes, P = 100,000
+   points, ~300 observations a keyframe, and the essential graph over the
+   same 1000 keyframes with one loop edge (D = 7000): every free keyframe
+   moves, the global BA cuts the reprojection chi2 a hundredfold (its
+   error to the truth is printed: see phase_map_scale), the essential
+   graph halves the loop end's error, two card runs bit-equal, 2000 and
+   20 segment_sum launches a solve; prints solve times, device busy time
+   (torch.profiler) and peak memory;
+9. kernel: each kernel against its plain torch version, with per-call
    times of both (CUDA events, median of 20 samples of 10 back-to-back
    calls) and the kernel's device time (torch.profiler), its bound (the
    larger of its bytes over 3.35 TB/s and its operations over the card's
@@ -44,18 +68,23 @@ Run from the repository root.  Phases, each of which fails the run:
    [.., 256], unpacked outside the timed window):
    - the 2-D Hamming kernel at 1536x1536, 2048x1536 and a ragged
      1500x1337 of random words: exact equality;
-   - every kernel at every shape phases 3-5 launched it with, on the
+   - every kernel at every shape phases 3-8 launched it with, on the
      first inputs the path gave it at that shape (recorded while the paths
      ran): Hamming exact, batched Hamming (triangulation B=4 x 1536x1536,
      fusion B=9 x 2048x1536 at this budget) exact, segment_sum bit-equal
      to its plain version (index_add_) on a CPU copy and two launches
      bit-equal to each other;
-7. determinism: two card runs of the mapping System on the small camera
+10. determinism: two card runs of the mapping System on the small camera
    over 8 frames give byte-identical TUM and KF/MP/Match dumps, and two
    card runs of the human System (small camera, seed 3, 2 humans, masked,
    Camera.fps 3: three human BA solves in 10 frames) byte-identical TUM
    and KF/MP/Match/HMTraj/Motion dumps;
-8. agreement: the mapping System on the small camera over 6 frames on the
+11. loop replay: the first loop phase 7 closed, replayed (compute_sim3 ->
+   correct, essential graph and global BA included) from a deep copy of
+   the loop closer taken when it ran: two card replays give byte-identical
+   KF / MP / Match dumps; a CPU replay agrees on every keyframe within 2e-3
+   (R) / 5e-3 m (t), tests/test_torch_loop_system.py's tolerance;
+12. agreement: the mapping System on the small camera over 6 frames on the
    CPU (plain versions) and on the card: the same branches and keyframes,
    poses within 5 mm / 1e-3; the human System of phase 7 on the CPU and
    on the card: the same branches and trajectories, cameras within 1e-4
@@ -66,8 +95,10 @@ Run from the repository root.  Phases, each of which fails the run:
 Each path's kernel launch counts are set to 0 just before the path is
 driven and read just after; launches made to compare a kernel with its
 plain version are not counted; the kernels line's launches add up the
-mapping and human paths' counts.  The last lines are one JSON line listing
-the kernels, the nvidia-smi line, and {"ok": true, "device": {...}}.
+mapping, human, reloc, loop and map-scale paths' counts.  Frames are
+rendered in a pool of forked processes before any CUDA context exists.
+The last lines are one JSON line listing the kernels, the nvidia-smi
+line, and {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, on any failure, including when no
 CUDA device is present.
 
@@ -83,7 +114,11 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import copy
+import dataclasses
 import json
+import multiprocessing
+import os
 import shutil
 import statistics
 import subprocess
@@ -97,10 +132,14 @@ import numpy as np
 
 N_FRAMES = 28
 N_CROWD = 27          # bench.py sections 2-3: 7 warm-up + 20 timed frames
+N_ORBIT = 84          # tests/test_loop_closure.py's pillar orbit
+N_GOOD, N_BLANK, N_HOLD = 18, 3, 5    # the relocalization blackout
 SEED = 0
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 # kernel name -> {shape: [launches, first inputs]} on the main paths
 _PATH: dict = {}
+# the render job the pool's forked workers read
+_RENDER: dict = {}
 
 
 def _fail(msg: str) -> None:
@@ -119,11 +158,18 @@ def _nvidia_smi() -> str:
 
 def _cuda_ms(fn, reps: int = 20, inner: int = 10) -> float:
     """Milliseconds per call of fn(), warm: the median over reps samples of
-    the CUDA-event time of inner back-to-back calls, divided by inner.  A
-    call whose host side outlasts its device work is timed by the host."""
+    the CUDA-event time of inner back-to-back calls, divided by inner (5
+    samples of 2 calls for a call over 2 ms: the plain versions and
+    library calls at the batched shapes).  A call whose host side outlasts
+    its device work is timed by the host."""
     import torch
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    if time.perf_counter() - t0 > 2e-3:
+        reps, inner = 5, 2
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
@@ -523,11 +569,27 @@ def _crowd_frames(n: int):
     world = SyntheticStereoWorld(seed=2, n_points=500, n_humans=10,
                                  crowd=True)
     Rwc, twc = world.trajectory(n, 0.1, yaw_rate=0.005)
-    frames = [world.frame(i, Rwc[i], twc[i], i * 0.1, with_humans=True)
-              for i in range(n)]
+    frames = _render(world, Rwc, twc, 0.1, True)
     print(f"[frames] rendered {n} crowd frames 640x360 in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return frames, twc
+
+
+def _render_one(i):
+    world, Rwc, twc, dt, humans = _RENDER["job"]
+    return world.frame(i, Rwc[i], twc[i], i * dt, with_humans=humans)
+
+
+def _render(world, Rwc, twc, dt, humans):
+    """Render every pose of a trajectory in a pool of forked processes
+    (numpy only; started before any CUDA context exists, and stopped on
+    return)."""
+    _RENDER["job"] = (world, Rwc, twc, dt, humans)
+    n_proc = max(1, min(8, os.cpu_count() or 1))
+    with multiprocessing.get_context("fork").Pool(n_proc) as pool:
+        frames = pool.map(_render_one, range(len(Rwc)))
+    _RENDER.clear()
+    return frames
 
 
 def _small_frames(n: int):
@@ -544,9 +606,24 @@ def _bench_frames(n: int):
     t0 = time.perf_counter()
     world = SyntheticStereoWorld(seed=SEED, n_points=500)
     Rwc, twc = world.trajectory(n, 0.1, speed=0.3, yaw_rate=0.005)
-    frames = [world.frame(i, Rwc[i], twc[i], i * 0.1, with_humans=False)
-              for i in range(n)]
+    frames = _render(world, Rwc, twc, 0.1, False)
     print(f"[frames] rendered {n} frames 640x360 in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return frames, twc
+
+
+def _orbit_frames(n: int):
+    """tests/test_loop_closure.py's pillar orbit at 640x360: the camera
+    circles a textured octagonal pillar 1.22 times."""
+    from airdos_tpu_torch.io.synthetic import SyntheticStereoWorld
+    t0 = time.perf_counter()
+    world = SyntheticStereoWorld(
+        seed=1, n_points=300, centered=True, world_size=(16.0, 3.0, 16.0),
+        clear_ring=(1.35, 0.0, 1.35, 0.7), ring_outside_only=True,
+        room_radius=4.5, pillar=(1.35, 0.0, 0.55, 8))
+    Rwc, twc = world.orbit_loop_trajectory(n, radius=1.35, laps=1.22)
+    frames = _render(world, Rwc, twc, 0.2, False)
+    print(f"[frames] rendered {n} pillar-orbit frames 640x360 in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return frames, twc
 
@@ -814,6 +891,470 @@ def phase_human(smi: str, frames, twc):
     return counts
 
 
+def _reloc_frames(frames, twc, blank: bool):
+    """The static-28 frames 0..17, then N_BLANK all-zero frames (or frame
+    17 again when blank is False) and N_HOLD repeats of frame 17: the
+    camera pauses at its last pose through the blackout (no new
+    rendering).  Returns the frames and their ground-truth centres."""
+    last = frames[N_GOOD - 1]
+    out = list(frames[:N_GOOD])
+    for i in range(N_GOOD, N_GOOD + N_BLANK + N_HOLD):
+        f = dataclasses.replace(last, index=i, timestamp=i * 0.1)
+        if blank and i < N_GOOD + N_BLANK:
+            f = dataclasses.replace(
+                f, image_left=np.zeros_like(last.image_left),
+                image_right=np.zeros_like(last.image_right))
+        out.append(f)
+    gt = np.concatenate([twc[:N_GOOD],
+                         np.repeat(twc[N_GOOD - 1:N_GOOD], N_BLANK + N_HOLD,
+                                   axis=0)])
+    return out, gt
+
+
+def phase_reloc(smi: str, frames, twc):
+    """Relocalization at the bench budget: the blackout of
+    tests/test_relocalization.py on the static-28 frames."""
+    from airdos_tpu_torch.io.tum import ate_rmse
+    from airdos_tpu_torch.slam.system import System
+
+    cut, gt = _reloc_frames(frames, twc, blank=True)
+    slam = System(_bench_config(), device="cuda")
+    per = []
+    _reset_counts()
+    for data in cut:
+        c0 = _counts()
+        t0 = time.perf_counter()
+        slam.track_stereo(data)
+        _sync()
+        dt = time.perf_counter() - t0
+        c1 = _counts()
+        per.append(dict(state=slam.tracking.state.name,
+                        branch=slam.tracking.last_branch, ms=dt * 1e3,
+                        ref=slam.tracking.last_frame.ref_kf_id,
+                        d={k: c1[k] - c0[k] for k in c1}))
+    counts = _counts()
+    trk = slam.tracking
+    for i, p in enumerate(per):
+        print(f"[reloc] frame {i:2d} {p['state']:4s} {p['branch']:5s} "
+              f"{p['ms']:9.2f} ms launches {p['d']}")
+    if any(p["state"] != "OK" for p in per[:N_GOOD]):
+        _fail(f"reloc: frames before the blackout not OK: "
+              f"{[p['state'] for p in per[:N_GOOD]]}")
+    if any(p["state"] != "LOST" for p in per[N_GOOD:N_GOOD + N_BLANK]):
+        _fail("reloc: tracking not LOST during the blackout")
+    if per[-1]["state"] != "OK" or trk.last_reloc_frame < N_GOOD + N_BLANK:
+        _fail(f"reloc: state {per[-1]['state']} at the end, relocalized at "
+              f"frame {trk.last_reloc_frame}")
+    _, _, t_cut = trk.trajectory_tum()
+    steps = np.linalg.norm(np.diff(t_cut, axis=0), axis=1)
+    if not steps.max() < 0.12:
+        _fail(f"reloc: a TUM step of {steps.max()} m")
+    reloc_i = int(trk.last_reloc_frame)
+    if per[reloc_i]["branch"] != "reloc" or \
+            per[reloc_i]["d"]["hamming_matrix"] <= 0:
+        _fail(f"reloc: frame {reloc_i} relocalized without a Hamming launch")
+    ate_cut = float(ate_rmse(t_cut, gt[:len(t_cut)]))
+    full_frames, _ = _reloc_frames(frames, twc, blank=False)
+    full = System(_bench_config(), device="cuda")
+    _run(full, full_frames)
+    _, _, t_full = full.tracking.trajectory_tum()
+    ate_full = float(ate_rmse(t_full, gt[:len(t_full)]))
+    if not ate_cut < max(2.0 * ate_full, 0.05):
+        _fail(f"reloc: ATE {ate_cut} m vs the uninterrupted {ate_full} m")
+    print(f"[reloc] relocalized at frame {reloc_i} against keyframe "
+          f"{per[reloc_i]['ref']}: {trk.reloc_tried} candidates tried, "
+          f"EPnP RANSAC inliers {trk.reloc_inliers}, frame latency "
+          f"{per[reloc_i]['ms']:.2f} ms; max TUM step {steps.max():.4f} m; "
+          f"ATE {ate_cut:.6f} m (uninterrupted {ate_full:.6f} m); launches "
+          f"{counts} on {smi}", flush=True)
+    return counts
+
+
+def _loop_config():
+    """The pillar orbit at the bench budget: Camera.fps 5, loop closing."""
+    cfg = _bench_config()
+    cfg.camera.fps = 5.0
+    cfg.enable_loop_closing = True
+    return cfg
+
+
+def _dump_map(m, sigma2) -> bytes:
+    """KF / MP / Match lines of System.before_end for a map."""
+    out = []
+    for kf in sorted(m.kfs.values(), key=lambda k: k.id):
+        if not kf.bad:
+            out.append(f"{kf.id} " + " ".join(
+                f"{v:.7f}" for v in np.concatenate([kf.Ow, kf.Rcw.ravel()])))
+    pt = m.points
+    for pid in pt.live_ids():
+        p = pt.pos[pid]
+        out.append(f"{pid} {p[0]:.7f} {p[1]:.7f} {p[2]:.7f}")
+        for kf_id, fid in pt.obs[pid].items():
+            kf = m.kfs.get(kf_id)
+            if kf is not None and not kf.bad:
+                u, v = kf.xy_un[fid]
+                out.append(f"{pid} {kf_id} {u:.3f} {v:.3f} "
+                           f"{kf.u_right[fid]:.3f} "
+                           f"{1.0 / sigma2[kf.octave[fid]]:.5f}")
+    return "\n".join(out).encode()
+
+
+def phase_loop(smi: str, frames, twc):
+    """The pillar orbit through the offline System with loop closing at
+    the bench budget.  Returns the launch counts and, for the loop it
+    closed first, a deep copy of the loop closer (map, database, fuser and
+    global BA with it) as compute_sim3 found it, with the keyframe and
+    candidate."""
+    from airdos_tpu_torch.slam import loop_closing
+    from airdos_tpu_torch.slam.system import System
+
+    slam = System(_loop_config(), device="cuda")
+    snaps = []
+    real_sim3 = loop_closing.LoopCloser.compute_sim3
+    real_correct = loop_closing.LoopCloser.correct
+
+    def compute_sim3(self, kf, cand_id):
+        # the generator's state before this call's RANSAC draws
+        self._rng_before = copy.deepcopy(self.rng.bit_generator.state)
+        return real_sim3(self, kf, cand_id)
+
+    def correct(self, kf, res):
+        # compute_sim3 reads the map and only the correction writes it:
+        # a copy here, with the generator put back, replays both
+        if not snaps:
+            t0 = time.perf_counter()
+            snap = copy.deepcopy(self)
+            snap.rng.bit_generator.state = self._rng_before
+            snaps.append((snap, kf.id, res[4], time.perf_counter() - t0))
+        return real_correct(self, kf, res)
+
+    per = []
+    loop_closing.LoopCloser.compute_sim3 = compute_sim3
+    loop_closing.LoopCloser.correct = correct
+    try:
+        _reset_counts()
+        for data in frames:
+            c0, s0 = _counts(), slam.static_ba.n_solves
+            g0 = slam.global_ba.n_runs
+            lc = slam.loop_closer
+            n0 = lc.n_loops_closed if lc is not None else 0
+            n_snap = len(snaps)
+            t0 = time.perf_counter()
+            slam.track_stereo(data)
+            _sync()
+            # less the snapshot's deep copy, which is not the port's work
+            dt = time.perf_counter() - t0 - sum(
+                sn[3] for sn in snaps[n_snap:])
+            c1 = _counts()
+            lc = slam.loop_closer
+            kf = slam.map.kfs.get(slam.tracking.last_kf_id)
+            per.append(dict(state=slam.tracking.state.name,
+                            branch=slam.tracking.last_branch, ms=dt * 1e3,
+                            kf=kf is not None and kf.frame_id == data.index,
+                            static=slam.static_ba.n_solves - s0,
+                            gba=slam.global_ba.n_runs - g0,
+                            loops=(lc.n_loops_closed if lc else 0) - n0,
+                            d={k: c1[k] - c0[k] for k in c1}))
+        counts = _counts()
+    finally:
+        loop_closing.LoopCloser.compute_sim3 = real_sim3
+        loop_closing.LoopCloser.correct = real_correct
+    for i, p in enumerate(per):
+        print(f"[loop] frame {i:2d} {p['state']} {p['branch']:5s} "
+              f"{'KF' if p['kf'] else '  '} {'LOOP' if p['loops'] else '    '}"
+              f" {p['ms']:9.2f} ms BA solves {p['static']} launches {p['d']}")
+    bad = [i for i, p in enumerate(per) if p["state"] != "OK"]
+    if bad:
+        _fail(f"loop: frames not OK: {bad}")
+    lc = slam.loop_closer
+    if lc is None or lc.n_loops_closed < 1 or not snaps:
+        _fail("loop: no loop closed")
+    if not any(k.loop_edges for k in slam.map.kfs.values()):
+        _fail("loop: no loop edge")
+    ate = _ate(slam.tracking, twc)
+    if not ate < 0.15:
+        _fail(f"loop: ATE {ate} m >= 0.15 m")
+    per_loop = 20 + 2000                 # essential graph + global BA
+    seg_off = [i for i, p in enumerate(per) if p["d"]["segment_sum"]
+               != 45 * p["static"] + per_loop * p["loops"]]
+    if seg_off:
+        _fail(f"loop: segment_sum launches != 45 per static BA solve + "
+              f"{per_loop} per loop closure at frames {seg_off}")
+    if slam.global_ba.n_runs != lc.n_loops_closed:
+        _fail("loop: not one global BA per loop closure")
+    loop_frames = [i for i, p in enumerate(per) if p["loops"]]
+    if any(per[i]["d"]["hamming_matrix"] <= 0 or
+           per[i]["d"]["hamming_matrix_batched"] <= 0 for i in loop_frames):
+        _fail("loop: a loop frame launched no 2-D or batched Hamming kernel")
+    spans = slam.profiler.report()
+    track_ms = [p["ms"] for p in per if not p["kf"]]
+    kf_ms = [p["ms"] for i, p in enumerate(per)
+             if p["kf"] and not p["loops"] and i > 0]
+    print(f"[loop] pillar orbit {len(frames)} frames: loops closed "
+          f"{lc.closed} (keyframe, candidate, matches, loop points); "
+          f"keyframes {slam.map.n_keyframes()} live; map points "
+          f"{slam.map.n_points()}; ATE {ate:.6f} m; loop frames "
+          f"{loop_frames} at {[round(per[i]['ms'], 2) for i in loop_frames]}"
+          f" ms; launches {counts}")
+    print(f"[loop] per-frame ms tracking frames: {_ms_stats(track_ms)}; "
+          f"keyframe frames without a loop: {_ms_stats(kf_ms)} on {smi}")
+    print("[loop] spans (median ms): " + ", ".join(
+        f"{k} {v['median_s'] * 1e3:.2f} (n {v['n']}, max "
+        f"{max(slam.profiler.stages[k]) * 1e3:.2f})"
+        for k, v in sorted(spans.items())
+        if k.startswith(("map.loop_closing", "loop.", "sim3.", "gba.",
+                         "map.static_ba", "track.step"))), flush=True)
+    return counts, snaps[0][:3], slam.frontend.extractor
+
+
+def _replay(snap, device, extractor):
+    """compute_sim3 -> correct of the snapshot's loop on a deep copy of
+    it, on `device` (the CPU gets its own vocabulary tables, fuser and
+    global BA over the copied map)."""
+    from airdos_tpu_torch.convert import (loop_closer_state_from,
+                                          vocabulary_from)
+    from airdos_tpu_torch.slam.ba_driver import Fuser, GlobalBA
+    from airdos_tpu_torch.slam.keyframe_db import KeyFrameDatabase
+    from airdos_tpu_torch.slam.loop_closing import LoopCloser
+    src, kf_id, cand = snap
+    lc = copy.deepcopy(src)
+    if device == "cpu":
+        m, cfg = lc.map, lc.config
+        db = KeyFrameDatabase(vocabulary_from(lc.db.voc, device="cpu"), m)
+        db.inverted = lc.db.inverted
+        cpu = LoopCloser(cfg, m, db, extractor, "cpu",
+                         fuser=Fuser(cfg, m, extractor, device="cpu"),
+                         global_ba=GlobalBA(cfg, m, extractor, device="cpu"))
+        loop_closer_state_from(lc, cpu)
+        lc = cpu
+    kf = lc.map.kfs[kf_id]
+    res = lc.compute_sim3(kf, cand)
+    if res is None or not lc.correct(kf, res):
+        _fail(f"loop replay on {device}: the loop {kf_id} -> {cand} did not "
+              f"close again")
+    return lc.map
+
+
+def phase_loop_replay(snap, extractor):
+    """Loop determinism and agreement: compute_sim3 -> correct (essential
+    graph and global BA included) of the first closed loop, replayed on
+    two deep copies of the closer taken when it ran, on the card (the KF /
+    MP / Match dumps byte-identical) and on the CPU (keyframes within the
+    tolerance of tests/test_torch_loop_system.py: 2e-3 in R, 5e-3 m in
+    t)."""
+    sigma2 = extractor.sigma2
+    t0 = time.perf_counter()
+    a, b = (_replay(snap, "cuda", extractor) for _ in range(2))
+    card_s = (time.perf_counter() - t0) / 2
+    da, db_ = _dump_map(a, sigma2), _dump_map(b, sigma2)
+    if da != db_:
+        _fail("loop determinism: two card replays of the loop differ")
+    t0 = time.perf_counter()
+    c = _replay(snap, "cpu", extractor)
+    cpu_s = time.perf_counter() - t0
+    dR = max(float(np.abs(a.kfs[k].Rcw - c.kfs[k].Rcw).max())
+             for k in a.kfs if not a.kfs[k].bad)
+    dt = max(float(np.abs(a.kfs[k].tcw - c.kfs[k].tcw).max())
+             for k in a.kfs if not a.kfs[k].bad)
+    print(f"[loop-replay] keyframe {snap[1]} -> candidate {snap[2]}: two card "
+          f"replays byte-identical ({len(da)} bytes of KF/MP/Match, "
+          f"{card_s:.2f} s each); CPU vs card keyframes max |dR| {dR:.2e}, "
+          f"max |dt| {dt:.2e} m (CPU replay {cpu_s:.2f} s)", flush=True)
+    if dR > 2e-3 or dt > 5e-3:
+        _fail(f"loop agreement: CPU vs card keyframes |dR| {dR}, |dt| {dt}")
+
+
+def _corridor(rng, C: int, P: int, per_cam: int):
+    """tests/test_global_ba.py's drifting corridor: C cameras along z
+    (0.25 m apart), P points, up to per_cam stereo observations a camera
+    (0.2 px noise), points off by 0.05 m, and the test's camera drift at
+    its last (200th) keyframe reached at the C-th: (0.2, 0.1, 0.15) m and
+    0.1 rad of yaw (the test's 0.0005 rad a keyframe would reach 0.5 rad
+    at 1000 keyframes, beyond what 20 Gauss-Newton steps start from).
+    Returns the solver's arrays (first camera fixed), the cameras' true
+    centres and the drifted ones."""
+    fx = fy = 300.0
+    cx, cy, bf = 160.0, 120.0, 60.0
+    ctr_gt = np.stack([0.01 * np.arange(C), np.zeros(C), 0.25 * np.arange(C)],
+                      axis=1).astype(np.float32)
+    pts_gt = np.stack([rng.uniform(-6, 6, P), rng.uniform(-4, 4, P),
+                       rng.uniform(2, 0.25 * C + 10, P)],
+                      axis=1).astype(np.float32)
+    cams, pids, obs = [], [], []
+    order = np.argsort(pts_gt[:, 2])
+    zs = pts_gt[order, 2]
+    for c in range(C):
+        lo, hi = np.searchsorted(zs, [ctr_gt[c, 2] + 1.0,
+                                      ctr_gt[c, 2] + 25.0])
+        sel = order[lo:hi]
+        xc = pts_gt[sel] - ctr_gt[c]
+        u = fx * xc[:, 0] / xc[:, 2] + cx
+        v = fy * xc[:, 1] / xc[:, 2] + cy
+        ok = (u > 0) & (u < 320) & (v > 0) & (v < 240)
+        sel, u, v, z = sel[ok], u[ok], v[ok], xc[ok, 2]
+        keep = rng.permutation(len(sel))[:per_cam]
+        n = len(keep)
+        cams.append(np.full(n, c, np.int32))
+        pids.append(sel[keep].astype(np.int32))
+        obs.append(np.stack([u[keep], v[keep], u[keep] - bf / z[keep]], 1)
+                   + rng.normal(0, 0.2, (n, 3)))
+    e_cam, e_pt = np.concatenate(cams), np.concatenate(pids)
+    e_obs = np.concatenate(obs).astype(np.float32)
+    ctr_n = ctr_gt + np.linspace(0, 1, C)[:, None] * \
+        np.array([0.2, 0.1, 0.15], np.float32)
+    yaw = 0.1 * np.arange(C) / max(C, 200)
+    R_n = np.zeros((C, 3, 3), np.float32)
+    R_n[:, 0, 0] = R_n[:, 2, 2] = np.cos(yaw)
+    R_n[:, 0, 2], R_n[:, 2, 0] = np.sin(yaw), -np.sin(yaw)
+    R_n[:, 1, 1] = 1.0
+    t_n = -np.einsum("cij,cj->ci", R_n, ctr_n).astype(np.float32)
+    fixed = np.zeros(C, bool)
+    fixed[0] = True
+    E = len(e_cam)
+    arrays = (R_n, t_n, fixed,
+              (pts_gt + rng.normal(0, 0.05, pts_gt.shape)).astype(np.float32),
+              np.ones(P, bool), e_cam, e_pt, e_obs,
+              np.ones(E, np.float32), np.ones(E, bool))
+    return arrays, (fx, fy, cx, cy, bf), ctr_gt, ctr_n
+
+
+def _chi2_sum(dev, cam, R, t, pts) -> float:
+    """The reprojection chi2 of every edge of a global BA problem (device
+    arrays as solve_global_ba takes them) at (R, t, pts)."""
+    from airdos_tpu_torch.solvers.local_ba import _proj_residual
+    e_cam, e_pt = dev[5].long(), dev[6].long()
+    e, _, _, _ = _proj_residual(R[e_cam], t[e_cam], pts[e_pt], dev[7], *cam,
+                                dev[7][:, 2] >= 0)
+    return float(((e * e).sum(-1) * dev[8]).sum())
+
+
+def _timed_device(fn, reps: int = 2):
+    """Runs fn reps times, each ended by a synchronize; the host seconds
+    of each run and the results."""
+    out, secs = [], []
+    for _ in range(reps):
+        _sync()
+        t0 = time.perf_counter()
+        out.append(fn())
+        _sync()
+        secs.append(time.perf_counter() - t0)
+    return secs, out
+
+
+def _busy_ms(fn):
+    """Device busy time (ms) of one call of fn and its kernel count, from
+    torch.profiler's CUDA trace (device activity only: a solve launches
+    ~50,000 kernels, and host events would triple what the trace holds)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.time_range.elapsed_us() for e in evs) / 1e3, len(evs)
+
+
+def phase_map_scale(smi: str):
+    """The loop solvers at the map scale airdos_tpu's GlobalBA is built for
+    (solvers/global_ba.py: hundreds of keyframes, 10^5 points): the global
+    BA in GlobalBA's schedule over tests/test_global_ba.py's corridor at
+    C = 1000 keyframes, P = 100,000 points, ~300 observations a keyframe,
+    and the essential graph over the same 1000 keyframes with one loop
+    edge (D = 7000).  Each runs twice on the card, bit-equal."""
+    import torch
+    from airdos_tpu_torch.convert import to_device
+    from airdos_tpu_torch.slam.ba_driver import solve_global_ba
+    from airdos_tpu_torch.solvers.global_ba import launches_per_step
+    from airdos_tpu_torch.solvers.pose_graph import optimize_essential_graph
+
+    C, P = 1000, 100_000
+    t0 = time.perf_counter()
+    arrays, cam, ctr_gt, ctr_n = _corridor(np.random.default_rng(SEED), C, P,
+                                           300)
+    E = len(arrays[5])
+    print(f"[map-scale] corridor C {C}, P {P}, E {E} edges made in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    dev = [to_device(a, "cuda") for a in arrays]
+    _reset_counts()
+    secs, outs = _timed_device(lambda: solve_global_ba(*dev, *cam))
+    launches = _counts()
+    want = 2 * 20 * launches_per_step(48)
+    if launches["segment_sum"] != want:
+        _fail(f"map scale: {launches['segment_sum']} segment_sum launches in "
+              f"two global BAs, not {want}")
+    (R1, t1, p1), (R2, t2, p2) = outs
+    if not (torch.equal(R1, R2) and torch.equal(t1, t2)
+            and torch.equal(p1, p2)):
+        _fail("map scale: two card runs of the global BA differ")
+    R, t = R1.cpu().numpy(), t1.cpu().numpy()
+    moved = np.linalg.norm(t[1:] - arrays[1][1:], axis=1)
+    chi0 = _chi2_sum(dev, cam, dev[0], dev[1], dev[3])
+    chi1 = _chi2_sum(dev, cam, R1, t1, p1)
+    ctr = -np.einsum("cij,ci->cj", R, t)
+    e0 = np.linalg.norm(ctr_n - ctr_gt, axis=1)
+    e1 = np.linalg.norm(ctr - ctr_gt, axis=1)
+    if not ((moved > 1e-5).all() and chi1 < 1e-2 * chi0):
+        _fail(f"map scale: free keyframes moved {(moved > 1e-5).mean():.3f}, "
+              f"reprojection chi2 {chi0} -> {chi1}")
+    busy, n_k = _busy_ms(lambda: solve_global_ba(*dev, *cam))
+    print(f"[map-scale] global BA (4 calls x 5 steps, 48 CG iterations): "
+          f"{[round(s, 3) for s in secs]} s per solve, two runs bit-equal, "
+          f"{launches['segment_sum'] // 2} segment_sum launches each "
+          f"(camera-keyed {C} x 42 | 42 | 6, point-keyed {P} x 12 | 3 over "
+          f"{E} rows); device busy {busy:.2f} ms in {n_k} kernels "
+          f"(torch.profiler, a third solve); every free keyframe moved; "
+          f"reprojection chi2 {chi0:.6g} -> {chi1:.6g}; mean centre error to "
+          f"the truth {e0.mean():.4f} -> {e1.mean():.4f} m over all "
+          f"keyframes, {e0[:200].mean():.4f} -> {e1[:200].mean():.4f} m over "
+          f"the first 200 on {smi}", flush=True)
+
+    # the essential graph: the drifted chain as odometry edges, one loop
+    # edge from the true relative pose of the last and first keyframes
+    Rg = np.tile(np.eye(3, dtype=np.float32), (C, 1, 1))
+    tg = -ctr_gt
+    Rn, tn = arrays[0], arrays[1]
+    ei = np.concatenate([np.arange(C - 1), [C - 1]]).astype(np.int32)
+    ej = np.concatenate([np.arange(1, C), [0]]).astype(np.int32)
+    Rs = np.concatenate([Rn[1:] @ Rn[:-1].transpose(0, 2, 1),
+                         (Rg[0] @ Rg[C - 1].T)[None]])
+    ts = np.concatenate([tn[1:] - np.einsum("eij,ej->ei", Rs[:-1], tn[:-1]),
+                         (tg[0] - Rs[-1] @ tg[C - 1])[None]])
+    fixed = np.zeros(C, bool)
+    fixed[0] = True
+    args = [to_device(a, "cuda", np.float32 if a.dtype.kind == "f" else None)
+            for a in (Rn, tn, np.ones(C, np.float32), fixed, ei, ej, Rs, ts,
+                      np.ones(C, np.float32), np.ones(C, bool))]
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    secs, outs = _timed_device(lambda: optimize_essential_graph(*args))
+    eg = _counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = {k: launches[k] + eg[k] for k in launches}
+    if eg["segment_sum"] != 40:
+        _fail(f"map scale: {eg['segment_sum']} segment_sum launches in two "
+              f"essential graphs, not 40")
+    if not all(torch.equal(a, b) for a, b in zip(*outs)):
+        _fail("map scale: two card runs of the essential graph differ")
+    t_out = outs[0][1].cpu().numpy()
+    moved = np.linalg.norm(t_out[1:] - tn[1:], axis=1)
+    err0 = float(np.linalg.norm(tn[-1] - tg[-1]))
+    err1 = float(np.linalg.norm(t_out[-1] - tg[-1]))
+    if not ((moved > 1e-6).all() and err1 < 0.5 * err0):
+        _fail(f"map scale: essential graph moved "
+              f"{(moved > 1e-6).mean():.3f} of the free keyframes, loop end "
+              f"error {err0} -> {err1} m")
+    busy, n_k = _busy_ms(lambda: optimize_essential_graph(*args))
+    print(f"[map-scale] essential graph K {C} (D {7 * C}), E {C} edges, 20 "
+          f"LM steps: {[round(s, 3) for s in secs]} s per solve, two runs "
+          f"bit-equal, 20 segment_sum launches each (one compact segment "
+          f"sum of the 14x14 + 14 entries of every edge a step); peak "
+          f"device memory {peak:.2f} GiB; device busy {busy:.2f} ms in "
+          f"{n_k} kernels; loop end error {err0:.4f} -> {err1:.4f} m on "
+          f"{smi}", flush=True)
+    return launches
+
+
 def phase_determinism():
     """Two card runs of the mapping System: byte-identical outputs."""
     from airdos_tpu_torch.slam.system import System
@@ -1079,24 +1620,42 @@ def phase_profile(smi: str):
           f" on {smi}", flush=True)
 
 
+def _phase(name, fn, *args):
+    """Run one phase and print its wall time."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[time] {name} {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main():
+    t_start = time.perf_counter()
     smi = phase_environment()
-    phase_build()
+    _phase("build", phase_build)
     if sys.argv[1:] == ["--profile"]:
         phase_profile(smi)
         return
     if sys.argv[1:]:
         _fail(f"usage: python3 chip_smoke.py [--profile], got {sys.argv[1:]}")
-    frames, twc = _bench_frames(N_FRAMES)
-    crowd, crowd_twc = _crowd_frames(N_CROWD)
+    frames, twc = _phase("render static-28", _bench_frames, N_FRAMES)
+    crowd, crowd_twc = _phase("render crowd-27", _crowd_frames, N_CROWD)
+    orbit, orbit_twc = _phase("render orbit-84", _orbit_frames, N_ORBIT)
     with _path_recording():
-        phase_slice(smi, frames, twc)
-        launches = phase_mapping(smi, frames, twc)
-        human = phase_human(smi, crowd, crowd_twc)
-    launches = {k: launches[k] + human[k] for k in launches}
-    rows = phase_kernel(smi)
-    phase_determinism()
-    phase_cpu_agreement()
+        _phase("slice", phase_slice, smi, frames, twc)
+        launches = _phase("mapping", phase_mapping, smi, frames, twc)
+        counts = [_phase("human", phase_human, smi, crowd, crowd_twc),
+                  _phase("reloc", phase_reloc, smi, frames, twc)]
+        loop, snap, extractor = _phase("loop", phase_loop, smi, orbit,
+                                       orbit_twc)
+        counts += [loop, _phase("map scale", phase_map_scale, smi)]
+    for c in counts:
+        launches = {k: launches[k] + c[k] for k in launches}
+    rows = _phase("kernel", phase_kernel, smi)
+    _phase("determinism", phase_determinism)
+    _phase("loop replay", phase_loop_replay, snap, extractor)
+    _phase("agreement", phase_cpu_agreement)
+    print(f"[time] chip_smoke {time.perf_counter() - t_start:.1f} s",
+          flush=True)
 
     import torch
     sources = {"hamming_matrix": ("airdos_tpu_torch/csrc/hamming.cu",
@@ -1105,7 +1664,9 @@ def main():
                                           "airdos_tpu/ops/pallas_kernels.py:43"),
                "segment_sum": ("airdos_tpu_torch/csrc/segment_sum.cu",
                                "airdos_tpu/solvers/local_ba.py:119, "
-                               "airdos_tpu/solvers/human_ba.py:271")}
+                               "airdos_tpu/solvers/human_ba.py:271, "
+                               "airdos_tpu/solvers/global_ba.py:83, "
+                               "airdos_tpu/solvers/pose_graph.py:79")}
     kernels = [{"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],
                 **rows[name]}

@@ -338,3 +338,145 @@ def test_patch_disparity_ties_on_the_card(cuda):
                            torch.from_numpy(imR).to(cuda), px.to(cuda))
     assert torch.equal(card.cpu(), cpu)
     assert (cpu[:4].round() == 5).all() and (cpu[4:] == -1).all()
+
+
+def _gba_corridor(rng, C=60, P=1500, per_cam=60):
+    """A corridor of C cameras along z over P points, per_cam stereo
+    observations each (tests/test_global_ba.py's layout)."""
+    ctr = np.stack([0.01 * np.arange(C), np.zeros(C), 0.25 * np.arange(C)], 1)
+    pts = np.stack([rng.uniform(-6, 6, P), rng.uniform(-4, 4, P),
+                    rng.uniform(2, 0.25 * C + 10, P)], 1).astype(np.float32)
+    cams, pids, obs = [], [], []
+    for c in range(C):
+        xc = pts - ctr[c]
+        z = np.where(xc[:, 2] > 0.1, xc[:, 2], 1.0)
+        u = 300.0 * xc[:, 0] / z + 160.0
+        v = 300.0 * xc[:, 1] / z + 120.0
+        ok = (xc[:, 2] > 1) & (xc[:, 2] < 25) & (u > 0) & (u < 320) & \
+            (v > 0) & (v < 240)
+        sel = rng.permutation(np.nonzero(ok)[0])[:per_cam]
+        cams.append(np.full(len(sel), c))
+        pids.append(sel)
+        obs.append(np.stack([u[sel], v[sel], u[sel] - 60.0 / z[sel]], 1) +
+                   rng.normal(0, 0.2, (len(sel), 3)))
+    R = np.tile(np.eye(3, dtype=np.float32), (C, 1, 1))
+    t = (-ctr + np.linspace(0, 1, C)[:, None] * [0.2, 0.1, 0.15]) \
+        .astype(np.float32)
+    E = sum(map(len, cams))
+    fixed = np.zeros(C, bool)
+    fixed[0] = True
+    return (R, t, fixed, pts + rng.normal(0, 0.05, pts.shape).astype(np.float32),
+            np.ones(P, bool), np.concatenate(cams).astype(np.int32),
+            np.concatenate(pids).astype(np.int32),
+            np.concatenate(obs).astype(np.float32), np.ones(E, np.float32),
+            np.ones(E, bool))
+
+
+def test_global_ba_segment_sums_bitwise_and_deterministic(cuda, monkeypatch):
+    """Every segment sum of a global BA step on the card, at its camera-
+    and point-keyed shapes (42, 12, 42, 3, 6, 3 columns), bit-equal to the
+    plain version on a CPU copy; two solves bit-equal."""
+    import airdos_tpu_torch.ops.segment_kernels as sk
+    from airdos_tpu_torch.solvers import global_ba as gba
+    rng = np.random.default_rng(0)
+    arrays = _gba_corridor(rng)
+    dev = [torch.from_numpy(a).to(cuda) for a in arrays]
+    seen = []
+    real = gba.segment_sum
+
+    def checked(vals, seg):
+        out = real(vals, seg)
+        want = sk.segment_sum_ref(vals.cpu(), seg.key.cpu(), seg.n)
+        seen.append((tuple(vals.shape), torch.equal(out.cpu(), want)))
+        return out
+
+    monkeypatch.setattr(gba, "segment_sum", checked)
+    res1 = gba.global_bundle_adjust(*dev, 300.0, 300.0, 160.0, 120.0, 60.0,
+                                    iters1=1, iters2=1)
+    monkeypatch.setattr(gba, "segment_sum", real)
+    res2 = gba.global_bundle_adjust(*dev, 300.0, 300.0, 160.0, 120.0, 60.0,
+                                    iters1=1, iters2=1)
+    assert len(seen) == 2 * gba.launches_per_step(48)
+    assert {k for (_, k), _ in seen} == {42, 12, 3, 6}
+    assert all(ok for _, ok in seen)
+    for a, b in zip(res1, res2):
+        assert torch.equal(a, b)
+
+
+def _drifted_circle_map(N=24):
+    """tests/test_loop_correction.py's 24-keyframe drifted circle in the
+    port's map, and the loop's sim3 result."""
+    from types import SimpleNamespace
+
+    from airdos_tpu_torch.slam.map import KeyFrame, SlamMap
+
+    def yaw(a):
+        c, s = np.cos(a), np.sin(a)
+        return np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
+
+    m = SlamMap()
+    true_R, true_t = [], []
+    for i in range(N):
+        th = 2 * np.pi * i / N
+        Rcw = yaw(th).T
+        tcw = -Rcw @ np.array([4 * (1 - np.cos(th)), 0.0, 4 * np.sin(th)])
+        true_R.append(Rcw)
+        true_t.append(tcw)
+        frac = i / (N - 1)
+        n = 8
+        f = SimpleNamespace(
+            index=i, timestamp=i * 0.5, xy=np.zeros((n, 2), np.float32),
+            xy_un=np.zeros((n, 2), np.float32), octave=np.zeros(n, np.int32),
+            angle=np.zeros(n, np.float32), response=np.ones(n, np.float32),
+            desc32=np.zeros((n, 8), np.uint32),
+            u_right=np.full(n, -1.0, np.float32),
+            depth=np.full(n, -1.0, np.float32), valid=np.ones(n, bool),
+            mp_idx=np.full(n, -1, np.int64),
+            Rcw=(yaw(0.1 * frac) @ Rcw).astype(np.float32),
+            tcw=(yaw(0.1 * frac) @ tcw + np.array([0.6, 0.1, 0.3]) * frac)
+            .astype(np.float32))
+        kf = KeyFrame(i, f)
+        m.add_keyframe(kf)
+        m.next_kf_id = i + 1
+        if i > 0:
+            kf.parent = i - 1
+            m.kfs[i - 1].children.add(i)
+            kf.covis = {i - 1: 150}
+            m.kfs[i - 1].covis[i] = 150
+            kf.ordered_covis = [i - 1]
+            m.kfs[i - 1].ordered_covis.append(i)
+        pos = kf.Ow[None, :] + np.array([[0.0, 0.0, 2.0 + 0.1 * j]
+                                         for j in range(3)])
+        m.create_points(kf, np.arange(3), pos.astype(np.float32))
+    R12 = true_R[N - 1] @ m.kfs[0].Rcw.T
+    t12 = true_t[N - 1] - R12 @ m.kfs[0].tcw
+    return m, (R12.astype(np.float32), t12.astype(np.float32), 1.0, {}, 0, [])
+
+
+def test_loop_correct_is_byte_identical_on_the_card(cuda):
+    from types import SimpleNamespace
+
+    from airdos_tpu_torch.config import SlamConfig
+    from airdos_tpu_torch.io.synthetic import small_camera
+    from airdos_tpu_torch.slam.loop_closing import LoopCloser
+    cfg = SlamConfig()
+    cfg.camera = small_camera()
+    ext = SimpleNamespace(scales=tuple(1.2 ** i for i in range(4)),
+                          sigma2=np.asarray([1.2 ** (2 * i) for i in range(4)],
+                                            np.float32))
+    db = SimpleNamespace(voc=SimpleNamespace(score=lambda a, b: 0.0),
+                         ensure_bow=lambda kf: None, add=lambda kf: None)
+    out = []
+    for _ in range(2):
+        m, res = _drifted_circle_map()
+        assert LoopCloser(cfg, m, db, ext, cuda).correct(m.kfs[23], res)
+        out.append(b"".join(k.Rcw.tobytes() + k.tcw.tobytes()
+                            for k in m.kfs.values()) +
+                   m.points.pos[:m.points.n].tobytes())
+    assert out[0] == out[1]
+    m, res = _drifted_circle_map()
+    LoopCloser(cfg, m, db, ext, "cpu").correct(m.kfs[23], res)
+    got = np.frombuffer(out[0][:24 * 48], np.float32)
+    want = np.frombuffer(b"".join(k.Rcw.tobytes() + k.tcw.tobytes()
+                                  for k in m.kfs.values()), np.float32)
+    np.testing.assert_allclose(got, want, atol=1e-4)

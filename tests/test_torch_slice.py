@@ -199,14 +199,36 @@ def test_port_import_leaves_jax_out():
 
 @pytest.mark.parametrize("section,field,value", [
     ("system", "is_offline", False),
-    (None, "vocabulary_path", "voc.npz"),
-    (None, "enable_loop_closing", True),
 ])
 def test_out_of_slice_configs_raise(section, field, value):
     cfg = config_from(small_config())
     setattr(getattr(cfg, section) if section else cfg, field, value)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         System(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("field", ["vocabulary_path", "enable_loop_closing"])
+def test_loop_closing_configs_build(field, tmp_path):
+    """Relocalization and loop closing are in the port's scope: a
+    vocabulary file builds the database and the loop closer at once;
+    enable_loop_closing builds them with the scene vocabulary."""
+    cfg = config_from(small_config())
+    if field == "vocabulary_path":
+        from airdos_tpu_torch.bow.vocabulary import train_vocabulary
+        rng = np.random.default_rng(0)
+        voc = train_vocabulary(rng.integers(0, 256, (400, 32), np.uint8),
+                               k=4, depth=2, device="cpu")
+        cfg.vocabulary_path = str(tmp_path / "voc.npz")
+        voc.save_npz(cfg.vocabulary_path)
+    else:
+        cfg.enable_loop_closing = True
+    slam = System(cfg, device="cpu")
+    assert slam.config.loop_closing_active == (field != "vocabulary_path")
+    if field == "vocabulary_path":
+        assert slam.loop_closer is not None
+        assert slam.vocabulary.n_words > 0
+    else:
+        assert slam.loop_closer is None and slam.vocabulary is None
 
 
 @pytest.mark.parametrize("section,field", [("human", "ok"),
