@@ -14,6 +14,7 @@ text loader keeps a ``<path>.npz`` cache beside the file.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from pathlib import Path
 from typing import Any, Dict, Optional, Tuple
 
@@ -49,6 +50,7 @@ class Vocabulary:
         self.device = resolve_device(self.device)
         self._group_of_node = self._build_group_table()
         self._tables = None
+        self._tables_lock = threading.Lock()
 
     def _build_group_table(self) -> np.ndarray:
         """Per-node FeatureVector group: the ancestor ``feature_level``
@@ -65,13 +67,37 @@ class Vocabulary:
     # -------------------------------------------------------------- device
     def _device_tables(self):
         """The tree on the device, uploaded once: children, node words
-        (uint32 values in int64), word ids, groups."""
-        if self._tables is None:
-            self._tables = tuple(
-                torch.from_numpy(x.astype(np.int64)).to(self.device)
-                for x in (self.children, self.node_desc32, self.word_id,
-                          self._group_of_node))
-        return self._tables
+        (uint32 values in int64), word ids, groups.  Online, the tracking
+        thread (BoW tracking, relocalization) and the mapping worker (the
+        database, loop detection) read the tables from their own streams,
+        and either may come first: the upload runs once under a lock, and
+        on the card the uploading stream is synchronized before the tables
+        are published, so a reader on any stream finds them complete.  The
+        tables live as long as the vocabulary, so no stream's later
+        allocation can reuse their memory."""
+        tables = self._tables
+        if tables is None:
+            with self._tables_lock:
+                if self._tables is None:
+                    up = tuple(
+                        torch.from_numpy(x.astype(np.int64)).to(self.device)
+                        for x in (self.children, self.node_desc32,
+                                  self.word_id, self._group_of_node))
+                    if self.device.type == "cuda":
+                        torch.cuda.current_stream(self.device).synchronize()
+                    self._tables = up
+                tables = self._tables
+        return tables
+
+    def __getstate__(self):
+        # copy.deepcopy and pickle: the lock is remade on the other side
+        state = dict(self.__dict__)
+        del state["_tables_lock"]
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._tables_lock = threading.Lock()
 
     def _transform_device(self, desc32: torch.Tensor):
         """desc32 [N, 8] int32 bit views -> (word ids [N], node at the

@@ -4,10 +4,12 @@ Each kernel source has a plain C interface.  It is compiled with nvcc for
 sm_90a at first use into the git-ignored ``airdos_tpu_torch/_build/``,
 under a name keyed by the source's hash (an edited source is rebuilt), and
 loaded with ctypes.  Nothing here runs at import time, so the kernel
-modules import on machines without nvcc or a card.
+modules import on machines without nvcc or a card.  ``LaunchCounter``
+counts a wrapper's launches from every thread of online mode.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import hashlib
@@ -74,6 +76,44 @@ def library(source: Path, signatures) -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _libs[source] = lib
     return lib
+
+
+class LaunchCounter:
+    """The launches of one kernel since the last reset: the total, and a
+    tally by (the launching thread's name, the priority of its current
+    stream), which shows which stream each thread's launches went to.
+    Online mode launches from the tracking thread and the worker threads
+    at once, so every update takes a lock."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._total = 0
+        self._tally = collections.Counter()
+
+    def count(self, priority: int) -> None:
+        key = (threading.current_thread().name, priority)
+        with self._lock:
+            self._total += 1
+            self._tally[key] += 1
+
+    @property
+    def total(self) -> int:
+        return self._total
+
+    def tally(self) -> dict:
+        """{(thread name, stream priority): launches}."""
+        with self._lock:
+            return dict(self._tally)
+
+    def reset(self) -> None:
+        with self._lock:
+            self._total = 0
+            self._tally.clear()
+
+
+def stream_priority(device: torch.device) -> int:
+    """The priority of the calling thread's current stream on `device`."""
+    return torch.cuda.current_stream(device).priority
 
 
 def on_device(device: torch.device):

@@ -6,8 +6,9 @@ BoW) calls ``hamming_matrix``; triangulation and fusion, where airdos_tpu
 reaches the kernel under jax.vmap, call ``hamming_matrix_batched``.  Both:
 
 - on a CUDA tensor launch the sm_90a kernel of ``csrc/hamming.cu``
-  (built with nvcc at first use into ``airdos_tpu_torch/_build/``, bound
-  through ctypes) or raise, and count the launch;
+  on the calling thread's current stream (built with nvcc at first use
+  into ``airdos_tpu_torch/_build/``, bound through ctypes) or raise, and
+  count the launch, by thread and stream priority too;
 - on a CPU tensor run the plain torch version (``hamming_matrix_ref``,
   ``hamming_matrix_batched_ref``).
 
@@ -38,24 +39,34 @@ _MAX_ROW_BLOCKS = 65535          # gridDim.y limit; 64 rows per block
 _MAX_BATCH = 65535               # gridDim.z limit
 _kernel = None                   # the bound C entry point, once loaded
 
-_launches = 0
-_batched_launches = 0
+_counter = cuda_build.LaunchCounter()           # 2-D launches
+_batched_counter = cuda_build.LaunchCounter()   # batched launches
 
 
 def launches() -> int:
     """2-D kernel launches since the last reset_launches()."""
-    return _launches
+    return _counter.total
 
 
 def batched_launches() -> int:
     """Batched kernel launches since the last reset_launches()."""
-    return _batched_launches
+    return _batched_counter.total
+
+
+def launch_tally() -> dict:
+    """{(kernel, thread name, stream priority): launches} since the last
+    reset_launches(), kernel "hamming_matrix" or
+    "hamming_matrix_batched"."""
+    return {(name,) + key: n
+            for name, counter in (("hamming_matrix", _counter),
+                                  ("hamming_matrix_batched",
+                                   _batched_counter))
+            for key, n in counter.tally().items()}
 
 
 def reset_launches() -> None:
-    global _launches, _batched_launches
-    _launches = 0
-    _batched_launches = 0
+    _counter.reset()
+    _batched_counter.reset()
 
 
 def build():
@@ -102,10 +113,9 @@ def hamming_matrix_and_popc(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def hamming_matrix_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Launch the sm_90a kernel on the current stream.  a [N, 8], b [M, 8]
     int32 CUDA tensors -> int32 [N, M]."""
-    global _launches
     _check(a, b, 2)
     out = _launch(a[None], b[None])[0]
-    _launches += 1
+    _counter.count(cuda_build.stream_priority(a.device))
     return out
 
 
@@ -138,7 +148,6 @@ def hamming_matrix_batched_cuda(a: torch.Tensor,
                                 b: torch.Tensor) -> torch.Tensor:
     """One launch for the whole batch (gridDim.z = B); an operand with a
     batch dimension of 1 is shared (batch stride 0)."""
-    global _batched_launches
     _check(a, b, 3)
     B = max(a.shape[0], b.shape[0])
     for name, x in (("a", a), ("b", b)):
@@ -147,7 +156,7 @@ def hamming_matrix_batched_cuda(a: torch.Tensor,
     if B > _MAX_BATCH:
         raise ValueError(f"batch {B} exceeds the kernel's grid")
     out = _launch(a, b)
-    _batched_launches += 1
+    _batched_counter.count(cuda_build.stream_priority(a.device))
     return out
 
 

@@ -16,9 +16,10 @@ which would make offline runs differ byte for byte, so here:
   dense normal equations, airdos_tpu/solvers/human_ba.py:296-342, where
   one position collects many edges' entries);
 - ``segment_sum(vals, seg)`` on a CUDA tensor launches the sm_90a kernel
-  of ``csrc/segment_sum.cu`` (built with nvcc at first use into
-  ``airdos_tpu_torch/_build/``, bound through ctypes) or raises, and
-  counts the launch; on a CPU tensor it runs ``segment_sum_ref``, the
+  of ``csrc/segment_sum.cu`` on the calling thread's current stream
+  (built with nvcc at first use into ``airdos_tpu_torch/_build/``, bound
+  through ctypes) or raises, and counts the launch, by thread and stream
+  priority too; on a CPU tensor it runs ``segment_sum_ref``, the
   plain ``index_add_``, which sums each segment in row order as the
   kernel does.
 
@@ -42,17 +43,22 @@ _SIGNATURES = {
 }
 _kernel = None                   # the bound C entry point, once loaded
 
-_launches = 0
+_counter = cuda_build.LaunchCounter()
 
 
 def launches() -> int:
     """Kernel launches since the last reset_launches()."""
-    return _launches
+    return _counter.total
+
+
+def launch_tally() -> dict:
+    """{("segment_sum", thread name, stream priority): launches} since
+    the last reset_launches()."""
+    return {("segment_sum",) + key: n for key, n in _counter.tally().items()}
 
 
 def reset_launches() -> None:
-    global _launches
-    _launches = 0
+    _counter.reset()
 
 
 def build():
@@ -105,7 +111,7 @@ def segment_sum_ref(vals: torch.Tensor, key: torch.Tensor,
 
 def segment_sum_cuda(vals: torch.Tensor, seg: Segments) -> torch.Tensor:
     """Launch the sm_90a kernel on the current stream."""
-    global _launches, _kernel
+    global _kernel
     if not vals.is_cuda or vals.dtype != torch.float32 or vals.dim() != 2:
         raise ValueError("vals must be a CUDA float32 [rows, k] tensor, got "
                          f"{vals.dtype} {tuple(vals.shape)} on {vals.device}")
@@ -131,7 +137,7 @@ def segment_sum_cuda(vals: torch.Tensor, seg: Segments) -> torch.Tensor:
                       torch.cuda.current_stream(vals.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"segment_sum kernel launch failed: cudaError {err}")
-    _launches += 1
+    _counter.count(cuda_build.stream_priority(vals.device))
     return out
 
 

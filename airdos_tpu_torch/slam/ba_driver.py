@@ -11,19 +11,25 @@ Rebuild of airdos_tpu/slam/ba_driver.py's offline mapping drivers:
   one batched device call.
 - HumanLocalBA: LocalBundleAdjustmentHumanTrajactory (Optimizer.cc:1496-
   2224) — the static window plus the long human trajectories it sees,
-  with the bIsLost / bIsBad / bOptimized flags written back.  Synchronous
-  (offline); airdos_tpu's online thread and chunked schedule are not
-  ported (ROADMAP port queue: online mode).
+  with the bIsLost / bIsBad / bOptimized flags written back.  Offline it
+  runs synchronously; online ``launch`` runs it in a background thread
+  (one solve in flight, a busy tick skipped, an error re-raised at
+  ``join``) in airdos_tpu's online schedule of three solver calls
+  (``_LM_CHUNKS``).
 - GlobalBA: GlobalBundleAdjustemnt after a loop closure (Optimizer.cc:
   52-230, LoopClosing.cc:645-749): every keyframe and every live point,
-  in airdos_tpu's schedule of four solver calls of five steps.
-  Synchronous; airdos_tpu's background thread and its abort
-  (``launch`` / ``interrupt`` / ``join``) belong to online mode (ROADMAP
-  port queue: online mode).
+  in airdos_tpu's schedule of four solver calls of five steps.  Offline
+  the loop closer calls it inline; online ``launch`` runs it in a
+  background thread that ``interrupt`` aborts between solver calls (the
+  reference's mbStopGBA), and keyframes created during the solve get the
+  correction through ``propagate_to_children``.
 
 Each driver assembles its problem on the host, runs it on the device with
 no host read inside, and copies its result back once.  ``map_lock`` guards
-assembly and write-back (None offline).
+assembly and write-back (None offline).  Online, System installs a
+``gate`` (utils/gate.py) that each driver waits on right before its
+device work, and the background BAs launch on their own low-priority
+CUDA stream (the mapping worker's drivers use the worker's stream).
 
 Problems keep airdos_tpu's padded sizes (the sticky power-of-two buckets
 below).  Eager torch compiles nothing, so the buckets no longer save
@@ -33,6 +39,7 @@ the parity tests compare shape for shape.
 from __future__ import annotations
 
 import contextlib
+import threading
 import warnings
 from typing import List
 
@@ -48,6 +55,8 @@ from airdos_tpu_torch.slam.map import (BODY1, BODY2, MAIN_SKELETON, N_PARTS,
 from airdos_tpu_torch.solvers.global_ba import global_bundle_adjust
 from airdos_tpu_torch.solvers.human_ba import human_bundle_adjust
 from airdos_tpu_torch.solvers.local_ba import local_bundle_adjust
+from airdos_tpu_torch.utils.gate import (BACKGROUND_WAIT_S, WORKER_PRIORITY,
+                                         gate_wait, new_stream, on_stream)
 from airdos_tpu_torch.utils.obs import span
 
 
@@ -171,6 +180,17 @@ def _locked(map_lock):
     return map_lock if map_lock is not None else contextlib.nullcontext()
 
 
+# Online-mode schedule of the background human BA: the reference protocol's
+# 5 Huber + 10 plain iterations (Optimizer.cc:701-704) in three solver
+# calls, as airdos_tpu runs it online (its slam/ba_driver.py:155-166).
+# Each call re-classifies the inliers against the current state before its
+# plain phase, so this is not the single-call protocol; offline keeps the
+# single call.  airdos_tpu splits the solve to yield the TPU's one FIFO
+# between calls; here the three calls keep its numbers, and the stream
+# priorities keep tracking ahead.
+_LM_CHUNKS = ((5, 0), (0, 5), (0, 5))
+
+
 class StaticLocalBA:
     def __init__(self, config: SlamConfig, slam_map: SlamMap, extractor,
                  device, map_lock=None):
@@ -179,6 +199,7 @@ class StaticLocalBA:
         self.device = torch.device(device)
         self.profiler = None
         self.map_lock = map_lock
+        self.gate = None               # online: utils/gate.TrackingGate
         self.n_solves = 0              # device solves so far
         cam = config.camera
         self.fx, self.fy, self.cx, self.cy, self.bf = \
@@ -262,6 +283,7 @@ class StaticLocalBA:
         C, P, E = arrays[0].shape[0], arrays[3].shape[0], arrays[5].shape[0]
         with span(self.profiler, "ba.solve"):
             d = self.device
+            gate_wait(self.gate)           # tracking launches first
             res = local_bundle_adjust(
                 *(to_device(a, d) for a in arrays),
                 self.fx, self.fy, self.cx, self.cy, self.bf)
@@ -317,6 +339,7 @@ class Triangulator:
         self.n_levels = config.orb.n_levels
         self.n_neighbors = 4     # batched in one device call
         self.n_created = 0       # map points created so far
+        self.gate = None         # online: utils/gate.TrackingGate
 
     def baseline_ok(self, kf: KeyFrame, nkf: KeyFrame) -> bool:
         """Stereo short-baseline gate: reject neighbors closer than the
@@ -329,6 +352,7 @@ class Triangulator:
         if problem is None:
             return 0
         neighbors, args = problem
+        gate_wait(self.gate)     # tracking launches first
         res = triangulate_pair(*args)
         # one copy back: valid, idx2 and the points per (neighbour, feature)
         flat = torch.cat([res.valid.to(res.points.dtype)[..., None],
@@ -440,6 +464,7 @@ class Fuser:
         self.max_targets = 8
         self._pb = _StickyBucket(
             _steady_start(config.orb.n_features, 1.5, 1024, self.P), self.P)
+        self.gate = None         # online: utils/gate.TrackingGate
 
     # airdos_tpu's Fuser.warmup compiles the single-target program outside
     # the map lock before a loop correction; eager torch compiles nothing,
@@ -451,13 +476,26 @@ class Fuser:
         SearchAndFuse, reference LoopClosing.cc:587): one launch of the
         batched fuse with a batch of one target.  prefer_candidates: a
         conflict keeps the candidate point instead of the more-observed
-        one."""
-        m = self.map
-        pt = m.points
+        one.  Online the candidate tables are read and the matches written
+        under the map lock, and the device match runs with it released."""
+        with _locked(self.map_lock):
+            problem = self._fuse_into_tables(point_ids, target)
+        if problem is None:
+            return
+        gate_wait(self.gate)     # tracking launches first
+        feat_idx = self._fuse_into_match(target, *problem[1:])
+        with _locked(self.map_lock):
+            self._fuse_into_apply(target, problem[0], feat_idx,
+                                  prefer_candidates)
+
+    def _fuse_into_tables(self, point_ids: List[int], target: KeyFrame):
+        """The candidate points not yet seen by target and their padded
+        tables, or None."""
+        pt = self.map.points
         point_ids = [p for p in point_ids if not pt.bad[p]
                      and target.id not in pt.obs[p]][: self.P]
         if not point_ids:
-            return
+            return None
         n = len(point_ids)
         P = self._pb.fit(n)
         ids = np.asarray(point_ids)
@@ -473,22 +511,36 @@ class Fuser:
         mind[:n] = pt.min_dist[ids]
         maxd[:n] = pt.max_dist[ids]
         valid[0, :n] = True
+        pose = (target.Rcw.copy(), target.tcw.copy(), target.Ow.copy())
+        return ids, xw, desc, valid, normal, maxd, mind, pose
+
+    def _fuse_into_match(self, target, xw, desc, valid, normal, maxd, mind,
+                         pose):
+        """The device match of _fuse_into_tables' tables into target."""
         d = self.device
 
         def one(a, dtype=None):
             return to_device(np.asarray(a)[None], d, dtype)
 
-        feat_idx = fuse_candidates(
+        Rcw, tcw, Ow = pose
+        return fuse_candidates(
             to_device(xw, d), desc_to_tensor(desc, d), to_device(valid, d),
             to_device(normal, d), to_device(maxd, d), to_device(mind, d),
-            one(target.Rcw, np.float32), one(target.tcw, np.float32),
-            one(target.Ow, np.float32), one(target.xy_un),
+            one(Rcw, np.float32), one(tcw, np.float32),
+            one(Ow, np.float32), one(target.xy_un),
             one(target.u_right), one(target.octave, np.int64),
             desc_to_tensor(target.desc32[None], d), one(target.valid),
             self.fx, self.fy, self.cx, self.cy, self.bf,
             self.width, self.height,
             to_device(self.scale_factors, d), to_device(self.sigma2, d),
             self.log_scale, self.n_levels).feat_idx[0].cpu().numpy()
+
+    def _fuse_into_apply(self, target, ids, feat_idx, prefer_candidates):
+        """Write the matches: add an observation, or merge with the point
+        already there (the candidate, or the more-observed one)."""
+        m = self.map
+        pt = m.points
+        n = len(ids)
         touched = []
         for i in np.nonzero(feat_idx[:n] >= 0)[0]:
             fid = int(feat_idx[i])
@@ -624,6 +676,7 @@ class Fuser:
         if problem is None:
             return
         ids, n, args = problem
+        gate_wait(self.gate)     # tracking launches first
         feat_idx_b = fuse_candidates(*args).feat_idx.cpu().numpy()
         with _locked(self.map_lock):
             self._write_back_neighborhood(kf, targets, ids, n, feat_idx_b)
@@ -667,6 +720,11 @@ class HumanLocalBA:
         self.map_lock = map_lock
         self.profiler = None
         self.n_runs = 0            # completed BA passes (write-back done)
+        self.gate = None           # online: utils/gate.TrackingGate
+        self._chunked = not config.system.is_offline   # see _LM_CHUNKS
+        self._thread = None        # the background solve (online)
+        self._error = None         # the exception it raised, for join()
+        self._stream = None        # its CUDA stream, made at first launch
         cam = config.camera
         self.fx, self.fy, self.cx, self.cy, self.bf = \
             cam.fx, cam.fy, cam.cx, cam.cy, cam.bf
@@ -695,6 +753,39 @@ class HumanLocalBA:
         with _locked(self.map_lock), span(self.profiler, "hba.writeback"):
             self._write_back(problem, res)
         self.n_runs += 1
+
+    def launch(self, current_kf_id: int) -> bool:
+        """Run one human BA in a background thread (online mode), so that
+        tracking never waits on the dense reduced solve; the thread
+        launches on its own CUDA stream of priority 0.  At most one is in
+        flight: while the previous one runs, this cadence tick is skipped
+        (returns False).  An exception in the thread is kept and raised by
+        the next join()."""
+        if self._thread is not None and self._thread.is_alive():
+            return False
+        if self._stream is None:
+            self._stream = new_stream(self.device, WORKER_PRIORITY)
+
+        def run():
+            try:
+                with on_stream(self._stream):
+                    self(self.map, current_kf_id)
+            except Exception as e:          # raised again by join()
+                self._error = e
+
+        self._thread = threading.Thread(target=run, daemon=True,
+                                        name="human-ba")
+        self._thread.start()
+        return True
+
+    def join(self):
+        """Wait for the background solve; raise what it raised."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
 
     def _assemble(self, current_kf_id: int):
         m = self.map
@@ -821,13 +912,30 @@ class HumanLocalBA:
         C, P, E = arrays[0].shape[0], arrays[3].shape[0], arrays[5].shape[0]
         T, L = arrays[10].shape[:2]
         d = self.device
-        res = human_bundle_adjust(
-            *(to_device(a, d) for a in arrays),
-            opt.sigma_static, opt.sigma_human, opt.sigma_rigidity,
-            opt.sigma_motion, opt.th_huber_motion, opt.th_ransac_motion,
-            opt.th_ransac_rigidity,
-            self.fx, self.fy, self.cx, self.cy, self.bf,
-            use_huber=bool(opt.is_huber))
+        args = [to_device(a, d) for a in arrays]
+
+        def call(**iters):
+            return human_bundle_adjust(
+                *args, opt.sigma_static, opt.sigma_human, opt.sigma_rigidity,
+                opt.sigma_motion, opt.th_huber_motion, opt.th_ransac_motion,
+                opt.th_ransac_rigidity,
+                self.fx, self.fy, self.cx, self.cy, self.bf,
+                use_huber=bool(opt.is_huber), **iters)
+
+        gate_wait(self.gate)       # tracking launches first
+        if not self._chunked:
+            res = call()
+        else:
+            res = None
+            for i1, i2 in _LM_CHUNKS:
+                if res is not None:
+                    # the state moves on: cameras, points, joints, limb
+                    # lengths and motions (the solver's argument slots)
+                    for slot, x in zip((0, 1, 3, 10, 15, 18, 19),
+                                       res[:7]):
+                        args[slot] = x
+                    gate_wait(self.gate)
+                res = call(iters1=i1, iters2=i2)
         flat = torch.cat([x.reshape(-1).to(torch.float32) for x in res]) \
             .cpu().numpy()
         shapes = ((C, 3, 3), (C, 3), (P, 3), (T, L, N_PARTS, 3),
@@ -903,23 +1011,38 @@ class HumanLocalBA:
 
 def solve_global_ba(cam_R, cam_t, cam_fixed, pts, pvalid,
                     e_cam, e_pt, e_obs, e_info, e_valid, fx, fy, cx, cy, bf,
-                    n_iters: int = 20, chunk: int = 5, cg_iters: int = 48):
+                    n_iters: int = 20, chunk: int = 5, cg_iters: int = 48,
+                    abort=None, gate=None):
     """airdos_tpu's GlobalBA schedule (slam/ba_driver.py:1256-1274) on
     device tensors: solver calls of `chunk` steps, the first with
     chunk // 2 Huber steps then the rest plain, the later ones plain only.
     Each call is a fresh global_bundle_adjust (lambda restarts at 1e-6,
     the inlier set and the starting cost are recomputed), so the chunks
     are not one 20-step solve.  launches_per_step(cg_iters) segment sums
-    a step.  Returns (R, t, points) on the device."""
+    a step.  Returns (R, t, points) on the device.  Before each call the
+    abort flag (a threading.Event) is checked, as the reference polls
+    mbStopGBA between iterations (Optimizer.cc:121-129): once it is set
+    no further call starts, and the last finished call's result is
+    returned, or None if none finished.  With a gate (online) each
+    Gauss-Newton step first waits for tracking's frame to end (at most
+    BACKGROUND_WAIT_S): the solve runs in the background, and its launch
+    loop would otherwise contend with tracking's for the host
+    (utils/gate.py)."""
+    out = None
     R, t, ps = cam_R, cam_t, pts
+    hook = None if gate is None else \
+        (lambda: gate_wait(gate, BACKGROUND_WAIT_S))
     for ci in range(max(1, -(-n_iters // chunk))):
+        if abort is not None and abort.is_set():
+            break
         i1 = chunk // 2 if ci == 0 else 0          # Huber phase only first
         res = global_bundle_adjust(
             R, t, cam_fixed, ps, pvalid, e_cam, e_pt, e_obs, e_info, e_valid,
             fx, fy, cx, cy, bf, iters1=i1, iters2=chunk - i1,
-            cg_iters=cg_iters)
+            cg_iters=cg_iters, step_hook=hook)
         R, t, ps = res.R, res.t, res.points
-    return R, t, ps
+        out = (R, t, ps)
+    return out
 
 
 def propagate_to_children(m: SlamMap, old_pose, new_pose) -> None:
@@ -968,19 +1091,95 @@ class GlobalBA:
         self._cb = _StickyBucket(16, max_kfs)
         self._pb = _StickyBucket(1024, max_points)
         self._eb = _StickyBucket(4096, max_edges)
+        self.gate = None              # online: utils/gate.TrackingGate
+        self.n_aborted = 0            # background runs that an abort ended
+        self._thread = None           # the background run (online)
+        self._abort = None            # its abort flag (threading.Event)
+        self._old_threads: list = []  # aborted runs not joined yet
+        self._error = None            # the first exception of a run
+        self._stream = None           # their CUDA stream, at first launch
 
     def __call__(self, n_iters: int = 20):
         """assemble -> chunked solve -> write-back (with propagation to
         keyframes and points the problem did not hold)."""
-        with span(self.profiler, "gba.assemble"):
+        self._run(None, n_iters, None)
+
+    # ------------------------------------------------------- async runner
+    def launch(self, map_lock, n_iters: int = 20):
+        """Run the global BA in a background thread, like the reference's
+        RunGlobalBundleAdjustment thread (LoopClosing.cc:579, 645-749):
+        assembly and write-back hold the map lock briefly, and the device
+        solve runs unlocked on the thread's own CUDA stream (priority 0) in
+        abortable solver calls.  A new launch aborts a running one first
+        (LoopClosing.cc:435-446, mbStopGBA) without joining it: the caller
+        usually holds map_lock (CorrectLoop), and the old thread may be
+        waiting on it for its write-back.  An aborted thread re-checks its
+        flag after every lock acquisition and leaves the map untouched.
+        An exception in the thread is kept and raised by join()."""
+        self.interrupt(wait=False)
+        if self._stream is None:
+            self._stream = new_stream(self.device, WORKER_PRIORITY)
+        abort = threading.Event()
+        self._abort = abort
+
+        def body():
+            try:
+                with on_stream(self._stream):
+                    self._run(map_lock, n_iters, abort)
+            except Exception as e:             # raised again by join()
+                if self._error is None:
+                    self._error = e
+
+        self._old_threads = [t for t in self._old_threads if t.is_alive()]
+        self._thread = threading.Thread(target=body, daemon=True,
+                                        name="global-ba")
+        self._thread.start()
+
+    def _run(self, map_lock, n_iters, abort):
+        """The one runner: the synchronous call passes no lock and no flag;
+        a background run holds map_lock around assembly and write-back and
+        leaves the map untouched once `abort` is set."""
+        aborted = (lambda: False) if abort is None else abort.is_set
+        with _locked(map_lock), span(self.profiler, "gba.assemble"):
+            if aborted():
+                self.n_aborted += 1
+                return
             problem = self._assemble()
         if problem is None:
             return
         with span(self.profiler, "gba.solve"):
-            out = self._solve(problem, n_iters)
-        with span(self.profiler, "gba.writeback"):
-            self._write_back(problem, out)
-        self.n_runs += 1
+            out = self._solve(problem, n_iters, abort)
+        with _locked(map_lock):
+            if out is None or aborted():
+                self.n_aborted += 1
+                return
+            with span(self.profiler, "gba.writeback"):
+                self._write_back(problem, out)
+            self.n_runs += 1
+
+    def interrupt(self, wait: bool = True):
+        """Abort a running background global BA, and with `wait` wait for
+        its thread (the caller must not hold the map lock then)."""
+        th = self._thread
+        if th is not None and th.is_alive():
+            self._abort.set()
+            if wait:
+                th.join()
+            else:
+                self._old_threads.append(th)
+        self._thread = None
+
+    def join(self):
+        """Wait for every background run, aborted ones too; raise the
+        first exception one of them raised."""
+        for th in self._old_threads + \
+                ([self._thread] if self._thread is not None else []):
+            th.join()
+        self._thread = None
+        self._old_threads = []
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
 
     def _assemble(self):
         m = self.map
@@ -1024,12 +1223,17 @@ class GlobalBA:
                     arrays=(cam_R, cam_t, cam_fixed, pts, pvalid,
                             e_cam, e_pt, e_obs, e_info, e_valid))
 
-    def _solve(self, problem, n_iters: int = 20):
-        """The chunked solve on the device and one copy back."""
+    def _solve(self, problem, n_iters: int = 20, abort=None):
+        """The chunked solve on the device and one copy back; None when an
+        abort came before the first solver call finished."""
         d = self.device
         arrays = [to_device(a, d) for a in problem["arrays"]]
-        R, t, ps = solve_global_ba(*arrays, self.fx, self.fy, self.cx,
-                                   self.cy, self.bf, n_iters=n_iters)
+        out = solve_global_ba(*arrays, self.fx, self.fy, self.cx, self.cy,
+                              self.bf, n_iters=n_iters, abort=abort,
+                              gate=self.gate)
+        if out is None:
+            return None
+        R, t, ps = out
         C, P = R.shape[0], ps.shape[0]
         flat = torch.cat([R.reshape(-1), t.reshape(-1),
                           ps.reshape(-1)]).cpu().numpy()

@@ -77,18 +77,69 @@ class FrontEnd:
             dtype=torch.int64, device=self.device)
         self._scales = torch.tensor(self.extractor.scales, dtype=torch.float32,
                                     device=self.device)
+        # frame index -> (uploads, the copy's CUDA event or None): only the
+        # newest prefetch is kept
+        self._prefetched: dict = {}
+        self._copy_stream = None         # the card's side stream, lazily
+
+    def _host_images(self, data):
+        """The uint8 host arrays of one frame's uploads: both images and,
+        with System.IsMask, the usable-pixel masks (segmentation == 0),
+        else None."""
+        imL = np.ascontiguousarray(data.image_left, np.uint8)
+        imR = np.ascontiguousarray(data.image_right, np.uint8)
+        if self.config.system.is_mask and data.seg_left is not None:
+            return (imL, imR, (data.seg_left == 0).astype(np.uint8),
+                    (data.seg_right == 0).astype(np.uint8))
+        return imL, imR, None, None
 
     def upload(self, data):
         """uint8 device images of one frame (the float cast happens on the
         device; uint8 is a quarter of the bytes), and with System.IsMask
-        the usable-pixel masks (segmentation == 0), else None."""
-        d = self.device
-        imL = to_device(data.image_left, d, np.uint8)
-        imR = to_device(data.image_right, d, np.uint8)
-        if self.config.system.is_mask and data.seg_left is not None:
-            return (imL, imR, to_device(data.seg_left == 0, d, np.uint8),
-                    to_device(data.seg_right == 0, d, np.uint8))
-        return imL, imR, None, None
+        the usable-pixel masks, else None."""
+        return tuple(None if a is None else to_device(a, self.device)
+                     for a in self._host_images(data))
+
+    def prefetch(self, data):
+        """Start a future frame's uploads now, so that the copy overlaps
+        the current frame's work (airdos_tpu's FrontEnd.prefetch).  On the
+        card: pinned host buffers, non_blocking copies on a side stream and
+        an event that ``uploads`` makes the consuming stream wait on.  Only
+        the newest prefetch is kept."""
+        if data.index in self._prefetched:
+            return
+        if self.device.type != "cuda":
+            self._prefetched = {data.index: (self.upload(data), None)}
+            return
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(device=self.device)
+        pinned = [None if a is None else torch.from_numpy(a).pin_memory()
+                  for a in self._host_images(data)]
+        with torch.cuda.stream(self._copy_stream):
+            up = tuple(None if p is None
+                       else p.to(self.device, non_blocking=True)
+                       for p in pinned)
+            done = torch.cuda.Event()
+            done.record(self._copy_stream)
+        self._prefetched = {data.index: (up, done)}
+
+    def uploads(self, data):
+        """This frame's device uploads: the prefetched ones if there are,
+        else uploaded now.  A prefetched copy is ordered before the calling
+        thread's current stream (wait_event), and each tensor is recorded
+        on that stream, so the side stream's allocator does not reuse its
+        memory while this stream may still read it."""
+        entry = self._prefetched.pop(data.index, None)
+        if entry is None:
+            return self.upload(data)
+        up, done = entry
+        if done is not None:
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_event(done)
+            for t in up:
+                if t is not None:
+                    t.record_stream(cur)
+        return up
 
     def disparity_probes(self, data):
         """(torso pixels [MAX_HUMANS * N_TORSO, 2] on the device, whether
@@ -133,7 +184,7 @@ class FrontEnd:
         """data: io.datasets.FrameData."""
         torso_px, want_disp = self.disparity_probes(data)
         fL, fR, sm, xy_un, disp = self._build_impl(
-            *self.upload(data), torso_px, want_disp)
+            *self.uploads(data), torso_px, want_disp)
         return Frame(self, data, fL, sm, xy_un, disp)
 
 
@@ -329,6 +380,15 @@ class Frame:
         y = (obs.kp_left[:, 1] - cam.cy) * obs.depth / cam.fy
         xc = np.stack([x, y, obs.depth], axis=1)
         return (self.Rwc @ xc.T).T + self.Ow[None, :]
+
+    def unproject_feature(self, i: int) -> np.ndarray:
+        """One feature's world position from its stereo depth."""
+        cam = self.config.camera
+        z = self.depth[i]
+        x = (self.xy_un[i, 0] - cam.cx) * z / cam.fx
+        y = (self.xy_un[i, 1] - cam.cy) * z / cam.fy
+        xc = np.array([x, y, z], np.float32)
+        return self.Rwc @ xc + self.Ow
 
     def unproject_features(self, ids: np.ndarray) -> np.ndarray:
         cam = self.config.camera

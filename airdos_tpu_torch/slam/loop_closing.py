@@ -1,18 +1,28 @@
-"""Loop detection and correction, offline.
+"""Loop detection and correction.
 
 Rebuild of LoopClosing (reference src/LoopClosing.cc) as
-airdos_tpu/slam/loop_closing.py runs it offline: BoW candidate detection
+airdos_tpu/slam/loop_closing.py runs it: BoW candidate detection
 with 3-consecutive covisibility-group consistency (103-229); per
 candidate, ComputeSim3 — SearchByBoW >= 20 matches -> Sim3 RANSAC ->
 SearchBySim3 -> OptimizeSim3 >= 20 inliers -> loop-neighbourhood
 projection >= 40 (231-400); then CorrectLoop — propagate the corrected
 Sim3 through the covisible group, correct their points, merge and fuse
 the loop points, optimize the essential graph, then the global bundle
-adjustment inline (402-749).
+adjustment (402-749): inline offline, in a background thread online.
 
-The System calls ``process()`` inline at each keyframe after the mapping
-pass, so there is no map lock and no device gate (airdos_tpu's online
-mode takes both; ROADMAP port queue: online mode).  The matches run on
+The System calls ``process()`` at each keyframe after the mapping pass:
+inline offline, on the mapping worker online, where the reference runs a
+LoopClosing thread (System.cc:173-174).  Online the same non-blocking
+property comes from lock granularity, as in airdos_tpu: detection and the
+Sim3 computation take the shared map lock only around their host map
+reads and release it across every device call (each of which first waits
+on the tracking gate, utils/gate.py); ``correct()`` does the map surgery
+under the lock, solves the essential graph unlocked on the snapshot it
+assembled, writes back under the lock again, and launches the global BA
+in its background thread (``GlobalBA.launch``), which a later loop
+aborts.  airdos_tpu's ``Fuser.warmup`` compiles its fuse program before
+the lock is taken; eager torch compiles nothing, so there is no warmup
+here.  The matches run on
 the card through the Hamming kernel (the BoW match, both directions of
 SearchBySim3, the loop-point projection, SearchAndFuse); the essential
 graph and the global BA sum through ``segment_sum``.  The host keeps
@@ -24,6 +34,7 @@ compiled programs).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Set, Tuple
 
 import numpy as np
@@ -39,19 +50,25 @@ from airdos_tpu_torch.slam.keyframe_db import KeyFrameDatabase
 from airdos_tpu_torch.slam.map import KeyFrame, SlamMap
 from airdos_tpu_torch.solvers.pose_graph import optimize_essential_graph
 from airdos_tpu_torch.solvers.sim3 import optimize_sim3, sim3_ransac
+from airdos_tpu_torch.utils.gate import gate_wait
 from airdos_tpu_torch.utils.obs import span
 
 
 class LoopCloser:
     def __init__(self, config: SlamConfig, slam_map: SlamMap,
                  db: KeyFrameDatabase, extractor, device, fuser=None,
-                 global_ba=None):
+                 global_ba=None, map_lock=None):
         self.config = config
         self.map = slam_map
         self.db = db
         self.device = torch.device(device)
         self.fuser = fuser
         self.global_ba = global_ba
+        # online: the global BA runs in its background thread like the
+        # reference's GBA thread (LoopClosing.cc:579); offline it is inline
+        self.async_gba = not config.system.is_offline
+        self.map_lock = map_lock
+        self.gate = None                # online: utils/gate.TrackingGate
         self.profiler = None
         self.events = None              # the System's EventLog
         cam = config.camera
@@ -69,6 +86,10 @@ class LoopCloser:
         self.n_loops_closed = 0
         # (kf id, candidate id, matches, loop points) of each closed loop
         self.closed: List[Tuple[int, int, int, int]] = []
+
+    def _lockctx(self):
+        return self.map_lock if self.map_lock is not None \
+            else contextlib.nullcontext()
 
     # ------------------------------------------------------------ detect
     def detect(self, kf: KeyFrame) -> List[int]:
@@ -119,13 +140,19 @@ class LoopCloser:
 
     def compute_sim3(self, kf: KeyFrame, cand_id: int):
         """Returns (R12, t12, s12, matches {fid_kf: pid}, cand_id,
-        loop_points) or None."""
-        ckf = self.map.kfs.get(cand_id)
-        if ckf is None or ckf.bad:
-            return None
-        self.db.ensure_bow(kf)
-        self.db.ensure_bow(ckf)
+        loop_points) or None.  Takes the map lock only around its host map
+        reads; the device calls run unlocked."""
+        lock = self._lockctx()
+        with lock:
+            ckf = self.map.kfs.get(cand_id)
+            if ckf is None or ckf.bad:
+                return None
+            self.db.ensure_bow(kf)
+            self.db.ensure_bow(ckf)
         d = self.device
+        # a keyframe's descriptors, BoW nodes and angles do not change
+        # after it is made: the match needs no lock
+        gate_wait(self.gate)            # tracking launches first
         with span(self.profiler, "sim3.bow_match"):
             m = match_by_bow(
                 desc_to_tensor(kf.desc32, d),
@@ -136,17 +163,19 @@ class LoopCloser:
                 to_device(ckf.valid, d), to_device(ckf.angle, d, np.float32))
             idx2 = m.idx2.cpu().numpy()
         pt = self.map.points
-        pairs = []
-        for f1 in np.nonzero(idx2 >= 0)[0]:
-            f2 = int(idx2[f1])
-            p1 = int(kf.mp_idx[f1])
-            p2 = int(ckf.mp_idx[f2])
-            if p1 >= 0 and p2 >= 0 and not pt.bad[p1] and not pt.bad[p2]:
-                pairs.append((int(f1), f2, p1, p2))
-        if len(pairs) < 20:
-            return None
-        n = len(pairs)
-        x1, x2, s1, s2 = self._pair_arrays(kf, ckf, pairs)
+        with lock:
+            pairs = []
+            for f1 in np.nonzero(idx2 >= 0)[0]:
+                f2 = int(idx2[f1])
+                p1 = int(kf.mp_idx[f1])
+                p2 = int(ckf.mp_idx[f2])
+                if p1 >= 0 and p2 >= 0 and not pt.bad[p1] \
+                        and not pt.bad[p2]:
+                    pairs.append((int(f1), f2, p1, p2))
+            if len(pairs) < 20:
+                return None
+            n = len(pairs)
+            x1, x2, s1, s2 = self._pair_arrays(kf, ckf, pairs)
         n_hyp = self.config.device.ransac_hypotheses
         samples = self.rng.integers(0, n, (n_hyp, 3)).astype(np.int32)
         with span(self.profiler, "sim3.ransac"):
@@ -167,14 +196,16 @@ class LoopCloser:
             grown = self._search_by_sim3(kf, ckf, Rr, tr, sr,
                                          {p[0] for p in pairs},
                                          {p[3] for p in pairs})
-        pairs = [p for p in pairs + grown
-                 if not pt.bad[p[2]] and not pt.bad[p[3]]]
-        if len(pairs) < 20:
-            return None
-        n = len(pairs)
-        x1, x2, s1, s2 = self._pair_arrays(kf, ckf, pairs)
-        obs1 = kf.xy_un[[p[0] for p in pairs]].astype(np.float32)
-        obs2 = ckf.xy_un[[p[1] for p in pairs]].astype(np.float32)
+        with lock:
+            # a point culled while the lock was released drops its pair
+            pairs = [p for p in pairs + grown
+                     if not pt.bad[p[2]] and not pt.bad[p[3]]]
+            if len(pairs) < 20:
+                return None
+            n = len(pairs)
+            x1, x2, s1, s2 = self._pair_arrays(kf, ckf, pairs)
+            obs1 = kf.xy_un[[p[0] for p in pairs]].astype(np.float32)
+            obs2 = ckf.xy_un[[p[1] for p in pairs]].astype(np.float32)
         with span(self.profiler, "sim3.optimize"):
             R, t, s, inl, _ = optimize_sim3(
                 res.R, res.t, res.s,
@@ -195,7 +226,8 @@ class LoopCloser:
         # through the corrected Scw; >= 40 matches in all
         # (reference LoopClosing.cc:350-390)
         with span(self.profiler, "sim3.project_loop_points"):
-            loop_points = self._gather_loop_points(ckf)
+            with lock:
+                loop_points = self._gather_loop_points(ckf)
             n_total, proj_matches = self._project_loop_points(
                 kf, loop_points, R, t, s, ckf, matches)
         if n_total < 40:
@@ -224,13 +256,15 @@ class LoopCloser:
                 val[fid] = True
             return x, desc, maxd, val
 
-        x1c, desc1, maxd1, val1 = point_tables(kf, set())
-        x2c, desc2, maxd2, val2 = point_tables(ckf, matched_p2)
+        with self._lockctx():
+            x1c, desc1, maxd1, val1 = point_tables(kf, set())
+            x2c, desc2, maxd2, val2 = point_tables(ckf, matched_p2)
         val1 &= ~np.isin(np.arange(kf.n_slots), list(matched_f1))
         # KF2 points -> cam1 through S12; KF1 points -> cam2 through S21
         x2_in_c1 = s12 * (x2c @ R12.T) + t12
         x1_in_c2 = ((x1c - t12) @ R12) / s12
         d = self.device
+        gate_wait(self.gate)            # tracking launches first
         m = match_by_sim3(
             to_device(x2_in_c1, d, np.float32), to_device(val2, d),
             desc_to_tensor(desc2, d), to_device(maxd2, d),
@@ -244,14 +278,16 @@ class LoopCloser:
             to_device(self.scale_factors, d), self.log_scale, self.n_levels)
         idx2 = m.idx2_of_1.cpu().numpy()
         grown = []
-        for f1 in np.nonzero(idx2 >= 0)[0]:
-            f1 = int(f1)
-            f2 = int(idx2[f1])
-            p1 = int(kf.mp_idx[f1])
-            p2 = int(ckf.mp_idx[f2])
-            if p1 >= 0 and p2 >= 0 and not pt.bad[p1] and not pt.bad[p2] \
-                    and f1 not in matched_f1 and p2 not in matched_p2:
-                grown.append((f1, f2, p1, p2))
+        with self._lockctx():
+            for f1 in np.nonzero(idx2 >= 0)[0]:
+                f1 = int(f1)
+                f2 = int(idx2[f1])
+                p1 = int(kf.mp_idx[f1])
+                p2 = int(ckf.mp_idx[f2])
+                if p1 >= 0 and p2 >= 0 and not pt.bad[p1] \
+                        and not pt.bad[p2] \
+                        and f1 not in matched_f1 and p2 not in matched_p2:
+                    grown.append((f1, f2, p1, p2))
         return grown
 
     def _gather_loop_points(self, ckf: KeyFrame) -> List[int]:
@@ -282,23 +318,27 @@ class LoopCloser:
         tcw = (s12 * (R12 @ ckf.tcw) + t12).astype(np.float32)
         ow = (-Rcw.T @ tcw / max(s12, 1e-9)).astype(np.float32)
         matched_pids = set(matches.values())
-        cand = [p for p in loop_points if p not in matched_pids
-                and not pt.bad[p]]
-        if not cand:
-            return len(matches), {}
-        n = len(cand)
-        ids = np.asarray(cand)
+        with self._lockctx():
+            cand = [p for p in loop_points if p not in matched_pids
+                    and not pt.bad[p]]
+            if not cand:
+                return len(matches), {}
+            n = len(cand)
+            ids = np.asarray(cand)
+            xw = pt.pos[ids].astype(np.float32)
+            desc = pt.desc32[ids]
+            normal = pt.normal[ids].astype(np.float32)
+            maxd = pt.max_dist[ids].astype(np.float32)
+            mind = pt.min_dist[ids].astype(np.float32)
         taken = np.zeros(kf.n_slots, bool)
         for fid in matches:
             taken[fid] = True
         d = self.device
+        gate_wait(self.gate)            # tracking launches first
         out = match_local_points(
-            to_device(pt.pos[ids], d, np.float32),
-            desc_to_tensor(pt.desc32[ids], d),
+            to_device(xw, d), desc_to_tensor(desc, d),
             torch.ones(n, dtype=torch.bool, device=d),
-            to_device(pt.normal[ids], d, np.float32),
-            to_device(pt.max_dist[ids], d, np.float32),
-            to_device(pt.min_dist[ids], d, np.float32),
+            to_device(normal, d), to_device(maxd, d), to_device(mind, d),
             to_device(Rcw, d), to_device(tcw, d), to_device(ow, d),
             to_device(kf.xy_un, d), to_device(kf.u_right, d),
             to_device(kf.octave, d, np.int64), desc_to_tensor(kf.desc32, d),
@@ -318,14 +358,33 @@ class LoopCloser:
     # ------------------------------------------------------- correct loop
     def correct(self, kf: KeyFrame, sim3_result) -> bool:
         """CorrectLoop (reference LoopClosing.cc:402-749): the map surgery,
-        the essential-graph solve, its write-back, then the global BA."""
+        the essential-graph solve, its write-back, then the global BA.
+
+        Locking (the caller must not hold the map lock): a global BA still
+        running is aborted first (LoopClosing.cc:435-446); the map surgery
+        (pose propagation to the covisible group, loop-point merging,
+        SearchAndFuse, the essential graph's assembly) runs under the lock,
+        which SearchAndFuse releases across each device match; the
+        essential graph is solved unlocked on the assembled snapshot; the
+        write-back takes the lock again and corrects keyframes and points
+        made meanwhile through their parents (the mTcwBefGBA walk of
+        LoopClosing.cc:682-743), then launches the global BA (online) or
+        runs it (offline)."""
         R12, t12, s12, matches, cand_id, loop_points = sim3_result
-        problem = self._correct_map(kf, sim3_result)
+        lock = self._lockctx()
+        if self.global_ba is not None and self.async_gba:
+            self.global_ba.interrupt(wait=False)
+        with span(self.profiler, "loop.correct_map"):
+            problem = self._correct_map(kf, sim3_result)
         if problem is None:
             return False
         index, R0, t0, fixed, e_i, e_j, Rm, tm = problem
         d = self.device
         K, E = len(R0), len(e_i)
+        # online, each Gauss-Newton step first waits while tracking is in
+        # its frame: the solve's launch loop contends with tracking's for
+        # the host (utils/gate.py)
+        hook = None if self.gate is None else (lambda: gate_wait(self.gate))
         with span(self.profiler, "loop.essential_graph"):
             R_sol, t_sol, _ = optimize_essential_graph(
                 to_device(R0, d), to_device(t0, d),
@@ -334,33 +393,70 @@ class LoopCloser:
                 to_device(np.stack(Rm), d, np.float32),
                 to_device(np.stack(tm), d, np.float32),
                 torch.ones(E, dtype=torch.float32, device=d),
-                torch.ones(E, dtype=torch.bool, device=d))
+                torch.ones(E, dtype=torch.bool, device=d), step_hook=hook)
             flat = torch.cat([R_sol.reshape(-1), t_sol.reshape(-1)]) \
                 .cpu().numpy()
         R_out = flat[:9 * K].reshape(K, 3, 3)
         t_out = flat[9 * K:].reshape(K, 3)
-        self._write_back_pose_graph(kf, cand_id, index, R0, t0, R_out, t_out)
-        kf.loop_edges.add(cand_id)
-        ckf = self.map.kfs.get(cand_id)
-        if ckf is not None:
-            ckf.loop_edges.add(kf.id)
-        self._last_loop_kf = kf.id
-        self.n_loops_closed += 1
-        self.closed.append((kf.id, cand_id, len(matches), len(loop_points)))
-        if self.events is not None:
-            self.events.emit("loop_closed", kf=kf.id, candidate=cand_id,
-                             n_matches=len(matches),
-                             n_loop_points=len(loop_points))
-        if self.global_ba is not None:
-            with span(self.profiler, "loop.global_ba"):
-                self.global_ba()
+        with lock:
+            self._write_back_pose_graph(kf, cand_id, index, R0, t0, R_out,
+                                        t_out)
+            kf.loop_edges.add(cand_id)
+            ckf = self.map.kfs.get(cand_id)
+            if ckf is not None:        # culled while the solve ran
+                ckf.loop_edges.add(kf.id)
+            self._last_loop_kf = kf.id
+            self.n_loops_closed += 1
+            self.closed.append((kf.id, cand_id, len(matches),
+                                len(loop_points)))
+            if self.events is not None:
+                self.events.emit("loop_closed", kf=kf.id, candidate=cand_id,
+                                 n_matches=len(matches),
+                                 n_loop_points=len(loop_points))
+            if self.global_ba is not None:
+                if self.async_gba:
+                    # a new loop aborts a global BA still running
+                    # (LoopClosing.cc:435-446), then starts a fresh one
+                    self.global_ba.launch(self.map_lock)
+                else:
+                    with span(self.profiler, "loop.global_ba"):
+                        self.global_ba()
         return True
 
     def _correct_map(self, kf: KeyFrame, sim3_result):
         """Propagate the corrected Sim3 to the covisible group and their
         points, merge and fuse the loop points, assemble the essential-graph
         problem.  Returns (index, R0, t0, fixed, e_i, e_j, Rm, tm) or
-        None."""
+        None.  Takes the map lock (the caller must not hold it) and
+        releases it across SearchAndFuse's device matches."""
+        lock = self._lockctx()
+        with lock:
+            state = self._correct_group(kf, sim3_result)
+        if state is None:
+            return None
+        live, nc_R, nc_t, group = state
+        m = self.map
+        # SearchAndFuse: the loop-neighbourhood points into every corrected
+        # group KF, loop points winning conflicts (reference
+        # LoopClosing::SearchAndFuse, ORBmatcher::Fuse(Scw)), one target at
+        # a time as the reference fuses them
+        if self.fuser is not None:
+            for gid in group:
+                gkf = m.kfs.get(gid)
+                if gkf is not None and not gkf.bad:
+                    self.fuser._fuse_into(sim3_result[5], gkf,
+                                          prefer_candidates=True)
+        with lock:
+            if self.fuser is not None:
+                m.update_connections(kf)
+            return self._essential_graph_problem(kf, sim3_result[4], live,
+                                                 nc_R, nc_t)
+
+    def _correct_group(self, kf: KeyFrame, sim3_result):
+        """The corrected Sim3 propagated to kf's covisible group and their
+        points, and the matched loop points merged into kf.  Returns the
+        live keyframes, their non-corrected poses and the group, or None
+        when kf or the candidate is gone."""
         R12, t12, s12, matches, cand_id, loop_points = sim3_result
         ckf = self.map.kfs.get(cand_id)
         if kf.bad or ckf is None or ckf.bad:
@@ -408,18 +504,14 @@ class LoopCloser:
                 m.replace_point(pid_cur, pid_loop)
             elif pid_cur < 0 and not pt.bad[pid_loop]:
                 m.add_observation(pid_loop, kf, fid)
+        return live, nc_R, nc_t, group
 
-        # SearchAndFuse: the loop-neighbourhood points into every corrected
-        # group KF, loop points winning conflicts (reference
-        # LoopClosing::SearchAndFuse, ORBmatcher::Fuse(Scw))
-        if self.fuser is not None:
-            for gid in group:
-                gkf = m.kfs.get(gid)
-                if gkf is not None and not gkf.bad:
-                    self.fuser._fuse_into(loop_points, gkf,
-                                          prefer_candidates=True)
-            m.update_connections(kf)
-
+    def _essential_graph_problem(self, kf: KeyFrame, cand_id: int, live,
+                                 nc_R, nc_t):
+        """The essential graph over the live keyframes of the correction's
+        start (the new loop edge, spanning tree, strong covisibility, loop
+        edges)."""
+        m = self.map
         # the essential graph over all keyframes: vertices start at the
         # CURRENT (group-corrected) poses, measurements come from the
         # NON-corrected snapshot; only the new loop edge uses corrected ones
@@ -497,8 +589,11 @@ class LoopCloser:
 
     # ---------------------------------------------------------------- run
     def process(self, kf: KeyFrame) -> bool:
-        """DetectLoop -> ComputeSim3 -> CorrectLoop for one keyframe."""
-        with span(self.profiler, "loop.detect"):
+        """DetectLoop -> ComputeSim3 -> CorrectLoop for one keyframe.  The
+        caller must not hold the map lock: detection takes it, the Sim3
+        computation and the correction take it around their host map
+        sections."""
+        with span(self.profiler, "loop.detect"), self._lockctx():
             cands = self.detect(kf)
         for cand in cands:
             with span(self.profiler, "loop.sim3"):

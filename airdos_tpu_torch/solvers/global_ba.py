@@ -66,7 +66,9 @@ def global_bundle_adjust(
         e_valid: torch.Tensor,     # [E] bool
         fx, fy, cx, cy, bf,
         iters1: int = 6, iters2: int = 10,
-        cg_iters: int = 48) -> GlobalBAResult:
+        cg_iters: int = 48, step_hook=None) -> GlobalBAResult:
+    """step_hook, when given, is called before each Gauss-Newton step (the
+    online global BA waits there while tracking is in its frame)."""
     C = cam_R.shape[0]
     P = points.shape[0]
     dtype, dev = points.dtype, points.device
@@ -197,6 +199,8 @@ def global_bundle_adjust(
         lam = torch.tensor(1e-6, dtype=dtype, device=dev)
         f_prev = cost(R, t, pts)
         for _ in range(n_iters):
+            if step_hook is not None:
+                step_hook()
             Rn, tn, pn = gn_step(R, t, pts, active, lam, use_huber)
             f_new = cost(Rn, tn, pn)
             better = f_new < f_prev

@@ -84,7 +84,9 @@ def optimize_essential_graph(
         e_i, e_j,                  # [E] vertex indices
         e_Rm, e_tm, e_sm,          # [E, ...] relative measurements
         e_valid,                   # [E]
-        n_iters: int = 20, fix_scale: bool = True):
+        n_iters: int = 20, fix_scale: bool = True, step_hook=None):
+    """step_hook, when given, is called before each Gauss-Newton step (the
+    online loop closer waits there while tracking is in its frame)."""
     K = kf_R.shape[0]
     dtype, dev = kf_t.dtype, kf_t.device
     D = 7 * K
@@ -134,6 +136,8 @@ def optimize_essential_graph(
     lam = torch.tensor(1e-6, dtype=dtype, device=dev)
     f_prev = cost(R, t, s)
     for _ in range(n_iters):
+        if step_hook is not None:
+            step_hook()
         Rn, tn, sn = gn_step(R, t, s, lam)
         f_new = cost(Rn, tn, sn)
         better = f_new < f_prev

@@ -1,0 +1,92 @@
+"""Tracking-priority scheduling for online mode: the host gate and the
+CUDA streams.
+
+The host half is airdos_tpu/utils/gate.py's ``TrackingGate`` and
+``gate_wait``, copied (pure threading).  The tracking thread holds the
+gate across its per-frame window (prep, which may wait for the map lock,
+-> host pack -> fused step -> result read; airdos_tpu's starts at the
+pack), and the mapping, loop and BA workers call ``gate_wait``
+right before each of their own dispatches, deferring while tracking is
+inside the window.  On a TPU the gate keeps mapping programs out of the
+chip's single FIFO; on an H100 the device runs streams concurrently, so
+the gate's work here is to keep a worker's Python launch loop out of the
+tracking thread's window, which limits their contention for the
+interpreter lock.  The wait is bounded (0.25 s), so a stalled tracking
+thread cannot deadlock a worker, and it is a no-op unless the System
+installs a gate (online mode only).  Beyond airdos_tpu's waits, the loop
+closer's essential graph and the background global BA wait at every
+Gauss-Newton step: on an NVIDIA H100 80GB HBM3 at 700 W their launch
+loops beside the tracking thread's made the worst tracking frame of a
+loop closure 4.3 x the median frame, and 1.8 x with the step waits
+(medians of two runs each; PERF.md section 6).  The global BA, which no
+one waits for, waits out the whole window (``BACKGROUND_WAIT_S``), so it
+runs between tracking frames.
+
+The device half: online, the tracking thread launches on one stream of
+high priority (``TRACKING_PRIORITY``, negative: CUDA schedules its blocks
+first) and each worker thread on its own stream of priority 0.  PyTorch's
+current stream is thread-local and a new thread starts on the default
+stream, so every worker enters its stream at the top of its thread body
+(``on_stream``) and System runs ``Tracking.track`` inside the tracking
+stream.  Off CUDA, ``new_stream`` gives None and ``on_stream(None)`` is
+a null context: the CPU runs online mode on the same threads without
+streams, and offline mode stays on the current stream.
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+from typing import Optional
+
+import torch
+
+TRACKING_PRIORITY = -1     # CUDA: a lower number is a higher priority
+WORKER_PRIORITY = 0
+# the longest a background solve's step waits for tracking's window to
+# close: longer than a frame, bounded so that a stalled tracking thread
+# cannot hold the solve forever
+BACKGROUND_WAIT_S = 2.0
+
+
+class TrackingGate:
+    def __init__(self, timeout: float = 0.25):
+        self._clear = threading.Event()
+        self._clear.set()
+        self._timeout = timeout
+
+    # ---- tracking side: context manager around the device window -----
+    def __enter__(self):
+        self._clear.clear()
+        return self
+
+    def __exit__(self, *exc):
+        self._clear.set()
+        return False
+
+    # ---- worker side: call right before launching device work --------
+    def wait(self, timeout=None):
+        self._clear.wait(self._timeout if timeout is None else timeout)
+
+
+def gate_wait(gate, timeout=None) -> None:
+    """Defer a worker-thread dispatch while tracking is in its device
+    window, at most `timeout` s (the gate's 0.25 s by default); no-op when
+    no gate is installed (offline / single-thread)."""
+    if gate is not None:
+        gate.wait(timeout)
+
+
+def new_stream(device, priority: int) -> Optional["torch.cuda.Stream"]:
+    """A CUDA stream of `priority` on `device`, or None off CUDA."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return torch.cuda.Stream(device=device, priority=priority)
+
+
+def on_stream(stream):
+    """Make `stream` the calling thread's current stream for the block
+    (a null context for None)."""
+    if stream is None:
+        return contextlib.nullcontext()
+    return torch.cuda.stream(stream)

@@ -90,12 +90,37 @@ Run from the repository root.  Phases, each of which fails the run:
    on the card: the same branches and trajectories, cameras within 1e-4
    m, and after the first human BA solve the joints with an inlier
    projection edge within 5e-3 m (the gaps of the other joints and at the
-   end of the run are printed: PERF.md says why they are not held).
+   end of the run are printed: PERF.md says why they are not held);
+13. online, run after phase 8 among the path phases (System with
+   is_offline=False: tracking in this thread on a high-priority CUDA
+   stream, the mapping pass and loop closing in a worker thread, the
+   human BA and the global BA in background threads, each worker on its
+   own stream of priority 0):
+   a. the pillar orbit of phase 7 with frame i + 1 prefetched before
+      frame i: the last frame OK, a loop closed, the global BA run in its
+      thread, ATE < 0.15 m, and tests/test_loop_stall.py's bound (the
+      worst tracking frame stamped within [t_loop - 8 s, t_loop + 2 s],
+      frames before 20 left out, below max(3 x median, median + 0.5 s));
+      prints the tracking thread's per-frame median and p90 beside phase
+      7's, the mapping load (keyframes inserted and refused, and the
+      longest mapping queue, over the run and in the stall window, beside
+      phase 7's keyframes), the worker's spans and the launches by
+      (kernel, thread, stream priority), and fails unless the mapping worker's batched Hamming and
+      segment_sum launches went to a stream of lower priority than the
+      tracking thread's 2-D Hamming launches;
+   b. the crowd flagship of phase 5 online (tests/test_online_human.py):
+      >= 2 human BA solves through HumanLocalBA.launch, a trajectory
+      optimized, ATE < 0.03 m, nothing raised at shutdown;
+   c. the API on the static frames: localization-only mode for frames
+      18-27 after 18 mapped frames (no new keyframe or point, every frame
+      OK, the last pose within 0.5 m: tests/test_config_flags.py), reset
+      and re-initialization twice, the second reset issued while a global
+      BA runs, and a prefetched frame bit-equal to the plain upload.
 
 Each path's kernel launch counts are set to 0 just before the path is
 driven and read just after; launches made to compare a kernel with its
 plain version are not counted; the kernels line's launches add up the
-mapping, human, reloc, loop and map-scale paths' counts.  Frames are
+mapping, human, reloc, loop, map-scale and online paths' counts.  Frames are
 rendered in a pool of forked processes before any CUDA context exists.
 The last lines are one JSON line listing the kernels, the nvidia-smi
 line, and {"ok": true, "device": {...}}.
@@ -124,6 +149,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -277,14 +303,17 @@ def _path_recording():
                (sk, "segment_sum_cuda", "segment_sum", seg_shape))
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _, _ in targets]
 
+    lock = threading.Lock()         # online phases launch from threads
+
     def recorder(launch, name, shape_of):
         def record(*args):
-            entry = _PATH.setdefault(name, {}).setdefault(shape_of(*args),
-                                                          [0, None])
-            entry[0] += 1
-            if entry[1] is None:
-                entry[1] = tuple(x.clone() if isinstance(x, torch.Tensor)
-                                 else x for x in args)
+            with lock:
+                entry = _PATH.setdefault(name, {}).setdefault(
+                    shape_of(*args), [0, None])
+                entry[0] += 1
+                if entry[1] is None:
+                    entry[1] = tuple(x.clone() if isinstance(x, torch.Tensor)
+                                     else x for x in args)
             return launch(*args)
         return record
 
@@ -1104,7 +1133,281 @@ def phase_loop(smi: str, frames, twc):
         for k, v in sorted(spans.items())
         if k.startswith(("map.loop_closing", "loop.", "sim3.", "gba.",
                          "map.static_ba", "track.step"))), flush=True)
-    return counts, snaps[0][:3], slam.frontend.extractor
+    return counts, snaps[0][:3], slam.frontend.extractor, \
+        dict(track_ms=track_ms, all_ms=[p["ms"] for p in per],
+             loop_ms=[per[i]["ms"] for i in loop_frames],
+             n_kfs=slam.map.next_kf_id)
+
+
+def _frame_events(slam):
+    """The online System's per-frame host times (s) and stamps from its
+    event log, and the stamps of its loop closures."""
+    frames = slam.events.events("frame")
+    loops = slam.events.events("loop_closed")
+    return (np.asarray([f["track_s"] for f in frames]),
+            np.asarray([f["t"] for f in frames]),
+            [ev["t"] for ev in loops])
+
+
+def _stall_window(times, stamps, loop_stamps, skip: int = 20):
+    """tests/test_loop_stall.py's window: which tracking frames are stamped
+    in [t_loop - 8 s, t_loop + 2 s] of a loop closure, the first `skip`
+    frames left out."""
+    sel = np.zeros(len(times), bool)
+    for t in loop_stamps:
+        sel |= (stamps > t - 8.0) & (stamps < t + 2.0)
+    sel[:skip] = False
+    return sel
+
+
+def _tally():
+    hk, sk = _counters()
+    return {**hk.launch_tally(), **sk.launch_tally()}
+
+
+def phase_online(smi: str, orbit, orbit_twc, crowd, crowd_twc, frames, twc,
+                 offline_loop):
+    """Online mode (is_offline=False): the pillar orbit with loop closing
+    and the crowd flagship, then the rest of System's API on the static
+    frames.  Returns the launch counts."""
+    _reset_counts()
+    _online_pillar(smi, orbit, orbit_twc, offline_loop)
+    _online_human(smi, crowd, crowd_twc)
+    _online_api(frames, twc)
+    return _counts()
+
+
+def _run_online_pillar(orbit):
+    """The pillar orbit through the online System at the bench budget,
+    frame i + 1 prefetched before frame i.  Returns the System (shut
+    down), each frame's state, and tests/test_loop_stall.py's numbers: the
+    tracking thread's per-frame host times (s), their median after frame
+    20, the stall window's mask, its worst frame (or None) and the bound
+    max(3 x median, median + 0.5 s); and per frame the mapping load: the
+    keyframes it inserted, whether the busy branch of
+    Tracking._need_new_keyframe refused one (mapping busy and >= 3
+    keyframes queued), and the queue's length at the frame's end."""
+    from airdos_tpu_torch.slam.system import System
+    cfg = _loop_config()
+    cfg.system.is_offline = False
+    slam = System(cfg, device="cuda")
+    trk = slam.tracking
+    queue_len, refused = trk.mapping_queue_len_fn, [0]
+
+    def read_queue():        # read only when a keyframe is due while busy
+        n = queue_len()
+        refused[0] += n >= 3
+        return n
+    trk.mapping_queue_len_fn = read_queue
+    states, load = [], []
+    for i, data in enumerate(orbit):
+        if i + 1 < len(orbit):
+            slam.prefetch(orbit[i + 1])
+        k0, r0 = slam.map.next_kf_id, refused[0]
+        slam.track_stereo(data)
+        states.append(trk.state.name)
+        load.append((slam.map.next_kf_id - k0, refused[0] - r0,
+                     queue_len()))
+    slam.shutdown()
+    times, stamps, loop_stamps = _frame_events(slam)
+    med = float(np.median(times[20:]))
+    sel = _stall_window(times, stamps, loop_stamps)
+    worst = float(times[sel].max()) if sel.any() else None
+    return slam, states, dict(times=times, med=med, sel=sel, worst=worst,
+                              bound=max(3.0 * med, med + 0.5),
+                              load=np.asarray(load))
+
+
+def _mapping_load(st) -> str:
+    """The mapping load of a _run_online_pillar run, over the run and in
+    its stall window."""
+    inserted, refused, queued = st["load"].T
+    sel = st["sel"]
+    return (f"keyframes inserted {int(inserted.sum())}, refused "
+            f"{int(refused.sum())}, longest queue {int(queued.max())}; in "
+            f"the stall window inserted {int(inserted[sel].sum())}, refused "
+            f"{int(refused[sel].sum())}, longest queue "
+            f"{int(queued[sel].max()) if sel.any() else 0}")
+
+
+def _online_pillar(smi, orbit, orbit_twc, offline_loop):
+    """a. pillar-84 online: the checks and the prints."""
+    from airdos_tpu_torch.utils.gate import TRACKING_PRIORITY
+
+    slam, states, st = _run_online_pillar(orbit)
+    counts, tally = _counts(), _tally()     # counted from 0 at the phase
+    lc = slam.loop_closer
+    times, sel, worst, med = st["times"], st["sel"], st["worst"], st["med"]
+    ms = times * 1e3
+    print(f"[online] pillar-{len(orbit)}: states {collections.Counter(states)}"
+          f", keyframes {len(slam.map.kfs)} inserted "
+          f"({slam.map.n_keyframes()} live), loops closed "
+          f"{lc.closed if lc else None}, global BA runs "
+          f"{slam.global_ba.n_runs} (aborted {slam.global_ba.n_aborted}); "
+          f"launches {counts}")
+    if states[-1] != "OK":
+        _fail(f"online: the last pillar frame is {states[-1]}")
+    if lc is None or lc.n_loops_closed < 1:
+        _fail("online: no loop closed")
+    if slam.global_ba.n_runs < 1:
+        _fail("online: the global BA never ran in its background thread")
+    ate = _ate(slam.tracking, orbit_twc)
+    if not ate < 0.15:
+        _fail(f"online: pillar ATE {ate} m >= 0.15 m")
+    warm = times[20:]
+    stalled = times[sel]
+    off = offline_loop
+    print(f"[online] pillar ATE {ate:.6f} m; tracking-frame ms online (all "
+          f"{len(ms)} frames, the tracking thread's host time): "
+          f"{_ms_stats(ms)}, after frame 20 {_ms_stats(warm * 1e3)}; offline "
+          f"in phase loop: tracking frames {_ms_stats(off['track_ms'])}, all "
+          f"frames {_ms_stats(off['all_ms'])}, loop frames "
+          f"{[round(x, 2) for x in off['loop_ms']]} ms; loop stall window "
+          f"{len(stalled)} frames, worst "
+          f"{'none' if worst is None else f'{worst * 1e3:.2f}'} ms against "
+          f"the bound max(3 x {med * 1e3:.2f}, {med * 1e3:.2f} + 500) ms on "
+          f"{smi}", flush=True)
+    print(f"[online] stall window frames (ms): "
+          f"{[round(float(x) * 1e3, 1) for x in stalled]}", flush=True)
+    print(f"[online] mapping load online: {_mapping_load(st)}; offline in "
+          f"phase loop: keyframes inserted {off['n_kfs']}", flush=True)
+    if worst is not None and not worst < st["bound"]:
+        _fail(f"online: a loop closure stalled tracking: {worst} s against "
+              f"a median of {med} s")
+    spans = slam.profiler.report()
+    print("[online] worker spans (median ms): " + ", ".join(
+        f"{k} {v['median_s'] * 1e3:.2f} (n {v['n']}, max "
+        f"{max(slam.profiler.stages[k]) * 1e3:.2f})"
+        for k, v in sorted(spans.items())
+        if k.startswith(("map.", "loop.", "gba.", "ba.", "track"))),
+        flush=True)
+    print("[online] launches by (kernel, thread, stream priority): "
+          + ", ".join(f"{k} {v}" for k, v in sorted(tally.items())),
+          flush=True)
+    track_prio = {p for (name, th, p) in tally if th == "MainThread"
+                  and name == "hamming_matrix"}
+    worker = {(name, p) for (name, th, p) in tally if th == "mapping"
+              and name in ("hamming_matrix_batched", "segment_sum")}
+    if not track_prio or {n for n, _ in worker} != \
+            {"hamming_matrix_batched", "segment_sum"}:
+        _fail(f"online: launches missing from the tally {tally}")
+    if track_prio != {min(track_prio)} or min(track_prio) > \
+            TRACKING_PRIORITY:
+        _fail(f"online: tracking's 2-D Hamming launches on priorities "
+              f"{track_prio}")
+    if any(p <= max(track_prio) for _, p in worker):
+        _fail(f"online: the mapping worker's launches {worker} are not on "
+              f"a stream of lower priority than tracking's {track_prio}")
+
+
+def _online_human(smi, crowd, crowd_twc):
+    """b. crowd-27 online human (tests/test_online_human.py)."""
+    from airdos_tpu_torch.slam.system import System
+
+    cfg = _human_bench_config()
+    cfg.system.is_offline = False
+    slam = System(cfg, device="cuda")
+    launched = []
+    real_launch = slam.human_ba.launch
+
+    def launch(kf_id):
+        ok = real_launch(kf_id)
+        launched.append(ok)
+        return ok
+    slam.human_ba.launch = launch
+    for data in crowd:
+        slam.track_stereo_human(data)
+    slam.shutdown()          # raises what the background human BA raised
+    n_opt = sum(t.optimized for t in slam.map.trajectories.values())
+    ate_h = _ate(slam.tracking, crowd_twc)
+    times, _, _ = _frame_events(slam)
+    print(f"[online] crowd-{len(crowd)} flagship: state "
+          f"{slam.tracking.state.name}, human BA launches {launched.count(True)}"
+          f" (ticks skipped while one ran {launched.count(False)}), solves "
+          f"{slam.human_ba.n_runs}, trajectories optimized {n_opt}, ATE "
+          f"{ate_h:.6f} m; tracking-frame ms {_ms_stats(times * 1e3)} on "
+          f"{smi}", flush=True)
+    if slam.tracking.state.name != "OK":
+        _fail("online human: the last frame is not OK")
+    if slam.human_ba.n_runs < 2 or launched.count(True) < 2:
+        _fail(f"online human: {slam.human_ba.n_runs} human BA solves")
+    if n_opt < 1:
+        _fail("online human: no trajectory optimized")
+    if not ate_h < 0.03:
+        _fail(f"online human: ATE {ate_h} m >= 0.03 m")
+
+
+def _online_api(frames, twc):
+    """c. localization-only mode, reset and prefetch on static-28."""
+    import torch
+    from airdos_tpu_torch.slam.frame import FrontEnd
+    from airdos_tpu_torch.slam.system import System
+    from airdos_tpu_torch.utils.gate import TRACKING_PRIORITY
+
+    cfg = _bench_config()
+    cfg.system.is_offline = False
+    slam = System(cfg, device="cuda")
+    for data in frames[:18]:
+        slam.track_stereo(data)
+    if not slam.drain_mapping(120.0):
+        _fail("api: the mapping worker did not drain")
+    slam.global_ba.join()
+    n_kfs, n_pts = len(slam.map.kfs), slam.map.n_points()
+    slam.activate_localization_mode()
+    loc = []
+    for data in frames[18:]:
+        frame = slam.track_stereo(data)
+        loc.append(slam.tracking.state.name)
+    err = float(np.linalg.norm(frame.Ow - twc[len(frames) - 1]))
+    print(f"[online] localization-only frames 18-{len(frames) - 1}: states "
+          f"{collections.Counter(loc)}, keyframes {n_kfs} -> "
+          f"{len(slam.map.kfs)}, points {n_pts} -> {slam.map.n_points()}, "
+          f"last pose error {err:.4f} m", flush=True)
+    if set(loc) != {"OK"} or len(slam.map.kfs) != n_kfs or \
+            slam.map.n_points() != n_pts or not err < 0.5:
+        _fail("api: localization-only mode changed the map or lost track")
+    slam.deactivate_localization_mode()
+    slam.shutdown()
+
+    slam = System(cfg, device="cuda")
+    for data in frames[:6]:
+        slam.track_stereo(data)
+    resets = []
+    for start, with_gba in ((6, False), (12, True)):
+        if with_gba:
+            slam.global_ba.launch(slam._map_lock)
+        running = slam.global_ba._thread is not None and \
+            slam.global_ba._thread.is_alive()
+        slam.reset()
+        if slam.map.n_keyframes() != 0 or slam.tracking.records or \
+                slam.tracking.state.name != "NOT_INITIALIZED":
+            _fail("api: reset left a map or a state behind")
+        for data in frames[start:start + 6]:
+            slam.track_stereo(data)
+        resets.append((start, running, slam.tracking.state.name,
+                       slam.map.n_keyframes()))
+        if slam.tracking.state.name != "OK" or slam.map.n_keyframes() < 1:
+            _fail(f"api: no re-initialization after the reset at {start}")
+    slam.shutdown()
+    if not resets[1][1]:
+        _fail("api: the global BA was not running at the second reset")
+    print(f"[online] resets (frame, global BA running, state, keyframes "
+          f"after 6 frames): {resets}; global BA aborted "
+          f"{slam.global_ba.n_aborted}", flush=True)
+
+    fe = FrontEnd(cfg, device="cuda")
+    side = torch.cuda.Stream(priority=TRACKING_PRIORITY)
+    with torch.cuda.stream(side):
+        plain = fe.build_frame(frames[5])
+        fe.prefetch(frames[5])
+        pre = fe.build_frame(frames[5])
+    same = all(np.array_equal(getattr(plain, k), getattr(pre, k))
+               for k in ("xy", "desc32", "octave", "valid", "u_right"))
+    print(f"[online] prefetched frame 5 on a second stream: keypoints, "
+          f"descriptors, octaves and stereo bit-equal to the plain upload: "
+          f"{same} ({int(plain.valid.sum())} features)", flush=True)
+    if not same:
+        _fail("api: a prefetched frame differs from the plain upload")
 
 
 def _replay(snap, device, extractor):
@@ -1645,9 +1948,11 @@ def main():
         launches = _phase("mapping", phase_mapping, smi, frames, twc)
         counts = [_phase("human", phase_human, smi, crowd, crowd_twc),
                   _phase("reloc", phase_reloc, smi, frames, twc)]
-        loop, snap, extractor = _phase("loop", phase_loop, smi, orbit,
-                                       orbit_twc)
-        counts += [loop, _phase("map scale", phase_map_scale, smi)]
+        loop, snap, extractor, offline_loop = _phase(
+            "loop", phase_loop, smi, orbit, orbit_twc)
+        counts += [loop, _phase("map scale", phase_map_scale, smi),
+                   _phase("online", phase_online, smi, orbit, orbit_twc,
+                          crowd, crowd_twc, frames, twc, offline_loop)]
     for c in counts:
         launches = {k: launches[k] + c[k] for k in launches}
     rows = _phase("kernel", phase_kernel, smi)

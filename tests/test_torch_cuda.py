@@ -480,3 +480,73 @@ def test_loop_correct_is_byte_identical_on_the_card(cuda):
     want = np.frombuffer(b"".join(k.Rcw.tobytes() + k.tcw.tobytes()
                                   for k in m.kfs.values()), np.float32)
     np.testing.assert_allclose(got, want, atol=1e-4)
+
+
+def _online_config():
+    """tests/test_system_e2e.py's small_config, online."""
+    from airdos_tpu_torch.config import SlamConfig
+    from airdos_tpu_torch.io.synthetic import small_camera
+    cfg = SlamConfig()
+    cfg.camera = small_camera()
+    cfg.orb.n_features = 600
+    cfg.orb.n_levels = 4
+    cfg.device.max_keypoints = 1024
+    cfg.device.max_local_kfs = 8
+    cfg.device.max_fixed_kfs = 4
+    cfg.device.max_local_points = 1024
+    cfg.device.max_ba_edges = 4096
+    cfg.system.is_offline = False
+    return cfg
+
+
+def _vo_frames(n):
+    from airdos_tpu_torch.io.synthetic import SyntheticStereoWorld
+    world = SyntheticStereoWorld(seed=0, n_points=200,
+                                 cam=_online_config().camera)
+    return [d for d, _, _ in world.sequence(n, dt=0.1, yaw_rate=0.008)]
+
+
+def test_online_threads_launch_on_their_streams(cuda):
+    """Online, tracking's 2-D Hamming launches go to the tracking thread's
+    high-priority stream, the mapping worker's batched Hamming and
+    segment sums to its own stream of lower priority."""
+    import airdos_tpu_torch.ops.segment_kernels as sk
+    from airdos_tpu_torch.slam.system import System
+    from airdos_tpu_torch.utils.gate import TRACKING_PRIORITY
+    frames = _vo_frames(10)
+    hk.reset_launches()
+    sk.reset_launches()
+    slam = System(_online_config(), device=cuda)
+    for i, data in enumerate(frames):
+        if i + 1 < len(frames):
+            slam.prefetch(frames[i + 1])
+        slam.track_stereo(data)
+    slam.shutdown()
+    assert slam.tracking.state.name == "OK"
+    tally = {**hk.launch_tally(), **sk.launch_tally()}
+    track = {p for (k, th, p) in tally
+             if th == "MainThread" and k == "hamming_matrix"}
+    mapping = {k: p for (k, th, p) in tally if th == "mapping"
+               and k in ("hamming_matrix_batched", "segment_sum")}
+    assert track == {slam._track_stream.priority}
+    assert slam._track_stream.priority <= TRACKING_PRIORITY
+    assert set(mapping) == {"hamming_matrix_batched", "segment_sum"}
+    assert min(mapping.values()) > max(track)
+
+
+def test_prefetched_upload_is_bit_equal_on_the_card(cuda):
+    from airdos_tpu_torch.slam.frame import FrontEnd
+    data = _vo_frames(4)[3]
+    fe = FrontEnd(_online_config(), device=cuda)
+    side = torch.cuda.Stream(priority=-1)
+    with torch.cuda.stream(side):
+        plain = fe.build_frame(data)
+        fe.prefetch(data)
+        up, done = fe._prefetched[data.index]
+        assert isinstance(done, torch.cuda.Event)
+        assert all(t.is_cuda for t in up if t is not None)
+        pre = fe.build_frame(data)
+    torch.cuda.synchronize()
+    assert fe._prefetched == {}
+    for k in ("xy", "desc32", "octave", "valid", "u_right", "depth"):
+        np.testing.assert_array_equal(getattr(pre, k), getattr(plain, k))

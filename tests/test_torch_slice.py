@@ -201,10 +201,15 @@ def test_port_import_leaves_jax_out():
     ("system", "is_offline", False),
 ])
 def test_out_of_slice_configs_raise(section, field, value):
+    """No config is out of the port's scope any more: online mode
+    (is_offline=False), which raised NotImplementedError until it was
+    ported, builds its mapping worker and stops it at shutdown."""
     cfg = config_from(small_config())
     setattr(getattr(cfg, section) if section else cfg, field, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        System(cfg, device="cpu")
+    slam = System(cfg, device="cpu")
+    assert slam._map_thread.is_alive()
+    slam.shutdown()
+    assert slam._map_thread is None
 
 
 @pytest.mark.parametrize("field", ["vocabulary_path", "enable_loop_closing"])
