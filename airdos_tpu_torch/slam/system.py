@@ -2,6 +2,7 @@
 
     cfg = SlamConfig()                      # or SlamConfig.from_yaml(...)
     slam = System(cfg)                      # on the card; device="cpu"
+                                            # use_viewer=True: viz.Viewer
     for data in sequence:                   # io.datasets.FrameData
         slam.track_stereo_human(data)       # or track_stereo(...)
     slam.before_end("map_dump_dir")         # optional SaveMap metadata dump
@@ -64,7 +65,8 @@ from airdos_tpu_torch.utils.obs import EventLog, Profiler, span
 
 
 class System:
-    def __init__(self, config: SlamConfig, device="cuda"):
+    def __init__(self, config: SlamConfig, device="cuda",
+                 use_viewer: bool = False):
         self.config = config
         self.map = SlamMap()
         self.frontend = FrontEnd(config, device=device)
@@ -92,6 +94,12 @@ class System:
         self._frame_count = 0
         self._last_human_ba_frame = 0
         self.track_times: List[float] = []
+        # the host-side viewer, fed each tracked frame in the caller's
+        # thread (online too), as airdos_tpu's System
+        self.viewer = None
+        if use_viewer:
+            from airdos_tpu_torch.viz.viewer import Viewer
+            self.viewer = Viewer(self.map, self.tracking)
         # per-stage host spans (AIRDOS_TRACE_DIR adds torch.profiler traces
         # on start/stop_device_trace) and the structured event log
         self.profiler = Profiler(trace_dir=os.environ.get("AIRDOS_TRACE_DIR"))
@@ -386,6 +394,8 @@ class System:
                          n_kfs=self.map.n_keyframes(),
                          n_points=self.map.n_points(),
                          track_s=round(dt, 4))
+        if self.viewer is not None:
+            self.viewer.update(frame)
         return frame
 
     # ------------------------------------------------------------- export
@@ -498,6 +508,8 @@ class System:
                 first = first or e
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        if self.viewer is not None:
+            self.viewer.close()
         if first is not None:
             raise first
 

@@ -14,15 +14,18 @@ Run from the repository root.  Phases, each of which fails the run:
    bench frames of the synthetic world at the reference budget (640x360,
    1500 ORB features, 8 levels): every frame OK, >= 5 keyframes, ATE <
    0.02 m, >= 3 Hamming launches on every fused ("fast") frame;
-4. mapping: System(cfg, device="cuda") over the same 28 frames with the
-   budgets of bench.py's static configuration: every frame OK, >= 5
+4. mapping: System(cfg, device="cuda") over the same 28 frames, quantized
+   to uint8 as a dataset's PNGs hold them (phase 14a's in-memory twin),
+   with the budgets of bench.py's static configuration: every frame OK, >= 5
    keyframes inserted, ATE < 0.02 m, triangulation created points, the
    static BA solved at every keyframe after the third, batched Hamming
    launches on every keyframe frame after the first, 45 segment_sum
    launches per BA solve (3 per Gauss-Newton step);
 5. human: the AirDOS flagship on bench.py sections 2-3's crowd scene
    (SyntheticStereoWorld(seed=2, n_points=500, n_humans=10, crowd=True),
-   trajectory(27, 0.1, yaw_rate=0.005), humans rendered): System with
+   trajectory(27, 0.1, yaw_rate=0.005), humans rendered; the images
+   quantized to uint8, the detections as float64, as phase 14b's reader
+   gives them, so that the flagship is its in-memory twin): System with
    bench.py's _cfg(True) (masked extraction, stereo human association,
    the human-trajectory BA every Camera.fps = 5 frames, 8 trajectories x
    8 poses), then the polluted static run (no mask, no human layer) on
@@ -59,13 +62,16 @@ Run from the repository root.  Phases, each of which fails the run:
    (torch.profiler) and peak memory;
 9. kernel: each kernel against its plain torch version, with per-call
    times of both (CUDA events, median of 20 samples of 10 back-to-back
-   calls) and the kernel's device time (torch.profiler), its bound (the
-   larger of its bytes over 3.35 TB/s and its operations over the card's
-   peak rate) and the device time's share of it, and at the path's shapes
-   one PyTorch library call that computes the same function, timed the
-   same ways and used nowhere in the port (segment_sum: index_add_;
-   Hamming: torch.cdist(p=0) on the descriptors unpacked to float {0, 1}
-   [.., 256], unpacked outside the timed window):
+   calls) and the kernel's device time (CUDA events around a CUDA graph of
+   100 launches, each after a 64 MB write that evicts the L2, the writes'
+   own time taken off; and back to back, L2 hot; torch.profiler's reading
+   too on the first fixed shape, for comparison), its bound (the larger
+   of its bytes over 3.35 TB/s and its operations over the card's peak
+   rate) and the cold device time's share of it, and at the path's shapes
+   one PyTorch library call that computes the same function, timed per
+   call the same way and used nowhere in the port (segment_sum:
+   index_add_; Hamming: torch.cdist(p=0) on the descriptors unpacked to
+   float {0, 1} [.., 256], unpacked outside the timed window):
    - the 2-D Hamming kernel at 1536x1536, 2048x1536 and a ragged
      1500x1337 of random words: exact equality;
    - every kernel at every shape phases 3-8 launched it with, on the
@@ -115,12 +121,45 @@ Run from the repository root.  Phases, each of which fails the run:
       18-27 after 18 mapped frames (no new keyframe or point, every frame
       OK, the last pose within 0.5 m: tests/test_config_flags.py), reset
       and re-initialization twice, the second reset issued while a global
-      BA runs, and a prefetched frame bit-equal to the plain upload.
+      BA runs, and a prefetched frame bit-equal to the plain upload;
+14. drivers, run after phase 13 among the path phases: the dataset
+   drivers (python -m airdos_tpu_torch.examples.*) on sequences written
+   with the port's PNG writer from the rendered frames quantized to uint8,
+   through reference-format settings YAMLs that read back as the phases'
+   configurations; every frame read back equal to what was written:
+   a. KITTI layout, static-28: stereo_kitti as a subprocess (started
+      once static-28 has rendered, so that it overlaps the other scenes'
+      rendering; exit 0, 28 KITTI lines) and its main() in this process,
+      both byte-identical to phase 4's System, which is fed the same
+      uint8 frames as float32 (the in-memory twin);
+   b. TartanAir layout, crowd-27 with segmentation, AlphaPose detections,
+      track ids and times.txt: stereo_human with a SaveMap dump, its TUM
+      byte-identical to phase 5's flagship on the same uint8 frames, the
+      five SaveMap files written, ATE < 0.03 m;
+   c. EuRoC layout, static-28 frames 0-13, identity rectification:
+      stereo_euroc's TUM byte-identical to the in-memory System's; one
+      frame rectified with the reference EuRoC.yaml's cam0 distortion;
+      the host's PNG decode (Sub- and Paeth-filtered rows) and
+      rectification times per 640x360 image;
+   d. tools/evaluate on b's TUM against the ground truth as TUM: its ATE
+      within 1e-6 m of this script's;
+   e. System(use_viewer=True) over 6 static frames keeping overlays, one
+      PPM overlay written (chiprun_out/drivers_overlay.ppm);
+   prints each driver's per-frame tracking median and p90 and launches;
+15. long horizon, run after phase 14 among the path phases:
+   tests/test_long_horizon_dynamic.py on the card (110 frames, the small
+   camera, seed 2, 10 humans in a crowd the camera drives through), the
+   flagship and the naive static run: the flagship OK at the end, ATE <
+   0.8 x the naive run's and < 0.05 m, >= 4 trajectories with >= 1
+   ending early and >= 1 starting late, and over the optimized long
+   trajectories the medians of joint error < 0.5 m, velocity error < 0.6
+   and limb-length error < 0.15 m.
 
 Each path's kernel launch counts are set to 0 just before the path is
 driven and read just after; launches made to compare a kernel with its
 plain version are not counted; the kernels line's launches add up the
-mapping, human, reloc, loop, map-scale and online paths' counts.  Frames are
+mapping, human, reloc, loop, map-scale, online, drivers and long-horizon
+paths' counts.  Frames are
 rendered in a pool of forked processes before any CUDA context exists.
 The last lines are one JSON line listing the kernels, the nvidia-smi
 line, and {"ok": true, "device": {...}}.
@@ -141,6 +180,7 @@ import collections
 import contextlib
 import copy
 import dataclasses
+import io
 import json
 import multiprocessing
 import os
@@ -159,6 +199,7 @@ import numpy as np
 N_FRAMES = 28
 N_CROWD = 27          # bench.py sections 2-3: 7 warm-up + 20 timed frames
 N_ORBIT = 84          # tests/test_loop_closure.py's pillar orbit
+N_LONG = 110          # tests/test_long_horizon_dynamic.py's crowd
 N_GOOD, N_BLANK, N_HOLD = 18, 3, 5    # the relocalization blackout
 SEED = 0
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
@@ -207,6 +248,46 @@ def _cuda_ms(fn, reps: int = 20, inner: int = 10) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b) / inner)
     return statistics.median(times)
+
+
+def _graph_ms(fn, n: int = 100, reps: int = 15):
+    """Device ms per call of fn, from CUDA events around replays of a
+    CUDA graph of n calls (no host launch cost between them): (cold,
+    hot).  Cold: each call after a 64 MB write that evicts the 50 MB L2,
+    as a caller that streams its inputs from HBM finds them; the graph of
+    the writes alone is timed alike and taken off.  Hot: n calls back to
+    back, the inputs left in L2.  Medians of reps replays."""
+    import torch
+    flush = torch.empty(16 * 2 ** 20, dtype=torch.int32, device="cuda")
+
+    def per_call(body):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):       # warm-up before capture
+            for _ in range(3):
+                body()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(n):
+                body()
+        graph.replay()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            graph.replay()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b) / n)
+        del graph
+        return statistics.median(times)
+
+    flush_ms = per_call(flush.zero_)
+    cold = per_call(lambda: (flush.zero_(), fn())) - flush_ms
+    return cold, per_call(fn)
 
 
 def _device_ms(fn, kernel: str = "", reps: int = 20):
@@ -441,21 +522,25 @@ def _fmt_ms(ms) -> str:
 
 
 def _share(bound_ms, dev_ms) -> str:
-    return f"{bound_ms / dev_ms:.3f}" if dev_ms else "not measured"
+    return f"{bound_ms / dev_ms:.3f}" if dev_ms and dev_ms > 0 \
+        else "not measured"
 
 
 def phase_kernel(smi: str):
     """Each kernel against its plain version: the 2-D Hamming kernel at
     three fixed shapes of random words, then every kernel at every shape
     the main paths launched it with, on the first inputs the path gave it
-    at that shape, beside its bound and one library call.  Returns per
+    at that shape, beside its bound and one library call.  Device times
+    come from CUDA events around a CUDA graph of many launches
+    (_graph_ms); the first fixed shape is also read by torch.profiler, the
+    reading the graph timing supersedes, for comparison.  Returns per
     kernel the max abs err over all checks and the measurements at its
     most launched path shape."""
     import torch
     hk, _ = _counters()
     rng = np.random.default_rng(SEED)
     errs = {}
-    for n, m in ((1536, 1536), (2048, 1536), (1500, 1337)):
+    for i, (n, m) in enumerate(((1536, 1536), (2048, 1536), (1500, 1337))):
         a, b = _words(rng, (n, 8)), _words(rng, (m, 8))
         got = hk.hamming_matrix(a, b)
         want = hk.hamming_matrix_ref(a, b)
@@ -465,19 +550,21 @@ def phase_kernel(smi: str):
             _fail(f"kernel != plain version at {n}x{m} (max abs err {err})")
         ms = _cuda_ms(lambda: hk.hamming_matrix(a, b))
         plain_ms = _cuda_ms(lambda: hk.hamming_matrix_ref(a, b))
-        dev_ms = _device_ms(lambda: hk.hamming_matrix(a, b), "hamming_kernel")
+        cold, hot = _graph_ms(lambda: hk.hamming_matrix(a, b))
+        prof = ""
+        if i == 0:
+            prof = (f", torch.profiler (mean of 20) "
+                    f"{_fmt_ms(_device_ms(lambda: hk.hamming_matrix(a, b), 'hamming_kernel'))}")
         bound_ms, bound_by, _ = _bound("hamming_matrix", (1, 1, n, m), None)
         print(f"[kernel] hamming {n}x{m} random words: exact; per call kernel "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events, median of "
-              f"20 x 10 back-to-back calls); kernel device time "
-              f"{_fmt_ms(dev_ms)} (torch.profiler, mean of 20); bound "
+              f"20 x 10 back-to-back calls); kernel device time (CUDA graph "
+              f"of 100) L2 cold {cold:.4f} ms, hot {hot:.4f} ms{prof}; bound "
               f"{bound_ms * 1e3:.2f} us ({bound_by}), device share of bound "
-              f"{_share(bound_ms, dev_ms)} on {smi}", flush=True)
+              f"{_share(bound_ms, cold)} on {smi}", flush=True)
 
     out = {}
-    for name, tag in (("hamming_matrix", "hamming_kernel"),
-                      ("hamming_matrix_batched", "hamming_kernel"),
-                      ("segment_sum", "segment_sum_")):
+    for name in ("hamming_matrix", "hamming_matrix_batched", "segment_sum"):
         shapes = _PATH.get(name, {})
         if not shapes:
             _fail(f"{name}: no launch recorded on the main paths")
@@ -491,14 +578,12 @@ def phase_kernel(smi: str):
             library, lib_name = _library_call(name, args)
             ms, plain_ms = _cuda_ms(kernel), _cuda_ms(plain)
             lib_ms = _cuda_ms(library)
-            dev_ms = _device_ms(kernel, tag)
-            lib_dev_ms = _device_ms(library)
+            cold, hot = _graph_ms(kernel)
             bound_ms, bound_by, nbytes = _bound(name, shape, args)
             if i == 0:
-                out[name] = dict(ms=ms, plain_ms=plain_ms, device_ms=dev_ms,
+                out[name] = dict(ms=ms, plain_ms=plain_ms, device_ms=cold,
                                  bound_ms=bound_ms, bound_by=bound_by,
-                                 library_ms=lib_ms,
-                                 library_device_ms=lib_dev_ms)
+                                 library_ms=lib_ms)
             extra = ""
             if name == "segment_sum":
                 longest = int(args[1].offsets.diff().max())
@@ -509,11 +594,12 @@ def phase_kernel(smi: str):
             print(f"[kernel] {name} {_fmt_shape(name, shape)}, {n_launch} "
                   f"launches on the main paths, on the path's inputs: {what}; "
                   f"per call kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"library {lib_name} {lib_ms:.4f} ms; device time kernel "
-                  f"{_fmt_ms(dev_ms)}, library {_fmt_ms(lib_dev_ms)}; bound "
-                  f"{bound_ms * 1e3:.2f} us ({bound_by}: {nbytes / 1e6:.3f} "
-                  f"MB at 3.35 TB/s), device share of bound "
-                  f"{_share(bound_ms, dev_ms)}{extra} on {smi}", flush=True)
+                  f"library {lib_name} {lib_ms:.4f} ms; kernel device time "
+                  f"(CUDA graph of 100) L2 cold {cold:.4f} ms, hot "
+                  f"{hot:.4f} ms; bound {bound_ms * 1e3:.2f} us ({bound_by}: "
+                  f"{nbytes / 1e6:.3f} MB at 3.35 TB/s), device share of "
+                  f"bound {_share(bound_ms, cold)}{extra} on {smi}",
+                  flush=True)
     return {name: dict(max_abs_err=errs[name], **row)
             for name, row in out.items()}
 
@@ -746,8 +832,19 @@ def phase_slice(smi: str, frames, twc):
     return counts
 
 
-def phase_mapping(smi: str, frames, twc):
-    """The offline System with the mapping pass at the bench budgets."""
+def _trajectory_bytes(slam, kind: str) -> bytes:
+    """The bytes of a System's trajectory file, KITTI or TUM."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "traj.txt"
+        (slam.save_trajectory_kitti if kind == "kitti"
+         else slam.save_trajectory_tum)(path)
+        return path.read_bytes()
+
+
+def phase_mapping(smi: str, frames, twc, twins):
+    """The offline System with the mapping pass at the bench budgets; its
+    KITTI trajectory goes to twins["kitti"], the in-memory twin of phase
+    14a's KITTI driver."""
     from airdos_tpu_torch.slam.system import System
 
     slam = System(_bench_config(), device="cuda")
@@ -770,6 +867,7 @@ def phase_mapping(smi: str, frames, twc):
                         d={k: c1[k] - c0[k] for k in c1}))
     counts = _counts()
     slam.shutdown()
+    twins["kitti"] = _trajectory_bytes(slam, "kitti")
     for i, p in enumerate(per):
         print(f"[mapping] frame {i:2d} {p['state']} {p['branch']:5s} "
               f"{'KF' if p['kf'] else '  '} {p['ms']:9.2f} ms BA solves "
@@ -829,9 +927,10 @@ def _reduced_dim(args) -> int:
     return 6 * C + 42 * T * L + 20 * T
 
 
-def phase_human(smi: str, frames, twc):
+def phase_human(smi: str, frames, twc, twins):
     """The flagship System (bench.py _cfg(True), offline) and the polluted
-    static System on the crowd frames."""
+    static System on the crowd frames; the flagship's TUM trajectory goes
+    to twins["tartanair"], the in-memory twin of phase 14b's driver."""
     from airdos_tpu_torch.slam import ba_driver
     from airdos_tpu_torch.slam.system import System
 
@@ -868,6 +967,7 @@ def phase_human(smi: str, frames, twc):
     finally:
         ba_driver.human_bundle_adjust = solver
     slam.shutdown()
+    twins["tartanair"] = _trajectory_bytes(slam, "tum")
     for i, p in enumerate(per):
         print(f"[human] frame {i:2d} {p['state']} {p['branch']:5s} "
               f"{'KF' if p['kf'] else '  '} {'HBA' if p['human'] else '   '} "
@@ -1923,12 +2023,602 @@ def phase_profile(smi: str):
           f" on {smi}", flush=True)
 
 
+def _settings_yaml(cfg) -> str:
+    """A reference-format settings YAML (the keys of the reference's
+    Examples/Stereo/config/*.yaml and the port's Device.* budgets, as
+    tests/test_examples_cli.py writes them) whose SlamConfig.from_yaml is
+    cfg, field for field; fails if it is not."""
+    from airdos_tpu_torch.config import SlamConfig
+    c, o, h, p, s = cfg.camera, cfg.orb, cfg.human, cfg.optimizer, cfg.system
+    d = cfg.device
+    keys = {
+        "Camera.fx": c.fx, "Camera.fy": c.fy, "Camera.cx": c.cx,
+        "Camera.cy": c.cy, "Camera.k1": c.k1, "Camera.k2": c.k2,
+        "Camera.p1": c.p1, "Camera.p2": c.p2, "Camera.k3": c.k3,
+        "Camera.width": c.width, "Camera.height": c.height,
+        "Camera.fps": c.fps, "Camera.bf": c.bf, "Camera.RGB": c.rgb,
+        "ThDepth": cfg.th_depth,
+        "ORBextractor.nFeatures": o.n_features,
+        "ORBextractor.scaleFactor": o.scale_factor,
+        "ORBextractor.nLevels": o.n_levels,
+        "ORBextractor.iniThFAST": o.ini_th_fast,
+        "ORBextractor.minThFAST": o.min_th_fast,
+        "Human.OK": h.ok, "Human.isSeg": h.is_seg,
+        "Human.UseTrackedId": h.use_tracked_id, "Human.RejectTh": h.reject_th,
+        "Optimizer.SigmaStatic": p.sigma_static,
+        "Optimizer.SigmaHuman": p.sigma_human,
+        "Optimizer.SigmaMotion": p.sigma_motion,
+        "Optimizer.SigmaRigidity": p.sigma_rigidity,
+        "Optimizer.ThHuberMotion": p.th_huber_motion,
+        "Optimizer.ThRanSacMotion": p.th_ransac_motion,
+        "Optimizer.ThRanSacRigidity": p.th_ransac_rigidity,
+        "Optimizer.IsHuber": p.is_huber,
+        "Optimizer.IsKeyFrameOnly": p.is_keyframe_only,
+        "Optimizer.IsAllKF": p.is_all_kf,
+        "Optimizer.IsStaticOnly": p.is_static_only,
+        "System.IsOffline": s.is_offline, "System.IsMask": s.is_mask,
+        "System.IsGroundTruthDepth": s.is_ground_truth_depth,
+        "Schedular.nStartImage": cfg.scheduler.n_start_image,
+        "Schedular.nEndImage": cfg.scheduler.n_end_image,
+        "Device.MaxKeypoints": d.max_keypoints,
+        "Device.MaxLocalKFs": d.max_local_kfs,
+        "Device.MaxFixedKFs": d.max_fixed_kfs,
+        "Device.MaxLocalPoints": d.max_local_points,
+        "Device.MaxBAEdges": d.max_ba_edges,
+        "Device.MaxTrajectories": d.max_trajectories,
+        "Device.MaxTrajectoryLen": d.max_trajectory_len,
+        "Device.NChips": d.n_chips}
+    text = "%YAML:1.0\n" + "".join(
+        f"{k}: {repr(float(v)) if isinstance(v, float) else int(v)}\n"
+        for k, v in keys.items())
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "settings.yaml"
+        path.write_text(text)
+        back = SlamConfig.from_yaml(path)
+    if dataclasses.asdict(back) != dataclasses.asdict(cfg):
+        diff = {k: (v, dataclasses.asdict(cfg)[k])
+                for k, v in dataclasses.asdict(back).items()
+                if v != dataclasses.asdict(cfg)[k]}
+        _fail(f"drivers: the settings YAML reads back otherwise: {diff}")
+    return text
+
+
+def _q8(img) -> np.ndarray:
+    """A rendered float image as the uint8 a dataset's PNG holds."""
+    return np.clip(np.rint(img), 0, 255).astype(np.uint8)
+
+
+def _twin(d, timestamp=None):
+    """What a sequence reader gives back for frame d written to disk: the
+    images quantized to uint8 as float32, the detections as float64, the
+    track ids as int64 (a frame without them: none)."""
+    humans = {k: None if getattr(d, k) is None else
+              np.asarray(getattr(d, k), np.float64).reshape(-1, 18, 3)
+              for k in ("humans_left", "humans_right")}
+    return dataclasses.replace(
+        d, timestamp=d.timestamp if timestamp is None else timestamp,
+        image_left=_q8(d.image_left).astype(np.float32),
+        image_right=_q8(d.image_right).astype(np.float32),
+        track_ids=None if d.track_ids is None
+        else np.asarray(d.track_ids).astype(np.int64).reshape(-1),
+        **humans)
+
+
+def _write_rows(path: Path, rows) -> None:
+    """A whitespace text matrix whose values read back bit-equal."""
+    path.write_text("".join(" ".join(repr(v) for v in row) + "\n"
+                            for row in np.asarray(rows).tolist()))
+
+
+def _write_tartanair(root: Path, frames) -> None:
+    """frames in the TartanAir-Shibuya layout (io/datasets.py): images,
+    segmentation, AlphaPose detections, track ids, times.txt."""
+    from airdos_tpu_torch.io.png import imwrite
+    for sub in ("image_0", "image_1", "rcnnseg_image_0", "rcnnseg_image_1",
+                "alphapose_0", "alphapose_1", "track_id_alpha"):
+        (root / sub).mkdir(parents=True)
+    for i, d in enumerate(frames):
+        name = f"{i:06d}"
+        imwrite(root / "image_0" / f"{name}.png", _q8(d.image_left))
+        imwrite(root / "image_1" / f"{name}.png", _q8(d.image_right))
+        if d.seg_left is not None:
+            imwrite(root / "rcnnseg_image_0" / f"{name}.png", d.seg_left)
+            imwrite(root / "rcnnseg_image_1" / f"{name}.png", d.seg_right)
+        if d.humans_left is not None:
+            _write_rows(root / "alphapose_0" / f"{name}.txt",
+                        np.asarray(d.humans_left).reshape(-1, 54))
+            _write_rows(root / "alphapose_1" / f"{name}.txt",
+                        np.asarray(d.humans_right).reshape(-1, 54))
+            _write_rows(root / "track_id_alpha" / f"{name}.txt",
+                        np.asarray(d.track_ids).reshape(-1, 1))
+    (root / "times.txt").write_text("".join(f"{float(d.timestamp)!r}\n"
+                                            for d in frames))
+
+
+def _same_frame(got, want) -> bool:
+    """Every FrameData field equal, arrays with their dtypes."""
+    for f in dataclasses.fields(want):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if isinstance(b, np.ndarray):
+            if not (isinstance(a, np.ndarray) and a.dtype == b.dtype
+                    and a.shape == b.shape and np.array_equal(a, b)):
+                return False
+        elif a != b:
+            return False
+    return True
+
+
+@contextlib.contextmanager
+def _systems_made():
+    """The System objects constructed inside the context (the drivers make
+    theirs inside main), so their per-frame times can be read."""
+    import airdos_tpu_torch.slam.system as system_mod
+    made, cls = [], system_mod.System
+
+    class Recorded(cls):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+    system_mod.System = Recorded
+    try:
+        yield made
+    finally:
+        system_mod.System = cls
+
+
+def _drive(main, args):
+    """A driver's main(args) in this process, on the card (failing unless
+    it returns 0): its standard output and the System it made."""
+    out = io.StringIO()
+    with _systems_made() as made, contextlib.redirect_stdout(out):
+        rc = main(args)
+    if rc != 0:
+        _fail(f"drivers: {main.__module__} {args} exited {rc}: "
+              f"{out.getvalue()}")
+    if len(made) != 1:
+        _fail(f"drivers: {main.__module__} made {len(made)} Systems")
+    return out.getvalue(), made[0]
+
+
+def _paeth_png(img: np.ndarray) -> bytes:
+    """PNG bytes of a uint8 gray image with every row Paeth-filtered: the
+    decoder's slowest rows, which libpng's writers choose for most rows of
+    a natural image."""
+    import struct
+    import zlib
+    x = img.astype(np.int64)
+    a = np.pad(x, ((0, 0), (1, 0)))[:, :-1]
+    b = np.pad(x, ((1, 0), (0, 0)))[:-1]
+    c = np.pad(x, ((1, 0), (1, 0)))[:-1, :-1]
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    rows = np.concatenate([np.full((x.shape[0], 1), 4),
+                           (x - pred) % 256], axis=1).astype(np.uint8)
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+    ihdr = struct.pack(">IIBBBBB", img.shape[1], img.shape[0], 8, 0, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(rows.tobytes()))
+            + chunk(b"IEND", b""))
+
+
+@contextlib.contextmanager
+def _kitti_cli(frames):
+    """Phase 14a's subprocess, started as soon as static-28 has rendered
+    so that it overlaps the other scenes' rendering: the frames written in
+    the KITTI layout (uint8 PNGs, times.txt) with a settings YAML that
+    reads back as _bench_config(), and python -m
+    airdos_tpu_torch.examples.stereo_kitti run on them.  Yields the paths
+    and the process; on leaving, the process is stopped if it still runs
+    and the files are removed."""
+    from airdos_tpu_torch.io.png import imwrite
+    OUT_DIR.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(dir=OUT_DIR))
+    proc = None
+    try:
+        yaml, kitti = root / "static.yaml", root / "kitti"
+        yaml.write_text(_settings_yaml(_bench_config()))
+        (kitti / "image_0").mkdir(parents=True)
+        (kitti / "image_1").mkdir()
+        for i, d in enumerate(frames):
+            imwrite(kitti / "image_0" / f"{i:06d}.png", _q8(d.image_left))
+            imwrite(kitti / "image_1" / f"{i:06d}.png", _q8(d.image_right))
+        (kitti / "times.txt").write_text("".join(
+            f"{float(d.timestamp)!r}\n" for d in frames))
+        traj = root / "kitti_cli.txt"
+        with open(root / "cli.log", "w") as log:
+            proc = subprocess.Popen(
+                [sys.executable, "-m",
+                 "airdos_tpu_torch.examples.stereo_kitti", str(yaml),
+                 str(kitti), str(traj)],
+                cwd=Path(__file__).resolve().parent, stdout=log,
+                stderr=subprocess.STDOUT)
+        yield dict(root=root, yaml=yaml, kitti=kitti, traj=traj, proc=proc)
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_drivers(smi: str, frames, twc, crowd, crowd_twc, memory, cli):
+    """The dataset drivers on the card (python -m
+    airdos_tpu_torch.examples.*), each byte-identical to the in-memory
+    System on the same uint8 inputs (memory: phases mapping's and
+    human's trajectories; cli: _kitti_cli's); the evaluator and the
+    viewer.  Returns the launch counts of the phase."""
+    from airdos_tpu_torch.examples import (stereo_euroc, stereo_human,
+                                           stereo_kitti)
+    from airdos_tpu_torch.io.datasets import (KittiStereoSequence,
+                                              TartanAirStereoSequence)
+    from airdos_tpu_torch.io.png import imread_grayscale, imwrite
+    from airdos_tpu_torch.io.rectify import (init_undistort_rectify_map,
+                                             remap_linear)
+    from airdos_tpu_torch.io.tum import ate_rmse, read_trajectory_tum
+    from airdos_tpu_torch.slam.system import System
+    from airdos_tpu_torch.tools import evaluate
+    from airdos_tpu_torch.viz.frame_drawer import save_frame_overlay
+
+    OUT_DIR.mkdir(exist_ok=True)
+    _reset_counts()
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp_name:
+        tmp = Path(tmp_name)
+        # a. KITTI layout: the CLI started before the other scenes
+        # rendered (_kitti_cli), then main() in this process, against
+        # phase mapping's System on the same uint8 frames
+        yaml, kitti = cli["yaml"], cli["kitti"]
+        twins = [_twin(d) for d in frames]
+        t0 = time.perf_counter()
+        read = list(KittiStereoSequence(kitti))
+        read_ms = (time.perf_counter() - t0) * 1e3 / (2 * len(frames))
+        bad = [i for i, (g, w) in enumerate(zip(read, twins))
+               if not _same_frame(g, dataclasses.replace(
+                   w, humans_left=None, humans_right=None, track_ids=None,
+                   seg_left=None, seg_right=None))]
+        if bad:
+            _fail(f"drivers: KITTI frames {bad} read back otherwise")
+        try:
+            rc = cli["proc"].wait(timeout=900)
+        except subprocess.TimeoutExpired:
+            _fail("drivers: the stereo_kitti CLI ran past 900 s")
+        if rc != 0:
+            _fail(f"drivers: the stereo_kitti CLI exited {rc}: "
+                  f"{(cli['root'] / 'cli.log').read_text()[-4000:]}")
+        cli_lines = cli["traj"].read_text().splitlines()
+        if len(cli_lines) != len(frames) or \
+                any(len(r.split()) != 12 for r in cli_lines):
+            _fail(f"drivers: the CLI wrote {len(cli_lines)} KITTI lines")
+        c0 = _counts()
+        out_a, drv_a = _drive(stereo_kitti.main, [
+            str(yaml), str(kitti), str(tmp / "kitti_main.txt")])
+        c1 = _counts()
+        launches_a = {k: c1[k] - c0[k] for k in c1}
+        for tag, path in (("main", tmp / "kitti_main.txt"),
+                          ("cli", cli["traj"])):
+            if path.read_bytes() != memory["kitti"]:
+                _fail(f"drivers: the KITTI driver's trajectory ({tag}) "
+                      f"differs from the in-memory System's")
+        ms_a = [t * 1e3 for t in drv_a.track_times]
+        print(f"[drivers] a. KITTI layout, static-{len(frames)}: the "
+              f"stereo_kitti CLI exited 0 with {len(cli_lines)} KITTI lines; "
+              f"main() and the CLI byte-identical to phase mapping's "
+              f"in-memory System ({len(memory['kitti'])} bytes); driver "
+              f"tracking ms {_ms_stats(ms_a)}; reader {read_ms:.2f} ms per "
+              f"image; launches {launches_a}; {out_a.strip()} on {smi}",
+              flush=True)
+
+        # b. TartanAir layout, the flagship on crowd-27
+        human_yaml = tmp / "human.yaml"
+        human_yaml.write_text(_settings_yaml(_human_bench_config()))
+        tartan = tmp / "tartanair"
+        _write_tartanair(tartan, crowd)
+        twins = [_twin(d) for d in crowd]
+        bad = [i for i, (g, w) in enumerate(zip(
+            TartanAirStereoSequence(tartan), twins)) if not _same_frame(g, w)]
+        if bad:
+            _fail(f"drivers: TartanAir frames {bad} read back otherwise")
+        c0 = _counts()
+        dump = tmp / "dump"
+        out_b, drv_b = _drive(stereo_human.main, [
+            str(human_yaml), str(tartan), str(tmp / "human_main.txt"),
+            str(dump)])
+        c1 = _counts()
+        launches_b = {k: c1[k] - c0[k] for k in c1}
+        if (tmp / "human_main.txt").read_bytes() != memory["tartanair"]:
+            _fail("drivers: the stereo_human driver's TUM differs from phase "
+                  "human's in-memory flagship")
+        missing = [f for f in ("KF.txt", "MP.txt", "Match.txt", "HMTraj.txt",
+                               "Motion.txt") if not (dump / f).is_file()]
+        if missing:
+            _fail(f"drivers: SaveMap files not written: {missing}")
+        ts_b, _, t_b = read_trajectory_tum(tmp / "human_main.txt")
+        ate_b = float(ate_rmse(t_b, crowd_twc[:len(t_b)]))
+        if not ate_b < 0.03:
+            _fail(f"drivers: stereo_human ATE {ate_b} m >= 0.03 m")
+        ms_b = [t * 1e3 for t in drv_b.track_times]
+        print(f"[drivers] b. TartanAir layout, crowd-{len(crowd)} flagship: the "
+              f"stereo_human driver's TUM byte-identical to phase human's "
+              f"in-memory flagship; SaveMap files written; ATE {ate_b:.6f} m; "
+              f"{drv_b.human_ba.n_runs} human BA solves; driver tracking ms "
+              f"{_ms_stats(ms_b)}; launches {launches_b} on {smi}",
+              flush=True)
+
+        # c. EuRoC layout, identity rectification, static-28 frames 0-13;
+        # then one frame rectified with a plumb-bob distortion
+        cam = _bench_config().camera
+        K = [cam.fx, 0.0, cam.cx, 0.0, cam.fy, cam.cy, 0.0, 0.0, 1.0]
+        blocks = {"K": (3, 3, K), "D": (1, 5, [0.0] * 5),
+                  "R": (3, 3, [1.0, 0, 0, 0, 1.0, 0, 0, 0, 1.0]),
+                  "P": (3, 4, K[:3] + [0.0] + K[3:6] + [0.0] + K[6:] + [0.0])}
+        euroc_yaml = tmp / "euroc.yaml"
+        euroc_yaml.write_text(
+            _settings_yaml(_bench_config())
+            + f"LEFT.width: {cam.width}\nLEFT.height: {cam.height}\n"
+            + "".join(f"{side}.{key}: !!opencv-matrix\n   rows: {r}\n"
+                      f"   cols: {c}\n   dt: d\n   data: ["
+                      + ", ".join(repr(float(v)) for v in data) + "]\n"
+                      for side in ("LEFT", "RIGHT")
+                      for key, (r, c, data) in blocks.items()))
+        n_euroc = min(14, len(frames))
+        names = [1_403_636_579_000_000_000 + int(round(d.timestamp * 1e9))
+                 for d in frames[:n_euroc]]
+        for cam_dir, key in (("cam0", "image_left"), ("cam1", "image_right")):
+            data_dir = tmp / "euroc" / "mav0" / cam_dir / "data"
+            data_dir.mkdir(parents=True)
+            for ns, d in zip(names, frames):
+                imwrite(data_dir / f"{ns}.png", _q8(getattr(d, key)))
+        (tmp / "euroc_ts.txt").write_text("".join(f"{ns}\n" for ns in names))
+        c0 = _counts()
+        _, drv_c = _drive(stereo_euroc.main, [
+            str(euroc_yaml), str(tmp / "euroc"), str(tmp / "euroc_ts.txt"),
+            str(tmp / "euroc_main.txt")])
+        c1 = _counts()
+        launches_c = {k: c1[k] - c0[k] for k in c1}
+        mem = System(_bench_config(), device="cuda")
+        _run(mem, [_twin(d, ns / 1e9) for ns, d in zip(names, frames)])
+        mem.save_trajectory_tum(tmp / "euroc_memory.txt")
+        if (tmp / "euroc_main.txt").read_bytes() != \
+                (tmp / "euroc_memory.txt").read_bytes():
+            _fail("drivers: the stereo_euroc driver's TUM (identity "
+                  "rectification) differs from the in-memory System's")
+        # the reference EuRoC.yaml's cam0 distortion and rectifying
+        # rotation on this camera
+        raw = _q8(frames[0].image_left)
+        Kc = np.asarray(K).reshape(3, 3)
+        D = [-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05, 0.0]
+        R = [[0.999966347530033, -0.001422739138722922, 0.008079580483432283],
+             [0.001365741834644127, 0.9999741760894847, 0.007055629199258132],
+             [-0.008089410156878961, -0.007044357138835809,
+              0.9999424675829176]]
+        t0 = time.perf_counter()
+        mx, my = init_undistort_rectify_map(Kc, D, R, Kc,
+                                            (cam.width, cam.height))
+        maps_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        rect = remap_linear(raw, mx, my)
+        remap_ms = (time.perf_counter() - t0) * 1e3
+        if rect.shape != raw.shape or rect.dtype != np.uint8 \
+                or np.array_equal(rect, raw) or not rect.any():
+            _fail("drivers: the plumb-bob rectification gave no image")
+        # decode time per 640x360 image: this writer's Sub rows and an
+        # all-Paeth file (libpng's writers filter most rows of a natural
+        # image with Paeth or Average)
+        paeth = tmp / "paeth.png"
+        paeth.write_bytes(_paeth_png(raw))
+        dec = {}
+        for tag, path in (("sub", kitti / "image_0" / "000000.png"),
+                          ("paeth", paeth)):
+            t0 = time.perf_counter()
+            for _ in range(3):
+                img = imread_grayscale(path)
+            dec[tag] = (time.perf_counter() - t0) * 1e3 / 3
+            if not np.array_equal(img, raw):
+                _fail(f"drivers: the {tag}-filtered PNG reads back otherwise")
+        print(f"[drivers] c. EuRoC layout, static-{len(frames)} frames 0-{n_euroc - 1}, "
+              f"identity rectification: the stereo_euroc driver's TUM "
+              f"byte-identical to the in-memory System's; driver tracking "
+              f"ms {_ms_stats([t * 1e3 for t in drv_c.track_times])}; "
+              f"launches {launches_c}; plumb-bob rectification of one "
+              f"{cam.width}x{cam.height} frame: maps {maps_ms:.2f} ms, remap "
+              f"{remap_ms:.2f} ms; PNG decode per {cam.width}x{cam.height} "
+              f"image (host): Sub rows {dec['sub']:.2f} ms, Paeth rows "
+              f"{dec['paeth']:.2f} ms on {smi}", flush=True)
+
+        # d. the evaluator on b's TUM against the ground truth as TUM
+        gt = tmp / "gt.txt"
+        gt.write_text("".join(
+            " ".join(repr(float(v)) for v in (t, *p)) + " 0 0 0 1\n"
+            for t, p in zip(ts_b, np.asarray(crowd_twc))))
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            evaluate.main(["--estimate", str(tmp / "human_main.txt"),
+                           "--gt", str(gt)])
+        lines = dict(line.split(":", 1) for line in
+                     text.getvalue().splitlines() if ":" in line)
+        ate_eval = float(lines["ATE RMSE [m]"])
+        ate_sys = _ate(drv_b.tracking, crowd_twc)
+        if not abs(ate_eval - ate_sys) <= 1e-6:
+            _fail(f"drivers: evaluate's ATE {ate_eval} vs {ate_sys}")
+        print(f"[drivers] d. evaluate on b's TUM: "
+              + "; ".join(l.strip() for l in text.getvalue().splitlines())
+              + f"; chip_smoke's ATE {ate_sys:.7f} m", flush=True)
+
+    # e. the viewer on the card
+    slam = System(_bench_config(), device="cuda", use_viewer=True)
+    slam.viewer.keep_overlays = True
+    last = None
+    for d in frames[:6]:
+        last = slam.track_stereo(d)
+    slam.shutdown()
+    v = slam.viewer
+    overlay = OUT_DIR / "drivers_overlay.ppm"
+    img = save_frame_overlay(str(overlay), last, slam.tracking.state.name,
+                             slam.map.n_keyframes(), slam.map.n_points(),
+                             image=frames[5].image_left)
+    if len(v.poses) != 6 or len(v.frame_overlays) != 6 \
+            or overlay.stat().st_size != 15 + img.size:
+        _fail(f"drivers: the viewer recorded {len(v.poses)} poses, "
+              f"{len(v.frame_overlays)} overlays")
+    print(f"[drivers] e. viewer: System(use_viewer=True) recorded "
+          f"{len(v.poses)} poses and overlays; overlay written to {overlay} "
+          f"({overlay.stat().st_size} bytes)", flush=True)
+    return _counts()
+
+
+def _long_horizon_config(mask: bool, human_ba: bool):
+    """tests/test_long_horizon_dynamic.py's _cfg: the small camera, the
+    human BA every 5 frames over 8 x 8 poses."""
+    cfg = _small_config()
+    cfg.camera.fps = 5.0
+    cfg.human.ok = human_ba or mask
+    cfg.human.is_seg = mask
+    cfg.system.is_mask = mask
+    cfg.optimizer.is_static_only = not human_ba
+    cfg.device.max_trajectories = 8
+    cfg.device.max_trajectory_len = 8
+    return cfg
+
+
+def _long_horizon_frames():
+    """tests/test_long_horizon_dynamic.py's 110-frame crowd: the camera
+    drives through 10 drifting humans; the world (its humans are the
+    ground truth), the frames and the camera centres."""
+    from airdos_tpu_torch.io.synthetic import SyntheticStereoWorld
+    t0 = time.perf_counter()
+    world = SyntheticStereoWorld(seed=2, n_points=500, n_humans=10,
+                                 cam=_small_config().camera, crowd=True)
+    Rwc, twc = world.trajectory(N_LONG, 0.1, speed=0.35, yaw_rate=0.003)
+    frames = _render(world, Rwc, twc, 0.1, True)
+    print(f"[frames] rendered {N_LONG} long-horizon crowd frames 320x240 in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return world, frames, twc
+
+
+def long_horizon_metrics(world, frames, twc, device):
+    """The flagship and the naive static run over the long-horizon crowd
+    on `device`, and tests/test_long_horizon_dynamic.py's numbers: both
+    ATEs and states, the trajectories' first and last stamps, and the
+    medians of joint, velocity and limb-length errors of the optimized
+    long trajectories."""
+    from airdos_tpu_torch.io.synthetic import BODY1, BODY2, _SKELETON_REST
+    from airdos_tpu_torch.io.tum import ate_rmse
+    from airdos_tpu_torch.slam.map import TH_LONG_TRAJECTORY
+    from airdos_tpu_torch.slam.system import System
+
+    runs = {}
+    for tag, mask in (("flagship", True), ("naive", False)):
+        slam = System(_long_horizon_config(mask, mask), device=device)
+        per = _run(slam, frames)
+        _, _, t_est = slam.tracking.trajectory_tum()
+        runs[tag] = (slam, float(ate_rmse(t_est, twc[:len(t_est)])),
+                     slam.tracking.state.name, per)
+    slam = runs["flagship"][0]
+    trajs = slam.map.trajectories
+    first = np.asarray([t.poses[0].timestamp for t in trajs.values()])
+    last = np.asarray([t.poses[-1].timestamp for t in trajs.values()])
+    seg_gt = np.linalg.norm(_SKELETON_REST[BODY1] - _SKELETON_REST[BODY2],
+                            axis=1)
+    joint, vel, seg = [], [], []
+    for tr in trajs.values():
+        if not (tr.optimized and len(tr) > TH_LONG_TRAJECTORY):
+            continue
+        hu = world.humans[tr.track_id]
+        for hp in tr.poses:
+            ok = hp.optimized[:14] & ~hp.bad[:14]
+            if ok.any():
+                gt = hu.joints_at(hp.timestamp)
+                joint.extend(np.linalg.norm(hp.joints_w[:14][ok]
+                                            - gt[:14][ok], axis=1).tolist())
+        vel.append(float(np.linalg.norm(tr.motion_t - hu.velocity)))
+        opt = tr.segment_optimized & ~tr.segment_bad
+        if opt.any():
+            seg.extend(np.abs(tr.segment_len[opt]
+                              - hu.scale * seg_gt[opt]).tolist())
+    return dict(runs=runs, n_trajs=len(trajs), first=first, last=last,
+                joint=float(np.median(joint)) if joint else float("inf"),
+                vel=float(np.median(vel)) if vel else float("inf"),
+                seg=float(np.median(seg)) if seg else 0.0)
+
+
+def phase_long_horizon(smi: str, world, frames, twc):
+    """tests/test_long_horizon_dynamic.py on the card, its bounds held."""
+    _reset_counts()
+    m = long_horizon_metrics(world, frames, twc, "cuda")
+    counts = _counts()
+    (_, ate_h, state_h, per_h), (_, ate_n, state_n, per_n) = \
+        m["runs"]["flagship"], m["runs"]["naive"]
+    t_end = (len(frames) - 1) * 0.1
+    ended = int((m["last"] < t_end - 1.0).sum())
+    started = int((m["first"] > 1.0).sum())
+    slam = m["runs"]["flagship"][0]
+    print(f"[long] {len(frames)}-frame crowd, small camera: flagship ATE "
+          f"{ate_h:.6f} m ({state_h}), naive {ate_n:.6f} m ({state_n}), "
+          f"ratio {ate_h / ate_n:.3f}; trajectories {m['n_trajs']} ({ended} "
+          f"ended early, {started} started late); medians of the optimized "
+          f"long trajectories: joint error {m['joint']:.4f} m, velocity "
+          f"error {m['vel']:.4f}, limb-length error {m['seg']:.4f} m; human "
+          f"BA solves {slam.human_ba.n_runs}; per-frame ms flagship "
+          f"{_ms_stats([p[2] * 1e3 for p in per_h])}, naive "
+          f"{_ms_stats([p[2] * 1e3 for p in per_n])}; launches {counts} on "
+          f"{smi}", flush=True)
+    misses = []
+    if state_h != "OK":
+        misses.append(f"flagship state {state_h}")
+    if not (ate_h < 0.8 * ate_n and ate_h < 0.05):
+        misses.append(f"ATE {ate_h} vs naive {ate_n} (< 0.8x and < 0.05 m)")
+    if m["n_trajs"] < 4 or ended < 1 or started < 1:
+        misses.append(f"{m['n_trajs']} trajectories, {ended} ended early, "
+                      f"{started} started late")
+    if not (m["joint"] < 0.5 and m["vel"] < 0.6 and m["seg"] < 0.15):
+        misses.append(f"joint {m['joint']} (< 0.5), velocity {m['vel']} "
+                      f"(< 0.6), limb {m['seg']} (< 0.15)")
+    if misses:
+        _fail("long horizon: " + "; ".join(misses))
+    return counts
+
+
 def _phase(name, fn, *args):
     """Run one phase and print its wall time."""
     t0 = time.perf_counter()
     out = fn(*args)
     print(f"[time] {name} {time.perf_counter() - t0:.1f} s", flush=True)
     return out
+
+
+def _path_phases(smi: str, frames, twc, cli):
+    """Render the other scenes (phase 14a's CLI runs meanwhile), then drive
+    every main path with the kernels' launches recorded by shape.  Phases
+    mapping and human get the frames quantized to uint8, as the drivers
+    read them, so that their Systems are the drivers' in-memory twins.
+    Returns the launches summed over the paths, and the loop closer's
+    snapshot and extractor for phase loop replay."""
+    crowd, crowd_twc = _phase("render crowd-27", _crowd_frames, N_CROWD)
+    orbit, orbit_twc = _phase("render orbit-84", _orbit_frames, N_ORBIT)
+    long_world, long_frames, long_twc = _phase("render long-110",
+                                               _long_horizon_frames)
+    memory = {}
+    with _path_recording():
+        _phase("slice", phase_slice, smi, frames, twc)
+        launches = _phase("mapping", phase_mapping, smi,
+                          [_twin(d) for d in frames], twc, memory)
+        counts = [_phase("human", phase_human, smi,
+                         [_twin(d) for d in crowd], crowd_twc, memory),
+                  _phase("reloc", phase_reloc, smi, frames, twc)]
+        loop, snap, extractor, offline_loop = _phase(
+            "loop", phase_loop, smi, orbit, orbit_twc)
+        counts += [loop, _phase("map scale", phase_map_scale, smi),
+                   _phase("online", phase_online, smi, orbit, orbit_twc,
+                          crowd, crowd_twc, frames, twc, offline_loop),
+                   _phase("drivers", phase_drivers, smi, frames, twc, crowd,
+                          crowd_twc, memory, cli),
+                   _phase("long horizon", phase_long_horizon, smi,
+                          long_world, long_frames, long_twc)]
+    for c in counts:
+        launches = {k: launches[k] + c[k] for k in launches}
+    return launches, (snap, extractor)
 
 
 def main():
@@ -1941,20 +2631,8 @@ def main():
     if sys.argv[1:]:
         _fail(f"usage: python3 chip_smoke.py [--profile], got {sys.argv[1:]}")
     frames, twc = _phase("render static-28", _bench_frames, N_FRAMES)
-    crowd, crowd_twc = _phase("render crowd-27", _crowd_frames, N_CROWD)
-    orbit, orbit_twc = _phase("render orbit-84", _orbit_frames, N_ORBIT)
-    with _path_recording():
-        _phase("slice", phase_slice, smi, frames, twc)
-        launches = _phase("mapping", phase_mapping, smi, frames, twc)
-        counts = [_phase("human", phase_human, smi, crowd, crowd_twc),
-                  _phase("reloc", phase_reloc, smi, frames, twc)]
-        loop, snap, extractor, offline_loop = _phase(
-            "loop", phase_loop, smi, orbit, orbit_twc)
-        counts += [loop, _phase("map scale", phase_map_scale, smi),
-                   _phase("online", phase_online, smi, orbit, orbit_twc,
-                          crowd, crowd_twc, frames, twc, offline_loop)]
-    for c in counts:
-        launches = {k: launches[k] + c[k] for k in launches}
+    with _kitti_cli(frames) as cli:
+        launches, (snap, extractor) = _path_phases(smi, frames, twc, cli)
     rows = _phase("kernel", phase_kernel, smi)
     _phase("determinism", phase_determinism)
     _phase("loop replay", phase_loop_replay, snap, extractor)

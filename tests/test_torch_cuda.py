@@ -550,3 +550,81 @@ def test_prefetched_upload_is_bit_equal_on_the_card(cuda):
     assert fe._prefetched == {}
     for k in ("xy", "desc32", "octave", "valid", "u_right", "depth"):
         np.testing.assert_array_equal(getattr(pre, k), getattr(plain, k))
+
+
+# tests/test_examples_cli.py's settings (that module imports airdos_tpu)
+_KITTI_YAML = """%YAML:1.0
+Camera.fx: 320.0
+Camera.fy: 320.0
+Camera.cx: 160.0
+Camera.cy: 120.0
+Camera.k1: 0.0
+Camera.k2: 0.0
+Camera.p1: 0.0
+Camera.p2: 0.0
+Camera.width: 320
+Camera.height: 240
+Camera.fps: 5.0
+Camera.bf: 80.0
+Camera.RGB: 1
+ThDepth: 30
+ORBextractor.nFeatures: 600
+ORBextractor.scaleFactor: 1.2
+ORBextractor.nLevels: 4
+ORBextractor.iniThFAST: 12
+ORBextractor.minThFAST: 7
+System.IsOffline: 1
+System.IsMask: 0
+Human.OK: 0
+Device.MaxKeypoints: 1024
+Device.MaxLocalKFs: 8
+Device.MaxFixedKFs: 4
+Device.MaxLocalPoints: 1024
+Device.MaxBAEdges: 4096
+"""
+
+
+def test_kitti_driver_on_the_card_equals_the_in_memory_system(cuda, tmp_path):
+    """python -m airdos_tpu_torch.examples.stereo_kitti's main on the card
+    (its default device) over 8 PNG frames in the KITTI layout: its KITTI
+    file is byte-identical to an in-memory System fed the same uint8
+    frames as float32."""
+    import dataclasses
+
+    from airdos_tpu_torch.config import SlamConfig
+    from airdos_tpu_torch.examples import stereo_kitti
+    from airdos_tpu_torch.io.png import imwrite
+    from airdos_tpu_torch.io.synthetic import SyntheticStereoWorld, small_camera
+    from airdos_tpu_torch.ops import hamming_kernels as hk
+    from airdos_tpu_torch.slam.system import System
+
+    world = SyntheticStereoWorld(seed=0, n_points=200, cam=small_camera())
+    seq = tmp_path / "seq"
+    frames = []
+    for i, (d, _, _) in enumerate(world.sequence(8, dt=0.1)):
+        left = np.clip(np.rint(d.image_left), 0, 255).astype(np.uint8)
+        right = np.clip(np.rint(d.image_right), 0, 255).astype(np.uint8)
+        for side, img in (("image_0", left), ("image_1", right)):
+            (seq / side).mkdir(parents=True, exist_ok=True)
+            imwrite(seq / side / f"{i:06d}.png", img)
+        # the timestamp as times.txt gives it back
+        frames.append(dataclasses.replace(
+            d, timestamp=float(f"{d.timestamp:.6f}"),
+            image_left=left.astype(np.float32),
+            image_right=right.astype(np.float32)))
+    (seq / "times.txt").write_text(
+        "".join(f"{d.timestamp:.6f}\n" for d in frames))
+    yaml = tmp_path / "settings.yaml"
+    yaml.write_text(_KITTI_YAML)
+    before = hk.launches()
+    assert stereo_kitti.main([str(yaml), str(seq),
+                              str(tmp_path / "driver.txt")]) == 0
+    assert hk.launches() > before
+    slam = System(SlamConfig.from_yaml(yaml))
+    for d in frames:
+        slam.track_stereo(d)
+    slam.shutdown()
+    slam.save_trajectory_kitti(tmp_path / "memory.txt")
+    got = (tmp_path / "driver.txt").read_bytes()
+    assert len(got.decode().splitlines()) == 8
+    assert got == (tmp_path / "memory.txt").read_bytes()
