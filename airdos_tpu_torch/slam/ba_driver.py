@@ -31,6 +31,13 @@ assembly and write-back (None offline).  Online, System installs a
 device work, and the background BAs launch on their own low-priority
 CUDA stream (the mapping worker's drivers use the worker's stream).
 
+With Device.NChips > 1 the three BAs run sharded over a mesh of that
+many ranks (``parallel/``), as airdos_tpu's drivers do: each driver
+builds its mesh once, rounds its edge capacity up to a multiple of the
+mesh (padding rows invalid) and calls the ``sharded_*`` solver; the
+human BA then solves in one call online too, as airdos_tpu's sharded
+path does.  One rank never stands in for a mesh: a missing card raises.
+
 Problems keep airdos_tpu's padded sizes (the sticky power-of-two buckets
 below).  Eager torch compiles nothing, so the buckets no longer save
 compiles; they keep the port's padded shapes equal to airdos_tpu's, which
@@ -39,6 +46,7 @@ the parity tests compare shape for shape.
 from __future__ import annotations
 
 import contextlib
+import functools
 import threading
 import warnings
 from typing import List
@@ -50,6 +58,9 @@ from airdos_tpu_torch.config import SlamConfig
 from airdos_tpu_torch.convert import desc_to_tensor, to_device
 from airdos_tpu_torch.matching.epipolar import triangulate_pair
 from airdos_tpu_torch.matching.fuse import fuse_candidates
+from airdos_tpu_torch.parallel.sharded_ba import (
+    make_mesh, sharded_global_bundle_adjust, sharded_human_bundle_adjust,
+    sharded_local_bundle_adjust)
 from airdos_tpu_torch.slam.map import (BODY1, BODY2, MAIN_SKELETON, N_PARTS,
                                        TH_LONG_TRAJECTORY, KeyFrame, SlamMap)
 from airdos_tpu_torch.solvers.global_ba import global_bundle_adjust
@@ -180,6 +191,16 @@ def _locked(map_lock):
     return map_lock if map_lock is not None else contextlib.nullcontext()
 
 
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _mesh_of(config: SlamConfig, device):
+    """The mesh of Device.NChips ranks the BAs shard over, None for one."""
+    n = config.device.n_chips
+    return make_mesh(n, device) if n > 1 else None
+
+
 # Online-mode schedule of the background human BA: the reference protocol's
 # 5 Huber + 10 plain iterations (Optimizer.cc:701-704) in three solver
 # calls, as airdos_tpu runs it online (its slam/ba_driver.py:155-166).
@@ -218,6 +239,9 @@ class StaticLocalBA:
         nf = config.orb.n_features
         self._pb = _StickyBucket(_steady_start(nf, 1.5, 1024, self.P), self.P)
         self._eb = _StickyBucket(_steady_start(nf, 6.0, 4096, self.E), self.E)
+        self.mesh = _mesh_of(config, self.device)
+        self._sharded = None if self.mesh is None else \
+            sharded_local_bundle_adjust(self.mesh)
 
     def __call__(self, kf: KeyFrame):
         with _locked(self.map_lock):
@@ -266,6 +290,8 @@ class StaticLocalBA:
         ec, ep, eo, ei, ref_p, ref_kf, ref_fid = assemble_edges(
             m, cam_ids, sel, self.inv_sigma2)
         E = self._eb.fit(len(ec))
+        if self.mesh is not None:
+            E = _round_up(E, self.mesh.size)
         e_cam, e_pt, e_obs, e_info, e_valid, n_e = pad_edge_table(
             ec, ep, eo, ei, E)
 
@@ -284,7 +310,7 @@ class StaticLocalBA:
         with span(self.profiler, "ba.solve"):
             d = self.device
             gate_wait(self.gate)           # tracking launches first
-            res = local_bundle_adjust(
+            res = (self._sharded or local_bundle_adjust)(
                 *(to_device(a, d) for a in arrays),
                 self.fx, self.fy, self.cx, self.cy, self.bf)
             flat = torch.cat([res.R.reshape(-1), res.t.reshape(-1),
@@ -742,6 +768,14 @@ class HumanLocalBA:
         # the window's demand in grow-only buckets, starting at min(8, cap)
         self._tb = _StickyBucket(min(8, self.T), self.T)
         self._lb = _StickyBucket(min(8, self.L), self.L)
+        self.mesh = _mesh_of(config, self.device)
+        self._sharded = None
+        if self.mesh is not None:
+            # the static edge capacity pads up to a mesh multiple, and the
+            # sharded solve is one call (airdos_tpu's sharded path)
+            self.E = _round_up(self.E, self.mesh.size)
+            self._sharded = sharded_human_bundle_adjust(self.mesh)
+            self._chunked = False
 
     def __call__(self, slam_map: SlamMap, current_kf_id: int):
         with _locked(self.map_lock), span(self.profiler, "hba.assemble"):
@@ -915,7 +949,7 @@ class HumanLocalBA:
         args = [to_device(a, d) for a in arrays]
 
         def call(**iters):
-            return human_bundle_adjust(
+            return (self._sharded or human_bundle_adjust)(
                 *args, opt.sigma_static, opt.sigma_human, opt.sigma_rigidity,
                 opt.sigma_motion, opt.th_huber_motion, opt.th_ransac_motion,
                 opt.th_ransac_rigidity,
@@ -1012,7 +1046,7 @@ class HumanLocalBA:
 def solve_global_ba(cam_R, cam_t, cam_fixed, pts, pvalid,
                     e_cam, e_pt, e_obs, e_info, e_valid, fx, fy, cx, cy, bf,
                     n_iters: int = 20, chunk: int = 5, cg_iters: int = 48,
-                    abort=None, gate=None):
+                    abort=None, gate=None, mesh=None):
     """airdos_tpu's GlobalBA schedule (slam/ba_driver.py:1256-1274) on
     device tensors: solver calls of `chunk` steps, the first with
     chunk // 2 Huber steps then the rest plain, the later ones plain only.
@@ -1027,7 +1061,10 @@ def solve_global_ba(cam_R, cam_t, cam_fixed, pts, pvalid,
     Gauss-Newton step first waits for tracking's frame to end (at most
     BACKGROUND_WAIT_S): the solve runs in the background, and its launch
     loop would otherwise contend with tracking's for the host
-    (utils/gate.py)."""
+    (utils/gate.py).  With a mesh each call is sharded over it (the edge
+    arrays padded to a multiple of its size): every rank launches
+    launches_per_step(cg_iters) segment sums a step, and rank 0 waits on
+    the gate for all."""
     out = None
     R, t, ps = cam_R, cam_t, pts
     hook = None if gate is None else \
@@ -1036,10 +1073,11 @@ def solve_global_ba(cam_R, cam_t, cam_fixed, pts, pvalid,
         if abort is not None and abort.is_set():
             break
         i1 = chunk // 2 if ci == 0 else 0          # Huber phase only first
-        res = global_bundle_adjust(
-            R, t, cam_fixed, ps, pvalid, e_cam, e_pt, e_obs, e_info, e_valid,
-            fx, fy, cx, cy, bf, iters1=i1, iters2=chunk - i1,
-            cg_iters=cg_iters, step_hook=hook)
+        iters = dict(iters1=i1, iters2=chunk - i1, cg_iters=cg_iters)
+        solve = functools.partial(global_bundle_adjust, **iters) \
+            if mesh is None else sharded_global_bundle_adjust(mesh, **iters)
+        res = solve(R, t, cam_fixed, ps, pvalid, e_cam, e_pt, e_obs, e_info,
+                    e_valid, fx, fy, cx, cy, bf, step_hook=hook)
         R, t, ps = res.R, res.t, res.points
         out = (R, t, ps)
     return out
@@ -1098,6 +1136,7 @@ class GlobalBA:
         self._old_threads: list = []  # aborted runs not joined yet
         self._error = None            # the first exception of a run
         self._stream = None           # their CUDA stream, at first launch
+        self.mesh = _mesh_of(config, self.device)
 
     def __call__(self, n_iters: int = 20):
         """assemble -> chunked solve -> write-back (with propagation to
@@ -1216,8 +1255,11 @@ class GlobalBA:
         sel = point_slot_lookup(m, point_ids)
         ec, ep, eo, ei, _, _, _ = assemble_edges(
             m, [k.id for k in kfs], sel, self.inv_sigma2)
+        E = self._eb.fit(len(ec))
+        if self.mesh is not None:
+            E = _round_up(E, self.mesh.size)
         e_cam, e_pt, e_obs, e_info, e_valid, _ = pad_edge_table(
-            ec, ep, eo, ei, self._eb.fit(len(ec)))
+            ec, ep, eo, ei, E)
         return dict(cam_index=cam_index, point_ids=point_ids,
                     cam_R0=cam_R.copy(), cam_t0=cam_t.copy(),
                     arrays=(cam_R, cam_t, cam_fixed, pts, pvalid,
@@ -1230,7 +1272,7 @@ class GlobalBA:
         arrays = [to_device(a, d) for a in problem["arrays"]]
         out = solve_global_ba(*arrays, self.fx, self.fy, self.cx, self.cy,
                               self.bf, n_iters=n_iters, abort=abort,
-                              gate=self.gate)
+                              gate=self.gate, mesh=self.mesh)
         if out is None:
             return None
         R, t, ps = out

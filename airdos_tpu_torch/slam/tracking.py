@@ -42,6 +42,8 @@ from airdos_tpu_torch.convert import desc_to_tensor, step_tables_to_device, \
 from airdos_tpu_torch.geometry.se3 import se3_exp_np, se3_log_np
 from airdos_tpu_torch.matching.bow_match import match_by_bow
 from airdos_tpu_torch.matching.projection import match_last_frame
+from airdos_tpu_torch.parallel.sharded_ba import (make_mesh,
+                                                  sharded_epnp_ransac)
 from airdos_tpu_torch.slam.frame import Frame, FrontEnd
 from airdos_tpu_torch.slam.fused import (local_map_step, make_full_track_step,
                                          motion_model_step)
@@ -125,6 +127,7 @@ class Tracking:
         self.last_kf_id = -1
         self.last_reloc_frame = -1e9
         self.reloc_tried = 0             # candidates the last attempt tried
+        self._sharded_pnp = None         # n_chips > 1: built at first use
         self.reloc_inliers = 0           # its last EPnP RANSAC inlier count
         self.events = None               # set by System (its EventLog)
         self.records: List[FrameRecord] = []
@@ -571,7 +574,19 @@ class Tracking:
         expansion at 10 px / ORB distance 100 when < 50 inliers -> re-opt
         -> a narrow 3 px / 64 expansion when still 30..50 -> accepted only
         with >= 50 inliers.  The RANSAC samples come from
-        np.random.default_rng(frame index), as in airdos_tpu."""
+        np.random.default_rng(frame index), as in airdos_tpu.  With
+        Device.NChips > 1 the hypotheses are sharded over a mesh of that
+        many ranks (parallel/sharded_ba.sharded_epnp_ransac, built once;
+        their count rounded up to a multiple of the mesh), as airdos_tpu
+        shards them."""
+        n_chips = self.config.device.n_chips
+        if n_chips > 1 and self._sharded_pnp is None:
+            self._sharded_pnp = sharded_epnp_ransac(
+                make_mesh(n_chips, self.device))
+        pnp = self._sharded_pnp or epnp_ransac
+        n_hyp = self.config.device.ransac_hypotheses
+        if n_chips > 1:
+            n_hyp = -(-n_hyp // n_chips) * n_chips
         db = self.keyframe_db
         bow, _, fnodes = db.voc.transform(frame.desc32, frame.valid)
         frame.feat_nodes = fnodes
@@ -610,13 +625,11 @@ class Tracking:
             uv = frame.xy_un[feat_ids].astype(np.float32)
             max_err2 = (5.991 / self.inv_sigma2[frame.octave[feat_ids]]) \
                 .astype(np.float32)
-            samples = rng.integers(
-                0, n, (self.config.device.ransac_hypotheses, 4)) \
-                .astype(np.int32)
-            res = epnp_ransac(to_device(pw, d), to_device(uv, d),
-                              torch.ones(n, dtype=torch.bool, device=d),
-                              to_device(max_err2, d), to_device(samples, d),
-                              self.fx, self.fy, self.cx, self.cy)
+            samples = rng.integers(0, n, (n_hyp, 4)).astype(np.int32)
+            res = pnp(to_device(pw, d), to_device(uv, d),
+                      torch.ones(n, dtype=torch.bool, device=d),
+                      to_device(max_err2, d), to_device(samples, d),
+                      self.fx, self.fy, self.cx, self.cy)
             flat = torch.cat([res.R.reshape(-1), res.t,
                               res.inliers.to(res.t.dtype)]).cpu().numpy()
             inl = flat[12:] > 0.5

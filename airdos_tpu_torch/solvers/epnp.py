@@ -151,23 +151,22 @@ class PnPRansacResult(NamedTuple):
     best: torch.Tensor        # index of the best hypothesis
 
 
-def epnp_ransac(pw, uv, valid, max_err2, sample_idx,
-                fx, fy, cx, cy) -> PnPRansacResult:
-    """EPnP RANSAC (reference PnPsolver::iterate semantics: minSet = 4,
-    per-scale chi-square gate max_err2 [n]) over the precomputed samples
-    sample_idx [H, 4]: every hypothesis at once, then weighted EPnP over
-    the best hypothesis's inliers, kept when it has at least as many."""
+def epnp_hypotheses(pw, uv, valid, max_err2, sample_idx, fx, fy, cx, cy):
+    """Every hypothesis of the samples sample_idx [H, 4] at once: (R [H, 3,
+    3], t [H, 3], inliers [H, n])."""
     sample_idx = sample_idx.to(torch.int64)
     Hn = sample_idx.shape[0]
     ones4 = torch.ones((Hn, 4), dtype=pw.dtype, device=pw.device)
     Rs, ts = epnp_pose(pw[sample_idx], uv[sample_idx], ones4, fx, fy, cx, cy)
     err2, z = _project_err2(Rs, ts, pw.expand(Hn, -1, -1),
                             uv.expand(Hn, -1, -1), fx, fy, cx, cy)
-    inls = valid & (err2 < max_err2) & (z > 0)
-    best = torch.argmax(torch.sum(inls, dim=-1))
-    R_b, t_b, inl_b = Rs[best], ts[best], inls[best]
+    return Rs, ts, valid & (err2 < max_err2) & (z > 0)
 
-    # refine on the best inlier set (weighted EPnP over all points)
+
+def epnp_refine(pw, uv, valid, max_err2, R_b, t_b, inl_b, best,
+                fx, fy, cx, cy) -> PnPRansacResult:
+    """Weighted EPnP over the best hypothesis's inliers (all points), kept
+    when it has at least as many inliers as the hypothesis."""
     w_ref = inl_b.to(pw.dtype)[None] + 1e-6
     R_r, t_r = epnp_pose(pw[None], uv[None], w_ref, fx, fy, cx, cy)
     err2, z = _project_err2(R_r, t_r, pw[None], uv[None], fx, fy, cx, cy)
@@ -178,3 +177,16 @@ def epnp_ransac(pw, uv, valid, max_err2, sample_idx,
                            t=torch.where(better, t_r[0], t_b),
                            inliers=inl_f, n_inliers=torch.sum(inl_f),
                            best=best)
+
+
+def epnp_ransac(pw, uv, valid, max_err2, sample_idx,
+                fx, fy, cx, cy) -> PnPRansacResult:
+    """EPnP RANSAC (reference PnPsolver::iterate semantics: minSet = 4,
+    per-scale chi-square gate max_err2 [n]) over the precomputed samples
+    sample_idx [H, 4]: every hypothesis at once, then weighted EPnP over
+    the best hypothesis's inliers, kept when it has at least as many."""
+    Rs, ts, inls = epnp_hypotheses(pw, uv, valid, max_err2, sample_idx,
+                                   fx, fy, cx, cy)
+    best = torch.argmax(torch.sum(inls, dim=-1))
+    return epnp_refine(pw, uv, valid, max_err2, Rs[best], ts[best],
+                       inls[best], best, fx, fy, cx, cy)

@@ -24,9 +24,13 @@ outliers.
   order on one device; not XLA's order, so the packages agree within a
   tolerance, not bit for bit).
 - The loop never reads a device value on the host.
-
-Multi-device sharding (airdos_tpu's ``axis_name`` / psum) is not ported
-(ROADMAP port queue: multi-device).
+- Multi-device (airdos_tpu's ``axis_name``): given a mesh ``group``
+  (``parallel/mesh.py``) and shard-local edge tables, every segment sum
+  above (the two per CG iteration too) and the LM costs are
+  psum-reduced over the mesh, and the CG state stays replicated, so its
+  dot products need no exchange.  Each shard's segment indices are its
+  own: every rank launches ``launches_per_step(cg_iters)`` segment sums
+  a step.  See ``parallel.sharded_ba.sharded_global_bundle_adjust``.
 """
 from __future__ import annotations
 
@@ -37,7 +41,7 @@ import torch
 from airdos_tpu_torch.geometry.se3 import se3_compose, se3_exp
 from airdos_tpu_torch.ops.segment_kernels import make_segments, segment_sum
 from airdos_tpu_torch.solvers.local_ba import (CHI2_MONO, CHI2_STEREO,
-                                               _proj_residual)
+                                               _identity, _proj_residual)
 from airdos_tpu_torch.solvers.smallmat import inv3x3, inv6x6
 
 
@@ -66,9 +70,12 @@ def global_bundle_adjust(
         e_valid: torch.Tensor,     # [E] bool
         fx, fy, cx, cy, bf,
         iters1: int = 6, iters2: int = 10,
-        cg_iters: int = 48, step_hook=None) -> GlobalBAResult:
+        cg_iters: int = 48, step_hook=None, group=None) -> GlobalBAResult:
     """step_hook, when given, is called before each Gauss-Newton step (the
-    online global BA waits there while tracking is in its frame)."""
+    online global BA waits there while tracking is in its frame); under a
+    mesh rank 0 calls it and the ranks then meet at a barrier.  group: a
+    mesh rank's Group when the edge arrays are its shard."""
+    psum = _identity if group is None else group.psum
     C = cam_R.shape[0]
     P = points.shape[0]
     dtype, dev = points.dtype, points.device
@@ -105,12 +112,12 @@ def global_bundle_adjust(
         w = e_info * w_h * active
 
         # --- O(E) normal-equation pieces -------------------------------
-        cam_sums = segment_sum(torch.cat(
+        cam_sums = psum(segment_sum(torch.cat(
             [torch.einsum("eik,e,eil->ekl", Jc, w, Jc).reshape(E, 36),
-             -torch.einsum("eik,e,ei->ek", Jc, w, e)], dim=1), seg_c)
-        pt_sums = segment_sum(torch.cat(
+             -torch.einsum("eik,e,ei->ek", Jc, w, e)], dim=1), seg_c))
+        pt_sums = psum(segment_sum(torch.cat(
             [torch.einsum("eik,e,eil->ekl", Jp, w, Jp).reshape(E, 9),
-             -torch.einsum("eik,e,ei->ek", Jp, w, e)], dim=1), seg_p)
+             -torch.einsum("eik,e,ei->ek", Jp, w, e)], dim=1), seg_p))
         Hcc, bc = cam_sums[:, :36].reshape(C, 6, 6), cam_sums[:, 36:]
         Hpp, bp = pt_sums[:, :9].reshape(P, 3, 3), pt_sums[:, 9:]
         Wcp = torch.einsum("eik,e,eil->ekl", Jc, w, Jp)        # [E, 6, 3]
@@ -131,10 +138,10 @@ def global_bundle_adjust(
         # D_corr = diag blocks of W Hpp^-1 W^T: both camera-keyed, one sum
         hb = torch.einsum("plm,pm->pl", Hpp_inv, bp)          # [P, 3]
         A_e = torch.einsum("ekl,elm->ekm", Wcp, Hpp_inv[e_pt])  # [E, 6, 3]
-        corr = segment_sum(torch.cat(
+        corr = psum(segment_sum(torch.cat(
             [torch.einsum("ekl,el->ek", Wcp, hb[e_pt]),
              torch.einsum("ekm,elm->ekl", A_e, Wcp).reshape(E, 36)], dim=1),
-            seg_c)
+            seg_c))
         b_red = (bc - corr[:, :6]) * cam_free
         D = Hcc_d - corr[:, 6:].reshape(C, 6, 6)
         D = D * cam_free[:, :, None] + eye6[None] * (1.0 - cam_free[:, :, None])
@@ -144,9 +151,10 @@ def global_bundle_adjust(
             """S x without forming S: a gather and a segment sum each way."""
             x = x * cam_free
             y = torch.einsum("ekl,ek->el", Wcp, x[e_cam])    # [E, 3]
-            z = torch.einsum("plm,pm->pl", Hpp_inv, segment_sum(y, seg_p))
-            back = segment_sum(torch.einsum("ekl,el->ek", Wcp, z[e_pt]),
-                               seg_c)
+            z = torch.einsum("plm,pm->pl", Hpp_inv,
+                             psum(segment_sum(y, seg_p)))
+            back = psum(segment_sum(torch.einsum("ekl,el->ek", Wcp, z[e_pt]),
+                                    seg_c))
             Sx = torch.einsum("ckl,cl->ck", Hcc_d, x) - back
             return Sx * cam_free + x * (1.0 - cam_free)
 
@@ -174,8 +182,8 @@ def global_bundle_adjust(
         dx_c = x * cam_free
 
         # back-substitute points
-        WTdx = segment_sum(torch.einsum("ekl,ek->el", Wcp, dx_c[e_cam]),
-                           seg_p)
+        y = torch.einsum("ekl,ek->el", Wcp, dx_c[e_cam])
+        WTdx = psum(segment_sum(y, seg_p))
         dx_p = torch.einsum("plm,pm->pl", Hpp_inv, bp - WTdx)
         dx_p = dx_p * point_valid[:, None].to(dtype)
 
@@ -194,13 +202,16 @@ def global_bundle_adjust(
                 rho = chi2
             rho = torch.where(torch.isfinite(rho), rho,
                               torch.full_like(rho, 1e30))
-            return torch.sum(rho * active)
+            return psum(torch.sum(rho * active))
 
         lam = torch.tensor(1e-6, dtype=dtype, device=dev)
         f_prev = cost(R, t, pts)
         for _ in range(n_iters):
             if step_hook is not None:
-                step_hook()
+                if group is None or group.rank == 0:
+                    step_hook()
+                if group is not None:
+                    group.barrier()
             Rn, tn, pn = gn_step(R, t, pts, active, lam, use_huber)
             f_new = cost(Rn, tn, pn)
             better = f_new < f_prev

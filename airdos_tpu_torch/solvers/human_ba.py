@@ -32,8 +32,14 @@ in edge order, bit-equal between the kernel and its plain version, with
 no float atomics.  Four segment-sum launches a step, 60 a solve.  The LM
 loop never reads a device value on the host.
 
-airdos_tpu's ``axis_name`` / psum (sharded static edges) is not ported
-(ROADMAP port queue: multi-device).
+Multi-device (airdos_tpu's ``axis_name``): given a mesh ``group``
+(``parallel/mesh.py``) and shard-local STATIC edge tables (es_*), the
+static edges' three segment sums and their cost term are psum-reduced
+over the mesh, where airdos_tpu psums them; the human families, a few
+thousand small edges, and the dense reduced solve run replicated on
+every rank.  A rank so launches the same four segment sums a step (three
+over its static shard, one over all the human edges): 60 a solve per
+rank.  See ``parallel.sharded_ba.sharded_human_bundle_adjust``.
 """
 from __future__ import annotations
 
@@ -46,7 +52,8 @@ from airdos_tpu_torch.geometry.se3 import se3_compose, se3_exp, so3_exp, \
 from airdos_tpu_torch.ops.segment_kernels import (make_compact_segments,
                                                   segment_sum)
 from airdos_tpu_torch.slam.map import BODY1, BODY2, MAIN_SKELETON, N_PARTS
-from airdos_tpu_torch.solvers.local_ba import (CHI2_STEREO, _proj_residual,
+from airdos_tpu_torch.solvers.local_ba import (CHI2_STEREO, _identity,
+                                               _proj_residual,
                                                back_substitute, schur_reduce,
                                                static_segments)
 from airdos_tpu_torch.solvers.smallmat import cho_solve_dense
@@ -188,7 +195,10 @@ def human_bundle_adjust(
         th_huber_motion, th_ransac_motion, th_ransac_rigidity,
         fx, fy, cx, cy, bf,
         use_huber: bool = True,
-        iters1: int = 5, iters2: int = 10) -> HumanBAResult:
+        iters1: int = 5, iters2: int = 10, group=None) -> HumanBAResult:
+    """group: a mesh rank's Group when the static edge arrays are its
+    shard (the human arrays are whole on every rank)."""
+    psum = _identity if group is None else group.psum
     dtype, dev = points.dtype, points.device
     C = cam_R.shape[0]
     P = points.shape[0]
@@ -266,7 +276,7 @@ def human_bundle_adjust(
             return torch.where(torch.isfinite(chi), chi,
                                torch.full_like(chi, 1e30))
 
-        return (torch.sum(rho(chi_s, delta_s) * act[0]) +
+        return (psum(torch.sum(rho(chi_s, delta_s) * act[0])) +
                 torch.sum(rho(chi_h, huber_h) * act[1]) +
                 torch.sum(rho(chi_r, th_ransac_rigidity) * act[2]) +
                 torch.sum(rho(chi_m, th_huber_motion) * act[3]))
@@ -286,7 +296,8 @@ def human_bundle_adjust(
 
         # static edges: Schur into the camera block
         w_s = hw(chi_s, delta_s, sigma_s, act[0])
-        schur = schur_reduce(e, Jc, Jx, w_s, segs_s, point_valid, lam, C, P)
+        schur = schur_reduce(e, Jc, Jx, w_s, segs_s, point_valid, lam, C, P,
+                             psum)
 
         # human families: vars cam(6) + joint(3); j1(3) + j2(3) + limb(1);
         # j1(3) + j2(3) + motion(6)

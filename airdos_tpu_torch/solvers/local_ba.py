@@ -18,9 +18,13 @@ between (5.991 mono / 7.815 stereo), Huber kernel in the first phase.
   (6C x 6C) is solved densely by Cholesky.
 - Each LM step is accepted or rejected with ``torch.where`` on the device:
   the loop never reads a device value on the host.
-
-Multi-device sharding (airdos_tpu's ``axis_name`` / psum) is not ported
-(ROADMAP port queue: multi-device).
+- Multi-device (airdos_tpu's ``axis_name``): given a mesh ``group``
+  (``parallel/mesh.py``) and shard-local edge tables, the three segment
+  sums and the LM costs are psum-reduced over the mesh, where airdos_tpu
+  psums its scatter-adds and costs; the reduced solve and the landmark
+  back-substitution run replicated.  Each shard's segment index is its
+  own, so a sharded solve launches 45 segment sums on every rank.  See
+  ``parallel.sharded_ba.sharded_local_bundle_adjust``.
 """
 from __future__ import annotations
 
@@ -103,21 +107,26 @@ class SchurBlocks(NamedTuple):
     Wagg: torch.Tensor      # [P, C, 6, 3] camera-point coupling per pair
 
 
+def _identity(x):
+    return x
+
+
 def schur_reduce(e, Jc, Jp, w, segs: StaticSegments, point_valid, lam,
-                 C: int, P: int) -> SchurBlocks:
+                 C: int, P: int, psum=_identity) -> SchurBlocks:
     """The projection edges' Gauss-Newton blocks, every landmark
     marginalised: three segment sums (airdos_tpu's five scatter-adds; the
     blocks that share a key sum side by side, each column in its own
-    order, so the bits are those of separate sums)."""
+    order, so the bits are those of separate sums), each psum-reduced over
+    the mesh when the edges are a shard."""
     E = e.shape[0]
     dtype, dev = e.dtype, e.device
     eye3 = torch.eye(3, dtype=dtype, device=dev)
-    cam_sums = segment_sum(torch.cat(
+    cam_sums = psum(segment_sum(torch.cat(
         [torch.einsum("eik,e,eil->ekl", Jc, w, Jc).reshape(E, 36),
-         -torch.einsum("eik,e,ei->ek", Jc, w, e)], dim=1), segs.cam)
-    pt_sums = segment_sum(torch.cat(
+         -torch.einsum("eik,e,ei->ek", Jc, w, e)], dim=1), segs.cam))
+    pt_sums = psum(segment_sum(torch.cat(
         [torch.einsum("eik,e,eil->ekl", Jp, w, Jp).reshape(E, 9),
-         -torch.einsum("eik,e,ei->ek", Jp, w, e)], dim=1), segs.pt)
+         -torch.einsum("eik,e,ei->ek", Jp, w, e)], dim=1), segs.pt))
     Hcc, bc = cam_sums[:, :36].reshape(C, 6, 6), cam_sums[:, 36:]
     Hpp, bp = pt_sums[:, :9].reshape(P, 3, 3), pt_sums[:, 9:]
     # per-edge camera-point coupling W = Jc^T w Jp  [E, 6, 3]
@@ -134,7 +143,7 @@ def schur_reduce(e, Jc, Jp, w, segs: StaticSegments, point_valid, lam,
 
     # Schur: S = Hcc - sum_p (sum_{e in p, cam ci} W_e Hpp^-1)
     #                        (sum_{e' in p, cam cj} W_e')^T
-    Wagg = segment_sum(Wcp.reshape(E, 18), segs.pc).reshape(P, C, 6, 3)
+    Wagg = psum(segment_sum(Wcp.reshape(E, 18), segs.pc)).reshape(P, C, 6, 3)
     Aagg = torch.einsum("pckl,plm->pckm", Wagg, Hpp_inv)
     S_corr = torch.einsum("pikm,pjlm->ijkl", Aagg, Wagg)   # [C, C, 6, 6]
     diag_c = torch.arange(C, device=dev)
@@ -164,7 +173,10 @@ def local_bundle_adjust(
         e_info: torch.Tensor,       # [E] invSigma2
         e_valid: torch.Tensor,      # [E] bool
         fx, fy, cx, cy, bf,
-        iters1: int = 5, iters2: int = 10) -> LocalBAResult:
+        iters1: int = 5, iters2: int = 10, group=None) -> LocalBAResult:
+    """group: a mesh rank's Group when the edge arrays are its shard
+    (None: the whole table on one device)."""
+    psum = _identity if group is None else group.psum
     C = cam_R.shape[0]
     P = points.shape[0]
     dtype, dev = points.dtype, points.device
@@ -201,7 +213,8 @@ def local_bundle_adjust(
         else:
             w_h = torch.ones_like(chi2)
         w = e_info * w_h * active
-        blocks = schur_reduce(e, Jc, Jp, w, segs, point_valid, lam, C, P)
+        blocks = schur_reduce(e, Jc, Jp, w, segs, point_valid, lam, C, P,
+                              psum)
 
         # freeze fixed cameras: identity rows/cols, zero rhs
         S = blocks.S * free_mask
@@ -230,7 +243,7 @@ def local_bundle_adjust(
                 rho = chi2
             rho = torch.where(torch.isfinite(rho), rho,
                               torch.full_like(rho, 1e30))
-            return torch.sum(rho * active)
+            return psum(torch.sum(rho * active))
 
         lam = torch.tensor(1e-6, dtype=dtype, device=dev)
         f_prev = cost(R, t, pts)

@@ -38,21 +38,16 @@ def _safe_z(z):
     return torch.where(torch.abs(z) < 1e-9, torch.full_like(z, 1e-9), z)
 
 
-def sim3_ransac(x1, x2, valid,            # [n, 3] camera-frame points, both KFs
-                sample_idx,               # [H, 3]
-                max_err1, max_err2,       # [n] chi2 gates (9.210 * sigma2)
-                fx, fy, cx, cy,
-                fix_scale: bool = True) -> Sim3RansacResult:
-    """S12 (x1 ~ S12 x2) by RANSAC over 3-point Horn alignments with mutual
-    reprojection checks (x2 into camera 1 through S12, x1 into camera 2
-    through S21)."""
+def sim3_inlier_test(x1, x2, valid, max_err1, max_err2, fx, fy, cx, cy):
+    """The mutual reprojection chi-square test of a Sim3 RANSAC: a function
+    (R [H, 3, 3], t [H, 3], s [H]) -> inlier mask [H, n] (x2 into camera 1
+    through S12, x1 into camera 2 through S21)."""
     z1o = _safe_z(x1[:, 2])
     uv1 = torch.stack([fx * x1[:, 0] / z1o + cx, fy * x1[:, 1] / z1o + cy], -1)
     z2o = _safe_z(x2[:, 2])
     uv2 = torch.stack([fx * x2[:, 0] / z2o + cx, fy * x2[:, 1] / z2o + cy], -1)
 
     def reproj_inliers(R, t, s):
-        """R [H, 3, 3], t [H, 3], s [H] -> inlier mask [H, n]."""
         p1 = s[:, None, None] * torch.einsum("nj,hij->hni", x2, R) + \
             t[:, None, :]
         z1 = _safe_z(p1[..., 2])
@@ -64,13 +59,13 @@ def sim3_ransac(x1, x2, valid,            # [n, 3] camera-frame points, both KFs
         e2 = (fx * p2[..., 0] / z2 + cx - uv2[:, 0]) ** 2 + \
             (fy * p2[..., 1] / z2 + cy - uv2[:, 1]) ** 2
         return valid & (e1 < max_err1) & (e2 < max_err2)
+    return reproj_inliers
 
-    idx = sample_idx.to(torch.int64)
-    Rs, ts, ss = horn_align(x1[idx], x2[idx], fix_scale=fix_scale)
-    inls = reproj_inliers(Rs, ts, ss)
-    best = torch.argmax(torch.sum(inls, dim=-1))
-    R_b, t_b, s_b, inl_b = Rs[best], ts[best], ss[best], inls[best]
-    # refine on the inliers
+
+def sim3_refine(x1, x2, reproj_inliers, R_b, t_b, s_b, inl_b, best,
+                fix_scale: bool = True) -> Sim3RansacResult:
+    """Horn over the best hypothesis's inliers, kept when it has at least
+    as many inliers as the hypothesis."""
     w = inl_b.to(x1.dtype) + 1e-6
     R_r, t_r, s_r = horn_align(x1, x2, weights=w, fix_scale=fix_scale)
     inl_r = reproj_inliers(R_r[None], t_r[None], s_r[None])[0]
@@ -81,6 +76,23 @@ def sim3_ransac(x1, x2, valid,            # [n, 3] camera-frame points, both KFs
                             s=torch.where(better, s_r, s_b),
                             inliers=inl_f, n_inliers=torch.sum(inl_f),
                             best=best)
+
+
+def sim3_ransac(x1, x2, valid,            # [n, 3] camera-frame points, both KFs
+                sample_idx,               # [H, 3]
+                max_err1, max_err2,       # [n] chi2 gates (9.210 * sigma2)
+                fx, fy, cx, cy,
+                fix_scale: bool = True) -> Sim3RansacResult:
+    """S12 (x1 ~ S12 x2) by RANSAC over 3-point Horn alignments with mutual
+    reprojection checks."""
+    reproj_inliers = sim3_inlier_test(x1, x2, valid, max_err1, max_err2,
+                                      fx, fy, cx, cy)
+    idx = sample_idx.to(torch.int64)
+    Rs, ts, ss = horn_align(x1[idx], x2[idx], fix_scale=fix_scale)
+    inls = reproj_inliers(Rs, ts, ss)
+    best = torch.argmax(torch.sum(inls, dim=-1))
+    return sim3_refine(x1, x2, reproj_inliers, Rs[best], ts[best], ss[best],
+                       inls[best], best, fix_scale)
 
 
 def optimize_sim3(R0, t0, s0,

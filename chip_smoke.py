@@ -74,7 +74,7 @@ Run from the repository root.  Phases, each of which fails the run:
    float {0, 1} [.., 256], unpacked outside the timed window):
    - the 2-D Hamming kernel at 1536x1536, 2048x1536 and a ragged
      1500x1337 of random words: exact equality;
-   - every kernel at every shape phases 3-8 launched it with, on the
+   - every kernel at every shape the path phases launched it with, on the
      first inputs the path gave it at that shape (recorded while the paths
      ran): Hamming exact, batched Hamming (triangulation B=4 x 1536x1536,
      fusion B=9 x 2048x1536 at this budget) exact, segment_sum bit-equal
@@ -153,13 +153,39 @@ Run from the repository root.  Phases, each of which fails the run:
    0.8 x the naive run's and < 0.05 m, >= 4 trajectories with >= 1
    ending early and >= 1 starting late, and over the optimized long
    trajectories the medians of joint error < 0.5 m, velocity error < 0.6
-   and limb-length error < 0.15 m.
+   and limb-length error < 0.15 m;
+16. multi-device, run after phase 15 among the path phases: airdos_tpu's
+   Device.NChips paths (parallel/sharded_ba.py) on a mesh of 4 ranks:
+   real cards when the machine has two or more (as many as it has, up to
+   4), else 4 virtual ranks on cuda:0 (AIRDOS_TORCH_VIRTUAL_DEVICES=4, set
+   for this phase only); it prints which mesh it ran and each sub-step's
+   time.  Every sharded run counts 45 segment_sum launches a local BA
+   solve, 60 a human BA solve and 100 a global BA step on each rank's
+   thread:
+   a. the first static BA problem phase 4 solved, sharded: within
+      tests/test_sharded_ba.py's tolerances of the single-device solve (R
+      2e-4, t 2e-3 m, inlier agreement > 0.98), two runs bit-equal;
+   b. phase 4's System with Device.NChips = 4: every frame OK, >= 5
+      keyframes, ATE < 0.02 m, every static BA solve sharded; its ATE
+      beside phase 4's;
+   c. phase 5's flagship with Device.NChips = 4: every frame OK, a
+      sharded human BA at every cadence tick, ATE < 0.03 m, beside
+      phase 5's;
+   d. phase 8's global BA sharded: chi2 cut a hundredfold, every free
+      keyframe moved, two runs bit-equal; the largest gap to phase 8's
+      single-device solve and the solve times;
+   e. phase 6's blackout with Device.NChips = 4: relocalized through the
+      sharded EPnP RANSAC at phase 6's frame;
+   f. the Sim3 RANSAC of phase 7's first closed loop, sharded: equal to
+      sim3_ransac;
+   g. airdos_tpu_torch.graft_entry.dryrun_multichip(4) on the card.
 
 Each path's kernel launch counts are set to 0 just before the path is
 driven and read just after; launches made to compare a kernel with its
-plain version are not counted; the kernels line's launches add up the
-mapping, human, reloc, loop, map-scale, online, drivers and long-horizon
-paths' counts.  Frames are
+plain version are not counted, nor the single-device solve that
+sub-step 16a compares with; the kernels line's launches add up the
+mapping, human, reloc, loop, map-scale, online, drivers, long-horizon and
+multi-device paths' counts.  Frames are
 rendered in a pool of forked processes before any CUDA context exists.
 The last lines are one JSON line listing the kernels, the nvidia-smi
 line, and {"ok": true, "device": {...}}.
@@ -205,6 +231,11 @@ SEED = 0
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 # kernel name -> {shape: [launches, first inputs]} on the main paths
 _PATH: dict = {}
+# what the single-device phases leave for phase multi-device: the first
+# static BA problem and the ATE of phase mapping, the ATE of phase human,
+# the relocalizing frame of phase reloc, the Sim3 RANSAC inputs of phase
+# loop's first closed loop, and the map-scale problem and solution
+_FOR_MESH: dict = {}
 # the render job the pool's forked workers read
 _RENDER: dict = {}
 
@@ -841,15 +872,11 @@ def _trajectory_bytes(slam, kind: str) -> bytes:
         return path.read_bytes()
 
 
-def phase_mapping(smi: str, frames, twc, twins):
-    """The offline System with the mapping pass at the bench budgets; its
-    KITTI trajectory goes to twins["kitti"], the in-memory twin of phase
-    14a's KITTI driver."""
-    from airdos_tpu_torch.slam.system import System
-
-    slam = System(_bench_config(), device="cuda")
+def _track_static(slam, frames):
+    """Track frames with a static System; per frame its state, branch,
+    milliseconds, whether it made a keyframe, the live keyframes before
+    it, its BA solves and its kernel launches."""
     per = []
-    _reset_counts()
     for data in frames:
         c0, s0 = _counts(), slam.static_ba.n_solves
         live0 = slam.map.n_keyframes()
@@ -865,6 +892,55 @@ def phase_mapping(smi: str, frames, twc, twins):
                         kf=is_kf, live0=live0,
                         solves=slam.static_ba.n_solves - s0,
                         d={k: c1[k] - c0[k] for k in c1}))
+    return per
+
+
+def _track_human(slam, frames):
+    """Track frames with a human System; per frame its state, branch,
+    milliseconds, keyframe, static and human BA solves, whether the human
+    BA cadence ticked, its humans and its kernel launches."""
+    per = []
+    for data in frames:
+        c0, s0 = _counts(), slam.static_ba.n_solves
+        h0, tick0 = slam.human_ba.n_runs, slam._last_human_ba_frame
+        t0 = time.perf_counter()
+        slam.track_stereo_human(data)
+        _sync()
+        dt = time.perf_counter() - t0
+        c1 = _counts()
+        kf = slam.map.kfs.get(slam.tracking.last_kf_id)
+        per.append(dict(state=slam.tracking.state.name,
+                        branch=slam.tracking.last_branch, ms=dt * 1e3,
+                        kf=kf is not None and kf.frame_id == data.index,
+                        static=slam.static_ba.n_solves - s0,
+                        human=slam.human_ba.n_runs - h0,
+                        tick=slam._last_human_ba_frame != tick0,
+                        humans=len(slam.tracking.last_frame.humans),
+                        d={k: c1[k] - c0[k] for k in c1}))
+    return per
+
+
+def phase_mapping(smi: str, frames, twc, twins):
+    """The offline System with the mapping pass at the bench budgets; its
+    KITTI trajectory goes to twins["kitti"], the in-memory twin of phase
+    14a's KITTI driver."""
+    from airdos_tpu_torch.slam import ba_driver
+    from airdos_tpu_torch.slam.system import System
+
+    solver = ba_driver.local_bundle_adjust
+
+    def recorded(*args, **kwargs):
+        _FOR_MESH.setdefault("static_ba", tuple(
+            a.clone() if hasattr(a, "clone") else a for a in args))
+        return solver(*args, **kwargs)
+
+    slam = System(_bench_config(), device="cuda")
+    _reset_counts()
+    ba_driver.local_bundle_adjust = recorded
+    try:
+        per = _track_static(slam, frames)
+    finally:
+        ba_driver.local_bundle_adjust = solver
     counts = _counts()
     slam.shutdown()
     twins["kitti"] = _trajectory_bytes(slam, "kitti")
@@ -882,6 +958,7 @@ def phase_mapping(smi: str, frames, twc, twins):
     ate = _ate(slam.tracking, twc)
     if not ate < 0.02:
         _fail(f"mapping: ATE {ate} m >= 0.02 m")
+    _FOR_MESH["mapping_ate"] = ate
     n_created = slam.local_mapper.triangulator.n_created
     if n_created <= 0:
         _fail("mapping: triangulation created no map points")
@@ -942,27 +1019,10 @@ def phase_human(smi: str, frames, twc, twins):
         return solver(*args, **kwargs)
 
     slam = System(_human_bench_config(), device="cuda")
-    per = []
     ba_driver.human_bundle_adjust = recorded
     try:
         _reset_counts()
-        for data in frames:
-            c0, s0 = _counts(), slam.static_ba.n_solves
-            h0, tick0 = slam.human_ba.n_runs, slam._last_human_ba_frame
-            t0 = time.perf_counter()
-            slam.track_stereo_human(data)
-            _sync()
-            dt = time.perf_counter() - t0
-            c1 = _counts()
-            kf = slam.map.kfs.get(slam.tracking.last_kf_id)
-            per.append(dict(state=slam.tracking.state.name,
-                            branch=slam.tracking.last_branch, ms=dt * 1e3,
-                            kf=kf is not None and kf.frame_id == data.index,
-                            static=slam.static_ba.n_solves - s0,
-                            human=slam.human_ba.n_runs - h0,
-                            tick=slam._last_human_ba_frame != tick0,
-                            humans=len(slam.tracking.last_frame.humans),
-                            d={k: c1[k] - c0[k] for k in c1}))
+        per = _track_human(slam, frames)
         counts = _counts()
     finally:
         ba_driver.human_bundle_adjust = solver
@@ -991,6 +1051,7 @@ def phase_human(smi: str, frames, twc, twins):
     if idle:
         _fail(f"human: kernels never launched on the main path: {idle}")
     ate_human = _ate(slam.tracking, twc)
+    _FOR_MESH["human_ate"] = ate_human
     spans = slam.profiler.report()
 
     static = System(_polluted_config(), device="cuda")
@@ -1083,6 +1144,7 @@ def phase_reloc(smi: str, frames, twc):
             per[reloc_i]["d"]["hamming_matrix"] <= 0:
         _fail(f"reloc: frame {reloc_i} relocalized without a Hamming launch")
     ate_cut = float(ate_rmse(t_cut, gt[:len(t_cut)]))
+    _FOR_MESH["reloc_frame"] = reloc_i
     full_frames, _ = _reloc_frames(frames, twc, blank=False)
     full = System(_bench_config(), device="cuda")
     _run(full, full_frames)
@@ -1141,6 +1203,12 @@ def phase_loop(smi: str, frames, twc):
     snaps = []
     real_sim3 = loop_closing.LoopCloser.compute_sim3
     real_correct = loop_closing.LoopCloser.correct
+    real_ransac = loop_closing.sim3_ransac
+    last_ransac = []
+
+    def sim3_ransac(*args, **kwargs):
+        last_ransac[:] = [(args, kwargs)]
+        return real_ransac(*args, **kwargs)
 
     def compute_sim3(self, kf, cand_id):
         # the generator's state before this call's RANSAC draws
@@ -1151,6 +1219,7 @@ def phase_loop(smi: str, frames, twc):
         # compute_sim3 reads the map and only the correction writes it:
         # a copy here, with the generator put back, replays both
         if not snaps:
+            _FOR_MESH["sim3"] = last_ransac[0]
             t0 = time.perf_counter()
             snap = copy.deepcopy(self)
             snap.rng.bit_generator.state = self._rng_before
@@ -1160,6 +1229,7 @@ def phase_loop(smi: str, frames, twc):
     per = []
     loop_closing.LoopCloser.compute_sim3 = compute_sim3
     loop_closing.LoopCloser.correct = correct
+    loop_closing.sim3_ransac = sim3_ransac
     try:
         _reset_counts()
         for data in frames:
@@ -1188,6 +1258,7 @@ def phase_loop(smi: str, frames, twc):
     finally:
         loop_closing.LoopCloser.compute_sim3 = real_sim3
         loop_closing.LoopCloser.correct = real_correct
+        loop_closing.sim3_ransac = real_ransac
     for i, p in enumerate(per):
         print(f"[loop] frame {i:2d} {p['state']} {p['branch']:5s} "
               f"{'KF' if p['kf'] else '  '} {'LOOP' if p['loops'] else '    '}"
@@ -1700,6 +1771,7 @@ def phase_map_scale(smi: str):
     if not ((moved > 1e-5).all() and chi1 < 1e-2 * chi0):
         _fail(f"map scale: free keyframes moved {(moved > 1e-5).mean():.3f}, "
               f"reprojection chi2 {chi0} -> {chi1}")
+    _FOR_MESH["map_scale"] = (arrays, cam, R, t)
     busy, n_k = _busy_ms(lambda: solve_global_ba(*dev, *cam))
     print(f"[map-scale] global BA (4 calls x 5 steps, 48 CG iterations): "
           f"{[round(s, 3) for s in secs]} s per solve, two runs bit-equal, "
@@ -2580,6 +2652,274 @@ def phase_long_horizon(smi: str, world, frames, twc):
     return counts
 
 
+def _rank_launches(sk, n: int) -> dict:
+    """segment_sum launches since the last reset by mesh rank: rank 0 is
+    this thread, rank r > 0 the thread Mesh.run names "<this>:rank<r>"."""
+    me = threading.current_thread().name
+    names = [me] + [f"{me}:rank{r}" for r in range(1, n)]
+    by = collections.Counter()
+    for (_, thread, _), k in sk.launch_tally().items():
+        by[thread] += k
+    return [by.get(name, 0) for name in names] + \
+        [k for t, k in by.items() if t not in names]
+
+
+def phase_multi_device(smi: str, frames, twc, crowd, crowd_twc):
+    """Phase 16 (module docstring): airdos_tpu's Device.NChips paths on a
+    mesh of 4 ranks (real cards when the machine has two or more, else 4
+    virtual ranks on cuda:0 through AIRDOS_TORCH_VIRTUAL_DEVICES), held
+    against the single-device phases.  Returns the sharded runs' launch
+    counts."""
+    import torch
+    from airdos_tpu_torch import graft_entry
+    from airdos_tpu_torch.convert import to_device
+    from airdos_tpu_torch.ops import segment_kernels as sk
+    from airdos_tpu_torch.parallel import mesh as pmesh
+    from airdos_tpu_torch.parallel.sharded_ba import (
+        make_mesh, sharded_local_bundle_adjust, sharded_sim3_ransac)
+    from airdos_tpu_torch.slam.ba_driver import (pad_edge_table,
+                                                 solve_global_ba)
+    from airdos_tpu_torch.slam.system import System
+    from airdos_tpu_torch.solvers.global_ba import launches_per_step
+    from airdos_tpu_torch.solvers.local_ba import local_bundle_adjust
+    from airdos_tpu_torch.solvers.sim3 import sim3_ransac
+
+    n_cards = torch.cuda.device_count()
+    n = min(4, n_cards) if n_cards >= 2 else 4
+    env_before = os.environ.get(pmesh.VIRTUAL_DEVICES_ENV)
+    if n_cards < 2:
+        os.environ[pmesh.VIRTUAL_DEVICES_ENV] = str(n)
+    runs = collections.Counter()        # Mesh.run calls by sharded path
+    plain_run = pmesh.Mesh.run
+
+    def counted(self, fn, *args, **kwargs):
+        runs[fn.__qualname__.split(".")[0]] += 1
+        return plain_run(self, fn, *args, **kwargs)
+
+    def each_rank(what: str, per_rank: int):
+        got = _rank_launches(sk, n)
+        if got != [per_rank] * n:
+            _fail(f"multi-device {what}: segment_sum launches by rank "
+                  f"{got}, not {per_rank} on each of {n}")
+
+    def step_a(mesh):
+        """The first static BA problem of phase mapping, sharded."""
+        args = _FOR_MESH["static_ba"]
+        run = sharded_local_bundle_adjust(mesh)
+        # single, sharded, sharded, single: host ms of each solve
+        ms_1, (single,) = _timed_device(lambda: local_bundle_adjust(*args),
+                                        reps=1)
+        _reset_counts()
+        ms_4, outs = _timed_device(lambda: run(*args))
+        counts = _counts()
+        each_rank("a (local BA, two runs)", 2 * 45)
+        ms_1 += _timed_device(lambda: local_bundle_adjust(*args), reps=1)[0]
+        if not all(torch.equal(x, y) for x, y in zip(*outs)):
+            _fail("multi-device a: two sharded local BA runs differ")
+        o = outs[0]
+        dR = float((o.R - single.R).abs().max())
+        dt = float((o.t - single.t).abs().max())
+        agree = float((o.edge_inlier == single.edge_inlier).float().mean())
+        if not (dR < 2e-4 and dt < 2e-3 and agree > 0.98):
+            _fail(f"multi-device a: sharded local BA vs single: R {dR}, "
+                  f"t {dt} m, inlier agreement {agree}")
+        E = args[5].shape[0]
+        print(f"[multi-device] a: local BA C {args[0].shape[0]} P "
+              f"{args[3].shape[0]} E {E} ({E // n} a rank): two sharded "
+              f"runs bit-equal, {n} x 45 segment_sum "
+              f"launches each; against the single-device solve R {dR:.2e}, "
+              f"t {dt:.2e} m, inlier agreement {agree:.4f}; ms a solve "
+              f"(single, sharded, sharded, single): "
+              f"{[round(x * 1e3, 2) for x in ms_1[:1] + ms_4 + ms_1[1:]]}",
+              flush=True)
+        return counts
+
+    def step_b(mesh):
+        """System with n_chips over static-28's uint8 twins."""
+        cfg = _bench_config()
+        cfg.device.n_chips = n
+        slam = System(cfg, device="cuda")
+        _reset_counts()
+        per = _track_static(slam, [_twin(d) for d in frames])
+        counts = _counts()
+        slam.shutdown()
+        solves = slam.static_ba.n_solves
+        bad = [i for i, p in enumerate(per) if p["state"] != "OK"]
+        kf_frames = [i for i, p in enumerate(per) if p["kf"]]
+        no_ba = [i for i in kf_frames if per[i]["live0"] >= 2
+                 and per[i]["solves"] != 1]
+        seg_off = [i for i, p in enumerate(per)
+                   if p["d"]["segment_sum"] != n * 45 * p["solves"]]
+        ate = _ate(slam.tracking, twc)
+        if bad or len(slam.map.kfs) < 5 or not ate < 0.02 or no_ba \
+                or seg_off or runs["sharded_local_bundle_adjust"] != solves:
+            _fail(f"multi-device b: frames not OK {bad}, keyframes "
+                  f"{len(slam.map.kfs)}, ATE {ate} m, keyframes without a "
+                  f"BA solve {no_ba}, frames with segment_sum != {n} x 45 "
+                  f"a solve {seg_off}, sharded runs {dict(runs)} for "
+                  f"{solves} solves")
+        each_rank("b (static System)", 45 * solves)
+        track_ms = [p["ms"] for p in per if not p["kf"]]
+        kf_ms = [p["ms"] for i, p in enumerate(per) if p["kf"] and i > 0]
+        print(f"[multi-device] b: static-28 System, Device.NChips {n}: "
+              f"every frame OK, keyframes {len(slam.map.kfs)}, {solves} "
+              f"sharded BA solves; ATE {ate:.6f} m (phase mapping "
+              f"{_FOR_MESH['mapping_ate']:.6f} m); per-frame ms tracking "
+              f"{_ms_stats(track_ms)}, keyframe frames {_ms_stats(kf_ms)}; "
+              f"launches {counts}", flush=True)
+        return counts
+
+    def step_c(mesh):
+        """The crowd-27 flagship with n_chips."""
+        cfg = _human_bench_config()
+        cfg.device.n_chips = n
+        slam = System(cfg, device="cuda")
+        _reset_counts()
+        per = _track_human(slam, [_twin(d) for d in crowd])
+        counts = _counts()
+        slam.shutdown()
+        bad = [i for i, p in enumerate(per) if p["state"] != "OK"]
+        missed = [i for i, p in enumerate(per)
+                  if p["tick"] and p["human"] != 1]
+        seg_off = [i for i, p in enumerate(per) if p["d"]["segment_sum"]
+                   != n * (45 * p["static"] + 60 * p["human"])]
+        ate = _ate(slam.tracking, crowd_twc)
+        n_static, n_human = slam.static_ba.n_solves, slam.human_ba.n_runs
+        if bad or missed or not any(p["tick"] for p in per) or seg_off \
+                or not ate < 0.03 \
+                or runs["sharded_human_bundle_adjust"] != n_human \
+                or runs["sharded_local_bundle_adjust"] != n_static:
+            _fail(f"multi-device c: frames not OK {bad}, ticks without a "
+                  f"human BA {missed}, segment_sum off at {seg_off}, ATE "
+                  f"{ate} m, sharded runs {dict(runs)} for {n_static} "
+                  f"static and {n_human} human solves")
+        each_rank("c (flagship)", 45 * n_static + 60 * n_human)
+        hba = [p["ms"] for p in per if p["human"]]
+        print(f"[multi-device] c: crowd-27 flagship, Device.NChips {n}: "
+              f"every frame OK, {n_human} sharded human BA solves (one at "
+              f"every cadence tick), {n_static} sharded static solves; ATE "
+              f"{ate:.6f} m (phase human {_FOR_MESH['human_ate']:.6f} m); "
+              f"human-BA frames {_ms_stats(hba)} ms; launches {counts}",
+              flush=True)
+        return counts
+
+    def step_d(mesh):
+        """The map-scale global BA in GlobalBA's schedule, sharded."""
+        arrays, cam, R8, t8 = _FOR_MESH["map_scale"]
+        E = len(arrays[5])
+        padded = pad_edge_table(*arrays[5:9], -(-E // n) * n)[:5]
+        dev = [to_device(a, "cuda") for a in tuple(arrays[:5]) + padded]
+        dev0 = [to_device(a, "cuda") for a in arrays]
+        _reset_counts()
+        secs, outs = _timed_device(
+            lambda: solve_global_ba(*dev, *cam, mesh=mesh))
+        counts = _counts()
+        each_rank("d (global BA, two runs)", 2 * 20 * launches_per_step(48))
+        (R1, t1, p1), (R2, t2, p2) = outs
+        if not (torch.equal(R1, R2) and torch.equal(t1, t2)
+                and torch.equal(p1, p2)):
+            _fail("multi-device d: two sharded global BA runs differ")
+        R, t = R1.cpu().numpy(), t1.cpu().numpy()
+        moved = np.linalg.norm(t[1:] - arrays[1][1:], axis=1)
+        chi0 = _chi2_sum(dev0, cam, dev0[0], dev0[1], dev0[3])
+        chi1 = _chi2_sum(dev0, cam, R1, t1, p1)
+        if not ((moved > 1e-5).all() and chi1 < 1e-2 * chi0):
+            _fail(f"multi-device d: free keyframes moved "
+                  f"{(moved > 1e-5).mean():.3f}, chi2 {chi0} -> {chi1}")
+        ctr = -np.einsum("cij,ci->cj", R, t)
+        ctr8 = -np.einsum("cij,ci->cj", R8, t8)
+        print(f"[multi-device] d: map-scale global BA, C {len(arrays[0])}, "
+              f"P {len(arrays[3])}, E {E} ({len(dev[5]) // n} a rank): "
+              f"{[round(x, 3) for x in secs]} s per solve, two runs "
+              f"bit-equal, {n} x {20 * launches_per_step(48)} segment_sum "
+              f"launches each; chi2 {chi0:.6g} -> {chi1:.6g}; largest gap "
+              f"to phase map scale's single-device solve: R "
+              f"{np.abs(R - R8).max():.2e}, t {np.abs(t - t8).max():.2e} m, "
+              f"centre {np.linalg.norm(ctr - ctr8, axis=1).max():.2e} m",
+              flush=True)
+        return counts
+
+    def step_e(mesh):
+        """The blackout of phase reloc with n_chips."""
+        cut, _ = _reloc_frames(frames, twc, blank=True)
+        cfg = _bench_config()
+        cfg.device.n_chips = n
+        slam = System(cfg, device="cuda")
+        _reset_counts()
+        per = _track_static(slam, cut)
+        counts = _counts()
+        slam.shutdown()
+        trk = slam.tracking
+        states = [p["state"] for p in per]
+        want = _FOR_MESH["reloc_frame"]
+        if any(s != "OK" for s in states[:N_GOOD]) or \
+                any(s != "LOST" for s in states[N_GOOD:N_GOOD + N_BLANK]) \
+                or states[-1] != "OK" or trk.last_reloc_frame != want \
+                or trk._sharded_pnp is None \
+                or runs["sharded_epnp_ransac"] < 1:
+            _fail(f"multi-device e: states {states}, relocalized at "
+                  f"{trk.last_reloc_frame} (phase reloc {want}), sharded "
+                  f"runs {dict(runs)}")
+        print(f"[multi-device] e: blackout, Device.NChips {n}: relocalized "
+              f"at frame {trk.last_reloc_frame} as phase reloc, through "
+              f"{runs['sharded_epnp_ransac']} sharded EPnP RANSAC calls "
+              f"({trk.reloc_inliers} inliers); launches {counts}",
+              flush=True)
+        return counts
+
+    def step_f(mesh):
+        """Phase loop's Sim3 RANSAC, sharded: equal to sim3_ransac."""
+        args, kwargs = _FOR_MESH["sim3"]
+        single = sim3_ransac(*args, **kwargs)
+        sharded = sharded_sim3_ransac(mesh, **kwargs)(*args)
+        differ = [f for f, x, y in zip(single._fields, sharded, single)
+                  if not torch.equal(x, y)]
+        if differ:
+            _fail(f"multi-device f: sharded Sim3 RANSAC differs in {differ}")
+        print(f"[multi-device] f: Sim3 RANSAC of phase loop's closed loop "
+              f"({args[0].shape[0]} matches, {args[3].shape[0]} hypotheses)"
+              f": sharded result equal to sim3_ransac (winner "
+              f"{int(single.best)}, {int(single.n_inliers)} inliers)",
+              flush=True)
+        return dict.fromkeys(_counts(), 0)
+
+    def step_g(mesh):
+        """graft_entry.dryrun_multichip on the card."""
+        _reset_counts()
+        graft_entry.dryrun_multichip(n, device="cuda")
+        _sync()
+        counts = _counts()
+        each_rank("g (dry run)", 12 + 2 * launches_per_step(8) + 8)
+        print(f"[multi-device] g: graft_entry.dryrun_multichip({n}) passed; "
+              f"launches {counts}", flush=True)
+        return counts
+
+    total = dict.fromkeys(_counts(), 0)
+    pmesh.Mesh.run = counted
+    try:
+        mesh = make_mesh(n, "cuda")
+        kind = "virtual ranks on one card" if mesh.virtual \
+            else "a rank a card"
+        print(f"[multi-device] mesh: {mesh.describe()} ({kind}) on {smi}",
+              flush=True)
+        for name, step in (("a", step_a), ("b", step_b), ("c", step_c),
+                           ("d", step_d), ("e", step_e), ("f", step_f),
+                           ("g", step_g)):
+            runs.clear()
+            t0 = time.perf_counter()
+            counts = step(mesh)
+            total = {k: total[k] + counts[k] for k in total}
+            print(f"[time] multi-device {name} "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        pmesh.Mesh.run = plain_run
+        if env_before is None:
+            os.environ.pop(pmesh.VIRTUAL_DEVICES_ENV, None)
+        else:
+            os.environ[pmesh.VIRTUAL_DEVICES_ENV] = env_before
+    return total
+
+
 def _phase(name, fn, *args):
     """Run one phase and print its wall time."""
     t0 = time.perf_counter()
@@ -2615,7 +2955,9 @@ def _path_phases(smi: str, frames, twc, cli):
                    _phase("drivers", phase_drivers, smi, frames, twc, crowd,
                           crowd_twc, memory, cli),
                    _phase("long horizon", phase_long_horizon, smi,
-                          long_world, long_frames, long_twc)]
+                          long_world, long_frames, long_twc),
+                   _phase("multi-device", phase_multi_device, smi, frames,
+                          twc, crowd, crowd_twc)]
     for c in counts:
         launches = {k: launches[k] + c[k] for k in launches}
     return launches, (snap, extractor)

@@ -372,6 +372,57 @@ def _gba_corridor(rng, C=60, P=1500, per_cam=60):
             np.ones(E, bool))
 
 
+@pytest.mark.parametrize("ranks", ["virtual", "cards"])
+def test_sharded_local_ba_on_the_card(cuda, monkeypatch, ranks):
+    """The local BA sharded over 4 virtual ranks of the card, or over
+    every card (up to 4) where there are two or more, each rank on its
+    own stream: within tests/test_sharded_ba.py's tolerances of the
+    single-device solve (R 2e-4, t 2e-3 m, inlier agreement > 0.98), 45
+    segment_sum launches by each rank's thread a run, two runs
+    bit-equal."""
+    import airdos_tpu_torch.ops.segment_kernels as sk
+    from airdos_tpu_torch.parallel import mesh as pmesh
+    from airdos_tpu_torch.parallel.sharded_ba import (
+        make_mesh, sharded_local_bundle_adjust)
+    from airdos_tpu_torch.solvers.local_ba import local_bundle_adjust
+    n = 4 if ranks == "virtual" else min(4, torch.cuda.device_count())
+    if n < 2:
+        pytest.skip("needs two or more cards")
+    if ranks == "virtual":
+        monkeypatch.setenv(pmesh.VIRTUAL_DEVICES_ENV, "4")
+    else:
+        monkeypatch.delenv(pmesh.VIRTUAL_DEVICES_ENV, raising=False)
+    arrays = list(_gba_corridor(np.random.default_rng(1), C=12, P=600,
+                                per_cam=80))
+    pad = -len(arrays[5]) % n
+    fill = (0, 0, -1.0, 0.0, False)
+    for i, f in zip(range(5, 10), fill):
+        arrays[i] = np.concatenate(
+            [arrays[i], np.full((pad,) + arrays[i].shape[1:], f,
+                                arrays[i].dtype)])
+    dev = [torch.from_numpy(a).to(cuda) for a in arrays]
+    intr = (300.0, 300.0, 160.0, 120.0, 60.0)
+    single = local_bundle_adjust(*dev, *intr)
+    mesh = make_mesh(n, cuda)
+    assert mesh.virtual == (ranks == "virtual") and mesh.size == n
+    run = sharded_local_bundle_adjust(mesh)
+    sk.reset_launches()
+    res1 = run(*dev, *intr)
+    res2 = run(*dev, *intr)
+    torch.cuda.synchronize()
+    assert sk.launches() == 2 * n * 45
+    by_thread = {}
+    for (_, thread, _), k in sk.launch_tally().items():
+        by_thread[thread] = by_thread.get(thread, 0) + k
+    assert sorted(by_thread.values()) == [90] * n, by_thread
+    for a, b in zip(res1, res2):
+        assert torch.equal(a, b)
+    assert (res1.R - single.R).abs().max() < 2e-4
+    assert (res1.t - single.t).abs().max() < 2e-3
+    assert (res1.edge_inlier == single.edge_inlier).float().mean() > 0.98
+    assert (res1.t - dev[1]).abs().max() > 1e-3        # the solve moved
+
+
 def test_global_ba_segment_sums_bitwise_and_deterministic(cuda, monkeypatch):
     """Every segment sum of a global BA step on the card, at its camera-
     and point-keyed shapes (42, 12, 42, 3, 6, 3 columns), bit-equal to the
