@@ -7,6 +7,10 @@ round-robin across 4x4-cell blocks -> top-K per level quota -> IC angle ->
 Gaussian blur -> rBRIEF -> coordinates rescaled to level 0.  Every level
 yields exactly its quota of padded slots, and the slot count is padded to
 a multiple of 128 so slot layouts line up with the JAX package.
+
+Per level, the detection map (scores, mask, border, threshold, NMS) is
+one ``ops/fast.fast_nms`` call and the angles and descriptors one
+``ops/orb_kernels.orb_describe`` call: a kernel launch each on the card.
 """
 from __future__ import annotations
 
@@ -16,10 +20,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from airdos_tpu_torch.ops.brief import compute_descriptors, pack_u32
-from airdos_tpu_torch.ops.fast import fast_score_map, nms_strict
+from airdos_tpu_torch.ops.brief import pack_u32
+from airdos_tpu_torch.ops.fast import fast_nms
 from airdos_tpu_torch.ops.filters import gaussian_blur7
-from airdos_tpu_torch.ops.orientation import keypoint_angles
+from airdos_tpu_torch.ops.orb_kernels import orb_describe
 
 # Keypoint coordinates live in [EDGE, dim - EDGE) at each level, like the
 # reference's EDGE_THRESHOLD=19 with FAST pattern margin 3 (minBorder = 16).
@@ -62,14 +66,14 @@ def _top_k_lower_index_first(x: torch.Tensor, k: int) -> torch.Tensor:
     return torch.sort(x, descending=True, stable=True).indices[:k]
 
 
-def _select_level_keypoints(score: torch.Tensor, quota: int, cell: int,
-                            ini_th: float, min_th: float):
-    """NMS + per-cell best + spatially fair top-K.  Returns xs, ys [quota]
-    int64 and response [quota] float32 (0 response = invalid slot)."""
-    h, w = score.shape
-    dev = score.device
-    zero = torch.zeros_like(score)
-    s = nms_strict(torch.where(score > min_th, score, zero))
+def _select_level_keypoints(s: torch.Tensor, quota: int, cell: int,
+                            ini_th: float):
+    """Per-cell best + spatially fair top-K of the level's detection map s
+    (ops/fast.fast_nms: thresholded and non-max suppressed).  Returns xs,
+    ys [quota] int64 and response [quota] float32 (0 response = invalid
+    slot)."""
+    h, w = s.shape
+    dev = s.device
     sel = torch.where(s > ini_th, s + INI_BOOST, s)
 
     ncy, ncx = -(-h // cell), -(-w // cell)
@@ -143,18 +147,13 @@ class OrbExtractor:
             m = pyr.masks[lvl]
             h, w = im.shape
             quota = self.quotas[lvl]
-            score = fast_score_map(im) * m
-            inside = torch.zeros_like(score)
-            inside[MIN_BORDER:h - MIN_BORDER, MIN_BORDER:w - MIN_BORDER] = 1.0
-            score = torch.where(inside > 0, score, torch.zeros_like(score))
-
+            s = fast_nms(im, m, self.min_th, MIN_BORDER)
             cell = _cell_size_for(h - 2 * MIN_BORDER, w - 2 * MIN_BORDER, quota)
-            xs, ys, resp = _select_level_keypoints(
-                score, quota, cell, self.ini_th, self.min_th)
+            xs, ys, resp = _select_level_keypoints(s, quota, cell, self.ini_th)
 
-            ang = keypoint_angles(im, xs, ys)
             blurred = gaussian_blur7(im)
-            desc = compute_descriptors(blurred, xs, ys, ang)
+            ang, words = orb_describe(im, blurred, xs, ys)
+            desc = words.view(torch.uint8)          # [quota, 32], pack_u32's bytes
 
             scale = self.scale_factor ** lvl
             xy0 = torch.stack([xs.to(torch.float32), ys.to(torch.float32)],

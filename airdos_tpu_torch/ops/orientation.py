@@ -4,7 +4,13 @@ The reference computes per-keypoint circular-patch moments m10, m01 with
 row loops (ORBextractor.cc IC_Angle, 78-105).  Here each keypoint's 31x31
 patch is gathered and contracted with fixed moment kernels that are zero
 outside the circle |dx| <= umax[|dy|] — the semantics of airdos_tpu's
-``_angles_gather``.
+``_angles_gather``.  The contraction runs in float64 and rounds once to
+float32: every product of a float32 pixel and an integer weight is exact
+in float64, and so, as long as the sum of a patch stays inside float64's
+53 bits (pixels of at least 2^-8, below 2^22 in all), is their sum, in any
+order.  So the moments do not depend on the order a reduction takes,
+which differs between the CPU, cuBLAS and ops/orb_kernels.py's kernel;
+on the integer-valued level 0 the float32 sums were already exact.
 """
 from __future__ import annotations
 
@@ -62,6 +68,7 @@ def keypoint_angles(img: torch.Tensor, xs: torch.Tensor,
     gx = torch.clamp(xs[:, None] + dy[None, :], 0, w - 1)        # [N, 31]
     patch = img[gy[:, :, None], gx[:, None, :]]                  # [N, 31, 31]
     kk = torch.as_tensor(_moment_kernels(), device=img.device)   # [2, 31, 31]
-    m = torch.einsum("nij,kij->nk", patch, kk)                   # [N, 2]
+    m = torch.einsum("nij,kij->nk", patch.double(),
+                     kk.double()).to(torch.float32)              # [N, 2]
     ang = torch.rad2deg(torch.atan2(m[:, 1], m[:, 0]))
     return torch.where(ang < 0, ang + 360.0, ang)

@@ -6,18 +6,33 @@ projection edges with fixed world points, 4 rounds x 10 LM iterations,
 chi-square gating (5.991 mono / 7.815 stereo) re-classifying outliers
 between rounds, Huber kernel dropped from round 3 on.
 
-Edges live in fixed-size padded tensors.  Every accept/reject decision of
-the LM is a torch.where on the device, so the 40 iterations never read a
-device value on the host.
+Edges live in fixed-size padded tensors.  ``pose_optimize`` packs the
+edges and scalars once (``pack_problem``) and then:
+
+- on a CUDA tensor launches the sm_90a kernel of ``csrc/pose_lm.cu``, the
+  whole 4 x 10 protocol in one launch on the calling thread's current
+  stream (built with nvcc at first use into ``airdos_tpu_torch/_build/``,
+  bound through ctypes) or raises, and counts the launch, by thread and
+  stream priority too; the host reads nothing;
+- on a CPU tensor runs ``pose_optimize_ref``, the plain torch version,
+  on the unpacked edges.  Every accept/reject decision of its LM is a
+  torch.where, so its 40 iterations never read a device value on the
+  host either.
+
+The kernel design and what bounds it are described at the top of the
+CUDA source.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+import ctypes
+from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from airdos_tpu_torch.geometry.se3 import (se3_compose, se3_exp, se3_inverse,
                                            se3_log, so3_hat)
+from airdos_tpu_torch.ops import cuda_build
 from airdos_tpu_torch.solvers.smallmat import inv6x6
 
 CHI2_MONO = 5.991
@@ -62,17 +77,18 @@ def _residual_jac(R, t, xw, obs, row_mask, fx, fy, cx, cy, bf):
     return (obs - pred) * row_mask, J, z
 
 
-def pose_optimize(R0: torch.Tensor, t0: torch.Tensor,
-                  xw: torch.Tensor,          # [N, 3] fixed world points
-                  obs: torch.Tensor,         # [N, 3] (u, v, uR); uR < 0 => mono
-                  inv_sigma2: torch.Tensor,  # [N] per-edge information scale
-                  valid: torch.Tensor,       # [N] bool
-                  fx, fy, cx, cy, bf,
-                  huber_delta_mono: float = 2.447749,   # sqrt(5.991)
-                  huber_delta_stereo: float = 2.795483,  # sqrt(7.815)
-                  prior_w_rot: float = 0.0, prior_w_trans: float = 0.0
-                  ) -> PoseOptResult:
-    """All-tensor pose optimization.  Mono edges are rows with obs[:, 2] < 0.
+def pose_optimize_ref(R0: torch.Tensor, t0: torch.Tensor,
+                      xw: torch.Tensor,          # [N, 3] fixed world points
+                      obs: torch.Tensor,         # [N, 3] (u, v, uR); uR < 0 => mono
+                      inv_sigma2: torch.Tensor,  # [N] per-edge information scale
+                      valid: torch.Tensor,       # [N] bool
+                      fx, fy, cx, cy, bf,
+                      huber_delta_mono: float = 2.447749,   # sqrt(5.991)
+                      huber_delta_stereo: float = 2.795483,  # sqrt(7.815)
+                      prior_w_rot: float = 0.0, prior_w_trans: float = 0.0
+                      ) -> PoseOptResult:
+    """Plain torch version: all-tensor pose optimization.  Mono edges are
+    rows with obs[:, 2] < 0.
 
     prior_w_rot / prior_w_trans (information weights, 1/sigma^2) add a weak
     SE3 prior anchoring the solution to the initial pose, as in
@@ -155,3 +171,142 @@ def pose_optimize(R0: torch.Tensor, t0: torch.Tensor,
         inlier = valid & (chi <= th) & depth_ok
 
     return PoseOptResult(R=R, t=t, inlier=inlier, n_inliers=torch.sum(inlier))
+
+
+# ------------------------------------------------------- the CUDA kernel
+
+_SOURCE = cuda_build.CSRC / "pose_lm.cu"
+_SIGNATURES = {
+    "airdos_pose_lm": [ctypes.c_void_p] * 4 + [ctypes.c_int]
+    + [ctypes.c_float] * 9 + [ctypes.c_void_p],
+}
+# one byte of dynamic shared memory an edge, under the 48 KB a block gets
+# without opting in
+MAX_EDGES = 40960
+_kernel = None                   # the bound C entry point, once loaded
+
+_counter = cuda_build.LaunchCounter()
+
+
+def launches() -> int:
+    """Kernel launches since the last reset_launches()."""
+    return _counter.total
+
+
+def launch_tally() -> dict:
+    """{("pose_lm", thread name, stream priority): launches} since the
+    last reset_launches()."""
+    return {("pose_lm",) + key: n for key, n in _counter.tally().items()}
+
+
+def reset_launches() -> None:
+    _counter.reset()
+
+
+def build():
+    """Compile csrc/pose_lm.cu for sm_90a into _build/ and return the
+    library's path."""
+    return cuda_build.build(_SOURCE)
+
+
+class PoseProblem(NamedTuple):
+    """One call's inputs as both versions take them."""
+    pose0: torch.Tensor       # [12] float32: R0 row-major, then t0
+    edges: torch.Tensor       # [N, 8] float32: xw, u, v, uR, inv_sigma2, valid (1/0)
+    scalars: Tuple[float, ...]  # fx, fy, cx, cy, bf, the two Huber deltas,
+                                # the rotation and translation prior weights
+
+
+def pack_problem(R0, t0, xw, obs, inv_sigma2, valid, fx, fy, cx, cy, bf,
+                 huber_delta_mono, huber_delta_stereo, prior_w_rot,
+                 prior_w_trans) -> PoseProblem:
+    """The edges side by side in one float32 tensor (a 16-byte aligned row
+    an edge) and the scalars rounded to float32, as the kernel takes them;
+    the plain version computes with the same float32 values."""
+    f32 = torch.float32
+    pose0 = torch.cat([R0.reshape(9).to(f32), t0.reshape(3).to(f32)])
+    edges = torch.cat([xw.to(f32), obs.to(f32), inv_sigma2.to(f32)[:, None],
+                       valid.to(f32)[:, None]], dim=1)
+    scalars = tuple(float(np.float32(v)) for v in (
+        fx, fy, cx, cy, bf, huber_delta_mono, huber_delta_stereo,
+        prior_w_rot, prior_w_trans))
+    return PoseProblem(pose0, edges, scalars)
+
+
+def pose_lm_ref(pose0: torch.Tensor, edges: torch.Tensor,
+                scalars) -> PoseOptResult:
+    """The plain version on a packed problem."""
+    fx, fy, cx, cy, bf, dm, ds, wr, wt = scalars
+    return pose_optimize_ref(pose0[:9].reshape(3, 3), pose0[9:], edges[:, 0:3],
+                             edges[:, 3:6], edges[:, 6], edges[:, 7] > 0,
+                             fx, fy, cx, cy, bf, huber_delta_mono=dm,
+                             huber_delta_stereo=ds, prior_w_rot=wr,
+                             prior_w_trans=wt)
+
+
+def pose_lm_launch(pose0: torch.Tensor, edges: torch.Tensor, scalars):
+    """Launch the sm_90a kernel on the current stream and count the
+    launch.  Returns its raw outputs: out [16] float32 (R row-major, t, then as int32 the inlier
+    count and the active edges summed over the build passes, the work
+    the bound counts) and inlier [N] bool."""
+    global _kernel
+    if not edges.is_cuda:
+        raise ValueError(f"edges must be a CUDA tensor, got {edges.device}")
+    if edges.dtype != torch.float32 or edges.dim() != 2 \
+            or edges.shape[1] != 8 or not edges.is_contiguous():
+        raise ValueError("edges must be a contiguous float32 [N, 8] tensor, "
+                         f"got {edges.dtype} {tuple(edges.shape)}")
+    if pose0.device != edges.device or pose0.dtype != torch.float32 \
+            or pose0.shape != (12,) or not pose0.is_contiguous():
+        raise ValueError(f"pose0 must be a contiguous float32 [12] tensor on "
+                         f"{edges.device}, got {pose0.dtype} "
+                         f"{tuple(pose0.shape)} on {pose0.device}")
+    n = edges.shape[0]
+    if n > MAX_EDGES:
+        raise ValueError(f"{n} edges exceed the kernel's {MAX_EDGES}")
+    if edges.data_ptr() % 16:
+        raise ValueError("edges must start on a 16-byte boundary")
+    if len(scalars) != 9:
+        raise ValueError(f"9 scalars expected, got {len(scalars)}")
+    if _kernel is None:
+        _kernel = cuda_build.library(_SOURCE, _SIGNATURES).airdos_pose_lm
+    out = torch.empty(16, dtype=torch.float32, device=edges.device)
+    inlier = torch.empty(n, dtype=torch.bool, device=edges.device)
+    with cuda_build.on_device(edges.device):
+        err = _kernel(pose0.data_ptr(), edges.data_ptr(), out.data_ptr(),
+                      inlier.data_ptr(), n, *scalars,
+                      torch.cuda.current_stream(edges.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"pose_lm kernel launch failed: cudaError {err}")
+    _counter.count(cuda_build.stream_priority(edges.device))
+    return out, inlier
+
+
+def pose_lm_cuda(pose0: torch.Tensor, edges: torch.Tensor,
+                 scalars) -> PoseOptResult:
+    """The whole pose LM in one launch of the sm_90a kernel; the result is
+    views of its outputs (no host sync)."""
+    out, inlier = pose_lm_launch(pose0, edges, scalars)
+    return PoseOptResult(R=out[:9].view(3, 3), t=out[9:12], inlier=inlier,
+                         n_inliers=out[12:13].view(torch.int32)[0]
+                         .to(torch.int64))
+
+
+def pose_optimize(R0: torch.Tensor, t0: torch.Tensor,
+                  xw: torch.Tensor,          # [N, 3] fixed world points
+                  obs: torch.Tensor,         # [N, 3] (u, v, uR); uR < 0 => mono
+                  inv_sigma2: torch.Tensor,  # [N] per-edge information scale
+                  valid: torch.Tensor,       # [N] bool
+                  fx, fy, cx, cy, bf,
+                  huber_delta_mono: float = 2.447749,   # sqrt(5.991)
+                  huber_delta_stereo: float = 2.795483,  # sqrt(7.815)
+                  prior_w_rot: float = 0.0, prior_w_trans: float = 0.0
+                  ) -> PoseOptResult:
+    """Pose optimization (pose_optimize_ref's arguments and result): one
+    kernel launch on CUDA tensors, the plain version on CPU tensors."""
+    prob = pack_problem(R0, t0, xw, obs, inv_sigma2, valid, fx, fy, cx, cy,
+                        bf, huber_delta_mono, huber_delta_stereo,
+                        prior_w_rot, prior_w_trans)
+    if prob.edges.is_cuda:
+        return pose_lm_cuda(*prob)
+    return pose_lm_ref(*prob)

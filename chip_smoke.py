@@ -7,13 +7,16 @@ Run from the repository root.  Phases, each of which fails the run:
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions, whether nvcc is present; a CUDA device is required;
-2. build: csrc/hamming.cu and csrc/segment_sum.cu compiled with nvcc for
-   sm_90a, both at once (build seconds);
+2. build: the five sources of csrc/ (hamming.cu, segment_sum.cu,
+   pose_lm.cu, fast.cu, orb_desc.cu) compiled with nvcc for sm_90a, all
+   at once (build seconds);
 3. slice: tracking only, Tracking(cfg, FrontEnd(cfg, "cuda"), SlamMap(),
    local_mapper=None) (airdos_tpu's tracking-only configuration), over 28
    bench frames of the synthetic world at the reference budget (640x360,
    1500 ORB features, 8 levels): every frame OK, >= 5 keyframes, ATE <
-   0.02 m, >= 3 Hamming launches on every fused ("fast") frame;
+   0.02 m, >= 3 Hamming and >= 2 pose_lm launches on every fused ("fast")
+   frame, and on every frame one fast_nms and one orb_desc launch a
+   pyramid level of each image (16);
 4. mapping: System(cfg, device="cuda") over the same 28 frames, quantized
    to uint8 as a dataset's PNGs hold them (phase 14a's in-memory twin),
    with the budgets of bench.py's static configuration: every frame OK, >= 5
@@ -71,7 +74,8 @@ Run from the repository root.  Phases, each of which fails the run:
    one PyTorch library call that computes the same function, timed per
    call the same way and used nowhere in the port (segment_sum:
    index_add_; Hamming: torch.cdist(p=0) on the descriptors unpacked to
-   float {0, 1} [.., 256], unpacked outside the timed window):
+   float {0, 1} [.., 256], unpacked outside the timed window; none for
+   the pose LM, FAST + NMS and orb_desc):
    - the 2-D Hamming kernel at 1536x1536, 2048x1536 and a ragged
      1500x1337 of random words: exact equality;
    - every kernel at every shape the path phases launched it with, on the
@@ -79,7 +83,13 @@ Run from the repository root.  Phases, each of which fails the run:
      ran): Hamming exact, batched Hamming (triangulation B=4 x 1536x1536,
      fusion B=9 x 2048x1536 at this budget) exact, segment_sum bit-equal
      to its plain version (index_add_) on a CPU copy and two launches
-     bit-equal to each other;
+     bit-equal to each other; pose_lm (by edge count, prior on or off)
+     within tests/test_torch_pose.py's tolerances of its plain version on
+     the card (R 1e-4, t 1e-4 m, >= 99% of inlier flags equal), two
+     launches bit-equal, its device time from a graph of 20 launches;
+     fast_nms (by level) bit-equal; orb_desc (by level and keypoint
+     count) bit-equal, or else within 1e-3 degrees with >= 99.9% of the
+     descriptors equal, the differing angles and words counted;
 10. determinism: two card runs of the mapping System on the small camera
    over 8 frames give byte-identical TUM and KF/MP/Match dumps, and two
    card runs of the human System (small camera, seed 3, 2 humans, masked,
@@ -195,7 +205,7 @@ CUDA device is present.
 With --profile, phases 1-2 run and then phase_profile instead of the rest:
 synchronized stage timers over the 28 bench frames (tracking stages per
 fused frame, triangulation / fusion / BA solve per keyframe) and a
-torch.profiler trace of the last two frames, then the crowd-27 flagship
+torch.profiler trace of each of the last four frames, then the crowd-27 flagship
 run's human BA stages (assembly, solve, write-back) and one more solve of
 its last window under torch.profiler (device busy time and the kernels
 that hold it); it checks nothing and prints no result line.
@@ -219,6 +229,7 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Callable, NamedTuple
 
 import numpy as np
 
@@ -343,23 +354,428 @@ def _device_ms(fn, kernel: str = "", reps: int = 20):
     return sum(e.time_range.elapsed_us() for e in evs) / reps / 1e3
 
 
-def _counters():
+def _hamming():
     from airdos_tpu_torch.ops import hamming_kernels as hk
+    return hk
+
+
+def _segments():
     from airdos_tpu_torch.ops import segment_kernels as sk
-    return hk, sk
+    return sk
+
+
+def _pose():
+    from airdos_tpu_torch.solvers import pose_opt as po
+    return po
+
+
+def _fast():
+    from airdos_tpu_torch.ops import fast as fk
+    return fk
+
+
+def _orb():
+    from airdos_tpu_torch.ops import orb_kernels as ok
+    return ok
+
+
+# the modules that hold the kernels, one nvcc source each
+_MODULES = (_hamming, _segments, _pose, _fast, _orb)
+
+
+def _words(rng, shape):
+    import torch
+    w = rng.integers(0, 2 ** 32, shape, dtype=np.uint64).astype(np.uint32)
+    return torch.from_numpy(w.view(np.int32)).cuda()
+
+
+def _unpack_bits(w):
+    """int32 descriptor words [..., 8] -> float32 {0, 1} [..., 256]."""
+    import torch
+    shifts = torch.arange(32, dtype=torch.int32, device=w.device)
+    return ((w[..., None] >> shifts) & 1).flatten(-2).to(torch.float32)
+
+
+# H100 SXM peaks (NVIDIA's data sheet, dense): HBM3 rate, the int8
+# tensor-core rate (the table lists no binary rate; a 1-bit AND + popcount
+# is counted as two operations against it) and float32 outside the tensor
+# cores
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
+FP32_FLOPS = 67e12
+
+
+# ------------------------------------------------------------- Hamming
+
+def _ham_shape(a, b):             # (batch of a, batch of b, n, m)
+    return (1, 1) + tuple(a.shape[:1]) + tuple(b.shape[:1])
+
+
+def _batched_shape(a, b):
+    return tuple(a.shape[:1]) + tuple(b.shape[:1]) + \
+        tuple(a.shape[1:2]) + tuple(b.shape[1:2])
+
+
+def _ham_fmt(shape) -> str:
+    return f"{shape[2]}x{shape[3]}"
+
+
+def _batched_fmt(shape) -> str:
+    ba, bb, n, m = shape
+    return f"B={max(ba, bb)} x {n}x{m} (a {'shared' if ba == 1 else ba})"
+
+
+def _ham_out(shape) -> int:
+    return max(shape[0], shape[1]) * shape[2] * shape[3]
+
+
+def _ham_check(batched: bool):
+    def check(args):
+        import torch
+        hk = _hamming()
+        name, kernel, plain = (
+            ("hamming_matrix_batched", hk.hamming_matrix_batched,
+             hk.hamming_matrix_batched_ref) if batched else
+            ("hamming_matrix", hk.hamming_matrix, hk.hamming_matrix_ref))
+        a, b = args
+        got, want = kernel(a, b), plain(a, b)
+        torch.cuda.synchronize()
+        err = int((got - want).abs().max())
+        if not torch.equal(got, want):
+            _fail(f"{name} != plain version (max abs err {err})")
+        return err, "exact", (lambda: kernel(a, b)), (lambda: plain(a, b))
+    return check
+
+
+def _ham_bound(shape, args):
+    """Both descriptor sets read once, the distances written once; a
+    1-bit AND + popcount a bit pair at the int8 tensor-core rate."""
+    ba, bb, n, m = shape
+    return (32 * (ba * n + bb * m) + 4 * max(ba, bb) * n * m,
+            2 * 256 * max(ba, bb) * n * m / INT8_OPS_PER_S)
+
+
+def _ham_library(args):
+    """torch.cdist(p=0), the count of differing bits, on the unpacked
+    descriptors."""
+    import torch
+    a, b = args
+    if a.dim() == 2:
+        x, y = _unpack_bits(a), _unpack_bits(b)
+    else:
+        B = max(a.shape[0], b.shape[0])
+        x = _unpack_bits(a).expand(B, -1, -1).contiguous()
+        y = _unpack_bits(b).expand(B, -1, -1).contiguous()
+    return (lambda: torch.cdist(x, y, p=0)), "cdist(p=0)"
+
+
+# --------------------------------------------------------- segment_sum
+
+def _seg_shape(vals, seg):        # (rows, columns, segments)
+    return tuple(vals.shape) + (seg.n,)
+
+
+def _seg_fmt(shape) -> str:
+    rows, k, n = shape
+    return f"{rows} rows -> {n} x {k}"
+
+
+def _seg_check(args):
+    import torch
+    sk = _segments()
+    vals, seg = args
+    got1 = sk.segment_sum(vals, seg)
+    got2 = sk.segment_sum(vals, seg)
+    want = sk.segment_sum_ref(vals.cpu(), seg.key.cpu(), seg.n)
+    torch.cuda.synchronize()
+    err = float((got1.cpu() - want).abs().max())
+    if not torch.equal(got1.cpu(), want):
+        _fail(f"segment_sum != plain version on the CPU (max abs err {err})")
+    if not torch.equal(got1, got2):
+        _fail("segment_sum launches differ")
+    longest = int(seg.offsets.diff().max())
+    what = (f"bit-equal to the CPU plain version, deterministic; longest "
+            f"segment {longest} rows")
+    return err, what, (lambda: sk.segment_sum(vals, seg)), \
+        (lambda: sk.segment_sum_ref(vals, seg.key, seg.n))
+
+
+def _seg_bound(shape, args):
+    """Only the rows its segments hold (this run's data) are read."""
+    rows, k, n = shape
+    kept = int(args[1].offsets[-1])
+    return 4 * (kept * (k + 1) + (n + 1) + n * k), kept * k / FP32_FLOPS
+
+
+def _seg_library(args):
+    """index_add_ into a preallocated buffer (the rows keyed n land in its
+    last row)."""
+    import torch
+    vals, seg = args
+    acc = torch.zeros((seg.n + 1, vals.shape[1]), dtype=vals.dtype,
+                      device=vals.device)
+    return (lambda: acc.index_add_(0, seg.key, vals)), "index_add_"
+
+
+# float32 operations per unit of work, counted from the kernels' code: a
+# pose LM build pass over one active edge (projection 32, Jacobian 24,
+# chi2 and Huber 14, weights 19, H's 21 terms 126, b's 6 terms 36, cost
+# and count 2), a classification pass over one edge, one serial LM step
+# (prior, damping, the 6x6 Schur inverse, se3_exp, compose), one
+# interior pixel's FAST score with its mask and threshold (16
+# differences, 2 x 16 x 8 arc minima / maxima, 2 x 15 over the arcs, 4),
+# one pixel's NMS, and one keypoint's IC moments (4 a disc pixel) plus its
+# 512 rotated samples (6 each), 256 comparisons and transcendentals
+POSE_BUILD_FLOPS = 253
+POSE_CLASSIFY_FLOPS = 40
+POSE_STEP_FLOPS = 800
+FAST_PIXEL_FLOPS = 306
+NMS_PIXEL_FLOPS = 9
+ORB_SAMPLE_FLOPS = 6
+ORB_EXTRA_FLOPS = 256 + 100
+
+
+def _no_library(args):
+    return None, "none"            # no single PyTorch call computes it
+
+
+# ------------------------------------------------------------- pose LM
+
+# the pose LM kernel against its plain version: tests/test_torch_pose.py's
+# tolerances (the block sums in another order than torch's reductions)
+POSE_R_TOL = POSE_T_TOL = 1e-4
+POSE_INLIER_SHARE = 0.99
+
+
+def _pose_shape(pose0, edges, scalars):   # (edges, prior on)
+    return (edges.shape[0], scalars[7] > 0 or scalars[8] > 0)
+
+
+def _pose_fmt(shape) -> str:
+    n, prior = shape
+    return f"N={n} edges, prior {'on' if prior else 'off'}"
+
+
+def _pose_check(args):
+    import torch
+    po = _pose()
+    got, again = po.pose_lm_cuda(*args), po.pose_lm_cuda(*args)
+    want = po.pose_lm_ref(*args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        _fail("pose_lm: two launches differ")
+    err_R = float(torch.linalg.norm(got.R - want.R))
+    err_t = float((got.t - want.t).abs().max())
+    same = float((got.inlier == want.inlier).float().mean()) \
+        if got.inlier.numel() else 1.0
+    if not (err_R <= POSE_R_TOL and err_t <= POSE_T_TOL
+            and same >= POSE_INLIER_SHARE):
+        _fail(f"pose_lm != plain version: R {err_R}, t {err_t} m, "
+              f"inlier flags equal {same}")
+    if int(got.n_inliers) != int(got.inlier.sum()):
+        _fail(f"pose_lm: inlier count {int(got.n_inliers)} != "
+              f"{int(got.inlier.sum())} flags")
+    err = max(float((got.R - want.R).abs().max()), err_t)
+    what = (f"R {err_R:.2e} (Frobenius), t {err_t:.2e} m, inlier flags "
+            f"equal {same:.4f} ({int(got.n_inliers)} inliers), two "
+            f"launches bit-equal")
+    return err, what, (lambda: po.pose_lm_cuda(*args)), \
+        (lambda: po.pose_lm_ref(*args))
+
+
+def _pose_bound(shape, args):
+    """The edges active in each of this call's build passes, as the kernel
+    reports them."""
+    import torch
+    n = shape[0]
+    out, _ = _pose().pose_lm_launch(*args)
+    work = int(out[13:14].view(torch.int32).item())  # active edge-passes
+    nbytes = 29 * n + 48 + n + 56     # xw, obs, 1/sigma^2, valid, pose
+    ops = (work * POSE_BUILD_FLOPS + 5 * n * POSE_CLASSIFY_FLOPS
+           + 44 * POSE_STEP_FLOPS)
+    return nbytes, ops / FP32_FLOPS
+
+
+# ------------------------------------------------------------ FAST + NMS
+
+def _fast_shape(img, mask, min_th, border):   # (h, w)
+    return tuple(img.shape)
+
+
+def _fast_check(args):
+    import torch
+    fk = _fast()
+    got, want = fk.fast_nms_cuda(*args), fk.fast_nms_ref(*args)
+    again = fk.fast_nms_cuda(*args)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not torch.equal(got, want) or not torch.equal(got, again):
+        _fail(f"fast_nms != plain version (max abs err {err})")
+    what = f"bit-equal, {int((got > 0).sum())} corners kept"
+    return err, what, (lambda: fk.fast_nms_cuda(*args)), \
+        (lambda: fk.fast_nms_ref(*args))
+
+
+def _fast_bound(shape, args):
+    h, w = shape
+    border = args[3]
+    inside = max(0, h - 2 * border) * max(0, w - 2 * border)
+    return 12 * h * w, \
+        (inside * FAST_PIXEL_FLOPS + h * w * NMS_PIXEL_FLOPS) / FP32_FLOPS
+
+
+# ------------------------------------------------------------ orb_desc
+
+# rBRIEF descriptors held bit-equal unless the moments round (ops/
+# orb_kernels.py) or a transcendental differs, then to this share of
+# equal descriptors; angles within this many degrees
+DESC_SHARE = 0.999
+ANGLE_TOL_DEG = 1e-3
+
+
+def _orb_shape(img, blur, xs, ys):        # (h, w, keypoints)
+    return tuple(img.shape) + tuple(xs.shape)
+
+
+def _orb_check(args):
+    import torch
+    ok = _orb()
+    ang, words = ok.orb_describe_cuda(*args)
+    ang2, words2 = ok.orb_describe_cuda(*args)
+    want_ang, want_words = ok.orb_describe_ref(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(ang, ang2) or not torch.equal(words, words2):
+        _fail("orb_desc: two launches differ")
+    gap = (ang.double() - want_ang.double()).abs() % 360.0
+    err = float(torch.minimum(gap, 360.0 - gap).max()) if ang.numel() else 0.0
+    n_ang = int((ang.view(torch.int32) != want_ang.view(torch.int32)).sum())
+    n_words = int((words != want_words).sum())
+    share = float((words == want_words).all(dim=1).float().mean()) \
+        if words.shape[0] else 1.0
+    if err > ANGLE_TOL_DEG or share < DESC_SHARE:
+        _fail(f"orb_desc != plain version: angles max err {err} deg ({n_ang} "
+              f"differ), descriptors equal {share} ({n_words} words differ)")
+    what = ("angles and descriptors bit-equal" if n_ang == 0 and n_words == 0
+            else f"{n_ang} angles differ (max {err:.2e} deg), {n_words} "
+                 f"words differ, descriptors equal {share:.4f}")
+    return err, what, (lambda: ok.orb_describe_cuda(*args)), \
+        (lambda: ok.orb_describe_ref(*args))
+
+
+def _orb_bound(shape, args):
+    """The distinct pixels its keypoints' discs and samples touch (its
+    float64 moment sums counted at the float32 rate)."""
+    import torch
+    from airdos_tpu_torch.ops.orientation import _umax
+    ok = _orb()
+    img, blur, xs, ys = args
+    h, w = img.shape
+    u = _umax()
+    disc = torch.tensor([(dy, dx) for dy in range(-15, 16)
+                         for dx in range(-u[abs(dy)], u[abs(dy)] + 1)],
+                        device=img.device)
+    n_disc = disc.shape[0]
+    gy = (ys[:, None] + disc[None, :, 0]).clamp(0, h - 1)
+    gx = (xs[:, None] + disc[None, :, 1]).clamp(0, w - 1)
+    disc_px = torch.unique(gy * w + gx).numel()
+    ang, _ = ok.orb_describe_cuda(*args)
+    pts = ok.pattern_points(img.device)
+    r = torch.deg2rad(ang)[:, None]
+    c, sn = torch.cos(r), torch.sin(r)
+    sx = torch.round(pts[0] * c - pts[1] * sn).to(torch.int64)
+    sy = torch.round(pts[0] * sn + pts[1] * c).to(torch.int64)
+    sample_px = torch.unique((ys[:, None] + sy).clamp(0, h - 1) * w
+                             + (xs[:, None] + sx).clamp(0, w - 1)).numel()
+    n = xs.shape[0]
+    nbytes = 4 * (disc_px + sample_px) + 16 * n + 36 * n
+    ops = n * (4 * n_disc + 512 * ORB_SAMPLE_FLOPS + ORB_EXTRA_FLOPS)
+    return nbytes, ops / FP32_FLOPS
+
+
+class _Kernel(NamedTuple):
+    """Everything the script knows of one kernel: where it lives, the
+    wrapper the main paths' launches are recorded at, how a recorded
+    input is keyed, printed and sized, its check against the plain
+    version (-> max abs err, what held, the kernel and the plain version
+    as callables), its bound (-> bytes it must move, seconds its
+    operations take at the peak rate) and its library call."""
+    name: str
+    module: Callable                # () -> the wrapper's module
+    wrapper: str                    # the launching function recorded
+    launches: str                   # the module's launch count
+    source: str
+    replaces: str
+    shape_of: Callable              # recorded args -> shape key
+    fmt: Callable                   # shape -> str
+    out_size: Callable              # shape -> output elements (ties)
+    check: Callable
+    bound: Callable                 # (shape, args) -> (bytes, seconds)
+    library: Callable               # args -> (callable or None, its name)
+    graph_n: int = 100              # launches in the timed CUDA graph
+
+
+# every kernel of the port, in the kernels line's order
+KERNELS = (
+    _Kernel("hamming_matrix", _hamming, "hamming_matrix_cuda", "launches",
+            "airdos_tpu_torch/csrc/hamming.cu",
+            "airdos_tpu/ops/pallas_kernels.py:43", _ham_shape, _ham_fmt,
+            _ham_out, _ham_check(False), _ham_bound, _ham_library),
+    _Kernel("hamming_matrix_batched", _hamming,
+            "hamming_matrix_batched_cuda", "batched_launches",
+            "airdos_tpu_torch/csrc/hamming.cu",
+            "airdos_tpu/ops/pallas_kernels.py:43", _batched_shape,
+            _batched_fmt, _ham_out, _ham_check(True), _ham_bound,
+            _ham_library),
+    _Kernel("segment_sum", _segments, "segment_sum_cuda", "launches",
+            "airdos_tpu_torch/csrc/segment_sum.cu",
+            "airdos_tpu/solvers/local_ba.py:119, "
+            "airdos_tpu/solvers/human_ba.py:271, "
+            "airdos_tpu/solvers/global_ba.py:83, "
+            "airdos_tpu/solvers/pose_graph.py:79", _seg_shape, _seg_fmt,
+            lambda shape: shape[1] * shape[2], _seg_check, _seg_bound,
+            _seg_library),
+    _Kernel("pose_lm", _pose, "pose_lm_cuda", "launches",
+            "airdos_tpu_torch/csrc/pose_lm.cu",
+            "airdos_tpu/solvers/pose_opt.py:88 pose_optimize "
+            "(lax.fori_loop :195)", _pose_shape, _pose_fmt,
+            lambda shape: shape[0], _pose_check, _pose_bound, _no_library,
+            graph_n=20),
+    _Kernel("fast_nms", _fast, "fast_nms_cuda", "launches",
+            "airdos_tpu_torch/csrc/fast.cu",
+            "airdos_tpu/ops/fast.py:32 fast_score_map, "
+            "airdos_tpu/ops/fast.py:70 nms_strict", _fast_shape,
+            lambda shape: f"{shape[0]}x{shape[1]} level",
+            lambda shape: shape[0] * shape[1], _fast_check, _fast_bound,
+            _no_library),
+    _Kernel("orb_desc", _orb, "orb_describe_cuda", "launches",
+            "airdos_tpu_torch/csrc/orb_desc.cu",
+            "airdos_tpu/ops/orientation.py:115 _angles_onehot, "
+            "airdos_tpu/ops/brief.py:88 _samples_onehot", _orb_shape,
+            lambda shape: (f"{shape[0]}x{shape[1]} level, {shape[2]} "
+                           f"keypoints"),
+            lambda shape: shape[2], _orb_check, _orb_bound, _no_library),
+)
 
 
 def _reset_counts() -> None:
-    hk, sk = _counters()
-    hk.reset_launches()
-    sk.reset_launches()
+    for module in _MODULES:
+        module().reset_launches()
 
 
 def _counts() -> dict:
-    hk, sk = _counters()
-    return {"hamming_matrix": hk.launches(),
-            "hamming_matrix_batched": hk.batched_launches(),
-            "segment_sum": sk.launches()}
+    return {k.name: getattr(k.module(), k.launches)() for k in KERNELS}
+
+
+def _bound(k: _Kernel, shape, args):
+    """The least time (ms) the card could take for one call at `shape` on
+    these inputs, what bounds it and the bytes: the larger of the bytes
+    the function must move (each input read once, the output written
+    once) over the HBM rate and its operations over the peak rate for
+    their type (each kernel's bound function says what it counts)."""
+    nbytes, t_ops = k.bound(shape, args)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_bytes, t_ops) * 1e3, \
+        ("bytes" if t_bytes >= t_ops else "operations"), nbytes
 
 
 def phase_environment():
@@ -376,52 +792,29 @@ def phase_environment():
 
 
 def phase_build():
-    hk, sk = _counters()
+    mods = [module() for module in _MODULES]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:     # one nvcc per source, at once
-        paths = list(pool.map(lambda mod: mod.build(), (hk, sk)))
+    with ThreadPoolExecutor(len(mods)) as pool:  # one nvcc per source, at once
+        paths = list(pool.map(lambda mod: mod.build(), mods))
     print(f"[build] {', '.join(p.name for p in paths)} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
 
-def _words(rng, shape):
-    import torch
-    w = rng.integers(0, 2 ** 32, shape, dtype=np.uint64).astype(np.uint32)
-    return torch.from_numpy(w.view(np.int32)).cuda()
-
-
 def _path_recording():
-    """A context in which every launch of the three kernels is also
+    """A context in which every launch of the six kernels is also
     recorded by shape in _PATH, with the first inputs of each shape, so
     that the kernel phase can hold each kernel against its plain version
     on the inputs the main path gave it.  The launch counts are the
     wrappers' own and unchanged."""
     import torch
-    hk, sk = _counters()
-
-    def ham_shape(a, b):           # (batch of a, batch of b, n, m)
-        return (1, 1) + tuple(a.shape[:1]) + tuple(b.shape[:1])
-
-    def batched_shape(a, b):
-        return tuple(a.shape[:1]) + tuple(b.shape[:1]) + \
-            tuple(a.shape[1:2]) + tuple(b.shape[1:2])
-
-    def seg_shape(vals, seg):      # (rows, columns, segments)
-        return tuple(vals.shape) + (seg.n,)
-
-    targets = ((hk, "hamming_matrix_cuda", "hamming_matrix", ham_shape),
-               (hk, "hamming_matrix_batched_cuda", "hamming_matrix_batched",
-                batched_shape),
-               (sk, "segment_sum_cuda", "segment_sum", seg_shape))
-    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _, _ in targets]
-
+    saved = [(k, getattr(k.module(), k.wrapper)) for k in KERNELS]
     lock = threading.Lock()         # online phases launch from threads
 
-    def recorder(launch, name, shape_of):
+    def recorder(launch, k):
         def record(*args):
             with lock:
-                entry = _PATH.setdefault(name, {}).setdefault(
-                    shape_of(*args), [0, None])
+                entry = _PATH.setdefault(k.name, {}).setdefault(
+                    k.shape_of(*args), [0, None])
                 entry[0] += 1
                 if entry[1] is None:
                     entry[1] = tuple(x.clone() if isinstance(x, torch.Tensor)
@@ -431,121 +824,14 @@ def _path_recording():
 
     @contextlib.contextmanager
     def recording():
-        for (mod, attr, name, shape_of), (_, _, launch) in zip(targets, saved):
-            setattr(mod, attr, recorder(launch, name, shape_of))
+        for k, launch in saved:
+            setattr(k.module(), k.wrapper, recorder(launch, k))
         try:
             yield
         finally:
-            for mod, attr, launch in saved:
-                setattr(mod, attr, launch)
+            for k, launch in saved:
+                setattr(k.module(), k.wrapper, launch)
     return recording()
-
-
-def _fmt_shape(name, shape) -> str:
-    if name == "segment_sum":
-        rows, k, n = shape
-        return f"{rows} rows -> {n} x {k}"
-    ba, bb, n, m = shape
-    if name == "hamming_matrix":
-        return f"{n}x{m}"
-    return f"B={max(ba, bb)} x {n}x{m} (a {'shared' if ba == 1 else ba})"
-
-
-def _out_size(name, shape) -> int:
-    if name == "segment_sum":
-        return shape[1] * shape[2]
-    return max(shape[0], shape[1]) * shape[2] * shape[3]
-
-
-def _check_on_path_inputs(name, args):
-    """Holds the kernel against its plain version on one recorded input;
-    returns the max abs error and two callables for timing: the kernel and
-    its plain version on the card."""
-    import torch
-    hk, sk = _counters()
-    if name == "segment_sum":
-        vals, seg = args
-        got1 = sk.segment_sum(vals, seg)
-        got2 = sk.segment_sum(vals, seg)
-        want = sk.segment_sum_ref(vals.cpu(), seg.key.cpu(), seg.n)
-        torch.cuda.synchronize()
-        err = float((got1.cpu() - want).abs().max())
-        if not torch.equal(got1.cpu(), want):
-            _fail(f"segment_sum != plain version on the CPU (max abs err "
-                  f"{err})")
-        if not torch.equal(got1, got2):
-            _fail("segment_sum launches differ")
-        return err, (lambda: sk.segment_sum(vals, seg)), \
-            (lambda: sk.segment_sum_ref(vals, seg.key, seg.n))
-    kernel, plain = ((hk.hamming_matrix, hk.hamming_matrix_ref)
-                     if name == "hamming_matrix" else
-                     (hk.hamming_matrix_batched, hk.hamming_matrix_batched_ref))
-    a, b = args
-    got, want = kernel(a, b), plain(a, b)
-    torch.cuda.synchronize()
-    err = int((got - want).abs().max())
-    if not torch.equal(got, want):
-        _fail(f"{name} != plain version (max abs err {err})")
-    return err, (lambda: kernel(a, b)), (lambda: plain(a, b))
-
-
-# H100 SXM peaks (NVIDIA's data sheet, dense): HBM3 rate, the int8
-# tensor-core rate (the table lists no binary rate; a 1-bit AND + popcount
-# is counted as two operations against it) and float32 outside the tensor
-# cores
-HBM_BYTES_PER_S = 3.35e12
-INT8_OPS_PER_S = 1979e12
-FP32_FLOPS = 67e12
-
-
-def _bound(name, shape, args):
-    """The least time (ms) the card could take for one call at `shape` on
-    these inputs, and what bounds it: the larger of the bytes the function
-    must move (each input read once, the output written once) over the HBM
-    rate and its operations over the peak rate for their type.  A segment
-    sum reads only the rows its segments hold (this run's data)."""
-    if name == "segment_sum":
-        rows, k, n = shape
-        kept = int(args[1].offsets[-1])
-        nbytes = 4 * (kept * (k + 1) + (n + 1) + n * k)
-        t_ops = kept * k / FP32_FLOPS
-    else:
-        ba, bb, n, m = shape
-        nbytes = 32 * (ba * n + bb * m) + 4 * max(ba, bb) * n * m
-        t_ops = 2 * 256 * max(ba, bb) * n * m / INT8_OPS_PER_S
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return max(t_bytes, t_ops) * 1e3, \
-        ("bytes" if t_bytes >= t_ops else "operations"), nbytes
-
-
-def _unpack_bits(w):
-    """int32 descriptor words [..., 8] -> float32 {0, 1} [..., 256]."""
-    import torch
-    shifts = torch.arange(32, dtype=torch.int32, device=w.device)
-    return ((w[..., None] >> shifts) & 1).flatten(-2).to(torch.float32)
-
-
-def _library_call(name, args):
-    """One PyTorch call that computes the kernel's function on the same
-    inputs (never called by the port), with its inputs prepared outside
-    the timed call, and its name.  segment_sum: index_add_ into a
-    preallocated buffer (the rows keyed n land in its last row); Hamming:
-    torch.cdist(p=0), the count of differing bits, on the unpacked
-    descriptors."""
-    import torch
-    if name == "segment_sum":
-        vals, seg = args
-        acc = torch.zeros((seg.n + 1, vals.shape[1]), dtype=vals.dtype,
-                          device=vals.device)
-        return (lambda: acc.index_add_(0, seg.key, vals)), "index_add_"
-    a, b = args
-    if name == "hamming_matrix":
-        x, y = _unpack_bits(a), _unpack_bits(b)
-    else:
-        B = max(a.shape[0], b.shape[0])
-        x = _unpack_bits(a).expand(B, -1, -1).contiguous()
-        y = _unpack_bits(b).expand(B, -1, -1).contiguous()
-    return (lambda: torch.cdist(x, y, p=0)), "cdist(p=0)"
 
 
 def _fmt_ms(ms) -> str:
@@ -553,7 +839,7 @@ def _fmt_ms(ms) -> str:
 
 
 def _share(bound_ms, dev_ms) -> str:
-    return f"{bound_ms / dev_ms:.3f}" if dev_ms and dev_ms > 0 \
+    return f"{bound_ms / dev_ms:.3g}" if dev_ms and dev_ms > 0 \
         else "not measured"
 
 
@@ -568,7 +854,7 @@ def phase_kernel(smi: str):
     kernel the max abs err over all checks and the measurements at its
     most launched path shape."""
     import torch
-    hk, _ = _counters()
+    hk = _hamming()
     rng = np.random.default_rng(SEED)
     errs = {}
     for i, (n, m) in enumerate(((1536, 1536), (2048, 1536), (1500, 1337))):
@@ -586,7 +872,7 @@ def phase_kernel(smi: str):
         if i == 0:
             prof = (f", torch.profiler (mean of 20) "
                     f"{_fmt_ms(_device_ms(lambda: hk.hamming_matrix(a, b), 'hamming_kernel'))}")
-        bound_ms, bound_by, _ = _bound("hamming_matrix", (1, 1, n, m), None)
+        bound_ms, bound_by, _ = _bound(KERNELS[0], (1, 1, n, m), None)
         print(f"[kernel] hamming {n}x{m} random words: exact; per call kernel "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events, median of "
               f"20 x 10 back-to-back calls); kernel device time (CUDA graph "
@@ -595,42 +881,37 @@ def phase_kernel(smi: str):
               f"{_share(bound_ms, cold)} on {smi}", flush=True)
 
     out = {}
-    for name in ("hamming_matrix", "hamming_matrix_batched", "segment_sum"):
+    for k in KERNELS:
+        name = k.name
         shapes = _PATH.get(name, {})
         if not shapes:
             _fail(f"{name}: no launch recorded on the main paths")
         # the most launched shape first; ties go to the larger output
         order = sorted(shapes, key=lambda sh: (-shapes[sh][0],
-                                               -_out_size(name, sh)))
+                                               -k.out_size(sh)))
         for i, shape in enumerate(order):
             n_launch, args = shapes[shape]
-            err, kernel, plain = _check_on_path_inputs(name, args)
+            err, what, kernel, plain = k.check(args)
             errs[name] = max(errs.get(name, err), err)
-            library, lib_name = _library_call(name, args)
+            library, lib_name = k.library(args)
             ms, plain_ms = _cuda_ms(kernel), _cuda_ms(plain)
-            lib_ms = _cuda_ms(library)
-            cold, hot = _graph_ms(kernel)
-            bound_ms, bound_by, nbytes = _bound(name, shape, args)
+            lib_ms = _cuda_ms(library) if library is not None else None
+            cold, hot = _graph_ms(kernel, n=k.graph_n)
+            bound_ms, bound_by, nbytes = _bound(k, shape, args)
             if i == 0:
                 out[name] = dict(ms=ms, plain_ms=plain_ms, device_ms=cold,
                                  bound_ms=bound_ms, bound_by=bound_by,
                                  library_ms=lib_ms)
-            extra = ""
-            if name == "segment_sum":
-                longest = int(args[1].offsets.diff().max())
-                extra = f"; longest segment {longest} rows"
-                what = "bit-equal to the CPU plain version, deterministic"
-            else:
-                what = "exact"
-            print(f"[kernel] {name} {_fmt_shape(name, shape)}, {n_launch} "
+            lib = f"{lib_name} {_fmt_ms(lib_ms)}" if lib_ms is not None \
+                else lib_name
+            print(f"[kernel] {name} {k.fmt(shape)}, {n_launch} "
                   f"launches on the main paths, on the path's inputs: {what}; "
                   f"per call kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"library {lib_name} {lib_ms:.4f} ms; kernel device time "
-                  f"(CUDA graph of 100) L2 cold {cold:.4f} ms, hot "
-                  f"{hot:.4f} ms; bound {bound_ms * 1e3:.2f} us ({bound_by}: "
-                  f"{nbytes / 1e6:.3f} MB at 3.35 TB/s), device share of "
-                  f"bound {_share(bound_ms, cold)}{extra} on {smi}",
-                  flush=True)
+                  f"library {lib}; kernel device time (CUDA graph) L2 cold "
+                  f"{cold:.4f} ms, hot {hot:.4f} ms; bound "
+                  f"{bound_ms * 1e3:.3f} us ({bound_by}: {nbytes / 1e6:.3f} "
+                  f"MB at 3.35 TB/s), device share of bound "
+                  f"{_share(bound_ms, cold)} on {smi}", flush=True)
     return {name: dict(max_abs_err=errs[name], **row)
             for name, row in out.items()}
 
@@ -824,26 +1105,40 @@ def phase_slice(smi: str, frames, twc):
     per = []
     _reset_counts()
     for data in frames:
-        before = _counts()["hamming_matrix"]
+        before = _counts()
         t0 = time.perf_counter()
         trk.track(data)
         _sync()
         dt = time.perf_counter() - t0
+        after = _counts()
         per.append((trk.state.name, trk.last_branch, dt,
-                    _counts()["hamming_matrix"] - before))
+                    {k: after[k] - before[k] for k in after}))
     counts = _counts()
-    for i, (state, branch, dt, n_launch) in enumerate(per):
+    for i, (state, branch, dt, d) in enumerate(per):
         print(f"[slice] frame {i:2d} {state} {branch:5s} {dt * 1e3:9.2f} ms "
-              f"hamming launches {n_launch}")
+              f"launches: hamming {d['hamming_matrix']}, pose_lm "
+              f"{d['pose_lm']}, fast_nms {d['fast_nms']}, orb_desc "
+              f"{d['orb_desc']}")
     bad = [i for i, p in enumerate(per) if p[0] != "OK"]
     if bad:
         _fail(f"tracking-only frames not OK: {bad}")
     fast = [p for p in per if p[1] == "fast"]
     if not fast:
         _fail("no frame took the fused (fast) branch")
-    few = [i for i, p in enumerate(per) if p[1] == "fast" and p[3] < 3]
+    few = [i for i, p in enumerate(per)
+           if p[1] == "fast" and (p[3]["hamming_matrix"] < 3
+                                  or p[3]["pose_lm"] < 2)]
     if few:
-        _fail(f"fast frames with < 3 Hamming kernel launches: {few}")
+        _fail(f"fast frames with < 3 Hamming or < 2 pose_lm kernel "
+              f"launches: {few}")
+    # the front end: one FAST + NMS and one orb_desc launch a level of each
+    # image
+    levels = 2 * cfg.orb.n_levels
+    off = [i for i, p in enumerate(per)
+           if p[3]["fast_nms"] != levels or p[3]["orb_desc"] != levels]
+    if off:
+        _fail(f"frames without {levels} fast_nms and orb_desc launches: "
+              f"{off}")
     n_kfs = trk.map.n_keyframes()
     if n_kfs < 5:
         _fail(f"tracking only: {n_kfs} keyframes")
@@ -1332,8 +1627,10 @@ def _stall_window(times, stamps, loop_stamps, skip: int = 20):
 
 
 def _tally():
-    hk, sk = _counters()
-    return {**hk.launch_tally(), **sk.launch_tally()}
+    out = {}
+    for module in _MODULES:
+        out.update(module().launch_tally())
+    return out
 
 
 def phase_online(smi: str, orbit, orbit_twc, crowd, crowd_twc, frames, twc,
@@ -1959,9 +2256,10 @@ def phase_profile(smi: str):
     """Where the time goes at the bench size, mapping System over the 28
     bench frames: stage timers with a synchronize on both sides (tracking
     stages per fused frame from frame 6 on; triangulation, fusion and the
-    BA solve per keyframe), then torch.profiler over the last two frames
-    (device kernels per frame, device busy time and share).  The
-    profiler's tables go to chiprun_out/profile_slice.txt."""
+    BA solve per keyframe), then torch.profiler over each of the last four
+    frames (device kernels, device busy time and share, by branch and
+    keyframe).  The profiler's tables of the last frame go to
+    chiprun_out/profile_slice.txt."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1997,7 +2295,7 @@ def phase_profile(smi: str):
     for obj, attr, name in track_stages + map_stages:
         setattr(obj, attr, timed(name, getattr(obj, attr)))
     fast_rows, kf_rows = [], []
-    for i, d in enumerate(frames[:-2]):
+    for i, d in enumerate(frames[:-4]):
         before = dict(acc)
         t0 = time.perf_counter()
         slam.track_stereo(d)
@@ -2026,31 +2324,35 @@ def phase_profile(smi: str):
         f"{k} {v['median_s'] * 1e3:.2f} (n {v['n']})"
         for k, v in sorted(stages.items())))
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for d in frames[-2:]:
+    # the last four frames, each under its own torch.profiler: a frame's
+    # device busy time against its wall time, by branch and keyframe
+    for d in frames[-4:]:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
             slam.track_stereo(d)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) / 2 * 1e3
-    evs = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.time_range.elapsed_us() for e in evs) / 2 / 1e3
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        evs = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(e.time_range.elapsed_us() for e in evs) / 1e3
 
-    def kernel_ms(tag):
-        t = [e.time_range.elapsed_us() for e in evs if tag in e.name]
-        return len(t), (f"{sum(t) / len(t) / 1e3:.4f} ms" if t
-                        else "not measured")
+        def kernel_ms(tag):
+            t = [e.time_range.elapsed_us() for e in evs if tag in e.name]
+            return len(t), (f"{sum(t) / len(t) / 1e3:.4f} ms" if t
+                            else "not measured")
 
-    n_ham, ham_ms = kernel_ms("hamming_kernel")
-    n_seg, seg_ms = kernel_ms("segment_sum_")
-    print(f"[profile] frames {N_FRAMES - 2}-{N_FRAMES - 1} under "
-          f"torch.profiler: {len(evs) / 2:.0f} device kernels per frame, "
-          f"device busy {busy_ms:.2f} ms per frame, wall {wall_ms:.2f} ms "
-          f"per frame (the profiler slows the host), busy share "
-          f"{busy_ms / wall_ms:.4f}; hamming_kernel {n_ham} launches, mean "
-          f"device time {ham_ms}; segment_sum {n_seg} launches, mean "
-          f"device time {seg_ms}; on {smi}")
+        mine = "; ".join(
+            "{} {} launches, mean device time {}".format(tag, *kernel_ms(tag))
+            for tag in ("hamming_kernel", "segment_sum_", "pose_lm_kernel",
+                        "fast_nms_kernel", "orb_desc_kernel"))
+        kf = slam.map.kfs.get(slam.tracking.last_kf_id)
+        is_kf = kf is not None and kf.frame_id == d.index
+        print(f"[profile] frame {d.index} ({slam.tracking.last_branch}"
+              f"{', keyframe' if is_kf else ''}) under torch.profiler: "
+              f"{len(evs)} device kernels, device busy {busy_ms:.2f} ms, "
+              f"wall {wall_ms:.2f} ms (the profiler slows the host), busy "
+              f"share {busy_ms / wall_ms:.4f}; {mine}; on {smi}")
     OUT_DIR.mkdir(exist_ok=True)
     out = OUT_DIR / "profile_slice.txt"
     ka = prof.key_averages()
@@ -2983,19 +3285,9 @@ def main():
           flush=True)
 
     import torch
-    sources = {"hamming_matrix": ("airdos_tpu_torch/csrc/hamming.cu",
-                                  "airdos_tpu/ops/pallas_kernels.py:43"),
-               "hamming_matrix_batched": ("airdos_tpu_torch/csrc/hamming.cu",
-                                          "airdos_tpu/ops/pallas_kernels.py:43"),
-               "segment_sum": ("airdos_tpu_torch/csrc/segment_sum.cu",
-                               "airdos_tpu/solvers/local_ba.py:119, "
-                               "airdos_tpu/solvers/human_ba.py:271, "
-                               "airdos_tpu/solvers/global_ba.py:83, "
-                               "airdos_tpu/solvers/pose_graph.py:79")}
-    kernels = [{"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[name],
-                **rows[name]}
-               for name, (source, replaces) in sources.items()]
+    kernels = [{"name": k.name, "route": "cuda", "source": k.source,
+                "replaces": k.replaces, "launches": launches[k.name],
+                **rows[k.name]} for k in KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

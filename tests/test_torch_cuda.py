@@ -679,3 +679,198 @@ def test_kitti_driver_on_the_card_equals_the_in_memory_system(cuda, tmp_path):
     got = (tmp_path / "driver.txt").read_bytes()
     assert len(got.decode().splitlines()) == 8
     assert got == (tmp_path / "memory.txt").read_bytes()
+
+
+# ------------------------------------ the tracking frame's three kernels
+
+def _texture(rng, h, w):
+    """Uniform noise under two 5x5 box blurs, quantized to 0..255."""
+    img = rng.uniform(0, 255, (h + 8, w + 8))
+    for _ in range(2):
+        img = sum(img[dy:dy + img.shape[0] - 4, dx:dx + img.shape[1] - 4]
+                  for dy in range(5) for dx in range(5)) / 25.0
+    img = (img - img.min()) / (img.max() - img.min()) * 255.0
+    return np.round(img).astype(np.float32)
+
+
+def _pose_case(rng, n, n_mono, invalid, prior):
+    import airdos_tpu_torch.solvers.pose_opt as po
+    from airdos_tpu_torch.geometry.se3 import se3_exp_np
+    fx = fy = 500.0
+    cx, cy, bf = 320.0, 180.0, 250.0
+    xw = rng.uniform([-5, -3, 4], [5, 3, 25], (n, 3))
+    Rgt, tgt = se3_exp_np(np.array([0.1, -0.05, 0.2, 0.02, -0.03, 0.01]))
+    xc = xw @ Rgt.T + tgt
+    u = fx * xc[:, 0] / xc[:, 2] + cx
+    v = fy * xc[:, 1] / xc[:, 2] + cy
+    obs = np.stack([u, v, u - bf / xc[:, 2]], axis=1)
+    obs[:, :2] += rng.normal(0, 0.3, (n, 2))
+    out = rng.choice(n, n // 10, replace=False)
+    obs[out, :2] += rng.uniform(20, 60, (len(out), 2))
+    obs[:n_mono, 2] = -1.0
+    R0, t0 = se3_exp_np(np.array([0.15, 0.0, 0.12, 0.03, -0.01, -0.005]))
+    isig = 1.0 / 1.2 ** (2 * rng.integers(0, 4, n))
+    valid = rng.uniform(size=n) >= invalid
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32))  # noqa: E731
+    return po.pack_problem(f(R0), f(t0), f(xw), f(obs), f(isig),
+                           torch.as_tensor(valid), fx, fy, cx, cy, bf,
+                           2.447749, 2.795483, prior, prior)
+
+
+@pytest.mark.parametrize("n,n_mono,invalid,prior", [
+    (2048, 200, 0.1, 400.0), (1536, 0, 0.05, 0.0), (777, 777, 0.05, 400.0),
+    (20, 0, 0.0, 0.0), (300, 30, 1.0, 400.0), (0, 0, 0.0, 400.0)])
+def test_pose_lm_kernel_within_tolerance_of_plain_version(cuda, n, n_mono,
+                                                          invalid, prior):
+    import airdos_tpu_torch.solvers.pose_opt as po
+    rng = np.random.default_rng(n + n_mono)
+    prob = _pose_case(rng, n, n_mono, invalid, prior)
+    args = (prob.pose0.to(cuda), prob.edges.to(cuda), prob.scalars)
+    before = po.launches()
+    got = po.pose_lm_cuda(*args)
+    again = po.pose_lm_cuda(*args)
+    want = po.pose_lm_ref(*args)
+    torch.cuda.synchronize()
+    assert po.launches() == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert float(torch.linalg.norm(got.R - want.R)) <= 1e-4
+    assert float((got.t - want.t).abs().max()) <= 1e-4
+    if n:
+        assert float((got.inlier == want.inlier).float().mean()) >= 0.99
+    assert int(got.n_inliers) == int(got.inlier.sum())
+    cpu = po.pose_lm_ref(prob.pose0, prob.edges, prob.scalars)
+    assert float(torch.linalg.norm(got.R.cpu() - cpu.R)) <= 1e-4
+
+
+def test_pose_optimize_launches_once_on_the_card(cuda):
+    import airdos_tpu_torch.solvers.pose_opt as po
+    rng = np.random.default_rng(3)
+    prob = _pose_case(rng, 500, 50, 0.05, 0.0)
+    e = prob.edges.to(cuda)
+    R0 = prob.pose0[:9].reshape(3, 3).to(cuda)
+    before = po.launches()
+    res = po.pose_optimize(R0, prob.pose0[9:].to(cuda), e[:, :3], e[:, 3:6],
+                           e[:, 6], e[:, 7] > 0, *prob.scalars[:5])
+    torch.cuda.synchronize()
+    assert po.launches() == before + 1
+    assert res.R.is_cuda and res.inlier.shape == (500,)
+
+
+def test_pose_lm_kernel_rejects_what_it_does_not_take(cuda):
+    import airdos_tpu_torch.solvers.pose_opt as po
+    prob = _pose_case(np.random.default_rng(4), 64, 0, 0.0, 0.0)
+    pose0, edges = prob.pose0.to(cuda), prob.edges.to(cuda)
+    for bad in (edges.double(), edges[:, :7].contiguous(),
+                edges.t().contiguous().t(), prob.edges):
+        with pytest.raises(ValueError):
+            po.pose_lm_cuda(pose0, bad, prob.scalars)
+    with pytest.raises(ValueError):
+        po.pose_lm_cuda(prob.pose0, edges, prob.scalars)
+    with pytest.raises(ValueError):
+        po.pose_lm_cuda(pose0[:9], edges, prob.scalars)
+
+
+@pytest.mark.parametrize("h,w,masked", [(360, 640, False), (300, 533, True),
+                                        (100, 179, True), (40, 40, False),
+                                        (20, 50, False)])
+def test_fast_nms_kernel_equals_plain_version(cuda, h, w, masked):
+    import airdos_tpu_torch.ops.fast as fk
+    rng = np.random.default_rng(h * w)
+    img = torch.from_numpy(_texture(rng, h, w)).to(cuda)
+    mask = torch.ones_like(img)
+    if masked:
+        mask[h // 4:h // 2, w // 3:w // 2] = 0.0
+    before = fk.launches()
+    got = fk.fast_nms(img, mask, 7.0, 16)
+    again = fk.fast_nms(img, mask, 7.0, 16)
+    torch.cuda.synchronize()
+    assert fk.launches() == before + 2
+    assert torch.equal(got, fk.fast_nms_ref(img, mask, 7.0, 16))
+    assert torch.equal(got, again)
+    assert torch.equal(got.cpu(), fk.fast_nms_ref(img.cpu(), mask.cpu(),
+                                                  7.0, 16))
+
+
+def test_fast_nms_kernel_rejects_what_it_does_not_take(cuda):
+    import airdos_tpu_torch.ops.fast as fk
+    img = torch.zeros((64, 96), device=cuda)
+    for bad in (img.double(), img[None], img.t(), img.cpu()):
+        with pytest.raises(ValueError):
+            fk.fast_nms_cuda(bad, bad, 7.0, 16)
+    with pytest.raises(ValueError):
+        fk.fast_nms_cuda(img, img[:32].contiguous(), 7.0, 16)
+    with pytest.raises(ValueError):
+        fk.fast_nms_cuda(img, img, 7.0, 2)
+
+
+@pytest.mark.parametrize("h,w,n,scale", [(360, 640, 326, 1.0),
+                                         (208, 370, 189, 1.2),
+                                         (100, 179, 91, 1.0)])
+def test_orb_desc_kernel_equals_plain_version(cuda, h, w, n, scale):
+    import airdos_tpu_torch.ops.orb_kernels as ok
+    from airdos_tpu_torch.ops.filters import gaussian_blur7, resize_bilinear
+    rng = np.random.default_rng(n)
+    img = torch.from_numpy(_texture(rng, h, w)).to(cuda)
+    if scale != 1.0:      # an interpolated level: fractional pixels
+        img = resize_bilinear(img, int(h / scale), int(w / scale))
+        h, w = img.shape
+    blur = gaussian_blur7(img)
+    xs = torch.from_numpy(rng.integers(16, w - 16, n)).to(cuda)
+    ys = torch.from_numpy(rng.integers(16, h - 16, n)).to(cuda)
+    xs[:3] = 0                  # padded slots at the corner
+    ys[:3] = 0
+    before = ok.launches()
+    ang, words = ok.orb_describe(img, blur, xs, ys)
+    ang2, words2 = ok.orb_describe(img, blur, xs, ys)
+    want_ang, want_words = ok.orb_describe_ref(img, blur, xs, ys)
+    torch.cuda.synchronize()
+    assert ok.launches() == before + 2
+    assert torch.equal(ang, ang2) and torch.equal(words, words2)
+    assert torch.equal(ang, want_ang)
+    assert torch.equal(words, want_words)
+
+
+def _faint_pixels(rng, h, w):
+    """An 8-bit texture in which every other pixel, at random, is scaled
+    to 1e-9..1e-6 with a full float32 mantissa: the nonzero pixels under
+    2^-8 that a bilinear level can hold beside zero pixels, here beside
+    bright ones, so that a disc's float64 moment sums cannot be exact."""
+    img = _texture(rng, h, w) + 1.0
+    faint = rng.uniform(size=(h, w)) < 0.5
+    img[faint] *= (10.0 ** rng.uniform(-9, -6, int(faint.sum()))) \
+        .astype(np.float32)
+    return img
+
+
+def test_orb_desc_kernel_equals_plain_version_on_pixels_under_2e_8(cuda):
+    """Discs that hold nonzero pixels under 2^-8 beside bright ones: the
+    float64 moment sums round, each version in its own order
+    (ops/orb_kernels.py), and the rounded float32 moments, the angles and
+    the words still come out bit-equal."""
+    import airdos_tpu_torch.ops.orb_kernels as ok
+    from airdos_tpu_torch.ops.filters import gaussian_blur7
+    rng = np.random.default_rng(7)
+    h, w, n = 208, 370, 300
+    img = torch.from_numpy(_faint_pixels(rng, h, w)).to(cuda)
+    blur = gaussian_blur7(img)
+    xs = torch.from_numpy(rng.integers(16, w - 16, n)).to(cuda)
+    ys = torch.from_numpy(rng.integers(16, h - 16, n)).to(cuda)
+    ang, words = ok.orb_describe(img, blur, xs, ys)
+    want_ang, want_words = ok.orb_describe_ref(img, blur, xs, ys)
+    torch.cuda.synchronize()
+    n_ang = int((ang.view(torch.int32) != want_ang.view(torch.int32)).sum())
+    n_desc = int((words != want_words).any(dim=1).sum())
+    assert (n_ang, n_desc) == (0, 0), (n_ang, n_desc)
+
+
+def test_orb_desc_kernel_rejects_what_it_does_not_take(cuda):
+    import airdos_tpu_torch.ops.orb_kernels as ok
+    img = torch.zeros((64, 96), device=cuda)
+    xs = torch.zeros(8, dtype=torch.int64, device=cuda)
+    for args in ((img.double(), img, xs, xs), (img.t(), img, xs, xs),
+                 (img, img[:32].contiguous(), xs, xs),
+                 (img, img, xs.to(torch.int32), xs),
+                 (img, img, xs, xs[:4]), (img.cpu(), img.cpu(), xs, xs),
+                 (img, img, xs.cpu(), xs)):
+        with pytest.raises(ValueError):
+            ok.orb_describe_cuda(*args)
