@@ -26,7 +26,7 @@ from airdos_tpu_torch.convert import (desc_to_numpy, desc_to_tensor,
 from airdos_tpu_torch.features.orb import OrbExtractor
 from airdos_tpu_torch.geometry.camera import StereoCamera
 from airdos_tpu_torch.geometry.se3 import project_so3_np
-from airdos_tpu_torch.matching.stereo import stack_pyramid, stereo_match
+from airdos_tpu_torch.matching.stereo import stereo_match
 from airdos_tpu_torch.ops.disparity import patch_disparity
 from airdos_tpu_torch.ops.pyramid import build_pyramid, level_shapes
 from airdos_tpu_torch.slam.map import MAIN_SKELETON, N_JOINTS
@@ -170,7 +170,7 @@ class FrontEnd:
         fR = self.extractor._extract_from_pyramid(pyrR)
         sm = stereo_match(fL.xy, fL.octave, fL.desc32, fL.valid,
                           fR.xy, fR.octave, fR.desc32, fR.valid,
-                          stack_pyramid(pyrL.images), stack_pyramid(pyrR.images),
+                          pyrL.images, pyrR.images,
                           self._widths, self._scales,
                           self.config.camera.bf, self.config.camera.baseline)
         xy_un = self.camera.undistort_points(fL.xy)

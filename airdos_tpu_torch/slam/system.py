@@ -31,7 +31,12 @@ queue, and keyframe insertion waits on its state; the human BA and the
 global BA after a loop run in background threads, the global BA
 abortable by a later loop or ``reset``; each worker launches on its own
 stream of priority 0 and takes the map lock only around its host map
-sections (utils/gate.py).  One deliberate deviation: airdos_tpu's worker
+sections (utils/gate.py).  For a caller that feeds frames faster than the
+workers run, two departures from airdos_tpu: while keyframes wait in its
+queue the mapping worker skips fusion, the static BA and keyframe
+culling, as the reference's LocalMapping::Run does; and a human BA a whole
+cadence period late makes tracking wait for it.  One more deliberate
+deviation: airdos_tpu's worker
 prints a failed keyframe's traceback and carries on; this one carries on
 too, but keeps the first exception, which ``drain_mapping`` and
 ``shutdown`` raise, as ``HumanLocalBA.join`` does, so a worker's fault
@@ -290,22 +295,31 @@ class System:
         short map sections interleave; triangulation, fusion and the static
         BA take it themselves around assembly and write-back and release it
         across their device work, and loop closing runs outside it (the
-        reference's own LoopClosing thread)."""
+        reference's own LoopClosing thread).  Online, fusion, and the static
+        BA with keyframe culling, are skipped while more keyframes wait in
+        the queue, as the reference's LocalMapping::Run skips
+        SearchInNeighbors, and LocalBundleAdjustment with KeyFrameCulling,
+        while CheckNewKeyFrames() (LocalMapping.cc:49-126): so the worker
+        catches up with a tracker that outruns it instead of refusing its
+        keyframes until tracking is lost.  airdos_tpu runs every step."""
         lm = self.local_mapper
         with span(self.profiler, "map.cull_points"), self._map_lock:
             lm.cull_map_points(prev_kf.id)
         with span(self.profiler, "map.triangulate"):
             lm.create_new_points(prev_kf)
-        with span(self.profiler, "map.fuse"):
-            lm.fuse_neighbors(prev_kf)
+        if not self._keyframes_waiting():
+            with span(self.profiler, "map.fuse"):
+                lm.fuse_neighbors(prev_kf)
         # the static local BA at every keyframe once the map has three
         # (see airdos_tpu's System._mapping_pipeline for why per keyframe)
-        if self.map.n_keyframes() > 2:
+        refine = not self._keyframes_waiting()
+        if refine and self.map.n_keyframes() > 2:
             with span(self.profiler, "map.static_ba"):
                 self.static_ba(prev_kf)
         with self._map_lock:
-            with span(self.profiler, "map.cull_kfs"):
-                lm.cull_keyframes(prev_kf)
+            if refine:
+                with span(self.profiler, "map.cull_kfs"):
+                    lm.cull_keyframes(prev_kf)
             with span(self.profiler, "map.vocab"):
                 self._maybe_train_vocabulary()
             if self.keyframe_db is None or prev_kf.bad:
@@ -315,6 +329,12 @@ class System:
                 return
         with span(self.profiler, "map.loop_closing"):
             self.loop_closer.process(prev_kf)
+
+    def _keyframes_waiting(self) -> bool:
+        """Online: more keyframes are queued for the mapping worker
+        (reference LocalMapping::CheckNewKeyFrames); never offline.  The
+        worker's stop sentinel is queued only once it is idle."""
+        return self._map_queue is not None and self._map_queue.qsize() > 0
 
     def _mapping_worker(self):
         """The online mapping thread: the pass for each queued keyframe on
@@ -375,7 +395,14 @@ class System:
                 and self.map.long_trajectories()):
             if self._map_queue is not None:
                 # online: the solve overlaps tracking in its own thread; a
-                # still-running solve skips this tick, retried next frame
+                # still-running solve skips this tick, retried next frame,
+                # until a whole cadence late: then tracking waits for it,
+                # so the human BA keeps within one period of a tracker
+                # that outruns it
+                if self._frame_count - self._last_human_ba_frame >= \
+                        2 * self.tracking.max_frames:
+                    with span(self.profiler, "human_ba.wait"):
+                        self.human_ba.join()
                 if self.human_ba.launch(self.tracking.last_kf_id):
                     self._last_human_ba_frame = self._frame_count
             else:
@@ -515,6 +542,7 @@ class System:
 
     def _join_mapping_worker(self):
         if self._map_thread is not None:
+            self._wait_mapping_idle(None)   # the last keyframes in full
             self._map_queue.put(None)
             self._map_thread.join()
             self._map_thread = None

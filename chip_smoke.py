@@ -7,16 +7,18 @@ Run from the repository root.  Phases, each of which fails the run:
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions, whether nvcc is present; a CUDA device is required;
-2. build: the five sources of csrc/ (hamming.cu, segment_sum.cu,
-   pose_lm.cu, fast.cu, orb_desc.cu) compiled with nvcc for sm_90a, all
-   at once (build seconds);
+2. build: the nine sources of csrc/ (hamming.cu, segment_sum.cu,
+   pose_lm.cu, fast.cu, orb_desc.cu, pyramid.cu, select.cu, stereo_sad.cu,
+   disparity.cu) compiled with nvcc for sm_90a, all at once (build
+   seconds);
 3. slice: tracking only, Tracking(cfg, FrontEnd(cfg, "cuda"), SlamMap(),
    local_mapper=None) (airdos_tpu's tracking-only configuration), over 28
    bench frames of the synthetic world at the reference budget (640x360,
    1500 ORB features, 8 levels): every frame OK, >= 5 keyframes, ATE <
    0.02 m, >= 3 Hamming and >= 2 pose_lm launches on every fused ("fast")
-   frame, and on every frame one fast_nms and one orb_desc launch a
-   pyramid level of each image (16);
+   frame, and on every frame one pyramid, one fast_nms and one orb_desc
+   launch a pyramid level of each image (16 each), one select launch an
+   image (2) and one stereo_sad launch;
 4. mapping: System(cfg, device="cuda") over the same 28 frames, quantized
    to uint8 as a dataset's PNGs hold them (phase 14a's in-memory twin),
    with the budgets of bench.py's static configuration: every frame OK, >= 5
@@ -75,7 +77,9 @@ Run from the repository root.  Phases, each of which fails the run:
    call the same way and used nowhere in the port (segment_sum:
    index_add_; Hamming: torch.cdist(p=0) on the descriptors unpacked to
    float {0, 1} [.., 256], unpacked outside the timed window; none for
-   the pose LM, FAST + NMS and orb_desc):
+   the pose LM, FAST + NMS, orb_desc, selection, stereo_sad and
+   patch_disparity; the pyramid's levels after the first:
+   F.interpolate(bilinear), the image's resize alone, not bit-equal):
    - the 2-D Hamming kernel at 1536x1536, 2048x1536 and a ragged
      1500x1337 of random words: exact equality;
    - every kernel at every shape the path phases launched it with, on the
@@ -89,7 +93,13 @@ Run from the repository root.  Phases, each of which fails the run:
      launches bit-equal, its device time from a graph of 20 launches;
      fast_nms (by level) bit-equal; orb_desc (by level and keypoint
      count) bit-equal, or else within 1e-3 degrees with >= 99.9% of the
-     descriptors equal, the differing angles and words counted;
+     descriptors equal, the differing angles and words counted; pyramid
+     (by level, source and mask type: image, mask and blur), select (by
+     the image's level shapes and quotas: xs, ys, responses) and
+     patch_disparity bit-equal; stereo_sad (by keypoints and levels)
+     bit-equal where every pixel is 0 or >= 2^-8 (ops/stereo_sad.py's
+     condition), else >= 99.9% of accept flags equal and u_right within
+     1e-3 px where both accept;
 10. determinism: two card runs of the mapping System on the small camera
    over 8 frames give byte-identical TUM and KF/MP/Match dumps, and two
    card runs of the human System (small camera, seed 3, 2 humans, masked,
@@ -111,16 +121,19 @@ Run from the repository root.  Phases, each of which fails the run:
    is_offline=False: tracking in this thread on a high-priority CUDA
    stream, the mapping pass and loop closing in a worker thread, the
    human BA and the global BA in background threads, each worker on its
-   own stream of priority 0):
+   own stream of priority 0), every frame fed back to back:
    a. the pillar orbit of phase 7 with frame i + 1 prefetched before
-      frame i: the last frame OK, a loop closed, the global BA run in its
+      frame i, fed back to back and then again live at Camera.fps, each
+      run held to the same checks: the last frame OK, a loop closed, the global BA run in its
       thread, ATE < 0.15 m, and tests/test_loop_stall.py's bound (the
       worst tracking frame stamped within [t_loop - 8 s, t_loop + 2 s],
       frames before 20 left out, below max(3 x median, median + 0.5 s));
       prints the tracking thread's per-frame median and p90 beside phase
       7's, the mapping load (keyframes inserted and refused, and the
       longest mapping queue, over the run and in the stall window, beside
-      phase 7's keyframes), the worker's spans and the launches by
+      phase 7's keyframes), what the tracking thread waited for on the
+      map lock in the stall window's worst frame and which worker
+      sections held it meanwhile, the worker's spans and the launches by
       (kernel, thread, stream priority), and fails unless the mapping worker's batched Hamming and
       segment_sum launches went to a stream of lower priority than the
       tracking thread's 2-D Hamming launches;
@@ -205,7 +218,8 @@ CUDA device is present.
 With --profile, phases 1-2 run and then phase_profile instead of the rest:
 synchronized stage timers over the 28 bench frames (tracking stages per
 fused frame, triangulation / fusion / BA solve per keyframe) and a
-torch.profiler trace of each of the last four frames, then the crowd-27 flagship
+torch.profiler trace of each of the last four frames (its device kernel
+count and each port kernel's launches), then the crowd-27 flagship
 run's human BA stages (assembly, solve, write-back) and one more solve of
 its last window under torch.profiler (device busy time and the kernels
 that hold it); it checks nothing and prints no result line.
@@ -379,8 +393,28 @@ def _orb():
     return ok
 
 
+def _pyr():
+    from airdos_tpu_torch.ops import pyramid as pk
+    return pk
+
+
+def _sel():
+    from airdos_tpu_torch.ops import select as sk
+    return sk
+
+
+def _sad():
+    from airdos_tpu_torch.ops import stereo_sad as ss
+    return ss
+
+
+def _disp():
+    from airdos_tpu_torch.ops import disparity as dk
+    return dk
+
+
 # the modules that hold the kernels, one nvcc source each
-_MODULES = (_hamming, _segments, _pose, _fast, _orb)
+_MODULES = (_hamming, _segments, _pose, _fast, _orb, _pyr, _sel, _sad, _disp)
 
 
 def _words(rng, shape):
@@ -692,6 +726,259 @@ def _orb_bound(shape, args):
     return nbytes, ops / FP32_FLOPS
 
 
+# ------------------------------------------------------------- pyramid
+
+# float32 operations an output pixel, counted from csrc/pyramid.cu: the
+# blur's 7 products and 6 sums in each direction; a bilinear value's 6
+# products and 3 sums, twice (image and mask) with the threshold; the
+# erosion's 9 + 9 minima
+PYR_BLUR_FLOPS = 26
+PYR_RESIZE_FLOPS = 19
+PYR_ERODE_FLOPS = 18
+
+
+def _pyr_shape(src, src_mask, out_h, out_w, level0):
+    # (level 0, source h, w, output h, w, mask dtype)
+    return (bool(level0),) + tuple(src.shape) + (out_h, out_w) + (
+        None if src_mask is None else str(src_mask.dtype).split(".")[-1],)
+
+
+def _pyr_fmt(shape) -> str:
+    level0, hs, ws, h, w, mask = shape
+    if level0:
+        return f"level 0 {h}x{w} (mask {mask or 'none'})"
+    return f"{h}x{w} level from {hs}x{ws}"
+
+
+def _pyr_check(args):
+    import torch
+    pk = _pyr()
+    got, again = pk.pyramid_level_cuda(*args), pk.pyramid_level_cuda(*args)
+    want = pk.pyramid_level_ref(*args)
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    for name, a, b, c in zip(("image", "mask", "blur"), got, again, want):
+        if not torch.equal(a, c) or not torch.equal(a, b):
+            _fail(f"pyramid {name} != plain version (max abs err {err})")
+    what = (f"image, mask and blur bit-equal, {int(got[1].sum())} usable "
+            f"pixels")
+    return err, what, (lambda: pk.pyramid_level_cuda(*args)), \
+        (lambda: pk.pyramid_level_ref(*args))
+
+
+def _pyr_bound(shape, args):
+    """The source level and its mask read once, the outputs written once
+    (level 0 writes no image: it is the input)."""
+    level0, hs, ws, h, w, mask = shape
+    if level0:
+        mask_bytes = {None: 0, "uint8": 1, "float32": 4}[mask]
+        return (4 + mask_bytes + 8) * h * w, \
+            h * w * (PYR_BLUR_FLOPS + (PYR_ERODE_FLOPS if mask else 0)) \
+            / FP32_FLOPS
+    return 8 * hs * ws + 12 * h * w, \
+        h * w * (PYR_BLUR_FLOPS + PYR_RESIZE_FLOPS) / FP32_FLOPS
+
+
+def _pyr_library(args):
+    """F.interpolate(bilinear, align_corners=False, antialias=False), the
+    image's resize alone (not bit-equal: a comparison); none at level 0."""
+    import torch.nn.functional as F
+    src, src_mask, out_h, out_w, level0 = args
+    if level0:
+        return _no_library(args)
+    x = src[None, None]
+    return (lambda: F.interpolate(x, size=(out_h, out_w), mode="bilinear",
+                                  align_corners=False, antialias=False)), \
+        "F.interpolate(bilinear)"
+
+
+# ------------------------------------------------------------- select
+
+def _sel_shape(maps, quotas, cells, ini_th):   # (level shapes, quotas)
+    return tuple(tuple(s.shape) for s in maps), tuple(quotas)
+
+
+def _sel_fmt(shape) -> str:
+    levels, quotas = shape
+    return (f"{len(levels)} levels {levels[0][0]}x{levels[0][1]} to "
+            f"{levels[-1][0]}x{levels[-1][1]}, {sum(quotas)} slots")
+
+
+def _sel_check(args):
+    import torch
+    sk = _sel()
+    got, again = sk.select_keypoints_cuda(*args), \
+        sk.select_keypoints_cuda(*args)
+    want = sk.select_keypoints_ref(*args)
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    for name, a, b, c in zip(("xs", "ys", "response"), got, again, want):
+        if not torch.equal(a, c) or not torch.equal(a, b):
+            _fail(f"select {name} != plain version (max abs err {err})")
+    what = f"xs, ys and responses bit-equal, {int((got[2] > 0).sum())} kept"
+    return err, what, (lambda: sk.select_keypoints_cuda(*args)), \
+        (lambda: sk.select_keypoints_ref(*args))
+
+
+def _sel_bound(shape, args):
+    """The maps read once, 20 bytes a slot written; a comparison and a
+    boost a pixel, and the bitonic sort's comparisons of each level's
+    cells (rounded up to a power of two)."""
+    levels, quotas = shape
+    cells = args[2]
+    px = sum(h * w for h, w in levels)
+    sort = 0
+    for (h, w), c in zip(levels, cells):
+        p = 1
+        while p < -(-h // c) * -(-w // c):
+            p <<= 1
+        k = p.bit_length() - 1
+        sort += p // 2 * k * (k + 1) // 2
+    return 4 * px + 20 * sum(quotas), (2 * px + sort) / FP32_FLOPS
+
+
+# ------------------------------------------------------------ stereo_sad
+
+# the stereo refinement: bit-equal where the docstring's condition holds
+# (every pixel 0 or >= 2^-8); else this share of equal accept flags and
+# u_right within this many pixels where both accept
+SAD_SHARE = 0.999
+SAD_U_TOL = 1e-3
+# float32 operations a keypoint: 121 + 11 x 121 centre subtractions, 1331
+# differences, absolute values and (float64) sums, the parabola and tests
+SAD_KEYPOINT_FLOPS = 121 + 4 * 1331 + 60
+
+
+def _sad_shape(*args):                    # (keypoints, levels, h0, w0)
+    levels = args[6]
+    return (args[0].shape[0], len(levels)) + tuple(levels[0].shape)
+
+
+def _sad_fmt(shape) -> str:
+    n, n_levels, h0, w0 = shape
+    return f"{n} keypoints, {n_levels} levels from {h0}x{w0}"
+
+
+def _sad_exact_inputs(args) -> bool:
+    """Every pixel of both images' levels 0 or at least 2^-8 in magnitude
+    (ops/stereo_sad.py's condition for bit equality)."""
+    return all(bool(((im == 0) | (im.abs() >= 2.0 ** -8)).all())
+               for im in tuple(args[6]) + tuple(args[7]))
+
+
+def _sad_check(args):
+    import torch
+    ss = _sad()
+    got, again = ss.stereo_sad_cuda(*args), ss.stereo_sad_cuda(*args)
+    want = ss.stereo_sad_ref(*args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        _fail("stereo_sad: two launches differ")
+    both = got[3] & want[3]
+    err = float((got[1] - want[1])[both].abs().max()) if bool(both.any()) \
+        else 0.0
+    n_diff = [int((a != b).sum()) for a, b in zip(got, want)]
+    if _sad_exact_inputs(args):
+        if any(n_diff):
+            _fail(f"stereo_sad != plain version on inputs its condition "
+                  f"holds for: differing best_sad, u_right, disparity, "
+                  f"accept {n_diff}")
+        what = (f"best_sad, u_right, disparity and accept bit-equal (every "
+                f"pixel 0 or >= 2^-8), {int(got[3].sum())} accepted")
+    else:
+        share = float((got[3] == want[3]).float().mean())
+        if share < SAD_SHARE or err > SAD_U_TOL:
+            _fail(f"stereo_sad != plain version: accept flags equal {share}, "
+                  f"u_right max err {err} px")
+        what = (f"a pixel under 2^-8: accept flags equal {share:.4f}, "
+                f"u_right within {err:.2e} px; differing best_sad, u_right, "
+                f"disparity, accept {n_diff}")
+    return err, what, (lambda: ss.stereo_sad_cuda(*args)), \
+        (lambda: ss.stereo_sad_ref(*args))
+
+
+def _window_pixels(levels, oct_, rows, cols) -> int:
+    """Distinct pixels of the windows (level, row, column), each level's
+    columns and rows clamped to level 0's extent as the kernels read."""
+    import torch
+    h0, w0 = levels[0].shape
+    key = (oct_[:, None, None] * h0 + rows[:, :, None]) * w0 + cols[:, None, :]
+    return int(torch.unique(key).numel())
+
+
+def _sad_bound(shape, args):
+    """The distinct window pixels of both images read once, 43 bytes a
+    keypoint of inputs and outputs; SAD_KEYPOINT_FLOPS a keypoint."""
+    import torch
+    xy_l, oct_l, _, xy_r, best_r = args[:5]
+    levels_l, scales = args[6], args[9]
+    n = shape[0]
+    h0, w0 = levels_l[0].shape
+    inv = 1.0 / scales[oct_l]
+    su = torch.round(xy_l[:, 0] * inv).to(torch.int64)
+    sv = torch.round(xy_l[:, 1] * inv).to(torch.int64)
+    sur = torch.round(xy_r[best_r, 0] * inv).to(torch.int64)
+    off = torch.arange(-5, 6, device=su.device)
+    offr = torch.arange(-10, 11, device=su.device)
+    rows = (sv[:, None] + off).clamp(0, h0 - 1)
+    px = _window_pixels(levels_l, oct_l, rows,
+                        (su[:, None] + off).clamp(0, w0 - 1)) + \
+        _window_pixels(levels_l, oct_l, rows,
+                       (sur[:, None] + offr).clamp(0, w0 - 1))
+    return 4 * px + 43 * n, n * SAD_KEYPOINT_FLOPS / FP32_FLOPS
+
+
+# ------------------------------------------------------- patch_disparity
+
+# float32 operations a probe: 48 x 121 differences, absolute values and
+# (float64) sums, the penalty, the argmin and the parabola
+DISP_PROBE_FLOPS = 3 * 48 * 121 + 48 + 60
+
+
+def _disp_shape(im_left, im_right, px, num_disp=48, block=11):
+    return tuple(im_left.shape) + (px.shape[0], num_disp, block)
+
+
+def _disp_fmt(shape) -> str:
+    h, w, n, d, b = shape
+    return f"{h}x{w} images, {n} probes, {d} disparities, {b}x{b}"
+
+
+def _disp_check(args):
+    import torch
+    dk = _disp()
+    got, again = dk.patch_disparity_cuda(*args), dk.patch_disparity_cuda(*args)
+    want = dk.patch_disparity_ref(*args)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    if not torch.equal(got, want) or not torch.equal(got, again):
+        _fail(f"patch_disparity != plain version (max abs err {err})")
+    what = f"bit-equal, {int((got >= 0).sum())} of {got.numel()} valid"
+    return err, what, (lambda: dk.patch_disparity_cuda(*args)), \
+        (lambda: dk.patch_disparity_ref(*args))
+
+
+def _disp_bound(shape, args):
+    """The distinct patch and strip pixels read once, 12 bytes a probe;
+    DISP_PROBE_FLOPS a probe."""
+    import torch
+    h, w, n, d, b = shape
+    px = args[2]
+    u = torch.round(px[:, 0]).to(torch.int64)
+    v = torch.round(px[:, 1]).to(torch.int64)
+    half = b // 2
+    rows = (v[:, None] + torch.arange(-half, half + 1, device=u.device)) \
+        .clamp(0, h - 1)
+    zero = torch.zeros_like(u)
+    left = _window_pixels(args[:1], zero, rows, (
+        u[:, None] + torch.arange(-half, half + 1, device=u.device))
+        .clamp(0, w - 1))
+    right = _window_pixels(args[:1], zero, rows, (
+        u[:, None] + torch.arange(-(d - 1) - half, half + 1,
+                                  device=u.device)).clamp(0, w - 1))
+    return 4 * (left + right) + 12 * n, n * DISP_PROBE_FLOPS / FP32_FLOPS
+
+
 class _Kernel(NamedTuple):
     """Everything the script knows of one kernel: where it lives, the
     wrapper the main paths' launches are recorded at, how a recorded
@@ -712,6 +999,7 @@ class _Kernel(NamedTuple):
     bound: Callable                 # (shape, args) -> (bytes, seconds)
     library: Callable               # args -> (callable or None, its name)
     graph_n: int = 100              # launches in the timed CUDA graph
+    human_only: bool = False        # launched by the human layer alone
 
 
 # every kernel of the port, in the kernels line's order
@@ -754,6 +1042,30 @@ KERNELS = (
             lambda shape: (f"{shape[0]}x{shape[1]} level, {shape[2]} "
                            f"keypoints"),
             lambda shape: shape[2], _orb_check, _orb_bound, _no_library),
+    _Kernel("pyramid", _pyr, "pyramid_level_cuda", "launches",
+            "airdos_tpu_torch/csrc/pyramid.cu",
+            "airdos_tpu/ops/pyramid.py:39 build_pyramid, "
+            "airdos_tpu/ops/filters.py:107 resize_bilinear, "
+            "airdos_tpu/ops/filters.py:71 erode, "
+            "airdos_tpu/ops/filters.py:51 gaussian_blur7", _pyr_shape,
+            _pyr_fmt, lambda shape: shape[3] * shape[4],
+            _pyr_check, _pyr_bound, _pyr_library),
+    _Kernel("select", _sel, "select_keypoints_cuda", "launches",
+            "airdos_tpu_torch/csrc/select.cu",
+            "airdos_tpu/features/orb.py:74 _select_level_keypoints",
+            _sel_shape, _sel_fmt, lambda shape: sum(shape[1]), _sel_check,
+            _sel_bound, _no_library),
+    _Kernel("stereo_sad", _sad, "stereo_sad_cuda", "launches",
+            "airdos_tpu_torch/csrc/stereo_sad.cu",
+            "airdos_tpu/matching/stereo.py:53 _sad_windows_onehot, "
+            "airdos_tpu/matching/stereo.py:45 _sad_windows_gather",
+            _sad_shape, _sad_fmt, lambda shape: shape[0], _sad_check,
+            _sad_bound, _no_library),
+    _Kernel("patch_disparity", _disp, "patch_disparity_cuda", "launches",
+            "airdos_tpu_torch/csrc/disparity.cu",
+            "airdos_tpu/ops/disparity.py:27 patch_disparity", _disp_shape,
+            _disp_fmt, lambda shape: shape[2], _disp_check, _disp_bound,
+            _no_library, human_only=True),
 )
 
 
@@ -800,13 +1112,23 @@ def phase_build():
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
 
+def _cloned(x):
+    """A recorded argument: tensors (also inside a plain tuple or list, as
+    the pyramid levels and detection maps come) cloned."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if type(x) in (tuple, list):
+        return type(x)(_cloned(y) for y in x)
+    return x
+
+
 def _path_recording():
-    """A context in which every launch of the six kernels is also
+    """A context in which every launch of the port's kernels is also
     recorded by shape in _PATH, with the first inputs of each shape, so
     that the kernel phase can hold each kernel against its plain version
     on the inputs the main path gave it.  The launch counts are the
     wrappers' own and unchanged."""
-    import torch
     saved = [(k, getattr(k.module(), k.wrapper)) for k in KERNELS]
     lock = threading.Lock()         # online phases launch from threads
 
@@ -817,8 +1139,7 @@ def _path_recording():
                     k.shape_of(*args), [0, None])
                 entry[0] += 1
                 if entry[1] is None:
-                    entry[1] = tuple(x.clone() if isinstance(x, torch.Tensor)
-                                     else x for x in args)
+                    entry[1] = tuple(_cloned(x) for x in args)
             return launch(*args)
         return record
 
@@ -1117,8 +1438,9 @@ def phase_slice(smi: str, frames, twc):
     for i, (state, branch, dt, d) in enumerate(per):
         print(f"[slice] frame {i:2d} {state} {branch:5s} {dt * 1e3:9.2f} ms "
               f"launches: hamming {d['hamming_matrix']}, pose_lm "
-              f"{d['pose_lm']}, fast_nms {d['fast_nms']}, orb_desc "
-              f"{d['orb_desc']}")
+              f"{d['pose_lm']}, pyramid {d['pyramid']}, fast_nms "
+              f"{d['fast_nms']}, select {d['select']}, orb_desc "
+              f"{d['orb_desc']}, stereo_sad {d['stereo_sad']}")
     bad = [i for i, p in enumerate(per) if p[0] != "OK"]
     if bad:
         _fail(f"tracking-only frames not OK: {bad}")
@@ -1131,14 +1453,15 @@ def phase_slice(smi: str, frames, twc):
     if few:
         _fail(f"fast frames with < 3 Hamming or < 2 pose_lm kernel "
               f"launches: {few}")
-    # the front end: one FAST + NMS and one orb_desc launch a level of each
-    # image
+    # the front end, per frame: a pyramid, FAST + NMS and orb_desc launch
+    # a level of each image, a select launch an image, one stereo_sad
     levels = 2 * cfg.orb.n_levels
+    want = dict(pyramid=levels, fast_nms=levels, orb_desc=levels, select=2,
+                stereo_sad=1)
     off = [i for i, p in enumerate(per)
-           if p[3]["fast_nms"] != levels or p[3]["orb_desc"] != levels]
+           if any(p[3][k] != n for k, n in want.items())]
     if off:
-        _fail(f"frames without {levels} fast_nms and orb_desc launches: "
-              f"{off}")
+        _fail(f"frames without {want} front-end launches: {off}")
     n_kfs = trk.map.n_keyframes()
     if n_kfs < 5:
         _fail(f"tracking only: {n_kfs} keyframes")
@@ -1271,7 +1594,8 @@ def phase_mapping(smi: str, frames, twc, twins):
     if seg_off:
         _fail(f"mapping: segment_sum launches != 45 per BA solve at frames "
               f"{seg_off}")
-    idle = [k for k, v in counts.items() if v <= 0]
+    human_only = {k.name for k in KERNELS if k.human_only}
+    idle = [k for k, v in counts.items() if v <= 0 and k not in human_only]
     if idle:
         _fail(f"mapping: kernels never launched on the main path: {idle}")
     track_ms = [p["ms"] for p in per if not p["kf"]]
@@ -1615,6 +1939,74 @@ def _frame_events(slam):
             [ev["t"] for ev in loops])
 
 
+class _TimedLock:
+    """The online System's map lock with each hold recorded as (thread,
+    site of the `with`, requested, acquired, released) on time.time(),
+    the event log's clock."""
+
+    def __init__(self, lock):
+        self._lock = lock
+        self._held = None
+        self.holds = []
+
+    def acquire(self, blocking=True, timeout=-1):
+        t0 = time.time()
+        ok = self._lock.acquire(blocking, timeout)
+        if ok:
+            f = sys._getframe(1)
+            if f.f_code.co_name == "__enter__":
+                f = f.f_back
+            self._held = (threading.current_thread().name,
+                          f"{Path(f.f_code.co_filename).name}:"
+                          f"{f.f_code.co_name}:{f.f_lineno}", t0, time.time())
+        return ok
+
+    def release(self):
+        held = self._held + (time.time(),)
+        self._lock.release()
+        self.holds.append(held)
+
+    def locked(self):
+        return self._lock.locked()
+
+    def __enter__(self):
+        return self.acquire()
+
+    def __exit__(self, *exc):
+        self.release()
+
+
+def _time_map_lock(slam) -> _TimedLock:
+    """Put a _TimedLock in place of the map lock everywhere the System
+    keeps it (the loop closer, made later, takes System._map_lock)."""
+    lock = _TimedLock(slam._map_lock)
+    slam._map_lock = slam.tracking.map_lock = lock
+    for holder in (slam.static_ba, slam.local_mapper.triangulator,
+                   slam.local_mapper.fuser, slam.human_ba, slam.loop_closer):
+        if holder is not None:
+            holder.map_lock = lock
+    return lock
+
+
+def _lock_waits(lock: _TimedLock, t_end: float, seconds: float) -> str:
+    """What the tracking thread waited for on the map lock in the frame
+    that ended at t_end after `seconds`: its waits, and the other threads'
+    holds that overlapped them, longest first."""
+    t0 = t_end - seconds
+    mine = [h for h in lock.holds if h[0] == "MainThread"
+            and t0 <= h[2] <= t_end]
+    waits = [(h[2], h[3]) for h in mine]
+    waited = sum(b - a for a, b in waits)
+    blockers = sorted(
+        ((h[4] - h[3], h[0], h[1]) for h in lock.holds
+         if h[0] != "MainThread"
+         and any(h[3] < b and h[4] > a for a, b in waits)), reverse=True)
+    held = ", ".join(f"{th} {site} {d * 1e3:.2f} ms"
+                     for d, th, site in blockers[:4]) or "none"
+    return (f"the tracking thread waited {waited * 1e3:.2f} ms in "
+            f"{len(mine)} map-lock sections; held meanwhile by {held}")
+
+
 def _stall_window(times, stamps, loop_stamps, skip: int = 20):
     """tests/test_loop_stall.py's window: which tracking frames are stamped
     in [t_loop - 8 s, t_loop + 2 s] of a loop closure, the first `skip`
@@ -1637,28 +2029,47 @@ def phase_online(smi: str, orbit, orbit_twc, crowd, crowd_twc, frames, twc,
                  offline_loop):
     """Online mode (is_offline=False): the pillar orbit with loop closing
     and the crowd flagship, then the rest of System's API on the static
-    frames.  Returns the launch counts."""
+    frames.  The pillar orbit runs twice: fed back to back, as every test
+    and driver feeds an online System, and live, as a camera at the
+    configuration's Camera.fps delivers it.  Returns the launch counts."""
     _reset_counts()
-    _online_pillar(smi, orbit, orbit_twc, offline_loop)
+    _online_pillar(smi, orbit, orbit_twc, offline_loop, live=False)
+    _online_pillar(smi, orbit, orbit_twc, offline_loop, live=True)
     _online_human(smi, crowd, crowd_twc)
     _online_api(frames, twc)
     return _counts()
 
 
-def _run_online_pillar(orbit):
+def _feed(frames, fps):
+    """The frames back to back (fps None), or as a live camera at `fps`
+    delivers them: frame i not before i / fps s after the first, as the
+    reference's drivers sleep to each frame's timestamp
+    (stereo_human.cc:135-146)."""
+    t0 = time.perf_counter()
+    for i, data in enumerate(frames):
+        wait = 0.0 if fps is None else t0 + i / fps - time.perf_counter()
+        if wait > 0:
+            time.sleep(wait)
+        yield data
+
+
+def _run_online_pillar(orbit, fps):
     """The pillar orbit through the online System at the bench budget,
-    frame i + 1 prefetched before frame i.  Returns the System (shut
-    down), each frame's state, and tests/test_loop_stall.py's numbers: the
-    tracking thread's per-frame host times (s), their median after frame
-    20, the stall window's mask, its worst frame (or None) and the bound
-    max(3 x median, median + 0.5 s); and per frame the mapping load: the
-    keyframes it inserted, whether the busy branch of
-    Tracking._need_new_keyframe refused one (mapping busy and >= 3
-    keyframes queued), and the queue's length at the frame's end."""
+    fed by _feed(orbit, fps), frame i + 1 prefetched before frame i.
+    Returns the System (shut down), each frame's state, and
+    tests/test_loop_stall.py's numbers: the tracking thread's per-frame
+    host times (s), their median after frame 20, the stall window's mask,
+    its worst frame (or None), what the tracking thread waited for on the
+    map lock in that frame, and the bound max(3 x median, median + 0.5 s);
+    and per frame the mapping load: the keyframes it inserted, whether the
+    busy branch of Tracking._need_new_keyframe refused one (mapping busy
+    and >= 3 keyframes queued), and the queue's length at the frame's
+    end."""
     from airdos_tpu_torch.slam.system import System
     cfg = _loop_config()
     cfg.system.is_offline = False
     slam = System(cfg, device="cuda")
+    lock = _time_map_lock(slam)
     trk = slam.tracking
     queue_len, refused = trk.mapping_queue_len_fn, [0]
 
@@ -1668,7 +2079,7 @@ def _run_online_pillar(orbit):
         return n
     trk.mapping_queue_len_fn = read_queue
     states, load = [], []
-    for i, data in enumerate(orbit):
+    for i, data in enumerate(_feed(orbit, fps)):
         if i + 1 < len(orbit):
             slam.prefetch(orbit[i + 1])
         k0, r0 = slam.map.next_kf_id, refused[0]
@@ -1680,9 +2091,12 @@ def _run_online_pillar(orbit):
     times, stamps, loop_stamps = _frame_events(slam)
     med = float(np.median(times[20:]))
     sel = _stall_window(times, stamps, loop_stamps)
-    worst = float(times[sel].max()) if sel.any() else None
+    worst, waits = None, "none"
+    if sel.any():
+        i = np.flatnonzero(sel)[np.argmax(times[sel])]
+        worst, waits = float(times[i]), _lock_waits(lock, stamps[i], times[i])
     return slam, states, dict(times=times, med=med, sel=sel, worst=worst,
-                              bound=max(3.0 * med, med + 0.5),
+                              waits=waits, bound=max(3.0 * med, med + 0.5),
                               load=np.asarray(load))
 
 
@@ -1698,30 +2112,34 @@ def _mapping_load(st) -> str:
             f"{int(queued[sel].max()) if sel.any() else 0}")
 
 
-def _online_pillar(smi, orbit, orbit_twc, offline_loop):
-    """a. pillar-84 online: the checks and the prints."""
+def _online_pillar(smi, orbit, orbit_twc, offline_loop, live: bool):
+    """a. pillar-84 online, fed back to back or live at Camera.fps: the
+    checks and the prints."""
     from airdos_tpu_torch.utils.gate import TRACKING_PRIORITY
 
-    slam, states, st = _run_online_pillar(orbit)
+    fps = _loop_config().camera.fps if live else None
+    feed = "back to back" if fps is None else f"live at {fps:g} fps"
+    slam, states, st = _run_online_pillar(orbit, fps)
     counts, tally = _counts(), _tally()     # counted from 0 at the phase
     lc = slam.loop_closer
     times, sel, worst, med = st["times"], st["sel"], st["worst"], st["med"]
     ms = times * 1e3
-    print(f"[online] pillar-{len(orbit)}: states {collections.Counter(states)}"
+    print(f"[online] pillar-{len(orbit)} {feed}: states {collections.Counter(states)}"
           f", keyframes {len(slam.map.kfs)} inserted "
           f"({slam.map.n_keyframes()} live), loops closed "
           f"{lc.closed if lc else None}, global BA runs "
           f"{slam.global_ba.n_runs} (aborted {slam.global_ba.n_aborted}); "
           f"launches {counts}")
     if states[-1] != "OK":
-        _fail(f"online: the last pillar frame is {states[-1]}")
+        _fail(f"online {feed}: the last pillar frame is {states[-1]}")
     if lc is None or lc.n_loops_closed < 1:
-        _fail("online: no loop closed")
+        _fail(f"online {feed}: no loop closed")
     if slam.global_ba.n_runs < 1:
-        _fail("online: the global BA never ran in its background thread")
+        _fail(f"online {feed}: the global BA never ran in its background "
+              f"thread")
     ate = _ate(slam.tracking, orbit_twc)
     if not ate < 0.15:
-        _fail(f"online: pillar ATE {ate} m >= 0.15 m")
+        _fail(f"online {feed}: pillar ATE {ate} m >= 0.15 m")
     warm = times[20:]
     stalled = times[sel]
     off = offline_loop
@@ -1736,12 +2154,13 @@ def _online_pillar(smi, orbit, orbit_twc, offline_loop):
           f"the bound max(3 x {med * 1e3:.2f}, {med * 1e3:.2f} + 500) ms on "
           f"{smi}", flush=True)
     print(f"[online] stall window frames (ms): "
-          f"{[round(float(x) * 1e3, 1) for x in stalled]}", flush=True)
+          f"{[round(float(x) * 1e3, 1) for x in stalled]}; in the worst "
+          f"{st['waits']}", flush=True)
     print(f"[online] mapping load online: {_mapping_load(st)}; offline in "
           f"phase loop: keyframes inserted {off['n_kfs']}", flush=True)
     if worst is not None and not worst < st["bound"]:
-        _fail(f"online: a loop closure stalled tracking: {worst} s against "
-              f"a median of {med} s")
+        _fail(f"online {feed}: a loop closure stalled tracking: {worst} s "
+              f"against a median of {med} s")
     spans = slam.profiler.report()
     print("[online] worker spans (median ms): " + ", ".join(
         f"{k} {v['median_s'] * 1e3:.2f} (n {v['n']}, max "
@@ -2345,12 +2764,16 @@ def phase_profile(smi: str):
         mine = "; ".join(
             "{} {} launches, mean device time {}".format(tag, *kernel_ms(tag))
             for tag in ("hamming_kernel", "segment_sum_", "pose_lm_kernel",
-                        "fast_nms_kernel", "orb_desc_kernel"))
+                        "pyramid_level_kernel", "fast_nms_kernel",
+                        "select_kernel", "orb_desc_kernel",
+                        "stereo_sad_kernel", "patch_disparity_kernel"))
         kf = slam.map.kfs.get(slam.tracking.last_kf_id)
         is_kf = kf is not None and kf.frame_id == d.index
         print(f"[profile] frame {d.index} ({slam.tracking.last_branch}"
               f"{', keyframe' if is_kf else ''}) under torch.profiler: "
-              f"{len(evs)} device kernels, device busy {busy_ms:.2f} ms, "
+              f"{len(evs)} device kernels (3,020 a fused frame with the "
+              f"pyramid, blur, selection and SAD as eager torch: PERF.md), "
+              f"device busy {busy_ms:.2f} ms, "
               f"wall {wall_ms:.2f} ms (the profiler slows the host), busy "
               f"share {busy_ms / wall_ms:.4f}; {mine}; on {smi}")
     OUT_DIR.mkdir(exist_ok=True)

@@ -874,3 +874,265 @@ def test_orb_desc_kernel_rejects_what_it_does_not_take(cuda):
                  (img, img, xs.cpu(), xs)):
         with pytest.raises(ValueError):
             ok.orb_describe_cuda(*args)
+
+
+# ------------------------------------------- the front end's four kernels
+
+def _pyramid_inputs(rng, h, w, mask_kind):
+    img = _texture(rng, h, w)
+    mask = None
+    if mask_kind is not None:
+        mask = np.ones((h, w), np.uint8)
+        mask[h // 4:h // 2, w // 3:w // 2] = 0
+        mask[: h // 8, -w // 6:] = 0
+        if mask_kind == "float32":
+            mask = mask.astype(np.float32)
+    return img, mask
+
+
+@pytest.mark.parametrize("h,w,n_levels,mask_kind", [
+    (360, 640, 8, "uint8"), (360, 640, 8, None), (240, 320, 4, "float32"),
+    (101, 179, 3, "uint8"), (35, 38, 2, None)])
+def test_pyramid_kernel_equals_plain_version(cuda, h, w, n_levels, mask_kind):
+    """Images, masks and blurs bit-equal to the plain version on the card
+    and on the CPU, one launch a level; odd sizes and a level at most
+    twice the FAST border among them."""
+    import airdos_tpu_torch.ops.pyramid as pk
+    rng = np.random.default_rng(h + w)
+    img, mask = _pyramid_inputs(rng, h, w, mask_kind)
+    img_d = torch.from_numpy(img).to(cuda)
+    mask_d = None if mask is None else torch.from_numpy(mask).to(cuda)
+    before = pk.launches()
+    got = pk.build_pyramid(img_d, mask_d, n_levels, 1.2)
+    torch.cuda.synchronize()
+    assert pk.launches() == before + n_levels
+    want = pk.build_pyramid(img_d, mask_d, n_levels, 1.2)
+    want_cpu = pk.build_pyramid(img_d.cpu(),
+                                None if mask_d is None else mask_d.cpu(),
+                                n_levels, 1.2)
+    for lvl in range(n_levels):
+        plain = pk.pyramid_level_ref(
+            *((img_d, mask_d, h, w, True) if lvl == 0 else
+              (got.images[lvl - 1], got.masks[lvl - 1],
+               *got.images[lvl].shape, False)))
+        for name, a, b, c in zip(("image", "mask", "blur"),
+                                 (got.images[lvl], got.masks[lvl],
+                                  got.blurred[lvl]), plain,
+                                 (want_cpu.images[lvl], want_cpu.masks[lvl],
+                                  want_cpu.blurred[lvl])):
+            assert torch.equal(a, b), (lvl, name)
+            assert torch.equal(a.cpu(), c), (lvl, name)
+    assert all(torch.equal(a, b) for a, b in zip(got.blurred, want.blurred))
+
+
+def test_pyramid_kernel_rejects_what_it_does_not_take(cuda):
+    import airdos_tpu_torch.ops.pyramid as pk
+    img = torch.zeros((64, 96), device=cuda)
+    for args in ((img.double(), None, 64, 96, True),
+                 (img.t(), None, 96, 64, True),
+                 (img.cpu(), None, 64, 96, True),
+                 (img, None, 32, 48, True),
+                 (img, img.to(torch.int32), 64, 96, True),
+                 (img, None, 53, 80, False),
+                 (img, img[:32].contiguous(), 53, 80, False),
+                 (img, img, 3, 80, False)):
+        with pytest.raises(ValueError):
+            pk.pyramid_level_cuda(*args)
+
+
+def _detection_maps(rng, h, w, n_levels, masked):
+    import airdos_tpu_torch.ops.fast as fk
+    import airdos_tpu_torch.ops.pyramid as pk
+    img, mask = _pyramid_inputs(rng, h, w, "uint8" if masked else None)
+    pyr = pk.build_pyramid(
+        torch.from_numpy(img).cuda(),
+        None if mask is None else torch.from_numpy(mask).cuda(),
+        n_levels, 1.2)
+    return [fk.fast_nms(im, m, 7.0, 16) for im, m in zip(pyr.images,
+                                                          pyr.masks)]
+
+
+def _select_case(rng, case):
+    from airdos_tpu_torch.features.orb import (MIN_BORDER, _cell_size_for,
+                                               level_quotas)
+    if case == "ties":
+        # quantized maps: equal responses inside cells and across blocks
+        maps = [torch.from_numpy(
+            (rng.integers(0, 4, (h, w)) * 6.0 * (rng.uniform(size=(h, w))
+                                                 < 0.05)).astype(np.float32)
+        ).cuda() for h, w in ((120, 160), (100, 133), (83, 111))]
+        quotas = (150, 90, 400)          # the last more than its cells
+    else:
+        h, w, n_levels = {"640x360": (360, 640, 8), "odd": (101, 179, 3),
+                          "masked": (240, 320, 4)}[case]
+        maps = _detection_maps(rng, h, w, n_levels, case == "masked")
+        quotas = level_quotas(1500 if case == "640x360" else 300, n_levels,
+                              1.2)
+    cells = [_cell_size_for(s.shape[0] - 2 * MIN_BORDER,
+                            s.shape[1] - 2 * MIN_BORDER, q)
+             for s, q in zip(maps, quotas)]
+    return maps, quotas, cells
+
+
+@pytest.mark.parametrize("case", ["640x360", "odd", "masked", "ties"])
+def test_select_kernel_equals_plain_version(cuda, case):
+    """xs, ys and responses bit-equal to the plain version, one launch an
+    image, on real detection maps and on maps full of ties."""
+    import airdos_tpu_torch.ops.select as sk
+    maps, quotas, cells = _select_case(np.random.default_rng(5), case)
+    before = sk.launches()
+    got = sk.select_keypoints(maps, quotas, cells, 12.0)
+    again = sk.select_keypoints(maps, quotas, cells, 12.0)
+    torch.cuda.synchronize()
+    assert sk.launches() == before + 2
+    want = sk.select_keypoints_ref(maps, quotas, cells, 12.0)
+    want_cpu = sk.select_keypoints_ref([s.cpu() for s in maps], quotas,
+                                       cells, 12.0)
+    for a, b, c, d in zip(got, again, want, want_cpu):
+        assert a.shape == (sum(quotas),)
+        assert torch.equal(a, b) and torch.equal(a, c)
+        assert torch.equal(a.cpu(), d)
+    assert int((got[2] > 0).sum()) > 0
+
+
+def test_select_kernel_rejects_what_it_does_not_take(cuda):
+    import airdos_tpu_torch.ops.select as sk
+    s = torch.zeros((64, 96), device=cuda)
+    for maps, quotas, cells in (([s.double()], [10], [8]), ([s.t()], [10], [8]),
+                                ([s.cpu()], [10], [8]), ([s], [10, 5], [8]),
+                                ([s], [-1], [8]), ([s], [10], [0]),
+                                ([], [], []), ([s] * 17, [1] * 17, [8] * 17),
+                                ([torch.zeros((4000, 4000), device=cuda)],
+                                 [10], [8])):
+        with pytest.raises(ValueError):
+            sk.select_keypoints_cuda(maps, quotas, cells, 12.0)
+
+
+def _sad_case(rng, kind):
+    """The stereo refinement's inputs: a pyramid pair and, for each left
+    keypoint, the right keypoint it matched.  "random": a texture and its
+    copy shifted 7 px, keypoints anywhere on each level (the edges
+    included), random matches and gates; "synthetic": a rendered
+    small-camera frame through the port's front end on the card, with the
+    matches and gates stereo_match computes."""
+    import airdos_tpu_torch.ops.pyramid as pk
+    scales = torch.tensor([1.2 ** l for l in range(8)], dtype=torch.float32,
+                          device="cuda")
+    if kind == "synthetic":
+        import airdos_tpu_torch.matching.stereo as ms
+        from airdos_tpu_torch.config import SlamConfig
+        from airdos_tpu_torch.io.synthetic import (SyntheticStereoWorld,
+                                                   small_camera)
+        from airdos_tpu_torch.slam.frame import FrontEnd
+        cfg = SlamConfig()
+        cfg.camera = small_camera()
+        cfg.orb.n_features, cfg.orb.n_levels = 600, 4
+        world = SyntheticStereoWorld(seed=0, n_points=200, cam=cfg.camera)
+        data = next(iter(world.sequence(1, dt=0.1)))[0]
+        fe = FrontEnd(cfg, device="cuda")
+        seen = {}
+        real = ms.stereo_sad
+
+        def spy(*args):
+            seen["args"] = args
+            return real(*args)
+        ms.stereo_sad = spy
+        try:
+            fe._build_impl(*fe.uploads(data),
+                           torch.zeros((0, 2), device="cuda"), False)
+        finally:
+            ms.stereo_sad = real
+        return seen["args"]
+    h, w, n_levels, n = 360, 640, 8, 1536
+    left = _texture(rng, h, w + 7)
+    pl = pk.build_pyramid(torch.from_numpy(left[:, 7:].copy()).cuda(), None,
+                          n_levels, 1.2)
+    pr = pk.build_pyramid(torch.from_numpy(left[:, :-7].copy()).cuda(),
+                          None, n_levels, 1.2)
+    oct_l = rng.integers(0, n_levels, n)
+    xy_l = np.stack([rng.uniform(-3, w + 3, n), rng.uniform(-3, h + 3, n)],
+                    axis=1).astype(np.float32)
+    xy_r = (xy_l - [[7.0 + rng.uniform(-1, 1), 0.0]]).astype(np.float32)
+    widths = torch.tensor([im.shape[1] for im in pl.images], device="cuda")
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa
+    return (t(xy_l), t(oct_l.astype(np.int64)), t(rng.uniform(size=n) < 0.9),
+            t(xy_r), t(np.where(rng.uniform(size=n) < 0.8, np.arange(n),
+                                rng.integers(0, n, n)).astype(np.int64)),
+            t(rng.uniform(size=n) < 0.7), pl.images, pr.images, widths,
+            scales[:n_levels], float(np.float32(250.0) / np.float32(0.5)))
+
+
+@pytest.mark.parametrize("kind", ["random", "synthetic"])
+def test_stereo_sad_kernel_equals_plain_version(cuda, kind):
+    """best_sad, u_right, disparity and the accept flags bit-equal to the
+    plain version (every pixel is 0 or >= 1: the module's condition), one
+    launch a call."""
+    import airdos_tpu_torch.ops.stereo_sad as ss
+    args = _sad_case(np.random.default_rng(9), kind)
+    before = ss.launches()
+    got = ss.stereo_sad(*args)
+    again = ss.stereo_sad(*args)
+    torch.cuda.synchronize()
+    assert ss.launches() == before + 2
+    want = ss.stereo_sad_ref(*args)
+    for a, b, c in zip(got, again, want):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert int(got[3].sum()) > 20
+
+
+def test_stereo_sad_kernel_rejects_what_it_does_not_take(cuda):
+    import airdos_tpu_torch.ops.stereo_sad as ss
+    args = list(_sad_case(np.random.default_rng(9), "random"))
+    for i, bad in ((0, args[0].double()), (1, args[1].to(torch.int32)),
+                   (2, args[2].to(torch.uint8)), (4, args[4][:-1]),
+                   (6, args[6][:3]), (6, [im.cpu() for im in args[6]]),
+                   (8, args[8][:3]), (9, args[9].double())):
+        bad_args = list(args)
+        bad_args[i] = bad
+        with pytest.raises(ValueError):
+            ss.stereo_sad_cuda(*bad_args)
+
+
+@pytest.mark.parametrize("kind", ["integers", "fractions"])
+def test_patch_disparity_kernel_equals_plain_version(cuda, kind):
+    """The 40 torso probes of the path and edge cases (off the image,
+    uncovered windows, padded -1 slots, half pixels), on 8-bit images and
+    on images of fractions >= 1: bit-equal, one launch a call."""
+    import airdos_tpu_torch.ops.disparity as dk
+    rng = np.random.default_rng(3)
+    h, w = 360, 640
+    imL = _texture(rng, h, w + 60)
+    if kind == "fractions":
+        imL = (imL + 1.0) * rng.uniform(1.0, 1.5, imL.shape).astype(
+            np.float32)
+    imR = imL[:, 13:13 + w].copy()
+    imL = imL[:, :w].copy()
+    px = np.stack([rng.uniform(0, w, 40), rng.uniform(0, h, 40)],
+                  axis=1).astype(np.float32)
+    px[:8] = [[-1, -1], [-5, 10], [700, 30], [3, 100], [40.5, 20.5],
+              [52.0, 359.4], [639.4, 0.0], [20.0, 200.0]]
+    args = (torch.from_numpy(imL).to(cuda), torch.from_numpy(imR).to(cuda),
+            torch.from_numpy(px).to(cuda))
+    before = dk.launches()
+    got = dk.patch_disparity(*args)
+    again = dk.patch_disparity(*args)
+    torch.cuda.synchronize()
+    assert dk.launches() == before + 2
+    assert torch.equal(got, again)
+    assert torch.equal(got, dk.patch_disparity_ref(*args))
+    assert torch.equal(got.cpu(), dk.patch_disparity_ref(
+        *(a.cpu() for a in args)))
+    assert int((got >= 0).sum()) >= 20
+
+
+def test_patch_disparity_kernel_rejects_what_it_does_not_take(cuda):
+    import airdos_tpu_torch.ops.disparity as dk
+    im = torch.zeros((64, 96), device=cuda)
+    px = torch.zeros((40, 2), device=cuda)
+    for args, kw in (((im.double(), im, px), {}), ((im.t(), im.t(), px), {}),
+                     ((im, im[:32].contiguous(), px), {}),
+                     ((im, im, px.double()), {}), ((im, im, px[:, :1]), {}),
+                     ((im, im, px.cpu()), {}), ((im, im, px), {"num_disp": 65}),
+                     ((im, im, px), {"block": 12})):
+        with pytest.raises(ValueError):
+            dk.patch_disparity_cuda(*args, **kw)

@@ -50,6 +50,8 @@ def _stereo_inputs(ext, data, cam):
         desc_r=np.asarray(fR.desc32), valid_r=np.asarray(fR.valid),
         pyr_l=np.asarray(jstereo.stack_pyramid(pyrL.images)),
         pyr_r=np.asarray(jstereo.stack_pyramid(pyrR.images)),
+        levels_l=[np.asarray(im) for im in pyrL.images],
+        levels_r=[np.asarray(im) for im in pyrR.images],
         widths=widths)
 
 
@@ -66,7 +68,8 @@ def _run_stereo(inp, cam, backend):
     m = tstereo.stereo_match(
         _t(inp["xy_l"]), _t(inp["oct_l"]).long(), desc["desc_l"],
         _t(inp["valid_l"]), _t(inp["xy_r"]), _t(inp["oct_r"]).long(),
-        desc["desc_r"], _t(inp["valid_r"]), _t(inp["pyr_l"]), _t(inp["pyr_r"]),
+        desc["desc_r"], _t(inp["valid_r"]),
+        [_t(im) for im in inp["levels_l"]], [_t(im) for im in inp["levels_r"]],
         _t(inp["widths"]).long(), _t(SCALES), cam.bf, cam.baseline)
     return {k: v.numpy() for k, v in m._asdict().items()}
 

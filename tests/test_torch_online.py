@@ -22,7 +22,10 @@ runs are not byte-deterministic): tests/test_async_gba.py's single-device
 cases, tests/test_system_e2e.py's online run, tests/test_config_flags.py's
 reset and localization-only cases (online here, a reset also issued while
 a global BA runs), and tests/test_online_human.py on the small camera.
-Also: a worker's exception is raised by ``drain_mapping``, ``shutdown``
+How the online System keeps up with frames fed faster than its workers
+run: the mapping pass skips fusion, the static BA and keyframe culling
+while keyframes wait, and a human BA a whole cadence late makes tracking
+wait for it.  Also: a worker's exception is raised by ``drain_mapping``, ``shutdown``
 and the BAs' ``join``, and the state the threads share (the launch
 counters, the vocabulary's one-time device upload, the span and event
 logs) holds under many threads.
@@ -385,6 +388,65 @@ def test_online_human_ba_runs_in_the_background():
     _, _, twc_e = slam.tracking.trajectory_tum()
     gt = np.asarray([t for _, _, t in frames])
     assert ate_rmse(twc_e, gt[:len(twc_e)]) < 0.03
+
+
+@pytest.mark.parametrize("waiting", [False, True])
+def test_mapping_pass_skips_refinement_while_keyframes_wait(vo_frames,
+                                                            waiting):
+    """Online, the mapping pass of a keyframe skips fusion, the static BA
+    and keyframe culling while more keyframes are queued (the reference's
+    LocalMapping::Run under CheckNewKeyFrames), and runs them all once the
+    queue is empty."""
+    slam = System(small_config(), device="cpu")
+    for data, _ in vo_frames[:4]:
+        slam.track_stereo(data)
+    slam.shutdown()                    # the worker stops; the queue stays
+    calls = []
+    lm = slam.local_mapper
+    for name in ("create_new_points", "fuse_neighbors", "cull_keyframes"):
+        setattr(lm, name, lambda *a, name=name: calls.append(name))
+    slam.static_ba = lambda kf: calls.append("static_ba")
+    slam.map.n_keyframes = lambda: 3
+    if waiting:
+        slam._map_queue.put(object())
+    slam._mapping_pipeline(slam.map.kfs[slam.tracking.last_kf_id])
+    full = ["create_new_points", "fuse_neighbors", "static_ba",
+            "cull_keyframes"]
+    assert calls == (["create_new_points"] if waiting else full)
+
+
+def test_online_human_ba_a_cadence_late_makes_tracking_wait(vo_frames):
+    """Online, a human BA tick that finds the last solve running is
+    skipped, until the solve is a whole cadence period late: then tracking
+    joins it and launches the next, so the solves keep the cadence of a
+    tracker that outruns them."""
+    cfg = small_config()
+    cfg.camera.fps = 2.0                     # a tick every 2 frames
+    cfg.optimizer.is_static_only = False
+    slam = System(cfg, device="cpu")
+    events, running = [], [False]
+
+    class Solve:                             # a solve that never ends
+        def launch(self, kf_id):             # until it is joined
+            ok = not running[0]
+            running[0] = True
+            events.append(("launch", slam._frame_count, ok))
+            return ok
+
+        def join(self):
+            running[0] = False
+            events.append(("join", slam._frame_count))
+    slam.human_ba = Solve()
+    slam.map.long_trajectories = lambda: [0]
+    for data, _ in vo_frames[:12]:
+        slam.track_stereo(data)
+        assert slam.tracking.state.name == "OK"
+    slam.shutdown()
+    assert events == [
+        ("launch", 2, True), ("launch", 4, False), ("launch", 5, False),
+        ("join", 6), ("launch", 6, True), ("launch", 8, False),
+        ("launch", 9, False), ("join", 10), ("launch", 10, True),
+        ("join", 12)]                          # the last is shutdown's
 
 
 # ------------------------------------------------------------ faults
