@@ -17,9 +17,10 @@
 //   blur       = the separable 7x7 sigma-2 Gaussian of img, rows first,
 //                BORDER_REFLECT_101 (torch's "reflect" pad);
 //
-// and for level 0 the image is the input itself, the mask the 10x10
-// erosion of the input mask (cv2.erode, anchor (5, 5), pixels outside read
-// as 1; all ones where there is no mask), and the blur as above.
+// and for level 0 the image is the input itself, the mask the k x k
+// erosion of the input mask (cv2.erode, anchor (k / 2, k / 2), pixels
+// outside read as 1; all ones where there is no mask; k = 10 on the path,
+// up to 16), and the blur as above.
 //
 // One block computes a 32 x 32 output tile.  The resized pixels of the
 // tile and of a 3 px halo go to shared memory; a halo pixel outside the
@@ -27,7 +28,8 @@
 // (not read back from another block), so every block sees the values the
 // plain version blurs.  Then the rows' horizontal sums over the tile's
 // columns, then the vertical sums.  The erosion is separable too: the
-// tile's mask with a 5 / 4 px halo, the row minima, the column minima.
+// tile's mask with a k / 2, k - 1 - k / 2 px halo (5 / 4 at k = 10), the
+// row minima, the column minima.
 //
 // Exact: every rounding is the plain version's.  The index and weight
 // arithmetic is torch's step by step (arange + 0.5, * sy, - 0.5, clamp,
@@ -59,10 +61,8 @@ namespace {
 constexpr int kTile = 32;                 // output tile edge
 constexpr int kHalo = 3;                  // the blur's half width
 constexpr int kExt = kTile + 2 * kHalo;   // 38: resized tile with halo
-constexpr int kErodeLo = 5;               // erosion window rows y-5..y+4
-constexpr int kErodeHi = 4;
-constexpr int kErodeK = kErodeLo + kErodeHi + 1;
-constexpr int kMExt = kTile + kErodeK - 1;  // 41: mask tile with halo
+constexpr int kMaxErode = 16;             // the erosion's largest window
+constexpr int kMExt = kTile + kMaxErode - 1;  // 47: mask tile with halo
 constexpr int kThreadsX = 32;
 constexpr int kThreadsY = 8;
 constexpr int kThreads = kThreadsX * kThreadsY;
@@ -121,7 +121,7 @@ pyramid_level_kernel(const float* __restrict__ src,
                      int hs, int ws, float* __restrict__ img,
                      float* __restrict__ mask, float* __restrict__ blur,
                      int h, int w, float sy, float sx, Taps taps,
-                     int level0) {
+                     int level0, int erode_k) {
   __shared__ float sr[kExt][kExt + 1];        // resized, with the halo
   __shared__ float sh[kExt][kTile + 1];       // rows' horizontal sums
   __shared__ float sm[kMExt][kMExt + 1];      // level 0: mask + halo
@@ -129,6 +129,9 @@ pyramid_level_kernel(const float* __restrict__ src,
   const int x0 = blockIdx.x * kTile;
   const int y0 = blockIdx.y * kTile;
   const int tid = threadIdx.y * kThreadsX + threadIdx.x;
+  // the erosion window: rows y - lo .. y + k - 1 - lo, likewise columns
+  const int erode_lo = erode_k / 2;
+  const int mext = kTile + erode_k - 1;
 
   for (int i = tid; i < kExt * kExt; i += kThreads) {
     const int ly = i / kExt, lx = i - (i / kExt) * kExt;
@@ -139,9 +142,9 @@ pyramid_level_kernel(const float* __restrict__ src,
                                    axis(gx, ws, sx));
   }
   if (level0 && mask_kind != kNoMask) {
-    for (int i = tid; i < kMExt * kMExt; i += kThreads) {
-      const int ly = i / kMExt, lx = i - (i / kMExt) * kMExt;
-      const int gy = y0 - kErodeLo + ly, gx = x0 - kErodeLo + lx;
+    for (int i = tid; i < mext * mext; i += kThreads) {
+      const int ly = i / mext, lx = i - (i / mext) * mext;
+      const int gy = y0 - erode_lo + ly, gx = x0 - erode_lo + lx;
       float v = 1.0f;                           // cv2.erode's border
       if (gy >= 0 && gy < h && gx >= 0 && gx < w) {
         const int64_t at = static_cast<int64_t>(gy) * ws + gx;
@@ -163,11 +166,10 @@ pyramid_level_kernel(const float* __restrict__ src,
     sh[ly][lx] = acc;
   }
   if (level0 && mask_kind != kNoMask) {
-    for (int i = tid; i < kMExt * kTile; i += kThreads) {
+    for (int i = tid; i < mext * kTile; i += kThreads) {
       const int ly = i / kTile, lx = i - (i / kTile) * kTile;
       float m = sm[ly][lx];
-#pragma unroll
-      for (int t = 1; t < kErodeK; ++t) m = fminf(m, sm[ly][lx + t]);
+      for (int t = 1; t < erode_k; ++t) m = fminf(m, sm[ly][lx + t]);
       smr[ly][lx] = m;
     }
   }
@@ -189,8 +191,7 @@ pyramid_level_kernel(const float* __restrict__ src,
       m = 1.0f;
       if (mask_kind != kNoMask) {
         m = smr[ly][lx];
-#pragma unroll
-        for (int t = 1; t < kErodeK; ++t) m = fminf(m, smr[ly + t][lx]);
+        for (int t = 1; t < erode_k; ++t) m = fminf(m, smr[ly + t][lx]);
       }
     } else {
       img[at] = sr[ly + kHalo][lx + kHalo];
@@ -209,13 +210,16 @@ pyramid_level_kernel(const float* __restrict__ src,
 // not written.  Level l >= 1 (level0 = 0): src, src_mask [hs, ws] float32
 // are level l - 1's image and mask; sy, sx the float32 scales hs / h and
 // ws / w.  img, mask, blur: [h, w] float32 row-major, h, w >= 4.  taps: 7
-// float32 Gaussian taps in host memory.
+// float32 Gaussian taps in host memory.  erode_k: level 0's erosion window,
+// 1 to 16.
 extern "C" int airdos_pyramid_level(const void* src, const void* src_mask,
                                     int mask_kind, int hs, int ws, void* img,
                                     void* mask, void* blur, int h, int w,
                                     float sy, float sx, const float* taps,
-                                    int level0, void* stream) {
+                                    int level0, int erode_k, void* stream) {
   if (h <= 0 || w <= 0) return static_cast<int>(cudaGetLastError());
+  if (erode_k < 1 || erode_k > kMaxErode)
+    return static_cast<int>(cudaErrorInvalidValue);
   Taps t;
   for (int i = 0; i < 7; ++i) t.k[i] = taps[i];
   const dim3 grid((w + kTile - 1) / kTile, (h + kTile - 1) / kTile);
@@ -223,6 +227,6 @@ extern "C" int airdos_pyramid_level(const void* src, const void* src_mask,
   pyramid_level_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(src), src_mask, mask_kind, hs, ws,
       static_cast<float*>(img), static_cast<float*>(mask),
-      static_cast<float*>(blur), h, w, sy, sx, t, level0);
+      static_cast<float*>(blur), h, w, sy, sx, t, level0, erode_k);
   return static_cast<int>(cudaGetLastError());
 }

@@ -25,6 +25,8 @@ import torch
 
 from airdos_tpu_torch.ops.hamming_kernels import hamming_matrix
 from airdos_tpu_torch.ops.stereo_sad import _take, stereo_sad
+# exported here as airdos_tpu.matching.stereo exports it
+from airdos_tpu_torch.ops.stereo_sad import stack_pyramid  # noqa: F401
 
 TH_HIGH = 100
 TH_LOW = 50

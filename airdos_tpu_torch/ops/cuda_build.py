@@ -2,8 +2,9 @@
 
 Each kernel source has a plain C interface.  It is compiled with nvcc for
 sm_90a at first use into the git-ignored ``airdos_tpu_torch/_build/``,
-under a name keyed by the source's hash (an edited source is rebuilt), and
-loaded with ctypes.  Nothing here runs at import time, so the kernel
+under a name keyed by the hash of the source and of the headers of
+``csrc/`` (an edited source or header is rebuilt), and loaded with
+ctypes.  Nothing here runs at import time, so the kernel
 modules import on machines without nvcc or a card.  ``LaunchCounter``
 counts a wrapper's launches from every thread of online mode.
 """
@@ -19,6 +20,7 @@ import subprocess
 import threading
 from pathlib import Path
 
+import numpy as np
 import torch
 
 PKG = Path(__file__).resolve().parent.parent
@@ -44,8 +46,10 @@ def nvcc() -> str:
 def build(source: Path) -> Path:
     """Compile one .cu file for sm_90a into _build/ and return the
     library's path (reused while the source is unchanged)."""
-    src = source.read_bytes()
-    tag = hashlib.sha256(src).hexdigest()[:12]
+    digest = hashlib.sha256(source.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):   # what a source may include
+        digest.update(header.read_bytes())
+    tag = digest.hexdigest()[:12]
     out = BUILD_DIR / f"lib{source.stem}_{tag}.so"
     if out.exists():
         return out
@@ -114,6 +118,25 @@ class LaunchCounter:
 def stream_priority(device: torch.device) -> int:
     """The priority of the calling thread's current stream on `device`."""
     return torch.cuda.current_stream(device).priority
+
+
+def check_tensor(name: str, x: torch.Tensor, dtype, shape, device):
+    """Raise unless x is a contiguous `dtype` tensor of `shape` (None: any
+    extent) on `device`: what a kernel's C entry point takes."""
+    if x.device != device or x.dtype != dtype or not x.is_contiguous() \
+            or x.dim() != len(shape) \
+            or any(s is not None and s != n for s, n in zip(shape, x.shape)):
+        want = "x".join("*" if s is None else str(s) for s in shape)
+        raise ValueError(f"{name} must be a contiguous {dtype} [{want}] "
+                         f"tensor on {device}, got {x.dtype} "
+                         f"{tuple(x.shape)} on {x.device}")
+
+
+def consts(*values) -> ctypes.Array:
+    """Scalars as the float32 array a kernel's C entry point takes (and
+    copies into a struct passed by value)."""
+    return (ctypes.c_float * len(values))(
+        *(float(np.float32(v)) for v in values))
 
 
 def on_device(device: torch.device):

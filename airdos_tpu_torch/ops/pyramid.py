@@ -2,8 +2,8 @@
 
 Behavioral equivalent of the reference's ComputePyramid
 (ORBextractor.cc:1121-1156): ``n_levels`` levels at scale factor ~1.2, and
-the AirDOS mask pyramid where the level-0 mask is eroded 10x10 before
-downscaling.  Each level is resized from the previous one.  Each level's
+the AirDOS mask pyramid where the level-0 mask is eroded (10x10 by
+default, ``mask_erode``) before downscaling.  Each level is resized from the previous one.  Each level's
 7x7 Gaussian blur (ORBextractor.cc:1105, what rBRIEF samples) is built
 with it.
 
@@ -46,15 +46,17 @@ class Pyramid(NamedTuple):
 
 
 def pyramid_level_ref(src: torch.Tensor, src_mask: Optional[torch.Tensor],
-                      out_h: int, out_w: int, level0: bool):
+                      out_h: int, out_w: int, level0: bool,
+                      mask_erode: int = 10):
     """Plain torch version of one level: (image, mask, blur), each [out_h,
     out_w] float32.  Level 0 (level0): src is the image itself, the mask
-    the 10x10 erosion of src_mask (all ones for None).  Else src and
-    src_mask are the previous level's image and mask."""
+    the mask_erode x mask_erode erosion of src_mask (all ones for None).
+    Else src and src_mask are the previous level's image and mask."""
     if level0:
         img = src
         mask = torch.ones(src.shape, dtype=torch.float32, device=src.device) \
-            if src_mask is None else erode(src_mask.to(torch.float32), 10)
+            if src_mask is None else erode(src_mask.to(torch.float32),
+                                           mask_erode)
     else:
         img = resize_bilinear(src, out_h, out_w)
         mask = (resize_bilinear(src_mask, out_h, out_w) > 0.999) \
@@ -66,8 +68,9 @@ _SOURCE = cuda_build.CSRC / "pyramid.cu"
 _SIGNATURES = {
     "airdos_pyramid_level": [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 3
     + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float] * 2
-    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
+    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 }
+MAX_ERODE = 16                   # the kernel's largest erosion window
 _MASK_KIND = {None: 0, torch.uint8: 1, torch.float32: 2}
 _kernel = None                   # the bound C entry point, once loaded
 _TAPS = (ctypes.c_float * 7)(*_gauss_kernel1d(7, 2.0))
@@ -107,11 +110,15 @@ def _check_2d(name, x, dtypes, device=None):
 
 
 def pyramid_level_cuda(src: torch.Tensor, src_mask: Optional[torch.Tensor],
-                       out_h: int, out_w: int, level0: bool):
+                       out_h: int, out_w: int, level0: bool,
+                       mask_erode: int = 10):
     """Launch the sm_90a kernel on the current stream: pyramid_level_ref's
     (image, mask, blur)."""
     global _kernel
     _check_2d("src", src, (torch.float32,))
+    if not 1 <= mask_erode <= MAX_ERODE:
+        raise ValueError(f"mask_erode {mask_erode}: the kernel erodes with "
+                         f"a window of 1 to {MAX_ERODE} pixels")
     hs, ws = src.shape
     if level0:
         if (out_h, out_w) != (hs, ws):
@@ -148,7 +155,7 @@ def pyramid_level_cuda(src: torch.Tensor, src_mask: Optional[torch.Tensor],
                       mask.data_ptr(), blur.data_ptr(), out_h, out_w,
                       float(np.float32(hs / out_h)),
                       float(np.float32(ws / out_w)), _TAPS, int(level0),
-                      torch.cuda.current_stream(dev).cuda_stream)
+                      mask_erode, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"pyramid kernel launch failed: cudaError {err}")
     _counter.count(cuda_build.stream_priority(dev))
@@ -156,23 +163,27 @@ def pyramid_level_cuda(src: torch.Tensor, src_mask: Optional[torch.Tensor],
 
 
 def pyramid_level(src: torch.Tensor, src_mask: Optional[torch.Tensor],
-                  out_h: int, out_w: int, level0: bool):
+                  out_h: int, out_w: int, level0: bool,
+                  mask_erode: int = 10):
     """One level's (image, mask, blur): CUDA tensors go to the kernel, CPU
     tensors to the plain version."""
     if src.is_cuda:
-        return pyramid_level_cuda(src, src_mask, out_h, out_w, level0)
-    return pyramid_level_ref(src, src_mask, out_h, out_w, level0)
+        return pyramid_level_cuda(src, src_mask, out_h, out_w, level0,
+                                  mask_erode)
+    return pyramid_level_ref(src, src_mask, out_h, out_w, level0, mask_erode)
 
 
 def build_pyramid(img: torch.Tensor,
                   mask: Optional[torch.Tensor],
                   n_levels: int = 8,
-                  scale_factor: float = 1.2) -> Pyramid:
+                  scale_factor: float = 1.2,
+                  mask_erode: int = 10) -> Pyramid:
     """img: [H, W] float32.  mask: [H, W] with 1 = usable pixel, or None
-    for no masking."""
+    for no masking; it is eroded mask_erode x mask_erode (1 to MAX_ERODE
+    on the card) before level 0."""
     h, w = img.shape
     shapes = level_shapes(h, w, n_levels, scale_factor)
-    levels = [pyramid_level(img, mask, h, w, True)]
+    levels = [pyramid_level(img, mask, h, w, True, mask_erode)]
     for hl, wl in shapes[1:]:
         prev_img, prev_mask, _ = levels[-1]
         levels.append(pyramid_level(prev_img, prev_mask, hl, wl, False))

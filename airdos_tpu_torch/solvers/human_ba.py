@@ -32,6 +32,16 @@ in edge order, bit-equal between the kernel and its plain version, with
 no float atomics.  Four segment-sum launches a step, 60 a solve.  The LM
 loop never reads a device value on the host.
 
+The per-edge work is kernel launches on the card: the static edges'
+rows, costs and depths (``ops/ba_static``), the landmark reduction and
+back-substitution (``ops/ba_points``), the three human families' column
+of J^T W J and -J^T W e entries, costs and depths (``ops/ba_human``) and
+each family's cost sum in a fixed order (``ops/lm_cost``).  A solve
+launches static_edge_blocks and human_edge_blocks 34 times each (15
+steps, 17 costs, 2 chi-square passes), lm_cost 68 times (4 a cost),
+landmark_reduce and landmark_backsub 15 each.  On the CPU every kernel's
+plain version runs, bit-equal to it.
+
 Multi-device (airdos_tpu's ``axis_name``): given a mesh ``group``
 (``parallel/mesh.py``) and shard-local STATIC edge tables (es_*), the
 static edges' three segment sums and their cost term are psum-reduced
@@ -47,13 +57,16 @@ from typing import NamedTuple
 
 import torch
 
-from airdos_tpu_torch.geometry.se3 import se3_compose, se3_exp, so3_exp, \
-    so3_hat
+from airdos_tpu_torch.geometry.se3 import se3_compose, se3_exp, so3_exp
+from airdos_tpu_torch.ops.ba_human import (HumanTables, human_edge_blocks,
+                                           human_edge_cost)
+from airdos_tpu_torch.ops.ba_static import (DELTA_STEREO, static_edge_blocks,
+                                            static_edge_cost)
+from airdos_tpu_torch.ops.lm_cost import lm_cost
 from airdos_tpu_torch.ops.segment_kernels import (make_compact_segments,
                                                   segment_sum)
 from airdos_tpu_torch.slam.map import BODY1, BODY2, MAIN_SKELETON, N_PARTS
 from airdos_tpu_torch.solvers.local_ba import (CHI2_STEREO, _identity,
-                                               _proj_residual,
                                                back_substitute, schur_reduce,
                                                static_segments)
 from airdos_tpu_torch.solvers.smallmat import cho_solve_dense
@@ -74,21 +87,12 @@ class HumanBAResult(NamedTuple):
 
 
 class HumanEdges(NamedTuple):
-    """The three human families' edge tables (flattened) and the indices
-    of their entries in the dense system."""
-    hp_cam: torch.Tensor     # [Eh] observing camera (0 where none)
-    hp_joint: torch.Tensor   # [Eh] flat joint index
-    hp_obs: torch.Tensor     # [Eh, 3]
-    hp_valid: torch.Tensor
-    rg_j1: torch.Tensor      # [Er] segment endpoints, flat joint index
-    rg_j2: torch.Tensor
-    rg_seg: torch.Tensor     # [Er] flat (trajectory, part) limb index
-    rg_valid: torch.Tensor
-    mo_j1: torch.Tensor      # [Em] torso joint at pose l and at l + 1
-    mo_j2: torch.Tensor
-    mo_traj: torch.Tensor
-    mo_dt: torch.Tensor
-    mo_valid: torch.Tensor
+    """The three human families' edge tables (flattened), their validity
+    and the indices of their entries in the dense system."""
+    tables: HumanTables      # what ops/ba_human reads (int32 indices)
+    hp_valid: torch.Tensor   # [Eh]
+    rg_valid: torch.Tensor   # [Er]
+    mo_valid: torch.Tensor   # [Em]
     gidx: tuple              # per family [E, q] coordinates in x
 
 
@@ -144,12 +148,15 @@ def human_edges(jo_cam, jo_obs, jo_valid, joint_exists, seg_edge_valid,
     g_m = torch.cat([off_j + mo_j1[:, None] * 3 + a3,
                      off_j + mo_j2[:, None] * 3 + a3,
                      off_m + mo_traj[:, None] * 6 + a6], dim=1)        # [E, 12]
-    return HumanEdges(hp_cam=hp_cam, hp_joint=hp_joint,
-                      hp_obs=jo_obs.reshape(-1, 3), hp_valid=hp_valid,
-                      rg_j1=rg_j1, rg_j2=rg_j2, rg_seg=rg_seg,
-                      rg_valid=rg_valid, mo_j1=mo_j1, mo_j2=mo_j2,
-                      mo_traj=mo_traj, mo_dt=mo_dt, mo_valid=mo_valid,
-                      gidx=(g_h, g_r, g_m))
+    i32 = torch.int32
+    tables = HumanTables(
+        hp_cam=hp_cam.to(i32), hp_joint=hp_joint.to(i32),
+        hp_obs=jo_obs.reshape(-1, 3).contiguous(), rg_j1=rg_j1.to(i32),
+        rg_j2=rg_j2.to(i32), rg_seg=rg_seg.to(i32), mo_j1=mo_j1.to(i32),
+        mo_j2=mo_j2.to(i32), mo_traj=mo_traj.to(i32),
+        mo_dt=mo_dt.to(jo_obs.dtype).contiguous())
+    return HumanEdges(tables=tables, hp_valid=hp_valid, rg_valid=rg_valid,
+                      mo_valid=mo_valid, gidx=(g_h, g_r, g_m))
 
 
 def scatter_keys(gidx, valid, D: int):
@@ -170,7 +177,8 @@ def scatter_keys(gidx, valid, D: int):
 
 def scatter_values(blocks):
     """blocks: per family (Jl [E, r, q], w [E], el [E, r]) -> one column of
-    the J^T W J and -J^T W e entries in ``scatter_keys``' order."""
+    the J^T W J and -J^T W e entries in ``scatter_keys``' order (the
+    essential graph's; the human families' column is ops/ba_human's)."""
     hs, bs = [], []
     for Jl, w, el in blocks:
         hs.append(torch.einsum("erq,e,erp->eqp", Jl, w, Jl).reshape(-1))
@@ -207,10 +215,16 @@ def human_bundle_adjust(
     D = 6 * C + 3 * NJ + N_PARTS * T + 6 * T
     off_j, off_d = 6 * C, 6 * C + 3 * NJ
     off_m = off_d + N_PARTS * T
-    es_cam = es_cam.to(torch.int64)
-    es_pt = es_pt.to(torch.int64)
+    cam = (fx, fy, cx, cy, bf)
+    es_cam = es_cam.to(torch.int32)
+    es_pt = es_pt.to(torch.int32)
     ed = human_edges(jo_cam, jo_obs, jo_valid, joint_exists, seg_edge_valid,
                      traj_valid, pose_dt, motion_edge_valid, C)
+    tables = ed.tables
+    Eh, Er = ed.hp_valid.shape[0], ed.rg_valid.shape[0]
+    # the human keys use the stereo chi2 threshold's delta
+    sig = (sigma_human, sigma_rigidity, sigma_motion, DELTA_STEREO,
+           th_ransac_rigidity, th_huber_motion)
 
     # free mask over x; translation-only motion updates: the reference's
     # LandmarkMotionTernaryEdge Jacobian is zero wrt the rotation block
@@ -223,99 +237,43 @@ def human_bundle_adjust(
     freef = free.to(dtype)
     eye_d = torch.eye(D, dtype=dtype, device=dev)
     fixed_diag = torch.diag(1.0 - freef)
-    pv = point_valid[:, None].to(dtype)
-
-    is_stereo_s = es_obs[:, 2] >= 0
-    is_stereo_h = ed.hp_obs[:, 2] >= 0
-    delta_s = torch.where(is_stereo_s, 2.795483, 2.447749).to(dtype)
-    huber_h = 2.795483                       # human keys use stereo chi2
-    sigma_s = es_info * sigma_static
 
     # the sorted-segment indices, once per call: the static edges' three
     # reductions and the human families' scatter into H and b
-    base_s = es_valid & point_valid[es_pt]
+    base_s = es_valid & point_valid[es_pt.long()]
     segs_s = static_segments(es_cam, es_pt, C, P, base_s)
     keys, keep = scatter_keys(ed.gidx, (ed.hp_valid, ed.rg_valid,
                                         ed.mo_valid), D)
     seg_h, pos_h = make_compact_segments(keys, keep)
 
-    def residuals(camR, camt, pts, jnts, segs, mR, mt):
-        """Residual/Jacobian pieces of every family."""
-        s = _proj_residual(camR[es_cam], camt[es_cam], pts[es_pt], es_obs,
-                           fx, fy, cx, cy, bf, is_stereo_s)
-        jflat = jnts.reshape(-1, 3)
-        h = _proj_residual(camR[ed.hp_cam], camt[ed.hp_cam],
-                           jflat[ed.hp_joint], ed.hp_obs,
-                           fx, fy, cx, cy, bf, is_stereo_h)
-        diff = jflat[ed.rg_j1] - jflat[ed.rg_j2]
-        dist = torch.sqrt(torch.sum(diff * diff, dim=-1) + 1e-12)
-        er = dist - segs.reshape(-1)[ed.rg_seg]
-        Jr = diff / dist[:, None]                    # d er / d p1; -Jr for p2
-        # motion: e = p1 - Hdt^-1 p2, Hdt = (R, t * dt)
-        Rm = mR[ed.mo_traj]
-        tm = mt[ed.mo_traj] * ed.mo_dt[:, None]
-        xm = torch.einsum("eji,ej->ei", Rm, jflat[ed.mo_j2] - tm)  # R^T (p2 - t)
-        em = jflat[ed.mo_j1] - xm
-        return s, h, (er, Jr), (em, Rm, xm)
-
-    def chi2s(res):
-        (e, _, _, z), (eh, _, _, zh), (er, _), (em, _, _) = res
-        return (torch.sum(e * e, -1) * es_info * sigma_static, z,
-                torch.sum(eh * eh, -1) * sigma_human, zh,
-                er * er * sigma_rigidity,
-                torch.sum(em * em, -1) * sigma_motion)
+    def edge_costs(state, use_huber: bool):
+        """The static and the human edges' (rho, chi2, depth)."""
+        camR, camt, pts, jnts, segs, mR, mt = state
+        return (static_edge_cost(camR, camt, pts, es_cam, es_pt, es_obs,
+                                 es_info, cam, sigma_static, use_huber),
+                human_edge_cost(camR, camt, jnts, segs, mR, mt, tables, cam,
+                                sig, use_huber))
 
     def cost(state, act, use_huber: bool):
-        chi_s, _, chi_h, _, chi_r, chi_m = chi2s(residuals(*state))
-
-        def rho(chi, delta):
-            if use_huber:
-                sq = torch.sqrt(torch.clamp(chi, min=1e-12))
-                chi = torch.where(sq > delta, 2 * delta * sq - delta * delta,
-                                  chi)
-            return torch.where(torch.isfinite(chi), chi,
-                               torch.full_like(chi, 1e30))
-
-        return (psum(torch.sum(rho(chi_s, delta_s) * act[0])) +
-                torch.sum(rho(chi_h, huber_h) * act[1]) +
-                torch.sum(rho(chi_r, th_ransac_rigidity) * act[2]) +
-                torch.sum(rho(chi_m, th_huber_motion) * act[3]))
+        cs, ch = edge_costs(state, use_huber)
+        rho_h, rho_r, rho_m = ch.rho.split([Eh, Er, ch.rho.shape[0] - Eh - Er])
+        return (psum(lm_cost(cs.rho, act[0])) + lm_cost(rho_h, act[1]) +
+                lm_cost(rho_r, act[2]) + lm_cost(rho_m, act[3]))
 
     def gn_step(state, act, lam, use_huber: bool):
         camR, camt, pts, jnts, segs, mR, mt = state
-        res = residuals(*state)
-        (e, Jc, Jx, _), (eh, Jch, Jxh, _), (er, Jr), (em, Rm, xm) = res
-        chi_s, _, chi_h, _, chi_r, chi_m = chi2s(res)
-
-        def hw(chi, delta, base_w, active):
-            if not use_huber:
-                return base_w * active
-            sq = torch.sqrt(torch.clamp(chi, min=1e-12))
-            w_h = torch.where(sq > delta, delta / sq, torch.ones_like(sq))
-            return base_w * w_h * active
-
         # static edges: Schur into the camera block
-        w_s = hw(chi_s, delta_s, sigma_s, act[0])
-        schur = schur_reduce(e, Jc, Jx, w_s, segs_s, point_valid, lam, C, P,
-                             psum)
+        rows = static_edge_blocks(camR, camt, pts, es_cam, es_pt, es_obs,
+                                  es_info, act[0], cam, sigma_static,
+                                  use_huber)
+        schur = schur_reduce(rows, segs_s, point_valid, lam, C, P, psum)
 
         # human families: vars cam(6) + joint(3); j1(3) + j2(3) + limb(1);
         # j1(3) + j2(3) + motion(6)
-        w_h = hw(chi_h, huber_h, sigma_human, act[1])
-        w_r = hw(chi_r, th_ransac_rigidity, sigma_rigidity, act[2])
-        w_m = hw(chi_m, th_huber_motion, sigma_motion, act[3])
-        E_m = em.shape[0]
-        RmT = Rm.transpose(1, 2)
-        # d em / d t_H = + R^T dt ; d em / d omega_H = -[xm]x (right pert.)
-        J_m = torch.cat([torch.eye(3, dtype=dtype, device=dev).expand(E_m, 3, 3),
-                         -RmT, RmT * ed.mo_dt[:, None, None], -so3_hat(xm)],
-                        dim=2)                                   # [E, 3, 12]
-        J_r = torch.cat([Jr, -Jr, -torch.ones_like(er)[:, None]],
-                        dim=1)[:, None, :]                       # [E, 1, 7]
-        vals = scatter_values(((torch.cat([Jch, Jxh], dim=2), w_h, eh),
-                               (J_r, w_r, er[:, None]), (J_m, w_m, em)))
+        vals = human_edge_blocks(camR, camt, jnts, segs, mR, mt, tables,
+                                 act[1:], cam, sig, use_huber)
         Hb = torch.zeros(D * D + D, dtype=dtype, device=dev)
-        Hb[pos_h] = segment_sum(vals, seg_h)[:, 0]
+        Hb[pos_h] = segment_sum(vals[:, None], seg_h)[:, 0]
         H = Hb[:D * D].reshape(D, D)
         b = Hb[D * D:]
         H[:6 * C, :6 * C] += schur.S.permute(0, 2, 1, 3).reshape(6 * C, 6 * C)
@@ -336,7 +294,7 @@ def human_bundle_adjust(
         dmot = dx[off_m:].reshape(T, 6)
         mt2 = mt + dmot[:, :3]
         mR2 = torch.matmul(mR, so3_exp(dmot[:, 3:]))
-        pts2 = pts + back_substitute(schur, dxc, pv)
+        pts2 = pts + back_substitute(schur, dxc, point_valid)
         return camR2, camt2, pts2, jnts2, segs2, mR2, mt2
 
     def run_phase(state, act, n_iters: int, use_huber: bool):
@@ -353,9 +311,11 @@ def human_bundle_adjust(
         return state
 
     def inliers(state):
-        chi_s, z_s, chi_h, z_h, chi_r, chi_m = chi2s(residuals(*state))
-        return (base_s & (chi_s <= CHI2_STEREO) & (z_s > 0),
-                ed.hp_valid & (chi_h <= CHI2_STEREO) & (z_h > 0),
+        cs, ch = edge_costs(state, False)
+        chi_h, chi_r, chi_m = ch.chi2.split(
+            [Eh, Er, ch.chi2.shape[0] - Eh - Er])
+        return (base_s & (cs.chi2 <= CHI2_STEREO) & (cs.z > 0),
+                ed.hp_valid & (chi_h <= CHI2_STEREO) & (ch.zh > 0),
                 ed.rg_valid & (chi_r <= th_ransac_rigidity),
                 ed.mo_valid & (chi_m <= th_ransac_motion))
 

@@ -7,15 +7,24 @@ projection edges, 5 + 10 LM iterations with a chi-square outlier pass in
 between (5.991 mono / 7.815 stereo), Huber kernel in the first phase.
 
 - The graph is padded edge tables (camera index, point index, obs).
-- Residuals and Jacobians of all edges at once.
+- Residuals, Jacobians, weights and the Gauss-Newton rows of all edges at
+  once: ``ops/ba_static``, one kernel launch a step on the card.
 - The Gauss-Newton blocks are summed per camera, per point and per
   (point, camera) pair with the deterministic segment sum of
   ``ops/segment_kernels`` (airdos_tpu's scatter-adds; a float
   ``index_add_`` on CUDA is order-nondeterministic): three launches a
   step, 45 a solve.  The sorted-segment index is built once per call: the
   edge table is fixed across its 15 steps.
-- Every landmark 3x3 block is marginalised; the reduced camera system
-  (6C x 6C) is solved densely by Cholesky.
+- Every landmark 3x3 block is marginalised (``ops/ba_points``: the damped
+  inverses and Wagg Hpp^-1 in one launch, the back-substitution in
+  another); the reduced camera system (6C x 6C) is solved densely by
+  Cholesky.
+- Each LM cost is one ``ops/ba_static`` launch in cost mode and one
+  ``ops/lm_cost`` sum in a fixed order: 17 a solve, and one more launch
+  of the edges for each of the two chi-square passes.  A solve so
+  launches static_edge_blocks 34 times (15 steps, 17 costs, 2 passes),
+  lm_cost 17, landmark_reduce and landmark_backsub 15 each.  On the CPU
+  every kernel's plain version runs, bit-equal to it.
 - Each LM step is accepted or rejected with ``torch.where`` on the device:
   the loop never reads a device value on the host.
 - Multi-device (airdos_tpu's ``axis_name``): given a mesh ``group``
@@ -33,9 +42,13 @@ from typing import NamedTuple
 import torch
 
 from airdos_tpu_torch.geometry.se3 import se3_compose, se3_exp, so3_hat
+from airdos_tpu_torch.ops.ba_points import landmark_backsub, landmark_reduce
+from airdos_tpu_torch.ops.ba_static import (StaticRows, static_edge_blocks,
+                                            static_edge_cost)
+from airdos_tpu_torch.ops.lm_cost import lm_cost
 from airdos_tpu_torch.ops.segment_kernels import (Segments, make_segments,
                                                   segment_sum)
-from airdos_tpu_torch.solvers.smallmat import cho_solve_dense, inv3x3
+from airdos_tpu_torch.solvers.smallmat import cho_solve_dense
 
 CHI2_MONO = 5.991
 CHI2_STEREO = 7.815
@@ -103,62 +116,46 @@ class SchurBlocks(NamedTuple):
     S: torch.Tensor         # [C, C, 6, 6] reduced camera system
     b: torch.Tensor         # [C, 6] its right-hand side
     Hpp_inv: torch.Tensor   # [P, 3, 3] damped landmark blocks, inverted
-    bp: torch.Tensor        # [P, 3]
-    Wagg: torch.Tensor      # [P, C, 6, 3] camera-point coupling per pair
+    pt_sums: torch.Tensor   # [P, 12] Hpp (9) | bp (3)
+    Wagg: torch.Tensor      # [P, C * 18] camera-point coupling per pair
 
 
 def _identity(x):
     return x
 
 
-def schur_reduce(e, Jc, Jp, w, segs: StaticSegments, point_valid, lam,
+def schur_reduce(rows: StaticRows, segs: StaticSegments, point_valid, lam,
                  C: int, P: int, psum=_identity) -> SchurBlocks:
     """The projection edges' Gauss-Newton blocks, every landmark
-    marginalised: three segment sums (airdos_tpu's five scatter-adds; the
-    blocks that share a key sum side by side, each column in its own
-    order, so the bits are those of separate sums), each psum-reduced over
-    the mesh when the edges are a shard."""
-    E = e.shape[0]
-    dtype, dev = e.dtype, e.device
-    eye3 = torch.eye(3, dtype=dtype, device=dev)
-    cam_sums = psum(segment_sum(torch.cat(
-        [torch.einsum("eik,e,eil->ekl", Jc, w, Jc).reshape(E, 36),
-         -torch.einsum("eik,e,ei->ek", Jc, w, e)], dim=1), segs.cam))
-    pt_sums = psum(segment_sum(torch.cat(
-        [torch.einsum("eik,e,eil->ekl", Jp, w, Jp).reshape(E, 9),
-         -torch.einsum("eik,e,ei->ek", Jp, w, e)], dim=1), segs.pt))
+    marginalised: three segment sums of the edges' rows (airdos_tpu's five
+    scatter-adds; the blocks that share a key sum side by side, each
+    column in its own order, so the bits are those of separate sums), each
+    psum-reduced over the mesh when the edges are a shard, then the
+    landmark reduction."""
+    cam_sums = psum(segment_sum(rows.cam, segs.cam))
+    pt_sums = psum(segment_sum(rows.pt, segs.pt))
+    Wagg = psum(segment_sum(rows.pc, segs.pc)).reshape(P, C * 18)
     Hcc, bc = cam_sums[:, :36].reshape(C, 6, 6), cam_sums[:, 36:]
-    Hpp, bp = pt_sums[:, :9].reshape(P, 3, 3), pt_sums[:, 9:]
-    # per-edge camera-point coupling W = Jc^T w Jp  [E, 6, 3]
-    Wcp = torch.einsum("eik,e,eil->ekl", Jc, w, Jp)
-
-    # damp + invert landmark blocks
-    tr = Hpp.diagonal(dim1=1, dim2=2).sum(-1)
-    Hpp = Hpp + (lam * eye3)[None] * \
-        torch.clamp(tr[:, None, None] / 3.0, min=1e-3)
-    Hpp = Hpp + 1e-6 * eye3[None]
-    Hpp_inv = inv3x3(Hpp)
-    Hpp_inv = torch.where(point_valid[:, None, None], Hpp_inv,
-                          torch.zeros_like(Hpp_inv))
+    Hpp_inv, Aagg = landmark_reduce(pt_sums, Wagg, point_valid, lam)
 
     # Schur: S = Hcc - sum_p (sum_{e in p, cam ci} W_e Hpp^-1)
     #                        (sum_{e' in p, cam cj} W_e')^T
-    Wagg = psum(segment_sum(Wcp.reshape(E, 18), segs.pc)).reshape(P, C, 6, 3)
-    Aagg = torch.einsum("pckl,plm->pckm", Wagg, Hpp_inv)
-    S_corr = torch.einsum("pikm,pjlm->ijkl", Aagg, Wagg)   # [C, C, 6, 6]
-    diag_c = torch.arange(C, device=dev)
-    S = torch.zeros((C, C, 6, 6), dtype=dtype, device=dev)
+    W = Wagg.reshape(P, C, 6, 3)
+    S_corr = torch.einsum("pikm,pjlm->ijkl", Aagg, W)      # [C, C, 6, 6]
+    diag_c = torch.arange(C, device=W.device)
+    S = torch.zeros((C, C, 6, 6), dtype=W.dtype, device=W.device)
     S[diag_c, diag_c] = Hcc
     S = S - S_corr
-    b_corr = torch.einsum("pckm,pm->ck", Aagg, bp)
-    return SchurBlocks(S=S, b=bc - b_corr, Hpp_inv=Hpp_inv, bp=bp, Wagg=Wagg)
+    b_corr = torch.einsum("pckm,pm->ck", Aagg, pt_sums[:, 9:])
+    return SchurBlocks(S=S, b=bc - b_corr, Hpp_inv=Hpp_inv, pt_sums=pt_sums,
+                       Wagg=Wagg)
 
 
-def back_substitute(blocks: SchurBlocks, dx_c, pv) -> torch.Tensor:
+def back_substitute(blocks: SchurBlocks, dx_c, point_valid) -> torch.Tensor:
     """The landmarks' steps: dx_p = Hpp^-1 (bp - sum_c Wagg_pc^T dx_c),
-    zero where pv [P, 1] is 0."""
-    WTdx = torch.einsum("pckl,ck->pl", blocks.Wagg, dx_c)
-    return torch.einsum("plm,pm->pl", blocks.Hpp_inv, blocks.bp - WTdx) * pv
+    zero where point_valid [P] is False."""
+    return landmark_backsub(blocks.Hpp_inv, blocks.pt_sums, blocks.Wagg,
+                            dx_c, point_valid)
 
 
 def local_bundle_adjust(
@@ -180,41 +177,29 @@ def local_bundle_adjust(
     C = cam_R.shape[0]
     P = points.shape[0]
     dtype, dev = points.dtype, points.device
-    e_cam = e_cam.to(torch.int64)
-    e_pt = e_pt.to(torch.int64)
-    is_stereo = e_obs[:, 2] >= 0
-    delta_h = torch.where(is_stereo, 2.795483, 2.447749).to(dtype)
-    chi_th = torch.where(is_stereo, CHI2_STEREO, CHI2_MONO).to(dtype)
+    cam = (fx, fy, cx, cy, bf)
+    e_cam = e_cam.to(torch.int32)
+    e_pt = e_pt.to(torch.int32)
+    chi_th = torch.where(e_obs[:, 2] >= 0, CHI2_STEREO, CHI2_MONO).to(dtype)
     eye6 = torch.eye(6, dtype=dtype, device=dev)
     diag_c = torch.arange(C, device=dev)
 
     # the sorted-segment index of each reduction, once per call
-    base = e_valid & point_valid[e_pt]
+    base = e_valid & point_valid[e_pt.long()]
     segs = static_segments(e_cam, e_pt, C, P, base)
 
     cam_free = (~cam_fixed).to(dtype)
     free_mask = cam_free[:, None, None, None] * cam_free[None, :, None, None]
     fixed_diag = (1.0 - cam_free)[:, None, None] * eye6[None]
-    pv = point_valid[:, None].to(dtype)
 
-    def chi2_all(R, t, pts):
-        e, _, _, z = _proj_residual(R[e_cam], t[e_cam], pts[e_pt], e_obs,
-                                    fx, fy, cx, cy, bf, is_stereo)
-        return torch.sum(e * e, dim=-1) * e_info, z
+    def edge_cost(R, t, pts, use_huber: bool):
+        return static_edge_cost(R, t, pts, e_cam, e_pt, e_obs, e_info, cam,
+                                1.0, use_huber)
 
     def gn_step(R, t, pts, active, lam, use_huber: bool):
-        Rc = R[e_cam]
-        e, Jc, Jp, _ = _proj_residual(Rc, t[e_cam], pts[e_pt], e_obs,
-                                      fx, fy, cx, cy, bf, is_stereo)
-        chi2 = torch.sum(e * e, dim=-1) * e_info
-        if use_huber:
-            sq = torch.sqrt(torch.clamp(chi2, min=1e-12))
-            w_h = torch.where(sq > delta_h, delta_h / sq, torch.ones_like(sq))
-        else:
-            w_h = torch.ones_like(chi2)
-        w = e_info * w_h * active
-        blocks = schur_reduce(e, Jc, Jp, w, segs, point_valid, lam, C, P,
-                              psum)
+        rows = static_edge_blocks(R, t, pts, e_cam, e_pt, e_obs, e_info,
+                                  active, cam, 1.0, use_huber)
+        blocks = schur_reduce(rows, segs, point_valid, lam, C, P, psum)
 
         # freeze fixed cameras: identity rows/cols, zero rhs
         S = blocks.S * free_mask
@@ -230,20 +215,11 @@ def local_bundle_adjust(
 
         dR, dt = se3_exp(dx_c)
         Rn, tn = se3_compose(dR, dt, R, t)
-        return Rn, tn, pts + back_substitute(blocks, dx_c, pv)
+        return Rn, tn, pts + back_substitute(blocks, dx_c, point_valid)
 
     def run_phase(R, t, pts, active, n_iters: int, use_huber: bool):
         def cost(R, t, pts):
-            chi2, _ = chi2_all(R, t, pts)
-            if use_huber:
-                sq = torch.sqrt(torch.clamp(chi2, min=1e-12))
-                rho = torch.where(sq > delta_h,
-                                  2 * delta_h * sq - delta_h * delta_h, chi2)
-            else:
-                rho = chi2
-            rho = torch.where(torch.isfinite(rho), rho,
-                              torch.full_like(rho, 1e30))
-            return psum(torch.sum(rho * active))
+            return psum(lm_cost(edge_cost(R, t, pts, use_huber).rho, active))
 
         lam = torch.tensor(1e-6, dtype=dtype, device=dev)
         f_prev = cost(R, t, pts)
@@ -259,9 +235,9 @@ def local_bundle_adjust(
         return R, t, pts
 
     R, t, pts = run_phase(cam_R, cam_t, points, base.to(dtype), iters1, True)
-    chi2, z = chi2_all(R, t, pts)
+    _, chi2, z = edge_cost(R, t, pts, False)
     inlier = base & (chi2 <= chi_th) & (z > 0)
     R, t, pts = run_phase(R, t, pts, inlier.to(dtype), iters2, False)
-    chi2, z = chi2_all(R, t, pts)
+    _, chi2, z = edge_cost(R, t, pts, False)
     inlier = base & (chi2 <= chi_th) & (z > 0)
     return LocalBAResult(R=R, t=t, points=pts, edge_inlier=inlier)

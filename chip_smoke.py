@@ -7,10 +7,10 @@ Run from the repository root.  Phases, each of which fails the run:
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions, whether nvcc is present; a CUDA device is required;
-2. build: the nine sources of csrc/ (hamming.cu, segment_sum.cu,
+2. build: the thirteen sources of csrc/ (hamming.cu, segment_sum.cu,
    pose_lm.cu, fast.cu, orb_desc.cu, pyramid.cu, select.cu, stereo_sad.cu,
-   disparity.cu) compiled with nvcc for sm_90a, all at once (build
-   seconds);
+   disparity.cu, ba_static.cu, ba_points.cu, ba_human.cu, lm_cost.cu)
+   compiled with nvcc for sm_90a, all at once (build seconds);
 3. slice: tracking only, Tracking(cfg, FrontEnd(cfg, "cuda"), SlamMap(),
    local_mapper=None) (airdos_tpu's tracking-only configuration), over 28
    bench frames of the synthetic world at the reference budget (640x360,
@@ -25,7 +25,9 @@ Run from the repository root.  Phases, each of which fails the run:
    keyframes inserted, ATE < 0.02 m, triangulation created points, the
    static BA solved at every keyframe after the third, batched Hamming
    launches on every keyframe frame after the first, 45 segment_sum
-   launches per BA solve (3 per Gauss-Newton step);
+   launches per BA solve (3 per Gauss-Newton step), and per solve 34
+   static_edge_blocks (15 steps, 17 LM costs, 2 chi-square passes), 17
+   lm_cost, 15 landmark_reduce and 15 landmark_backsub launches;
 5. human: the AirDOS flagship on bench.py sections 2-3's crowd scene
    (SyntheticStereoWorld(seed=2, n_points=500, n_humans=10, crowd=True),
    trajectory(27, 0.1, yaw_rate=0.005), humans rendered; the images
@@ -37,7 +39,10 @@ Run from the repository root.  Phases, each of which fails the run:
    the same frames: every flagship frame OK, >= 1 long trajectory
    optimized, a human BA solve at every cadence tick with long
    trajectories, 45 segment_sum launches per static BA solve and 60 per
-   human BA solve (4 per Gauss-Newton step), ATE_human < 0.6 ATE_static
+   human BA solve (4 per Gauss-Newton step), the static solve's launches
+   of phase 4 and per human BA solve 34 static_edge_blocks, 34
+   human_edge_blocks, 68 lm_cost (4 a cost), 15 landmark_reduce and 15
+   landmark_backsub launches, ATE_human < 0.6 ATE_static
    and < 0.03 m; prints both ATEs, the human BA's reduced dimension D, the
    per-frame latency of tracking, keyframe and human-BA frames and the
    median human_ba span;
@@ -77,9 +82,10 @@ Run from the repository root.  Phases, each of which fails the run:
    call the same way and used nowhere in the port (segment_sum:
    index_add_; Hamming: torch.cdist(p=0) on the descriptors unpacked to
    float {0, 1} [.., 256], unpacked outside the timed window; none for
-   the pose LM, FAST + NMS, orb_desc, selection, stereo_sad and
-   patch_disparity; the pyramid's levels after the first:
-   F.interpolate(bilinear), the image's resize alone, not bit-equal):
+   the pose LM, FAST + NMS, orb_desc, selection, stereo_sad,
+   patch_disparity and the BA kernels; the pyramid's levels after the
+   first: F.interpolate(bilinear), the image's resize alone, not
+   bit-equal):
    - the 2-D Hamming kernel at 1536x1536, 2048x1536 and a ragged
      1500x1337 of random words: exact equality;
    - every kernel at every shape the path phases launched it with, on the
@@ -99,7 +105,10 @@ Run from the repository root.  Phases, each of which fails the run:
      patch_disparity bit-equal; stereo_sad (by keypoints and levels)
      bit-equal where every pixel is 0 or >= 2^-8 (ops/stereo_sad.py's
      condition), else >= 99.9% of accept flags equal and u_right within
-     1e-3 px where both accept;
+     1e-3 px where both accept; static_edge_blocks (by edges, cameras,
+     points and mode), landmark_reduce and landmark_backsub (by points
+     and cameras), human_edge_blocks (by family sizes and mode) and
+     lm_cost (by terms) bit-equal, two launches bit-equal;
 10. determinism: two card runs of the mapping System on the small camera
    over 8 frames give byte-identical TUM and KF/MP/Match dumps, and two
    card runs of the human System (small camera, seed 3, 2 humans, masked,
@@ -413,8 +422,29 @@ def _disp():
     return dk
 
 
+def _bst():
+    from airdos_tpu_torch.ops import ba_static as bs
+    return bs
+
+
+def _bpt():
+    from airdos_tpu_torch.ops import ba_points as bp
+    return bp
+
+
+def _bhu():
+    from airdos_tpu_torch.ops import ba_human as bh
+    return bh
+
+
+def _lmc():
+    from airdos_tpu_torch.ops import lm_cost as lc
+    return lc
+
+
 # the modules that hold the kernels, one nvcc source each
-_MODULES = (_hamming, _segments, _pose, _fast, _orb, _pyr, _sel, _sad, _disp)
+_MODULES = (_hamming, _segments, _pose, _fast, _orb, _pyr, _sel, _sad, _disp,
+            _bst, _bpt, _bhu, _lmc)
 
 
 def _words(rng, shape):
@@ -437,6 +467,9 @@ def _unpack_bits(w):
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 FP32_FLOPS = 67e12
+# float64 outside the tensor cores (NVIDIA's data sheet: 34 TFLOP/s; the
+# 67 TFLOP/s of float64 are the tensor cores'), the BA kernels' sums
+FP64_FLOPS = 34e12
 
 
 # ------------------------------------------------------------- Hamming
@@ -737,8 +770,8 @@ PYR_RESIZE_FLOPS = 19
 PYR_ERODE_FLOPS = 18
 
 
-def _pyr_shape(src, src_mask, out_h, out_w, level0):
-    # (level 0, source h, w, output h, w, mask dtype)
+def _pyr_shape(src, src_mask, out_h, out_w, level0, mask_erode=10):
+    # (level 0, source h, w, output h, w, mask dtype); the path erodes 10
     return (bool(level0),) + tuple(src.shape) + (out_h, out_w) + (
         None if src_mask is None else str(src_mask.dtype).split(".")[-1],)
 
@@ -783,7 +816,7 @@ def _pyr_library(args):
     """F.interpolate(bilinear, align_corners=False, antialias=False), the
     image's resize alone (not bit-equal: a comparison); none at level 0."""
     import torch.nn.functional as F
-    src, src_mask, out_h, out_w, level0 = args
+    src, src_mask, out_h, out_w, level0 = args[:5]
     if level0:
         return _no_library(args)
     x = src[None, None]
@@ -979,6 +1012,149 @@ def _disp_bound(shape, args):
     return 4 * (left + right) + 12 * n, n * DISP_PROBE_FLOPS / FP32_FLOPS
 
 
+# ------------------------------------------------- the BAs' Gauss-Newton
+
+def _bits_equal(a, b) -> bool:
+    """Bit for bit (NaNs equal to NaNs, whatever their payload)."""
+    import torch
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    a, b = a.contiguous(), b.contiguous()
+    same = a.view(torch.int32) == b.view(torch.int32)
+    return bool((same | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def _outs(x):
+    """A kernel's outputs as a tuple of tensors."""
+    return tuple(x) if isinstance(x, tuple) else (x,)
+
+
+def _ba_check(name, cuda_fn, plain_fn):
+    """Bit-equal to the plain version on the card, and two launches
+    bit-equal to each other."""
+    def check(args):
+        import torch
+        got = _outs(cuda_fn()(*args))
+        again = _outs(cuda_fn()(*args))
+        want = _outs(plain_fn()(*args))
+        torch.cuda.synchronize()
+        err = 0.0
+        for a, b in zip(got, want):
+            ok = torch.isfinite(a) & torch.isfinite(b)
+            if ok.any():
+                err = max(err, float((a[ok] - b[ok]).abs().max()))
+        if not all(_bits_equal(a, b) for a, b in zip(got, want)):
+            _fail(f"{name} != plain version (max abs err {err})")
+        if not all(_bits_equal(a, b) for a, b in zip(got, again)):
+            _fail(f"{name}: two launches differ")
+        n = sum(int((~torch.isfinite(a)).sum()) for a in got)
+        what = f"bit-equal, deterministic, {n} non-finite outputs"
+        return err, what, (lambda: cuda_fn()(*args)), \
+            (lambda: plain_fn()(*args))
+    return check
+
+
+# float32 and float64 operations a unit of work, counted from the kernels'
+# code: a static edge's projection, chi2, Huber and weight (float32) and
+# its three normal-equation rows (float64; cost mode: the float32 part);
+# a landmark's damped float64 inverse and an Aagg row (3 x 5); a
+# back-substitution camera (18 products, 18 sums) and a point's tree and
+# step; a human edge of each family (float32) and its column entries
+# (float64)
+STATIC_EDGE_F32, STATIC_EDGE_F64 = 102, 432
+POINT_INVERSE_F64, AAGG_ROW_F64 = 53, 15
+BACKSUB_CAMERA_F64, BACKSUB_POINT_F64 = 36, 30
+HUMAN_F32 = (93, 20, 30)
+HUMAN_F64 = (504, 70, 852)
+
+
+def _st_shape(R, t, pts, e_cam, *rest):     # (edges, C, P, cost mode)
+    return (e_cam.shape[0], R.shape[0], pts.shape[0], bool(rest[-1]))
+
+
+def _st_fmt(shape) -> str:
+    E, C, P, cost = shape
+    return f"E={E} C={C} P={P}, {'cost' if cost else 'Gauss-Newton'} mode"
+
+
+def _st_bound(shape, args):
+    """The cameras, points and the edge table read once (active in
+    Gauss-Newton mode), the rows (72 floats an edge) or the costs (3)
+    written once."""
+    E, C, P, cost = shape
+    nbytes = 48 * C + 12 * P + E * (24 + (0 if cost else 4)) \
+        + 4 * E * (3 if cost else 72)
+    return nbytes, E * STATIC_EDGE_F32 / FP32_FLOPS + \
+        (0 if cost else E * STATIC_EDGE_F64 / FP64_FLOPS)
+
+
+def _lr_shape(pt_sums, wagg, *rest):      # (P, C)
+    return (pt_sums.shape[0], wagg.shape[1] // 18)
+
+
+def _lr_bound(shape, args):
+    """pt_sums, Wagg, the valid flags and lam read once, Hpp^-1 and Aagg
+    written once; an inverse a point and an Aagg row a (point, camera,
+    row)."""
+    P, C = shape
+    return 48 * P + 72 * P * C + P + 4 + 36 * P + 72 * P * C, \
+        (P * POINT_INVERSE_F64 + 6 * P * C * AAGG_ROW_F64) / FP64_FLOPS
+
+
+def _lb_shape(hinv, pt_sums, wagg, *rest):  # (P, C)
+    return (pt_sums.shape[0], wagg.shape[1] // 18)
+
+
+def _lb_bound(shape, args):
+    """Hpp^-1, bp, Wagg, dx_c and the valid flags read once, dx_p written
+    once."""
+    P, C = shape
+    return 36 * P + 12 * P + 72 * P * C + 24 * C + P + 12 * P, \
+        (P * C * BACKSUB_CAMERA_F64 + P * BACKSUB_POINT_F64) / FP64_FLOPS
+
+
+def _hu_shape(camR, camt, joints, seg_len, motR, mott, tb, *rest):
+    # (edges of each family, cost mode)
+    return tuple(_bhu().family_sizes(tb)) + (bool(rest[-1]),)
+
+
+def _hu_fmt(shape) -> str:
+    Eh, Er, Em, cost = shape
+    return (f"{Eh} projection, {Er} rigidity, {Em} motion edges, "
+            f"{'cost' if cost else 'Gauss-Newton'} mode")
+
+
+def _hu_bound(shape, args):
+    """The state (cameras, joints, limbs, motions) and the edge tables
+    read once (the activities in Gauss-Newton mode), the column (90, 56,
+    156 floats an edge) or the costs written once."""
+    Eh, Er, Em, cost = shape
+    camR, joints, seg_len, motR = args[0], args[2], args[3], args[4]
+    state = 48 * camR.shape[0] + 4 * joints.numel() + 4 * seg_len.numel() \
+        + 48 * motR.shape[0]
+    tables = 20 * Eh + 12 * Er + 16 * Em
+    E = (Eh, Er, Em)
+    if cost:
+        out = 4 * (2 * sum(E) + Eh)
+        return state + tables + out, \
+            sum(e * f for e, f in zip(E, HUMAN_F32)) / FP32_FLOPS
+    out = 4 * (90 * Eh + 56 * Er + 156 * Em)
+    return state + tables + 4 * sum(E) + out, \
+        sum(e * f for e, f in zip(E, HUMAN_F32)) / FP32_FLOPS + \
+        sum(e * f for e, f in zip(E, HUMAN_F64)) / FP64_FLOPS
+
+
+def _lc_shape(rho, active):                 # (terms,)
+    return (rho.shape[0],)
+
+
+def _lc_bound(shape, args):
+    """rho and active read once, one float written; a guard, a product
+    and a sum a term."""
+    n, = shape
+    return 8 * n + 4, 3 * n / FP32_FLOPS
+
+
 class _Kernel(NamedTuple):
     """Everything the script knows of one kernel: where it lives, the
     wrapper the main paths' launches are recorded at, how a recorded
@@ -1066,7 +1242,73 @@ KERNELS = (
             "airdos_tpu/ops/disparity.py:27 patch_disparity", _disp_shape,
             _disp_fmt, lambda shape: shape[2], _disp_check, _disp_bound,
             _no_library, human_only=True),
+    _Kernel("static_edge_blocks", _bst, "static_edges_cuda", "launches",
+            "airdos_tpu_torch/csrc/ba_static.cu",
+            "airdos_tpu/solvers/local_ba.py:43 _proj_residual and :107 "
+            "gn_step (weights, products), airdos_tpu/solvers/human_ba.py:188 "
+            "residuals (static half)", _st_shape, _st_fmt,
+            lambda shape: shape[0],
+            _ba_check("static_edge_blocks",
+                      lambda: _bst().static_edges_cuda,
+                      lambda: _bst().static_edges_ref),
+            _st_bound, _no_library),
+    _Kernel("landmark_reduce", _bpt, "landmark_reduce_cuda",
+            "reduce_launches", "airdos_tpu_torch/csrc/ba_points.cu",
+            "airdos_tpu/solvers/local_ba.py:130 (damped inv3x3, Aagg)",
+            _lr_shape, lambda shape: f"P={shape[0]} C={shape[1]}",
+            lambda shape: shape[0] * shape[1],
+            _ba_check("landmark_reduce", lambda: _bpt().landmark_reduce_cuda,
+                      lambda: _bpt().landmark_reduce_ref),
+            _lr_bound, _no_library),
+    _Kernel("landmark_backsub", _bpt, "landmark_backsub_cuda",
+            "backsub_launches", "airdos_tpu_torch/csrc/ba_points.cu",
+            "airdos_tpu/solvers/local_ba.py:164 (back-substitution)",
+            _lb_shape, lambda shape: f"P={shape[0]} C={shape[1]}",
+            lambda shape: shape[0],
+            _ba_check("landmark_backsub",
+                      lambda: _bpt().landmark_backsub_cuda,
+                      lambda: _bpt().landmark_backsub_ref),
+            _lb_bound, _no_library),
+    _Kernel("human_edge_blocks", _bhu, "human_edges_cuda", "launches",
+            "airdos_tpu_torch/csrc/ba_human.cu",
+            "airdos_tpu/solvers/human_ba.py:188 residuals, :257 gn_step "
+            "(family weights, J_m, J_r, scatter products)", _hu_shape,
+            _hu_fmt, lambda shape: sum(shape[:3]),
+            _ba_check("human_edge_blocks", lambda: _bhu().human_edges_cuda,
+                      lambda: _bhu().human_edges_ref),
+            _hu_bound, _no_library, human_only=True),
+    _Kernel("lm_cost", _lmc, "lm_cost_cuda", "launches",
+            "airdos_tpu_torch/csrc/lm_cost.cu",
+            "airdos_tpu/solvers/local_ba.py:176 cost, "
+            "airdos_tpu/solvers/human_ba.py:223 cost", _lc_shape,
+            lambda shape: f"{shape[0]} terms", lambda shape: 1,
+            _ba_check("lm_cost", lambda: _lmc().lm_cost_cuda,
+                      lambda: _lmc().lm_cost_ref),
+            _lc_bound, _no_library),
 )
+
+# the BA kernels' launches per solve of the static (local) BA and of the
+# human BA, from solvers/local_ba.py's and solvers/human_ba.py's
+# docstrings: 15 Gauss-Newton steps, 17 LM costs and 2 chi-square passes
+# (segment_sum's 45 and 60 are checked on their own)
+STATIC_SOLVE = {"static_edge_blocks": 34, "lm_cost": 17,
+                "landmark_reduce": 15, "landmark_backsub": 15}
+HUMAN_SOLVE = {"static_edge_blocks": 34, "human_edge_blocks": 34,
+               "lm_cost": 68, "landmark_reduce": 15, "landmark_backsub": 15}
+
+
+def _per_solve_off(per, static: str, human: str = ""):
+    """The frames whose launches of the BA kernels are not STATIC_SOLVE a
+    static BA solve plus HUMAN_SOLVE a human one: [(frame, kernel, got,
+    want)]."""
+    off = []
+    for i, p in enumerate(per):
+        n_s, n_h = p[static], p[human] if human else 0
+        for k in STATIC_SOLVE.keys() | HUMAN_SOLVE.keys():
+            want = STATIC_SOLVE.get(k, 0) * n_s + HUMAN_SOLVE.get(k, 0) * n_h
+            if p["d"][k] != want:
+                off.append((i, k, p["d"][k], want))
+    return off
 
 
 def _reset_counts() -> None:
@@ -1594,6 +1836,10 @@ def phase_mapping(smi: str, frames, twc, twins):
     if seg_off:
         _fail(f"mapping: segment_sum launches != 45 per BA solve at frames "
               f"{seg_off}")
+    ba_off = _per_solve_off(per, "solves")
+    if ba_off:
+        _fail(f"mapping: BA kernel launches per solve != {STATIC_SOLVE} at "
+              f"(frame, kernel, launches, expected) {ba_off[:8]}")
     human_only = {k.name for k in KERNELS if k.human_only}
     idle = [k for k, v in counts.items() if v <= 0 and k not in human_only]
     if idle:
@@ -1666,6 +1912,11 @@ def phase_human(smi: str, frames, twc, twins):
     if seg_off:
         _fail(f"human: segment_sum launches != 45 per static and 60 per "
               f"human BA solve at frames {seg_off}")
+    ba_off = _per_solve_off(per, "static", "human")
+    if ba_off:
+        _fail(f"human: BA kernel launches != {STATIC_SOLVE} per static and "
+              f"{HUMAN_SOLVE} per human BA solve at (frame, kernel, "
+              f"launches, expected) {ba_off[:8]}")
     idle = [k for k, v in counts.items() if v <= 0]
     if idle:
         _fail(f"human: kernels never launched on the main path: {idle}")
@@ -2766,7 +3017,9 @@ def phase_profile(smi: str):
             for tag in ("hamming_kernel", "segment_sum_", "pose_lm_kernel",
                         "pyramid_level_kernel", "fast_nms_kernel",
                         "select_kernel", "orb_desc_kernel",
-                        "stereo_sad_kernel", "patch_disparity_kernel"))
+                        "stereo_sad_kernel", "patch_disparity_kernel",
+                        "static_edges_kernel", "landmark_reduce_kernel",
+                        "landmark_backsub_kernel", "lm_cost_kernel"))
         kf = slam.map.kfs.get(slam.tracking.last_kf_id)
         is_kf = kf is not None and kf.frame_id == d.index
         print(f"[profile] frame {d.index} ({slam.tracking.last_branch}"

@@ -1136,3 +1136,280 @@ def test_patch_disparity_kernel_rejects_what_it_does_not_take(cuda):
                      ((im, im, px), {"block": 12})):
         with pytest.raises(ValueError):
             dk.patch_disparity_cuda(*args, **kw)
+
+
+@pytest.mark.parametrize("k", [1, 6, 16])
+def test_pyramid_kernel_erodes_with_the_window_asked(cuda, k):
+    """Level 0's mask eroded k x k (build_pyramid's mask_erode), bit-equal
+    to the plain version; a window past 16 is refused."""
+    import airdos_tpu_torch.ops.pyramid as pk
+    rng = np.random.default_rng(k)
+    img, mask = _pyramid_inputs(rng, 120, 200, "uint8")
+    mask[rng.random(mask.shape) < 0.01] = 0
+    img_d, mask_d = torch.from_numpy(img).to(cuda), torch.from_numpy(mask).to(cuda)
+    got = pk.pyramid_level_cuda(img_d, mask_d, 120, 200, True, k)
+    want = pk.pyramid_level_ref(img_d, mask_d, 120, 200, True, k)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError):
+        pk.pyramid_level_cuda(img_d, mask_d, 120, 200, True, 17)
+    pyr = pk.build_pyramid(img_d, mask_d, 3, 1.2, mask_erode=k)
+    assert torch.equal(pyr.masks[0], got[1])
+
+
+def _bits_equal(a, b):
+    """Bit for bit (NaNs equal to NaNs, whatever their payload)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    a, b = a.contiguous(), b.to(a.device).contiguous()
+    same = a.view(torch.int32) == b.view(torch.int32)
+    return bool((same | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def _rotations(rng, n):
+    w = rng.normal(0, 0.2, (n, 3))
+    th = np.linalg.norm(w, axis=1, keepdims=True)
+    k = w / th
+    K = np.zeros((n, 3, 3))
+    K[:, 0, 1], K[:, 0, 2], K[:, 1, 2] = -k[:, 2], k[:, 1], -k[:, 0]
+    K = K - K.transpose(0, 2, 1)
+    s, c = np.sin(th)[:, :, None], np.cos(th)[:, :, None]
+    return (np.eye(3) + s * K + (1 - c) * K @ K).astype(np.float32)
+
+
+BA_CAM = (458.654, 457.296, 367.215, 248.375, 50.0)
+
+
+def _static_case(rng, E, C, P):
+    """A local BA's edge table: mono edges, a quarter padding (camera 0,
+    point 0, inactive), points behind and on the camera plane, residuals
+    past the Huber deltas and one observation that is infinite."""
+    R = _rotations(rng, C)
+    t = rng.normal(0, 0.3, (C, 3)).astype(np.float32)
+    pts = rng.uniform([-4, -2, 3], [4, 2, 15], (P, 3)).astype(np.float32)
+    pts[:4, 2] = [-2.0, 0.0, 1e-7, -1e-7]
+    R[0], t[0] = np.eye(3, dtype=np.float32), 0.0
+    e_cam = rng.integers(0, C, E).astype(np.int32)
+    e_pt = rng.integers(0, P, E).astype(np.int32)
+    e_cam[:4], e_pt[:4] = 0, np.arange(4)
+    xc = np.einsum("eij,ej->ei", R[e_cam], pts[e_pt]) + t[e_cam]
+    fx, fy, cx, cy, bf = BA_CAM
+    z = np.where(np.abs(xc[:, 2]) < 1e-3, 1.0, xc[:, 2])
+    obs = np.stack([fx * xc[:, 0] / z + cx, fy * xc[:, 1] / z + cy,
+                    fx * xc[:, 0] / z + cx - bf / z], 1)
+    obs += rng.normal(0, 2.0, obs.shape)
+    obs[rng.random(E) < 0.3, 2] = -1.0
+    obs[5] = [np.inf, 1.0, 1.0]
+    info = rng.uniform(0.3, 1.5, E).astype(np.float32)
+    active = (rng.random(E) > 0.1).astype(np.float32)
+    pad = rng.random(E) < 0.25
+    pad[:8] = False
+    e_cam[pad], e_pt[pad], active[pad], obs[pad] = 0, 0, 0.0, 0.0
+    return (R, t, pts, e_cam, e_pt, obs.astype(np.float32), info, active)
+
+
+@pytest.mark.parametrize("E,C,P", [(8192, 24, 2048), (16384, 48, 4096),
+                                   (8192, 128, 4096), (1001, 5, 300)])
+@pytest.mark.parametrize("huber,scale", [(True, 1.0), (False, 1.0),
+                                         (True, 0.7)])
+def test_static_edge_blocks_kernel_equals_plain_version(cuda, E, C, P,
+                                                        huber, scale):
+    """Rows (Gauss-Newton mode) and rho, chi2, z (cost mode) bit-equal to
+    the plain version on the card and on the CPU, one launch a call."""
+    import airdos_tpu_torch.ops.ba_static as bs
+    rng = np.random.default_rng(E + C + P)
+    case = _static_case(rng, E, C, P)
+    args = [torch.from_numpy(a).to(cuda) for a in case]
+    before = bs.launches()
+    rows = bs.static_edge_blocks(*args, BA_CAM, scale, huber)
+    cost = bs.static_edge_cost(*args[:7], BA_CAM, scale, huber)
+    torch.cuda.synchronize()
+    assert bs.launches() == before + 2
+    for mode, got in ((False, rows), (True, cost)):
+        want = bs.static_edges_ref(*args, BA_CAM, scale, huber, mode)
+        want_cpu = bs.static_edges_ref(*(a.cpu() for a in args), BA_CAM,
+                                       scale, huber, mode)
+        for name, a, b, c in zip(got._fields, got, want, want_cpu):
+            assert _bits_equal(a, b), (mode, name)
+            assert _bits_equal(a, c), (mode, name, "cpu")
+    assert not torch.isfinite(cost.rho[5])
+    assert torch.all(rows.cam[args[7] == 0] == 0)
+
+
+def _landmark_case(rng, P, C):
+    """Segment sums of a landmark Schur step: rank-1 and rank-2 blocks,
+    empty and invalid points, cameras that do not see a point, a fixed
+    camera (zero step)."""
+    J = rng.normal(0, 30, (P, 4, 3))
+    J[: P // 8, 1:] = 0.0                          # one row: rank 1
+    J[P // 8: P // 4, 2:] = 0.0                    # rank 2
+    J[P // 4: P // 4 + 3] = 0.0                    # no edge at all
+    Hpp = np.einsum("pik,pil->pkl", J, J)
+    pt_sums = np.concatenate([Hpp.reshape(P, 9), rng.normal(0, 10, (P, 3))],
+                             1).astype(np.float32)
+    wagg = rng.normal(0, 5, (P, C, 18)).astype(np.float32)
+    wagg[rng.random((P, C)) < 0.7] = 0.0
+    valid = rng.random(P) > 0.1
+    dx_c = rng.normal(0, 1e-2, (C, 6)).astype(np.float32)
+    dx_c[0] = 0.0
+    return pt_sums, wagg.reshape(P, C * 18), valid, dx_c
+
+
+@pytest.mark.parametrize("P,C", [(2048, 24), (4096, 48), (4096, 128),
+                                 (37, 70)])
+@pytest.mark.parametrize("lam", [8.1e-9, 1e-6, 4e3])
+def test_landmark_schur_kernels_equal_plain_version(cuda, P, C, lam):
+    """The reduction (Hpp^-1, Aagg) and the back-substitution bit-equal to
+    their plain versions on the card and on the CPU, one launch each."""
+    import airdos_tpu_torch.ops.ba_points as bp
+    rng = np.random.default_rng(P + C)
+    pt_sums, wagg, valid, dx_c = (torch.from_numpy(a).to(cuda) for a in
+                                  _landmark_case(rng, P, C))
+    lam_d = torch.tensor(lam, dtype=torch.float32, device=cuda)
+    r0, b0 = bp.reduce_launches(), bp.backsub_launches()
+    hinv, aagg = bp.landmark_reduce(pt_sums, wagg, valid, lam_d)
+    dx_p = bp.landmark_backsub(hinv, pt_sums, wagg, dx_c, valid)
+    torch.cuda.synchronize()
+    assert (bp.reduce_launches(), bp.backsub_launches()) == (r0 + 1, b0 + 1)
+    for got, want, cpu in (
+            ((hinv, aagg), bp.landmark_reduce_ref(pt_sums, wagg, valid,
+                                                  lam_d),
+             bp.landmark_reduce_ref(pt_sums.cpu(), wagg.cpu(), valid.cpu(),
+                                    lam_d.cpu())),
+            ((dx_p,), (bp.landmark_backsub_ref(hinv, pt_sums, wagg, dx_c,
+                                               valid),),
+             (bp.landmark_backsub_ref(hinv.cpu(), pt_sums.cpu(), wagg.cpu(),
+                                      dx_c.cpu(), valid.cpu()),))):
+        for a, b, c in zip(got, want, cpu):
+            assert _bits_equal(a, b)
+            assert _bits_equal(a, c)
+    assert torch.all(hinv[~valid] == 0) and torch.all(dx_p[~valid] == 0)
+    assert torch.isfinite(hinv[valid]).all()
+
+
+def _human_case(rng, T, L, C, device):
+    import airdos_tpu_torch.solvers.human_ba as thba
+    N = 14
+    exists = rng.random((T, L, N)) > 0.1
+    jo_cam = rng.integers(-1, C, (T, L))
+    ed = thba.human_edges(
+        torch.from_numpy(jo_cam).to(device),
+        torch.from_numpy(rng.normal(300, 80, (T, L, N, 3)).astype(np.float32))
+        .to(device), torch.from_numpy(rng.random((T, L, N)) > 0.2).to(device),
+        torch.from_numpy(exists).to(device),
+        torch.from_numpy(rng.random((T, L, N)) > 0.1).to(device),
+        torch.from_numpy(rng.random(T) > 0.2).to(device),
+        torch.from_numpy(rng.uniform(0.1, 0.3, (T, L)).astype(np.float32))
+        .to(device), torch.from_numpy(rng.random((T, L, 5)) > 0.1).to(device),
+        C)
+    obs = ed.tables.hp_obs.clone()
+    obs[torch.from_numpy(rng.random(obs.shape[0]) < 0.3).to(device), 2] = -1.0
+    tb = ed.tables._replace(hp_obs=obs)
+    act = [v.to(torch.float32) for v in (ed.hp_valid, ed.rg_valid,
+                                         ed.mo_valid)]
+    joints = rng.uniform([-1, -1, 2], [1, 1, 8], (T, L, N, 3))
+    joints[0, 0, 0, 2] = -1.0                      # behind its camera
+    state = (_rotations(rng, C), rng.normal(0, 0.2, (C, 3)), joints,
+             rng.uniform(0.2, 0.6, (T, N)), _rotations(rng, T),
+             rng.normal(0, 0.5, (T, 3)))
+    state = [torch.from_numpy(np.asarray(x, np.float32)).to(device)
+             for x in state]
+    return state, tb, act
+
+
+HUMAN_SIG = (0.5, 20.0, 20.0, 2.795483, 1.0, 1.0)
+
+
+@pytest.mark.parametrize("T,L", [(8, 8), (3, 1), (10, 20)])
+@pytest.mark.parametrize("huber", [True, False])
+def test_human_edge_blocks_kernel_equals_plain_version(cuda, T, L, huber):
+    """The families' column (Gauss-Newton mode) and rho, chi2, depths
+    (cost mode) bit-equal to the plain version on the card and on the
+    CPU, one launch a call; L = 1 has no motion edge."""
+    import airdos_tpu_torch.ops.ba_human as bh
+    rng = np.random.default_rng(T * 100 + L)
+    state, tb, act = _human_case(rng, T, L, 24, cuda)
+    before = bh.launches()
+    col = bh.human_edge_blocks(*state, tb, act, BA_CAM, HUMAN_SIG, huber)
+    cost = bh.human_edge_cost(*state, tb, BA_CAM, HUMAN_SIG, huber)
+    torch.cuda.synchronize()
+    assert bh.launches() == before + 2
+    cpu_tb = bh.HumanTables(*(x.cpu() for x in tb))
+    for mode, got in ((False, (col,)), (True, cost)):
+        want = bh.human_edges_ref(*state, tb, act, BA_CAM, HUMAN_SIG, huber,
+                                  mode)
+        want_cpu = bh.human_edges_ref(*(x.cpu() for x in state), cpu_tb,
+                                      [a.cpu() for a in act], BA_CAM,
+                                      HUMAN_SIG, huber, mode)
+        if not mode:
+            want, want_cpu = (want,), (want_cpu,)
+        for a, b, c in zip(got, want, want_cpu):
+            assert _bits_equal(a, b), mode
+            assert _bits_equal(a, c), (mode, "cpu")
+    assert col.shape == (bh.n_values(tb),)
+
+
+@pytest.mark.parametrize("n", [0, 1, 1000, 8192, 16384, 65537])
+def test_lm_cost_kernel_equals_plain_version(cuda, n):
+    """Bit-equal to the plain version on the card and on the CPU, with
+    infinities and NaNs among active and inactive edges."""
+    import airdos_tpu_torch.ops.lm_cost as lc
+    rng = np.random.default_rng(n)
+    rho = rng.exponential(3.0, n).astype(np.float32)
+    act = (rng.random(n) > 0.2).astype(np.float32)
+    rho[rng.random(n) < 0.001] = np.inf
+    rho[rng.random(n) < 0.001] = np.nan
+    args = [torch.from_numpy(a).to(cuda) for a in (rho, act)]
+    before = lc.launches()
+    got = lc.lm_cost(*args)
+    again = lc.lm_cost(*args)
+    torch.cuda.synchronize()
+    assert lc.launches() == before + 2 and got.dim() == 0
+    assert _bits_equal(got, again)
+    assert _bits_equal(got, lc.lm_cost_ref(*args))
+    assert _bits_equal(got, lc.lm_cost_ref(*(a.cpu() for a in args)))
+
+
+def test_ba_kernel_dispatchers_raise_without_their_library(cuda, monkeypatch,
+                                                            tmp_path):
+    """With no library to load, a dispatcher given CUDA tensors raises; it
+    never runs the plain version instead."""
+    import airdos_tpu_torch.ops.ba_human as bh
+    import airdos_tpu_torch.ops.ba_points as bp
+    import airdos_tpu_torch.ops.ba_static as bs
+    import airdos_tpu_torch.ops.lm_cost as lc
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran on CUDA tensors")
+
+    missing = tmp_path / "missing.cu"
+    for mod, ref, loaded in ((bs, "static_edges_ref", "_kernel"),
+                             (bp, "landmark_reduce_ref", "_lib"),
+                             (bp, "landmark_backsub_ref", "_lib"),
+                             (bh, "human_edges_ref", "_kernel"),
+                             (lc, "lm_cost_ref", "_kernel")):
+        monkeypatch.setattr(mod, "_SOURCE", missing)
+        monkeypatch.setattr(mod, loaded, None)
+        monkeypatch.setattr(mod, ref, plain)
+    rng = np.random.default_rng(0)
+    static = [torch.from_numpy(a).to(cuda)
+              for a in _static_case(rng, 64, 3, 20)]
+    pt_sums, wagg, valid, dx_c = (torch.from_numpy(a).to(cuda) for a in
+                                  _landmark_case(rng, 20, 3))
+    state, tb, act = _human_case(rng, 2, 3, 3, cuda)
+    lam = torch.tensor(1e-6, device=cuda)
+    calls = (
+        lambda: bs.static_edge_blocks(*static, BA_CAM, 1.0, True),
+        lambda: bs.static_edge_cost(*static[:7], BA_CAM, 1.0, True),
+        lambda: bp.landmark_reduce(pt_sums, wagg, valid, lam),
+        lambda: bp.landmark_backsub(torch.zeros((20, 3, 3), device=cuda),
+                                    pt_sums, wagg, dx_c, valid),
+        lambda: bh.human_edge_blocks(*state, tb, act, BA_CAM, HUMAN_SIG,
+                                     True),
+        lambda: bh.human_edge_cost(*state, tb, BA_CAM, HUMAN_SIG, True),
+        lambda: lc.lm_cost(torch.ones(8, device=cuda),
+                           torch.ones(8, device=cuda)))
+    for call in calls:
+        with pytest.raises(FileNotFoundError):
+            call()

@@ -22,6 +22,7 @@ synthetic world, and handed to both packages.  Stated tolerances:
   torso-probe disparity exact.
 """
 import functools
+import inspect
 import re
 from pathlib import Path
 
@@ -137,12 +138,17 @@ def test_pyramid_levels_are_the_composed_filters(frame):
 
 
 def test_pyramid_kernel_taps_and_windows_are_the_plain_versions():
-    """The constants csrc/pyramid.cu holds: the erosion's 10x10 window
-    anchored at (5, 5) and the blur's 7 taps and 3 px halo."""
+    """The constants csrc/pyramid.cu holds: the erosion's k x k window
+    (10 by default, at most MAX_ERODE) anchored at (k / 2, k / 2), cv2's
+    anchor as ops/filters.erode pads it, and the blur's 7 taps and 3 px
+    halo."""
     text = (CSRC / "pyramid.cu").read_text()
     consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", text))
-    assert (consts["kErodeLo"], consts["kErodeHi"], consts["kHalo"]) == \
-        ("5", "4", "3")
+    assert (consts["kMaxErode"], consts["kHalo"]) == \
+        (str(tpyr.MAX_ERODE), "3")
+    assert "const int erode_lo = erode_k / 2;" in text
+    assert inspect.signature(tpyr.build_pyramid) \
+        .parameters["mask_erode"].default == 10
     assert len(tpyr._TAPS) == 7
     np.testing.assert_array_equal(
         np.frombuffer(bytes(tpyr._TAPS), np.float32),
