@@ -21,17 +21,36 @@
 //               position and response = remainder(best, 1000) (0 for an
 //               empty cell); slots past the cells are 0.
 //
-// One block of 1024 threads a level (its map is at most a few hundred
-// thousand pixels and its cells a few thousand):
-// - a warp a cell scans the cell's pixels in row-major order, each lane
-//   keeping its first maximum, then a shuffle tree keeps the larger value
-//   and, on a tie, the lower position;
-// - a thread a cell counts its rank over its block's 16 cells;
-// - the keys, made unique by the cell index, are sorted in shared memory
-//   by a bitonic network over 64-bit words: the key's bits mapped so that
-//   the unsigned order is the float order, complemented (descending), in
-//   the high half, the cell index in the low half (ascending on ties).
-//   Distinct words make the network's order the stable sort's.
+// A thread block cluster of kCluster blocks of kThreads threads a level
+// (the cluster is the kernel's __cluster_dims__, so the launch is an
+// ordinary <<<>>> of n_levels * kCluster blocks):
+// - the scan is spread over the cluster's SMs: global warp g of the
+//   cluster (rank * 16 + warp) takes cells g, g + 128, ... (ops/select.py
+//   scan_cells), kCells at a time; a lane issues all its loads of those
+//   cells (kLoads a cell, at positions computed once a level) before its
+//   compares, keeping its first maximum in row-major order, and a shuffle
+//   tree keeps the larger value and, on a tie, the lower position.  A
+//   block keeps best and at in its shared memory, then stores its cells'
+//   into the leader block's (rank 0) through distributed shared memory,
+//   after the wait of a cluster barrier whose arrive was the block's first
+//   instruction (so every block has started); a second cluster barrier
+//   hands them over, and the other blocks exit;
+// - the leader's threads write each cell's sort word: the key's bits
+//   mapped so that the unsigned order is the float order, complemented
+//   (descending), in the high half, the cell index in the low half
+//   (ascending on ties), the rank counted over the cell's 4 x 4-cell block;
+// - a bitonic network sorts the words.  Distinct words make its order the
+//   stable sort's.  A thread holds kSortWords consecutive words in
+//   registers: of each k's stages (k, j), those with j < kSortWords swap
+//   within the thread, those with j < 32 kSortWords between the lanes of a
+//   warp by shuffles, and only the rest go through shared memory, a block
+//   barrier each: 16 barriers at 1024 words (ops/select.py sort_barriers)
+//   against the 56 of a network run wholly in shared memory.  Past
+//   kSortWords * kThreads words (levels the main paths do not have) the
+//   network runs in shared memory alone.
+// A grid over all cells whose last block to finish sorts its level (an
+// arrival counter) was the alternative; the cluster needs no counter in
+// device memory to reset and no fence, and keeps best / at on chip.
 //
 // Exact: the boost and the key are the plain version's float32 sum and
 // difference (written with __fadd_rn / __fsub_rn / __fmul_rn), every other
@@ -41,23 +60,34 @@
 // So xs, ys and the responses are bit-equal to the plain version's.
 //
 // What bounds it on an H100.  Bytes: the maps read once (4 bytes a pixel,
-// 0.92 MB at 640 x 360 over 8 levels), 20 bytes a slot written; ~0.3 us.
+// 2.86 MB over 8 levels at 640 x 360), 20 bytes a slot written; ~0.86 us.
 // Operations: a comparison a pixel and the sort's ~(log2 P)^2 / 2 * P / 2
-// comparisons for P cells rounded up to a power of two: negligible.  The
-// grid is one block a level, so the level-0 block's scan (one SM reading
-// ~230 k pixels) and the sort's barriers set the time.
+// comparisons for P cells rounded up to a power of two: negligible.  What
+// sets the time is level 0's chain on its cluster (836 cells of 17 x 17 at
+// 640 x 360): the earlier design scanned them on one SM and sorted with 56
+// block barriers, 145.8 us.  Here level 0's leader spends 23,481 cycles in
+// the scan with its two cluster barriers, 3,236 on the ranks, 14,065 on the
+// sort (55 stages, ~250 cycles each whatever their kind) and 1,513 on the
+// slots (clock64() stamps of tools/kernel_split.py, PERF.md section 6).
 //
 // The C entry point launches on the caller's stream, allocates nothing,
 // does not synchronise, and returns cudaGetLastError().
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kMaxLevels = 16;
-constexpr int kThreads = 1024;
+constexpr int kCluster = 8;               // blocks a level (portable size)
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
+constexpr int kLoads = 10;                // loads a lane issues a cell
+constexpr int kCells = 2;                 // cells a warp scans at a time
+constexpr int kSortWords = 2;             // sort words a thread, up to 1024
 constexpr int kBlock = 4;                 // cells a block edge
 constexpr float kBoost = 1000.0f;         // ops/select.py INI_BOOST
 
@@ -73,11 +103,162 @@ __device__ __forceinline__ uint32_t ordered(float f) {
   return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
 }
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// j / c for any j < 2^32 and c >= 1: the estimate from ceil(2^32 / c) is
+// at most one too large
+__device__ __forceinline__ uint32_t div_by(uint32_t j, uint32_t c,
+                                           uint64_t magic) {
+  uint32_t q = static_cast<uint32_t>((j * magic) >> 32);
+  return q * c > j ? q - 1 : q;
+}
+
+// The compare-exchange of bitonic stage (k, j) for word i: the lower of
+// the pair keeps the smaller word in an ascending run, the larger in a
+// descending one.
+__device__ __forceinline__ unsigned long long exchange(
+    unsigned long long mine, unsigned long long other, int i, int k, int j) {
+  const bool keep_min = ((i & j) == 0) == ((i & k) == 0);
+  return keep_min ? (mine < other ? mine : other)
+                  : (mine < other ? other : mine);
+}
+
+// The sort words a sorting thread holds for p words (ops/select.py
+// sort_words): kSortWords consecutive words on p / kSortWords threads (at
+// least a warp); 0 past kSortWords * kThreads, where the network runs in
+// shared memory alone.
+__device__ __forceinline__ int sort_words(int p) {
+  if (p <= 32) return 1;
+  if (p <= kSortWords * kThreads) return min(kSortWords, p / 32);
+  return 0;
+}
+
+// Bitonic stage (k, j) over keys[0, p) in shared memory: the lower of each
+// pair keeps the smaller word in an ascending run, the larger in a
+// descending one.  A block barrier follows.
+__device__ __forceinline__ void shared_stage(unsigned long long* keys, int p,
+                                             int k, int j) {
+  for (int i = threadIdx.x; i < p; i += kThreads) {
+    const int o = i ^ j;
+    if (o > i) {
+      const unsigned long long a = keys[i], b = keys[o];
+      if ((a > b) == ((i & k) == 0)) { keys[i] = b; keys[o] = a; }
+    }
+  }
+  __syncthreads();
+}
+
+// Sorts keys[0, p) ascending by the bitonic network in shared memory alone:
+// the levels of more than kSortWords * kThreads cells, which the main
+// paths do not have.
+__device__ void sort_keys_shared(unsigned long long* keys, int p) {
+  for (int k = 2; k <= p; k <<= 1)
+    for (int j = k >> 1; j > 0; j >>= 1) shared_stage(keys, p, k, j);
+}
+
+// Bitonic stage (k, kJ) between a thread's own words r and r + kJ.
+template <int kWords, int kJ>
+__device__ __forceinline__ void thread_stage(unsigned long long (&wd)[kWords],
+                                             int i0, int k) {
+#pragma unroll
+  for (int r = 0; r < kWords; ++r) {
+    if (r & kJ) continue;                 // r is the lower of its pair
+    const unsigned long long a = wd[r], b = wd[r + kJ];
+    wd[r] = exchange(a, b, i0 + r, k, kJ);
+    wd[r + kJ] = exchange(b, a, i0 + r + kJ, k, kJ);
+  }
+}
+
+// Sorts keys[0, p) ascending: a thread holds the words tid * kWords + r,
+// r < kWords, in registers.  Of each k's stages (k, j), those with
+// j >= 32 kWords run in shared memory behind a block barrier each, those
+// with kWords <= j < 32 kWords exchange words between the lanes of a warp
+// by shuffles, and those with j < kWords between a thread's own words.
+template <int kWords>
+__device__ __forceinline__ void sort_keys(unsigned long long* keys, int p) {
+  static_assert(kWords <= 4, "thread stages are written for j < 4");
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int ts = p / kWords;              // sorting threads (p < 32: a warp)
+  const bool on = tid < (ts < 32 ? 32 : ts);
+  const int i0 = tid * kWords;
+  unsigned long long wd[kWords];
+#pragma unroll
+  for (int r = 0; r < kWords; ++r)
+    wd[r] = (on && i0 + r < p) ? keys[i0 + r] : ~0ull;
+  for (int k = 2; k <= p; k <<= 1) {
+    int j = k >> 1;
+    if (j >= 32 * kWords) {
+#pragma unroll
+      for (int r = 0; r < kWords; ++r)
+        if (on && i0 + r < p) keys[i0 + r] = wd[r];
+      __syncthreads();
+      for (; j >= 32 * kWords; j >>= 1) shared_stage(keys, p, k, j);
+#pragma unroll
+      for (int r = 0; r < kWords; ++r)
+        if (on && i0 + r < p) wd[r] = keys[i0 + r];
+    }
+    if (!on) continue;
+    for (; j >= kWords; j >>= 1) {
+#pragma unroll
+      for (int r = 0; r < kWords; ++r) {
+        const unsigned long long o =
+            __shfl_xor_sync(0xffffffffu, wd[r], j / kWords);
+        wd[r] = exchange(wd[r], o, i0 + r, k, j);
+      }
+    }
+    for (; j > 0; j >>= 1) {
+      if constexpr (kWords > 2) if (j == 2) thread_stage<kWords, 2>(wd, i0, k);
+      if constexpr (kWords > 1) if (j == 1) thread_stage<kWords, 1>(wd, i0, k);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kWords; ++r)
+    if (on && i0 + r < p) keys[i0 + r] = wd[r];
+  __syncthreads();
+}
+
+// The sort word of a cell: its key (best - rank * 2000, rank its place in
+// its 4 x 4-cell block) mapped to descending unsigned order in the high
+// half, the cell index in the low half.
+__device__ __forceinline__ unsigned long long sort_word(const float* best,
+                                                        int cell, int ncx,
+                                                        int ncy) {
+  const int cy = cell / ncx, cx = cell - (cell / ncx) * ncx;
+  const float b = best[cell];
+  int rk = kBlock * kBlock;
+  if (b > 0.0f) {
+    const int by = cy - cy % kBlock, bx = cx - cx % kBlock;
+    const int me = (cy - by) * kBlock + (cx - bx);
+    rk = 0;
+#pragma unroll
+    for (int k = 0; k < kBlock * kBlock; ++k) {
+      const int y = by + k / kBlock, x = bx + k % kBlock;
+      const bool in = y < ncy && x < ncx;         // padded cells are 0
+      const float o = in ? best[min(y, ncy - 1) * ncx + min(x, ncx - 1)]
+                         : 0.0f;
+      rk += (o > b || (o == b && k < me)) ? 1 : 0;
+    }
+  }
+  const float key = __fsub_rn(b, __fmul_rn(static_cast<float>(rk),
+                                           2.0f * kBoost));
+  return (static_cast<unsigned long long>(~ordered(key)) << 32) |
+         static_cast<unsigned int>(cell);
+}
+
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
 select_kernel(Levels lv, float ini_th, int64_t* __restrict__ xs,
               int64_t* __restrict__ ys, float* __restrict__ resp) {
   extern __shared__ unsigned long long smem[];
-  const int l = blockIdx.x;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster_arrive_relaxed();               // this block has started
+  const int l = blockIdx.x / kCluster;
+  const int rank = static_cast<int>(cluster.block_rank());
   const int h = lv.h[l], w = lv.w[l], q = lv.quota[l], c = lv.cell[l];
   const int ncy = (h + c - 1) / c, ncx = (w + c - 1) / c;
   const int n = ncy * ncx;
@@ -86,69 +267,109 @@ select_kernel(Levels lv, float ini_th, int64_t* __restrict__ xs,
   unsigned long long* keys = smem;                         // [p]
   float* best = reinterpret_cast<float*>(smem + p);        // [n]
   int* at = reinterpret_cast<int*>(best + n);              // [n]
+  float* lead_best = cluster.map_shared_rank(best, 0);
+  int* lead_at = cluster.map_shared_rank(at, 0);
   const float* __restrict__ s = lv.s[l];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-  for (int cell = warp; cell < n; cell += kWarps) {
-    const int cy = cell / ncx, cx = cell - (cell / ncx) * ncx;
-    float v = -1.0f;
-    int i = 0;
-    for (int j = lane; j < c * c; j += 32) {
-      const int y = cy * c + j / c, x = cx * c + j % c;
-      float t = 0.0f;                     // the zero padding to whole cells
-      if (y < h && x < w) {
-        t = s[static_cast<int64_t>(y) * w + x];
-        t = t > ini_th ? __fadd_rn(t, kBoost) : t;
+  const uint32_t cc = static_cast<uint32_t>(c) * static_cast<uint32_t>(c);
+  const uint64_t magic = ((1ull << 32) + c - 1) / c;
+  // the lane's positions in a cell for j = 32 r + lane, the same in every
+  // cell of the level; a later chunk of the cell shifts them
+  int py[kLoads], px[kLoads];
+#pragma unroll
+  for (int r = 0; r < kLoads; ++r) {
+    const uint32_t j = 32 * r + lane;
+    py[r] = static_cast<int>(div_by(j, c, magic));
+    px[r] = static_cast<int>(j) - py[r] * c;
+  }
+  // a warp scans kCells of its cells at a time, all their loads in flight
+  const int stride = kCluster * kWarps;
+  for (int first = rank * kWarps + warp; first < n;
+       first += kCells * stride) {
+    const float* __restrict__ corner[kCells];
+    int hy[kCells], wx[kCells];
+    float v[kCells];
+    int at_j[kCells];
+#pragma unroll
+    for (int q = 0; q < kCells; ++q) {
+      const int cell = first + q * stride;
+      const int cy = cell / ncx, cx = cell - (cell / ncx) * ncx;
+      const int y0 = cy * c, x0 = cx * c;
+      // the map's rows and columns left from the cell's corner (none past n)
+      hy[q] = cell < n ? h - y0 : 0;
+      wx[q] = cell < n ? w - x0 : 0;
+      corner[q] = s + (cell < n ? static_cast<int64_t>(y0) * w + x0 : 0);
+      v[q] = -1.0f;
+      at_j[q] = 0;
+    }
+    for (uint32_t base = 0; base < cc; base += 32 * kLoads) {
+      const int by = static_cast<int>(div_by(base, c, magic));
+      const int bx = static_cast<int>(base) - by * c;
+      float t[kCells][kLoads];
+      uint32_t inside[kCells];            // bit r: load r is a pixel
+#pragma unroll
+      for (int q = 0; q < kCells; ++q) {
+        inside[q] = 0;
+#pragma unroll
+        for (int r = 0; r < kLoads; ++r) {
+          int yy = py[r] + by, xx = px[r] + bx;
+          if (xx >= c) { xx -= c; ++yy; }
+          t[q][r] = 0.0f;                 // the zero padding to whole cells
+          if (base + 32 * r + lane < cc && yy < hy[q] && xx < wx[q]) {
+            t[q][r] = __ldg(corner[q] + yy * w + xx);
+            inside[q] |= 1u << r;
+          }
+        }
       }
-      if (t > v) { v = t; i = j; }
+#pragma unroll
+      for (int q = 0; q < kCells; ++q)
+#pragma unroll
+        for (int r = 0; r < kLoads; ++r) {
+          const uint32_t j = base + 32 * r + lane;
+          float u = t[q][r];
+          if ((inside[q] >> r & 1u) && u > ini_th) u = __fadd_rn(u, kBoost);
+          if (j < cc && u > v[q]) { v[q] = u; at_j[q] = static_cast<int>(j); }
+        }
     }
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_down_sync(0xffffffffu, v, off);
-      const int oi = __shfl_down_sync(0xffffffffu, i, off);
-      if (ov > v || (ov == v && oi < i)) { v = ov; i = oi; }
-    }
-    if (lane == 0) { best[cell] = v; at[cell] = i; }
-  }
-  __syncthreads();
-
-  for (int cell = tid; cell < p; cell += kThreads) {
-    unsigned long long word = ~0ull;      // past the cells: sorted last
-    if (cell < n) {
-      const int cy = cell / ncx, cx = cell - (cell / ncx) * ncx;
-      const float b = best[cell];
-      int rank = kBlock * kBlock;
-      if (b > 0.0f) {
-        const int by = cy - cy % kBlock, bx = cx - cx % kBlock;
-        const int me = (cy - by) * kBlock + (cx - bx);
-        rank = 0;
-        for (int k = 0; k < kBlock * kBlock; ++k) {
-          const int y = by + k / kBlock, x = bx + k % kBlock;
-          if (y >= ncy || x >= ncx) continue;        // padded cells are 0
-          const float o = best[y * ncx + x];
-          rank += (o > b || (o == b && k < me)) ? 1 : 0;
+    for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+      for (int q = 0; q < kCells; ++q) {
+        const float ov = __shfl_down_sync(0xffffffffu, v[q], off);
+        const int oi = __shfl_down_sync(0xffffffffu, at_j[q], off);
+        if (ov > v[q] || (ov == v[q] && oi < at_j[q])) {
+          v[q] = ov;
+          at_j[q] = oi;
         }
       }
-      const float key = __fsub_rn(b, __fmul_rn(static_cast<float>(rank),
-                                               2.0f * kBoost));
-      word = (static_cast<unsigned long long>(~ordered(key)) << 32) |
-             static_cast<unsigned int>(cell);
+#pragma unroll
+    for (int q = 0; q < kCells; ++q) {
+      const int cell = first + q * stride;
+      if (lane == 0 && cell < n) { best[cell] = v[q]; at[cell] = at_j[q]; }
     }
-    keys[cell] = word;
   }
+  // the block's cells to the leader, all stores in flight at once
   __syncthreads();
+  cluster_wait();                         // every block has started
+  for (int m = tid; m < n; m += kThreads) {
+    const int g = m % (kCluster * kWarps);  // the global warp that scanned m
+    if (g / kWarps != rank || rank == 0) continue;
+    lead_best[m] = best[m];
+    lead_at[m] = at[m];
+  }
+  cluster.sync();                         // best and at are in the leader
+  if (rank != 0) return;
 
-  for (int k = 2; k <= p; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = tid; i < p; i += kThreads) {
-        const int o = i ^ j;
-        if (o > i) {
-          const unsigned long long a = keys[i], b = keys[o];
-          if ((a > b) == ((i & k) == 0)) { keys[i] = b; keys[o] = a; }
-        }
-      }
-      __syncthreads();
-    }
+  for (int cell = tid; cell < p; cell += kThreads)
+    keys[cell] = cell < n ? sort_word(best, cell, ncx, ncy)
+                          : ~0ull;        // past the cells: sorted last
+  __syncthreads();
+  static_assert(kSortWords == 2, "one case a word count");
+  switch (sort_words(p)) {
+    case 1: sort_keys<1>(keys, p); break;
+    case 2: sort_keys<2>(keys, p); break;
+    default: sort_keys_shared(keys, p);
   }
 
   const int k = min(q, n);
@@ -179,7 +400,8 @@ select_kernel(Levels lv, float ini_th, int64_t* __restrict__ xs,
 // the level's first slot); xs, ys: int64 and resp: float32 device outputs
 // of sum(quota) slots; smem: the dynamic shared memory of the level with the
 // most cells, n: 8 bytes a sort word (n rounded up to a power of two) and 8
-// a cell for its best value and position (ops/select.py smem_bytes).
+// a cell for its best value and position (ops/select.py smem_bytes).  The
+// grid is n_levels clusters of kCluster blocks (ops/select.py CLUSTER).
 extern "C" int airdos_select(const int64_t* maps, const int* h, const int* w,
                              const int* quota, const int* cell,
                              const int* offset, int n_levels, float ini_th,
@@ -199,7 +421,7 @@ extern "C" int airdos_select(const int64_t* maps, const int* h, const int* w,
   cudaError_t err = cudaFuncSetAttribute(
       select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  select_kernel<<<n_levels, kThreads, smem,
+  select_kernel<<<n_levels * kCluster, kThreads, smem,
                   static_cast<cudaStream_t>(stream)>>>(
       lv, ini_th, static_cast<int64_t*>(xs), static_cast<int64_t*>(ys),
       static_cast<float*>(resp));

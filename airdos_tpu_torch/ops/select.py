@@ -12,7 +12,8 @@ The extractor (features/orb.py) calls ``select_keypoints`` once an image,
 after the image's fast_nms calls:
 
 - on CUDA tensors it launches the sm_90a kernel of ``csrc/select.cu`` (a
-  block a level) on the calling thread's current stream (built with nvcc
+  thread block cluster of ``CLUSTER`` blocks a level) on the calling
+  thread's current stream (built with nvcc
   at first use into ``airdos_tpu_torch/_build/``, bound through ctypes) or
   raises, and counts the launch, by thread and stream priority too;
 - on CPU tensors it runs ``select_keypoints_ref``: ``select_level_ref``
@@ -36,6 +37,12 @@ INI_BOOST = 1000.0     # selection boost for corners passing the high threshold
 BLOCK = 4              # cells a fairness block's edge
 # the kernel's shared memory, a block's most (H100: 227 KB)
 MAX_SMEM = 232448
+# csrc/select.cu's launch: a cluster of CLUSTER blocks of THREADS threads a
+# level; the leader block (rank 0) ranks and sorts the level's cells
+CLUSTER = 8
+THREADS = 512
+WARPS = THREADS // 32
+SORT_WORDS = 2         # sort words a thread holds, up to 1024 words
 
 
 def _top_k_lower_index_first(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -137,15 +144,74 @@ def build():
     return cuda_build.build(_SOURCE)
 
 
-def smem_bytes(n_cells: int) -> int:
-    """Shared memory the kernel's block takes for a level of n_cells cells:
-    a 64-bit sort word a cell, the cells rounded up to a power of two, and
-    8 bytes a cell for its best value and position (csrc/select.cu's
-    layout)."""
+def scan_cells(n_cells: int, rank: int, warp: int) -> range:
+    """The cells that warp `warp` of cluster rank `rank` scans: the
+    cluster's global warp rank * WARPS + warp takes every CLUSTER * WARPS-th
+    cell (csrc/select.cu)."""
+    return range(rank * WARPS + warp, n_cells, CLUSTER * WARPS)
+
+
+def _words(n_cells: int) -> int:
+    """The sort words of a level: its cells rounded up to a power of two."""
     p = 1
     while p < n_cells:
         p <<= 1
-    return 8 * p + 8 * n_cells
+    return p
+
+
+def sort_words(p: int) -> int:
+    """The sort words a sorting thread of the leader holds for p words
+    (csrc/select.cu sort_words): SORT_WORDS consecutive words on p /
+    SORT_WORDS threads (at least a warp); 0 past SORT_WORDS * THREADS,
+    where the network runs in shared memory alone."""
+    if p <= 32:
+        return 1
+    if p <= SORT_WORDS * THREADS:
+        return min(SORT_WORDS, p // 32)
+    return 0
+
+
+def sort_stages(n_cells: int):
+    """The bitonic network's stages (k, j) over the cells rounded up to a
+    power of two, in the kernel's order, each with where it runs: "shared"
+    (shared memory, a block barrier after it; j >= 32 words), "shuffle"
+    (between the lanes of a warp) or "thread" (between a thread's own
+    words; j < words), for `words` = sort_words(p) a thread."""
+    p = _words(n_cells)
+    words = sort_words(p)
+    stages = []
+    k = 2
+    while k <= p:
+        j = k >> 1
+        while j > 0:
+            kind = "shared" if not words or j >= 32 * words else \
+                "shuffle" if j >= words else "thread"
+            stages.append((k, j, kind))
+            j >>= 1
+        k <<= 1
+    return stages
+
+
+def sort_barriers(n_cells: int) -> int:
+    """The sort's block barriers: one once the words are written, one a
+    shared-memory stage, and where threads hold words, one for each k
+    whose stages start in shared memory (the words stored there first)
+    and one before the slots read the sorted words."""
+    stages = sort_stages(n_cells)
+    shared = sum(kind == "shared" for _, _, kind in stages)
+    if not sort_words(_words(n_cells)):
+        return 1 + shared
+    return 1 + shared \
+        + len({k for k, j, kind in stages if kind == "shared"}) + 1
+
+
+def smem_bytes(n_cells: int) -> int:
+    """Shared memory the kernel's blocks take for a level of n_cells cells
+    (the leader's is used, every block of the launch gets as much): a
+    64-bit sort word a cell, the cells rounded up to a power of two, and 8
+    bytes a cell for its best value and position (csrc/select.cu's
+    layout)."""
+    return 8 * _words(n_cells) + 8 * n_cells
 
 
 def select_keypoints_cuda(maps: Sequence[torch.Tensor], quotas: Sequence[int],

@@ -10,7 +10,8 @@ Edges live in fixed-size padded tensors.  ``pose_optimize`` packs the
 edges and scalars once (``pack_problem``) and then:
 
 - on a CUDA tensor launches the sm_90a kernel of ``csrc/pose_lm.cu``, the
-  whole 4 x 10 protocol in one launch on the calling thread's current
+  whole 4 x 10 protocol in one launch (a thread block cluster of
+  ``CLUSTER`` blocks) on the calling thread's current
   stream (built with nvcc at first use into ``airdos_tpu_torch/_build/``,
   bound through ctypes) or raises, and counts the launch, by thread and
   stream priority too; the host reads nothing;
@@ -180,9 +181,12 @@ _SIGNATURES = {
     "airdos_pose_lm": [ctypes.c_void_p] * 4 + [ctypes.c_int]
     + [ctypes.c_float] * 9 + [ctypes.c_void_p],
 }
-# one byte of dynamic shared memory an edge, under the 48 KB a block gets
-# without opting in
+# the edges a call takes (a block's flags, a byte an edge of its range,
+# stay well under the 48 KB of shared memory a block gets without opting in)
 MAX_EDGES = 40960
+# csrc/pose_lm.cu's launch: one thread block cluster of CLUSTER blocks, each
+# with a range of the edges (cluster_edges)
+CLUSTER = 8
 _kernel = None                   # the bound C entry point, once loaded
 
 _counter = cuda_build.LaunchCounter()
@@ -201,6 +205,15 @@ def launch_tally() -> dict:
 
 def reset_launches() -> None:
     _counter.reset()
+
+
+def cluster_edges(n: int, rank: int) -> range:
+    """The edges block `rank` of the kernel's cluster takes: a contiguous
+    range of ceil(n / CLUSTER), strided over the block's threads (its
+    flags are a byte an edge of the block's dynamic shared memory)."""
+    per = -(-n // CLUSTER)
+    lo = min(n, rank * per)
+    return range(lo, min(n, lo + per))
 
 
 def build():

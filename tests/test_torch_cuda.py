@@ -719,7 +719,13 @@ def _pose_case(rng, n, n_mono, invalid, prior):
 
 @pytest.mark.parametrize("n,n_mono,invalid,prior", [
     (2048, 200, 0.1, 400.0), (1536, 0, 0.05, 0.0), (777, 777, 0.05, 400.0),
-    (20, 0, 0.0, 0.0), (300, 30, 1.0, 400.0), (0, 0, 0.0, 400.0)])
+    (20, 0, 0.0, 0.0), (300, 30, 1.0, 400.0), (0, 0, 0.0, 400.0),
+    # the edges of the cluster's ranges: N not a multiple of its blocks'
+    # threads, one edge (with the prior: one edge alone leaves the pose
+    # undetermined), the most the wrapper takes, all mono, prior on/off
+    (1537, 100, 0.05, 0.0), (1537, 100, 0.05, 400.0), (1, 0, 0.0, 400.0),
+    (1, 1, 0.0, 400.0), (40960, 4000, 0.05, 0.0), (40960, 0, 0.05, 400.0),
+    (2048, 2048, 0.05, 0.0)])
 def test_pose_lm_kernel_within_tolerance_of_plain_version(cuda, n, n_mono,
                                                           invalid, prior):
     import airdos_tpu_torch.solvers.pose_opt as po
@@ -955,6 +961,20 @@ def _detection_maps(rng, h, w, n_levels, masked):
 def _select_case(rng, case):
     from airdos_tpu_torch.features.orb import (MIN_BORDER, _cell_size_for,
                                                level_quotas)
+    if case in ("few cells", "quota 0", "largest"):
+        # fewer cells than the cluster has blocks; a level with quota 0
+        # between two that have one; the most cells the shared-memory
+        # check admits (12672 of 8 px)
+        shapes, quotas, cells = {
+            "few cells": (((16, 24), (9, 40), (20, 20)), (4, 10, 3),
+                          (8, 8, 8)),
+            "quota 0": (((120, 160), (100, 133), (83, 111)), (80, 0, 30),
+                        (8, 9, 8)),
+            "largest": (((768, 1056),), (3000,), (8,))}[case]
+        maps = [torch.from_numpy(
+            (rng.uniform(0, 60, (h, w)) * (rng.uniform(size=(h, w)) < 0.1))
+            .astype(np.float32)).cuda() for h, w in shapes]
+        return maps, quotas, list(cells)
     if case == "ties":
         # quantized maps: equal responses inside cells and across blocks
         maps = [torch.from_numpy(
@@ -974,7 +994,8 @@ def _select_case(rng, case):
     return maps, quotas, cells
 
 
-@pytest.mark.parametrize("case", ["640x360", "odd", "masked", "ties"])
+@pytest.mark.parametrize("case", ["640x360", "odd", "masked", "ties",
+                                  "few cells", "quota 0", "largest"])
 def test_select_kernel_equals_plain_version(cuda, case):
     """xs, ys and responses bit-equal to the plain version, one launch an
     image, on real detection maps and on maps full of ties."""
@@ -1003,6 +1024,9 @@ def test_select_kernel_rejects_what_it_does_not_take(cuda):
                                 ([s], [-1], [8]), ([s], [10], [0]),
                                 ([], [], []), ([s] * 17, [1] * 17, [8] * 17),
                                 ([torch.zeros((4000, 4000), device=cuda)],
+                                 [10], [8]),
+                                # one cell more than the largest admitted
+                                ([torch.zeros((8, 8 * 12673), device=cuda)],
                                  [10], [8])):
         with pytest.raises(ValueError):
             sk.select_keypoints_cuda(maps, quotas, cells, 12.0)
