@@ -10,9 +10,9 @@ a multiple of 128 so slot layouts line up with the JAX package.
 
 The pyramid (ops/pyramid.build_pyramid) brings each level's blur.  Per
 level, the detection map (scores, mask, border, threshold, NMS) is one
-``ops/fast.fast_nms`` call and the angles and descriptors one
-``ops/orb_kernels.orb_describe`` call; the keypoint selection of all
-levels is one ``ops/select.select_keypoints`` call between them: a kernel
+``ops/fast.fast_nms`` call; the keypoint selection of all levels is one
+``ops/select.select_keypoints`` call, and the angles and descriptors of
+all levels one ``ops/orb_kernels.orb_describe_levels`` call: a kernel
 launch each on the card.
 """
 from __future__ import annotations
@@ -25,7 +25,7 @@ import torch.nn.functional as F
 
 from airdos_tpu_torch.ops.brief import pack_u32
 from airdos_tpu_torch.ops.fast import fast_nms
-from airdos_tpu_torch.ops.orb_kernels import orb_describe
+from airdos_tpu_torch.ops.orb_kernels import orb_describe_levels
 from airdos_tpu_torch.ops.select import select_keypoints
 
 # Keypoint coordinates live in [EDGE, dim - EDGE) at each level, like the
@@ -73,6 +73,7 @@ class OrbExtractor:
         self.ini_th = float(ini_th)
         self.min_th = float(min_th)
         self.quotas = level_quotas(n_features, n_levels, scale_factor)
+        self._slot_tables = {}      # device -> (scale, octave) a slot
 
     @property
     def scales(self) -> Tuple[float, ...]:
@@ -82,6 +83,20 @@ class OrbExtractor:
     def sigma2(self) -> np.ndarray:
         """Per-level measurement variance (scale^2), reference mvLevelSigma2."""
         return np.asarray([s * s for s in self.scales], np.float32)
+
+    def _slots_on(self, device):
+        """Per slot, the float32 scale of its level (level-0 coordinates
+        are the level's times it, as a float32 multiply by the level's
+        scale_factor ** level rounds) and its level, made once a device."""
+        tables = self._slot_tables.get(device)
+        if tables is None:
+            counts = torch.tensor(self.quotas)
+            scale = torch.repeat_interleave(
+                torch.tensor(self.scales, dtype=torch.float32), counts)
+            octv = torch.repeat_interleave(torch.arange(self.n_levels), counts)
+            tables = self._slot_tables[device] = (scale.to(device),
+                                                  octv.to(device))
+        return tables
 
     def _extract_from_pyramid(self, pyr) -> OrbFeatures:
         maps, cells = [], []
@@ -93,30 +108,12 @@ class OrbExtractor:
                                         w - 2 * MIN_BORDER, self.quotas[lvl]))
         xs_all, ys_all, resp = select_keypoints(maps, self.quotas, cells,
                                                 self.ini_th)
-        out_xy, out_ang, out_oct, out_desc = [], [], [], []
-        start = 0
-        for lvl in range(self.n_levels):
-            quota = self.quotas[lvl]
-            xs = xs_all[start:start + quota]
-            ys = ys_all[start:start + quota]
-            start += quota
-            ang, words = orb_describe(pyr.images[lvl], pyr.blurred[lvl],
-                                      xs, ys)
-            desc = words.view(torch.uint8)          # [quota, 32], pack_u32's bytes
-
-            scale = self.scale_factor ** lvl
-            xy0 = torch.stack([xs.to(torch.float32), ys.to(torch.float32)],
-                              dim=-1) * scale
-            out_xy.append(xy0)
-            out_ang.append(ang)
-            out_oct.append(torch.full((quota,), lvl, dtype=torch.int64,
-                                      device=xs.device))
-            out_desc.append(desc)
-
-        xy = torch.cat(out_xy, dim=0)
-        ang = torch.cat(out_ang, dim=0)
-        octv = torch.cat(out_oct, dim=0)
-        desc = torch.cat(out_desc, dim=0)
+        ang, words = orb_describe_levels(pyr.images, pyr.blurred, xs_all,
+                                         ys_all, self.quotas)
+        desc = words.view(torch.uint8)              # [N, 32], pack_u32's bytes
+        scale, octv = self._slots_on(xs_all.device)
+        xy = torch.stack([xs_all.to(torch.float32), ys_all.to(torch.float32)],
+                         dim=-1) * scale[:, None]
         # slot count padded to a multiple of 128, as in airdos_tpu (whose
         # Pallas tile needs it), so slot layouts line up between the two
         pad = (-xy.shape[0]) % 128

@@ -16,34 +16,48 @@ weighted products of gn_step, :107-129) and of the human BA's static half
   cam [E, 42] = Jc^T w Jc (36, row-major) | -Jc^T w e (6), pt [E, 12] =
   Jp^T w Jp (9) | -Jp^T w e (3), pc [E, 18] = Jc^T w Jp (6 x 3);
 - cost mode (``static_edge_cost``): rho [E] (the Huber cost 2 delta sq -
-  delta^2 past delta when asked, else chi2), chi2 [E] and z [E]: the LM
-  cost (summed by ``ops/lm_cost``) and the chi-square inlier passes.
+  delta^2 past delta when asked, else chi2), chi2 [E] and z [E]: the
+  chi-square inlier passes;
+- cost-sum mode (``static_edge_cost_sum``): the family's LM cost, the
+  0-dim ``ops/lm_cost.lm_cost(rho, active)`` of the cost mode's rho, in
+  its fixed order, without rho going to memory.
 
 scale is 1 in the local BA and SigmaStatic in the human BA; delta is
 2.795483 on stereo edges and 2.447749 on mono ones.
 
-On CUDA tensors both launch the sm_90a kernel of ``csrc/ba_static.cu`` (a
-thread an edge; the projection is ``csrc/ba_project.cuh``, shared with
-``ops/ba_human``) on the calling thread's current stream (built with nvcc
-at first use into ``airdos_tpu_torch/_build/``, bound through ctypes) or
-raise, and count the launch, by thread and stream priority too; on CPU
-tensors they run ``static_edges_ref``.  The plain version spells out
-every product and sum in the kernel's order with elementwise torch ops (no
-einsum or bmm, whose summation order cannot be reproduced), so the two are
-bit-equal.
+On CUDA tensors all three launch the sm_90a kernels of
+``csrc/ba_static.cu`` (Gauss-Newton: ``LANES`` lanes an edge, each
+computing the entries ``gn_lane_plan`` gives it; cost: a thread an edge;
+cost sum: a cluster of 8 blocks; the projection is
+``csrc/ba_project.cuh``, shared with ``ops/ba_human``) on the calling
+thread's current stream (built with nvcc at first use into
+``airdos_tpu_torch/_build/``, bound through ctypes) or raise, and count
+the launch, by thread and stream priority too; on CPU tensors they run
+``static_edges_ref``.  The plain version spells out every product and sum
+in the kernel's order with elementwise torch ops (no einsum or bmm, whose
+summation order cannot be reproduced), so the two are bit-equal.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from airdos_tpu_torch.ops import cuda_build
 from airdos_tpu_torch.ops.cuda_build import check_tensor, consts
+from airdos_tpu_torch.ops.lm_cost import lm_cost_ref
 
 DELTA_STEREO = 2.795483           # sqrt of the chi2 thresholds 7.815 / 5.991
 DELTA_MONO = 2.447749
+
+# what a launch computes (the C entry point's mode)
+ROWS, COST, COST_SUM = 0, 1, 2
+
+# csrc/ba_static.cu's Gauss-Newton mode: LANES lanes an edge, each with at
+# most SLOTS entries of the edge's 72 (cam 0-41, pt 42-53, pc 54-71)
+LANES, SLOTS = 8, 7
+NONE = 127                        # a plan word's empty second place
 
 
 class StaticRows(NamedTuple):
@@ -56,6 +70,46 @@ class StaticCost(NamedTuple):
     rho: torch.Tensor   # [E] robust cost (chi2 without Huber)
     chi2: torch.Tensor  # [E]
     z: torch.Tensor     # [E] the point's depth in the camera
+
+
+# ------------------------------------------------------------ lane plan
+
+def gn_entries() -> List[Tuple[int, int, int, int, bool]]:
+    """The distinct entries of an edge's 72 Gauss-Newton floats, in the
+    plan's order: (q, p, first place, second place or NONE, negate), each
+    sum_r (w A[r, q]) A[r, p] over the columns A = [Jc (0-5) | Jp (6-8) |
+    e (9)].  J^T w J is symmetric bit for bit (w A[r, q] is exact in
+    float64, so (w A_q) A_p and (w A_p) A_q are one rounding of the same
+    product), so its upper triangle goes to both places."""
+    out = []
+    for lo, hi, base, b_base in ((0, 6, 0, 36), (6, 9, 42, 51)):
+        size = hi - lo
+        for q in range(lo, hi):
+            for p in range(q, hi):
+                a, b = q - lo, p - lo
+                out.append((q, p, base + a * size + b,
+                            NONE if a == b else base + b * size + a, False))
+        out.extend((q, 9, b_base + q - lo, NONE, True) for q in range(lo, hi))
+    out.extend((q, p, 54 + 3 * q + p - 6, NONE, False)
+               for q in range(6) for p in range(6, 9))
+    return out
+
+
+def gn_lane_plan() -> List[List[int]]:
+    """[LANES][SLOTS] plan words: entry k of gn_entries goes to lane k %
+    LANES, slot k // LANES; a word is q | p << 4 | first << 8 | second <<
+    15 | negate << 22, -1 for an empty slot (csrc/ba_static.cu Plan)."""
+    plan = [[-1] * SLOTS for _ in range(LANES)]
+    for k, (q, p, first, second, neg) in enumerate(gn_entries()):
+        plan[k % LANES][k // LANES] = (q | p << 4 | first << 8
+                                       | second << 15 | int(neg) << 22)
+    return plan
+
+
+def plan_entry(word: int) -> Tuple[int, int, int, int, bool]:
+    """A plan word unpacked: (q, p, first place, second place, negate)."""
+    return (word & 15, (word >> 4) & 15, (word >> 8) & 127,
+            (word >> 15) & 127, bool((word >> 22) & 1))
 
 
 # ------------------------------------------------------------ plain version
@@ -154,15 +208,18 @@ def normal_rows(J, w, e, K=None):
 
 def static_edges_ref(R, t, pts, e_cam, e_pt, e_obs, e_info,
                      active: Optional[torch.Tensor], cam, scale: float,
-                     use_huber: bool, cost: bool):
-    """Plain torch version: StaticCost when cost, else StaticRows."""
+                     use_huber: bool, mode: int):
+    """Plain torch version: StaticRows (mode ROWS), StaticCost (COST) or
+    the 0-dim LM cost (COST_SUM)."""
     e_cam, e_pt = e_cam.long(), e_pt.long()
     Rc = R[e_cam]
     e, Jc, Jp, z, stereo = project_ref(Rc, t[e_cam], pts[e_pt], e_obs, cam)
     chi2 = sqnorm3(e) * e_info * scale
     delta = torch.where(stereo, DELTA_STEREO, DELTA_MONO).to(torch.float32)
     wh, rho = huber_ref(chi2, delta, use_huber)
-    if cost:
+    if mode == COST_SUM:
+        return lm_cost_ref(rho, active)
+    if mode == COST:
         return StaticCost(rho=rho, chi2=chi2, z=z)
     base = e_info * scale
     w = (base if wh is None else base * wh) * active
@@ -179,9 +236,11 @@ def static_edges_ref(R, t, pts, e_cam, e_pt, e_obs, e_info,
 _SOURCE = cuda_build.CSRC / "ba_static.cu"
 _SIGNATURES = {
     "airdos_static_edges": [ctypes.c_void_p] * 8 + [ctypes.c_int]
-    + [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4,
+    + [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5,
 }
 _kernel = None                   # the bound C entry point, once loaded
+_PLAN = (ctypes.c_int32 * (LANES * SLOTS))(
+    *(w for lane in gn_lane_plan() for w in lane))
 
 _counter = cuda_build.LaunchCounter()
 
@@ -210,13 +269,17 @@ def build():
 
 def static_edges_cuda(R, t, pts, e_cam, e_pt, e_obs, e_info,
                       active: Optional[torch.Tensor], cam, scale: float,
-                      use_huber: bool, cost: bool):
-    """Launch the sm_90a kernel on the current stream: static_edges_ref's
-    StaticCost or StaticRows."""
+                      use_huber: bool, mode: int):
+    """Launch the sm_90a kernel of `mode` on the current stream:
+    static_edges_ref's StaticRows, StaticCost or LM cost (no launch for
+    the rows or costs of no edge; the cost sum of no edge is a launch that
+    writes 0)."""
     global _kernel
     dev = pts.device
     if not pts.is_cuda:
         raise ValueError(f"pts must be a CUDA tensor, got {pts.device}")
+    if mode not in (ROWS, COST, COST_SUM):
+        raise ValueError(f"mode {mode}")
     f32, i32 = torch.float32, torch.int32
     C, P, E = R.shape[0], pts.shape[0], e_cam.shape[0]
     check_tensor("R", R, f32, (C, 3, 3), dev)
@@ -226,24 +289,29 @@ def static_edges_cuda(R, t, pts, e_cam, e_pt, e_obs, e_info,
     check_tensor("e_pt", e_pt, i32, (E,), dev)
     check_tensor("e_obs", e_obs, f32, (E, 3), dev)
     check_tensor("e_info", e_info, f32, (E,), dev)
-    if not cost:
+    if mode != COST:
         check_tensor("active", active, f32, (E,), dev)
     if _kernel is None:
         _kernel = cuda_build.library(_SOURCE,
                                      _SIGNATURES).airdos_static_edges
-    if cost:
-        out = StaticCost(*(torch.empty(E, dtype=f32, device=dev)
-                           for _ in range(3)))
+    if mode == COST_SUM:
+        out = torch.empty((), dtype=f32, device=dev)
+        ptrs = (out.data_ptr(), None, None)
     else:
-        out = StaticRows(*(torch.empty((E, k), dtype=f32, device=dev)
-                           for k in (42, 12, 18)))
+        out = (StaticCost(*(torch.empty(E, dtype=f32, device=dev)
+                            for _ in range(3))) if mode == COST else
+               StaticRows(*(torch.empty((E, k), dtype=f32, device=dev)
+                            for k in (42, 12, 18))))
+        ptrs = tuple(x.data_ptr() for x in out)
+        if E == 0:                          # nothing to launch
+            return out
     with cuda_build.on_device(dev):
         err = _kernel(R.data_ptr(), t.data_ptr(), pts.data_ptr(),
                       e_cam.data_ptr(), e_pt.data_ptr(), e_obs.data_ptr(),
                       e_info.data_ptr(),
-                      None if cost else active.data_ptr(), E,
-                      consts(*cam, scale), int(use_huber), int(cost),
-                      *(x.data_ptr() for x in out),
+                      None if mode == COST else active.data_ptr(), E,
+                      consts(*cam, scale), int(use_huber), int(mode),
+                      _PLAN if mode == ROWS else None, *ptrs,
                       torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"static_edge_blocks kernel launch failed: "
@@ -265,7 +333,7 @@ def static_edge_blocks(R, t, pts, e_cam, e_pt, e_obs, e_info, active, cam,
     cam (fx, fy, cx, cy, bf).  CUDA tensors go to the kernel, CPU tensors
     to the plain version."""
     return _static_edges(R, t, pts, e_cam, e_pt, e_obs, e_info, active, cam,
-                         scale, use_huber, False)
+                         scale, use_huber, ROWS)
 
 
 def static_edge_cost(R, t, pts, e_cam, e_pt, e_obs, e_info, cam,
@@ -273,4 +341,13 @@ def static_edge_cost(R, t, pts, e_cam, e_pt, e_obs, e_info, cam,
     """The static edges' (rho, chi2, z), as static_edge_blocks takes its
     arguments."""
     return _static_edges(R, t, pts, e_cam, e_pt, e_obs, e_info, None, cam,
-                         scale, use_huber, True)
+                         scale, use_huber, COST)
+
+
+def static_edge_cost_sum(R, t, pts, e_cam, e_pt, e_obs, e_info, active, cam,
+                         scale: float, use_huber: bool) -> torch.Tensor:
+    """The static family's LM cost, a 0-dim float32 tensor bit-equal to
+    ops/lm_cost.lm_cost(static_edge_cost(...).rho, active), as
+    static_edge_blocks takes its arguments."""
+    return _static_edges(R, t, pts, e_cam, e_pt, e_obs, e_info, active, cam,
+                         scale, use_huber, COST_SUM)

@@ -33,13 +33,15 @@ no float atomics.  Four segment-sum launches a step, 60 a solve.  The LM
 loop never reads a device value on the host.
 
 The per-edge work is kernel launches on the card: the static edges'
-rows, costs and depths (``ops/ba_static``), the landmark reduction and
-back-substitution (``ops/ba_points``), the three human families' column
-of J^T W J and -J^T W e entries, costs and depths (``ops/ba_human``) and
-each family's cost sum in a fixed order (``ops/lm_cost``).  A solve
-launches static_edge_blocks and human_edge_blocks 34 times each (15
-steps, 17 costs, 2 chi-square passes), lm_cost 68 times (4 a cost),
-landmark_reduce and landmark_backsub 15 each.  On the CPU every kernel's
+rows, the static family's LM cost in ``ops/lm_cost``'s fixed order, and
+the costs and depths of the chi-square passes (``ops/ba_static``), the
+landmark reduction and back-substitution (``ops/ba_points``), the three
+human families' column of J^T W J and -J^T W e entries, costs and depths
+(``ops/ba_human``) and each human family's cost sum in a fixed order
+(``ops/lm_cost``).  A solve launches static_edge_blocks and
+human_edge_blocks 34 times each (15 steps, 17 costs, 2 chi-square
+passes), lm_cost 51 times (3 a cost), landmark_reduce and
+landmark_backsub 15 each.  On the CPU every kernel's
 plain version runs, bit-equal to it.
 
 Multi-device (airdos_tpu's ``axis_name``): given a mesh ``group``
@@ -61,7 +63,8 @@ from airdos_tpu_torch.geometry.se3 import se3_compose, se3_exp, so3_exp
 from airdos_tpu_torch.ops.ba_human import (HumanTables, human_edge_blocks,
                                            human_edge_cost)
 from airdos_tpu_torch.ops.ba_static import (DELTA_STEREO, static_edge_blocks,
-                                            static_edge_cost)
+                                            static_edge_cost,
+                                            static_edge_cost_sum)
 from airdos_tpu_torch.ops.lm_cost import lm_cost
 from airdos_tpu_torch.ops.segment_kernels import (make_compact_segments,
                                                   segment_sum)
@@ -246,19 +249,21 @@ def human_bundle_adjust(
                                         ed.mo_valid), D)
     seg_h, pos_h = make_compact_segments(keys, keep)
 
-    def edge_costs(state, use_huber: bool):
-        """The static and the human edges' (rho, chi2, depth)."""
+    def human_costs(state, use_huber: bool):
+        """The human edges' (rho, chi2, depth)."""
         camR, camt, pts, jnts, segs, mR, mt = state
-        return (static_edge_cost(camR, camt, pts, es_cam, es_pt, es_obs,
-                                 es_info, cam, sigma_static, use_huber),
-                human_edge_cost(camR, camt, jnts, segs, mR, mt, tables, cam,
-                                sig, use_huber))
+        return human_edge_cost(camR, camt, jnts, segs, mR, mt, tables, cam,
+                               sig, use_huber)
 
     def cost(state, act, use_huber: bool):
-        cs, ch = edge_costs(state, use_huber)
+        camR, camt, pts = state[:3]
+        ch = human_costs(state, use_huber)
         rho_h, rho_r, rho_m = ch.rho.split([Eh, Er, ch.rho.shape[0] - Eh - Er])
-        return (psum(lm_cost(cs.rho, act[0])) + lm_cost(rho_h, act[1]) +
-                lm_cost(rho_r, act[2]) + lm_cost(rho_m, act[3]))
+        return (psum(static_edge_cost_sum(camR, camt, pts, es_cam, es_pt,
+                                          es_obs, es_info, act[0], cam,
+                                          sigma_static, use_huber))
+                + lm_cost(rho_h, act[1]) + lm_cost(rho_r, act[2])
+                + lm_cost(rho_m, act[3]))
 
     def gn_step(state, act, lam, use_huber: bool):
         camR, camt, pts, jnts, segs, mR, mt = state
@@ -311,7 +316,10 @@ def human_bundle_adjust(
         return state
 
     def inliers(state):
-        cs, ch = edge_costs(state, False)
+        camR, camt, pts = state[:3]
+        cs = static_edge_cost(camR, camt, pts, es_cam, es_pt, es_obs,
+                              es_info, cam, sigma_static, False)
+        ch = human_costs(state, False)
         chi_h, chi_r, chi_m = ch.chi2.split(
             [Eh, Er, ch.chi2.shape[0] - Eh - Er])
         return (base_s & (cs.chi2 <= CHI2_STEREO) & (cs.z > 0),

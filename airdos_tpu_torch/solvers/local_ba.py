@@ -19,12 +19,13 @@ between (5.991 mono / 7.815 stereo), Huber kernel in the first phase.
   inverses and Wagg Hpp^-1 in one launch, the back-substitution in
   another); the reduced camera system (6C x 6C) is solved densely by
   Cholesky.
-- Each LM cost is one ``ops/ba_static`` launch in cost mode and one
-  ``ops/lm_cost`` sum in a fixed order: 17 a solve, and one more launch
-  of the edges for each of the two chi-square passes.  A solve so
-  launches static_edge_blocks 34 times (15 steps, 17 costs, 2 passes),
-  lm_cost 17, landmark_reduce and landmark_backsub 15 each.  On the CPU
-  every kernel's plain version runs, bit-equal to it.
+- Each LM cost is one ``ops/ba_static`` launch in cost-sum mode, which
+  sums the edges' robust costs in ``ops/lm_cost``'s fixed order in the
+  same launch: 17 a solve, and one launch of the edges in cost mode for
+  each of the two chi-square passes.  A solve so launches
+  static_edge_blocks 34 times (15 steps, 17 costs, 2 passes), lm_cost
+  never, landmark_reduce and landmark_backsub 15 each.  On the CPU every
+  kernel's plain version runs, bit-equal to it.
 - Each LM step is accepted or rejected with ``torch.where`` on the device:
   the loop never reads a device value on the host.
 - Multi-device (airdos_tpu's ``axis_name``): given a mesh ``group``
@@ -44,8 +45,8 @@ import torch
 from airdos_tpu_torch.geometry.se3 import se3_compose, se3_exp, so3_hat
 from airdos_tpu_torch.ops.ba_points import landmark_backsub, landmark_reduce
 from airdos_tpu_torch.ops.ba_static import (StaticRows, static_edge_blocks,
-                                            static_edge_cost)
-from airdos_tpu_torch.ops.lm_cost import lm_cost
+                                            static_edge_cost,
+                                            static_edge_cost_sum)
 from airdos_tpu_torch.ops.segment_kernels import (Segments, make_segments,
                                                   segment_sum)
 from airdos_tpu_torch.solvers.smallmat import cho_solve_dense
@@ -219,7 +220,9 @@ def local_bundle_adjust(
 
     def run_phase(R, t, pts, active, n_iters: int, use_huber: bool):
         def cost(R, t, pts):
-            return psum(lm_cost(edge_cost(R, t, pts, use_huber).rho, active))
+            return psum(static_edge_cost_sum(R, t, pts, e_cam, e_pt, e_obs,
+                                             e_info, active, cam, 1.0,
+                                             use_huber))
 
         lam = torch.tensor(1e-6, dtype=dtype, device=dev)
         f_prev = cost(R, t, pts)

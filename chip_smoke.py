@@ -16,9 +16,9 @@ Run from the repository root.  Phases, each of which fails the run:
    bench frames of the synthetic world at the reference budget (640x360,
    1500 ORB features, 8 levels): every frame OK, >= 5 keyframes, ATE <
    0.02 m, >= 3 Hamming and >= 2 pose_lm launches on every fused ("fast")
-   frame, and on every frame one pyramid, one fast_nms and one orb_desc
-   launch a pyramid level of each image (16 each), one select launch an
-   image (2) and one stereo_sad launch;
+   frame, and on every frame one pyramid and one fast_nms launch a
+   pyramid level of each image (16 each), one select and one orb_desc
+   launch an image (2 each) and one stereo_sad launch;
 4. mapping: System(cfg, device="cuda") over the same 28 frames, quantized
    to uint8 as a dataset's PNGs hold them (phase 14a's in-memory twin),
    with the budgets of bench.py's static configuration: every frame OK, >= 5
@@ -26,8 +26,9 @@ Run from the repository root.  Phases, each of which fails the run:
    static BA solved at every keyframe after the third, batched Hamming
    launches on every keyframe frame after the first, 45 segment_sum
    launches per BA solve (3 per Gauss-Newton step), and per solve 34
-   static_edge_blocks (15 steps, 17 LM costs, 2 chi-square passes), 17
-   lm_cost, 15 landmark_reduce and 15 landmark_backsub launches;
+   static_edge_blocks (15 steps, 17 LM costs in its cost-sum mode, 2
+   chi-square passes), no lm_cost, 15 landmark_reduce and 15
+   landmark_backsub launches;
 5. human: the AirDOS flagship on bench.py sections 2-3's crowd scene
    (SyntheticStereoWorld(seed=2, n_points=500, n_humans=10, crowd=True),
    trajectory(27, 0.1, yaw_rate=0.005), humans rendered; the images
@@ -41,7 +42,7 @@ Run from the repository root.  Phases, each of which fails the run:
    trajectories, 45 segment_sum launches per static BA solve and 60 per
    human BA solve (4 per Gauss-Newton step), the static solve's launches
    of phase 4 and per human BA solve 34 static_edge_blocks, 34
-   human_edge_blocks, 68 lm_cost (4 a cost), 15 landmark_reduce and 15
+   human_edge_blocks, 51 lm_cost (3 a cost), 15 landmark_reduce and 15
    landmark_backsub launches, ATE_human < 0.6 ATE_static
    and < 0.03 m; prints both ATEs, the human BA's reduced dimension D, the
    per-frame latency of tracking, keyframe and human-BA frames and the
@@ -97,16 +98,19 @@ Run from the repository root.  Phases, each of which fails the run:
      within tests/test_torch_pose.py's tolerances of its plain version on
      the card (R 1e-4, t 1e-4 m, >= 99% of inlier flags equal), two
      launches bit-equal, its device time from a graph of 20 launches;
-     fast_nms (by level) bit-equal; orb_desc (by level and keypoint
-     count) bit-equal, or else within 1e-3 degrees with >= 99.9% of the
-     descriptors equal, the differing angles and words counted; pyramid
+     fast_nms (by level) bit-equal; orb_desc (by the image's level
+     shapes and quotas, one launch an image) bit-equal to its per-level
+     launches and to its plain version, or else within 1e-3 degrees with
+     >= 99.9% of the descriptors equal, the differing angles and words
+     counted; pyramid
      (by level, source and mask type: image, mask and blur), select (by
      the image's level shapes and quotas: xs, ys, responses) and
      patch_disparity bit-equal; stereo_sad (by keypoints and levels)
      bit-equal where every pixel is 0 or >= 2^-8 (ops/stereo_sad.py's
      condition), else >= 99.9% of accept flags equal and u_right within
      1e-3 px where both accept; static_edge_blocks (by edges, cameras,
-     points and mode), landmark_reduce and landmark_backsub (by points
+     points and mode: Gauss-Newton rows, costs, or the LM cost sum),
+     landmark_reduce and landmark_backsub (by points
      and cameras), human_edge_blocks (by family sizes and mode) and
      lm_cost (by terms) bit-equal, two launches bit-equal;
 10. determinism: two card runs of the mapping System on the small camera
@@ -700,19 +704,37 @@ DESC_SHARE = 0.999
 ANGLE_TOL_DEG = 1e-3
 
 
-def _orb_shape(img, blur, xs, ys):        # (h, w, keypoints)
-    return tuple(img.shape) + tuple(xs.shape)
+def _orb_shape(images, blurred, xs, ys, quotas):   # (level shapes, quotas)
+    return (tuple(tuple(im.shape) for im in images), tuple(quotas))
+
+
+def _orb_fmt(shape) -> str:
+    shapes, quotas = shape
+    return (f"{len(shapes)} levels {shapes[0][0]}x{shapes[0][1]} to "
+            f"{shapes[-1][0]}x{shapes[-1][1]}, {sum(quotas)} slots "
+            f"({quotas[0]} at level 0)")
 
 
 def _orb_check(args):
+    """The all-levels launch against the plain version and against the
+    per-level launches of the same kernel (PR 9's launch a level), which
+    it equals bit for bit; two launches bit-equal."""
     import torch
     ok = _orb()
-    ang, words = ok.orb_describe_cuda(*args)
-    ang2, words2 = ok.orb_describe_cuda(*args)
-    want_ang, want_words = ok.orb_describe_ref(*args)
+    images, blurred, xs, ys, quotas = args
+    ang, words = ok.orb_describe_levels_cuda(*args)
+    ang2, words2 = ok.orb_describe_levels_cuda(*args)
+    per = [ok.orb_describe_cuda(im, bl, xs[f:f + q], ys[f:f + q])
+           for im, bl, f, q in zip(images, blurred, ok.level_table(quotas),
+                                   quotas)]
+    want_ang, want_words = ok.orb_describe_levels_ref(*args)
     torch.cuda.synchronize()
     if not torch.equal(ang, ang2) or not torch.equal(words, words2):
         _fail("orb_desc: two launches differ")
+    if not torch.equal(ang, torch.cat([a for a, _ in per])) or \
+            not torch.equal(words, torch.cat([d for _, d in per])):
+        _fail("orb_desc: the all-levels launch differs from the per-level "
+              "launches")
     gap = (ang.double() - want_ang.double()).abs() % 360.0
     err = float(torch.minimum(gap, 360.0 - gap).max()) if ang.numel() else 0.0
     n_ang = int((ang.view(torch.int32) != want_ang.view(torch.int32)).sum())
@@ -725,37 +747,43 @@ def _orb_check(args):
     what = ("angles and descriptors bit-equal" if n_ang == 0 and n_words == 0
             else f"{n_ang} angles differ (max {err:.2e} deg), {n_words} "
                  f"words differ, descriptors equal {share:.4f}")
-    return err, what, (lambda: ok.orb_describe_cuda(*args)), \
-        (lambda: ok.orb_describe_ref(*args))
+    what += "; equal to the per-level launches"
+    return err, what, (lambda: ok.orb_describe_levels_cuda(*args)), \
+        (lambda: ok.orb_describe_levels_ref(*args))
 
 
 def _orb_bound(shape, args):
-    """The distinct pixels its keypoints' discs and samples touch (its
-    float64 moment sums counted at the float32 rate)."""
+    """Over the levels: the distinct pixels each level's keypoints' discs
+    and samples touch (its float64 moment sums counted at the float32
+    rate)."""
     import torch
     from airdos_tpu_torch.ops.orientation import _umax
     ok = _orb()
-    img, blur, xs, ys = args
-    h, w = img.shape
+    images, blurred, xs, ys, quotas = args
     u = _umax()
     disc = torch.tensor([(dy, dx) for dy in range(-15, 16)
                          for dx in range(-u[abs(dy)], u[abs(dy)] + 1)],
-                        device=img.device)
+                        device=xs.device)
     n_disc = disc.shape[0]
-    gy = (ys[:, None] + disc[None, :, 0]).clamp(0, h - 1)
-    gx = (xs[:, None] + disc[None, :, 1]).clamp(0, w - 1)
-    disc_px = torch.unique(gy * w + gx).numel()
-    ang, _ = ok.orb_describe_cuda(*args)
-    pts = ok.pattern_points(img.device)
-    r = torch.deg2rad(ang)[:, None]
-    c, sn = torch.cos(r), torch.sin(r)
-    sx = torch.round(pts[0] * c - pts[1] * sn).to(torch.int64)
-    sy = torch.round(pts[0] * sn + pts[1] * c).to(torch.int64)
-    sample_px = torch.unique((ys[:, None] + sy).clamp(0, h - 1) * w
-                             + (xs[:, None] + sx).clamp(0, w - 1)).numel()
-    n = xs.shape[0]
-    nbytes = 4 * (disc_px + sample_px) + 16 * n + 36 * n
-    ops = n * (4 * n_disc + 512 * ORB_SAMPLE_FLOPS + ORB_EXTRA_FLOPS)
+    ang, _ = ok.orb_describe_levels_cuda(*args)
+    pts = ok.pattern_points(xs.device)
+    nbytes = ops = 0
+    for img, f, q in zip(images, ok.level_table(quotas), quotas):
+        if q == 0:
+            continue
+        h, w = img.shape
+        x, y = xs[f:f + q], ys[f:f + q]
+        gy = (y[:, None] + disc[None, :, 0]).clamp(0, h - 1)
+        gx = (x[:, None] + disc[None, :, 1]).clamp(0, w - 1)
+        disc_px = torch.unique(gy * w + gx).numel()
+        r = torch.deg2rad(ang[f:f + q])[:, None]
+        c, sn = torch.cos(r), torch.sin(r)
+        sx = torch.round(pts[0] * c - pts[1] * sn).to(torch.int64)
+        sy = torch.round(pts[0] * sn + pts[1] * c).to(torch.int64)
+        sample_px = torch.unique((y[:, None] + sy).clamp(0, h - 1) * w
+                                 + (x[:, None] + sx).clamp(0, w - 1)).numel()
+        nbytes += 4 * (disc_px + sample_px) + 16 * q + 36 * q
+        ops += q * (4 * n_disc + 512 * ORB_SAMPLE_FLOPS + ORB_EXTRA_FLOPS)
     return nbytes, ops / FP32_FLOPS
 
 
@@ -1068,24 +1096,29 @@ HUMAN_F32 = (93, 20, 30)
 HUMAN_F64 = (504, 70, 852)
 
 
-def _st_shape(R, t, pts, e_cam, *rest):     # (edges, C, P, cost mode)
-    return (e_cam.shape[0], R.shape[0], pts.shape[0], bool(rest[-1]))
+def _st_shape(R, t, pts, e_cam, *rest):     # (edges, C, P, mode)
+    return (e_cam.shape[0], R.shape[0], pts.shape[0], int(rest[-1]))
+
+
+_ST_MODES = ("Gauss-Newton", "cost", "cost-sum")
 
 
 def _st_fmt(shape) -> str:
-    E, C, P, cost = shape
-    return f"E={E} C={C} P={P}, {'cost' if cost else 'Gauss-Newton'} mode"
+    E, C, P, mode = shape
+    return f"E={E} C={C} P={P}, {_ST_MODES[mode]} mode"
 
 
 def _st_bound(shape, args):
     """The cameras, points and the edge table read once (active in
-    Gauss-Newton mode), the rows (72 floats an edge) or the costs (3)
-    written once."""
-    E, C, P, cost = shape
-    nbytes = 48 * C + 12 * P + E * (24 + (0 if cost else 4)) \
-        + 4 * E * (3 if cost else 72)
-    return nbytes, E * STATIC_EDGE_F32 / FP32_FLOPS + \
-        (0 if cost else E * STATIC_EDGE_F64 / FP64_FLOPS)
+    Gauss-Newton and cost-sum modes), the rows (72 floats an edge), the
+    costs (3) or the sum (one float) written once; the cost sum's guard,
+    product and add at the float32 rate."""
+    E, C, P, mode = shape
+    edges = 48 * C + 12 * P + E * (24 + (0 if mode == 1 else 4))
+    out = (4 * E * 72, 4 * E * 3, 4)[mode]
+    f32 = E * (STATIC_EDGE_F32 + (3 if mode == 2 else 0)) / FP32_FLOPS
+    return edges + out, f32 + (E * STATIC_EDGE_F64 / FP64_FLOPS
+                               if mode == 0 else 0)
 
 
 def _lr_shape(pt_sums, wagg, *rest):      # (P, C)
@@ -1211,13 +1244,12 @@ KERNELS = (
             lambda shape: f"{shape[0]}x{shape[1]} level",
             lambda shape: shape[0] * shape[1], _fast_check, _fast_bound,
             _no_library),
-    _Kernel("orb_desc", _orb, "orb_describe_cuda", "launches",
+    _Kernel("orb_desc", _orb, "orb_describe_levels_cuda", "launches",
             "airdos_tpu_torch/csrc/orb_desc.cu",
             "airdos_tpu/ops/orientation.py:115 _angles_onehot, "
             "airdos_tpu/ops/brief.py:88 _samples_onehot", _orb_shape,
-            lambda shape: (f"{shape[0]}x{shape[1]} level, {shape[2]} "
-                           f"keypoints"),
-            lambda shape: shape[2], _orb_check, _orb_bound, _no_library),
+            _orb_fmt, lambda shape: sum(shape[1]), _orb_check, _orb_bound,
+            _no_library),
     _Kernel("pyramid", _pyr, "pyramid_level_cuda", "launches",
             "airdos_tpu_torch/csrc/pyramid.cu",
             "airdos_tpu/ops/pyramid.py:39 build_pyramid, "
@@ -1244,9 +1276,10 @@ KERNELS = (
             _no_library, human_only=True),
     _Kernel("static_edge_blocks", _bst, "static_edges_cuda", "launches",
             "airdos_tpu_torch/csrc/ba_static.cu",
-            "airdos_tpu/solvers/local_ba.py:43 _proj_residual and :107 "
-            "gn_step (weights, products), airdos_tpu/solvers/human_ba.py:188 "
-            "residuals (static half)", _st_shape, _st_fmt,
+            "airdos_tpu/solvers/local_ba.py:43 _proj_residual, :107 "
+            "gn_step (weights, products) and :176 cost, "
+            "airdos_tpu/solvers/human_ba.py:188 residuals and :223 cost "
+            "(static half)", _st_shape, _st_fmt,
             lambda shape: shape[0],
             _ba_check("static_edge_blocks",
                       lambda: _bst().static_edges_cuda,
@@ -1284,17 +1317,19 @@ KERNELS = (
             lambda shape: f"{shape[0]} terms", lambda shape: 1,
             _ba_check("lm_cost", lambda: _lmc().lm_cost_cuda,
                       lambda: _lmc().lm_cost_ref),
-            _lc_bound, _no_library),
+            _lc_bound, _no_library, human_only=True),
 )
 
 # the BA kernels' launches per solve of the static (local) BA and of the
 # human BA, from solvers/local_ba.py's and solvers/human_ba.py's
-# docstrings: 15 Gauss-Newton steps, 17 LM costs and 2 chi-square passes
-# (segment_sum's 45 and 60 are checked on their own)
-STATIC_SOLVE = {"static_edge_blocks": 34, "lm_cost": 17,
+# docstrings: 15 Gauss-Newton steps, 17 LM costs (the static family's
+# summed in static_edge_blocks' cost-sum mode, each human family's by
+# lm_cost) and 2 chi-square passes (segment_sum's 45 and 60 are checked on
+# their own)
+STATIC_SOLVE = {"static_edge_blocks": 34, "lm_cost": 0,
                 "landmark_reduce": 15, "landmark_backsub": 15}
 HUMAN_SOLVE = {"static_edge_blocks": 34, "human_edge_blocks": 34,
-               "lm_cost": 68, "landmark_reduce": 15, "landmark_backsub": 15}
+               "lm_cost": 51, "landmark_reduce": 15, "landmark_backsub": 15}
 
 
 def _per_solve_off(per, static: str, human: str = ""):
@@ -1695,10 +1730,11 @@ def phase_slice(smi: str, frames, twc):
     if few:
         _fail(f"fast frames with < 3 Hamming or < 2 pose_lm kernel "
               f"launches: {few}")
-    # the front end, per frame: a pyramid, FAST + NMS and orb_desc launch
-    # a level of each image, a select launch an image, one stereo_sad
+    # the front end, per frame: a pyramid and a FAST + NMS launch a level
+    # of each image, a select and an orb_desc launch an image, one
+    # stereo_sad
     levels = 2 * cfg.orb.n_levels
-    want = dict(pyramid=levels, fast_nms=levels, orb_desc=levels, select=2,
+    want = dict(pyramid=levels, fast_nms=levels, orb_desc=2, select=2,
                 stereo_sad=1)
     off = [i for i, p in enumerate(per)
            if any(p[3][k] != n for k, n in want.items())]
@@ -3016,9 +3052,10 @@ def phase_profile(smi: str):
             "{} {} launches, mean device time {}".format(tag, *kernel_ms(tag))
             for tag in ("hamming_kernel", "segment_sum_", "pose_lm_kernel",
                         "pyramid_level_kernel", "fast_nms_kernel",
-                        "select_kernel", "orb_desc_kernel",
+                        "select_kernel", "orb_desc_levels_kernel",
                         "stereo_sad_kernel", "patch_disparity_kernel",
-                        "static_edges_kernel", "landmark_reduce_kernel",
+                        "static_rows_kernel", "static_cost_kernel",
+                        "static_cost_sum_kernel", "landmark_reduce_kernel",
                         "landmark_backsub_kernel", "lm_cost_kernel"))
         kf = slam.map.kfs.get(slam.tracking.last_kf_id)
         is_kf = kf is not None and kf.frame_id == d.index

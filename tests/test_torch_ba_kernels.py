@@ -457,32 +457,38 @@ def _counted(monkeypatch, module, names, calls=None):
 
 def test_local_bundle_adjust_goes_through_the_kernels(monkeypatch):
     """A solve: 15 Gauss-Newton steps (rows, landmark reduce and
-    back-substitution each), 17 costs (edges in cost mode + one lm_cost)
-    and 2 chi-square passes: static_edge_blocks 34 launches in all."""
+    back-substitution each), 17 costs (edges in cost-sum mode, no lm_cost)
+    and 2 chi-square passes (cost mode): static_edge_blocks 34 launches
+    in all, lm_cost none."""
     from test_torch_mapping import _ba_problem
     calls = _counted(monkeypatch, tlba,
-                     ("static_edge_blocks", "static_edge_cost", "lm_cost",
-                      "landmark_reduce", "landmark_backsub"))
+                     ("static_edge_blocks", "static_edge_cost",
+                      "static_edge_cost_sum", "landmark_reduce",
+                      "landmark_backsub"))
+    _counted(monkeypatch, lc, ("lm_cost",), calls)
     arrays, intr = _ba_problem(False)
     tlba.local_bundle_adjust(*(_t(a) for a in arrays), *intr)
-    assert calls == {"static_edge_blocks": 15, "static_edge_cost": 19,
-                     "lm_cost": 17, "landmark_reduce": 15,
-                     "landmark_backsub": 15}
+    assert calls == {"static_edge_blocks": 15, "static_edge_cost": 2,
+                     "static_edge_cost_sum": 17, "lm_cost": 0,
+                     "landmark_reduce": 15, "landmark_backsub": 15}
 
 
 def test_human_bundle_adjust_goes_through_the_kernels(monkeypatch):
-    """A solve: 15 steps, 17 costs of four lm_cost sums, 2 passes."""
+    """A solve: 15 steps, 17 costs (the static family's in cost-sum mode,
+    three lm_cost sums of the human families), 2 passes: 34
+    static_edge_blocks, 34 human_edge_blocks and 51 lm_cost launches."""
     from test_torch_human import _ba_case, _run_port
     calls = _counted(monkeypatch, thba,
                      ("static_edge_blocks", "static_edge_cost",
-                      "human_edge_blocks", "human_edge_cost", "lm_cost"))
+                      "static_edge_cost_sum", "human_edge_blocks",
+                      "human_edge_cost", "lm_cost"))
     _counted(monkeypatch, tlba, ("landmark_reduce", "landmark_backsub"),
              calls)
     _run_port(_ba_case("clean")[0])
-    assert calls == {"static_edge_blocks": 15, "static_edge_cost": 19,
-                     "human_edge_blocks": 15, "human_edge_cost": 19,
-                     "lm_cost": 68, "landmark_reduce": 15,
-                     "landmark_backsub": 15}
+    assert calls == {"static_edge_blocks": 15, "static_edge_cost": 2,
+                     "static_edge_cost_sum": 17, "human_edge_blocks": 15,
+                     "human_edge_cost": 19, "lm_cost": 51,
+                     "landmark_reduce": 15, "landmark_backsub": 15}
 
 
 def test_cuda_wrappers_raise_on_cpu_tensors():

@@ -882,6 +882,87 @@ def test_orb_desc_kernel_rejects_what_it_does_not_take(cuda):
             ok.orb_describe_cuda(*args)
 
 
+
+def _orb_levels_case(rng, h, w, n_levels, n_features):
+    """An image's pyramid levels and blurs (the port's kernels) and the
+    selected keypoints of every level at the extractor's quotas."""
+    import airdos_tpu_torch.ops.fast as fk
+    import airdos_tpu_torch.ops.pyramid as pk
+    import airdos_tpu_torch.ops.select as sk
+    from airdos_tpu_torch.features.orb import (MIN_BORDER, _cell_size_for,
+                                               level_quotas)
+    pyr = pk.build_pyramid(torch.from_numpy(_texture(rng, h, w)).cuda(),
+                           None, n_levels, 1.2)
+    maps = [fk.fast_nms(im, m, 7.0, MIN_BORDER)
+            for im, m in zip(pyr.images, pyr.masks)]
+    quotas = level_quotas(n_features, n_levels, 1.2)
+    cells = [_cell_size_for(s.shape[0] - 2 * MIN_BORDER,
+                            s.shape[1] - 2 * MIN_BORDER, q)
+             for s, q in zip(maps, quotas)]
+    xs, ys, _ = sk.select_keypoints(maps, quotas, cells, 12.0)
+    return list(pyr.images), list(pyr.blurred), xs, ys, list(quotas)
+
+
+@pytest.mark.parametrize("h,w,n_levels,n_features", [(360, 640, 8, 1500),
+                                                     (240, 320, 4, 600)])
+def test_orb_desc_levels_kernel_equals_plain_version(cuda, h, w, n_levels,
+                                                     n_features):
+    """All levels in one launch: bit-equal to the plain version, to the
+    per-level launches of the same kernel and to itself."""
+    import airdos_tpu_torch.ops.orb_kernels as ok
+    rng = np.random.default_rng(h + n_levels)
+    images, blurred, xs, ys, quotas = _orb_levels_case(rng, h, w, n_levels,
+                                                       n_features)
+    before = ok.launches()
+    ang, words = ok.orb_describe_levels(images, blurred, xs, ys, quotas)
+    ang2, words2 = ok.orb_describe_levels(images, blurred, xs, ys, quotas)
+    torch.cuda.synchronize()
+    assert ok.launches() == before + 2
+    assert torch.equal(ang, ang2) and torch.equal(words, words2)
+    per = [ok.orb_describe_cuda(im, bl, xs[f:f + q], ys[f:f + q])
+           for im, bl, f, q in zip(images, blurred, ok.level_table(quotas),
+                                   quotas)]
+    assert torch.equal(ang, torch.cat([a for a, _ in per]))
+    assert torch.equal(words, torch.cat([d for _, d in per]))
+    want_ang, want_words = ok.orb_describe_levels_ref(images, blurred, xs,
+                                                      ys, quotas)
+    torch.cuda.synchronize()
+    assert torch.equal(ang, want_ang)
+    assert torch.equal(words, want_words)
+
+
+def test_orb_desc_levels_kernel_takes_levels_with_no_keypoints(cuda):
+    import airdos_tpu_torch.ops.orb_kernels as ok
+    rng = np.random.default_rng(17)
+    images, blurred, xs, ys, _ = _orb_levels_case(rng, 240, 320, 4, 600)
+    quotas = [50, 0, 30, 0]
+    xs, ys = xs[:80].contiguous(), ys[:80].contiguous()
+    got = ok.orb_describe_levels(images, blurred, xs, ys, quotas)
+    want = ok.orb_describe_levels_ref(images, blurred, xs, ys, quotas)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    before = ok.launches()
+    ang, words = ok.orb_describe_levels(images, blurred, xs[:0], ys[:0],
+                                        [0, 0, 0, 0])
+    assert ok.launches() == before            # no slot: no launch
+    assert ang.shape == (0,) and words.shape == (0, 8)
+
+
+def test_orb_desc_levels_kernel_rejects_what_it_does_not_take(cuda):
+    import airdos_tpu_torch.ops.orb_kernels as ok
+    img = torch.zeros((64, 96), device=cuda)
+    xs = torch.zeros(8, dtype=torch.int64, device=cuda)
+    for args in (([img] * 17, [img] * 17, xs, xs, [0] * 16 + [8]),
+                 ([img] * 2, [img], xs, xs, [4, 4]),
+                 ([img] * 2, [img] * 2, xs, xs, [4, 3]),
+                 ([img, img.double()], [img] * 2, xs, xs, [4, 4]),
+                 ([img, img], [img, img[:32].contiguous()], xs, xs, [4, 4]),
+                 ([img] * 2, [img] * 2, xs.to(torch.int32), xs, [4, 4]),
+                 ([img] * 2, [img] * 2, xs, xs.cpu(), [4, 4]),
+                 ([img] * 2, [img] * 2, xs, xs, [12, -4])):
+        with pytest.raises(ValueError):
+            ok.orb_describe_levels_cuda(*args)
+
 # ------------------------------------------- the front end's four kernels
 
 def _pyramid_inputs(rng, h, w, mask_kind):
@@ -1261,6 +1342,52 @@ def test_static_edge_blocks_kernel_equals_plain_version(cuda, E, C, P,
     assert torch.all(rows.cam[args[7] == 0] == 0)
 
 
+@pytest.mark.parametrize("case", ["8192x24", "4096x24", "2048x48", "64x3",
+                                  "mono", "one camera", "40960x24",
+                                  "empty"])
+@pytest.mark.parametrize("huber", [True, False])
+def test_static_edge_modes_bit_equal_at_the_path_shapes(cuda, case, huber):
+    """Gauss-Newton rows, the chi-square passes' costs and the fused LM
+    cost bit-equal to the plain version on the card and on the CPU at the
+    paths' edge tables; the fused cost bit-equal to lm_cost of the cost
+    mode's rho; one launch a call."""
+    import airdos_tpu_torch.ops.ba_static as bs
+    import airdos_tpu_torch.ops.lm_cost as lc
+    E, C, P = {"8192x24": (8192, 24, 2048), "4096x24": (4096, 24, 1024),
+               "2048x48": (2048, 48, 2048), "64x3": (64, 3, 20),
+               "mono": (3000, 8, 500), "one camera": (2000, 1, 400),
+               "40960x24": (40960, 24, 8192), "empty": (0, 4, 10)}[case]
+    rng = np.random.default_rng(E + C + huber)
+    arrays = list(_static_case(rng, max(E, 8), C, P))
+    if E == 0:
+        arrays = [a[:0] if i >= 3 else a for i, a in enumerate(arrays)]
+    if case == "mono":
+        arrays[5][:, 2] = -1.0
+    if E > 6:
+        arrays[5][6] = [np.nan, 1.0, 1.0]
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+            for a in arrays]
+    before = bs.launches()
+    rows = bs.static_edge_blocks(*args, BA_CAM, 1.0, huber)
+    cost = bs.static_edge_cost(*args[:7], BA_CAM, 1.0, huber)
+    total = bs.static_edge_cost_sum(*args, BA_CAM, 1.0, huber)
+    again = bs.static_edge_cost_sum(*args, BA_CAM, 1.0, huber)
+    torch.cuda.synchronize()
+    assert bs.launches() == before + 4 - (E == 0) * 2
+    assert _bits_equal(total, again)
+    assert _bits_equal(total, lc.lm_cost(cost.rho, args[7]))
+    for mode, got in ((bs.ROWS, tuple(rows)), (bs.COST, tuple(cost)),
+                      (bs.COST_SUM, (total,))):
+        want = bs.static_edges_ref(*args, BA_CAM, 1.0, huber, mode)
+        want_cpu = bs.static_edges_ref(*(a.cpu() for a in args), BA_CAM, 1.0,
+                                       huber, mode)
+        if mode == bs.COST_SUM:
+            want, want_cpu = (want,), (want_cpu,)
+        for k, (a, b, c) in enumerate(zip(got, want, want_cpu)):
+            assert _bits_equal(a, b), (mode, k)
+            assert _bits_equal(a, c), (mode, k, "cpu")
+
+
 def _landmark_case(rng, P, C):
     """Segment sums of a landmark Schur step: rank-1 and rank-2 blocks,
     empty and invalid points, cameras that do not see a point, a fixed
@@ -1426,6 +1553,7 @@ def test_ba_kernel_dispatchers_raise_without_their_library(cuda, monkeypatch,
     calls = (
         lambda: bs.static_edge_blocks(*static, BA_CAM, 1.0, True),
         lambda: bs.static_edge_cost(*static[:7], BA_CAM, 1.0, True),
+        lambda: bs.static_edge_cost_sum(*static, BA_CAM, 1.0, True),
         lambda: bp.landmark_reduce(pt_sums, wagg, valid, lam),
         lambda: bp.landmark_backsub(torch.zeros((20, 3, 3), device=cuda),
                                     pt_sums, wagg, dx_c, valid),

@@ -2,11 +2,17 @@
 warp of csrc/select.cu's cluster scans, the bitonic network it runs (the
 stages with j < 32 by warp shuffles, the rest in shared memory) and the
 shared memory it admits; which edges each block of csrc/pose_lm.cu's
-cluster takes.  The kernels themselves run on the card only
-(tests/test_torch_cuda.py)."""
+cluster takes; which level each warp of csrc/orb_desc.cu's all-levels
+launch describes; which of an edge's 72 Gauss-Newton floats each lane of
+csrc/ba_static.cu computes, and the order of its fused LM cost.  The
+kernels themselves run on the card only (tests/test_torch_cuda.py)."""
 import numpy as np
 import pytest
+import torch
 
+import airdos_tpu_torch.ops.ba_static as bs
+import airdos_tpu_torch.ops.lm_cost as lc
+import airdos_tpu_torch.ops.orb_kernels as ok
 import airdos_tpu_torch.ops.select as sk
 
 # level 0 of 640x360 at 1500 features (836 cells of 17 px), a whole
@@ -124,3 +130,206 @@ def test_pose_lm_cluster_takes_every_edge_once(n):
         # gets without opting in
         assert len(block) <= -(-po.MAX_EDGES // po.CLUSTER) <= 48 * 1024
     assert (seen == 1).all()
+
+
+# ------------------------------------------------------------- orb_desc
+
+ORB_QUOTAS = ((326,), (326, 271, 226, 189, 157, 131, 109, 91),
+              (193, 161, 134, 112), (0, 5, 0, 0, 7, 0), (4, 0),
+              tuple(range(16)), (3,) * 16, (0,) * 16)
+
+
+@pytest.mark.parametrize("quotas", ORB_QUOTAS)
+def test_orb_level_table_puts_every_slot_in_one_warp(quotas):
+    """Global warp k describes slot k of the level the kernel's walk finds;
+    every slot of every level (a level with quota 0 holds none) is
+    described once, by a warp of its own level."""
+    first = ok.level_table(quotas)
+    total = sum(quotas)
+    assert len(first) == len(quotas) <= ok.MAX_LEVELS
+    seen = np.zeros(total, np.int64)
+    for warp in range(total):
+        lvl = ok.slot_level(warp, first)
+        assert quotas[lvl] > 0
+        assert first[lvl] <= warp < first[lvl] + quotas[lvl]
+        seen[warp] += 1
+    assert (seen == 1).all()
+    # the slots of level l are quotas[l] consecutive warps from first[l]
+    for lvl, (f, q) in enumerate(zip(first, quotas)):
+        assert [ok.slot_level(k, first) for k in range(f, f + q)] == [lvl] * q
+
+
+def _texture_levels(rng, shapes):
+    from airdos_tpu_torch.ops.filters import gaussian_blur7
+    images = [torch.from_numpy(np.round(rng.uniform(0, 255, s))
+                               .astype(np.float32)) for s in shapes]
+    return images, [gaussian_blur7(im) for im in images]
+
+
+@pytest.mark.parametrize("quotas", ((40, 31, 0, 17), (0, 9), (25,)))
+def test_orb_describe_levels_ref_is_the_levels_concatenated(quotas):
+    rng = np.random.default_rng(sum(quotas))
+    shapes = [(120 - 12 * i, 160 - 16 * i) for i in range(len(quotas))]
+    images, blurred = _texture_levels(rng, shapes)
+    xs = torch.from_numpy(np.concatenate(
+        [rng.integers(0, w, q) for (h, w), q in zip(shapes, quotas)]))
+    ys = torch.from_numpy(np.concatenate(
+        [rng.integers(0, h, q) for (h, w), q in zip(shapes, quotas)]))
+    ang, words = ok.orb_describe_levels(images, blurred, xs, ys, quotas)
+    parts = [ok.orb_describe_ref(im, bl, xs[f:f + q], ys[f:f + q])
+             for im, bl, f, q in zip(images, blurred, ok.level_table(quotas),
+                                     quotas)]
+    assert torch.equal(ang, torch.cat([a for a, _ in parts]))
+    assert torch.equal(words, torch.cat([w for _, w in parts]))
+    assert words.shape == (sum(quotas), 8) and words.dtype == torch.int32
+
+
+def test_orb_describe_levels_cuda_rejects_what_it_does_not_take():
+    im = torch.zeros((64, 64))
+    xs = torch.zeros(4, dtype=torch.int64)
+    with pytest.raises(ValueError):
+        ok.orb_describe_levels_cuda([im], [im], xs, xs, [4])     # CPU
+    with pytest.raises(ValueError):
+        ok.orb_describe_levels_cuda([im] * 17, [im] * 17, xs, xs, [0] * 17)
+    with pytest.raises(ValueError):
+        ok.orb_describe_levels_cuda([im] * 2, [im], xs, xs, [2, 2])
+
+
+def test_extractor_slot_scales_are_the_per_level_products():
+    """Level-0 coordinates from the per-slot float32 scale table equal the
+    per-level products by the level's float scale, bit for bit."""
+    from airdos_tpu_torch.features.orb import OrbExtractor
+    ex = OrbExtractor(1500, 1.2, 8)
+    scale, octv = ex._slots_on(torch.device("cpu"))
+    rng = np.random.default_rng(3)
+    n = sum(ex.quotas)
+    xs = torch.from_numpy(rng.integers(0, 640, n))
+    ys = torch.from_numpy(rng.integers(0, 360, n))
+    got = torch.stack([xs.float(), ys.float()], -1) * scale[:, None]
+    for lvl, (f, q) in enumerate(zip(ok.level_table(ex.quotas), ex.quotas)):
+        want = torch.stack([xs[f:f + q].float(), ys[f:f + q].float()],
+                           -1) * ex.scale_factor ** lvl
+        assert torch.equal(got[f:f + q], want)
+        assert (octv[f:f + q] == lvl).all()
+    assert octv.dtype == torch.int64 and octv.shape == (n,)
+
+
+# -------------------------------------------------- static_edge_blocks
+
+def test_gn_lane_plan_writes_every_entry_once():
+    """The lanes' plan words put each of an edge's 72 Gauss-Newton floats
+    in exactly one place, each lane at most SLOTS entries, the lanes'
+    loads within one entry of each other."""
+    plan = bs.gn_lane_plan()
+    assert len(plan) == bs.LANES and all(len(w) == bs.SLOTS for w in plan)
+    written = np.zeros(72, np.int64)
+    per_lane = []
+    for lane in plan:
+        words = [w for w in lane if w >= 0]
+        assert lane[len(words):] == [-1] * (bs.SLOTS - len(words))
+        per_lane.append(len(words))
+        for w in words:
+            q, p, first, second, neg = bs.plan_entry(w)
+            assert 0 <= q <= 9 and 0 <= p <= 9
+            written[first] += 1
+            if second != bs.NONE:
+                written[second] += 1
+    assert (written == 1).all()
+    assert max(per_lane) - min(per_lane) <= 1
+
+
+def _plan_rows(Jc, Jp, e, w):
+    """The Gauss-Newton rows as the kernel's lanes compute them from the
+    plan, in float64 with one rounding each: [E, 72]."""
+    f64 = torch.float64
+    A = torch.cat([Jc, Jp, e[:, :, None]], dim=2).to(f64)     # [E, 3, 10]
+    wd = w.to(f64)
+    out = torch.zeros((A.shape[0], 72), dtype=torch.float32)
+    for lane in bs.gn_lane_plan():
+        for word in lane:
+            if word < 0:
+                continue
+            q, p, first, second, neg = bs.plan_entry(word)
+            acc = (wd * A[:, 0, q]) * A[:, 0, p]
+            acc = acc + (wd * A[:, 1, q]) * A[:, 1, p]
+            acc = acc + (wd * A[:, 2, q]) * A[:, 2, p]
+            v = (-acc if neg else acc).to(torch.float32)
+            out[:, first] = v
+            if second != bs.NONE:
+                out[:, second] = v
+    return out
+
+
+def _static_case(rng, E, C=6, P=80):
+    from test_torch_ba_kernels import _static_problem
+    case = list(_static_problem(rng, C=C, P=P, E=E))
+    if E > 6:
+        case[5][5] = [np.inf, 1.0, 1.0]        # rho inf
+        case[5][6] = [np.nan, 1.0, 1.0]        # rho NaN
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in case]
+
+
+@pytest.mark.parametrize("huber", [True, False])
+def test_gn_lane_plan_gives_the_plain_rows_bit_for_bit(huber):
+    """The plan's entries, each the kernel's three float64 products and
+    sums, with the symmetric half copied, are static_edges_ref's rows."""
+    rng = np.random.default_rng(31 + huber)
+    R, t, pts, e_cam, e_pt, obs, info, active = _static_case(rng, 700)
+    cam = (458.654, 457.296, 367.215, 248.375, 50.0)
+    rows = bs.static_edges_ref(R, t, pts, e_cam, e_pt, obs, info, active,
+                               cam, 0.7, huber, bs.ROWS)
+    e, Jc, Jp, _, stereo = bs.project_ref(R[e_cam.long()], t[e_cam.long()],
+                                          pts[e_pt.long()], obs, cam)
+    chi2 = bs.sqnorm3(e) * info * 0.7
+    delta = torch.where(stereo, bs.DELTA_STEREO, bs.DELTA_MONO) \
+        .to(torch.float32)
+    wh, _ = bs.huber_ref(chi2, delta, huber)
+    base = info * 0.7
+    w = (base if wh is None else base * wh) * active
+    got = _plan_rows(Jc, Jp, e, w)
+    want = torch.cat([rows.cam, rows.pt, rows.pc], dim=1)
+    same = (got.view(torch.int32) == want.view(torch.int32)) | \
+        (torch.isnan(got) & torch.isnan(want))
+    assert bool(same.all())
+
+
+def _cluster_sum(terms):
+    """csrc/ba_static.cu static_cost_sum_kernel's order: per chunk of 8192
+    terms, the thread of partial j (in block j // 128 of the cluster) adds
+    the chunk's terms j, j + 1024, ..., j + 7168 to it, then the halving
+    tree over the 1024 partials."""
+    chunk = 8 * lc.PARTIALS
+    n = terms.shape[0]
+    padded = torch.cat([terms, terms.new_zeros(-(-n // chunk) * chunk - n)])
+    acc = terms.new_zeros(lc.PARTIALS)
+    for c in range(padded.shape[0] // chunk):
+        block = padded[c * chunk:(c + 1) * chunk].reshape(8, lc.PARTIALS)
+        for r in range(8):
+            acc = acc + block[r]
+    half = lc.PARTIALS // 2
+    while half:
+        acc = acc[:half] + acc[half:2 * half]
+        half //= 2
+    return acc[0]
+
+
+@pytest.mark.parametrize("E", [0, 1, 1023, 1025, 8192, 40960])
+def test_static_edge_cost_sum_is_lm_cost_of_the_cost_mode(E):
+    """The fused cost's plain version is lm_cost of the cost mode's rho,
+    bit for bit (with an infinite and a NaN rho), and the kernel's order
+    (chunks of 8192 terms into the leader's 1024 partials) gives the same
+    bits."""
+    rng = np.random.default_rng(E)
+    args = _static_case(rng, E, C=12, P=400)
+    cam = (458.654, 457.296, 367.215, 248.375, 50.0)
+    for huber in (True, False):
+        got = bs.static_edge_cost_sum(*args, cam, 1.0, huber)
+        cost = bs.static_edge_cost(*args[:7], cam, 1.0, huber)
+        want = lc.lm_cost(cost.rho, args[7])
+        assert got.dim() == 0 and got.dtype == torch.float32
+        assert got.view(torch.int32) == want.view(torch.int32), (got, want)
+        terms = torch.where(torch.isfinite(cost.rho), cost.rho,
+                            torch.full_like(cost.rho, lc.NON_FINITE)) * args[7]
+        assert _cluster_sum(terms).view(torch.int32) == got.view(torch.int32)
+    if E > 6:
+        assert not torch.isfinite(cost.rho[5]) and torch.isnan(cost.rho[6])

@@ -347,6 +347,42 @@ def test_orb_describe_matches_jax(pyramid, rng, level):
     np.testing.assert_array_equal(_n(words)[far], want[far])
 
 
+def test_orb_describe_levels_matches_jax(pyramid, rng):
+    """All 8 levels in one dispatcher call (a level with no keypoint among
+    them): each level's angles and descriptors against airdos_tpu's."""
+    images, _ = pyramid
+    quotas = (60, 45, 0, 30, 24, 20, 16, 12)
+    blurs, xs, ys = [], [], []
+    for im, q in zip(images, quotas):
+        h, w = im.shape
+        blurs.append(_n(jfilters.gaussian_blur7(jnp.asarray(im))))
+        x, y = _keypoints(rng, h, w, max(q, 4))
+        xs.append(x[:q])
+        ys.append(y[:q])
+    before = tok.launches()
+    ang, words = tok.orb_describe_levels([_t(im) for im in images],
+                                         [_t(b) for b in blurs],
+                                         _t(np.concatenate(xs)),
+                                         _t(np.concatenate(ys)), quotas)
+    assert tok.launches() == before
+    assert ang.shape == (sum(quotas),) and words.shape == (sum(quotas), 8)
+    n_far = 0
+    for lvl, (im, blur, x, y, f) in enumerate(zip(
+            images, blurs, xs, ys, tok.level_table(quotas))):
+        if not len(x):
+            continue
+        a = _n(ang)[f:f + len(x)]
+        xs_j, ys_j = jnp.asarray(x, jnp.int32), jnp.asarray(y, jnp.int32)
+        ang_j = _n(jax.jit(_angles_gather)(jnp.asarray(im), xs_j, ys_j))
+        assert _angle_gap(a, _exact_angles(im, x, y)).max() < 1e-4
+        assert _angle_gap(a, ang_j).max() < (1e-3 if lvl == 0 else 0.1)
+        want = _n(_jax_words(jnp.asarray(blur), xs_j, ys_j, jnp.asarray(a)))
+        far = _far_from_ties(a)
+        n_far += int(far.sum())
+        np.testing.assert_array_equal(_n(words)[f:f + len(x)][far], want[far])
+    assert n_far > 0.5 * sum(quotas)
+
+
 def test_orb_describe_cuda_raises_on_cpu_tensors():
     im = torch.zeros((64, 64))
     xs = torch.zeros(4, dtype=torch.int64)
