@@ -8,12 +8,12 @@ Gaussian blur -> rBRIEF -> coordinates rescaled to level 0.  Every level
 yields exactly its quota of padded slots, and the slot count is padded to
 a multiple of 128 so slot layouts line up with the JAX package.
 
-The pyramid (ops/pyramid.build_pyramid) brings each level's blur.  Per
-level, the detection map (scores, mask, border, threshold, NMS) is one
-``ops/fast.fast_nms`` call; the keypoint selection of all levels is one
-``ops/select.select_keypoints`` call, and the angles and descriptors of
-all levels one ``ops/orb_kernels.orb_describe_levels`` call: a kernel
-launch each on the card.
+The pyramid (ops/pyramid.build_pyramid) brings each level's blur.  The
+detection maps of all levels (scores, mask, border, threshold, NMS) are
+one ``ops/fast.fast_nms_levels`` call, the keypoint selection of all
+levels one ``ops/select.select_keypoints`` call, and the angles and
+descriptors of all levels one ``ops/orb_kernels.orb_describe_levels``
+call: a kernel launch each on the card.
 """
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from airdos_tpu_torch.ops.brief import pack_u32
-from airdos_tpu_torch.ops.fast import fast_nms
+from airdos_tpu_torch.ops.fast import fast_nms_levels
 from airdos_tpu_torch.ops.orb_kernels import orb_describe_levels
 from airdos_tpu_torch.ops.select import select_keypoints
 
@@ -99,13 +99,11 @@ class OrbExtractor:
         return tables
 
     def _extract_from_pyramid(self, pyr) -> OrbFeatures:
-        maps, cells = [], []
-        for lvl in range(self.n_levels):
-            h, w = pyr.images[lvl].shape
-            maps.append(fast_nms(pyr.images[lvl], pyr.masks[lvl],
-                                 self.min_th, MIN_BORDER))
-            cells.append(_cell_size_for(h - 2 * MIN_BORDER,
-                                        w - 2 * MIN_BORDER, self.quotas[lvl]))
+        maps = fast_nms_levels(pyr.images, pyr.masks, self.min_th,
+                               MIN_BORDER)
+        cells = [_cell_size_for(h - 2 * MIN_BORDER, w - 2 * MIN_BORDER, q)
+                 for (h, w), q in zip((x.shape for x in pyr.images),
+                                      self.quotas)]
         xs_all, ys_all, resp = select_keypoints(maps, self.quotas, cells,
                                                 self.ini_th)
         ang, words = orb_describe_levels(pyr.images, pyr.blurred, xs_all,

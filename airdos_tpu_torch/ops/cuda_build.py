@@ -139,6 +139,32 @@ def consts(*values) -> ctypes.Array:
         *(float(np.float32(v)) for v in values))
 
 
+# floats between the starts of two levels' views in a flat buffer: 128
+# bytes, a cache line, so no line holds two levels and every view is
+# 16-byte aligned
+LEVEL_ALIGN = 32
+
+
+def level_offsets(shapes):
+    """The offset (in elements) of each [h, w] level in a flat buffer, each
+    a multiple of LEVEL_ALIGN, and the buffer's length."""
+    offsets, at = [], 0
+    for h, w in shapes:
+        offsets.append(at)
+        at += -(-int(h) * int(w) // LEVEL_ALIGN) * LEVEL_ALIGN
+    return offsets, at
+
+
+def level_views(shapes, device, dtype=torch.float32):
+    """Contiguous [h, w] views, one a shape, into one flat buffer (one
+    allocation) at level_offsets: one as_strided call a view, not a slice
+    and a view."""
+    offsets, total = level_offsets(shapes)
+    buf = torch.empty(total, dtype=dtype, device=device)
+    return tuple(buf.as_strided((int(h), int(w)), (int(w), 1), o)
+                 for o, (h, w) in zip(offsets, shapes))
+
+
 def on_device(device: torch.device):
     """The context a launch on `device` needs: none when it is already the
     current CUDA device (the common case), else torch.cuda.device."""

@@ -6,19 +6,24 @@ shifted copies of the image.  The score is OpenCV's: the largest threshold
 at which 9 contiguous circle pixels are all brighter than p+t or all
 darker than p-t.  A pixel is a corner at threshold t iff score > t.
 
-The extractor calls ``fast_nms``: one pyramid level's scores, multiplied
-by the mask, zeroed outside the detection border, thresholded and
-non-max suppressed.  On a CUDA tensor it launches the sm_90a kernel of
-``csrc/fast.cu`` on the calling thread's current stream (built with nvcc
+The extractor calls ``fast_nms_levels`` once an image: each pyramid
+level's scores, multiplied by the mask, zeroed outside the detection
+border, thresholded and non-max suppressed; ``fast_nms`` is the one-level
+case.  On CUDA tensors they launch the sm_90a kernel of ``csrc/fast.cu``
+(one launch for all the levels, at most ``MAX_LEVELS``, their maps views
+into one buffer) on the calling thread's current stream (built with nvcc
 at first use into ``airdos_tpu_torch/_build/``, bound through ctypes) or
-raises, and counts the launch, by thread and stream priority too; on a
-CPU tensor it runs ``fast_nms_ref``, the plain composition of
-``fast_score_map`` and ``nms_strict``.  The kernel design and what bounds
-it are described at the top of the CUDA source.
+raise, and count the launch, by thread and stream priority too; on CPU
+tensors they run ``fast_nms_levels_ref`` / ``fast_nms_ref``, the plain
+composition of ``fast_score_map`` and ``nms_strict``.  The kernel design
+and what bounds it are described at the top of the CUDA source;
+``level_table`` and ``block_tile`` are the kernel's level table and the
+tile a block finds in it.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -90,12 +95,28 @@ def fast_nms_ref(img: torch.Tensor, mask: torch.Tensor, min_th: float,
     return nms_strict(torch.where(score > min_th, score, zero))
 
 
+def fast_nms_levels_ref(images: Sequence[torch.Tensor],
+                        masks: Sequence[torch.Tensor], min_th: float,
+                        border: int) -> Tuple[torch.Tensor, ...]:
+    """Plain torch version of an image's detection maps: fast_nms_ref of
+    each level."""
+    return tuple(fast_nms_ref(img, mask, min_th, border)
+                 for img, mask in zip(images, masks))
+
+
+MAX_LEVELS = 16                  # the kernel's level table
+TILE = 32                        # a block's output tile edge
+
 _SOURCE = cuda_build.CSRC / "fast.cu"
+_I32P = ctypes.POINTER(ctypes.c_int)
+_I64P = ctypes.POINTER(ctypes.c_int64)
 _SIGNATURES = {
     "airdos_fast_nms": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    "airdos_fast_nms_levels": [_I64P] * 3 + [_I32P] * 2 + [ctypes.c_int]
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
 }
-_kernel = None                   # the bound C entry point, once loaded
+_lib = None                      # the loaded library, once built
 
 _counter = cuda_build.LaunchCounter()
 
@@ -121,35 +142,117 @@ def build():
     return cuda_build.build(_SOURCE)
 
 
-def fast_nms_cuda(img: torch.Tensor, mask: torch.Tensor, min_th: float,
-                  border: int) -> torch.Tensor:
-    """Launch the sm_90a kernel on the current stream."""
-    global _kernel
+def _library():
+    global _lib
+    if _lib is None:
+        _lib = cuda_build.library(_SOURCE, _SIGNATURES)
+    return _lib
+
+
+def level_table(shapes: Sequence[Tuple[int, int]]):
+    """The kernel's level table for levels of these [h, w] shapes: the
+    first tile of each level in the launch's order with, last, the launch's
+    blocks (a tile a block), and each level's tiles across, as the C entry
+    point fills them."""
+    first, tiles_x, at = [], [], 0
+    for h, w in shapes:
+        across = -(-w // TILE) if w > 0 else 0
+        first.append(at)
+        tiles_x.append(across)
+        if h > 0 and w > 0:
+            at += across * -(-h // TILE)
+    return first + [at], tiles_x
+
+
+def block_tile(block: int, first: Sequence[int],
+               tiles_x: Sequence[int]) -> Tuple[int, int, int]:
+    """(level, y0, x0) of the tile block `block` computes: csrc/fast.cu's
+    walk of the level table (the last level whose first tile is at most
+    the block; a level without tiles shares its first tile with the
+    next)."""
+    lvl = 0
+    for i in range(1, len(tiles_x)):
+        if block >= first[i]:
+            lvl = i
+    tile = block - first[lvl]
+    return lvl, (tile // tiles_x[lvl]) * TILE, (tile % tiles_x[lvl]) * TILE
+
+
+def _check_level(lvl, img, mask, device) -> None:
     for name, x in (("img", img), ("mask", mask)):
         if not x.is_cuda or x.dtype != torch.float32 or x.dim() != 2 \
-                or not x.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous CUDA float32 "
-                             f"[H, W] tensor, got {x.dtype} "
-                             f"{tuple(x.shape)} on {x.device}")
-    if mask.device != img.device or mask.shape != img.shape:
-        raise ValueError(f"mask {tuple(mask.shape)} on {mask.device} for "
-                         f"img {tuple(img.shape)} on {img.device}")
+                or not x.is_contiguous() or x.device != device:
+            raise ValueError(f"{name} of level {lvl} must be a contiguous "
+                             f"CUDA float32 [H, W] tensor on {device}, got "
+                             f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    if mask.shape != img.shape:
+        raise ValueError(f"mask {tuple(mask.shape)} for img "
+                         f"{tuple(img.shape)} at level {lvl}")
+    if img.numel() >= 2 ** 31:
+        raise ValueError(f"{tuple(img.shape)} level exceeds the kernel's "
+                         f"indexing")
+
+
+def _check_border(border: int) -> None:
     if border < 3:
         raise ValueError(f"border {border} < 3, the FAST circle's radius")
+
+
+def fast_nms_cuda(img: torch.Tensor, mask: torch.Tensor, min_th: float,
+                  border: int) -> torch.Tensor:
+    """Launch the sm_90a kernel on the current stream for one level."""
+    if not img.is_cuda:
+        raise ValueError(f"img must be a CUDA tensor, got {img.device}")
+    _check_level(0, img, mask, img.device)
+    _check_border(border)
     h, w = img.shape
-    if h * w >= 2 ** 31:
-        raise ValueError(f"{h}x{w} image exceeds the kernel's indexing")
-    if _kernel is None:
-        _kernel = cuda_build.library(_SOURCE, _SIGNATURES).airdos_fast_nms
+    kernel = _library().airdos_fast_nms
     out = torch.empty_like(img)
     with cuda_build.on_device(img.device):
-        err = _kernel(img.data_ptr(), mask.data_ptr(), out.data_ptr(), h, w,
-                      float(min_th), int(border),
-                      torch.cuda.current_stream(img.device).cuda_stream)
+        err = kernel(img.data_ptr(), mask.data_ptr(), out.data_ptr(), h, w,
+                     float(min_th), int(border),
+                     torch.cuda.current_stream(img.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fast_nms kernel launch failed: cudaError {err}")
     _counter.count(cuda_build.stream_priority(img.device))
     return out
+
+
+def fast_nms_levels_cuda(images: Sequence[torch.Tensor],
+                         masks: Sequence[torch.Tensor], min_th: float,
+                         border: int) -> Tuple[torch.Tensor, ...]:
+    """Launch the sm_90a kernel on the current stream for all the levels
+    at once; the maps are views into one buffer."""
+    images, masks = tuple(images), tuple(masks)
+    n = len(images)
+    if not 0 < n <= MAX_LEVELS or len(masks) != n:
+        raise ValueError(f"{n} levels (1 to {MAX_LEVELS}), {len(masks)} "
+                         f"masks")
+    dev = images[0].device
+    if not images[0].is_cuda:
+        raise ValueError(f"the levels must be CUDA tensors, got {dev}")
+    for lvl, (img, mask) in enumerate(zip(images, masks)):
+        _check_level(lvl, img, mask, dev)
+    _check_border(border)
+    shapes = [tuple(x.shape) for x in images]
+    kernel = _library().airdos_fast_nms_levels
+    maps = cuda_build.level_views(shapes, dev)
+
+    def ptrs(xs):
+        return (ctypes.c_int64 * n)(*(x.data_ptr() for x in xs))
+
+    def ints(vals):
+        return (ctypes.c_int * n)(*(int(v) for v in vals))
+
+    with cuda_build.on_device(dev):
+        err = kernel(ptrs(images), ptrs(masks), ptrs(maps),
+                     ints(h for h, _ in shapes), ints(w for _, w in shapes),
+                     n, float(min_th), int(border),
+                     torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fast_nms kernel launch failed: cudaError {err}")
+    _counter.count(cuda_build.stream_priority(dev))
+    return maps
 
 
 def fast_nms(img: torch.Tensor, mask: torch.Tensor, min_th: float,
@@ -159,3 +262,14 @@ def fast_nms(img: torch.Tensor, mask: torch.Tensor, min_th: float,
     if img.is_cuda:
         return fast_nms_cuda(img, mask, min_th, border)
     return fast_nms_ref(img, mask, min_th, border)
+
+
+def fast_nms_levels(images: Sequence[torch.Tensor],
+                    masks: Sequence[torch.Tensor], min_th: float,
+                    border: int) -> Tuple[torch.Tensor, ...]:
+    """The detection maps of an image's levels images[l] [H_l, W_l]
+    float32 with their masks masks[l]: CUDA tensors go to the kernel (one
+    launch), CPU tensors to the plain version."""
+    if images[0].is_cuda:
+        return fast_nms_levels_cuda(images, masks, min_th, border)
+    return fast_nms_levels_ref(images, masks, min_th, border)

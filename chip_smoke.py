@@ -16,9 +16,10 @@ Run from the repository root.  Phases, each of which fails the run:
    bench frames of the synthetic world at the reference budget (640x360,
    1500 ORB features, 8 levels): every frame OK, >= 5 keyframes, ATE <
    0.02 m, >= 3 Hamming and >= 2 pose_lm launches on every fused ("fast")
-   frame, and on every frame one pyramid and one fast_nms launch a
-   pyramid level of each image (16 each), one select and one orb_desc
-   launch an image (2 each) and one stereo_sad launch;
+   frame, and on every frame one pyramid, one fast_nms, one select and
+   one orb_desc launch an image, each over all the image's levels (2
+   each), and one stereo_sad launch (held on every frame of phases 4-5
+   too);
 4. mapping: System(cfg, device="cuda") over the same 28 frames, quantized
    to uint8 as a dataset's PNGs hold them (phase 14a's in-memory twin),
    with the budgets of bench.py's static configuration: every frame OK, >= 5
@@ -83,10 +84,8 @@ Run from the repository root.  Phases, each of which fails the run:
    call the same way and used nowhere in the port (segment_sum:
    index_add_; Hamming: torch.cdist(p=0) on the descriptors unpacked to
    float {0, 1} [.., 256], unpacked outside the timed window; none for
-   the pose LM, FAST + NMS, orb_desc, selection, stereo_sad,
-   patch_disparity and the BA kernels; the pyramid's levels after the
-   first: F.interpolate(bilinear), the image's resize alone, not
-   bit-equal):
+   the pose LM, FAST + NMS, orb_desc, the pyramid, selection,
+   stereo_sad, patch_disparity and the BA kernels):
    - the 2-D Hamming kernel at 1536x1536, 2048x1536 and a ragged
      1500x1337 of random words: exact equality;
    - every kernel at every shape the path phases launched it with, on the
@@ -98,14 +97,20 @@ Run from the repository root.  Phases, each of which fails the run:
      within tests/test_torch_pose.py's tolerances of its plain version on
      the card (R 1e-4, t 1e-4 m, >= 99% of inlier flags equal), two
      launches bit-equal, its device time from a graph of 20 launches;
-     fast_nms (by level) bit-equal; orb_desc (by the image's level
-     shapes and quotas, one launch an image) bit-equal to its per-level
-     launches and to its plain version, or else within 1e-3 degrees with
-     >= 99.9% of the descriptors equal, the differing angles and words
-     counted; pyramid
-     (by level, source and mask type: image, mask and blur), select (by
-     the image's level shapes and quotas: xs, ys, responses) and
-     patch_disparity bit-equal; stereo_sad (by keypoints and levels)
+     fast_nms (by the image's level shapes, one launch an image)
+     bit-equal to its per-level launches and to its plain version, the
+     per-level launches' device time beside it; orb_desc (by the image's
+     level shapes and quotas, one launch an image) bit-equal to its
+     per-level launches and to its plain version, or else within 1e-3
+     degrees with >= 99.9% of the descriptors equal, the differing angles
+     and words counted; pyramid (by the image's size, levels, mask type
+     and erosion, one cooperative launch an image: every level's image,
+     mask and blur; at each size the paths launched with a uint8 mask
+     also with that mask as float32 and with none) bit-equal to the
+     per-level launches of its one-level kernel and to its plain version,
+     its grid and grid barriers and the per-level launches' device time
+     beside it; select (by the image's level shapes and quotas: xs, ys,
+     responses) and patch_disparity bit-equal; stereo_sad (by keypoints and levels)
      bit-equal where every pixel is 0 or >= 2^-8 (ops/stereo_sad.py's
      condition), else >= 99.9% of accept flags equal and u_right within
      1e-3 px where both accept; static_edge_blocks (by edges, cameras,
@@ -594,13 +599,14 @@ def _seg_library(args):
 # and count 2), a classification pass over one edge, one serial LM step
 # (prior, damping, the 6x6 Schur inverse, se3_exp, compose), one
 # interior pixel's FAST score with its mask and threshold (16
-# differences, 2 x 16 x 8 arc minima / maxima, 2 x 15 over the arcs, 4),
-# one pixel's NMS, and one keypoint's IC moments (4 a disc pixel) plus its
+# differences, the 16 arcs' minima and maxima from prefix and suffix
+# extrema over blocks of 9: 2 x 45, 2 x 15 over the arcs, 5), one
+# pixel's NMS, and one keypoint's IC moments (4 a disc pixel) plus its
 # 512 rotated samples (6 each), 256 comparisons and transcendentals
 POSE_BUILD_FLOPS = 253
 POSE_CLASSIFY_FLOPS = 40
 POSE_STEP_FLOPS = 800
-FAST_PIXEL_FLOPS = 306
+FAST_PIXEL_FLOPS = 141
 NMS_PIXEL_FLOPS = 9
 ORB_SAMPLE_FLOPS = 6
 ORB_EXTRA_FLOPS = 256 + 100
@@ -669,30 +675,59 @@ def _pose_bound(shape, args):
 
 # ------------------------------------------------------------ FAST + NMS
 
-def _fast_shape(img, mask, min_th, border):   # (h, w)
-    return tuple(img.shape)
+def _fast_shape(images, masks, min_th, border):   # the level shapes
+    return tuple(tuple(im.shape) for im in images)
+
+
+def _fast_fmt(shape) -> str:
+    return (f"{len(shape)} levels {shape[0][0]}x{shape[0][1]} to "
+            f"{shape[-1][0]}x{shape[-1][1]}")
 
 
 def _fast_check(args):
+    """The all-levels launch against the plain version and against the
+    per-level launches of the same kernel (the launch-a-level design), which
+    it equals bit for bit; two launches bit-equal; the per-level launches'
+    device time beside it."""
     import torch
     fk = _fast()
-    got, want = fk.fast_nms_cuda(*args), fk.fast_nms_ref(*args)
-    again = fk.fast_nms_cuda(*args)
+    images, masks, min_th, border = args
+
+    def per_level():
+        return [fk.fast_nms_cuda(im, m, min_th, border)
+                for im, m in zip(images, masks)]
+    got, again = fk.fast_nms_levels_cuda(*args), fk.fast_nms_levels_cuda(*args)
+    per, want = per_level(), fk.fast_nms_levels_ref(*args)
     torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    if not torch.equal(got, want) or not torch.equal(got, again):
-        _fail(f"fast_nms != plain version (max abs err {err})")
-    what = f"bit-equal, {int((got > 0).sum())} corners kept"
-    return err, what, (lambda: fk.fast_nms_cuda(*args)), \
-        (lambda: fk.fast_nms_ref(*args))
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    for lvl, (a, b, c, d) in enumerate(zip(got, again, per, want)):
+        if not torch.equal(a, d):
+            _fail(f"fast_nms level {lvl} != plain version (max abs err {err})")
+        if not torch.equal(a, b):
+            _fail(f"fast_nms level {lvl}: two launches differ")
+        if not torch.equal(a, c):
+            _fail(f"fast_nms level {lvl}: the all-levels launch differs from "
+                  f"the per-level launch")
+    cold, hot = _graph_ms(per_level)
+    what = (f"bit-equal to the plain version and to the per-level launches, "
+            f"two launches bit-equal, {sum(int((m > 0).sum()) for m in got)} "
+            f"corners kept; the {len(images)} per-level launches (the "
+            f"launch-a-level design): device time (CUDA graph) L2 cold {cold:.4f} ms, hot "
+            f"{hot:.4f} ms")
+    return err, what, (lambda: fk.fast_nms_levels_cuda(*args)), \
+        (lambda: fk.fast_nms_levels_ref(*args))
 
 
 def _fast_bound(shape, args):
-    h, w = shape
+    """Over the levels: each level's image and mask read once and its map
+    written once."""
     border = args[3]
-    inside = max(0, h - 2 * border) * max(0, w - 2 * border)
-    return 12 * h * w, \
-        (inside * FAST_PIXEL_FLOPS + h * w * NMS_PIXEL_FLOPS) / FP32_FLOPS
+    nbytes = ops = 0
+    for h, w in shape:
+        inside = max(0, h - 2 * border) * max(0, w - 2 * border)
+        nbytes += 12 * h * w
+        ops += inside * FAST_PIXEL_FLOPS + h * w * NMS_PIXEL_FLOPS
+    return nbytes, ops / FP32_FLOPS
 
 
 # ------------------------------------------------------------ orb_desc
@@ -798,59 +833,102 @@ PYR_RESIZE_FLOPS = 19
 PYR_ERODE_FLOPS = 18
 
 
-def _pyr_shape(src, src_mask, out_h, out_w, level0, mask_erode=10):
-    # (level 0, source h, w, output h, w, mask dtype); the path erodes 10
-    return (bool(level0),) + tuple(src.shape) + (out_h, out_w) + (
-        None if src_mask is None else str(src_mask.dtype).split(".")[-1],)
+def _pyr_shape(img, mask, n_levels, scale_factor, mask_erode):
+    # (h, w, levels, scale factor, mask dtype, erosion window)
+    return tuple(img.shape) + (n_levels, scale_factor, None if mask is None
+                               else str(mask.dtype).split(".")[-1],
+                               mask_erode)
 
 
 def _pyr_fmt(shape) -> str:
-    level0, hs, ws, h, w, mask = shape
-    if level0:
-        return f"level 0 {h}x{w} (mask {mask or 'none'})"
-    return f"{h}x{w} level from {hs}x{ws}"
+    h, w, n, _, mask, k = shape
+    return (f"{n} levels from {h}x{w} (mask {mask or 'none'}"
+            f"{f', erosion {k}' if mask else ''})")
+
+
+def _pyr_levels(args, launch):
+    """The levels of build_pyramid_cuda(*args) a level at a time, each
+    from the one before: [(image, mask, blur)] by launch(src, src_mask,
+    h, w, level0, mask_erode), the one-level kernel (the launch-a-level
+    design) or the plain version."""
+    img, mask, n, factor, erode_k = args
+    shapes = _pyr().level_shapes(*img.shape, n, factor)
+    out = [launch(img, mask, *shapes[0], True, erode_k)]
+    for h, w in shapes[1:]:
+        out.append(launch(out[-1][0], out[-1][1], h, w, False, erode_k))
+    return out
 
 
 def _pyr_check(args):
+    """The cooperative launch against the plain version and the
+    per-level launches of the one-level kernel, which it equals bit for
+    bit; two launches bit-equal; its grid and barriers, and the per-level
+    launches' device time beside it."""
     import torch
     pk = _pyr()
-    got, again = pk.pyramid_level_cuda(*args), pk.pyramid_level_cuda(*args)
-    want = pk.pyramid_level_ref(*args)
+    img, mask, n, factor, _ = args
+
+    def per_level():
+        return _pyr_levels(args, pk.pyramid_level_cuda)
+    got, again = pk.build_pyramid_cuda(*args), pk.build_pyramid_cuda(*args)
+    per, want = per_level(), _pyr_levels(args, pk.pyramid_level_ref)
     torch.cuda.synchronize()
-    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
-    for name, a, b, c in zip(("image", "mask", "blur"), got, again, want):
-        if not torch.equal(a, c) or not torch.equal(a, b):
-            _fail(f"pyramid {name} != plain version (max abs err {err})")
-    what = (f"image, mask and blur bit-equal, {int(got[1].sum())} usable "
-            f"pixels")
-    return err, what, (lambda: pk.pyramid_level_cuda(*args)), \
-        (lambda: pk.pyramid_level_ref(*args))
+    err = 0.0
+    for lvl in range(n):
+        for part, name in enumerate(("image", "mask", "blur")):
+            a, b = got[part][lvl], again[part][lvl]
+            c, d = per[lvl][part], want[lvl][part]
+            err = max(err, float((a - d).abs().max()))
+            if not torch.equal(a, d):
+                _fail(f"pyramid level {lvl} {name} != plain version (max abs "
+                      f"err {err})")
+            if not torch.equal(a, b):
+                _fail(f"pyramid level {lvl} {name}: two launches differ")
+            if not torch.equal(a, c):
+                _fail(f"pyramid level {lvl} {name}: the cooperative launch "
+                      f"differs from the per-level launches")
+    shapes = pk.level_shapes(*img.shape, n, factor)
+    _, sms, per_sm = pk.residency(img.device)
+    cold, hot = _graph_ms(per_level)
+    what = (f"images, masks and blurs bit-equal to the plain version and to "
+            f"the per-level launches, two launches bit-equal, "
+            f"{int(got.masks[0].sum())} usable pixels at level 0; "
+            f"cooperative grid {pk.cooperative_grid(img.device, shapes)} "
+            f"blocks ({sms} SMs, {per_sm} resident an SM), {n - 1} grid "
+            f"barriers; the {n} per-level launches (the launch-a-level "
+            f"design): device "
+            f"time (CUDA graph) L2 cold {cold:.4f} ms, hot {hot:.4f} ms")
+    return err, what, (lambda: pk.build_pyramid_cuda(*args)), \
+        (lambda: _pyr_levels(args, pk.pyramid_level_ref))
 
 
 def _pyr_bound(shape, args):
-    """The source level and its mask read once, the outputs written once
-    (level 0 writes no image: it is the input)."""
-    level0, hs, ws, h, w, mask = shape
-    if level0:
-        mask_bytes = {None: 0, "uint8": 1, "float32": 4}[mask]
-        return (4 + mask_bytes + 8) * h * w, \
-            h * w * (PYR_BLUR_FLOPS + (PYR_ERODE_FLOPS if mask else 0)) \
-            / FP32_FLOPS
-    return 8 * hs * ws + 12 * h * w, \
-        h * w * (PYR_BLUR_FLOPS + PYR_RESIZE_FLOPS) / FP32_FLOPS
+    """The input image and its mask read once, every level's outputs
+    written once (level 0 writes no image: it is the input); the levels a
+    phase reads back are the launch's own."""
+    h, w, n, factor, mask, _ = shape
+    levels = _pyr().level_shapes(h, w, n, factor)[1:]
+    mask_bytes = {None: 0, "uint8": 1, "float32": 4}[mask]
+    nbytes = (4 + mask_bytes + 8) * h * w + sum(12 * a * b for a, b in levels)
+    ops = h * w * (PYR_BLUR_FLOPS + (PYR_ERODE_FLOPS if mask else 0)) + sum(
+        a * b * (PYR_BLUR_FLOPS + PYR_RESIZE_FLOPS) for a, b in levels)
+    return nbytes, ops / FP32_FLOPS
 
 
-def _pyr_library(args):
-    """F.interpolate(bilinear, align_corners=False, antialias=False), the
-    image's resize alone (not bit-equal: a comparison); none at level 0."""
-    import torch.nn.functional as F
-    src, src_mask, out_h, out_w, level0 = args[:5]
-    if level0:
-        return _no_library(args)
-    x = src[None, None]
-    return (lambda: F.interpolate(x, size=(out_h, out_w), mode="bilinear",
-                                  align_corners=False, antialias=False)), \
-        "F.interpolate(bilinear)"
+def _pyr_variants(cases):
+    """The mask kinds the paths did not launch at an image size they
+    launched with a uint8 mask: that mask as float32, and no mask."""
+    out = {}
+    for _, args in cases.values():
+        img, mask, n, factor, erode_k = args
+        if mask is None or str(mask.dtype) != "torch.uint8":
+            continue
+        for other in (mask.float(), None):
+            alt = (img, other, n, factor, erode_k)
+            key = _pyr_shape(*alt)
+            if key not in cases:
+                out.setdefault(key, alt)
+    return out
 
 
 # ------------------------------------------------------------- select
@@ -1209,6 +1287,9 @@ class _Kernel(NamedTuple):
     library: Callable               # args -> (callable or None, its name)
     graph_n: int = 100              # launches in the timed CUDA graph
     human_only: bool = False        # launched by the human layer alone
+    # recorded {shape: [launches, args]} -> {shape: args}: cases the paths
+    # did not launch, checked and timed beside them
+    variants: Callable = None
 
 
 # every kernel of the port, in the kernels line's order
@@ -1237,27 +1318,26 @@ KERNELS = (
             "(lax.fori_loop :195)", _pose_shape, _pose_fmt,
             lambda shape: shape[0], _pose_check, _pose_bound, _no_library,
             graph_n=20),
-    _Kernel("fast_nms", _fast, "fast_nms_cuda", "launches",
+    _Kernel("fast_nms", _fast, "fast_nms_levels_cuda", "launches",
             "airdos_tpu_torch/csrc/fast.cu",
             "airdos_tpu/ops/fast.py:32 fast_score_map, "
-            "airdos_tpu/ops/fast.py:70 nms_strict", _fast_shape,
-            lambda shape: f"{shape[0]}x{shape[1]} level",
-            lambda shape: shape[0] * shape[1], _fast_check, _fast_bound,
-            _no_library),
+            "airdos_tpu/ops/fast.py:70 nms_strict", _fast_shape, _fast_fmt,
+            lambda shape: sum(h * w for h, w in shape), _fast_check,
+            _fast_bound, _no_library),
     _Kernel("orb_desc", _orb, "orb_describe_levels_cuda", "launches",
             "airdos_tpu_torch/csrc/orb_desc.cu",
             "airdos_tpu/ops/orientation.py:115 _angles_onehot, "
             "airdos_tpu/ops/brief.py:88 _samples_onehot", _orb_shape,
             _orb_fmt, lambda shape: sum(shape[1]), _orb_check, _orb_bound,
             _no_library),
-    _Kernel("pyramid", _pyr, "pyramid_level_cuda", "launches",
+    _Kernel("pyramid", _pyr, "build_pyramid_cuda", "launches",
             "airdos_tpu_torch/csrc/pyramid.cu",
             "airdos_tpu/ops/pyramid.py:39 build_pyramid, "
             "airdos_tpu/ops/filters.py:107 resize_bilinear, "
             "airdos_tpu/ops/filters.py:71 erode, "
             "airdos_tpu/ops/filters.py:51 gaussian_blur7", _pyr_shape,
-            _pyr_fmt, lambda shape: shape[3] * shape[4],
-            _pyr_check, _pyr_bound, _pyr_library),
+            _pyr_fmt, lambda shape: shape[0] * shape[1],
+            _pyr_check, _pyr_bound, _no_library, variants=_pyr_variants),
     _Kernel("select", _sel, "select_keypoints_cuda", "launches",
             "airdos_tpu_torch/csrc/select.cu",
             "airdos_tpu/features/orb.py:74 _select_level_keypoints",
@@ -1484,6 +1564,9 @@ def phase_kernel(smi: str):
         shapes = _PATH.get(name, {})
         if not shapes:
             _fail(f"{name}: no launch recorded on the main paths")
+        if k.variants is not None:
+            shapes = {**shapes, **{sh: [0, args] for sh, args
+                                   in k.variants(shapes).items()}}
         # the most launched shape first; ties go to the larger output
         order = sorted(shapes, key=lambda sh: (-shapes[sh][0],
                                                -k.out_size(sh)))
@@ -1502,8 +1585,10 @@ def phase_kernel(smi: str):
                                  library_ms=lib_ms)
             lib = f"{lib_name} {_fmt_ms(lib_ms)}" if lib_ms is not None \
                 else lib_name
-            print(f"[kernel] {name} {k.fmt(shape)}, {n_launch} "
-                  f"launches on the main paths, on the path's inputs: {what}; "
+            on_path = (f"{n_launch} launches on the main paths, on the "
+                       f"path's inputs" if n_launch else
+                       "not launched on the main paths, on a path's image")
+            print(f"[kernel] {name} {k.fmt(shape)}, {on_path}: {what}; "
                   f"per call kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"library {lib}; kernel device time (CUDA graph) L2 cold "
                   f"{cold:.4f} ms, hot {hot:.4f} ms; bound "
@@ -1682,6 +1767,19 @@ def _ate(trk, twc):
     return ate_rmse(t_est, twc[:len(t_est)])
 
 
+# the front end's launches a frame: one pyramid, FAST + NMS, select and
+# orb_desc launch an image of the stereo pair (each over all the image's
+# levels) and one stereo_sad
+FRONT_END = dict(pyramid=2, fast_nms=2, select=2, orb_desc=2, stereo_sad=1)
+
+
+def _front_end_off(launches) -> list:
+    """The frames whose launches (a {kernel: launches} a frame) are not
+    FRONT_END's."""
+    return [i for i, d in enumerate(launches)
+            if any(d[k] != n for k, n in FRONT_END.items())]
+
+
 def _ms_stats(ms) -> str:
     ms = np.asarray(ms)
     if not len(ms):
@@ -1730,16 +1828,11 @@ def phase_slice(smi: str, frames, twc):
     if few:
         _fail(f"fast frames with < 3 Hamming or < 2 pose_lm kernel "
               f"launches: {few}")
-    # the front end, per frame: a pyramid and a FAST + NMS launch a level
-    # of each image, a select and an orb_desc launch an image, one
-    # stereo_sad
-    levels = 2 * cfg.orb.n_levels
-    want = dict(pyramid=levels, fast_nms=levels, orb_desc=2, select=2,
-                stereo_sad=1)
-    off = [i for i, p in enumerate(per)
-           if any(p[3][k] != n for k, n in want.items())]
+    off = _front_end_off([p[3] for p in per])
     if off:
-        _fail(f"frames without {want} front-end launches: {off}")
+        _fail(f"frames without {FRONT_END} front-end launches (the "
+              f"pyramid and FAST + NMS one launch an image, not one a "
+              f"level): {off}")
     n_kfs = trk.map.n_keyframes()
     if n_kfs < 5:
         _fail(f"tracking only: {n_kfs} keyframes")
@@ -1872,6 +1965,10 @@ def phase_mapping(smi: str, frames, twc, twins):
     if seg_off:
         _fail(f"mapping: segment_sum launches != 45 per BA solve at frames "
               f"{seg_off}")
+    fe_off = _front_end_off([p["d"] for p in per])
+    if fe_off:
+        _fail(f"mapping: frames without {FRONT_END} front-end launches: "
+              f"{fe_off}")
     ba_off = _per_solve_off(per, "solves")
     if ba_off:
         _fail(f"mapping: BA kernel launches per solve != {STATIC_SOLVE} at "
@@ -1948,6 +2045,10 @@ def phase_human(smi: str, frames, twc, twins):
     if seg_off:
         _fail(f"human: segment_sum launches != 45 per static and 60 per "
               f"human BA solve at frames {seg_off}")
+    fe_off = _front_end_off([p["d"] for p in per])
+    if fe_off:
+        _fail(f"human: flagship frames without {FRONT_END} front-end "
+              f"launches: {fe_off}")
     ba_off = _per_solve_off(per, "static", "human")
     if ba_off:
         _fail(f"human: BA kernel launches != {STATIC_SOLVE} per static and "
@@ -3051,7 +3152,7 @@ def phase_profile(smi: str):
         mine = "; ".join(
             "{} {} launches, mean device time {}".format(tag, *kernel_ms(tag))
             for tag in ("hamming_kernel", "segment_sum_", "pose_lm_kernel",
-                        "pyramid_level_kernel", "fast_nms_kernel",
+                        "pyramid_levels_kernel", "fast_nms_levels_kernel",
                         "select_kernel", "orb_desc_levels_kernel",
                         "stereo_sad_kernel", "patch_disparity_kernel",
                         "static_rows_kernel", "static_cost_kernel",

@@ -982,8 +982,9 @@ def _pyramid_inputs(rng, h, w, mask_kind):
     (101, 179, 3, "uint8"), (35, 38, 2, None)])
 def test_pyramid_kernel_equals_plain_version(cuda, h, w, n_levels, mask_kind):
     """Images, masks and blurs bit-equal to the plain version on the card
-    and on the CPU, one launch a level; odd sizes and a level at most
-    twice the FAST border among them."""
+    and on the CPU and to the one-level kernel's launches, in one launch
+    an image; odd sizes and a level at most twice the FAST border among
+    them."""
     import airdos_tpu_torch.ops.pyramid as pk
     rng = np.random.default_rng(h + w)
     img, mask = _pyramid_inputs(rng, h, w, mask_kind)
@@ -992,7 +993,8 @@ def test_pyramid_kernel_equals_plain_version(cuda, h, w, n_levels, mask_kind):
     before = pk.launches()
     got = pk.build_pyramid(img_d, mask_d, n_levels, 1.2)
     torch.cuda.synchronize()
-    assert pk.launches() == before + n_levels
+    assert pk.launches() == before + 1
+    _assert_pyramid_is_the_level_launches(got, img_d, mask_d, 10)
     want = pk.build_pyramid(img_d, mask_d, n_levels, 1.2)
     want_cpu = pk.build_pyramid(img_d.cpu(),
                                 None if mask_d is None else mask_d.cpu(),
@@ -1025,6 +1027,145 @@ def test_pyramid_kernel_rejects_what_it_does_not_take(cuda):
                  (img, img, 3, 80, False)):
         with pytest.raises(ValueError):
             pk.pyramid_level_cuda(*args)
+
+
+def _assert_pyramid_is_the_level_launches(pyr, img, mask, erode_k):
+    """pyr (one launch) equals the one-level kernel's launches, each level
+    from the one before, bit for bit."""
+    import airdos_tpu_torch.ops.pyramid as pk
+    prev = pk.pyramid_level_cuda(img, mask, *img.shape, True, erode_k)
+    for lvl in range(len(pyr.images)):
+        if lvl:
+            prev = pk.pyramid_level_cuda(prev[0], prev[1],
+                                         *pyr.images[lvl].shape, False)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("image", "mask", "blur"), prev,
+                              (pyr.images[lvl], pyr.masks[lvl],
+                               pyr.blurred[lvl])):
+            assert torch.equal(a, b), (lvl, name)
+
+
+@pytest.mark.parametrize("h,w,n_levels,mask_kind", [
+    (360, 640, 8, None), (360, 640, 8, "uint8"), (360, 640, 8, "float32"),
+    (240, 320, 4, "uint8"), (120, 160, 4, None), (44, 60, 3, "uint8"),
+    (400, 700, 16, None)])
+def test_pyramid_levels_launch_is_the_per_level_launches(cuda, h, w,
+                                                         n_levels, mask_kind):
+    """One cooperative launch an image at the paths' shapes (and 16
+    levels, and levels under a tile a side): bit-equal to the per-level
+    launches and to the plain version, two launches bit-equal, views into
+    one buffer."""
+    import airdos_tpu_torch.ops.pyramid as pk
+    rng = np.random.default_rng(h * 3 + w + n_levels)
+    img, mask = _pyramid_inputs(rng, h, w, mask_kind)
+    img_d = torch.from_numpy(img).to(cuda)
+    mask_d = None if mask is None else torch.from_numpy(mask).to(cuda)
+    before = pk.launches()
+    got = pk.build_pyramid_cuda(img_d, mask_d, n_levels, 1.2)
+    again = pk.build_pyramid_cuda(img_d, mask_d, n_levels, 1.2)
+    torch.cuda.synchronize()
+    assert pk.launches() == before + 2
+    assert got.images[0] is img_d
+    base = got.masks[0].untyped_storage().data_ptr()
+    assert all(x.untyped_storage().data_ptr() == base
+               for x in got.images[1:] + got.masks + got.blurred)
+    for part in range(3):
+        assert all(torch.equal(a, b) for a, b in zip(got[part], again[part]))
+    _assert_pyramid_is_the_level_launches(got, img_d, mask_d, 10)
+    want = pk.build_pyramid(img_d.cpu(), None if mask_d is None
+                            else mask_d.cpu(), n_levels, 1.2)
+    for part in range(3):
+        assert all(torch.equal(a.cpu(), b)
+                   for a, b in zip(got[part], want[part]))
+    shapes = pk.level_shapes(h, w, n_levels, 1.2)
+    cooperative, sms, per_sm = pk.residency(img_d.device)
+    assert cooperative == 1 and per_sm >= 1
+    assert pk.cooperative_grid(img_d.device, shapes) <= sms * per_sm
+
+
+def test_pyramid_levels_launch_on_a_high_priority_stream(cuda):
+    """Tracking's stream (priority -1) beside a busy stream of priority 0:
+    the cooperative launch gives what it gives on the default stream."""
+    import airdos_tpu_torch.ops.pyramid as pk
+    rng = np.random.default_rng(7)
+    img, mask = _pyramid_inputs(rng, 360, 640, "uint8")
+    img_d = torch.from_numpy(img).to(cuda)
+    mask_d = torch.from_numpy(mask).to(cuda)
+    want = pk.build_pyramid_cuda(img_d, mask_d, 8, 1.2)
+    torch.cuda.synchronize()
+    busy = torch.cuda.Stream(priority=0)
+    side = torch.cuda.Stream(priority=-1)
+    a = torch.randn(4096, 4096, device=cuda)
+    with torch.cuda.stream(busy):
+        for _ in range(4):
+            a = a @ a.T / 4096.0
+    with torch.cuda.stream(side):
+        got = [pk.build_pyramid_cuda(img_d, mask_d, 8, 1.2)
+               for _ in range(4)]
+    torch.cuda.synchronize()
+    for pyr in got:
+        for part in range(3):
+            assert all(torch.equal(x, y) for x, y in zip(pyr[part],
+                                                         want[part]))
+
+
+def test_pyramid_levels_launch_rejects_what_it_does_not_take(cuda):
+    import airdos_tpu_torch.ops.pyramid as pk
+    img = torch.zeros((64, 96), device=cuda)
+    for args in ((img.double(), None, 3), (img.cpu(), None, 3),
+                 (img, img.to(torch.int32), 3), (img, img[:32], 3),
+                 (img, None, 17), (img, None, 0),
+                 (img[:20].contiguous(), None, 12)):
+        with pytest.raises(ValueError):
+            pk.build_pyramid_cuda(*args)
+    with pytest.raises(ValueError):
+        pk.build_pyramid_cuda(img, None, 3, 1.2, mask_erode=17)
+
+
+@pytest.mark.parametrize("h,w,n_levels,masked", [
+    (360, 640, 8, False), (360, 640, 8, True), (240, 320, 4, True),
+    (120, 160, 4, False), (44, 60, 3, True), (400, 700, 16, False)])
+def test_fast_nms_levels_launch_is_the_per_level_launches(cuda, h, w,
+                                                          n_levels, masked):
+    """One launch an image over its levels at the paths' shapes (and 16
+    levels, and levels under a tile a side): bit-equal to the per-level
+    launches and to the plain version, two launches bit-equal, the maps
+    views into one buffer."""
+    import airdos_tpu_torch.ops.fast as fk
+    import airdos_tpu_torch.ops.pyramid as pk
+    rng = np.random.default_rng(h + 5 * w + n_levels)
+    img, mask = _pyramid_inputs(rng, h, w, "uint8" if masked else None)
+    pyr = pk.build_pyramid(
+        torch.from_numpy(img).to(cuda),
+        None if mask is None else torch.from_numpy(mask).to(cuda),
+        n_levels, 1.2)
+    before = fk.launches()
+    got = fk.fast_nms_levels(pyr.images, pyr.masks, 7.0, 16)
+    again = fk.fast_nms_levels(pyr.images, pyr.masks, 7.0, 16)
+    torch.cuda.synchronize()
+    assert fk.launches() == before + 2
+    base = got[0].untyped_storage().data_ptr()
+    assert all(m.untyped_storage().data_ptr() == base for m in got)
+    per = [fk.fast_nms(im, m, 7.0, 16) for im, m in zip(pyr.images,
+                                                        pyr.masks)]
+    want = fk.fast_nms_levels_ref(pyr.images, pyr.masks, 7.0, 16)
+    torch.cuda.synchronize()
+    for a, b, c, d in zip(got, again, per, want):
+        assert torch.equal(a, b) and torch.equal(a, c) and torch.equal(a, d)
+    assert sum(int((m > 0).sum()) for m in got) > 0
+
+
+def test_fast_nms_levels_launch_rejects_what_it_does_not_take(cuda):
+    import airdos_tpu_torch.ops.fast as fk
+    img = torch.zeros((64, 96), device=cuda)
+    for args in (([img] * 17, [img] * 17, 7.0, 16),
+                 ([img] * 2, [img], 7.0, 16),
+                 ([img, img.double()], [img] * 2, 7.0, 16),
+                 ([img, img], [img, img[:32].contiguous()], 7.0, 16),
+                 ([img.cpu()] * 2, [img.cpu()] * 2, 7.0, 16),
+                 ([img] * 2, [img] * 2, 7.0, 2)):
+        with pytest.raises(ValueError):
+            fk.fast_nms_levels_cuda(*args)
 
 
 def _detection_maps(rng, h, w, n_levels, masked):

@@ -279,6 +279,80 @@ def test_select_keypoints_cuda_raises_on_cpu_tensors():
         tsel.select_keypoints_cuda([s], [10], [8], INI_TH)
 
 
+# ------------------------------------- an image's levels in one launch
+
+def _mask_of(mask, kind):
+    return None if kind is None else _t(mask.astype(kind))
+
+
+@pytest.mark.parametrize("mask_kind,erode_k", [(None, 10)] + [
+    (kind, k) for kind in ("uint8", "float32") for k in (1, 6, 10, 15, 16)])
+def test_build_pyramid_views_match_jax(frame, mask_kind, erode_k):
+    """build_pyramid's levels, views into one flat buffer (images from
+    level 1 on, masks, blurs; level 0's image the input), against
+    airdos_tpu's build_pyramid with the same erosion: images and blurs
+    within 1e-4 (this module's pyramid tolerance), masks exact."""
+    from airdos_tpu_torch.ops.cuda_build import LEVEL_ALIGN
+    img, mask = frame
+    jmask = None if mask_kind is None else jnp.asarray(
+        mask.astype(np.float32))
+    want = jpyr.build_pyramid(jnp.asarray(img), jmask, N_LEVELS, 1.2,
+                              mask_erode=erode_k)
+    timg = _t(img)
+    got = tpyr.build_pyramid(timg, _mask_of(mask, mask_kind), N_LEVELS, 1.2,
+                             mask_erode=erode_k)
+    assert got.images[0] is timg
+    views = got.images[1:] + got.masks + got.blurred
+    base = views[0].untyped_storage().data_ptr()
+    assert all(v.untyped_storage().data_ptr() == base for v in views)
+    assert all(v.storage_offset() % LEVEL_ALIGN == 0 and v.is_contiguous()
+               for v in views)
+    for lvl in range(N_LEVELS):
+        np.testing.assert_allclose(_n(got.images[lvl]),
+                                   _n(want.images[lvl]), atol=1e-4)
+        np.testing.assert_array_equal(_n(got.masks[lvl]),
+                                      _n(want.masks[lvl]))
+        np.testing.assert_allclose(
+            _n(got.blurred[lvl]),
+            _n(jfilters.gaussian_blur7(want.images[lvl])), atol=1e-4)
+
+
+@pytest.mark.parametrize("mask_kind", [None, "uint8", "float32"])
+def test_fast_nms_levels_matches_jax_exactly(frame, mask_kind):
+    """An image's detection maps in one call against airdos_tpu's
+    fast_score_map -> mask -> interior -> threshold -> nms_strict on each
+    of the same levels: exact."""
+    img, mask = frame
+    pyr = tpyr.build_pyramid(_t(img), _mask_of(mask, mask_kind), N_LEVELS,
+                             1.2)
+    before = tfast.launches()
+    got = tfast.fast_nms_levels(pyr.images, pyr.masks, MIN_TH, MIN_BORDER)
+    assert tfast.launches() == before
+    assert len(got) == N_LEVELS
+    kept = 0
+    for im, m, g in zip(pyr.images, pyr.masks, got):
+        score = _jax_score(_n(im), _n(m), MIN_TH, MIN_BORDER)
+        want = jfast.nms_strict(jnp.where(score > MIN_TH, score, 0.0))
+        np.testing.assert_array_equal(_n(g), _n(want))
+        kept += int((_n(g) > 0).sum())
+    assert kept > 0
+
+
+def test_level_entries_raise_on_cpu_tensors_and_past_16_levels(frame):
+    img, mask = frame
+    im, m = _t(img), _t(mask)
+    with pytest.raises(ValueError):
+        tpyr.build_pyramid_cuda(im, m, N_LEVELS, 1.2)
+    with pytest.raises(ValueError, match="17 levels"):
+        tpyr.build_pyramid_cuda(im, None, 17, 1.2)
+    ones = torch.ones_like(im)
+    with pytest.raises(ValueError):
+        tfast.fast_nms_levels_cuda([im], [ones], MIN_TH, MIN_BORDER)
+    with pytest.raises(ValueError, match="17 levels"):
+        tfast.fast_nms_levels_cuda([im] * 17, [ones] * 17, MIN_TH,
+                                   MIN_BORDER)
+
+
 # ------------------------------------------- the front end on a crowd frame
 
 def _crowd_config(cls):

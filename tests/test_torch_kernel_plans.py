@@ -4,16 +4,22 @@ stages with j < 32 by warp shuffles, the rest in shared memory) and the
 shared memory it admits; which edges each block of csrc/pose_lm.cu's
 cluster takes; which level each warp of csrc/orb_desc.cu's all-levels
 launch describes; which of an edge's 72 Gauss-Newton floats each lane of
-csrc/ba_static.cu computes, and the order of its fused LM cost.  The
-kernels themselves run on the card only (tests/test_torch_cuda.py)."""
+csrc/ba_static.cu computes, and the order of its fused LM cost; which
+tile of which level each block of csrc/fast.cu's all-levels launch
+computes, and which tiles each block of csrc/pyramid.cu's cooperative
+launch computes in each phase.  The kernels themselves run on the card
+only (tests/test_torch_cuda.py)."""
 import numpy as np
 import pytest
 import torch
 
 import airdos_tpu_torch.ops.ba_static as bs
+import airdos_tpu_torch.ops.fast as fk
 import airdos_tpu_torch.ops.lm_cost as lc
 import airdos_tpu_torch.ops.orb_kernels as ok
+import airdos_tpu_torch.ops.pyramid as pk
 import airdos_tpu_torch.ops.select as sk
+from airdos_tpu_torch.ops import cuda_build
 
 # level 0 of 640x360 at 1500 features (836 cells of 17 px), a whole
 # pyramid's worth, and the edges of the cluster's 128 warps, of the sort's
@@ -333,3 +339,113 @@ def test_static_edge_cost_sum_is_lm_cost_of_the_cost_mode(E):
         assert _cluster_sum(terms).view(torch.int32) == got.view(torch.int32)
     if E > 6:
         assert not torch.isfinite(cost.rho[5]) and torch.isnan(cost.rho[6])
+
+
+# ------------------------------------------- fast_nms and pyramid levels
+
+# an image's level shapes: 360x640 x 8 (the bench budget), long-110's
+# 240x320 x 4, the small camera's 240x320 x 4 at 600 features and a
+# 120x160 x 4 test frame, 16 levels, levels under one tile a side, and a
+# single level of one pixel
+LEVEL_SHAPES = {
+    "360x640 x 8": pk.level_shapes(360, 640, 8, 1.2),
+    "240x320 x 4": pk.level_shapes(240, 320, 4, 1.2),
+    "120x160 x 4": pk.level_shapes(120, 160, 4, 1.2),
+    "16 levels": pk.level_shapes(400, 700, 16, 1.2),
+    "under a tile": pk.level_shapes(44, 60, 3, 1.2),
+    "one pixel": [(1, 1)],
+}
+
+
+def _cover(shapes, tiles):
+    """How many times each pixel of each level lies in one of `tiles`
+    [(level, y0, x0)]."""
+    seen = [np.zeros(s, np.int64) for s in shapes]
+    for lvl, y0, x0 in tiles:
+        h, w = shapes[lvl]
+        assert 0 <= y0 < h and 0 <= x0 < w
+        seen[lvl][y0:y0 + fk.TILE, x0:x0 + fk.TILE] += 1
+    return seen
+
+
+@pytest.mark.parametrize("case", LEVEL_SHAPES)
+def test_fast_level_table_puts_every_pixel_in_one_block(case):
+    """Block b computes the tile block_tile finds from the level table's
+    first tiles: the blocks of level l are the consecutive first[l] ..
+    first[l + 1] - 1, and every output pixel of every level lies in
+    exactly one block's tile."""
+    shapes = LEVEL_SHAPES[case]
+    first, tiles_x = fk.level_table(shapes)
+    assert len(first) == len(shapes) + 1 <= fk.MAX_LEVELS + 1
+    assert first[-1] == sum(pk.tiles(h, w) for h, w in shapes)
+    tiles = [fk.block_tile(b, first, tiles_x) for b in range(first[-1])]
+    for b, (lvl, _, _) in enumerate(tiles):
+        assert first[lvl] <= b < first[lvl + 1]
+    assert all((c == 1).all() for c in _cover(shapes, tiles))
+
+
+def test_fast_level_table_passes_over_a_level_without_tiles():
+    shapes = [(64, 64), (0, 40), (40, 0), (33, 33)]
+    first, tiles_x = fk.level_table(shapes)
+    assert first == [0, 4, 4, 4, 8]
+    assert [fk.block_tile(b, first, tiles_x)[0] for b in range(8)] == \
+        [0] * 4 + [3] * 4
+
+
+@pytest.mark.parametrize("per_sm", (1, 4, 8))
+@pytest.mark.parametrize("case", LEVEL_SHAPES)
+def test_pyramid_phase_plan_puts_every_pixel_in_one_tile(case, per_sm):
+    """In each phase of the cooperative launch the blocks' grid-stride
+    tiles cover every pixel of that level once; the grid is no larger
+    than level 0's tiles, BLOCKS_PER_SM blocks an SM or what is resident
+    at once; a grid barrier between phases."""
+    shapes = LEVEL_SHAPES[case]
+    sms = 132
+    grid = pk.launch_grid(shapes, sms, per_sm)
+    assert 1 <= grid <= min(pk.tiles(*shapes[0]),
+                            pk.BLOCKS_PER_SM * sms, per_sm * sms)
+    plan = pk.phase_plan(shapes, grid)
+    assert len(plan) == len(shapes)          # len(shapes) - 1 barriers
+    for lvl, blocks in enumerate(plan):
+        assert len(blocks) == grid
+        tiles = [(lvl, y0, x0) for b in blocks for y0, x0 in b]
+        assert len(tiles) == pk.tiles(*shapes[lvl])
+        assert (_cover(shapes, tiles)[lvl] == 1).all()
+        # a block's tiles of a phase differ in count by at most one
+        assert max(map(len, blocks)) - min(map(len, blocks)) <= 1
+
+
+def test_pyramid_grid_at_the_bench_shape():
+    """360x640: level 0's 240 tiles, one tile a block a phase on an H100's
+    132 SMs at two blocks an SM."""
+    shapes = LEVEL_SHAPES["360x640 x 8"]
+    assert pk.tiles(*shapes[0]) == 240
+    assert pk.launch_grid(shapes, 132, 4) == 240
+    assert pk.launch_grid(shapes, 132, 1) == 132
+    assert [pk.tiles(*s) for s in shapes] == [240, 170, 112, 84, 60, 45,
+                                              28, 24]
+    assert fk.level_table(shapes)[0][-1] == 763
+
+
+@pytest.mark.parametrize("case", LEVEL_SHAPES)
+def test_level_views_are_aligned_and_disjoint(case):
+    shapes = LEVEL_SHAPES[case]
+    offsets, total = cuda_build.level_offsets(shapes)
+    views = cuda_build.level_views(shapes, "cpu")
+    ends = [o + h * w for o, (h, w) in zip(offsets, shapes)]
+    assert all(o % cuda_build.LEVEL_ALIGN == 0 for o in offsets)
+    assert all(e <= o for e, o in zip(ends, offsets[1:] + [total]))
+    for v, o, s in zip(views, offsets, shapes):
+        assert v.shape == s and v.is_contiguous()
+        assert v.storage_offset() == o
+
+
+def test_level_kernel_constants_are_the_wrappers():
+    import re
+    from pathlib import Path
+    csrc = Path(cuda_build.CSRC)
+    for name, module in (("fast.cu", fk), ("pyramid.cu", pk)):
+        consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);",
+                                 (csrc / name).read_text()))
+        assert int(consts["kMaxLevels"]) == module.MAX_LEVELS == 16
+        assert int(consts["kTile"]) == module.TILE == 32

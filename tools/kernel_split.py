@@ -1,6 +1,6 @@
-"""Where a launch of pose_lm, select, orb_desc or static_edge_blocks
-spends its time on the card, from clock64() stamps in an instrumented copy
-of the kernel's source.
+"""Where a launch of pose_lm, select, orb_desc, static_edge_blocks,
+fast_nms or pyramid spends its time on the card, from clock64() stamps in
+an instrumented copy of the kernel's source.
 
     python3 tools/kernel_split.py [--parent DIR]
 
@@ -23,19 +23,29 @@ point on the inputs below, and the stamps are read once a launch.
   moment sums, the reduction, the transcendentals and the sample rounds;
 - static_edge_blocks (csrc/ba_static.cu) at E 8192 C 24 P 2048 in
   Gauss-Newton mode: cycles a warp's lane 0 in the gathers and
-  projection, the block barrier, the float64 entries and the stores.
+  projection, the block barrier, the float64 entries and the stores;
+- fast_nms (csrc/fast.cu) on that image's 8 levels, at level 0 and over
+  the 8 levels in one launch: cycles a warp in the tile loads, the scores
+  and the NMS with the store (each part up to the block barrier after
+  it);
+- pyramid (csrc/pyramid.cu), the 8 levels of that image with a uint8
+  mask (level 0 eroded 10 x 10) in one cooperative launch: cycles a warp
+  a tile in the resize and halo with the mask's loads, the horizontal
+  blur, the erosion's rows, the vertical blur with the stores and the
+  erosion's columns with the mask's store, and the wait at each grid
+  barrier.
 
 Then the device time (chip_smoke.py's CUDA graph, L2 cold and hot) of the
-shipped orb_desc (level 0; the 8 levels) and static_edge_blocks (each
-mode).  With --parent DIR (a `git archive` of the commit before the
-redesign of orb_desc and static_edge_blocks, unpacked in DIR), also its
-orb_desc.cu (a launch a level) and ba_static.cu (a thread an edge) at the
-same inputs: the split (disc loads, reduction, transcendentals, sample
-rounds; gathers and projection, float64 rows, stores) and the device time
-of the unstamped source (level 0 and the 8 launches of the 8 levels;
-Gauss-Newton mode, cost mode, and cost mode followed by lm_cost).  Each
-copy's result is held against the plain version (pose_lm's R and t within
-1e-4; the others bit-equal); the split is printed beside the launch's time
+shipped orb_desc (level 0; the 8 levels), static_edge_blocks (each mode),
+fast_nms (level 0; the 8 levels) and pyramid (the 8 levels, no mask and
+the uint8 mask).  With --parent DIR (a `git archive` of the commit before
+the fast_nms and pyramid redesign, unpacked in DIR), also its fast.cu (a
+launch a level, the mask read from global memory) and pyramid.cu (a
+launch a level) on the same inputs: the split (tile loads, scores, NMS;
+resize and halo, horizontal blur with the erosion's rows, the rest) and
+the device time of the unstamped source's 8 launches.  Each copy's
+result is held against the plain version (pose_lm's R and t within 1e-4;
+the others bit-equal); the split is printed beside the launch's time
 (CUDA events) and the card's name and power limit.
 """
 from __future__ import annotations
@@ -291,73 +301,6 @@ def _warp_sums(cond: str, stamps) -> str:
             f"  }}\n")
 
 
-def orb_parent(src: str) -> str:
-    """PR 9's csrc/orb_desc.cu (a launch a level): slots 0-3 per warp
-    (the disc loads, the reduction, the transcendentals, the 8 sample
-    rounds), 7 warps."""
-    return _insert(src, [
-        ("namespace {\n", WARP_HEAD),
-        ("  if (kp >= n) return;  // the whole warp\n",
-         "  if (kp >= n) return;  // the whole warp\n"
-         "  const long long t0 = clock64();\n"),
-        ("    }\n  }\n#pragma unroll\n  for (int off = 16;",
-         "    }\n  }\n  const long long t1 = clock64();\n"
-         "#pragma unroll\n  for (int off = 16;"),
-        ("  m01 = __shfl_sync(0xffffffffu, m01, 0);\n",
-         "  m01 = __shfl_sync(0xffffffffu, m01, 0);\n"
-         "  const long long t2 = clock64();\n"),
-        ("  const float sa = sinf(r);\n",
-         "  const float sa = sinf(r);\n  const long long t3 = clock64();\n"),
-        ("static_cast<int32_t>(bits);\n  }\n}\n",
-         "static_cast<int32_t>(bits);\n  }\n  const long long t4 = clock64();\n"
-         + _warp_sums("lane == 0", ["t0", "t1", "t2", "t3", "t4"]) + "}\n"),
-    ])
-
-
-def static_parent(src: str) -> str:
-    """PR 11's csrc/ba_static.cu (a thread an edge), Gauss-Newton mode:
-    slots 0-2 per warp's lane 0 (the gathers and projection with the
-    weight, the float64 rows into registers, the 72 stores issued), 7
-    warps."""
-    return _insert(src, [
-        ("namespace {\n", WARP_HEAD),
-        ("  if (i >= n) return;\n",
-         "  if (i >= n) return;\n  const long long t0 = clock64();\n"),
-        ("  const float w = mul(huber ? mul(base, factor) : base, active[i]);\n",
-         "  const float w = mul(huber ? mul(base, factor) : base, active[i]);\n"
-         "  const long long t1 = clock64();\n"),
-        ("  float* cam = out0 + 42 * int64_t{i};\n"
-         "  float* pt = out1 + 12 * int64_t{i};\n"
-         "  float* pc = out2 + 18 * int64_t{i};\n"
-         "  ba::normal_rows<3, 6>(pr.Jc, w, pr.e, cam, cam + 36);\n"
-         "  ba::normal_rows<3, 3>(pr.Jp, w, pr.e, pt, pt + 9);\n"
-         "  ba::weighted_cross<3, 6, 3>(pr.Jc, w, pr.Jp, pc);\n}\n",
-         "  float row[72];\n"
-         "  ba::normal_rows<3, 6>(pr.Jc, w, pr.e, row, row + 36);\n"
-         "  ba::normal_rows<3, 3>(pr.Jp, w, pr.e, row + 42, row + 51);\n"
-         "  ba::weighted_cross<3, 6, 3>(pr.Jc, w, pr.Jp, row + 54);\n"
-         "  const long long t2 = clock64();\n"
-         "  float* cam = out0 + 42 * int64_t{i};\n"
-         "  float* pt = out1 + 12 * int64_t{i};\n"
-         "  float* pc = out2 + 18 * int64_t{i};\n"
-         "#pragma unroll\n  for (int k = 0; k < 42; ++k) cam[k] = row[k];\n"
-         "#pragma unroll\n  for (int k = 0; k < 12; ++k) pt[k] = row[42 + k];\n"
-         "#pragma unroll\n  for (int k = 0; k < 18; ++k) pc[k] = row[54 + k];\n"
-         "  const long long t3 = clock64();\n"
-         + _warp_sums("(threadIdx.x & 31) == 0", ["t0", "t1", "t2", "t3"])
-         + "}\n"),
-    ])
-
-
-# PR 12's C entry points, which the parent's copies export
-PARENT_SIGNATURES = {
-    "airdos_orb_desc": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-    + [ctypes.c_void_p] * 3,
-    "airdos_static_edges": [ctypes.c_void_p] * 8 + [ctypes.c_int]
-    + [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4,
-}
-
-
 def _entry(dll, name: str, argtypes):
     fn = getattr(dll, name)
     fn.argtypes = argtypes
@@ -375,8 +318,7 @@ def _front_end():
     from airdos_tpu_torch.ops import fast, pyramid, select
     img = torch.from_numpy(_texture(np.random.default_rng(5), 360, 640))
     pyr = pyramid.build_pyramid(img.cuda(), None, 8, 1.2)
-    maps = [fast.fast_nms(im, m, 7.0, 16)
-            for im, m in zip(pyr.images, pyr.masks)]
+    maps = fast.fast_nms_levels(pyr.images, pyr.masks, 7.0, 16)
     quotas = level_quotas(1500, 8, 1.2)
     cells = [_cell_size_for(s.shape[0] - 2 * MIN_BORDER,
                             s.shape[1] - 2 * MIN_BORDER, q)
@@ -391,33 +333,6 @@ def _level_slots(quotas):
         out.append(slice(first, first + q))
         first += q
     return out
-
-
-def _orb_parent_launch(entry, pyr, quotas, xs, ys, levels):
-    """The parent's per-level launches of `levels`, as PR 12's extractor
-    made them (outputs allocated a launch)."""
-    import torch
-    from airdos_tpu_torch.ops import orb_kernels as ok
-    pat = ok.pattern_points("cuda")
-    slots = _level_slots(quotas)
-
-    def launch():
-        out = []
-        for lvl in levels:
-            img, blur = pyr.images[lvl], pyr.blurred[lvl]
-            x, y = xs[slots[lvl]], ys[slots[lvl]]
-            n = x.shape[0]
-            ang = torch.empty(n, device="cuda")
-            desc = torch.empty((n, 8), dtype=torch.int32, device="cuda")
-            err = entry(img.data_ptr(), blur.data_ptr(), x.data_ptr(),
-                        y.data_ptr(), pat.data_ptr(), n, img.shape[0],
-                        img.shape[1], ang.data_ptr(), desc.data_ptr(),
-                        torch.cuda.current_stream().cuda_stream)
-            if err:
-                raise SystemExit(f"orb_desc (parent): cudaError {err}")
-            out.append((ang, desc))
-        return out
-    return launch
 
 
 def _orb_check(got, pyr, quotas, xs, ys, levels, name):
@@ -443,33 +358,6 @@ def _print_split(name: str, what: str, ms: float, acc, parts) -> None:
     print(f"[split] {name} {what}: {ms * 1e3:.1f} us a launch (CUDA events, "
           f"20 back to back; the stamped copy); cycles a warp (lane 0, mean "
           f"of {n // 21} warps a launch): {per}, sum {total:.0f}", flush=True)
-
-
-def split_orb_parent(parent: Path, fe) -> None:
-    """PR 12's orb_desc: the stamped copy at level 0 (326 keypoints), then
-    the unstamped parent's device time at level 0 and over the 8 levels'
-    launches."""
-    pyr, _, quotas, _, xs, ys = fe
-    src = (parent / "airdos_tpu_torch" / "csrc" / "orb_desc.cu").read_text()
-    dll = _build(orb_parent(src), "orb_desc_parent_split")
-    entry = _entry(dll, "airdos_orb_desc", PARENT_SIGNATURES["airdos_orb_desc"])
-    launch = _orb_parent_launch(entry, pyr, quotas, xs, ys, [0])
-    _orb_check(launch(), pyr, quotas, xs, ys, [0], "orb_desc (parent)")
-    dll.split_reset()
-    ms = _events_ms(launch)
-    _print_split("orb_desc (parent)", f"level 0 360x640, {quotas[0]} "
-                 "keypoints", ms, _read(dll), ORB_PARTS)
-    entry = _entry(_build(src, "orb_desc_parent"), "airdos_orb_desc",
-                   PARENT_SIGNATURES["airdos_orb_desc"])
-    every = list(range(len(quotas)))
-    one = _orb_parent_launch(entry, pyr, quotas, xs, ys, [0])
-    all_levels = _orb_parent_launch(entry, pyr, quotas, xs, ys, every)
-    _orb_check(all_levels(), pyr, quotas, xs, ys, every, "orb_desc (parent)")
-    c0, h0 = _graph_ms(one)
-    c8, h8 = _graph_ms(all_levels)
-    print(f"[time] orb_desc (parent, a launch a level): level 0 cold "
-          f"{c0:.4f} ms (hot {h0:.4f}); the 8 levels' 8 launches cold "
-          f"{c8:.4f} ms (hot {h8:.4f}), {sum(quotas)} slots", flush=True)
 
 
 def _static_problem(rng, E=8192, C=24, P=2048):
@@ -505,24 +393,6 @@ def _static_problem(rng, E=8192, C=24, P=2048):
 CAM_BA = (500.0, 500.0, 320.0, 180.0, 250.0)     # fx, fy, cx, cy, bf
 
 
-def _static_parent_launch(entry, args, cost: bool):
-    import torch
-    from airdos_tpu_torch.ops.cuda_build import consts
-    E = args[3].shape[0]
-    dims = (1, 1, 1) if cost else (42, 12, 18)
-    k = consts(*CAM_BA, 1.0)
-
-    def launch():
-        out = [torch.empty((E, d), device="cuda").squeeze(1) for d in dims]
-        err = entry(*(a.data_ptr() for a in args), E, k, 1, int(cost),
-                    *(o.data_ptr() for o in out),
-                    torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise SystemExit(f"static_edge_blocks (parent): cudaError {err}")
-        return out
-    return launch
-
-
 def _static_check(got, args, mode, name):
     import torch
     from airdos_tpu_torch.ops import ba_static as bs
@@ -535,41 +405,6 @@ def _static_check(got, args, mode, name):
             (torch.isnan(a) & torch.isnan(b))
         if not bool(same.all()):
             raise SystemExit(f"{name}: not bit-equal to the plain version")
-
-
-STATIC_PARTS = ("gathers and projection", "float64 rows", "stores")
-
-
-def split_static_parent(parent: Path, args) -> None:
-    """PR 11's static_edge_blocks at E 8192 C 24 P 2048: the stamped copy
-    in Gauss-Newton mode, then the unstamped parent's device time in
-    Gauss-Newton mode and in cost mode followed by lm_cost (the pair a
-    cost made)."""
-    from airdos_tpu_torch.ops import lm_cost as lc
-    csrc = parent / "airdos_tpu_torch" / "csrc"
-    src = (csrc / "ba_static.cu").read_text()
-    sig = PARENT_SIGNATURES["airdos_static_edges"]
-    dll = _build(static_parent(src), "ba_static_parent_split", csrc)
-    launch = _static_parent_launch(_entry(dll, "airdos_static_edges", sig),
-                                   args, False)
-    _static_check(launch(), args, False, "static_edge_blocks (parent)")
-    dll.split_reset()
-    ms = _events_ms(launch)
-    _print_split("static_edge_blocks (parent)", "E 8192 C 24 P 2048, "
-                 "Gauss-Newton mode", ms, _read(dll), STATIC_PARTS)
-    plain = _entry(_build(src, "ba_static_parent", csrc),
-                   "airdos_static_edges", sig)
-    rows = _static_parent_launch(plain, args, False)
-    cost = _static_parent_launch(plain, args, True)
-    _static_check(cost(), args, True, "static_edge_blocks (parent) cost")
-    cg, hg = _graph_ms(rows)
-    cc, hc = _graph_ms(cost)
-    cp, hp = _graph_ms(lambda: lc.lm_cost_cuda(cost()[0], args[7]))
-    print(f"[time] static_edge_blocks (parent, a thread an edge) E 8192 C "
-          f"24 P 2048: Gauss-Newton cold {cg:.4f} ms (hot {hg:.4f}); cost "
-          f"mode cold {cc:.4f} ms (hot {hc:.4f}); cost mode + lm_cost cold "
-          f"{cp:.4f} ms (hot {hp:.4f})", flush=True)
-
 
 
 def orb_new(src: str) -> str:
@@ -706,12 +541,337 @@ def split_static_new(args) -> None:
 
 
 
+FAST_PARTS = ("tile loads", "scores", "NMS and store")
+
+
+def fast_new(src: str) -> str:
+    """csrc/fast.cu of the all-levels design: slots 0-2 per warp (the
+    image and mask tiles to the barrier, the scores to the barrier, the
+    NMS and the store), 7 warps."""
+    return _insert(src, [
+        ("namespace {\n", WARP_HEAD),
+        ("  load_tile(simg, lv.img[l], kImg, y0 - kHalo, x0 - kHalo, h, w, tid);\n",
+         "  const long long t0 = clock64();\n"
+         "  load_tile(simg, lv.img[l], kImg, y0 - kHalo, x0 - kHalo, h, w, tid);\n"),
+        ("  load_tile(smask, lv.mask[l], kSc, y0 - 1, x0 - kHalo, h, w, tid);\n"
+         "  __syncthreads();\n",
+         "  load_tile(smask, lv.mask[l], kSc, y0 - 1, x0 - kHalo, h, w, tid);\n"
+         "  __syncthreads();\n  const long long t1 = clock64();\n"),
+        ("    ssc[ly][lx] = t;\n  }\n  __syncthreads();\n",
+         "    ssc[ly][lx] = t;\n  }\n  __syncthreads();\n"
+         "  const long long t2 = clock64();\n"),
+        ("    out[static_cast<int64_t>(gy) * w + gx] = c > m ? c : 0.0f;\n  }\n}\n",
+         "    out[static_cast<int64_t>(gy) * w + gx] = c > m ? c : 0.0f;\n  }\n"
+         "  const long long t3 = clock64();\n"
+         + _warp_sums("threadIdx.x == 0", ["t0", "t1", "t2", "t3"]) + "}\n"),
+    ])
+
+
+def fast_parent(src: str) -> str:
+    """The parent's csrc/fast.cu (a launch a level, the mask read from global
+    memory in the score loop): the slots of fast_new."""
+    return _insert(src, [
+        ("namespace {\n", WARP_HEAD),
+        ("  const int tid = threadIdx.y * kThreadsX + threadIdx.x;\n",
+         "  const int tid = threadIdx.y * kThreadsX + threadIdx.x;\n"
+         "  const long long t0 = clock64();\n"),
+        ("                       : 0.0f;\n  }\n  __syncthreads();\n",
+         "                       : 0.0f;\n  }\n  __syncthreads();\n"
+         "  const long long t1 = clock64();\n"),
+        ("    ssc[ly][lx] = t;\n  }\n  __syncthreads();\n",
+         "    ssc[ly][lx] = t;\n  }\n  __syncthreads();\n"
+         "  const long long t2 = clock64();\n"),
+        ("    out[static_cast<int64_t>(gy) * w + gx] = c > m ? c : 0.0f;\n  }\n}\n",
+         "    out[static_cast<int64_t>(gy) * w + gx] = c > m ? c : 0.0f;\n  }\n"
+         "  const long long t3 = clock64();\n"
+         + _warp_sums("threadIdx.x == 0", ["t0", "t1", "t2", "t3"]) + "}\n"),
+    ])
+
+
+def _fast_parent_launch(entry, images, masks):
+    """The parent's per-level launches, as its extractor made them (an
+    output allocated a launch)."""
+    import torch
+
+    def launch():
+        out = []
+        for img, mask in zip(images, masks):
+            o = torch.empty_like(img)
+            err = entry(img.data_ptr(), mask.data_ptr(), o.data_ptr(),
+                        img.shape[0], img.shape[1], 7.0, 16,
+                        torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise SystemExit(f"fast_nms (parent): cudaError {err}")
+            out.append(o)
+        return out
+    return launch
+
+
+def _fast_check(got, images, masks, name):
+    import torch
+    from airdos_tpu_torch.ops import fast
+    want = fast.fast_nms_levels_ref(images, masks, 7.0, 16)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise SystemExit(f"{name}: not bit-equal to the plain version")
+
+
+def split_fast(parent, pyr) -> None:
+    """fast_nms on the 8 levels: the stamped copies (the parent's at level
+    0 and its 8 launches, this one's at level 0 and in one launch), then
+    the unstamped sources' device times."""
+    from airdos_tpu_torch.ops import fast
+    images, masks = list(pyr.images), list(pyr.masks)
+    sig = fast._SIGNATURES["airdos_fast_nms"]
+    if parent is not None:
+        src = (parent / "airdos_tpu_torch" / "csrc" / "fast.cu").read_text()
+        dll = _build(fast_parent(src), "fast_parent_split")
+        entry = _entry(dll, "airdos_fast_nms", sig)
+        for what, n in (("level 0 360x640", 1), ("8 levels, 8 launches", 8)):
+            launch = _fast_parent_launch(entry, images[:n], masks[:n])
+            _fast_check(launch(), images[:n], masks[:n], "fast_nms (parent)")
+            dll.split_reset()
+            ms = _events_ms(launch)
+            _print_split("fast_nms (parent)", what, ms, _read(dll),
+                         FAST_PARTS)
+        entry = _entry(_build(src, "fast_parent"), "airdos_fast_nms", sig)
+        plain = _fast_parent_launch(entry, images, masks)
+        one = _fast_parent_launch(entry, images[:1], masks[:1])
+        _fast_check(plain(), images, masks, "fast_nms (parent)")
+        c0, h0 = _graph_ms(one)
+        c8, h8 = _graph_ms(plain)
+        print(f"[time] fast_nms (parent, a launch a level): level 0 cold "
+              f"{c0:.4f} ms (hot {h0:.4f}); the 8 levels' 8 launches cold "
+              f"{c8:.4f} ms (hot {h8:.4f})", flush=True)
+    src = (REPO / "airdos_tpu_torch" / "csrc" / "fast.cu").read_text()
+    dll = _build(fast_new(src), "fast_split")
+    _bind(dll, fast._SIGNATURES)
+    one = (lambda: [fast.fast_nms_cuda(images[0], masks[0], 7.0, 16)])
+    levels = (lambda: fast.fast_nms_levels_cuda(images, masks, 7.0, 16))
+    shipped, fast._lib = fast._lib, dll
+    try:
+        _fast_check(one(), images[:1], masks[:1], "fast_nms")
+        _fast_check(levels(), images, masks, "fast_nms")
+        for what, fn in (("level 0 360x640", one),
+                         ("8 levels in one launch", levels)):
+            dll.split_reset()
+            ms = _events_ms(fn)
+            _print_split("fast_nms", what, ms, _read(dll), FAST_PARTS)
+    finally:
+        fast._lib = shipped
+    c0, h0 = _graph_ms(one)
+    c8, h8 = _graph_ms(levels)
+    _fast_check(levels(), images, masks, "fast_nms")
+    print(f"[time] fast_nms (a launch an image): level 0 cold {c0:.4f} ms "
+          f"(hot {h0:.4f}); the 8 levels in one launch cold {c8:.4f} ms "
+          f"(hot {h8:.4f})", flush=True)
+
+
+PYR_PARTS = ("resize, halo and mask loads", "horizontal blur",
+             "erosion rows", "vertical blur and stores",
+             "erosion columns and mask store")
+PYR_PARENT_PARTS = ("resize and halo", "horizontal blur and erosion rows",
+                    "vertical blur, mask and stores")
+BARRIERS_C = """
+extern "C" int split_read_barriers(unsigned long long* host) {
+  return static_cast<int>(cudaMemcpyFromSymbol(host, g_bar, sizeof(g_bar)));
+}
+extern "C" int split_reset_barriers() {
+  unsigned long long z[16] = {0};
+  return static_cast<int>(cudaMemcpyToSymbol(g_bar, z, sizeof(z)));
+}
+"""
+
+
+def pyramid_new(src: str) -> str:
+    """csrc/pyramid.cu of the cooperative design: slots 0-4 per warp a
+    tile (the resized tile and halo, the resized mask or the mask tile, to
+    the barrier; horizontal blur; erosion rows to the barrier; vertical
+    blur with the stores; erosion columns and the mask's store), 7 tiles;
+    g_bar[l] the cycles warps wait at the barrier after phase l,
+    g_bar[15] the waits."""
+    return _insert(src, [
+        ("namespace {\n", "__device__ unsigned long long g_bar[16];\n"
+         + WARP_HEAD),
+        ("  const bool erode = L.level0 && L.mask_kind != kNoMask;\n"
+         "  const int h = L.h, w = L.w;\n",
+         "  const bool erode = L.level0 && L.mask_kind != kNoMask;\n"
+         "  const int h = L.h, w = L.w;\n  const long long t0 = clock64();\n"),
+        ("s.sm[i / mext][i - (i / mext) * mext] = mt[r];\n    }\n  }\n"
+         "  __syncthreads();\n",
+         "s.sm[i / mext][i - (i / mext) * mext] = mt[r];\n    }\n  }\n"
+         "  __syncthreads();\n  const long long t1 = clock64();\n"),
+        ("    s.sh[ly][lx] = acc;\n  }\n",
+         "    s.sh[ly][lx] = acc;\n  }\n  const long long t2 = clock64();\n"),
+        ("      s.smr[ly][lx] = q;\n    }\n  }\n  __syncthreads();\n",
+         "      s.smr[ly][lx] = q;\n    }\n  }\n  __syncthreads();\n"
+         "  const long long t3 = clock64();\n"),
+        ("    if (!L.level0) L.img[at] = s.sr[ly + kHalo][cx + kHalo];\n  }\n",
+         "    if (!L.level0) L.img[at] = s.sr[ly + kHalo][cx + kHalo];\n  }\n"
+         "  const long long t4 = clock64();\n"),
+        ("L.mask[static_cast<int64_t>(gy) * w + gx] = m[r];\n  }\n}\n",
+         "L.mask[static_cast<int64_t>(gy) * w + gx] = m[r];\n  }\n"
+         "  const long long t5 = clock64();\n"
+         + _warp_sums("threadIdx.x == 0",
+                      ["t0", "t1", "t2", "t3", "t4", "t5"]) + "}\n"),
+        ("    if (l + 1 < p.n_levels) grid.sync();   // level l whole before l + 1\n",
+         "    if (l + 1 < p.n_levels) {\n"
+         "      const long long tb = clock64();\n      grid.sync();\n"
+         "      if (threadIdx.x == 0) {\n"
+         "        atomicAdd(&g_bar[l], static_cast<unsigned long long>("
+         "clock64() - tb));\n"
+         "        atomicAdd(&g_bar[15], 1ull);\n      }\n    }\n"),
+    ]) + BARRIERS_C
+
+
+def pyramid_parent(src: str) -> str:
+    """The parent's csrc/pyramid.cu (a launch a level): slots 0-2 per warp
+    (resize and halo with the mask tile to the barrier, horizontal blur
+    and erosion rows to the barrier, vertical blur, mask and stores)."""
+    return _insert(src, [
+        ("namespace {\n", WARP_HEAD),
+        ("  const int mext = kTile + erode_k - 1;\n",
+         "  const int mext = kTile + erode_k - 1;\n"
+         "  const long long t0 = clock64();\n"),
+        ("      sm[ly][lx] = v;\n    }\n  }\n  __syncthreads();\n",
+         "      sm[ly][lx] = v;\n    }\n  }\n  __syncthreads();\n"
+         "  const long long t1 = clock64();\n"),
+        ("      smr[ly][lx] = m;\n    }\n  }\n  __syncthreads();\n",
+         "      smr[ly][lx] = m;\n    }\n  }\n  __syncthreads();\n"
+         "  const long long t2 = clock64();\n"),
+        ("    mask[at] = m;\n  }\n}\n",
+         "    mask[at] = m;\n  }\n  const long long t3 = clock64();\n"
+         + _warp_sums("threadIdx.x == 0", ["t0", "t1", "t2", "t3"]) + "}\n"),
+    ])
+
+
+def _pyramid_inputs():
+    """The 640x360 texture and a uint8 mask with a blanked box, on the
+    card."""
+    import torch
+    img = _texture(np.random.default_rng(5), 360, 640)
+    mask = np.ones((360, 640), np.uint8)
+    mask[90:180, 213:320] = 0
+    return torch.from_numpy(img).cuda(), torch.from_numpy(mask).cuda()
+
+
+def _pyramid_levels(entry, img, mask):
+    """A launch a level through the one-level C entry point `entry`, each
+    level from the one before (the parent's build_pyramid): [(image, mask,
+    blur)]."""
+    import torch
+    from airdos_tpu_torch.ops import pyramid
+    shapes = pyramid.level_shapes(*img.shape, 8, 1.2)
+    kind = 0 if mask is None else 1
+    out = []
+    for lvl, (h, w) in enumerate(shapes):
+        src, src_mask = (img, mask) if lvl == 0 else out[-1][:2]
+        hs, ws = src.shape
+        level = (src if lvl == 0 else torch.empty((h, w), device="cuda"),
+                 torch.empty((h, w), device="cuda"),
+                 torch.empty((h, w), device="cuda"))
+        err = entry(src.data_ptr(),
+                    None if src_mask is None else src_mask.data_ptr(),
+                    kind if lvl == 0 else 2, hs, ws,
+                    None if lvl == 0 else level[0].data_ptr(),
+                    level[1].data_ptr(), level[2].data_ptr(), h, w,
+                    pyramid._scale(hs, h), pyramid._scale(ws, w),
+                    pyramid._TAPS, int(lvl == 0), 10,
+                    torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SystemExit(f"pyramid (per level): cudaError {err}")
+        out.append(level)
+    return out
+
+
+def _pyramid_check(levels, img, mask, name):
+    import torch
+    from airdos_tpu_torch.ops import pyramid
+    want = pyramid.build_pyramid(img.cpu(), None if mask is None
+                                 else mask.cpu(), 8, 1.2)
+    torch.cuda.synchronize()
+    for lvl, got in enumerate(levels):
+        for part in range(3):
+            if not torch.equal(got[part].cpu(), want[part][lvl]):
+                raise SystemExit(f"{name} level {lvl}: not bit-equal to the "
+                                 f"plain version")
+
+
+def split_pyramid(parent, img, mask) -> None:
+    """pyramid on the 8 levels with the uint8 mask: the stamped copies
+    (the parent's 8 launches, this one's cooperative launch), then the
+    unstamped sources' device times with and without the mask."""
+    import torch
+    from airdos_tpu_torch.ops import pyramid
+    sig = pyramid._SIGNATURES["airdos_pyramid_level"]
+    if parent is not None:
+        src = (parent / "airdos_tpu_torch" / "csrc" /
+               "pyramid.cu").read_text()
+        dll = _build(pyramid_parent(src), "pyramid_parent_split")
+        entry = _entry(dll, "airdos_pyramid_level", sig)
+        _pyramid_check(_pyramid_levels(entry, img, mask), img, mask,
+                       "pyramid (parent)")
+        dll.split_reset()
+        ms = _events_ms(lambda: _pyramid_levels(entry, img, mask))
+        _print_split("pyramid (parent)", "8 levels from 360x640, uint8 "
+                     "mask, 8 launches", ms, _read(dll), PYR_PARENT_PARTS)
+        entry = _entry(_build(src, "pyramid_parent"), "airdos_pyramid_level",
+                       sig)
+        times = [_graph_ms(lambda m=m: _pyramid_levels(entry, img, m))
+                 for m in (None, mask)]
+        print("[time] pyramid (parent, a launch a level), the 8 levels' 8 "
+              "launches: " + "; ".join(
+                  f"{what} cold {c:.4f} ms (hot {h:.4f})" for what, (c, h)
+                  in zip(("no mask", "uint8 mask"), times)), flush=True)
+    src = (REPO / "airdos_tpu_torch" / "csrc" / "pyramid.cu").read_text()
+    dll = _build(pyramid_new(src), "pyramid_split")
+    _bind(dll, pyramid._SIGNATURES)
+    dll.airdos_pyramid_error_name.argtypes = [ctypes.c_int]
+    dll.airdos_pyramid_error_name.restype = ctypes.c_char_p
+    dll.split_read_barriers.argtypes = [ctypes.c_void_p]
+    shipped = pyramid._lib, dict(pyramid._residency)
+    pyramid._lib = dll
+    pyramid._residency.clear()      # the stamped copy's own residency
+    run = (lambda: pyramid.build_pyramid_cuda(img, mask, 8, 1.2))
+    try:
+        got = run()
+        _pyramid_check(list(zip(*got[:3])), img, mask, "pyramid")
+        shapes = pyramid.level_shapes(*img.shape, 8, 1.2)
+        grid = pyramid.cooperative_grid(img.device, shapes)
+        dll.split_reset()
+        dll.split_reset_barriers()
+        ms = _events_ms(run)
+        acc = _read(dll)
+        bar = (ctypes.c_ulonglong * 16)()
+        dll.split_read_barriers(bar)
+        _print_split("pyramid", f"8 levels from 360x640, uint8 mask, one "
+                     f"cooperative launch of {grid} blocks", ms, acc,
+                     PYR_PARTS)
+        waits = max(bar[15], 1) // 7        # warps a barrier, over the runs
+        print("[split] pyramid: cycles a warp waits at the grid barrier "
+              "after each phase (lane 0, mean): " + ", ".join(
+                  f"level {lvl} {bar[lvl] / waits:.0f}" for lvl in range(7)),
+              flush=True)
+    finally:
+        pyramid._lib = shipped[0]
+        pyramid._residency.clear()
+        pyramid._residency.update(shipped[1])
+    times = [_graph_ms(lambda m=m: pyramid.build_pyramid_cuda(img, m, 8, 1.2))
+             for m in (None, mask)]
+    _pyramid_check(list(zip(*run()[:3])), img, mask, "pyramid")
+    torch.cuda.synchronize()
+    print("[time] pyramid (one cooperative launch an image), the 8 levels: "
+          + "; ".join(f"{what} cold {c:.4f} ms (hot {h:.4f})"
+                      for what, (c, h) in zip(("no mask", "uint8 mask"),
+                                              times)), flush=True)
+
+
 def main(argv=None) -> None:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, default=None,
                     help="an unpacked checkout of the commit before the "
-                         "redesign of orb_desc and static_edge_blocks")
+                         "redesign of fast_nms and pyramid")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_split: needs a CUDA device")
@@ -725,13 +885,10 @@ def main(argv=None) -> None:
     fe = _front_end()
     split_select(_build(select_new((csrc / "select.cu").read_text()),
                         "select_split"), "select", fe)
-    static = _static_problem(np.random.default_rng(1))
-    if args.parent is not None:
-        split_orb_parent(args.parent, fe)
     split_orb_new(fe)
-    if args.parent is not None:
-        split_static_parent(args.parent, static)
-    split_static_new(static)
+    split_static_new(_static_problem(np.random.default_rng(1)))
+    split_fast(args.parent, fe[0])
+    split_pyramid(args.parent, *_pyramid_inputs())
 
 
 if __name__ == "__main__":
