@@ -36,19 +36,84 @@ the calling thread's current stream (built with nvcc at first use into
 the launch, by thread and stream priority too; on CPU tensors it runs its
 plain version (``landmark_reduce_ref``, ``landmark_backsub_ref``), which
 spells out each product and sum in the kernel's order, so the two are
-bit-equal.
+bit-equal.  The kernels' division of work is kept below as data (the
+launch plan), which the CPU tests emulate.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from airdos_tpu_torch.ops import cuda_build
 from airdos_tpu_torch.ops.cuda_build import check_tensor
 from airdos_tpu_torch.solvers.smallmat import inv3x3
 
+# ------------------------------------------------------------ launch plan
+# csrc/ba_points.cu's constants (tests/test_torch_kernel_plans.py holds
+# them equal).  Reduce: a block takes ROWS_A_BLOCK consecutive rows of
+# Wagg's P 6 C rows (3 floats each), a thread ROWS_A_THREAD of them; the
+# block's first threads invert, once each, the points its rows touch (at
+# most MAX_BLOCK_POINTS, at C = 1).  Back-substitution: a block takes
+# BACKSUB_WARPS points, a warp a point, in passes of LANES cameras, lane j
+# camera LANES i + j of pass i.
+REDUCE_THREADS = 256
+ROWS_A_THREAD = 4
+ROWS_A_BLOCK = REDUCE_THREADS * ROWS_A_THREAD
+MAX_BLOCK_POINTS = (ROWS_A_BLOCK - 1) // 6 + 2
+BACKSUB_WARPS = 8
 LANES = 32                       # the back-substitution's camera lanes
+
+
+def reduce_blocks(P: int, C: int) -> int:
+    """The reduce launch's grid."""
+    return -(-P * 6 * C // ROWS_A_BLOCK)
+
+
+def reduce_thread_rows(block, thread, P: int, C: int):
+    """(first row, rows) of reduce thread `thread` of block `block`: up to
+    ROWS_A_THREAD rows from the first, none past the last (numpy arrays
+    broadcast)."""
+    first = block * ROWS_A_BLOCK + thread * ROWS_A_THREAD
+    return first, np.clip(P * 6 * C - first, 0, ROWS_A_THREAD)
+
+
+def reduce_row_points(first, C: int):
+    """The points of rows first, first + 1, ... first + ROWS_A_THREAD - 1
+    as a thread finds them: one division, then a step to the next point
+    where a row passes its point's 6 C rows (at most once, 6 C >= 6 >
+    ROWS_A_THREAD - 1)."""
+    p0 = first // (6 * C)
+    k0 = first - p0 * 6 * C
+    return [p0 + (k0 + i >= 6 * C) for i in range(ROWS_A_THREAD)]
+
+
+def reduce_block_points(block, P: int, C: int):
+    """(first point, points) whose inverses block `block` computes: those
+    of its rows."""
+    lo = block * ROWS_A_BLOCK
+    hi = np.minimum(P * 6 * C, lo + ROWS_A_BLOCK)
+    first = lo // (6 * C)
+    return first, (hi - 1) // (6 * C) - first + 1
+
+
+def hinv_block(p, C: int):
+    """The block that writes point p's Hpp^-1: the one that holds its
+    first row (a block writes a point of its range whose first row is not
+    before its own first row)."""
+    return p * 6 * C // ROWS_A_BLOCK
+
+
+def backsub_blocks(P: int) -> int:
+    """The back-substitution launch's grid."""
+    return -(-P // BACKSUB_WARPS)
+
+
+def backsub_lane_cameras(C: int, lane: int):
+    """The cameras lane `lane` of a point's warp sums, pass by pass, in
+    order."""
+    return [c0 + lane for c0 in range(0, C, LANES) if c0 + lane < C]
 
 
 # ------------------------------------------------------------ plain version
@@ -167,11 +232,19 @@ def _check_common(pt_sums, wagg, point_valid):
     return dev, P, wagg.shape[1] // 18
 
 
+def aligned(x: torch.Tensor) -> torch.Tensor:
+    """x (contiguous), or a copy of it where it does not start on 16
+    bytes: the kernels read Wagg 16 bytes (reduce) and 8 bytes (a
+    back-substitution camera) at a time."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def landmark_reduce_cuda(pt_sums, wagg, point_valid, lam):
     """Launch the reduce entry point on the current stream:
     landmark_reduce_ref's (Hpp^-1, Aagg)."""
     dev, P, C = _check_common(pt_sums, wagg, point_valid)
     check_tensor("lam", lam, torch.float32, (), dev)
+    wagg = aligned(wagg)
     hinv = torch.empty((P, 3, 3), dtype=torch.float32, device=dev)
     aagg = torch.empty((P, C, 6, 3), dtype=torch.float32, device=dev)
     with cuda_build.on_device(dev):
@@ -192,6 +265,7 @@ def landmark_backsub_cuda(hinv, pt_sums, wagg, dx_c, point_valid):
     dev, P, C = _check_common(pt_sums, wagg, point_valid)
     check_tensor("hinv", hinv, torch.float32, (P, 3, 3), dev)
     check_tensor("dx_c", dx_c, torch.float32, (C, 6), dev)
+    wagg = aligned(wagg)
     dx_p = torch.empty((P, 3), dtype=torch.float32, device=dev)
     with cuda_build.on_device(dev):
         err = _library().airdos_landmark_backsub(

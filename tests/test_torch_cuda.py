@@ -1549,11 +1549,14 @@ def _landmark_case(rng, P, C):
 
 
 @pytest.mark.parametrize("P,C", [(2048, 24), (4096, 48), (4096, 128),
-                                 (37, 70)])
+                                 (37, 70), (173, 7), (999, 3), (5, 3),
+                                 (1, 1)])
 @pytest.mark.parametrize("lam", [8.1e-9, 1e-6, 4e3])
 def test_landmark_schur_kernels_equal_plain_version(cuda, P, C, lam):
     """The reduction (Hpp^-1, Aagg) and the back-substitution bit-equal to
-    their plain versions on the card and on the CPU, one launch each."""
+    their plain versions on the card and on the CPU, one launch each; odd
+    C and odd P C (a thread's rows across two points, the reduce's last
+    rows one at a time) and P below one block of either launch."""
     import airdos_tpu_torch.ops.ba_points as bp
     rng = np.random.default_rng(P + C)
     pt_sums, wagg, valid, dx_c = (torch.from_numpy(a).to(cuda) for a in
@@ -1578,6 +1581,38 @@ def test_landmark_schur_kernels_equal_plain_version(cuda, P, C, lam):
             assert _bits_equal(a, c)
     assert torch.all(hinv[~valid] == 0) and torch.all(dx_p[~valid] == 0)
     assert torch.isfinite(hinv[valid]).all()
+
+
+@pytest.mark.parametrize("P,C", [(2048, 24), (173, 7)])
+@pytest.mark.parametrize("shift", [1, 2, 3])
+def test_landmark_schur_kernels_take_wagg_at_any_base(cuda, P, C, shift):
+    """A Wagg view `shift` floats past a 16-byte boundary (the wrappers
+    copy it to 16 bytes for the kernels' vector loads) gives the bits of
+    the aligned tensor and of the plain versions, one launch each."""
+    import airdos_tpu_torch.ops.ba_points as bp
+    rng = np.random.default_rng(P * C + shift)
+    pt_sums, wagg, valid, dx_c = (torch.from_numpy(a).to(cuda) for a in
+                                  _landmark_case(rng, P, C))
+    buf = torch.empty(wagg.numel() + 4, dtype=torch.float32, device=cuda)
+    moved = buf[shift:shift + wagg.numel()].view(P, C * 18)
+    moved.copy_(wagg)
+    assert moved.data_ptr() % 16 == 4 * shift
+    lam = torch.tensor(1e-6, dtype=torch.float32, device=cuda)
+    r0, b0 = bp.reduce_launches(), bp.backsub_launches()
+    got = bp.landmark_reduce(pt_sums, moved, valid, lam)
+    dx_p = bp.landmark_backsub(got[0], pt_sums, moved, dx_c, valid)
+    assert (bp.reduce_launches(), bp.backsub_launches()) == (r0 + 1, b0 + 1)
+    want = bp.landmark_reduce(pt_sums, wagg, valid, lam)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert _bits_equal(a, b)
+    for a, b in zip(got, bp.landmark_reduce_ref(pt_sums.cpu(), wagg.cpu(),
+                                                valid.cpu(), lam.cpu())):
+        assert _bits_equal(a, b)
+    assert _bits_equal(dx_p, bp.landmark_backsub(want[0], pt_sums, wagg,
+                                                 dx_c, valid))
+    assert _bits_equal(dx_p, bp.landmark_backsub_ref(
+        want[0].cpu(), pt_sums.cpu(), wagg.cpu(), dx_c.cpu(), valid.cpu()))
 
 
 def _human_case(rng, T, L, C, device):

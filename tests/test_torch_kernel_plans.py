@@ -7,12 +7,16 @@ launch describes; which of an edge's 72 Gauss-Newton floats each lane of
 csrc/ba_static.cu computes, and the order of its fused LM cost; which
 tile of which level each block of csrc/fast.cu's all-levels launch
 computes, and which tiles each block of csrc/pyramid.cu's cooperative
-launch computes in each phase.  The kernels themselves run on the card
-only (tests/test_torch_cuda.py)."""
+launch computes in each phase; which Wagg rows each thread of
+csrc/ba_points.cu's reduction takes, which points each block inverts and
+which block writes a point's inverse, and which cameras each lane of the
+back-substitution sums.  The kernels themselves run on the card only
+(tests/test_torch_cuda.py)."""
 import numpy as np
 import pytest
 import torch
 
+import airdos_tpu_torch.ops.ba_points as bp
 import airdos_tpu_torch.ops.ba_static as bs
 import airdos_tpu_torch.ops.fast as fk
 import airdos_tpu_torch.ops.lm_cost as lc
@@ -449,3 +453,121 @@ def test_level_kernel_constants_are_the_wrappers():
                                  (csrc / name).read_text()))
         assert int(consts["kMaxLevels"]) == module.MAX_LEVELS == 16
         assert int(consts["kTile"]) == module.TILE == 32
+
+
+# (P, C): the paths' shapes (local BA, long-110, crowd-27, the dry run),
+# then C 1, odd C and odd P C, P below one block and C 70 / 128
+LANDMARK_SHAPES = ((2048, 24), (1024, 24), (2048, 48), (32, 4), (2048, 1),
+                   (171, 1), (1, 1), (173, 7), (999, 3), (5, 3), (3, 2),
+                   (37, 70), (4096, 128), (1, 128))
+
+
+def _reduce_threads(P, C):
+    """Every thread of the reduce launch: block and thread indices, first
+    row and rows (numpy arrays, one entry a thread)."""
+    b, t = np.meshgrid(np.arange(bp.reduce_blocks(P, C)),
+                       np.arange(bp.REDUCE_THREADS), indexing="ij")
+    first, count = bp.reduce_thread_rows(b, t, P, C)
+    return b.ravel(), t.ravel(), first.ravel(), count.ravel()
+
+
+@pytest.mark.parametrize("P,C", LANDMARK_SHAPES)
+def test_landmark_reduce_plan_puts_every_row_in_one_thread(P, C):
+    """Every one of Wagg's P 6 C rows in exactly one thread; the kernel's
+    point of each row is the row's; each block's point range covers its
+    threads' rows and fits its shared memory."""
+    b, _, first, count = _reduce_threads(P, C)
+    seen = np.zeros(P * 6 * C, np.int64)
+    lo, n = bp.reduce_block_points(np.arange(bp.reduce_blocks(P, C)), P, C)
+    assert lo[0] == 0 and lo[-1] + n[-1] == P
+    assert (1 <= n).all() and (n <= bp.MAX_BLOCK_POINTS).all()
+    for i, pts in enumerate(bp.reduce_row_points(first, C)):
+        has = count > i
+        rows = (first + i)[has]
+        np.add.at(seen, rows, 1)
+        assert np.array_equal(pts[has], rows // (6 * C))
+        blk = b[has]
+        assert (pts[has] >= lo[blk]).all()
+        assert (pts[has] < lo[blk] + n[blk]).all()
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("P,C", LANDMARK_SHAPES)
+def test_landmark_reduce_plan_writes_every_inverse_once(P, C):
+    """Each block writes the inverses of its points whose first row is
+    not before its own first row: every point's exactly once, by the
+    block hinv_block names; a point is inverted by every block its rows
+    reach."""
+    blocks = bp.reduce_blocks(P, C)
+    writes = np.zeros(P, np.int64)
+    inverted = np.zeros(P, np.int64)
+    for blk in range(blocks):
+        lo, n = bp.reduce_block_points(blk, P, C)
+        pts = np.arange(lo, lo + n)
+        mine = pts[pts * 6 * C >= blk * bp.ROWS_A_BLOCK]
+        writes[mine] += 1
+        inverted[pts] += 1
+        assert (bp.hinv_block(mine, C) == blk).all()
+    assert (writes == 1).all()
+    first_rows = np.arange(P) * 6 * C
+    last_rows = first_rows + 6 * C - 1
+    assert np.array_equal(inverted, last_rows // bp.ROWS_A_BLOCK
+                          - first_rows // bp.ROWS_A_BLOCK + 1)
+
+
+@pytest.mark.parametrize("C", (1, 3, 4, 24, 32, 33, 48, 70, 128))
+def test_landmark_backsub_passes_give_each_lane_its_cameras(C):
+    """The kernel's passes (cameras c0 .. c0 + 31, lane j camera c0 + j)
+    give lane j the cameras j, j + 32, ... in that order, which
+    landmark_backsub_ref sums; every camera in one lane."""
+    passes = [(c0, min(bp.LANES, C - c0)) for c0 in range(0, C, bp.LANES)]
+    seen = []
+    for lane in range(bp.LANES):
+        got = [c0 + lane for c0, cams in passes if lane < cams]
+        assert got == bp.backsub_lane_cameras(C, lane) \
+            == list(range(lane, C, bp.LANES))
+        seen += got
+    assert sorted(seen) == list(range(C))
+
+
+@pytest.mark.parametrize("P", (1, 7, 8, 9, 1024, 2048, 2049))
+def test_landmark_backsub_blocks_take_every_point_once(P):
+    pts = [blk * bp.BACKSUB_WARPS + w for blk in range(bp.backsub_blocks(P))
+           for w in range(bp.BACKSUB_WARPS)]
+    assert [p for p in pts if p < P] == list(range(P))
+    assert len(pts) - P < bp.BACKSUB_WARPS
+
+
+def test_landmark_wagg_is_handed_over_on_16_bytes():
+    """The wrappers pass Wagg as it is where it starts on 16 bytes, else a
+    copy that does (the kernels' vector loads)."""
+    buf = torch.arange(40, dtype=torch.float32)
+    for shift in range(4):
+        x = buf[shift:shift + 36].view(2, 18)
+        got = bp.aligned(x)
+        assert got.data_ptr() % 16 == 0 and torch.equal(got, x)
+        assert (got.data_ptr() == x.data_ptr()) == (x.data_ptr() % 16 == 0)
+
+
+def test_landmark_kernel_constants_are_the_plans():
+    import re
+    from pathlib import Path
+    consts = {k: int(v) for k, v in re.findall(
+        r"constexpr int (k\w+) = (\d+);",
+        (Path(cuda_build.CSRC) / "ba_points.cu").read_text())}
+    assert consts["kReduceThreads"] == bp.REDUCE_THREADS == 256
+    assert consts["kRowsAThread"] == bp.ROWS_A_THREAD == 4
+    assert consts["kRowsABlock"] == bp.ROWS_A_BLOCK == 1024
+    assert consts["kMaxPoints"] == bp.MAX_BLOCK_POINTS == 172
+    assert consts["kBacksubWarps"] == bp.BACKSUB_WARPS == 8
+    assert consts["kLanes"] == bp.LANES == 32
+    # the most points a block touches is reached at C = 1
+    _, n = bp.reduce_block_points(np.arange(bp.reduce_blocks(2048, 1)),
+                                  2048, 1)
+    assert n.max() == bp.MAX_BLOCK_POINTS
+    # the paths' shapes: one wave of blocks on an H100's 132 SMs at 8
+    # resident blocks an SM
+    assert [bp.reduce_blocks(P, C) for P, C in
+            ((2048, 24), (1024, 24), (2048, 48), (32, 4))] == \
+        [288, 144, 576, 1]
+    assert bp.backsub_blocks(2048) == 256

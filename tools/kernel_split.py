@@ -1,8 +1,9 @@
 """Where a launch of pose_lm, select, orb_desc, static_edge_blocks,
-fast_nms or pyramid spends its time on the card, from clock64() stamps in
-an instrumented copy of the kernel's source.
+fast_nms, pyramid, landmark_reduce or landmark_backsub spends its time on
+the card, from clock64() stamps in an instrumented copy of the kernel's
+source.
 
-    python3 tools/kernel_split.py [--parent DIR]
+    python3 tools/kernel_split.py [--parent DIR] [--only KERNEL ...]
 
 Run from the repository root on a CUDA machine.  The copies are written at
 run time into airdos_tpu_torch/_build/split/ (the kernels in csrc/ carry no
@@ -33,20 +34,29 @@ point on the inputs below, and the stamps are read once a launch.
   a tile in the resize and halo with the mask's loads, the horizontal
   blur, the erosion's rows, the vertical blur with the stores and the
   erosion's columns with the mask's store, and the wait at each grid
-  barrier.
+  barrier;
+- landmark_reduce and landmark_backsub (csrc/ba_points.cu) on a
+  Gauss-Newton step's point sums of that static problem (P 2048 C 24, as
+  the mapping phase launches them): cycles a warp's lane 0 in the
+  reduce's inverses with the barrier, its rows' loads, products and
+  stores, and in the back-substitution's loads with dx_c's staging, the
+  camera sums, the tree and the finish.
 
 Then the device time (chip_smoke.py's CUDA graph, L2 cold and hot) of the
 shipped orb_desc (level 0; the 8 levels), static_edge_blocks (each mode),
-fast_nms (level 0; the 8 levels) and pyramid (the 8 levels, no mask and
-the uint8 mask).  With --parent DIR (a `git archive` of the commit before
-the fast_nms and pyramid redesign, unpacked in DIR), also its fast.cu (a
-launch a level, the mask read from global memory) and pyramid.cu (a
-launch a level) on the same inputs: the split (tile loads, scores, NMS;
-resize and halo, horizontal blur with the erosion's rows, the rest) and
-the device time of the unstamped source's 8 launches.  Each copy's
-result is held against the plain version (pose_lm's R and t within 1e-4;
-the others bit-equal); the split is printed beside the launch's time
-(CUDA events) and the card's name and power limit.
+fast_nms (level 0; the 8 levels), pyramid (the 8 levels, no mask and the
+uint8 mask), landmark_reduce and landmark_backsub, and of the reduce with
+its rows' loads issued before the inverses.  With --parent DIR (a `git
+archive` of the commit before the landmark redesign, unpacked in DIR),
+also its ba_points.cu (a thread a (point, camera, row) that recomputes
+its point's inverse; a warp a point, lane 0 loading the finish's inputs
+after the tree) on the same inputs: the split (reduce: inverse, loads,
+rows and stores; back-substitution: loads with the camera sums, tree,
+finish) and the device time of the unstamped source.  --only splits the
+named kernels alone (landmark: both).  Each copy's result is held
+against the plain version (pose_lm's R and t within 1e-4; the others
+bit-equal); the split is printed beside the launch's time (CUDA events)
+and the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -141,9 +151,9 @@ def select_new(src: str) -> str:
     ])
 
 
-def _build(text: str, name: str, include: Path = None) -> ctypes.CDLL:
+def _build(text: str, name: str) -> ctypes.CDLL:
     """Build a copy of a source into _build/split/ with the port's nvcc
-    command (its headers from `include`, csrc/ by default) and load it."""
+    command (the headers of csrc/) and load it."""
     from airdos_tpu_torch.ops import cuda_build
     out_dir = cuda_build.BUILD_DIR / "split"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -152,7 +162,7 @@ def _build(text: str, name: str, include: Path = None) -> ctypes.CDLL:
     lib = out_dir / f"lib{name}.so"
     cmd = [cuda_build.nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-I", str(include or cuda_build.CSRC), "-o", str(lib), str(src)]
+           "-I", str(cuda_build.CSRC), "-o", str(lib), str(src)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise SystemExit(f"nvcc failed on {name}:\n{res.stderr}")
@@ -567,46 +577,6 @@ def fast_new(src: str) -> str:
     ])
 
 
-def fast_parent(src: str) -> str:
-    """The parent's csrc/fast.cu (a launch a level, the mask read from global
-    memory in the score loop): the slots of fast_new."""
-    return _insert(src, [
-        ("namespace {\n", WARP_HEAD),
-        ("  const int tid = threadIdx.y * kThreadsX + threadIdx.x;\n",
-         "  const int tid = threadIdx.y * kThreadsX + threadIdx.x;\n"
-         "  const long long t0 = clock64();\n"),
-        ("                       : 0.0f;\n  }\n  __syncthreads();\n",
-         "                       : 0.0f;\n  }\n  __syncthreads();\n"
-         "  const long long t1 = clock64();\n"),
-        ("    ssc[ly][lx] = t;\n  }\n  __syncthreads();\n",
-         "    ssc[ly][lx] = t;\n  }\n  __syncthreads();\n"
-         "  const long long t2 = clock64();\n"),
-        ("    out[static_cast<int64_t>(gy) * w + gx] = c > m ? c : 0.0f;\n  }\n}\n",
-         "    out[static_cast<int64_t>(gy) * w + gx] = c > m ? c : 0.0f;\n  }\n"
-         "  const long long t3 = clock64();\n"
-         + _warp_sums("threadIdx.x == 0", ["t0", "t1", "t2", "t3"]) + "}\n"),
-    ])
-
-
-def _fast_parent_launch(entry, images, masks):
-    """The parent's per-level launches, as its extractor made them (an
-    output allocated a launch)."""
-    import torch
-
-    def launch():
-        out = []
-        for img, mask in zip(images, masks):
-            o = torch.empty_like(img)
-            err = entry(img.data_ptr(), mask.data_ptr(), o.data_ptr(),
-                        img.shape[0], img.shape[1], 7.0, 16,
-                        torch.cuda.current_stream().cuda_stream)
-            if err:
-                raise SystemExit(f"fast_nms (parent): cudaError {err}")
-            out.append(o)
-        return out
-    return launch
-
-
 def _fast_check(got, images, masks, name):
     import torch
     from airdos_tpu_torch.ops import fast
@@ -616,33 +586,11 @@ def _fast_check(got, images, masks, name):
         raise SystemExit(f"{name}: not bit-equal to the plain version")
 
 
-def split_fast(parent, pyr) -> None:
-    """fast_nms on the 8 levels: the stamped copies (the parent's at level
-    0 and its 8 launches, this one's at level 0 and in one launch), then
-    the unstamped sources' device times."""
+def split_fast(pyr) -> None:
+    """fast_nms on the 8 levels: the stamped copy at level 0 and in one
+    launch, then the unstamped source's device times."""
     from airdos_tpu_torch.ops import fast
     images, masks = list(pyr.images), list(pyr.masks)
-    sig = fast._SIGNATURES["airdos_fast_nms"]
-    if parent is not None:
-        src = (parent / "airdos_tpu_torch" / "csrc" / "fast.cu").read_text()
-        dll = _build(fast_parent(src), "fast_parent_split")
-        entry = _entry(dll, "airdos_fast_nms", sig)
-        for what, n in (("level 0 360x640", 1), ("8 levels, 8 launches", 8)):
-            launch = _fast_parent_launch(entry, images[:n], masks[:n])
-            _fast_check(launch(), images[:n], masks[:n], "fast_nms (parent)")
-            dll.split_reset()
-            ms = _events_ms(launch)
-            _print_split("fast_nms (parent)", what, ms, _read(dll),
-                         FAST_PARTS)
-        entry = _entry(_build(src, "fast_parent"), "airdos_fast_nms", sig)
-        plain = _fast_parent_launch(entry, images, masks)
-        one = _fast_parent_launch(entry, images[:1], masks[:1])
-        _fast_check(plain(), images, masks, "fast_nms (parent)")
-        c0, h0 = _graph_ms(one)
-        c8, h8 = _graph_ms(plain)
-        print(f"[time] fast_nms (parent, a launch a level): level 0 cold "
-              f"{c0:.4f} ms (hot {h0:.4f}); the 8 levels' 8 launches cold "
-              f"{c8:.4f} ms (hot {h8:.4f})", flush=True)
     src = (REPO / "airdos_tpu_torch" / "csrc" / "fast.cu").read_text()
     dll = _build(fast_new(src), "fast_split")
     _bind(dll, fast._SIGNATURES)
@@ -670,8 +618,6 @@ def split_fast(parent, pyr) -> None:
 PYR_PARTS = ("resize, halo and mask loads", "horizontal blur",
              "erosion rows", "vertical blur and stores",
              "erosion columns and mask store")
-PYR_PARENT_PARTS = ("resize and halo", "horizontal blur and erosion rows",
-                    "vertical blur, mask and stores")
 BARRIERS_C = """
 extern "C" int split_read_barriers(unsigned long long* host) {
   return static_cast<int>(cudaMemcpyFromSymbol(host, g_bar, sizeof(g_bar)));
@@ -724,27 +670,6 @@ def pyramid_new(src: str) -> str:
     ]) + BARRIERS_C
 
 
-def pyramid_parent(src: str) -> str:
-    """The parent's csrc/pyramid.cu (a launch a level): slots 0-2 per warp
-    (resize and halo with the mask tile to the barrier, horizontal blur
-    and erosion rows to the barrier, vertical blur, mask and stores)."""
-    return _insert(src, [
-        ("namespace {\n", WARP_HEAD),
-        ("  const int mext = kTile + erode_k - 1;\n",
-         "  const int mext = kTile + erode_k - 1;\n"
-         "  const long long t0 = clock64();\n"),
-        ("      sm[ly][lx] = v;\n    }\n  }\n  __syncthreads();\n",
-         "      sm[ly][lx] = v;\n    }\n  }\n  __syncthreads();\n"
-         "  const long long t1 = clock64();\n"),
-        ("      smr[ly][lx] = m;\n    }\n  }\n  __syncthreads();\n",
-         "      smr[ly][lx] = m;\n    }\n  }\n  __syncthreads();\n"
-         "  const long long t2 = clock64();\n"),
-        ("    mask[at] = m;\n  }\n}\n",
-         "    mask[at] = m;\n  }\n  const long long t3 = clock64();\n"
-         + _warp_sums("threadIdx.x == 0", ["t0", "t1", "t2", "t3"]) + "}\n"),
-    ])
-
-
 def _pyramid_inputs():
     """The 640x360 texture and a uint8 mask with a blanked box, on the
     card."""
@@ -753,35 +678,6 @@ def _pyramid_inputs():
     mask = np.ones((360, 640), np.uint8)
     mask[90:180, 213:320] = 0
     return torch.from_numpy(img).cuda(), torch.from_numpy(mask).cuda()
-
-
-def _pyramid_levels(entry, img, mask):
-    """A launch a level through the one-level C entry point `entry`, each
-    level from the one before (the parent's build_pyramid): [(image, mask,
-    blur)]."""
-    import torch
-    from airdos_tpu_torch.ops import pyramid
-    shapes = pyramid.level_shapes(*img.shape, 8, 1.2)
-    kind = 0 if mask is None else 1
-    out = []
-    for lvl, (h, w) in enumerate(shapes):
-        src, src_mask = (img, mask) if lvl == 0 else out[-1][:2]
-        hs, ws = src.shape
-        level = (src if lvl == 0 else torch.empty((h, w), device="cuda"),
-                 torch.empty((h, w), device="cuda"),
-                 torch.empty((h, w), device="cuda"))
-        err = entry(src.data_ptr(),
-                    None if src_mask is None else src_mask.data_ptr(),
-                    kind if lvl == 0 else 2, hs, ws,
-                    None if lvl == 0 else level[0].data_ptr(),
-                    level[1].data_ptr(), level[2].data_ptr(), h, w,
-                    pyramid._scale(hs, h), pyramid._scale(ws, w),
-                    pyramid._TAPS, int(lvl == 0), 10,
-                    torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise SystemExit(f"pyramid (per level): cudaError {err}")
-        out.append(level)
-    return out
 
 
 def _pyramid_check(levels, img, mask, name):
@@ -797,32 +693,12 @@ def _pyramid_check(levels, img, mask, name):
                                  f"plain version")
 
 
-def split_pyramid(parent, img, mask) -> None:
-    """pyramid on the 8 levels with the uint8 mask: the stamped copies
-    (the parent's 8 launches, this one's cooperative launch), then the
-    unstamped sources' device times with and without the mask."""
+def split_pyramid(img, mask) -> None:
+    """pyramid on the 8 levels with the uint8 mask: the stamped copy's
+    cooperative launch, then the unstamped source's device times with and
+    without the mask."""
     import torch
     from airdos_tpu_torch.ops import pyramid
-    sig = pyramid._SIGNATURES["airdos_pyramid_level"]
-    if parent is not None:
-        src = (parent / "airdos_tpu_torch" / "csrc" /
-               "pyramid.cu").read_text()
-        dll = _build(pyramid_parent(src), "pyramid_parent_split")
-        entry = _entry(dll, "airdos_pyramid_level", sig)
-        _pyramid_check(_pyramid_levels(entry, img, mask), img, mask,
-                       "pyramid (parent)")
-        dll.split_reset()
-        ms = _events_ms(lambda: _pyramid_levels(entry, img, mask))
-        _print_split("pyramid (parent)", "8 levels from 360x640, uint8 "
-                     "mask, 8 launches", ms, _read(dll), PYR_PARENT_PARTS)
-        entry = _entry(_build(src, "pyramid_parent"), "airdos_pyramid_level",
-                       sig)
-        times = [_graph_ms(lambda m=m: _pyramid_levels(entry, img, m))
-                 for m in (None, mask)]
-        print("[time] pyramid (parent, a launch a level), the 8 levels' 8 "
-              "launches: " + "; ".join(
-                  f"{what} cold {c:.4f} ms (hot {h:.4f})" for what, (c, h)
-                  in zip(("no mask", "uint8 mask"), times)), flush=True)
     src = (REPO / "airdos_tpu_torch" / "csrc" / "pyramid.cu").read_text()
     dll = _build(pyramid_new(src), "pyramid_split")
     _bind(dll, pyramid._SIGNATURES)
@@ -866,12 +742,234 @@ def split_pyramid(parent, img, mask) -> None:
                                               times)), flush=True)
 
 
+LR_PARENT_PARTS = ("inverse", "loads issued", "rows and stores")
+LR_PARTS = ("inverses and barrier", "loads issued", "rows", "stores")
+LB_PARENT_PARTS = ("loads and camera sums", "tree", "finish")
+LB_PARTS = ("loads issued, dx_c staging and barrier", "camera sums",
+            "tree", "finish")
+TREE = "#pragma unroll\n  for (int off = 16; off > 0; off /= 2)\n"
+TREE_ADD = ("      acc[l] = dadd(acc[l], __shfl_down_sync(0xffffffffu, "
+            "acc[l], off));\n")
+
+
+def landmark_parent(src: str) -> str:
+    """The parent's csrc/ba_points.cu (a thread a (point, camera, row),
+    a warp a point): reduce slots 0-2 a warp's lane 0 (its point's
+    inverse, the row's loads issued, the row's products and stores: the
+    loads' arrival is in them); back-substitution slots 0-2 (the strided
+    loads with the camera sums, the shuffle tree, lane 0's finish with
+    its loads).  The two kernels are split one at a time."""
+    return _insert(src, [
+        ("namespace {\n", WARP_HEAD),
+        ("  if (idx >= static_cast<int64_t>(P) * C * 6) return;\n",
+         "  if (idx >= static_cast<int64_t>(P) * C * 6) return;\n"
+         "  const long long t0 = clock64();\n"),
+        ("  damped_inverse(pt_sums + 12 * static_cast<int64_t>(p), valid[p], "
+         "*lam, hi);\n",
+         "  damped_inverse(pt_sums + 12 * static_cast<int64_t>(p), valid[p], "
+         "*lam, hi);\n  const long long t1 = clock64();\n"),
+        ("  const double w0 = w[0], w1 = w[1], w2 = w[2];\n",
+         "  const double w0 = w[0], w1 = w[1], w2 = w[2];\n"
+         "  const long long t2 = clock64();\n"),
+        ("dmul(w2, hi[6 + m])));\n}\n",
+         "dmul(w2, hi[6 + m])));\n  const long long t3 = clock64();\n"
+         + _warp_sums("(threadIdx.x & 31) == 0", ["t0", "t1", "t2", "t3"])
+         + "}\n"),
+        ("  if (p >= P) return;                        // the whole warp leaves\n",
+         "  if (p >= P) return;                        // the whole warp leaves\n"
+         "  const long long t0 = clock64();\n"),
+        (TREE, "  const long long t1 = clock64();\n" + TREE),
+        (TREE_ADD, TREE_ADD + "  const long long t2 = clock64();\n"),
+        ("mul(__double2float_rn(d), v);\n    }\n  }\n}\n",
+         "mul(__double2float_rn(d), v);\n    }\n  }\n"
+         "  const long long t3 = clock64();\n"
+         + _warp_sums("lane == 0", ["t0", "t1", "t2", "t3"]) + "}\n"),
+    ])
+
+
+def landmark_new(src: str) -> str:
+    """This csrc/ba_points.cu: reduce slots 0-3 a warp's lane 0 (the
+    block's inverses with the barrier, the rows' loads issued, the rows'
+    products: the loads' arrival is in them, the stores); back-
+    substitution slots 0-3 (the camera's loads issued and dx_c staged
+    with the barrier, the camera sums: the loads' arrival is in them, the
+    tree, lane 0's finish), at C 24 one pass."""
+    return _insert(src, [
+        ("namespace {\n", WARP_HEAD),
+        ("  const int nr = min(kRowsAThread, n_rows - r0);   // this thread's rows\n",
+         "  const int nr = min(kRowsAThread, n_rows - r0);   // this thread's rows\n"
+         "  const long long t0 = clock64();\n"),
+        ("  __syncthreads();\n  if (nr <= 0) return;\n",
+         "  __syncthreads();\n  if (nr <= 0) return;\n"
+         "  const long long t1 = clock64();\n"),
+        ("  const int p0 = r0 / six_c;\n",
+         "  const long long t2 = clock64();\n  const int p0 = r0 / six_c;\n"),
+        ("  if (nr == kRowsAThread) {\n#pragma unroll\n    for (int j = 0; j < kF; "
+         "j += 4)\n",
+         "  const long long t3 = clock64();\n"
+         "  if (nr == kRowsAThread) {\n#pragma unroll\n    for (int j = 0; j < kF; "
+         "j += 4)\n"),
+        ("      if (j < 3 * nr) aagg[3 * r0 + j] = a[j];\n  }\n}\n",
+         "      if (j < 3 * nr) aagg[3 * r0 + j] = a[j];\n  }\n"
+         "  const long long t4 = clock64();\n"
+         + _warp_sums("(threadIdx.x & 31) == 0",
+                      ["t0", "t1", "t2", "t3", "t4"]) + "}\n"),
+        ("  const bool live = p < P;                   // a whole warp\n",
+         "  const bool live = p < P;                   // a whole warp\n"
+         "  const long long t0 = clock64();\n  long long t1 = t0, t2 = t0;\n"),
+        ("    __syncthreads();\n    if (mine) {\n",
+         "    __syncthreads();\n    t1 = clock64();\n    if (mine) {\n"),
+        ("        acc[l] = dadd(acc[l], t);\n      }\n    }\n  }\n",
+         "        acc[l] = dadd(acc[l], t);\n      }\n    }\n"
+         "    t2 = clock64();\n  }\n"),
+        (TREE_ADD, TREE_ADD + "  const long long t3 = clock64();\n"),
+        ("      dx_p[3 * p + l] = mul(__double2float_rn(d), v);\n    }\n  }\n}\n",
+         "      dx_p[3 * p + l] = mul(__double2float_rn(d), v);\n    }\n  }\n"
+         "  const long long t4 = clock64();\n"
+         + _warp_sums("live && lane == 0", ["t0", "t1", "t2", "t3", "t4"])
+         + "}\n"),
+    ])
+
+
+def landmark_loads_first(src: str) -> str:
+    """This csrc/ba_points.cu with the reduce's row loads (from `float
+    w[kF];` to the rows' points) issued before the block's inverses, the
+    order this source does not take."""
+    start, anchor = "  float w[kF];\n", "  if (static_cast<int>(threadIdx.x) < n_pts) {\n"
+    for a in (start, anchor):
+        if src.count(a) != 1:
+            raise SystemExit(f"kernel_split: anchor not found once: {a!r}")
+    i = src.index(start)
+    loads = src[i:src.index("  const int p0 = r0 / six_c;\n", i)]
+    src = src.replace(loads, "")
+    return src.replace(anchor, loads + anchor)
+
+
+def _landmark_problem(rng):
+    """The landmark kernels' inputs in a Gauss-Newton step of the static
+    problem (E 8192 C 24 P 2048, the mapping phase's shape): the edges'
+    rows summed by point and by (point, camera) as solvers/local_ba.py's
+    schur_reduce sums them, the points that an active edge observes valid,
+    lam 1e-3 and a camera step of a few millimetres."""
+    import torch
+    from airdos_tpu_torch.ops import ba_static as bs
+    from airdos_tpu_torch.ops.segment_kernels import segment_sum
+    from airdos_tpu_torch.solvers.local_ba import static_segments
+    args = _static_problem(rng)
+    R, _, pts, e_cam, e_pt, _, _, active = args
+    C, P = R.shape[0], pts.shape[0]
+    rows = bs.static_edges_cuda(*args, CAM_BA, 1.0, True, bs.ROWS)
+    segs = static_segments(e_cam, e_pt, C, P, active > 0)
+    pt_sums = segment_sum(rows.pt, segs.pt)
+    wagg = segment_sum(rows.pc, segs.pc).reshape(P, C * 18)
+    valid = pt_sums[:, 0] > 0
+    lam = torch.tensor(1e-3, dtype=torch.float32, device="cuda")
+    dx_c = torch.from_numpy(rng.normal(0, 3e-3, (C, 6)).astype(np.float32))
+    return pt_sums, wagg, valid, lam, dx_c.cuda()
+
+
+def _landmark_check(got, want, name):
+    import torch
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        same = (a.view(torch.int32) == b.view(torch.int32)) | \
+            (torch.isnan(a) & torch.isnan(b))
+        if not bool(same.all()):
+            raise SystemExit(f"{name}: not bit-equal to the plain version")
+
+
+def _landmark_launchers(dll, problem, want):
+    """reduce() and backsub() through a build's C entry points (the
+    parent's take the same arguments) on the problem's inputs, the
+    back-substitution on the plain Hpp^-1."""
+    import torch
+    pt_sums, wagg, valid, lam, dx_c = problem
+    P, C = pt_sums.shape[0], wagg.shape[1] // 18
+    from airdos_tpu_torch.ops import ba_points as bp
+    red = _entry(dll, "airdos_landmark_reduce",
+                 bp._SIGNATURES["airdos_landmark_reduce"])
+    back = _entry(dll, "airdos_landmark_backsub",
+                  bp._SIGNATURES["airdos_landmark_backsub"])
+    hinv = torch.empty((P, 3, 3), device="cuda")
+    aagg = torch.empty((P, C, 6, 3), device="cuda")
+    dx_p = torch.empty((P, 3), device="cuda")
+    stream = (lambda: torch.cuda.current_stream().cuda_stream)
+
+    def reduce():
+        err = red(pt_sums.data_ptr(), wagg.data_ptr(), valid.data_ptr(),
+                  lam.data_ptr(), P, C, hinv.data_ptr(),
+                  aagg.data_ptr(), stream())
+        if err:
+            raise SystemExit(f"landmark_reduce: cudaError {err}")
+        return hinv, aagg
+
+    def backsub():
+        err = back(want[0].data_ptr(), pt_sums.data_ptr(), wagg.data_ptr(),
+                   dx_c.data_ptr(), valid.data_ptr(), P, C, dx_p.data_ptr(),
+                   stream())
+        if err:
+            raise SystemExit(f"landmark_backsub: cudaError {err}")
+        return (dx_p,)
+    return reduce, backsub
+
+
+def split_landmark(parent, problem) -> None:
+    """landmark_reduce and landmark_backsub at P 2048 C 24: the stamped
+    copies (the parent's when given, then this one's), the unstamped
+    sources' device times, and this reduce's with its rows' loads issued
+    before the inverses; each result bit-equal to the plain versions."""
+    from airdos_tpu_torch.ops import ba_points as bp
+    pt_sums, wagg, valid, lam, dx_c = problem
+    P, C = pt_sums.shape[0], wagg.shape[1] // 18
+    want = bp.landmark_reduce_ref(pt_sums, wagg, valid, lam)
+    want_dx = bp.landmark_backsub_ref(want[0], pt_sums, wagg, dx_c, valid)
+    what = f"P {P} C {C}"
+    this = REPO / "airdos_tpu_torch" / "csrc" / "ba_points.cu"
+    srcs = [] if parent is None else [
+        (" (parent)", (parent / "airdos_tpu_torch" / "csrc" /
+                       "ba_points.cu").read_text(), landmark_parent,
+         LR_PARENT_PARTS, LB_PARENT_PARTS)]
+    srcs.append(("", this.read_text(), landmark_new, LR_PARTS, LB_PARTS))
+    for label, text, stamp, lr_parts, lb_parts in srcs:
+        tag = "parent" if label else "this"
+        dll = _build(stamp(text), f"ba_points_{tag}_split")
+        for name, fn, parts, check in zip(
+                ("landmark_reduce", "landmark_backsub"),
+                _landmark_launchers(dll, problem, want),
+                (lr_parts, lb_parts), (want, (want_dx,))):
+            _landmark_check(fn(), check, name + label)
+            dll.split_reset()                 # the slots: one kernel at a time
+            ms = _events_ms(fn)
+            _print_split(name + label, what, ms, _read(dll), parts)
+        reduce, backsub = _landmark_launchers(
+            _build(text, f"ba_points_{tag}"), problem, want)
+        _landmark_check(reduce(), want, "landmark_reduce" + label)
+        _landmark_check(backsub(), (want_dx,), "landmark_backsub" + label)
+        (rc, rh), (bc, bh) = _graph_ms(reduce), _graph_ms(backsub)
+        print(f"[time] landmark{label} {what}: reduce cold {rc:.4f} ms (hot "
+              f"{rh:.4f}); backsub cold {bc:.4f} ms (hot {bh:.4f})",
+              flush=True)
+    reduce, _ = _landmark_launchers(
+        _build(landmark_loads_first(this.read_text()), "ba_points_loads_first"),
+        problem, want)
+    _landmark_check(reduce(), want, "landmark_reduce (loads first)")
+    rc, rh = _graph_ms(reduce)
+    print(f"[time] landmark_reduce {what}, its rows' loads issued before the "
+          f"inverses: cold {rc:.4f} ms (hot {rh:.4f})", flush=True)
+
+
+SPLITS = ("pose_lm", "select", "orb_desc", "static_edge_blocks", "fast_nms",
+          "pyramid", "landmark")
+
+
 def main(argv=None) -> None:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, default=None,
                     help="an unpacked checkout of the commit before the "
-                         "redesign of fast_nms and pyramid")
+                         "redesign of landmark_reduce and landmark_backsub")
+    ap.add_argument("--only", nargs="+", choices=SPLITS, default=SPLITS,
+                    help="the kernels to split (default: all)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_split: needs a CUDA device")
@@ -880,15 +978,25 @@ def main(argv=None) -> None:
                          capture_output=True, text=True).stdout.strip()
     print(f"[split] card: {smi}", flush=True)
     csrc = REPO / "airdos_tpu_torch" / "csrc"
-    split_pose(_build(pose_new((csrc / "pose_lm.cu").read_text()),
-                      "pose_lm_split"), "pose_lm")
-    fe = _front_end()
-    split_select(_build(select_new((csrc / "select.cu").read_text()),
-                        "select_split"), "select", fe)
-    split_orb_new(fe)
-    split_static_new(_static_problem(np.random.default_rng(1)))
-    split_fast(args.parent, fe[0])
-    split_pyramid(args.parent, *_pyramid_inputs())
+    only = set(args.only)
+    if "pose_lm" in only:
+        split_pose(_build(pose_new((csrc / "pose_lm.cu").read_text()),
+                          "pose_lm_split"), "pose_lm")
+    fe = _front_end() if only & {"select", "orb_desc", "fast_nms"} else None
+    if "select" in only:
+        split_select(_build(select_new((csrc / "select.cu").read_text()),
+                            "select_split"), "select", fe)
+    if "orb_desc" in only:
+        split_orb_new(fe)
+    if "static_edge_blocks" in only:
+        split_static_new(_static_problem(np.random.default_rng(1)))
+    if "fast_nms" in only:
+        split_fast(fe[0])
+    if "pyramid" in only:
+        split_pyramid(*_pyramid_inputs())
+    if "landmark" in only:
+        split_landmark(args.parent,
+                       _landmark_problem(np.random.default_rng(1)))
 
 
 if __name__ == "__main__":
