@@ -10,7 +10,7 @@ neighbours, and the tests that accept the match before the median cut.
 ``stereo_sad`` takes the two images' pyramid levels as they are:
 
 - on CUDA tensors it launches the sm_90a kernel of ``csrc/stereo_sad.cu``
-  (a warp a keypoint, the levels read where they lie) on the calling
+  (half a warp a keypoint, the levels read where they lie) on the calling
   thread's current stream (built with nvcc at first use into
   ``airdos_tpu_torch/_build/``, bound through ctypes) or raises, and
   counts the launch, by thread and stream priority too;
@@ -38,6 +38,28 @@ from airdos_tpu_torch.ops import cuda_build
 
 SAD_W = 5                          # half window (11x11)
 SAD_L = 5                          # slide range
+# csrc/stereo_sad.cu: LANES lanes (half a warp) a keypoint, KEYPOINTS of
+# them a block
+LANES = 16
+KEYPOINTS = 4
+
+
+def lane_columns(lane: int):
+    """The window columns lane `lane` of a keypoint's LANES loads: its
+    patch column (None past the patch) and its strip columns."""
+    win, strip = 2 * SAD_W + 1, 2 * (SAD_W + SAD_L) + 1
+    return (lane if lane < win else None,
+            [c for c in (lane, lane + LANES) if c < strip])
+
+
+def outputs(n: int, device):
+    """(best_sad, u_right, disparity [n] float32, accept [n] bool): views
+    of one allocation, three float32 rows, then the flags' bytes."""
+    buf = torch.empty(3 * n + (n + 3) // 4, dtype=torch.float32,
+                      device=device)
+    best_sad, u_r, disparity = buf[:3 * n].view(3, n).unbind(0)
+    return best_sad, u_r, disparity, \
+        buf[3 * n:].view(torch.uint8)[:n].view(torch.bool)
 
 
 def stack_pyramid(images: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -207,10 +229,7 @@ def stereo_sad_cuda(xy_l, oct_l, valid_l, xy_r, best_r, cand_ok,
                          f"{tuple(scale_factors.shape)}")
     if _kernel is None:
         _kernel = cuda_build.library(_SOURCE, _SIGNATURES).airdos_stereo_sad
-    best_sad = torch.empty(n, dtype=torch.float32, device=dev)
-    u_r = torch.empty(n, dtype=torch.float32, device=dev)
-    disparity = torch.empty(n, dtype=torch.float32, device=dev)
-    accept = torch.empty(n, dtype=torch.bool, device=dev)
+    best_sad, u_r, disparity, accept = outputs(n, dev)
 
     def ptrs(levels):
         return (ctypes.c_int64 * n_levels)(*(im.data_ptr() for im in levels))

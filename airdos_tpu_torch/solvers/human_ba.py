@@ -35,14 +35,14 @@ loop never reads a device value on the host.
 The per-edge work is kernel launches on the card: the static edges'
 rows, the static family's LM cost in ``ops/lm_cost``'s fixed order, and
 the costs and depths of the chi-square passes (``ops/ba_static``), the
-landmark reduction and back-substitution (``ops/ba_points``), the three
-human families' column of J^T W J and -J^T W e entries, costs and depths
-(``ops/ba_human``) and each human family's cost sum in a fixed order
-(``ops/lm_cost``).  A solve launches static_edge_blocks and
+landmark reduction and back-substitution (``ops/ba_points``), and the
+three human families' column of J^T W J and -J^T W e entries, their three
+LM costs in that fixed order, and their costs and depths
+(``ops/ba_human``, on the edge tables checked once a solve by
+``launch_tables``).  A solve launches static_edge_blocks and
 human_edge_blocks 34 times each (15 steps, 17 costs, 2 chi-square
-passes), lm_cost 51 times (3 a cost), landmark_reduce and
-landmark_backsub 15 each.  On the CPU every kernel's
-plain version runs, bit-equal to it.
+passes), landmark_reduce and landmark_backsub 15 each, and no lm_cost.
+On the CPU every kernel's plain version runs, bit-equal to it.
 
 Multi-device (airdos_tpu's ``axis_name``): given a mesh ``group``
 (``parallel/mesh.py``) and shard-local STATIC edge tables (es_*), the
@@ -61,11 +61,12 @@ import torch
 
 from airdos_tpu_torch.geometry.se3 import se3_compose, se3_exp, so3_exp
 from airdos_tpu_torch.ops.ba_human import (HumanTables, human_edge_blocks,
-                                           human_edge_cost)
+                                           human_edge_cost,
+                                           human_edge_cost_sum,
+                                           launch_tables)
 from airdos_tpu_torch.ops.ba_static import (DELTA_STEREO, static_edge_blocks,
                                             static_edge_cost,
                                             static_edge_cost_sum)
-from airdos_tpu_torch.ops.lm_cost import lm_cost
 from airdos_tpu_torch.ops.segment_kernels import (make_compact_segments,
                                                   segment_sum)
 from airdos_tpu_torch.slam.map import BODY1, BODY2, MAIN_SKELETON, N_PARTS
@@ -224,6 +225,8 @@ def human_bundle_adjust(
     ed = human_edges(jo_cam, jo_obs, jo_valid, joint_exists, seg_edge_valid,
                      traj_valid, pose_dt, motion_edge_valid, C)
     tables = ed.tables
+    if tables.hp_cam.is_cuda:             # checked for the kernel once
+        tables = launch_tables(tables)
     Eh, Er = ed.hp_valid.shape[0], ed.rg_valid.shape[0]
     # the human keys use the stereo chi2 threshold's delta
     sig = (sigma_human, sigma_rigidity, sigma_motion, DELTA_STEREO,
@@ -256,14 +259,13 @@ def human_bundle_adjust(
                                sig, use_huber)
 
     def cost(state, act, use_huber: bool):
-        camR, camt, pts = state[:3]
-        ch = human_costs(state, use_huber)
-        rho_h, rho_r, rho_m = ch.rho.split([Eh, Er, ch.rho.shape[0] - Eh - Er])
-        return (psum(static_edge_cost_sum(camR, camt, pts, es_cam, es_pt,
-                                          es_obs, es_info, act[0], cam,
-                                          sigma_static, use_huber))
-                + lm_cost(rho_h, act[1]) + lm_cost(rho_r, act[2])
-                + lm_cost(rho_m, act[3]))
+        camR, camt, pts, jnts, segs, mR, mt = state
+        hs = human_edge_cost_sum(camR, camt, jnts, segs, mR, mt, tables,
+                                 act[1:], cam, sig, use_huber)
+        return ((psum(static_edge_cost_sum(camR, camt, pts, es_cam, es_pt,
+                                           es_obs, es_info, act[0], cam,
+                                           sigma_static, use_huber))
+                 + hs[0]) + hs[1]) + hs[2]
 
     def gn_step(state, act, lam, use_huber: bool):
         camR, camt, pts, jnts, segs, mR, mt = state

@@ -43,8 +43,9 @@ Run from the repository root.  Phases, each of which fails the run:
    trajectories, 45 segment_sum launches per static BA solve and 60 per
    human BA solve (4 per Gauss-Newton step), the static solve's launches
    of phase 4 and per human BA solve 34 static_edge_blocks, 34
-   human_edge_blocks, 51 lm_cost (3 a cost), 15 landmark_reduce and 15
-   landmark_backsub launches, ATE_human < 0.6 ATE_static
+   human_edge_blocks (15 steps, 17 LM costs of the three families in its
+   cost-sum mode, 2 chi-square passes), no lm_cost, 15 landmark_reduce
+   and 15 landmark_backsub launches, ATE_human < 0.6 ATE_static
    and < 0.03 m; prints both ATEs, the human BA's reduced dimension D, the
    per-frame latency of tracking, keyframe and human-BA frames and the
    median human_ba span;
@@ -116,8 +117,13 @@ Run from the repository root.  Phases, each of which fails the run:
      1e-3 px where both accept; static_edge_blocks (by edges, cameras,
      points and mode: Gauss-Newton rows, costs, or the LM cost sum),
      landmark_reduce and landmark_backsub (by points
-     and cameras), human_edge_blocks (by family sizes and mode) and
-     lm_cost (by terms) bit-equal, two launches bit-equal;
+     and cameras) and human_edge_blocks (by family sizes and mode:
+     Gauss-Newton column, costs, or the three families' LM cost sums,
+     which are also held against three lm_cost launches on the cost
+     mode's rho) bit-equal, two launches bit-equal; lm_cost, which no
+     main path launches any more, on each family's rho and activity from
+     the human cost sums the paths launched: bit-equal, two launches
+     bit-equal;
 10. determinism: two card runs of the mapping System on the small camera
    over 8 frames give byte-identical TUM and KF/MP/Match dumps, and two
    card runs of the human System (small camera, seed 3, 2 humans, masked,
@@ -1225,38 +1231,78 @@ def _lb_bound(shape, args):
 
 
 def _hu_shape(camR, camt, joints, seg_len, motR, mott, tb, *rest):
-    # (edges of each family, cost mode)
-    return tuple(_bhu().family_sizes(tb)) + (bool(rest[-1]),)
+    # (edges of each family, mode)
+    return tuple(_bhu().family_sizes(tb)) + (int(rest[-1]),)
 
 
 def _hu_fmt(shape) -> str:
-    Eh, Er, Em, cost = shape
+    Eh, Er, Em, mode = shape
     return (f"{Eh} projection, {Er} rigidity, {Em} motion edges, "
-            f"{'cost' if cost else 'Gauss-Newton'} mode")
+            f"{_ST_MODES[mode]} mode")
 
 
 def _hu_bound(shape, args):
     """The state (cameras, joints, limbs, motions) and the edge tables
-    read once (the activities in Gauss-Newton mode), the column (90, 56,
-    156 floats an edge) or the costs written once."""
-    Eh, Er, Em, cost = shape
+    read once (the activities in Gauss-Newton and cost-sum modes), the
+    column (90, 56, 156 floats an edge), the costs or the three sums
+    written once; the cost sums' guard, product and add a term at the
+    float32 rate."""
+    Eh, Er, Em, mode = shape
     camR, joints, seg_len, motR = args[0], args[2], args[3], args[4]
     state = 48 * camR.shape[0] + 4 * joints.numel() + 4 * seg_len.numel() \
         + 48 * motR.shape[0]
     tables = 20 * Eh + 12 * Er + 16 * Em
     E = (Eh, Er, Em)
-    if cost:
-        out = 4 * (2 * sum(E) + Eh)
-        return state + tables + out, \
-            sum(e * f for e, f in zip(E, HUMAN_F32)) / FP32_FLOPS
+    f32 = sum(e * f for e, f in zip(E, HUMAN_F32)) / FP32_FLOPS
+    if mode == 1:
+        return state + tables + 4 * (2 * sum(E) + Eh), f32
+    if mode == 2:
+        return state + tables + 4 * sum(E) + 12, \
+            f32 + 3 * sum(E) / FP32_FLOPS
     out = 4 * (90 * Eh + 56 * Er + 156 * Em)
     return state + tables + 4 * sum(E) + out, \
-        sum(e * f for e, f in zip(E, HUMAN_F32)) / FP32_FLOPS + \
-        sum(e * f for e, f in zip(E, HUMAN_F64)) / FP64_FLOPS
+        f32 + sum(e * f for e, f in zip(E, HUMAN_F64)) / FP64_FLOPS
+
+
+def _hu_check(args):
+    """_ba_check's, and in cost-sum mode also bit-equal to three lm_cost
+    launches on the cost mode's rho (the sums the kernel replaced)."""
+    import torch
+    bh = _bhu()
+    err, what, kernel, plain = _ba_check(
+        "human_edge_blocks", lambda: bh.human_edges_cuda,
+        lambda: bh.human_edges_ref)(args)
+    if int(args[-1]) == bh.COST_SUM:
+        got = bh.human_edges_cuda(*args)
+        rho = bh.human_edges_cuda(*args[:-1], bh.COST).rho
+        sums = [_lmc().lm_cost_cuda(r, a) for r, a in
+                zip(rho.split(list(bh.family_sizes(args[6]))), args[7])]
+        torch.cuda.synchronize()
+        if not _bits_equal(got, torch.stack(sums)):
+            _fail(f"human_edge_blocks cost sum {got.tolist()} != lm_cost "
+                  f"of the cost mode's rho {[float(x) for x in sums]}")
+        what += ", equal to lm_cost of the cost mode's rho"
+    return err, what, kernel, plain
 
 
 def _lc_shape(rho, active):                 # (terms,)
     return (rho.shape[0],)
+
+
+def _lc_cases(shapes):
+    """lm_cost's cases: no main path launches it any more (the human BA
+    sums its families' costs in human_edge_blocks' cost-sum mode), so
+    each family's rho (from the cost mode) and activity at the first
+    human cost-sum input the paths recorded at each family size."""
+    bh = _bhu()
+    out = {}
+    for shape, (_, args) in _PATH.get("human_edge_blocks", {}).items():
+        if shape[3] != bh.COST_SUM:
+            continue
+        rho = bh.human_edges_cuda(*args[:-1], bh.COST).rho
+        for r, a in zip(rho.split(list(shape[:3])), args[7]):
+            out.setdefault((r.shape[0],), (r, a))
+    return out
 
 
 def _lc_bound(shape, args):
@@ -1287,6 +1333,7 @@ class _Kernel(NamedTuple):
     library: Callable               # args -> (callable or None, its name)
     graph_n: int = 100              # launches in the timed CUDA graph
     human_only: bool = False        # launched by the human layer alone
+    off_path: bool = False          # launched by no main path
     # recorded {shape: [launches, args]} -> {shape: args}: cases the paths
     # did not launch, checked and timed beside them
     variants: Callable = None
@@ -1385,10 +1432,9 @@ KERNELS = (
     _Kernel("human_edge_blocks", _bhu, "human_edges_cuda", "launches",
             "airdos_tpu_torch/csrc/ba_human.cu",
             "airdos_tpu/solvers/human_ba.py:188 residuals, :257 gn_step "
-            "(family weights, J_m, J_r, scatter products)", _hu_shape,
-            _hu_fmt, lambda shape: sum(shape[:3]),
-            _ba_check("human_edge_blocks", lambda: _bhu().human_edges_cuda,
-                      lambda: _bhu().human_edges_ref),
+            "(family weights, J_m, J_r, scatter products), :223 cost (the "
+            "human families' sums)", _hu_shape,
+            _hu_fmt, lambda shape: sum(shape[:3]), _hu_check,
             _hu_bound, _no_library, human_only=True),
     _Kernel("lm_cost", _lmc, "lm_cost_cuda", "launches",
             "airdos_tpu_torch/csrc/lm_cost.cu",
@@ -1397,19 +1443,19 @@ KERNELS = (
             lambda shape: f"{shape[0]} terms", lambda shape: 1,
             _ba_check("lm_cost", lambda: _lmc().lm_cost_cuda,
                       lambda: _lmc().lm_cost_ref),
-            _lc_bound, _no_library, human_only=True),
+            _lc_bound, _no_library, off_path=True, variants=_lc_cases),
 )
 
 # the BA kernels' launches per solve of the static (local) BA and of the
 # human BA, from solvers/local_ba.py's and solvers/human_ba.py's
 # docstrings: 15 Gauss-Newton steps, 17 LM costs (the static family's
-# summed in static_edge_blocks' cost-sum mode, each human family's by
-# lm_cost) and 2 chi-square passes (segment_sum's 45 and 60 are checked on
-# their own)
+# summed in static_edge_blocks' cost-sum mode, the human families' in
+# human_edge_blocks') and 2 chi-square passes (segment_sum's 45 and 60 are
+# checked on their own)
 STATIC_SOLVE = {"static_edge_blocks": 34, "lm_cost": 0,
                 "landmark_reduce": 15, "landmark_backsub": 15}
 HUMAN_SOLVE = {"static_edge_blocks": 34, "human_edge_blocks": 34,
-               "lm_cost": 51, "landmark_reduce": 15, "landmark_backsub": 15}
+               "lm_cost": 0, "landmark_reduce": 15, "landmark_backsub": 15}
 
 
 def _per_solve_off(per, static: str, human: str = ""):
@@ -1562,11 +1608,13 @@ def phase_kernel(smi: str):
     for k in KERNELS:
         name = k.name
         shapes = _PATH.get(name, {})
-        if not shapes:
+        if not shapes and not k.off_path:
             _fail(f"{name}: no launch recorded on the main paths")
         if k.variants is not None:
             shapes = {**shapes, **{sh: [0, args] for sh, args
                                    in k.variants(shapes).items()}}
+        if not shapes:
+            _fail(f"{name}: no case to check")
         # the most launched shape first; ties go to the larger output
         order = sorted(shapes, key=lambda sh: (-shapes[sh][0],
                                                -k.out_size(sh)))
@@ -1587,7 +1635,8 @@ def phase_kernel(smi: str):
                 else lib_name
             on_path = (f"{n_launch} launches on the main paths, on the "
                        f"path's inputs" if n_launch else
-                       "not launched on the main paths, on a path's image")
+                       "not launched on the main paths, on a case built from a "
+                       "path's inputs")
             print(f"[kernel] {name} {k.fmt(shape)}, {on_path}: {what}; "
                   f"per call kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"library {lib}; kernel device time (CUDA graph) L2 cold "
@@ -1973,8 +2022,8 @@ def phase_mapping(smi: str, frames, twc, twins):
     if ba_off:
         _fail(f"mapping: BA kernel launches per solve != {STATIC_SOLVE} at "
               f"(frame, kernel, launches, expected) {ba_off[:8]}")
-    human_only = {k.name for k in KERNELS if k.human_only}
-    idle = [k for k, v in counts.items() if v <= 0 and k not in human_only]
+    not_here = {k.name for k in KERNELS if k.human_only or k.off_path}
+    idle = [k for k, v in counts.items() if v <= 0 and k not in not_here]
     if idle:
         _fail(f"mapping: kernels never launched on the main path: {idle}")
     track_ms = [p["ms"] for p in per if not p["kf"]]
@@ -2054,7 +2103,8 @@ def phase_human(smi: str, frames, twc, twins):
         _fail(f"human: BA kernel launches != {STATIC_SOLVE} per static and "
               f"{HUMAN_SOLVE} per human BA solve at (frame, kernel, "
               f"launches, expected) {ba_off[:8]}")
-    idle = [k for k, v in counts.items() if v <= 0]
+    off_path = {k.name for k in KERNELS if k.off_path}
+    idle = [k for k, v in counts.items() if v <= 0 and k not in off_path]
     if idle:
         _fail(f"human: kernels never launched on the main path: {idle}")
     ate_human = _ate(slam.tracking, twc)

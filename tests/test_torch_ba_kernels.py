@@ -474,21 +474,24 @@ def test_local_bundle_adjust_goes_through_the_kernels(monkeypatch):
 
 
 def test_human_bundle_adjust_goes_through_the_kernels(monkeypatch):
-    """A solve: 15 steps, 17 costs (the static family's in cost-sum mode,
-    three lm_cost sums of the human families), 2 passes: 34
-    static_edge_blocks, 34 human_edge_blocks and 51 lm_cost launches."""
+    """A solve: 15 steps, 17 costs (the static family's and the three
+    human families' in the kernels' cost-sum modes, no lm_cost), 2
+    passes: 34 static_edge_blocks and 34 human_edge_blocks launches, no
+    lm_cost."""
     from test_torch_human import _ba_case, _run_port
     calls = _counted(monkeypatch, thba,
                      ("static_edge_blocks", "static_edge_cost",
                       "static_edge_cost_sum", "human_edge_blocks",
-                      "human_edge_cost", "lm_cost"))
+                      "human_edge_cost", "human_edge_cost_sum"))
     _counted(monkeypatch, tlba, ("landmark_reduce", "landmark_backsub"),
              calls)
+    _counted(monkeypatch, lc, ("lm_cost",), calls)
     _run_port(_ba_case("clean")[0])
     assert calls == {"static_edge_blocks": 15, "static_edge_cost": 2,
                      "static_edge_cost_sum": 17, "human_edge_blocks": 15,
-                     "human_edge_cost": 19, "lm_cost": 51,
-                     "landmark_reduce": 15, "landmark_backsub": 15}
+                     "human_edge_cost": 2, "human_edge_cost_sum": 17,
+                     "lm_cost": 0, "landmark_reduce": 15,
+                     "landmark_backsub": 15}
 
 
 def test_cuda_wrappers_raise_on_cpu_tensors():

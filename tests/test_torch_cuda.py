@@ -1257,10 +1257,13 @@ def test_select_kernel_rejects_what_it_does_not_take(cuda):
 def _sad_case(rng, kind):
     """The stereo refinement's inputs: a pyramid pair and, for each left
     keypoint, the right keypoint it matched.  "random": a texture and its
-    copy shifted 7 px, keypoints anywhere on each level (the edges
-    included), random matches and gates; "synthetic": a rendered
-    small-camera frame through the port's front end on the card, with the
-    matches and gates stereo_match computes."""
+    copy shifted 7 px at the bench budget (360x640, 8 levels, 1536
+    keypoints), keypoints anywhere on each level (the edges included),
+    random matches and gates; "long-110": the same at long-110's (240x320,
+    4 levels, 640 keypoints); "faint": the bench case with the texture
+    scaled to [0, 2^-6], so that most pixels are under 2^-8; "synthetic":
+    a rendered small-camera frame through the port's front end on the
+    card, with the matches and gates stereo_match computes."""
     import airdos_tpu_torch.ops.pyramid as pk
     scales = torch.tensor([1.2 ** l for l in range(8)], dtype=torch.float32,
                           device="cuda")
@@ -1289,8 +1292,11 @@ def _sad_case(rng, kind):
         finally:
             ms.stereo_sad = real
         return seen["args"]
-    h, w, n_levels, n = 360, 640, 8, 1536
+    h, w, n_levels, n = (240, 320, 4, 640) if kind == "long-110" else \
+        (360, 640, 8, 1536)
     left = _texture(rng, h, w + 7)
+    if kind == "faint":
+        left = (left * np.float32(2.0 ** -6 / 255.0)).astype(np.float32)
     pl = pk.build_pyramid(torch.from_numpy(left[:, 7:].copy()).cuda(), None,
                           n_levels, 1.2)
     pr = pk.build_pyramid(torch.from_numpy(left[:, :-7].copy()).cuda(),
@@ -1308,7 +1314,7 @@ def _sad_case(rng, kind):
             scales[:n_levels], float(np.float32(250.0) / np.float32(0.5)))
 
 
-@pytest.mark.parametrize("kind", ["random", "synthetic"])
+@pytest.mark.parametrize("kind", ["random", "long-110", "synthetic"])
 def test_stereo_sad_kernel_equals_plain_version(cuda, kind):
     """best_sad, u_right, disparity and the accept flags bit-equal to the
     plain version (every pixel is 0 or >= 1: the module's condition), one
@@ -1324,6 +1330,25 @@ def test_stereo_sad_kernel_equals_plain_version(cuda, kind):
     for a, b, c in zip(got, again, want):
         assert torch.equal(a, b) and torch.equal(a, c)
     assert int(got[3].sum()) > 20
+
+
+def test_stereo_sad_kernel_within_limits_on_pixels_under_2e_8(cuda):
+    """Where pixels under 2^-8 let the float64 sums round, each order its
+    own way: >= 99.9% of accept flags equal and u_right within 1e-3 px
+    where both accept (ops/stereo_sad.py's limits); two launches
+    bit-equal."""
+    import airdos_tpu_torch.ops.stereo_sad as ss
+    args = _sad_case(np.random.default_rng(9), "faint")
+    assert any(bool(((im != 0) & (im.abs() < 2.0 ** -8)).any())
+               for im in args[6])
+    got, again = ss.stereo_sad(*args), ss.stereo_sad(*args)
+    want = ss.stereo_sad_ref(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert float((got[3] == want[3]).float().mean()) >= 0.999
+    both = got[3] & want[3]
+    assert int(both.sum()) > 20
+    assert float((got[1] - want[1])[both].abs().max()) <= 1e-3
 
 
 def test_stereo_sad_kernel_rejects_what_it_does_not_take(cuda):
@@ -1648,33 +1673,70 @@ def _human_case(rng, T, L, C, device):
 HUMAN_SIG = (0.5, 20.0, 20.0, 2.795483, 1.0, 1.0)
 
 
-@pytest.mark.parametrize("T,L", [(8, 8), (3, 1), (10, 20)])
+@pytest.mark.parametrize("T,L", [(8, 8), (1, 4), (3, 1), (3, 3), (10, 20)])
 @pytest.mark.parametrize("huber", [True, False])
 def test_human_edge_blocks_kernel_equals_plain_version(cuda, T, L, huber):
-    """The families' column (Gauss-Newton mode) and rho, chi2, depths
-    (cost mode) bit-equal to the plain version on the card and on the
-    CPU, one launch a call; L = 1 has no motion edge."""
+    """The families' column (Gauss-Newton mode), rho, chi2, depths (cost
+    mode) and LM costs (cost-sum mode) bit-equal to the plain version on
+    the card and on the CPU and across two launches, one launch a call:
+    896 / 896 / 280 edges (crowd-27), 56 / 56 / 15, L = 1 (no motion
+    edge), 126 / 126 / 30 (family offsets off 16 bytes) and 2800 / 2800 /
+    950; the cost sums also bit-equal to lm_cost's launches on the cost
+    mode's rho."""
     import airdos_tpu_torch.ops.ba_human as bh
+    import airdos_tpu_torch.ops.lm_cost as lc
     rng = np.random.default_rng(T * 100 + L)
     state, tb, act = _human_case(rng, T, L, 24, cuda)
-    before = bh.launches()
-    col = bh.human_edge_blocks(*state, tb, act, BA_CAM, HUMAN_SIG, huber)
-    cost = bh.human_edge_cost(*state, tb, BA_CAM, HUMAN_SIG, huber)
-    torch.cuda.synchronize()
-    assert bh.launches() == before + 2
+    lt = bh.launch_tables(tb)
     cpu_tb = bh.HumanTables(*(x.cpu() for x in tb))
-    for mode, got in ((False, (col,)), (True, cost)):
+    calls = {bh.ROWS: lambda t: (bh.human_edge_blocks(
+                 *state, t, act, BA_CAM, HUMAN_SIG, huber),),
+             bh.COST: lambda t: bh.human_edge_cost(
+                 *state, t, BA_CAM, HUMAN_SIG, huber),
+             bh.COST_SUM: lambda t: (bh.human_edge_cost_sum(
+                 *state, t, act, BA_CAM, HUMAN_SIG, huber),)}
+    for mode, call in calls.items():
+        before = bh.launches()
+        got, again = call(lt), call(tb)
+        torch.cuda.synchronize()
+        assert bh.launches() == before + 2
         want = bh.human_edges_ref(*state, tb, act, BA_CAM, HUMAN_SIG, huber,
                                   mode)
         want_cpu = bh.human_edges_ref(*(x.cpu() for x in state), cpu_tb,
                                       [a.cpu() for a in act], BA_CAM,
                                       HUMAN_SIG, huber, mode)
-        if not mode:
+        if mode != bh.COST:
             want, want_cpu = (want,), (want_cpu,)
-        for a, b, c in zip(got, want, want_cpu):
-            assert _bits_equal(a, b), mode
-            assert _bits_equal(a, c), (mode, "cpu")
-    assert col.shape == (bh.n_values(tb),)
+        for a, b, c, d in zip(got, again, want, want_cpu):
+            assert _bits_equal(a, b), (mode, "again")
+            assert _bits_equal(a, c), mode
+            assert _bits_equal(a, d), (mode, "cpu")
+    assert got[0].shape == (3,)
+    rho = bh.human_edge_cost(*state, lt, BA_CAM, HUMAN_SIG, huber).rho
+    sums = [lc.lm_cost(r, a)
+            for r, a in zip(rho.split(list(bh.family_sizes(tb))), act)]
+    assert _bits_equal(got[0], torch.stack(sums))
+    assert calls[bh.ROWS](lt)[0].shape == (bh.n_values(tb),)
+
+
+def test_human_edge_blocks_kernel_rejects_what_it_does_not_take(cuda):
+    import airdos_tpu_torch.ops.ba_human as bh
+    state, tb, act = _human_case(np.random.default_rng(5), 2, 3, 3, cuda)
+    lt = bh.launch_tables(tb)
+    with pytest.raises(ValueError):
+        bh.launch_tables(tb._replace(hp_cam=tb.hp_cam.long()))
+    with pytest.raises(ValueError):
+        bh.launch_tables(tb._replace(mo_dt=tb.mo_dt[:-1]))
+    with pytest.raises(ValueError):
+        bh.launch_tables(bh.HumanTables(*(x.cpu() for x in tb)))
+    with pytest.raises(ValueError):
+        bh.human_edge_cost_sum(*state, lt, act[:2] + [act[2][:-1]], BA_CAM,
+                               HUMAN_SIG, True)
+    with pytest.raises(ValueError):
+        bh.human_edges_cuda(*state, lt, act, BA_CAM, HUMAN_SIG, True, 3)
+    with pytest.raises(ValueError):
+        bh.human_edge_blocks(state[0], state[1], state[2].double(),
+                             *state[3:], lt, act, BA_CAM, HUMAN_SIG, True)
 
 
 @pytest.mark.parametrize("n", [0, 1, 1000, 8192, 16384, 65537])
@@ -1736,6 +1798,8 @@ def test_ba_kernel_dispatchers_raise_without_their_library(cuda, monkeypatch,
         lambda: bh.human_edge_blocks(*state, tb, act, BA_CAM, HUMAN_SIG,
                                      True),
         lambda: bh.human_edge_cost(*state, tb, BA_CAM, HUMAN_SIG, True),
+        lambda: bh.human_edge_cost_sum(*state, tb, act, BA_CAM, HUMAN_SIG,
+                                       True),
         lambda: lc.lm_cost(torch.ones(8, device=cuda),
                            torch.ones(8, device=cuda)))
     for call in calls:

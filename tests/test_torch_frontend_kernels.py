@@ -417,6 +417,70 @@ def test_stereo_sad_kernel_window_is_the_plain_versions():
     consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", text))
     assert (int(consts["kW"]), int(consts["kL"])) == (tsad.SAD_W, tsad.SAD_L)
     assert int(consts["kMaxLevels"]) == tsad.MAX_LEVELS
+    # half a warp a keypoint, a level's scale and width a lane
+    assert int(consts["kHalf"]) == tsad.LANES == 16 >= tsad.MAX_LEVELS
+    assert 32 * int(consts["kWarps"]) // tsad.LANES == tsad.KEYPOINTS
+    stride = int(consts["kStride"])
+    assert stride % 32 == 16 and stride >= 11 * 11 + 11 * 21
+
+
+def test_stereo_sad_lanes_load_every_window_column_once():
+    """Lane c of a keypoint loads patch column c and strip columns c and
+    c + 16: every column of the 11-wide patch and the 21-wide strip once,
+    and lane k < 11 then sums SAD k."""
+    patch, strip = [], []
+    for lane in range(tsad.LANES):
+        p, s = tsad.lane_columns(lane)
+        patch += [] if p is None else [p]
+        strip += s
+    assert sorted(patch) == list(range(2 * tsad.SAD_W + 1))
+    assert sorted(strip) == list(range(2 * (tsad.SAD_W + tsad.SAD_L) + 1))
+    assert 2 * tsad.SAD_L + 1 <= tsad.LANES
+
+
+@pytest.mark.parametrize("kind", ["8-bit", "bilinear levels"])
+def test_stereo_sad_lane_order_is_exact_under_the_pixel_condition(kind):
+    """SAD k as lane k sums it (the 121 float32 terms in row-major order
+    over two float64 accumulators, then their sum) equals the plain
+    version's float64 sum, bit for bit, where every pixel is 0 or at
+    least 2^-8: 8-bit windows, and windows of bilinear-level values
+    (multiples of 2^-16 from 8-bit images)."""
+    rng = np.random.default_rng(len(kind))
+    for _ in range(50):
+        px = rng.integers(0, 256, (11, 11 + 21)).astype(np.float32)
+        if kind == "bilinear levels":
+            px = (px * rng.integers(0, 2 ** 16, px.shape)
+                  / 2.0 ** 16).astype(np.float32)
+            px[(px != 0) & (np.abs(px) < 2.0 ** -8)] = 0.0
+        patch = px[:, :11] - px[5, 5]
+        strip = px[:, 11:]
+        for k in range(11):
+            win = strip[:, k:k + 11] - strip[5, 5 + k]
+            terms = np.abs(patch - win).astype(np.float32).reshape(-1)
+            acc = [0.0, 0.0]
+            for j, t in enumerate(terms):
+                acc[j & 1] += float(t)
+            lanes = np.float32(acc[0] + acc[1])
+            want = torch.sum(torch.from_numpy(terms), dtype=torch.float64) \
+                .to(torch.float32)
+            assert lanes.view(np.int32) == want.numpy().view(np.int32)
+
+
+@pytest.mark.parametrize("n", [0, 1, 3, 1536])
+def test_stereo_sad_outputs_are_views_of_one_allocation(n):
+    best, u_r, disp, accept = tsad.outputs(n, "cpu")
+    for x, dtype in ((best, torch.float32), (u_r, torch.float32),
+                     (disp, torch.float32), (accept, torch.bool)):
+        assert x.shape == (n,) and x.dtype == dtype and x.is_contiguous()
+    base = best.untyped_storage().data_ptr()
+    assert all(x.untyped_storage().data_ptr() == base
+               for x in (u_r, disp, accept))
+    best.fill_(1.0)
+    u_r.fill_(2.0)
+    disp.fill_(3.0)
+    accept.fill_(True)
+    assert (best == 1).all() and (u_r == 2).all() and (disp == 3).all()
+    assert accept.all()
 
 
 def test_stereo_sad_cuda_raises_on_cpu_tensors():

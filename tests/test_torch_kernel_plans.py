@@ -10,12 +10,15 @@ computes, and which tiles each block of csrc/pyramid.cu's cooperative
 launch computes in each phase; which Wagg rows each thread of
 csrc/ba_points.cu's reduction takes, which points each block inverts and
 which block writes a point's inverse, and which cameras each lane of the
-back-substitution sums.  The kernels themselves run on the card only
-(tests/test_torch_cuda.py)."""
+back-substitution sums; which of an edge's Gauss-Newton floats each lane
+of csrc/ba_human.cu computes, how a block writes its slices of the
+column, and the order of its three fused LM costs.  The kernels
+themselves run on the card only (tests/test_torch_cuda.py)."""
 import numpy as np
 import pytest
 import torch
 
+import airdos_tpu_torch.ops.ba_human as bh
 import airdos_tpu_torch.ops.ba_points as bp
 import airdos_tpu_torch.ops.ba_static as bs
 import airdos_tpu_torch.ops.fast as fk
@@ -571,3 +574,224 @@ def test_landmark_kernel_constants_are_the_plans():
             ((2048, 24), (1024, 24), (2048, 48), (32, 4))] == \
         [288, 144, 576, 1]
     assert bp.backsub_blocks(2048) == 256
+
+
+# -------------------------------------------------- human_edge_blocks
+
+@pytest.mark.parametrize("fam", [0, 1, 2])
+def test_human_lane_plan_writes_every_entry_once(fam):
+    """A family's plan words put each of an edge's Q Q + Q Gauss-Newton
+    floats (81 + 9, 49 + 7, 144 + 12) in exactly one place, each lane at
+    most SLOTS[fam] entries, the lanes' loads within one entry."""
+    R, Q = bh.FAMILIES[fam]
+    plan = bh.gn_lane_plan(fam)
+    assert len(plan) == bh.LANES
+    assert all(len(lane) == bh.SLOTS[fam] for lane in plan)
+    written = np.zeros(Q * Q + Q, np.int64)
+    per_lane = []
+    for lane in plan:
+        words = [w for w in lane if w >= 0]
+        assert lane[len(words):] == [-1] * (bh.SLOTS[fam] - len(words))
+        per_lane.append(len(words))
+        for w in words:
+            q, p, first, second, neg = bh.plan_entry(w)
+            assert 0 <= q < Q and 0 <= p <= Q and neg == (p == Q)
+            written[first] += 1
+            if second != bh.NONE:
+                written[second] += 1
+    assert (written == 1).all()
+    assert max(per_lane) - min(per_lane) <= 1
+    assert sum(per_lane) == Q * (Q + 1) // 2 + Q
+
+
+def test_human_kernel_constants_are_the_plans():
+    import re
+    from pathlib import Path
+    text = (Path(cuda_build.CSRC) / "ba_human.cu").read_text()
+    consts = {k: int(v) for k, v in re.findall(
+        r"constexpr int (k\w+) = (\d+);", text)}
+    assert consts["kLanes"] == bh.LANES
+    assert consts["kNone"] == bh.NONE
+    assert consts["kSumThreads"] == lc.PARTIALS
+    fams = re.findall(r"static constexpr int R = (\d+), Q = (\d+), "
+                      r"kSlots = (\d+)", text)
+    assert [tuple(map(int, f)) for f in fams] == \
+        [fam + (slots,) for fam, slots in zip(bh.FAMILIES, bh.SLOTS)]
+
+
+def _human_case(rng, T, L, huber):
+    from test_torch_ba_kernels import CAM, SIG, _human_problem, _t
+    state, tb, act = _human_problem(rng, T=T, L=L)
+    return (tuple(_t(x) for x in state), tb, [_t(a) for a in act], CAM, SIG,
+            huber)
+
+
+def _plan_column(fams, weights):
+    """The Gauss-Newton column as csrc/ba_human.cu's lanes compute it from
+    the plans: each entry's float64 products and sums over the rows of
+    A = [J | e], one rounding, the symmetric half copied; every family's
+    J^T w J, then every family's -J^T w e."""
+    hs, bs_ = [], []
+    for fam, (f, w) in enumerate(zip(fams, weights)):
+        R, Q = bh.FAMILIES[fam]
+        A = torch.cat([f.J, f.e[:, :, None]], dim=2).to(torch.float64)
+        wd = w.to(torch.float64)
+        out = torch.full((A.shape[0], Q * Q + Q), 3e38)
+        for lane in bh.gn_lane_plan(fam):
+            for word in lane:
+                if word < 0:
+                    continue
+                q, p, first, second, neg = bh.plan_entry(word)
+                acc = (wd * A[:, 0, q]) * A[:, 0, p]
+                for r in range(1, R):
+                    acc = acc + (wd * A[:, r, q]) * A[:, r, p]
+                v = (-acc if neg else acc).to(torch.float32)
+                out[:, first] = v
+                if second != bh.NONE:
+                    out[:, second] = v
+        hs.append(out[:, :Q * Q].reshape(-1))
+        bs_.append(out[:, Q * Q:].reshape(-1))
+    return torch.cat(hs + bs_)
+
+
+@pytest.mark.parametrize("case", ["huber", "no huber", "no motion edge",
+                                  "offsets off 16 bytes"])
+def test_human_lane_plan_gives_the_plain_column_bit_for_bit(case):
+    """The plans' entries, each the kernel's float64 products and sums
+    with the symmetric half copied, are human_edges_ref's column: with
+    Huber on and off, with an empty motion family (one pose a
+    trajectory), and at family sizes whose offsets in the column are not
+    multiples of 4 floats (126 / 126 / 30 edges: 81 x 126 floats)."""
+    T, L = {"no motion edge": (2, 1), "offsets off 16 bytes": (3, 3)}.get(
+        case, (2, 4))
+    state, tb, act, cam, sig, huber = _human_case(
+        np.random.default_rng(41 + len(case)), T, L, case != "no huber")
+    sizes = bh.family_sizes(tb)
+    if case == "no motion edge":
+        assert sizes[2] == 0
+    if case == "offsets off 16 bytes":
+        assert (81 * sizes[0]) % 4 and (9 * sizes[0]) % 4
+    col = bh.human_edges_ref(*state, tb, act, cam, sig, huber, bh.ROWS)
+    fams, _ = bh.human_families_ref(*state, tb, cam, sig, huber)
+    got = _plan_column(fams, bh.family_weights(fams, sig, act))
+    assert got.shape == col.shape == (bh.n_values(tb),)
+    assert bool((got.view(torch.int32) == col.view(torch.int32)).all())
+
+
+def _copy_out(phase, count, threads=128):
+    """csrc/ba_human.cu copy_out's stores: (16-byte stores as the first
+    float of each, single floats) of `count` floats whose first float sits
+    at `phase` floats past a 16-byte boundary, over the block's threads."""
+    head = min((4 - phase) & 3, count)
+    n4 = (count - head) // 4
+    tail = head + 4 * n4
+    vec = [head + 4 * m for t in range(threads)
+           for m in range(t, n4, threads)]
+    one = [m if m < head else tail + m - head for t in range(threads)
+           for m in range(t, head + count - tail, threads)]
+    return vec, one
+
+
+@pytest.mark.parametrize("phase", range(4))
+def test_human_copy_out_writes_each_float_once_on_16_bytes(phase):
+    """Every float of a block's slice once; each 16-byte store starts on
+    16 bytes of the column (and so of the staging, which sits at the
+    same phase)."""
+    for count in (0, 1, 2, 3, 4, 5, 7, 9, 49, 90, 112, 1296, 2304):
+        vec, one = _copy_out(phase, count)
+        seen = np.zeros(count, np.int64)
+        for at in vec:
+            assert (phase + at) % 4 == 0
+            seen[at:at + 4] += 1
+        np.add.at(seen, one, 1)
+        assert (seen == 1).all(), (phase, count)
+
+
+def _lm_cost_order(terms):
+    """csrc/ba_human.cu human_cost_sum_kernel's order for a family (that
+    of csrc/lm_cost.cu): thread j adds the terms j, j + 1024, ... in
+    sequence from 0, then the halving tree, in float32."""
+    n = terms.shape[0]
+    m = -(-n // 1024)
+    rows = np.zeros(m * 1024, np.float32)
+    rows[:n] = terms
+    acc = np.zeros(1024, np.float32)
+    for r in rows.reshape(max(m, 0), 1024):
+        acc = (acc + r).astype(np.float32)
+    half = 512
+    while half:
+        acc = (acc[:half] + acc[half:2 * half]).astype(np.float32)
+        half //= 2
+    return acc[0]
+
+
+@pytest.mark.parametrize("n", [0, 1, 15, 280, 896, 1025, 5000])
+def test_human_cost_sum_ref_is_three_lm_cost_sums(n):
+    """The three families' LM costs of the cost-sum mode are lm_cost_ref
+    of each family's rho and activity, bit for bit (with infinite and NaN
+    rho among active and inactive edges), and the kernel's order gives
+    the same bits."""
+    rng = np.random.default_rng(n)
+    sizes = (n, n // 3, max(n - 7, 0))
+    rho = rng.exponential(3.0, sum(sizes)).astype(np.float32)
+    rho[rng.random(rho.shape[0]) < 0.01] = np.inf
+    rho[rng.random(rho.shape[0]) < 0.01] = np.nan
+    act = [(rng.random(k) > 0.2).astype(np.float32) for k in sizes]
+    got = bh.human_cost_sum_ref(torch.from_numpy(rho),
+                                [torch.from_numpy(a) for a in act], sizes)
+    assert got.shape == (3,) and got.dtype == torch.float32
+    for f, (r, a) in enumerate(zip(np.split(rho, np.cumsum(sizes)[:2]),
+                                   act)):
+        want = lc.lm_cost_ref(torch.from_numpy(r), torch.from_numpy(a))
+        assert got[f].view(torch.int32) == want.view(torch.int32)
+        terms = np.where(np.isfinite(r), r, np.float32(lc.NON_FINITE)) * a
+        assert np.float32(got[f]).view(np.int32) == \
+            _lm_cost_order(terms.astype(np.float32)).view(np.int32)
+
+
+@pytest.mark.parametrize("huber", [True, False])
+def test_human_edge_cost_sum_is_lm_cost_of_the_cost_mode(huber):
+    state, tb, act, cam, sig, huber = _human_case(
+        np.random.default_rng(7), 2, 4, huber)
+    got = bh.human_edge_cost_sum(*state, tb, act, cam, sig, huber)
+    rho = bh.human_edge_cost(*state, tb, cam, sig, huber).rho
+    want = torch.stack([lc.lm_cost(r, a) for r, a in
+                        zip(rho.split(list(bh.family_sizes(tb))), act)])
+    assert bool((got.view(torch.int32) == want.view(torch.int32)).all())
+
+
+def test_human_bundle_adjust_with_the_cost_sum_is_bit_for_bit_the_lm_costs(
+        monkeypatch):
+    """A human BA solve on the CPU with the three families' costs summed
+    in the cost-sum mode gives the state of the same solve with each
+    family's cost mode rho summed by lm_cost, bit for bit."""
+    import airdos_tpu_torch.solvers.human_ba as thba
+    from test_torch_human import _ba_case, _run_port
+    pr = _ba_case("bad joint")[0]
+    fused = _run_port(pr)
+
+    def three_lm_costs(camR, camt, jnts, segs, mR, mt, tables, act, cam,
+                       sig, use_huber):
+        rho = thba.human_edge_cost(camR, camt, jnts, segs, mR, mt, tables,
+                                   cam, sig, use_huber).rho
+        return [lc.lm_cost(r, a) for r, a in
+                zip(rho.split(list(bh.family_sizes(tables))), act)]
+    monkeypatch.setattr(thba, "human_edge_cost_sum", three_lm_costs)
+    apart = _run_port(pr)
+    for name, a, b in zip(fused._fields, fused, apart):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        if a.dtype == torch.bool:
+            assert torch.equal(a, b), name
+        else:
+            assert bool((a.view(torch.int32) == b.view(torch.int32)).all()), \
+                name
+
+
+def test_launch_tables_raise_on_cpu_tensors():
+    state, tb, act, cam, sig, huber = _human_case(
+        np.random.default_rng(3), 2, 2, True)
+    with pytest.raises(ValueError):
+        bh.launch_tables(tb)
+    with pytest.raises(ValueError):
+        bh.human_edges_cuda(*state, tb, act, cam, sig, huber, bh.COST_SUM)
+    assert bh.tables_of(tb) is tb and bh.family_sizes(tb) == (56, 56, 10)

@@ -1,7 +1,7 @@
 """Where a launch of pose_lm, select, orb_desc, static_edge_blocks,
-fast_nms, pyramid, landmark_reduce or landmark_backsub spends its time on
-the card, from clock64() stamps in an instrumented copy of the kernel's
-source.
+fast_nms, pyramid, landmark_reduce, landmark_backsub, human_edge_blocks or
+stereo_sad spends its time on the card, from clock64() stamps in an
+instrumented copy of the kernel's source.
 
     python3 tools/kernel_split.py [--parent DIR] [--only KERNEL ...]
 
@@ -40,23 +40,38 @@ point on the inputs below, and the stamps are read once a launch.
   the mapping phase launches them): cycles a warp's lane 0 in the
   reduce's inverses with the barrier, its rows' loads, products and
   stores, and in the back-substitution's loads with dx_c's staging, the
-  camera sums, the tree and the finish.
+  camera sums, the tree and the finish;
+- human_edge_blocks (csrc/ba_human.cu) in Gauss-Newton mode at the
+  crowd-27 flagship's 896 / 896 / 280 edges on random state: cycles a
+  warp's lane 0 in the gathers, projection and A staged, the block
+  barrier, the float64 entries and the stores (the parent's, a thread an
+  edge: the gathers with the residual and Jacobian, and the entries with
+  their stores);
+- stereo_sad (csrc/stereo_sad.cu) at 1536 keypoints over 8 levels of
+  a 640x360 texture and its copy shifted 7 px: cycles a keypoint's lane 0
+  in the header's loads, the staging of its windows, the SAD sums and the
+  finish (minimum, parabola, tests, stores).
 
 Then the device time (chip_smoke.py's CUDA graph, L2 cold and hot) of the
 shipped orb_desc (level 0; the 8 levels), static_edge_blocks (each mode),
 fast_nms (level 0; the 8 levels), pyramid (the 8 levels, no mask and the
 uint8 mask), landmark_reduce and landmark_backsub, and of the reduce with
 its rows' loads issued before the inverses.  With --parent DIR (a `git
-archive` of the commit before the landmark redesign, unpacked in DIR),
-also its ba_points.cu (a thread a (point, camera, row) that recomputes
+archive` of an older commit unpacked in DIR: the one before a kernel's
+redesign), also its ba_points.cu (a thread a (point, camera, row) that recomputes
 its point's inverse; a warp a point, lane 0 loading the finish's inputs
 after the tree) on the same inputs: the split (reduce: inverse, loads,
 rows and stores; back-substitution: loads with the camera sums, tree,
-finish) and the device time of the unstamped source.  --only splits the
-named kernels alone (landmark: both).  Each copy's result is held
-against the plain version (pose_lm's R and t within 1e-4; the others
-bit-equal); the split is printed beside the launch's time (CUDA events)
-and the card's name and power limit.
+finish) and the device time of the unstamped source; and its
+ba_human.cu and stereo_sad.cu (a source unchanged from the parent's is
+split once): the splits above and the device times at every path shape
+(human: 896 / 896 / 280 and 56 / 56 / 15 edges, Gauss-Newton mode and
+cost mode followed by lm_cost's three launches against this tree's three
+modes; stereo: 1536 keypoints over 8 levels from 360x640 and 640 over 4
+from 240x320).  --only splits the named kernels alone (landmark: both).
+Each copy's result is held against the plain version (pose_lm's R and t
+within 1e-4; the others bit-equal); the split is printed beside the
+launch's time (CUDA events) and the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -74,7 +89,7 @@ sys.path.insert(0, str(REPO))
 
 # (cold, hot) device ms a call: chip_smoke.py's CUDA graph of 100 calls,
 # each after a 64 MB L2-evicting write (cold), and back to back (hot)
-from chip_smoke import _graph_ms  # noqa: E402
+from chip_smoke import _graph_ms, _outs  # noqa: E402
 
 STAMPS_C = """
 extern "C" int split_read(unsigned long long* host) {
@@ -868,7 +883,9 @@ def _landmark_problem(rng):
     return pt_sums, wagg, valid, lam, dx_c.cuda()
 
 
-def _landmark_check(got, want, name):
+def _bits_check(got, want, name):
+    """Each of a kernel's float32 outputs bit-equal to the plain
+    version's (NaNs equal to NaNs)."""
     import torch
     torch.cuda.synchronize()
     for a, b in zip(got, want):
@@ -937,14 +954,14 @@ def split_landmark(parent, problem) -> None:
                 ("landmark_reduce", "landmark_backsub"),
                 _landmark_launchers(dll, problem, want),
                 (lr_parts, lb_parts), (want, (want_dx,))):
-            _landmark_check(fn(), check, name + label)
+            _bits_check(fn(), check, name + label)
             dll.split_reset()                 # the slots: one kernel at a time
             ms = _events_ms(fn)
             _print_split(name + label, what, ms, _read(dll), parts)
         reduce, backsub = _landmark_launchers(
             _build(text, f"ba_points_{tag}"), problem, want)
-        _landmark_check(reduce(), want, "landmark_reduce" + label)
-        _landmark_check(backsub(), (want_dx,), "landmark_backsub" + label)
+        _bits_check(reduce(), want, "landmark_reduce" + label)
+        _bits_check(backsub(), (want_dx,), "landmark_backsub" + label)
         (rc, rh), (bc, bh) = _graph_ms(reduce), _graph_ms(backsub)
         print(f"[time] landmark{label} {what}: reduce cold {rc:.4f} ms (hot "
               f"{rh:.4f}); backsub cold {bc:.4f} ms (hot {bh:.4f})",
@@ -952,22 +969,354 @@ def split_landmark(parent, problem) -> None:
     reduce, _ = _landmark_launchers(
         _build(landmark_loads_first(this.read_text()), "ba_points_loads_first"),
         problem, want)
-    _landmark_check(reduce(), want, "landmark_reduce (loads first)")
+    _bits_check(reduce(), want, "landmark_reduce (loads first)")
     rc, rh = _graph_ms(reduce)
     print(f"[time] landmark_reduce {what}, its rows' loads issued before the "
           f"inverses: cold {rc:.4f} ms (hot {rh:.4f})", flush=True)
 
 
+# ------------------------------------------- human_edge_blocks, stereo_sad
+
+def _sources(parent, name: str):
+    """[(label, source text)] of csrc/<name>: the parent's when given, then
+    this tree's, unless it is the parent's unchanged (then split once)."""
+    this = (REPO / "airdos_tpu_torch" / "csrc" / name).read_text()
+    if parent is None:
+        return [("", this)]
+    old = (parent / "airdos_tpu_torch" / "csrc" / name).read_text()
+    return [(" (parent)", old)] + ([] if old == this else [("", this)])
+
+
+HU_PARENT_PARTS = ("gathers, residual and Jacobian", "entries and stores")
+# the parent's C entry point (a thread an edge; 19 pointers)
+HU_PARENT_SIG = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 3
+                 + [ctypes.c_void_p] + [ctypes.c_int] * 2
+                 + [ctypes.c_void_p] * 4)
+
+
+def human_parent(src: str) -> str:
+    """The parent's csrc/ba_human.cu (a thread an edge), Gauss-Newton
+    mode: slots 0-1 a warp's lane 0 (the gathers, residual, Jacobian and
+    weight; the column's entries, each stored as it is summed)."""
+    return _insert(src, [
+        ("namespace {\n", WARP_HEAD),
+        ("  if (idx >= Eh + Er + Em) return;\n",
+         "  if (idx >= Eh + Er + Em) return;\n"
+         "  const long long t0 = clock64();\n"),
+        ("  float factor = 1.0f, rho = chi2;\n",
+         "  const long long t1 = clock64();\n"
+         "  float factor = 1.0f, rho = chi2;\n"),
+        ("out0 + b_off[2] + 12 * int64_t{i});\n  }\n}\n",
+         "out0 + b_off[2] + 12 * int64_t{i});\n  }\n"
+         "  const long long t2 = clock64();\n"
+         + _warp_sums("(threadIdx.x & 31) == 0", ["t0", "t1", "t2"]) + "}\n"),
+    ])
+
+
+HU_PARTS = ("gathers, projection and A staged", "block barrier",
+            "float64 entries", "barrier and stores")
+
+
+def human_new(src: str) -> str:
+    """This csrc/ba_human.cu (kLanes lanes an edge, a block of one
+    family), Gauss-Newton mode: slots 0-3 a warp's lane 0 (the gathers,
+    residual, Jacobian and weight with A staged, the block barrier, the
+    float64 entries and their stores into shared memory, the barrier and
+    the 16-byte stores), over the three families' blocks."""
+    return _insert(src, [
+        ("namespace {\n", WARP_HEAD),
+        ("  if (threadIdx.x < kLanes * Fam::kSlots)\n",
+         "  const long long t0 = clock64();\n"
+         "  if (threadIdx.x < kLanes * Fam::kSlots)\n"),
+        ("  __syncthreads();\n  if (i < n) {\n    // every entry first",
+         "  const long long t1 = clock64();\n  __syncthreads();\n"
+         "  const long long t2 = clock64();\n"
+         "  if (i < n) {\n    // every entry first"),
+        ("  __syncthreads();\n  copy_out(hout, h_s, Q * Q * nb, h_phase);\n"
+         "  copy_out(bout, b_s, Q * nb, b_phase);\n}\n",
+         "  const long long t3 = clock64();\n  __syncthreads();\n"
+         "  copy_out(hout, h_s, Q * Q * nb, h_phase);\n"
+         "  copy_out(bout, b_s, Q * nb, b_phase);\n"
+         "  const long long t4 = clock64();\n"
+         + _warp_sums("(threadIdx.x & 31) == 0 && i < n",
+                      ["t0", "t1", "t2", "t3", "t4"]) + "}\n"),
+    ])
+
+
+def _human_this_launcher(dll, problem):
+    """This tree's Gauss-Newton launch through ops/ba_human's wrapper, on
+    a build's C entry point, with the problem's LaunchTables."""
+    from airdos_tpu_torch.ops import ba_human as bh
+    state, tb, act = problem
+    entry = _entry(dll, "airdos_human_edges",
+                   bh._SIGNATURES["airdos_human_edges"])
+    lt = bh.launch_tables(tb)
+
+    def launch():
+        shipped, bh._kernel = bh._kernel, entry
+        try:
+            return (bh.human_edges_cuda(*state, lt, act, CAM_BA, HUMAN_SIG,
+                                        True, bh.ROWS),)
+        finally:
+            bh._kernel = shipped
+    return launch
+
+
+def _human_problem(rng, T=8, L=8, C=24):
+    """The crowd-27 flagship's human families (8 trajectories x 8 poses:
+    896 projection, 896 rigidity and 280 motion edges) on random state,
+    tests/test_torch_cuda.py's _human_case: Huber on."""
+    import torch
+    import airdos_tpu_torch.solvers.human_ba as thba
+    N = 14
+    dev = "cuda"
+    t = lambda a: torch.from_numpy(np.asarray(a)).to(dev)  # noqa: E731
+    exists = rng.random((T, L, N)) > 0.1
+    ed = thba.human_edges(
+        t(rng.integers(-1, C, (T, L))),
+        t(rng.normal(300, 80, (T, L, N, 3)).astype(np.float32)),
+        t(rng.random((T, L, N)) > 0.2), t(exists),
+        t(rng.random((T, L, N)) > 0.1), t(rng.random(T) > 0.2),
+        t(rng.uniform(0.1, 0.3, (T, L)).astype(np.float32)),
+        t(rng.random((T, L, 5)) > 0.1), C)
+    act = [v.to(torch.float32) for v in (ed.hp_valid, ed.rg_valid,
+                                         ed.mo_valid)]
+    R = [_rotation(rng) for _ in range(C + T)]
+    state = (np.asarray(R[:C]), rng.normal(0, 0.2, (C, 3)),
+             rng.uniform([-1, -1, 2], [1, 1, 8], (T, L, N, 3)),
+             rng.uniform(0.2, 0.6, (T, N)), np.asarray(R[C:]),
+             rng.normal(0, 0.5, (T, 3)))
+    state = [t(np.asarray(x, np.float32)) for x in state]
+    return state, ed.tables, act
+
+
+def _rotation(rng):
+    from airdos_tpu_torch.geometry.se3 import se3_exp_np
+    return se3_exp_np(np.concatenate([np.zeros(3),
+                                      rng.normal(0, 0.2, 3)]))[0]
+
+
+HUMAN_SIG = (0.5, 20.0, 20.0, 2.795483, 1.0, 1.0)
+
+
+def _human_parent_launcher(dll, problem, cost: bool = False):
+    """The parent's launch on the problem's inputs: Gauss-Newton mode (the
+    column), or cost mode (rho, chi2, depths)."""
+    import torch
+    from airdos_tpu_torch.ops import ba_human as bh
+    from airdos_tpu_torch.ops.cuda_build import consts
+    state, tb, act = problem
+    Eh, Er, Em = bh.family_sizes(tb)
+    entry = _entry(dll, "airdos_human_edges", HU_PARENT_SIG)
+    outs = tuple(torch.empty(n, device="cuda") for n in (
+        (Eh + Er + Em, Eh + Er + Em, Eh) if cost else (bh.n_values(tb),)))
+    ptrs = [o.data_ptr() for o in outs] + [None] * (3 - len(outs))
+    k = consts(*CAM_BA, *HUMAN_SIG)
+
+    def launch():
+        err = entry(*(x.data_ptr() for x in state),
+                    *(x.data_ptr() for x in tb),
+                    *(a.data_ptr() for a in act), Eh, Er, Em, k, 1,
+                    int(cost), *ptrs, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SystemExit(f"human_edge_blocks (parent): cudaError {err}")
+        return outs
+    return launch
+
+
+def split_human(parent, problems) -> None:
+    """human_edge_blocks: at the first problem's family sizes the stamped
+    copies in Gauss-Newton mode (the parent's when given, then this
+    one's); at each problem's the unstamped sources' device times, the
+    parent's Gauss-Newton mode and its cost mode followed by lm_cost's
+    three launches (the LM costs it took), this one's three modes."""
+    import torch
+    from airdos_tpu_torch.ops import ba_human as bh
+    from airdos_tpu_torch.ops import lm_cost as lc
+    sources = _sources(parent, "ba_human.cu")
+    for label, text in sources:
+        tag = "parent" if label else "this"
+        name = "human_edge_blocks" + label
+        plain = _build(text, "ba_human_parent") if label else None
+        for i, problem in enumerate(problems):
+            state, tb, act = problem
+            sizes = bh.family_sizes(tb)
+            what = f"{sizes[0]} / {sizes[1]} / {sizes[2]} edges"
+
+            def want(mode):
+                return _outs(bh.human_edges_ref(*state, tb, act, CAM_BA,
+                                                HUMAN_SIG, True, mode))
+            if i == 0:
+                stamp, launcher, parts = (
+                    (human_parent, _human_parent_launcher, HU_PARENT_PARTS)
+                    if label else (human_new, _human_this_launcher, HU_PARTS))
+                dll = _build(stamp(text), f"ba_human_{tag}_split")
+                run = launcher(dll, problem)
+                _bits_check(run(), want(bh.ROWS), name)
+                dll.split_reset()
+                ms = _events_ms(run)
+                _print_split(name, what + ", Gauss-Newton mode", ms,
+                             _read(dll), parts)
+            if label:
+                gn = _human_parent_launcher(plain, problem)
+                cost = _human_parent_launcher(plain, problem, cost=True)
+
+                def sums(cost=cost, act=act, sizes=sizes):
+                    rho = cost()[0]
+                    return [lc.lm_cost_cuda(r, a)
+                            for r, a in zip(rho.split(list(sizes)), act)]
+                _bits_check(gn(), want(bh.ROWS), name)
+                _bits_check(cost(), want(bh.COST), name + " cost mode")
+                _bits_check((torch.stack(sums()),), want(bh.COST_SUM),
+                            name + " cost mode and lm_cost")
+                runs = (("Gauss-Newton", gn), ("cost mode", cost),
+                        ("cost mode and 3 lm_cost", sums))
+            else:
+                def mode_run(mode, problem=problem):
+                    state, tb, act = problem
+                    return lambda: bh.human_edges_cuda(
+                        *state, tb, act, CAM_BA, HUMAN_SIG, True, mode)
+                runs = (("Gauss-Newton", mode_run(bh.ROWS)),
+                        ("cost mode", mode_run(bh.COST)),
+                        ("cost sum", mode_run(bh.COST_SUM)))
+                for mode, (_, run) in zip((bh.ROWS, bh.COST, bh.COST_SUM),
+                                          runs):
+                    _bits_check(_outs(run()), want(mode),
+                                f"human_edge_blocks mode {mode}")
+            times = [(m, _graph_ms(run)) for m, run in runs]
+            print(f"[time] human_edge_blocks ({tag}) {what}: " + "; ".join(
+                f"{m} cold {c:.4f} ms (hot {h:.4f})" for m, (c, h) in times),
+                flush=True)
+
+
+SAD_PARTS = ("header loads", "staging", "SAD sums", "finish")
+
+
+def sad_parent(src: str) -> str:
+    """The parent's csrc/stereo_sad.cu (a warp a keypoint): slots 0-3 a
+    warp's lane 0 (the header's loads and the window origins, the staging
+    loop to __syncwarp, the 11 SADs with their shuffle trees, the first
+    minimum, parabola, tests and stores)."""
+    return _insert(src, [
+        ("namespace {\n", WARP_HEAD),
+        ("  if (i >= n) return;                      // the whole warp leaves\n",
+         "  if (i >= n) return;                      // the whole warp leaves\n"
+         "  const long long t0 = clock64();\n"),
+        ("  for (int j = lane; j < kWin * kStrip; j += 32) {\n",
+         "  const long long t1 = clock64();\n"
+         "  for (int j = lane; j < kWin * kStrip; j += 32) {\n"),
+        ("  __syncwarp();\n",
+         "  __syncwarp();\n  const long long t2 = clock64();\n"),
+        ("  int kb = 0;\n", "  const long long t3 = clock64();\n  int kb = 0;\n"),
+        ("    accept[i] = ok ? 1 : 0;\n  }\n}\n",
+         "    accept[i] = ok ? 1 : 0;\n  }\n  const long long t4 = clock64();\n"
+         + _warp_sums("lane == 0", ["t0", "t1", "t2", "t3", "t4"]) + "}\n"),
+    ])
+
+
+def sad_new(src: str) -> str:
+    """This csrc/stereo_sad.cu (half a warp a keypoint): slots 0-3 a
+    keypoint's lane 0 (the header's loads, every level's scale and width
+    and the window rows; the right keypoint's u, the patch and the strip
+    staged to __syncwarp; SAD k on lane k; the shuffles, first minimum,
+    parabola, tests and stores)."""
+    return _insert(src, [
+        ("namespace {\n", WARP_HEAD),
+        ("  const int ik = live ? i : n - 1;         // a spare half works, "
+         "writes nothing\n",
+         "  const int ik = live ? i : n - 1;         // a spare half works, "
+         "writes nothing\n  const long long t0 = clock64();\n"),
+        ("  // (2) the right keypoint's u and the patch's column `lane`\n",
+         "  const long long t1 = clock64();\n"
+         "  // (2) the right keypoint's u and the patch's column `lane`\n"),
+        ("  __syncwarp();\n", "  __syncwarp();\n  const long long t2 = clock64();\n"),
+        ("  const float sad = __double2float_rn(__dadd_rn(acc[0], acc[1]));\n",
+         "  const float sad = __double2float_rn(__dadd_rn(acc[0], acc[1]));\n"
+         "  const long long t3 = clock64();\n"),
+        ("  accept[i] = ok ? 1 : 0;\n}\n",
+         "  accept[i] = ok ? 1 : 0;\n  const long long t4 = clock64();\n"
+         + _warp_sums("true", ["t0", "t1", "t2", "t3", "t4"]) + "}\n"),
+    ])
+
+
+def _sad_problem(rng, h=360, w=640, n_levels=8, n=1536):
+    """The stereo refinement's inputs at the bench budget: an 8-bit
+    texture and its copy shifted 7 px, 8 levels, 1536 keypoints anywhere
+    on their levels (tests/test_torch_cuda.py's "random" case): every
+    pixel 0 or >= 1, so the kernel is bit-equal to the plain version."""
+    import torch
+    from airdos_tpu_torch.ops import pyramid as pk
+    img = _texture(rng, h, w + 7)
+    pl = pk.build_pyramid(torch.from_numpy(img[:, 7:].copy()).cuda(), None,
+                          n_levels, 1.2)
+    pr = pk.build_pyramid(torch.from_numpy(img[:, :-7].copy()).cuda(), None,
+                          n_levels, 1.2)
+    oct_l = rng.integers(0, n_levels, n)
+    xy_l = np.stack([rng.uniform(-3, w + 3, n), rng.uniform(-3, h + 3, n)],
+                    axis=1).astype(np.float32)
+    xy_r = (xy_l - [[7.0 + rng.uniform(-1, 1), 0.0]]).astype(np.float32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa
+    widths = t(np.array([im.shape[1] for im in pl.images], np.int64))
+    scales = t(np.array([1.2 ** lvl for lvl in range(n_levels)], np.float32))
+    return (t(xy_l), t(oct_l.astype(np.int64)), t(rng.uniform(size=n) < 0.9),
+            t(xy_r), t(np.where(rng.uniform(size=n) < 0.8, np.arange(n),
+                                rng.integers(0, n, n)).astype(np.int64)),
+            t(rng.uniform(size=n) < 0.7), pl.images, pr.images, widths,
+            scales, float(np.float32(250.0) / np.float32(0.5)))
+
+
+def split_sad(parent, cases) -> None:
+    """stereo_sad: at the first case's shape (1536 keypoints, 8 levels from
+    360x640) the stamped copies (the parent's when given, then this
+    one's) through the module's wrapper; at each case's shape each
+    unstamped source's device time."""
+    import torch
+    from airdos_tpu_torch.ops import stereo_sad as ss
+    for label, text in _sources(parent, "stereo_sad.cu"):
+        tag = "parent" if label else "this"
+        name = "stereo_sad" + label
+        builds = [(sad_parent if label else sad_new)(text), text]
+        for stamped, src in zip((True, False), builds):
+            dll = _build(src, f"stereo_sad_{tag}"
+                         + ("_split" if stamped else ""))
+            entry = _entry(dll, "airdos_stereo_sad",
+                           ss._SIGNATURES["airdos_stereo_sad"])
+            shipped, ss._kernel = ss._kernel, entry
+            try:
+                for args in cases[:1] if stamped else cases:
+                    want = ss.stereo_sad_ref(*args)
+                    got = ss.stereo_sad_cuda(*args)
+                    torch.cuda.synchronize()
+                    what = (f"{args[0].shape[0]} keypoints, {len(args[6])} "
+                            f"levels from {tuple(args[6][0].shape)}")
+                    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                        raise SystemExit(f"{name} {what}: not bit-equal to "
+                                         f"the plain version")
+                    run = (lambda args=args: ss.stereo_sad_cuda(*args))
+                    if stamped:
+                        dll.split_reset()
+                        ms = _events_ms(run)
+                        _print_split(name, what, ms, _read(dll), SAD_PARTS)
+                    else:
+                        c, h = _graph_ms(run)
+                        print(f"[time] stereo_sad ({tag}) {what}: cold "
+                              f"{c:.4f} ms (hot {h:.4f})", flush=True)
+            finally:
+                ss._kernel = shipped
+
+
 SPLITS = ("pose_lm", "select", "orb_desc", "static_edge_blocks", "fast_nms",
-          "pyramid", "landmark")
+          "pyramid", "landmark",
+          "human_edge_blocks", "stereo_sad")
 
 
 def main(argv=None) -> None:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, default=None,
-                    help="an unpacked checkout of the commit before the "
-                         "redesign of landmark_reduce and landmark_backsub")
+                    help="an unpacked checkout of the commit before a "
+                         "kernel's redesign (landmark, human_edge_blocks, "
+                         "stereo_sad)")
     ap.add_argument("--only", nargs="+", choices=SPLITS, default=SPLITS,
                     help="the kernels to split (default: all)")
     args = ap.parse_args(argv)
@@ -997,6 +1346,14 @@ def main(argv=None) -> None:
     if "landmark" in only:
         split_landmark(args.parent,
                        _landmark_problem(np.random.default_rng(1)))
+    if "human_edge_blocks" in only:
+        rng = np.random.default_rng(1)
+        split_human(args.parent, [_human_problem(rng),
+                                  _human_problem(rng, T=1, L=4, C=8)])
+    if "stereo_sad" in only:
+        rng = np.random.default_rng(9)
+        split_sad(args.parent, [_sad_problem(rng),
+                                _sad_problem(rng, 240, 320, 4, 640)])
 
 
 if __name__ == "__main__":
