@@ -47,7 +47,7 @@
 //
 // Cost-sum mode (human_cost_sum_kernel): a block of 1024 threads a
 // family, ops/lm_cost.py's sum of where(isfinite(rho), rho, 1e30) *
-// active in csrc/lm_cost.cu's order: thread j adds the terms j, j + 1024,
+// active in lm_cost_ref's order: thread j adds the terms j, j + 1024,
 // ... of its family in sequence from 0, then a halving tree over the 1024
 // partials (j + 512, ..., 32 in shared memory, the last five by warp
 // shuffles: the same adds).  A family's sum is one block's, so nothing
@@ -88,7 +88,7 @@ constexpr int kRowThreads = 128;
 constexpr int kRowEdges = kRowThreads / kLanes;
 constexpr int kNone = 255;                 // a plan word's empty second place
 constexpr int kCostThreads = 128;
-constexpr int kSumThreads = 1024;          // lm_cost.cu's partials
+constexpr int kSumThreads = 1024;          // lm_cost_ref's partials
 constexpr float kNonFinite = 1e30f;
 
 // rows R and variables Q of each family's Jacobian, slots a lane in the

@@ -44,17 +44,17 @@
 // Cost mode (static_cost_kernel): one thread an edge, rho, chi2, z.
 //
 // Cost-sum mode (static_cost_sum_kernel): a thread block cluster of 8
-// blocks of 1024 threads.  Block r owns lm_cost.cu's partials j in
+// blocks of 1024 threads.  Block r owns lm_cost_ref's partials j in
 // [128 r, 128 r + 128).  Per chunk of 8192 edges its 1024 threads compute
 // the terms j + 1024 m, m = 0..7 of the chunk, into shared memory, and
 // thread j adds them to its partial in order, so that over the chunks
 // partial j adds the terms j, j + 1024, j + 2048, ... in sequence from 0,
-// as lm_cost.cu's thread j does.  The 128 partials then go into the
+// as lm_cost_ref's partial j does.  The 128 partials then go into the
 // leader's (block 0's) shared memory through distributed shared memory;
-// after one cluster barrier the leader runs lm_cost.cu's halving tree
+// after one cluster barrier the leader runs lm_cost_ref's halving tree
 // over the 1024 partials (j + 512, then 256, ..., 1; the last five by
 // warp shuffles, the same adds).  Every sum is the same __fadd_rn in the
-// same order, so the result is bit-equal to lm_cost(rho, active), on the
+// same order, so the result is bit-equal to lm_cost_ref(rho, active), on the
 // card and on the CPU.  A cluster barrier, not a counter in device
 // memory: concurrent launches on other streams share nothing.
 //
@@ -102,7 +102,7 @@ constexpr int kNone = 127;                // a plan word's empty second place
 constexpr int kCostThreads = 128;
 // cost-sum mode
 constexpr int kSumCluster = 8;
-constexpr int kSumThreads = 1024;         // lm_cost.cu's partials
+constexpr int kSumThreads = 1024;         // lm_cost_ref's partials
 constexpr int kOwned = kSumThreads / kSumCluster;   // partials a block
 constexpr int kSumRows = kSumThreads / kOwned;      // terms a partial a chunk
 constexpr int kChunk = kSumRows * kSumThreads;

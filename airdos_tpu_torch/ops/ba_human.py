@@ -24,7 +24,7 @@ writes every edge's J^T W J and -J^T W e entries as one column in
 in cost mode (``human_edge_cost``) each edge's rho and chi2 (families in
 that order) and the projections' depths; in cost-sum mode
 (``human_edge_cost_sum``) the three families' LM costs [3], each bit-equal
-to ``ops/lm_cost.lm_cost(rho, active)`` of the cost mode's rho, without
+to ``ops/lm_cost.lm_cost_ref(rho, active)`` of the cost mode's rho, without
 rho going to memory (``human_cost_sum_ref``).
 
 On CUDA tensors the three launch the sm_90a kernels of
@@ -390,7 +390,7 @@ def human_edge_cost_sum(camR, camt, joints, seg_len, motR, mott, tb: Tables,
                         sig: Sequence[float], use_huber: bool
                         ) -> torch.Tensor:
     """The three families' LM costs [3] float32, each bit-equal to
-    ops/lm_cost.lm_cost(rho, active) of its family's rho in
+    ops/lm_cost.lm_cost_ref(rho, active) of its family's rho in
     human_edge_cost, as human_edge_blocks takes its arguments."""
     return _human_edges(camR, camt, joints, seg_len, motR, mott, tb, act,
                         cam, sig, use_huber, COST_SUM)

@@ -19,7 +19,7 @@ weighted products of gn_step, :107-129) and of the human BA's static half
   delta^2 past delta when asked, else chi2), chi2 [E] and z [E]: the
   chi-square inlier passes;
 - cost-sum mode (``static_edge_cost_sum``): the family's LM cost, the
-  0-dim ``ops/lm_cost.lm_cost(rho, active)`` of the cost mode's rho, in
+  0-dim ``ops/lm_cost.lm_cost_ref(rho, active)`` of the cost mode's rho, in
   its fixed order, without rho going to memory.
 
 scale is 1 in the local BA and SigmaStatic in the human BA; delta is
@@ -347,7 +347,7 @@ def static_edge_cost(R, t, pts, e_cam, e_pt, e_obs, e_info, cam,
 def static_edge_cost_sum(R, t, pts, e_cam, e_pt, e_obs, e_info, active, cam,
                          scale: float, use_huber: bool) -> torch.Tensor:
     """The static family's LM cost, a 0-dim float32 tensor bit-equal to
-    ops/lm_cost.lm_cost(static_edge_cost(...).rho, active), as
+    ops/lm_cost.lm_cost_ref(static_edge_cost(...).rho, active), as
     static_edge_blocks takes its arguments."""
     return _static_edges(R, t, pts, e_cam, e_pt, e_obs, e_info, active, cam,
                          scale, use_huber, COST_SUM)

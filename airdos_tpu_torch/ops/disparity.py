@@ -6,11 +6,11 @@ frame only to guide the left<->right human-pose association
 
 - ``patch_disparity`` matches only at the requested left pixels (the
   torso joints of the detections), the path's form: on CUDA tensors it
-  launches the sm_90a kernel of ``csrc/disparity.cu`` (a block a probe) on
-  the calling thread's current stream (built with nvcc at first use into
-  ``airdos_tpu_torch/_build/``, bound through ctypes) or raises, and
-  counts the launch, by thread and stream priority too; on CPU tensors it
-  runs ``patch_disparity_ref``, a [N, D, B, B] gather;
+  launches the sm_90a kernel of ``csrc/disparity.cu`` (four warps a
+  probe) on the calling thread's current stream (built with nvcc at
+  first use into ``airdos_tpu_torch/_build/``, bound through ctypes) or
+  raises, and counts the launch, by thread and stream priority too; on
+  CPU tensors it runs ``patch_disparity_ref``, a [N, D, B, B] gather;
 - ``disparity_bm`` is the dense [H, W] map (block-matching cost volume,
   11x11 box filter, uniqueness check), for tools and tests: plain torch.
 
@@ -18,11 +18,12 @@ Both take the first minimum of the SAD where several tie (``argmin``
 returns the first index on the CPU and on CUDA, as ``jnp.argmin`` does),
 and round pixel coordinates half to even (``torch.round``, like
 ``jnp.round``).  SADs of 8-bit images are integer sums, exact in float32,
-so the argmin is the same in both packages.  patch_disparity's kernel and
-plain version sum each SAD in float64 and round once, so the two are
-bit-equal wherever those sums are exact: on 8-bit images, and on any
-image whose pixels are 0 or at least 2^-8 in magnitude (the kernel's
-source says why).
+so the argmin is the same in both packages.  patch_disparity's plain
+version sums each SAD in float64 and rounds once, and its kernel sums
+exactly (in float32 where every pixel is an integer of magnitude <=
+2^15, else in float64), so the two are bit-equal wherever those sums
+are exact: on 8-bit images, and on any image whose pixels are 0 or at
+least 2^-8 in magnitude (the kernel's source says why).
 """
 from __future__ import annotations
 

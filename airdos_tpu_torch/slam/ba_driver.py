@@ -474,6 +474,7 @@ class Fuser:
         self.map = slam_map
         self.device = torch.device(device)
         self.map_lock = map_lock
+        self.profiler = None     # set by System: the write-back's refreshes
         cam = config.camera
         self.fx, self.fy, self.cx, self.cy, self.bf = \
             cam.fx, cam.fy, cam.cx, cam.cy, cam.bf
@@ -709,9 +710,12 @@ class Fuser:
             # refresh (batched: this touches every point of the KF)
             kf_pids = [int(p) for p in kf.mp_idx[kf.mp_idx >= 0]
                        if not m.points.bad[int(p)]]
-            m.update_point_descriptors(kf_pids)
-            m.update_points_normal_depth(kf_pids)
-            m.update_connections(kf)
+            with span(self.profiler, "map.descriptors"):
+                m.update_point_descriptors(kf_pids)
+            with span(self.profiler, "map.normals"):
+                m.update_points_normal_depth(kf_pids)
+            with span(self.profiler, "map.connections"):
+                m.update_connections(kf)
 
 
 def select_window_trajectories(trajectories, window_ids, max_trajectories):

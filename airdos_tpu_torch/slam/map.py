@@ -17,6 +17,8 @@ from typing import Dict, List, Optional, Set
 
 import numpy as np
 
+from airdos_tpu_torch import native
+
 # skeleton topology (reference: Map.h:48-56)
 BODY1 = np.array([1, 1, 2, 3, 1, 5, 6, 2, 8, 9, 5, 11, 12, 1], np.int32)
 BODY2 = np.array([0, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 1], np.int32)
@@ -292,27 +294,44 @@ class SlamMap:
         pt.visible[new_pid] += pt.visible[old_pid]
 
     # -------------------------------------------------- descriptor / normal
+    def _live_descriptors(self, pid: int) -> list:
+        """The descriptors (uint32 [8] rows) of pid's observations in live
+        keyframes, in observation order."""
+        out = []
+        for kf_id, fid in self.points.obs[pid].items():
+            kf = self.kfs.get(kf_id)
+            if kf is not None and not kf.bad:
+                out.append(kf.desc32[fid])
+        return out
+
     def update_point_descriptor(self, pid: int):
         """Min-median-Hamming distinctive descriptor
         (MapPoint::ComputeDistinctiveDescriptors)."""
-        pt = self.points
-        descs = []
-        for kf_id, fid in pt.obs[pid].items():
-            kf = self.kfs.get(kf_id)
-            if kf is not None and not kf.bad:
-                descs.append(kf.desc32[fid])
+        descs = self._live_descriptors(pid)
         if not descs:
             return
         D = np.asarray(descs)
-        x = D[:, None, :] ^ D[None, :, :]
-        dist = np.unpackbits(x.view(np.uint8), axis=-1).sum(-1)
-        med = np.sort(dist, axis=1)[:, (len(D) - 1) // 2]
-        pt.desc32[pid] = D[int(np.argmin(med))]
+        idx = native.distinctive_descriptor(D.view(np.uint8))
+        self.points.desc32[pid] = D[idx]
 
     def update_point_descriptors(self, pids):
-        """Batched ComputeDistinctiveDescriptors over many points."""
+        """Batched ComputeDistinctiveDescriptors over many points: every
+        point's live observations in one array with offsets, and one
+        native.distinctive_descriptors_batch call (a keyframe touches ~1k
+        points).  A point with no live observation keeps its
+        descriptor."""
+        blocks, offsets = [], [0]
         for p in pids:
-            self.update_point_descriptor(p)
+            descs = self._live_descriptors(int(p))
+            blocks.extend(descs)
+            offsets.append(offsets[-1] + len(descs))
+        if not blocks:
+            return
+        D = np.asarray(blocks)
+        idx = native.distinctive_descriptors_batch(
+            D.view(np.uint8), np.asarray(offsets, np.int64))
+        keep = idx >= 0
+        self.points.desc32[np.asarray(pids, np.int64)[keep]] = D[idx[keep]]
 
     def update_points_normal_depth(self, pids):
         """Batched UpdateNormalAndDepth over many points: one pass collects

@@ -111,6 +111,7 @@ class System:
         self.events = EventLog(path=os.environ.get("AIRDOS_EVENT_LOG"))
         self.static_ba.profiler = self.profiler
         self.global_ba.profiler = self.profiler
+        self.local_mapper.fuser.profiler = self.profiler
         self.tracking.profiler = self.profiler
         self.tracking.events = self.events
         if self.human_ba is not None:

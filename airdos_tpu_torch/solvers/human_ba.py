@@ -41,7 +41,7 @@ LM costs in that fixed order, and their costs and depths
 (``ops/ba_human``, on the edge tables checked once a solve by
 ``launch_tables``).  A solve launches static_edge_blocks and
 human_edge_blocks 34 times each (15 steps, 17 costs, 2 chi-square
-passes), landmark_reduce and landmark_backsub 15 each, and no lm_cost.
+passes), and landmark_reduce and landmark_backsub 15 each.
 On the CPU every kernel's plain version runs, bit-equal to it.
 
 Multi-device (airdos_tpu's ``axis_name``): given a mesh ``group``

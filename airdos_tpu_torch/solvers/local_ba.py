@@ -23,8 +23,8 @@ between (5.991 mono / 7.815 stereo), Huber kernel in the first phase.
   sums the edges' robust costs in ``ops/lm_cost``'s fixed order in the
   same launch: 17 a solve, and one launch of the edges in cost mode for
   each of the two chi-square passes.  A solve so launches
-  static_edge_blocks 34 times (15 steps, 17 costs, 2 passes), lm_cost
-  never, landmark_reduce and landmark_backsub 15 each.  On the CPU every
+  static_edge_blocks 34 times (15 steps, 17 costs, 2 passes), and
+  landmark_reduce and landmark_backsub 15 each.  On the CPU every
   kernel's plain version runs, bit-equal to it.
 - Each LM step is accepted or rejected with ``torch.where`` on the device:
   the loop never reads a device value on the host.

@@ -7,10 +7,10 @@ Run from the repository root.  Phases, each of which fails the run:
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions, whether nvcc is present; a CUDA device is required;
-2. build: the thirteen sources of csrc/ (hamming.cu, segment_sum.cu,
+2. build: the twelve sources of csrc/ (hamming.cu, segment_sum.cu,
    pose_lm.cu, fast.cu, orb_desc.cu, pyramid.cu, select.cu, stereo_sad.cu,
-   disparity.cu, ba_static.cu, ba_points.cu, ba_human.cu, lm_cost.cu)
-   compiled with nvcc for sm_90a, all at once (build seconds);
+   disparity.cu, ba_static.cu, ba_points.cu, ba_human.cu) compiled with
+   nvcc for sm_90a, all at once (build seconds);
 3. slice: tracking only, Tracking(cfg, FrontEnd(cfg, "cuda"), SlamMap(),
    local_mapper=None) (airdos_tpu's tracking-only configuration), over 28
    bench frames of the synthetic world at the reference budget (640x360,
@@ -28,8 +28,11 @@ Run from the repository root.  Phases, each of which fails the run:
    launches on every keyframe frame after the first, 45 segment_sum
    launches per BA solve (3 per Gauss-Newton step), and per solve 34
    static_edge_blocks (15 steps, 17 LM costs in its cost-sum mode, 2
-   chi-square passes), no lm_cost, 15 landmark_reduce and 15
-   landmark_backsub launches;
+   chi-square passes), 15 landmark_reduce and 15 landmark_backsub
+   launches; prints the fusion write-back's split under the map lock
+   (map.descriptors, map.normals, map.connections) and, on the final
+   map, the batched descriptor refresh (airdos_tpu_torch/native) against
+   the per-point loop it replaced, which must agree;
 5. human: the AirDOS flagship on bench.py sections 2-3's crowd scene
    (SyntheticStereoWorld(seed=2, n_points=500, n_humans=10, crowd=True),
    trajectory(27, 0.1, yaw_rate=0.005), humans rendered; the images
@@ -44,8 +47,8 @@ Run from the repository root.  Phases, each of which fails the run:
    human BA solve (4 per Gauss-Newton step), the static solve's launches
    of phase 4 and per human BA solve 34 static_edge_blocks, 34
    human_edge_blocks (15 steps, 17 LM costs of the three families in its
-   cost-sum mode, 2 chi-square passes), no lm_cost, 15 landmark_reduce
-   and 15 landmark_backsub launches, ATE_human < 0.6 ATE_static
+   cost-sum mode, 2 chi-square passes), 15 landmark_reduce and 15
+   landmark_backsub launches, ATE_human < 0.6 ATE_static
    and < 0.03 m; prints both ATEs, the human BA's reduced dimension D, the
    per-frame latency of tracking, keyframe and human-BA frames and the
    median human_ba span;
@@ -119,10 +122,8 @@ Run from the repository root.  Phases, each of which fails the run:
      landmark_reduce and landmark_backsub (by points
      and cameras) and human_edge_blocks (by family sizes and mode:
      Gauss-Newton column, costs, or the three families' LM cost sums,
-     which are also held against three lm_cost launches on the cost
-     mode's rho) bit-equal, two launches bit-equal; lm_cost, which no
-     main path launches any more, on each family's rho and activity from
-     the human cost sums the paths launched: bit-equal, two launches
+     which are also held against ops/lm_cost.py's lm_cost_ref of each
+     family's cost-mode rho on the card) bit-equal, two launches
      bit-equal;
 10. determinism: two card runs of the mapping System on the small camera
    over 8 frames give byte-identical TUM and KF/MP/Match dumps, and two
@@ -452,14 +453,9 @@ def _bhu():
     return bh
 
 
-def _lmc():
-    from airdos_tpu_torch.ops import lm_cost as lc
-    return lc
-
-
 # the modules that hold the kernels, one nvcc source each
 _MODULES = (_hamming, _segments, _pose, _fast, _orb, _pyr, _sel, _sad, _disp,
-            _bst, _bpt, _bhu, _lmc)
+            _bst, _bpt, _bhu)
 
 
 def _words(rng, shape):
@@ -1265,9 +1261,10 @@ def _hu_bound(shape, args):
 
 
 def _hu_check(args):
-    """_ba_check's, and in cost-sum mode also bit-equal to three lm_cost
-    launches on the cost mode's rho (the sums the kernel replaced)."""
+    """_ba_check's, and in cost-sum mode also bit-equal to lm_cost_ref of
+    each family's cost-mode rho on the card (the order the sums keep)."""
     import torch
+    from airdos_tpu_torch.ops.lm_cost import lm_cost_ref
     bh = _bhu()
     err, what, kernel, plain = _ba_check(
         "human_edge_blocks", lambda: bh.human_edges_cuda,
@@ -1275,41 +1272,15 @@ def _hu_check(args):
     if int(args[-1]) == bh.COST_SUM:
         got = bh.human_edges_cuda(*args)
         rho = bh.human_edges_cuda(*args[:-1], bh.COST).rho
-        sums = [_lmc().lm_cost_cuda(r, a) for r, a in
+        sums = [lm_cost_ref(r, a) for r, a in
                 zip(rho.split(list(bh.family_sizes(args[6]))), args[7])]
         torch.cuda.synchronize()
         if not _bits_equal(got, torch.stack(sums)):
-            _fail(f"human_edge_blocks cost sum {got.tolist()} != lm_cost "
-                  f"of the cost mode's rho {[float(x) for x in sums]}")
-        what += ", equal to lm_cost of the cost mode's rho"
+            _fail(f"human_edge_blocks cost sum {got.tolist()} != "
+                  f"lm_cost_ref of the cost mode's rho "
+                  f"{[float(x) for x in sums]}")
+        what += ", equal to lm_cost_ref of the cost mode's rho"
     return err, what, kernel, plain
-
-
-def _lc_shape(rho, active):                 # (terms,)
-    return (rho.shape[0],)
-
-
-def _lc_cases(shapes):
-    """lm_cost's cases: no main path launches it any more (the human BA
-    sums its families' costs in human_edge_blocks' cost-sum mode), so
-    each family's rho (from the cost mode) and activity at the first
-    human cost-sum input the paths recorded at each family size."""
-    bh = _bhu()
-    out = {}
-    for shape, (_, args) in _PATH.get("human_edge_blocks", {}).items():
-        if shape[3] != bh.COST_SUM:
-            continue
-        rho = bh.human_edges_cuda(*args[:-1], bh.COST).rho
-        for r, a in zip(rho.split(list(shape[:3])), args[7]):
-            out.setdefault((r.shape[0],), (r, a))
-    return out
-
-
-def _lc_bound(shape, args):
-    """rho and active read once, one float written; a guard, a product
-    and a sum a term."""
-    n, = shape
-    return 8 * n + 4, 3 * n / FP32_FLOPS
 
 
 class _Kernel(NamedTuple):
@@ -1333,7 +1304,6 @@ class _Kernel(NamedTuple):
     library: Callable               # args -> (callable or None, its name)
     graph_n: int = 100              # launches in the timed CUDA graph
     human_only: bool = False        # launched by the human layer alone
-    off_path: bool = False          # launched by no main path
     # recorded {shape: [launches, args]} -> {shape: args}: cases the paths
     # did not launch, checked and timed beside them
     variants: Callable = None
@@ -1436,14 +1406,6 @@ KERNELS = (
             "human families' sums)", _hu_shape,
             _hu_fmt, lambda shape: sum(shape[:3]), _hu_check,
             _hu_bound, _no_library, human_only=True),
-    _Kernel("lm_cost", _lmc, "lm_cost_cuda", "launches",
-            "airdos_tpu_torch/csrc/lm_cost.cu",
-            "airdos_tpu/solvers/local_ba.py:176 cost, "
-            "airdos_tpu/solvers/human_ba.py:223 cost", _lc_shape,
-            lambda shape: f"{shape[0]} terms", lambda shape: 1,
-            _ba_check("lm_cost", lambda: _lmc().lm_cost_cuda,
-                      lambda: _lmc().lm_cost_ref),
-            _lc_bound, _no_library, off_path=True, variants=_lc_cases),
 )
 
 # the BA kernels' launches per solve of the static (local) BA and of the
@@ -1452,10 +1414,10 @@ KERNELS = (
 # summed in static_edge_blocks' cost-sum mode, the human families' in
 # human_edge_blocks') and 2 chi-square passes (segment_sum's 45 and 60 are
 # checked on their own)
-STATIC_SOLVE = {"static_edge_blocks": 34, "lm_cost": 0,
-                "landmark_reduce": 15, "landmark_backsub": 15}
+STATIC_SOLVE = {"static_edge_blocks": 34, "landmark_reduce": 15,
+                "landmark_backsub": 15}
 HUMAN_SOLVE = {"static_edge_blocks": 34, "human_edge_blocks": 34,
-               "lm_cost": 0, "landmark_reduce": 15, "landmark_backsub": 15}
+               "landmark_reduce": 15, "landmark_backsub": 15}
 
 
 def _per_solve_off(per, static: str, human: str = ""):
@@ -1608,13 +1570,11 @@ def phase_kernel(smi: str):
     for k in KERNELS:
         name = k.name
         shapes = _PATH.get(name, {})
-        if not shapes and not k.off_path:
+        if not shapes:
             _fail(f"{name}: no launch recorded on the main paths")
         if k.variants is not None:
             shapes = {**shapes, **{sh: [0, args] for sh, args
                                    in k.variants(shapes).items()}}
-        if not shapes:
-            _fail(f"{name}: no case to check")
         # the most launched shape first; ties go to the larger output
         order = sorted(shapes, key=lambda sh: (-shapes[sh][0],
                                                -k.out_size(sh)))
@@ -2022,7 +1982,7 @@ def phase_mapping(smi: str, frames, twc, twins):
     if ba_off:
         _fail(f"mapping: BA kernel launches per solve != {STATIC_SOLVE} at "
               f"(frame, kernel, launches, expected) {ba_off[:8]}")
-    not_here = {k.name for k in KERNELS if k.human_only or k.off_path}
+    not_here = {k.name for k in KERNELS if k.human_only}
     idle = [k for k, v in counts.items() if v <= 0 and k not in not_here]
     if idle:
         _fail(f"mapping: kernels never launched on the main path: {idle}")
@@ -2040,7 +2000,65 @@ def phase_mapping(smi: str, frames, twc, twins):
         f"{k} {v['median_s'] * 1e3:.2f} (n {v['n']})"
         for k, v in sorted(stages.items())
         if k.startswith("map.") or k.startswith("ba.")), flush=True)
+    _write_back_split(slam)
     return counts
+
+
+# the three refreshes of the fusion's write-back under the map lock
+WRITE_BACK = ("map.descriptors", "map.normals", "map.connections")
+
+
+def _unpackbits_descriptor(D) -> int:
+    """The per-point distinctive descriptor that the batch replaced: one
+    np.unpackbits pass over a point's [n, n] xor words."""
+    x = D[:, None, :] ^ D[None, :, :]
+    dist = np.unpackbits(x.view(np.uint8), axis=-1).sum(-1)
+    return int(np.argmin(np.sort(dist, axis=1)[:, (len(D) - 1) // 2]))
+
+
+def _write_back_split(slam) -> None:
+    """The fusion write-back's split (Fuser's spans, median ms a
+    keyframe), and on the final map, for each live keyframe's points, the
+    batched descriptor refresh (SlamMap.update_point_descriptors, one
+    native call) against the per-point np.unpackbits loop it replaced,
+    host ms a keyframe: the same descriptors, or the phase fails."""
+    stages = slam.profiler.report()
+    missing = [k for k in WRITE_BACK if k not in stages]
+    if missing:
+        _fail(f"mapping: no {missing} span in the fusion's write-back")
+    m = slam.map
+    pt = m.points
+    saved = pt.desc32.copy()
+    batched, loop = [], []
+    for kf in m.kfs.values():
+        if kf.bad:
+            continue
+        pids = [int(p) for p in kf.mp_idx[kf.mp_idx >= 0]
+                if not pt.bad[int(p)]]
+        t0 = time.perf_counter()
+        m.update_point_descriptors(pids)
+        t1 = time.perf_counter()
+        want = {}
+        for p in pids:
+            descs = m._live_descriptors(p)
+            if descs:
+                D = np.asarray(descs)
+                want[p] = D[_unpackbits_descriptor(D)]
+        batched.append((t1 - t0) * 1e3)
+        loop.append((time.perf_counter() - t1) * 1e3)
+        off = [p for p, d in want.items() if not np.array_equal(pt.desc32[p],
+                                                                d)]
+        if off:
+            _fail(f"mapping: batched descriptors differ from the per-point "
+                  f"loop's at points {off[:8]}")
+    pt.desc32[:] = saved
+    print("[mapping] fusion write-back (median ms a keyframe): " + ", ".join(
+        f"{k} {stages[k]['median_s'] * 1e3:.3f} (n {stages[k]['n']})"
+        for k in WRITE_BACK) + f"; descriptor refresh of each of the "
+        f"{len(batched)} live keyframes' points on the final map, host ms "
+        f"a keyframe: batched {_ms_stats(batched)}, the per-point "
+        f"np.unpackbits loop {_ms_stats(loop)}, the same descriptors",
+        flush=True)
 
 
 def _reduced_dim(args) -> int:
@@ -2103,8 +2121,7 @@ def phase_human(smi: str, frames, twc, twins):
         _fail(f"human: BA kernel launches != {STATIC_SOLVE} per static and "
               f"{HUMAN_SOLVE} per human BA solve at (frame, kernel, "
               f"launches, expected) {ba_off[:8]}")
-    off_path = {k.name for k in KERNELS if k.off_path}
-    idle = [k for k, v in counts.items() if v <= 0 and k not in off_path]
+    idle = [k for k, v in counts.items() if v <= 0]
     if idle:
         _fail(f"human: kernels never launched on the main path: {idle}")
     ate_human = _ate(slam.tracking, twc)
@@ -3207,7 +3224,7 @@ def phase_profile(smi: str):
                         "stereo_sad_kernel", "patch_disparity_kernel",
                         "static_rows_kernel", "static_cost_kernel",
                         "static_cost_sum_kernel", "landmark_reduce_kernel",
-                        "landmark_backsub_kernel", "lm_cost_kernel"))
+                        "landmark_backsub_kernel"))
         kf = slam.map.kfs.get(slam.tracking.last_kf_id)
         is_kf = kf is not None and kf.frame_id == d.index
         print(f"[profile] frame {d.index} ({slam.tracking.last_branch}"

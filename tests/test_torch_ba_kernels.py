@@ -1,10 +1,11 @@
 """The BAs' Gauss-Newton kernel modules against airdos_tpu (CPU).
 
 The static edges (ops/ba_static.py, csrc/ba_static.cu), the landmark Schur
-(ops/ba_points.py, csrc/ba_points.cu), the human edge families
-(ops/ba_human.py, csrc/ba_human.cu) and the fixed-order LM cost
-(ops/lm_cost.py, csrc/lm_cost.cu) run here through their dispatchers on
-CPU tensors, that is through their plain versions; the kernels run in
+(ops/ba_points.py, csrc/ba_points.cu) and the human edge families
+(ops/ba_human.py, csrc/ba_human.cu) run here through their dispatchers on
+CPU tensors, that is through their plain versions, and the fixed-order LM
+cost (ops/lm_cost.py, the order of their cost-sum modes) through its plain
+sum; the kernels run in
 tests/test_torch_cuda.py and chip_smoke.py on the card, bit-equal to
 them.  Inputs are made with numpy from a seed and handed to both
 packages.  Stated tolerances, all relative to the largest magnitude of
@@ -389,7 +390,7 @@ def test_human_edges_ref_takes_an_empty_family():
     Eh, Er, _ = bh.family_sizes(tb)
     assert col.shape == (90 * Eh + 56 * Er,)
     assert cost.rho.shape == (Eh + Er,) and cost.zh.shape == (Eh,)
-    assert float(lc.lm_cost(cost.rho[Eh + Er:], torch.zeros(0))) == 0.0
+    assert float(lc.lm_cost_ref(cost.rho[Eh + Er:], torch.zeros(0))) == 0.0
 
 
 @pytest.mark.parametrize("n", [1, 1000, 1024, 5000, 16384])
@@ -398,7 +399,7 @@ def test_lm_cost_ref_matches_jax_sum(n):
     rho = rng.exponential(3.0, n).astype(np.float32)
     act = (rng.random(n) > 0.2).astype(np.float32)
     want = float(jnp.sum(jnp.where(jnp.isfinite(rho), rho, 1e30) * act))
-    got = lc.lm_cost(_t(rho), _t(act))
+    got = lc.lm_cost_ref(_t(rho), _t(act))
     assert got.dim() == 0 and got.dtype == torch.float32
     assert abs(float(got) - want) <= 1e-5 * abs(want)
 
@@ -421,7 +422,7 @@ def test_lm_cost_ref_sums_in_the_stated_order():
     while half:
         part = (part[:half] + part[half:2 * half]).astype(np.float32)
         half //= 2
-    got = float(lc.lm_cost(_t(rho), _t(act)))
+    got = float(lc.lm_cost_ref(_t(rho), _t(act)))
     assert got == float(part[0]) == 2.0 ** 24
     assert float(np.float32(rho.astype(np.float64).sum())) == 2.0 ** 24 + 2
 
@@ -430,15 +431,15 @@ def test_lm_cost_ref_pads_with_exact_zeros_and_guards_non_finite():
     rho = np.array([3.0, np.inf, np.nan, -np.inf, 2.0], np.float32)
     act = np.array([1.0, 0.0, 1.0, 0.0, 1.0], np.float32)
     # inactive non-finite edges add 0 (1e30 x 0); the active NaN adds 1e30
-    got = float(lc.lm_cost(_t(rho), _t(act)))
+    got = float(lc.lm_cost_ref(_t(rho), _t(act)))
     assert got == float(np.float32(np.float32(5.0) + np.float32(1e30)))
     # padding 5 terms to 1024 adds exact zeros: the same as a sum over the
     # 5 partials alone
     vals = np.float32([0.1, 0.2, 0.3, 0.4, 0.5])
     want = np.float32(np.float32(np.float32(vals[0] + vals[4]) + vals[2])
                       + np.float32(vals[1] + vals[3]))
-    assert float(lc.lm_cost(_t(vals), torch.ones(5))) == float(want)
-    assert float(lc.lm_cost(torch.zeros(0), torch.zeros(0))) == 0.0
+    assert float(lc.lm_cost_ref(_t(vals), torch.ones(5))) == float(want)
+    assert float(lc.lm_cost_ref(torch.zeros(0), torch.zeros(0))) == 0.0
 
 
 def _counted(monkeypatch, module, names, calls=None):
@@ -457,27 +458,25 @@ def _counted(monkeypatch, module, names, calls=None):
 
 def test_local_bundle_adjust_goes_through_the_kernels(monkeypatch):
     """A solve: 15 Gauss-Newton steps (rows, landmark reduce and
-    back-substitution each), 17 costs (edges in cost-sum mode, no lm_cost)
-    and 2 chi-square passes (cost mode): static_edge_blocks 34 launches
-    in all, lm_cost none."""
+    back-substitution each), 17 costs (edges in cost-sum mode) and 2
+    chi-square passes (cost mode): static_edge_blocks 34 launches in
+    all."""
     from test_torch_mapping import _ba_problem
     calls = _counted(monkeypatch, tlba,
                      ("static_edge_blocks", "static_edge_cost",
                       "static_edge_cost_sum", "landmark_reduce",
                       "landmark_backsub"))
-    _counted(monkeypatch, lc, ("lm_cost",), calls)
     arrays, intr = _ba_problem(False)
     tlba.local_bundle_adjust(*(_t(a) for a in arrays), *intr)
     assert calls == {"static_edge_blocks": 15, "static_edge_cost": 2,
-                     "static_edge_cost_sum": 17, "lm_cost": 0,
-                     "landmark_reduce": 15, "landmark_backsub": 15}
+                     "static_edge_cost_sum": 17, "landmark_reduce": 15,
+                     "landmark_backsub": 15}
 
 
 def test_human_bundle_adjust_goes_through_the_kernels(monkeypatch):
     """A solve: 15 steps, 17 costs (the static family's and the three
-    human families' in the kernels' cost-sum modes, no lm_cost), 2
-    passes: 34 static_edge_blocks and 34 human_edge_blocks launches, no
-    lm_cost."""
+    human families' in the kernels' cost-sum modes), 2 passes: 34
+    static_edge_blocks and 34 human_edge_blocks launches."""
     from test_torch_human import _ba_case, _run_port
     calls = _counted(monkeypatch, thba,
                      ("static_edge_blocks", "static_edge_cost",
@@ -485,13 +484,11 @@ def test_human_bundle_adjust_goes_through_the_kernels(monkeypatch):
                       "human_edge_cost", "human_edge_cost_sum"))
     _counted(monkeypatch, tlba, ("landmark_reduce", "landmark_backsub"),
              calls)
-    _counted(monkeypatch, lc, ("lm_cost",), calls)
     _run_port(_ba_case("clean")[0])
     assert calls == {"static_edge_blocks": 15, "static_edge_cost": 2,
                      "static_edge_cost_sum": 17, "human_edge_blocks": 15,
                      "human_edge_cost": 2, "human_edge_cost_sum": 17,
-                     "lm_cost": 0, "landmark_reduce": 15,
-                     "landmark_backsub": 15}
+                     "landmark_reduce": 15, "landmark_backsub": 15}
 
 
 def test_cuda_wrappers_raise_on_cpu_tensors():
@@ -509,8 +506,6 @@ def test_cuda_wrappers_raise_on_cpu_tensors():
     with pytest.raises(ValueError):
         bp.landmark_backsub_cuda(torch.zeros(P, 3, 3), pt_sums,
                                  wagg.reshape(P, -1), dx_c, valid)
-    with pytest.raises(ValueError):
-        lc.lm_cost_cuda(torch.ones(4), torch.ones(4))
     state, tb, act = _human_problem(rng)
     with pytest.raises(ValueError):
         bh.human_edges_cuda(*(_t(x) for x in state), tb,

@@ -1396,6 +1396,69 @@ def test_patch_disparity_kernel_equals_plain_version(cuda, kind):
     assert int((got >= 0).sum()) >= 20
 
 
+def _disparity_pair(rng, case, h, w):
+    """An image pair for the kernel's cases: 8-bit uniform noise 13 px
+    apart (16-bit: integers past the kernel's float32 sums, summed in
+    float64), an 8-bit texture 45 px apart (minima past lane 32), or 8-bit
+    textures that repeat every 16 or 32 px, 5 or 40 px apart (tied minima
+    in other warps and in one lane's two SADs)."""
+    if case in ("noise", "16-bit"):
+        top = 256 if case == "noise" else 65536
+        im = rng.integers(0, top, (h, w + 60)).astype(np.float32)
+        return im[:, :w], im[:, 13:13 + w]
+    if case == "far":
+        im = _texture(rng, h, w + 60)
+        return im[:, :w], im[:, 45:45 + w]
+    period, shift = {"ties 16": (16, 5), "ties 32": (32, 40)}[case]
+    im = np.tile(rng.integers(0, 256, (h, period)),
+                 (1, w // period + 4)).astype(np.float32)
+    return im[:, :w], im[:, shift:shift + w]
+
+
+@pytest.mark.parametrize("case", ["noise", "16-bit", "far", "ties 16",
+                                  "ties 32"])
+@pytest.mark.parametrize("num_disp,block", [(48, 11), (64, 15), (7, 3),
+                                            (33, 1)])
+def test_patch_disparity_kernel_bit_equal_at_edges_and_ties(cuda, case,
+                                                            num_disp, block):
+    """Random 8-bit and 16-bit images, probes at every edge and corner of
+    the image (half pixels, just outside, the windows cut by the clamps
+    and the uncovered strips at the left edge) and inside, where the
+    repeating textures' first minimum is their shift: bit-equal to the
+    plain version on the card and on the CPU, two launches bit-equal."""
+    import airdos_tpu_torch.ops.disparity as dk
+    rng = np.random.default_rng(num_disp * 7 + block)
+    h, w = 120, 200
+    imL, imR = _disparity_pair(rng, case, h, w)
+    edge = np.array([0.0, 0.5, 1.0, 4.4, 5.0, 6.5, 47.0, 63.5, w - 6.0,
+                     w - 1.0, w - 0.6, w - 0.4, -0.4, -0.6, float(w)],
+                    np.float32)
+    row = np.array([0.0, 0.5, 4.0, 5.5, h - 5.0, h - 1.0, h - 0.5, -0.5,
+                    float(h)], np.float32)
+    px = np.concatenate([
+        np.stack(np.meshgrid(edge, row), -1).reshape(-1, 2),
+        np.stack([rng.uniform(60, w - 10, 64), rng.uniform(6, h - 6, 64)],
+                 axis=1),
+    ]).astype(np.float32)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+            for a in (imL, imR, px)]
+    before = dk.launches()
+    got = dk.patch_disparity(*args, num_disp=num_disp, block=block)
+    again = dk.patch_disparity(*args, num_disp=num_disp, block=block)
+    torch.cuda.synchronize()
+    assert dk.launches() == before + 2
+    assert torch.equal(got, again)
+    assert torch.equal(got, dk.patch_disparity_ref(
+        *args, num_disp=num_disp, block=block))
+    assert torch.equal(got.cpu(), dk.patch_disparity_ref(
+        *(a.cpu() for a in args), num_disp=num_disp, block=block))
+    if case.startswith("ties") and num_disp == 48 and block == 11:
+        inside = got[-64:]
+        shift = 5 if case == "ties 16" else 8
+        assert bool((inside[inside >= 0].round() == shift).all())
+        assert int((inside >= 0).sum()) >= 32
+
+
 def test_patch_disparity_kernel_rejects_what_it_does_not_take(cuda):
     import airdos_tpu_torch.ops.disparity as dk
     im = torch.zeros((64, 96), device=cuda)
@@ -1516,7 +1579,7 @@ def test_static_edge_modes_bit_equal_at_the_path_shapes(cuda, case, huber):
     """Gauss-Newton rows, the chi-square passes' costs and the fused LM
     cost bit-equal to the plain version on the card and on the CPU at the
     paths' edge tables; the fused cost bit-equal to lm_cost of the cost
-    mode's rho; one launch a call."""
+    mode's rho (lm_cost_ref on the card); one launch a call."""
     import airdos_tpu_torch.ops.ba_static as bs
     import airdos_tpu_torch.ops.lm_cost as lc
     E, C, P = {"8192x24": (8192, 24, 2048), "4096x24": (4096, 24, 1024),
@@ -1541,7 +1604,7 @@ def test_static_edge_modes_bit_equal_at_the_path_shapes(cuda, case, huber):
     torch.cuda.synchronize()
     assert bs.launches() == before + 4 - (E == 0) * 2
     assert _bits_equal(total, again)
-    assert _bits_equal(total, lc.lm_cost(cost.rho, args[7]))
+    assert _bits_equal(total, lc.lm_cost_ref(cost.rho, args[7]))
     for mode, got in ((bs.ROWS, tuple(rows)), (bs.COST, tuple(cost)),
                       (bs.COST_SUM, (total,))):
         want = bs.static_edges_ref(*args, BA_CAM, 1.0, huber, mode)
@@ -1681,8 +1744,8 @@ def test_human_edge_blocks_kernel_equals_plain_version(cuda, T, L, huber):
     the card and on the CPU and across two launches, one launch a call:
     896 / 896 / 280 edges (crowd-27), 56 / 56 / 15, L = 1 (no motion
     edge), 126 / 126 / 30 (family offsets off 16 bytes) and 2800 / 2800 /
-    950; the cost sums also bit-equal to lm_cost's launches on the cost
-    mode's rho."""
+    950; the cost sums also bit-equal to lm_cost_ref of the cost mode's
+    rho on the card."""
     import airdos_tpu_torch.ops.ba_human as bh
     import airdos_tpu_torch.ops.lm_cost as lc
     rng = np.random.default_rng(T * 100 + L)
@@ -1713,7 +1776,7 @@ def test_human_edge_blocks_kernel_equals_plain_version(cuda, T, L, huber):
             assert _bits_equal(a, d), (mode, "cpu")
     assert got[0].shape == (3,)
     rho = bh.human_edge_cost(*state, lt, BA_CAM, HUMAN_SIG, huber).rho
-    sums = [lc.lm_cost(r, a)
+    sums = [lc.lm_cost_ref(r, a)
             for r, a in zip(rho.split(list(bh.family_sizes(tb))), act)]
     assert _bits_equal(got[0], torch.stack(sums))
     assert calls[bh.ROWS](lt)[0].shape == (bh.n_values(tb),)
@@ -1739,27 +1802,6 @@ def test_human_edge_blocks_kernel_rejects_what_it_does_not_take(cuda):
                              *state[3:], lt, act, BA_CAM, HUMAN_SIG, True)
 
 
-@pytest.mark.parametrize("n", [0, 1, 1000, 8192, 16384, 65537])
-def test_lm_cost_kernel_equals_plain_version(cuda, n):
-    """Bit-equal to the plain version on the card and on the CPU, with
-    infinities and NaNs among active and inactive edges."""
-    import airdos_tpu_torch.ops.lm_cost as lc
-    rng = np.random.default_rng(n)
-    rho = rng.exponential(3.0, n).astype(np.float32)
-    act = (rng.random(n) > 0.2).astype(np.float32)
-    rho[rng.random(n) < 0.001] = np.inf
-    rho[rng.random(n) < 0.001] = np.nan
-    args = [torch.from_numpy(a).to(cuda) for a in (rho, act)]
-    before = lc.launches()
-    got = lc.lm_cost(*args)
-    again = lc.lm_cost(*args)
-    torch.cuda.synchronize()
-    assert lc.launches() == before + 2 and got.dim() == 0
-    assert _bits_equal(got, again)
-    assert _bits_equal(got, lc.lm_cost_ref(*args))
-    assert _bits_equal(got, lc.lm_cost_ref(*(a.cpu() for a in args)))
-
-
 def test_ba_kernel_dispatchers_raise_without_their_library(cuda, monkeypatch,
                                                             tmp_path):
     """With no library to load, a dispatcher given CUDA tensors raises; it
@@ -1767,7 +1809,6 @@ def test_ba_kernel_dispatchers_raise_without_their_library(cuda, monkeypatch,
     import airdos_tpu_torch.ops.ba_human as bh
     import airdos_tpu_torch.ops.ba_points as bp
     import airdos_tpu_torch.ops.ba_static as bs
-    import airdos_tpu_torch.ops.lm_cost as lc
 
     def plain(*args, **kwargs):
         raise AssertionError("the plain version ran on CUDA tensors")
@@ -1776,8 +1817,7 @@ def test_ba_kernel_dispatchers_raise_without_their_library(cuda, monkeypatch,
     for mod, ref, loaded in ((bs, "static_edges_ref", "_kernel"),
                              (bp, "landmark_reduce_ref", "_lib"),
                              (bp, "landmark_backsub_ref", "_lib"),
-                             (bh, "human_edges_ref", "_kernel"),
-                             (lc, "lm_cost_ref", "_kernel")):
+                             (bh, "human_edges_ref", "_kernel")):
         monkeypatch.setattr(mod, "_SOURCE", missing)
         monkeypatch.setattr(mod, loaded, None)
         monkeypatch.setattr(mod, ref, plain)
@@ -1799,9 +1839,7 @@ def test_ba_kernel_dispatchers_raise_without_their_library(cuda, monkeypatch,
                                      True),
         lambda: bh.human_edge_cost(*state, tb, BA_CAM, HUMAN_SIG, True),
         lambda: bh.human_edge_cost_sum(*state, tb, act, BA_CAM, HUMAN_SIG,
-                                       True),
-        lambda: lc.lm_cost(torch.ones(8, device=cuda),
-                           torch.ones(8, device=cuda)))
+                                       True))
     for call in calls:
         with pytest.raises(FileNotFoundError):
             call()

@@ -338,7 +338,7 @@ def test_static_edge_cost_sum_is_lm_cost_of_the_cost_mode(E):
     for huber in (True, False):
         got = bs.static_edge_cost_sum(*args, cam, 1.0, huber)
         cost = bs.static_edge_cost(*args[:7], cam, 1.0, huber)
-        want = lc.lm_cost(cost.rho, args[7])
+        want = lc.lm_cost_ref(cost.rho, args[7])
         assert got.dim() == 0 and got.dtype == torch.float32
         assert got.view(torch.int32) == want.view(torch.int32), (got, want)
         terms = torch.where(torch.isfinite(cost.rho), cost.rho,
@@ -709,7 +709,7 @@ def test_human_copy_out_writes_each_float_once_on_16_bytes(phase):
 
 def _lm_cost_order(terms):
     """csrc/ba_human.cu human_cost_sum_kernel's order for a family (that
-    of csrc/lm_cost.cu): thread j adds the terms j, j + 1024, ... in
+    of ops/lm_cost.py): thread j adds the terms j, j + 1024, ... in
     sequence from 0, then the halving tree, in float32."""
     n = terms.shape[0]
     m = -(-n // 1024)
@@ -755,7 +755,7 @@ def test_human_edge_cost_sum_is_lm_cost_of_the_cost_mode(huber):
         np.random.default_rng(7), 2, 4, huber)
     got = bh.human_edge_cost_sum(*state, tb, act, cam, sig, huber)
     rho = bh.human_edge_cost(*state, tb, cam, sig, huber).rho
-    want = torch.stack([lc.lm_cost(r, a) for r, a in
+    want = torch.stack([lc.lm_cost_ref(r, a) for r, a in
                         zip(rho.split(list(bh.family_sizes(tb))), act)])
     assert bool((got.view(torch.int32) == want.view(torch.int32)).all())
 
@@ -774,7 +774,7 @@ def test_human_bundle_adjust_with_the_cost_sum_is_bit_for_bit_the_lm_costs(
                        sig, use_huber):
         rho = thba.human_edge_cost(camR, camt, jnts, segs, mR, mt, tables,
                                    cam, sig, use_huber).rho
-        return [lc.lm_cost(r, a) for r, a in
+        return [lc.lm_cost_ref(r, a) for r, a in
                 zip(rho.split(list(bh.family_sizes(tables))), act)]
     monkeypatch.setattr(thba, "human_edge_cost_sum", three_lm_costs)
     apart = _run_port(pr)

@@ -1,7 +1,7 @@
 """Where a launch of pose_lm, select, orb_desc, static_edge_blocks,
-fast_nms, pyramid, landmark_reduce, landmark_backsub, human_edge_blocks or
-stereo_sad spends its time on the card, from clock64() stamps in an
-instrumented copy of the kernel's source.
+fast_nms, pyramid, landmark_reduce, landmark_backsub, human_edge_blocks,
+stereo_sad or patch_disparity spends its time on the card, from clock64()
+stamps in an instrumented copy of the kernel's source.
 
     python3 tools/kernel_split.py [--parent DIR] [--only KERNEL ...]
 
@@ -44,13 +44,16 @@ point on the inputs below, and the stamps are read once a launch.
 - human_edge_blocks (csrc/ba_human.cu) in Gauss-Newton mode at the
   crowd-27 flagship's 896 / 896 / 280 edges on random state: cycles a
   warp's lane 0 in the gathers, projection and A staged, the block
-  barrier, the float64 entries and the stores (the parent's, a thread an
-  edge: the gathers with the residual and Jacobian, and the entries with
-  their stores);
+  barrier, the float64 entries and the stores;
 - stereo_sad (csrc/stereo_sad.cu) at 1536 keypoints over 8 levels of
   a 640x360 texture and its copy shifted 7 px: cycles a keypoint's lane 0
   in the header's loads, the staging of its windows, the SAD sums and the
-  finish (minimum, parabola, tests, stores).
+  finish (minimum, parabola, tests, stores);
+- patch_disparity (csrc/disparity.cu) at 40 torso probes on a 640x360
+  8-bit texture and its copy shifted 13 px, and on the same texture in
+  fractions: cycles a probe's thread 0 in the loads and shared stores to
+  the barrier, the SAD sums to the barrier, and the first minimum with
+  the parabola and the store.
 
 Then the device time (chip_smoke.py's CUDA graph, L2 cold and hot) of the
 shipped orb_desc (level 0; the 8 levels), static_edge_blocks (each mode),
@@ -63,12 +66,13 @@ its point's inverse; a warp a point, lane 0 loading the finish's inputs
 after the tree) on the same inputs: the split (reduce: inverse, loads,
 rows and stores; back-substitution: loads with the camera sums, tree,
 finish) and the device time of the unstamped source; and its
-ba_human.cu and stereo_sad.cu (a source unchanged from the parent's is
+stereo_sad.cu and disparity.cu (a source unchanged from the parent's is
 split once): the splits above and the device times at every path shape
-(human: 896 / 896 / 280 and 56 / 56 / 15 edges, Gauss-Newton mode and
-cost mode followed by lm_cost's three launches against this tree's three
-modes; stereo: 1536 keypoints over 8 levels from 360x640 and 640 over 4
-from 240x320).  --only splits the named kernels alone (landmark: both).
+(stereo: 1536 keypoints over 8 levels from 360x640 and 640 over 4 from
+240x320; disparity: 40 probes at 360x640, 8-bit and fractions, and at
+240x320).  The human
+kernel's device times are its three modes' at 896 / 896 / 280 and 56 /
+56 / 15 edges.  --only splits the named kernels alone (landmark: both).
 Each copy's result is held against the plain version (pose_lm's R and t
 within 1e-4; the others bit-equal); the split is printed beside the
 launch's time (CUDA events) and the card's name and power limit.
@@ -531,8 +535,8 @@ def split_orb_new(fe) -> None:
 
 def split_static_new(args) -> None:
     """This static_edge_blocks at E 8192 C 24 P 2048: the stamped copy in
-    Gauss-Newton mode, then the shipped kernel's device time in each mode
-    (the cost-sum mode replaces cost mode + lm_cost)."""
+    Gauss-Newton mode, then the shipped kernel's device time in each
+    mode."""
     from airdos_tpu_torch.ops import ba_static as bs
     dll = _build(static_new((REPO / "airdos_tpu_torch" / "csrc" /
                              "ba_static.cu").read_text()), "ba_static_split")
@@ -987,32 +991,6 @@ def _sources(parent, name: str):
     return [(" (parent)", old)] + ([] if old == this else [("", this)])
 
 
-HU_PARENT_PARTS = ("gathers, residual and Jacobian", "entries and stores")
-# the parent's C entry point (a thread an edge; 19 pointers)
-HU_PARENT_SIG = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 3
-                 + [ctypes.c_void_p] + [ctypes.c_int] * 2
-                 + [ctypes.c_void_p] * 4)
-
-
-def human_parent(src: str) -> str:
-    """The parent's csrc/ba_human.cu (a thread an edge), Gauss-Newton
-    mode: slots 0-1 a warp's lane 0 (the gathers, residual, Jacobian and
-    weight; the column's entries, each stored as it is summed)."""
-    return _insert(src, [
-        ("namespace {\n", WARP_HEAD),
-        ("  if (idx >= Eh + Er + Em) return;\n",
-         "  if (idx >= Eh + Er + Em) return;\n"
-         "  const long long t0 = clock64();\n"),
-        ("  float factor = 1.0f, rho = chi2;\n",
-         "  const long long t1 = clock64();\n"
-         "  float factor = 1.0f, rho = chi2;\n"),
-        ("out0 + b_off[2] + 12 * int64_t{i});\n  }\n}\n",
-         "out0 + b_off[2] + 12 * int64_t{i});\n  }\n"
-         "  const long long t2 = clock64();\n"
-         + _warp_sums("(threadIdx.x & 31) == 0", ["t0", "t1", "t2"]) + "}\n"),
-    ])
-
-
 HU_PARTS = ("gathers, projection and A staged", "block barrier",
             "float64 entries", "barrier and stores")
 
@@ -1099,94 +1077,43 @@ def _rotation(rng):
 HUMAN_SIG = (0.5, 20.0, 20.0, 2.795483, 1.0, 1.0)
 
 
-def _human_parent_launcher(dll, problem, cost: bool = False):
-    """The parent's launch on the problem's inputs: Gauss-Newton mode (the
-    column), or cost mode (rho, chi2, depths)."""
-    import torch
-    from airdos_tpu_torch.ops import ba_human as bh
-    from airdos_tpu_torch.ops.cuda_build import consts
-    state, tb, act = problem
-    Eh, Er, Em = bh.family_sizes(tb)
-    entry = _entry(dll, "airdos_human_edges", HU_PARENT_SIG)
-    outs = tuple(torch.empty(n, device="cuda") for n in (
-        (Eh + Er + Em, Eh + Er + Em, Eh) if cost else (bh.n_values(tb),)))
-    ptrs = [o.data_ptr() for o in outs] + [None] * (3 - len(outs))
-    k = consts(*CAM_BA, *HUMAN_SIG)
-
-    def launch():
-        err = entry(*(x.data_ptr() for x in state),
-                    *(x.data_ptr() for x in tb),
-                    *(a.data_ptr() for a in act), Eh, Er, Em, k, 1,
-                    int(cost), *ptrs, torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise SystemExit(f"human_edge_blocks (parent): cudaError {err}")
-        return outs
-    return launch
-
-
-def split_human(parent, problems) -> None:
+def split_human(problems) -> None:
     """human_edge_blocks: at the first problem's family sizes the stamped
-    copies in Gauss-Newton mode (the parent's when given, then this
-    one's); at each problem's the unstamped sources' device times, the
-    parent's Gauss-Newton mode and its cost mode followed by lm_cost's
-    three launches (the LM costs it took), this one's three modes."""
-    import torch
+    copy in Gauss-Newton mode; at each problem's the unstamped source's
+    device times in its three modes."""
     from airdos_tpu_torch.ops import ba_human as bh
-    from airdos_tpu_torch.ops import lm_cost as lc
-    sources = _sources(parent, "ba_human.cu")
-    for label, text in sources:
-        tag = "parent" if label else "this"
-        name = "human_edge_blocks" + label
-        plain = _build(text, "ba_human_parent") if label else None
-        for i, problem in enumerate(problems):
+    text = (REPO / "airdos_tpu_torch" / "csrc" / "ba_human.cu").read_text()
+    for i, problem in enumerate(problems):
+        state, tb, act = problem
+        sizes = bh.family_sizes(tb)
+        what = f"{sizes[0]} / {sizes[1]} / {sizes[2]} edges"
+
+        def want(mode):
+            return _outs(bh.human_edges_ref(*state, tb, act, CAM_BA,
+                                            HUMAN_SIG, True, mode))
+        if i == 0:
+            dll = _build(human_new(text), "ba_human_split")
+            run = _human_this_launcher(dll, problem)
+            _bits_check(run(), want(bh.ROWS), "human_edge_blocks")
+            dll.split_reset()
+            ms = _events_ms(run)
+            _print_split("human_edge_blocks", what + ", Gauss-Newton mode",
+                         ms, _read(dll), HU_PARTS)
+
+        def mode_run(mode, problem=problem):
             state, tb, act = problem
-            sizes = bh.family_sizes(tb)
-            what = f"{sizes[0]} / {sizes[1]} / {sizes[2]} edges"
-
-            def want(mode):
-                return _outs(bh.human_edges_ref(*state, tb, act, CAM_BA,
-                                                HUMAN_SIG, True, mode))
-            if i == 0:
-                stamp, launcher, parts = (
-                    (human_parent, _human_parent_launcher, HU_PARENT_PARTS)
-                    if label else (human_new, _human_this_launcher, HU_PARTS))
-                dll = _build(stamp(text), f"ba_human_{tag}_split")
-                run = launcher(dll, problem)
-                _bits_check(run(), want(bh.ROWS), name)
-                dll.split_reset()
-                ms = _events_ms(run)
-                _print_split(name, what + ", Gauss-Newton mode", ms,
-                             _read(dll), parts)
-            if label:
-                gn = _human_parent_launcher(plain, problem)
-                cost = _human_parent_launcher(plain, problem, cost=True)
-
-                def sums(cost=cost, act=act, sizes=sizes):
-                    rho = cost()[0]
-                    return [lc.lm_cost_cuda(r, a)
-                            for r, a in zip(rho.split(list(sizes)), act)]
-                _bits_check(gn(), want(bh.ROWS), name)
-                _bits_check(cost(), want(bh.COST), name + " cost mode")
-                _bits_check((torch.stack(sums()),), want(bh.COST_SUM),
-                            name + " cost mode and lm_cost")
-                runs = (("Gauss-Newton", gn), ("cost mode", cost),
-                        ("cost mode and 3 lm_cost", sums))
-            else:
-                def mode_run(mode, problem=problem):
-                    state, tb, act = problem
-                    return lambda: bh.human_edges_cuda(
-                        *state, tb, act, CAM_BA, HUMAN_SIG, True, mode)
-                runs = (("Gauss-Newton", mode_run(bh.ROWS)),
-                        ("cost mode", mode_run(bh.COST)),
-                        ("cost sum", mode_run(bh.COST_SUM)))
-                for mode, (_, run) in zip((bh.ROWS, bh.COST, bh.COST_SUM),
-                                          runs):
-                    _bits_check(_outs(run()), want(mode),
-                                f"human_edge_blocks mode {mode}")
-            times = [(m, _graph_ms(run)) for m, run in runs]
-            print(f"[time] human_edge_blocks ({tag}) {what}: " + "; ".join(
-                f"{m} cold {c:.4f} ms (hot {h:.4f})" for m, (c, h) in times),
-                flush=True)
+            return lambda: bh.human_edges_cuda(
+                *state, tb, act, CAM_BA, HUMAN_SIG, True, mode)
+        runs = (("Gauss-Newton", mode_run(bh.ROWS)),
+                ("cost mode", mode_run(bh.COST)),
+                ("cost sum", mode_run(bh.COST_SUM)))
+        for mode, (_, run) in zip((bh.ROWS, bh.COST, bh.COST_SUM), runs):
+            _bits_check(_outs(run()), want(mode),
+                        f"human_edge_blocks mode {mode}")
+        times = [(m, _graph_ms(run)) for m, run in runs]
+        print(f"[time] human_edge_blocks {what}: " + "; ".join(
+            f"{m} cold {c:.4f} ms (hot {h:.4f})" for m, (c, h) in times),
+            flush=True)
 
 
 SAD_PARTS = ("header loads", "staging", "SAD sums", "finish")
@@ -1305,9 +1232,118 @@ def split_sad(parent, cases) -> None:
                 ss._kernel = shipped
 
 
+# ------------------------------------------------------- patch_disparity
+
+DISP_PARENT_PARTS = ("staging rounds and barrier", "SAD chains and barrier",
+                     "serial minimum, parabola and store")
+DISP_PARTS = ("loads, stores and barrier", "SAD sums, shuffle and barrier",
+              "shuffle minimum, parabola and store")
+
+
+def disp_parent(src: str) -> str:
+    """The parent's csrc/disparity.cu (a block of 64 threads a probe):
+    slots 0-2 a probe's thread 0 (the staging loop to the barrier, the
+    SADs, a thread's chain each, to the barrier, the serial first minimum,
+    parabola and store)."""
+    return _insert(src, [
+        ("namespace {\n", WARP_HEAD),
+        ("  const int half = block / 2;\n",
+         "  const long long t0 = clock64();\n  const int half = block / 2;\n"),
+        ("  __syncthreads();\n\n  if (t < num_disp) {\n",
+         "  __syncthreads();\n  const long long t1 = clock64();\n\n"
+         "  if (t < num_disp) {\n"),
+        ("  __syncthreads();\n\n  if (t == 0) {\n",
+         "  __syncthreads();\n  const long long t2 = clock64();\n\n"
+         "  if (t == 0) {\n"),
+        ("                   : -1.0f;\n  }\n}\n",
+         "                   : -1.0f;\n    const long long t3 = clock64();\n"
+         + _warp_sums("true", ["t0", "t1", "t2", "t3"]) + "  }\n}\n"),
+    ])
+
+
+def disp_new(src: str) -> str:
+    """This csrc/disparity.cu (four warps a probe): slots 0-2 a probe's
+    thread 0 (every row's load, the shared stores and the barrier; the
+    SADs' float64 sums, the pair's shuffle and the barrier; warp 0's
+    shuffle minimum, the neighbours' shuffles, the parabola and store)."""
+    return _insert(src, [
+        ("namespace {\n", WARP_HEAD),
+        ("  const int half = block / 2;\n",
+         "  const long long t0 = clock64();\n  const int half = block / 2;\n"),
+        ("  const bool int_sums = __syncthreads_and(ints);\n",
+         "  const bool int_sums = __syncthreads_and(ints);\n"
+         "  const long long t1 = clock64();\n"),
+        ("  __syncthreads();\n  if (t >= 32) return;\n",
+         "  __syncthreads();\n  const long long t2 = clock64();\n"
+         "  if (t >= 32) return;\n"),
+        ("                 : -1.0f;\n}\n",
+         "                 : -1.0f;\n  const long long t3 = clock64();\n"
+         + _warp_sums("true", ["t0", "t1", "t2", "t3"]) + "}\n"),
+    ])
+
+
+def _disp_problem(rng, h=360, w=640, n=40, fractions=False):
+    """The torso probes' inputs: an 8-bit texture and its copy 13 px to
+    the left (a disparity of 13), n probes anywhere on the image
+    (tests/test_torch_cuda.py's case), so the kernel is bit-equal to the
+    plain version; with fractions, the texture's pixels + 1 each scaled
+    by a factor in [1, 1.5) (not integers, all >= 1: still bit-equal)."""
+    import torch
+    img = _texture(rng, h, w + 60)
+    if fractions:
+        img = (img + 1.0) * rng.uniform(1.0, 1.5, img.shape).astype(
+            np.float32)
+    px = np.stack([rng.uniform(0, w, n), rng.uniform(0, h, n)],
+                  axis=1).astype(np.float32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa
+    return t(img[:, :w]), t(img[:, 13:13 + w]), t(px)
+
+
+def split_disp(parent, cases) -> None:
+    """patch_disparity: on the first two cases (40 probes at 360x640 on
+    8-bit images, then on fractions) the stamped copies (the parent's when
+    given, then this one's) through the module's wrapper; on every case
+    each unstamped source's device time."""
+    import torch
+    from airdos_tpu_torch.ops import disparity as dk
+    for label, text in _sources(parent, "disparity.cu"):
+        tag = "parent" if label else "this"
+        name = "patch_disparity" + label
+        builds = [(disp_parent if label else disp_new)(text), text]
+        for stamped, src in zip((True, False), builds):
+            dll = _build(src, f"disparity_{tag}"
+                         + ("_split" if stamped else ""))
+            entry = _entry(dll, "airdos_patch_disparity",
+                           dk._SIGNATURES["airdos_patch_disparity"])
+            shipped, dk._kernel = dk._kernel, entry
+            try:
+                for kind, args in cases[:2] if stamped else cases:
+                    want = dk.patch_disparity_ref(*args)
+                    got = dk.patch_disparity_cuda(*args)
+                    torch.cuda.synchronize()
+                    what = (f"{args[2].shape[0]} probes at "
+                            f"{args[0].shape[0]}x{args[0].shape[1]}, {kind}")
+                    if not torch.equal(got, want):
+                        raise SystemExit(f"{name} {what}: not bit-equal to "
+                                         f"the plain version")
+                    run = (lambda args=args: dk.patch_disparity_cuda(*args))
+                    if stamped:
+                        dll.split_reset()
+                        ms = _events_ms(run)
+                        _print_split(name, what, ms, _read(dll),
+                                     DISP_PARENT_PARTS if label
+                                     else DISP_PARTS)
+                    else:
+                        c, h = _graph_ms(run)
+                        print(f"[time] patch_disparity ({tag}) {what}: cold "
+                              f"{c:.4f} ms (hot {h:.4f})", flush=True)
+            finally:
+                dk._kernel = shipped
+
+
 SPLITS = ("pose_lm", "select", "orb_desc", "static_edge_blocks", "fast_nms",
           "pyramid", "landmark",
-          "human_edge_blocks", "stereo_sad")
+          "human_edge_blocks", "stereo_sad", "patch_disparity")
 
 
 def main(argv=None) -> None:
@@ -1315,8 +1351,8 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, default=None,
                     help="an unpacked checkout of the commit before a "
-                         "kernel's redesign (landmark, human_edge_blocks, "
-                         "stereo_sad)")
+                         "kernel's redesign (landmark, stereo_sad, "
+                         "patch_disparity)")
     ap.add_argument("--only", nargs="+", choices=SPLITS, default=SPLITS,
                     help="the kernels to split (default: all)")
     args = ap.parse_args(argv)
@@ -1348,12 +1384,17 @@ def main(argv=None) -> None:
                        _landmark_problem(np.random.default_rng(1)))
     if "human_edge_blocks" in only:
         rng = np.random.default_rng(1)
-        split_human(args.parent, [_human_problem(rng),
-                                  _human_problem(rng, T=1, L=4, C=8)])
+        split_human([_human_problem(rng), _human_problem(rng, T=1, L=4, C=8)])
     if "stereo_sad" in only:
         rng = np.random.default_rng(9)
         split_sad(args.parent, [_sad_problem(rng),
                                 _sad_problem(rng, 240, 320, 4, 640)])
+    if "patch_disparity" in only:
+        rng = np.random.default_rng(3)
+        split_disp(args.parent, [
+            ("8-bit", _disp_problem(rng)),
+            ("fractions", _disp_problem(rng, fractions=True)),
+            ("8-bit", _disp_problem(rng, 240, 320))])
 
 
 if __name__ == "__main__":
