@@ -3,9 +3,12 @@
 Rebuild of ORBmatcher::SearchByBoW (reference src/ORBmatcher.cc:159-288
 KF<->Frame, 522-655 KF<->KF) as airdos_tpu/matching/bow_match.py computes
 it: candidates restricted to features sharing the same vocabulary node at
-the feature-grouping level (one equality mask over the dense N1 x N2
-Hamming matrix), best Hamming with NN-ratio and rotation-histogram checks,
-then each feature of set 2 keeps its best claimant.
+the feature-grouping level, best Hamming with NN-ratio and
+rotation-histogram checks, then each feature of set 2 keeps its best
+claimant.  The node gate, the distances, best and second and the ratio
+are one ``ops/match_kernels.match_rows`` call in bow mode, the rotation
+histogram and the uniqueness one ``match_resolve`` call: one kernel
+launch each on the card, where no N1 x N2 matrix is formed.
 """
 from __future__ import annotations
 
@@ -13,12 +16,10 @@ from typing import NamedTuple
 
 import torch
 
-from airdos_tpu_torch.matching.projection import (_resolve_unique,
-                                                  _rotation_consistency)
-from airdos_tpu_torch.ops.hamming_kernels import hamming_matrix
+from airdos_tpu_torch.ops.match_kernels import (BOW, MatchCols, MatchRows,
+                                                match_resolve, match_rows)
 
 TH_LOW = 50
-BIG = 1 << 10
 
 
 class BowMatches(NamedTuple):
@@ -32,21 +33,10 @@ def match_by_bow(desc1, nodes1, valid1, ang1,
                  nn_ratio: float = 0.7,
                  check_rotation: bool = True) -> BowMatches:
     """Features of two images with per-feature vocabulary node ids."""
-    N1 = desc1.shape[0]
     N2 = desc2.shape[0]
-    same_node = nodes1[:, None] == nodes2[None, :]
-    ok = same_node & valid1[:, None] & valid2[None, :] & \
-        (nodes1 >= 0)[:, None] & (nodes2 >= 0)[None, :]
-    D = hamming_matrix(desc1, desc2)
-    D = torch.where(ok, D, torch.full_like(D, BIG))
-    best = torch.argmin(D, dim=1)
-    bdist = torch.gather(D, 1, best[:, None])[:, 0]
-    D2 = D.clone()
-    D2[torch.arange(N1, device=D.device), best] = BIG
-    sdist = torch.min(D2, dim=1).values
-    has = (bdist < TH_LOW) & \
-        (bdist.to(torch.float32) < nn_ratio * sdist.to(torch.float32))
-    if check_rotation:
-        has = _rotation_consistency(ang1, ang2[best], has)
-    idx2, idx1_of_2, n = _resolve_unique(best, bdist, has, N2)
+    rm = match_rows(BOW, MatchRows(desc1, nodes1, valid1),
+                    MatchCols(desc2, nodes2, valid2), th=TH_LOW - 1,
+                    ratio=nn_ratio)
+    idx2, idx1_of_2, n = match_resolve(
+        rm.best, rm.dist, rm.has, N2, ang1 if check_rotation else None, ang2)
     return BowMatches(idx2=idx2, n_matches=n, idx1_of_2=idx1_of_2)

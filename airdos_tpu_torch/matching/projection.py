@@ -1,7 +1,8 @@
 """Projection-guided descriptor matching.
 
 Rebuilds the reference's ORBmatcher::SearchByProjection family
-(src/ORBmatcher.cc) as dense masked Hamming problems, as airdos_tpu does:
+(src/ORBmatcher.cc) as airdos_tpu does, a gated Hamming problem over
+points x features:
 
 - ``match_last_frame``: motion-model variant (ORBmatcher.cc:1328-1470) —
   window radius th*scale[last octave], forward/backward octave rules,
@@ -10,8 +11,14 @@ Rebuilds the reference's ORBmatcher::SearchByProjection family
   frustum gating, predicted scale level, view-cos radius, best/second
   ratio within the same level.
 
-Several points claiming one feature are resolved with integer segment
-min/max scatters, which are deterministic on every device.
+The per-point prelude (projection, radius, predicted level, frustum) is
+eager torch over [P] vectors; the gate, the distances, best and second
+and the ratio test are one ``ops/match_kernels.match_rows`` call, the
+rotation histogram and the uniqueness resolution (several points
+claiming one feature: the lowest distance wins, ties to the lowest
+point) one ``match_resolve`` call.  On the card each is one kernel
+launch and no [P, N] matrix is formed; on the CPU they are the plain
+versions.
 """
 from __future__ import annotations
 
@@ -19,11 +26,15 @@ from typing import NamedTuple
 
 import torch
 
-from airdos_tpu_torch.ops.hamming_kernels import hamming_matrix
+from airdos_tpu_torch.ops.match_kernels import (LOCAL, MOTION, MatchCols,
+                                                MatchRows, match_resolve,
+                                                match_rows)
+from airdos_tpu_torch.ops.match_kernels import \
+    resolve_unique as _resolve_unique  # noqa: F401 (airdos_tpu's names)
+from airdos_tpu_torch.ops.match_kernels import \
+    rotation_consistency as _rotation_consistency  # noqa: F401
 
 TH_HIGH = 100
-HISTO_BINS = 30
-BIG = 1 << 10
 
 
 class ProjMatches(NamedTuple):
@@ -31,52 +42,6 @@ class ProjMatches(NamedTuple):
     dist: torch.Tensor           # [P] int32 Hamming distance
     n_matches: torch.Tensor      # int64 (after uniqueness resolution)
     point_of_feat: torch.Tensor  # [N] int64 winning point per feature (-1)
-
-
-def _resolve_unique(best_feat, best_dist, has, n_feats: int):
-    """Each feature keeps only the lowest-distance claiming point; ties go
-    to the lowest point index."""
-    P = best_feat.shape[0]
-    dev = best_feat.device
-    park = torch.full_like(best_feat, n_feats)      # invalid -> slot n_feats
-    feat_safe = torch.where(has, best_feat, park)
-    seg_min = torch.full((n_feats + 1,), BIG, dtype=best_dist.dtype, device=dev)
-    seg_min = seg_min.scatter_reduce(0, feat_safe, best_dist, "amin",
-                                     include_self=True)
-    is_winner = has & (best_dist == seg_min[feat_safe])
-    pid = torch.arange(P, dtype=torch.int64, device=dev)
-    seg_pid = torch.full((n_feats + 1,), P, dtype=torch.int64, device=dev)
-    seg_pid = seg_pid.scatter_reduce(0, torch.where(is_winner, feat_safe, park),
-                                     pid, "amin", include_self=True)
-    final = is_winner & (seg_pid[feat_safe] == pid)
-    feat_idx = torch.where(final, best_feat, torch.full_like(best_feat, -1))
-    point_of_feat = torch.full((n_feats + 1,), -1, dtype=torch.int64, device=dev)
-    point_of_feat = point_of_feat.scatter_reduce(
-        0, torch.where(final, feat_safe, park), pid, "amax",
-        include_self=True)[:n_feats]
-    return feat_idx, point_of_feat, torch.sum(final)
-
-
-def _rotation_consistency(ang_ref, ang_cur, has):
-    """Keep only matches in the 3 dominant rotation-histogram bins
-    (ORBmatcher::ComputeThreeMaxima semantics, 1601-1645)."""
-    rot = ang_ref - ang_cur
-    rot = torch.where(rot < 0, rot + 360.0, rot)
-    binf = torch.round(rot * (HISTO_BINS / 360.0))
-    bins = torch.where(binf == HISTO_BINS, torch.zeros_like(binf), binf) \
-        .to(torch.int64)
-    bins = torch.clamp(bins, 0, HISTO_BINS - 1)
-    counts = torch.zeros(HISTO_BINS, dtype=torch.int64, device=has.device)
-    counts.index_add_(0, torch.where(has, bins, torch.zeros_like(bins)),
-                      has.to(torch.int64))
-    # top 3 bins, ties to the lower bin (jax.lax.top_k's order)
-    top3 = torch.sort(counts, descending=True, stable=True)
-    top3_vals, top3_idx = top3.values[:3], top3.indices[:3]
-    # the reference drops bins with count < 0.1 * max
-    ok = top3_vals.to(torch.float32) >= 0.1 * top3_vals[0].to(torch.float32)
-    keep_bin = torch.zeros(HISTO_BINS, dtype=torch.bool, device=has.device)
-    keep_bin[top3_idx] = ok
-    return has & keep_bin[bins]
 
 
 def _project(R, t, xw, fx, fy, cx, cy, bf, width, height):
@@ -88,11 +53,6 @@ def _project(R, t, xw, fx, fy, cx, cy, bf, width, height):
     ur = u - bf * iz
     in_img = (u >= 0) & (u < width) & (v >= 0) & (v < height) & (z > 0)
     return u, v, ur, in_img
-
-
-def _gated_hamming(ok, desc_p, feat_desc):
-    D = hamming_matrix(desc_p, feat_desc)
-    return torch.where(ok, D, torch.full_like(D, BIG))
 
 
 def match_last_frame(xw, desc_p, oct_p, ang_p, valid_p,
@@ -108,33 +68,18 @@ def match_last_frame(xw, desc_p, oct_p, ang_p, valid_p,
     u, v, ur, in_img = _project(R, t, xw, fx, fy, cx, cy, bf, width, height)
 
     radius = th * scale_factors[oct_p]                       # [P]
-    du = torch.abs(feat_xy[None, :, 0] - u[:, None])
-    dv = torch.abs(feat_xy[None, :, 1] - v[:, None])
-    win_ok = (du < radius[:, None]) & (dv < radius[:, None])
-
-    lo = oct_p[:, None]
-    lf = feat_oct[None, :]
-    if forward:
-        oct_ok = lf >= lo
-    elif backward:
-        oct_ok = lf <= lo
-    else:
-        oct_ok = (lf >= lo - 1) & (lf <= lo + 1)
-
-    r_ok = torch.where(feat_ur[None, :] > 0,
-                       torch.abs(ur[:, None] - feat_ur[None, :]) < radius[:, None],
-                       torch.ones_like(win_ok))
-
-    ok = (win_ok & oct_ok & r_ok & valid_p[:, None] & in_img[:, None] &
-          feat_valid[None, :] & ~feat_taken[None, :])
-    D = _gated_hamming(ok, desc_p, feat_desc)
-    best_feat = torch.argmin(D, dim=1)
-    best_dist = torch.gather(D, 1, best_feat[:, None])[:, 0]
-    has = best_dist <= TH_HIGH
-    has = _rotation_consistency(ang_p, feat_ang[best_feat], has)
-
-    feat_idx, point_of_feat, n = _resolve_unique(best_feat, best_dist, has, N)
-    return ProjMatches(feat_idx=feat_idx, dist=best_dist, n_matches=n,
+    # the feature's octave: >= the point's forward, <= it backward, else
+    # within one
+    band = (0, None) if forward else (None, 0) if backward else (-1, 1)
+    rm = match_rows(MOTION,
+                    MatchRows(desc_p, oct_p, valid_p & in_img, u, v, ur,
+                              radius),
+                    MatchCols(feat_desc, feat_oct, feat_valid, feat_xy[:, 0],
+                              feat_xy[:, 1], feat_ur, feat_taken),
+                    th=TH_HIGH, band=band)
+    feat_idx, point_of_feat, n = match_resolve(rm.best, rm.dist, rm.has, N,
+                                               ang_p, feat_ang)
+    return ProjMatches(feat_idx=feat_idx, dist=rm.dist, n_matches=n,
                        point_of_feat=point_of_feat)
 
 
@@ -149,7 +94,6 @@ def match_local_points(xw, desc_p, valid_p,
     """Track-local-map search (SearchByProjection with MapPoints).
     normal_p: mean viewing direction; min/max_dist: scale-invariance range;
     ow: camera centre in world."""
-    P = xw.shape[0]
     N = feat_xy.shape[0]
     u, v, ur, in_img = _project(R, t, xw, fx, fy, cx, cy, bf, width, height)
 
@@ -169,33 +113,14 @@ def match_local_points(xw, desc_p, valid_p,
     r_base = torch.where(view_cos > 0.998, 2.5, 4.0).to(xw.dtype)
     radius = th * r_base * scale_factors[pred]
 
-    du = torch.abs(feat_xy[None, :, 0] - u[:, None])
-    dv = torch.abs(feat_xy[None, :, 1] - v[:, None])
-    win_ok = (du < radius[:, None]) & (dv < radius[:, None])
-    lf = feat_oct[None, :]
-    oct_ok = (lf >= pred[:, None] - 1) & (lf <= pred[:, None])
-    r_ok = torch.where(feat_ur[None, :] > 0,
-                       torch.abs(ur[:, None] - feat_ur[None, :]) < radius[:, None],
-                       torch.ones_like(win_ok))
     frustum = in_img & dist_ok & view_ok & valid_p
-    ok = (win_ok & oct_ok & r_ok & frustum[:, None] &
-          feat_valid[None, :] & ~feat_taken[None, :])
-
-    D = _gated_hamming(ok, desc_p, feat_desc)
-    best_feat = torch.argmin(D, dim=1)
-    best_dist = torch.gather(D, 1, best_feat[:, None])[:, 0]
-    best_lvl = feat_oct[best_feat]
-    D2 = D.clone()
-    D2[torch.arange(P, device=D.device), best_feat] = BIG
-    second_feat = torch.argmin(D2, dim=1)
-    second_dist = torch.gather(D2, 1, second_feat[:, None])[:, 0]
-    second_lvl = feat_oct[second_feat]
-
-    ratio_rej = (best_lvl == second_lvl) & \
-        (best_dist.to(torch.float32) > nn_ratio * second_dist.to(torch.float32)) & \
-        (second_dist < BIG)
-    has = (best_dist <= TH_HIGH) & ~ratio_rej
-
-    feat_idx, point_of_feat, n = _resolve_unique(best_feat, best_dist, has, N)
-    return ProjMatches(feat_idx=feat_idx, dist=best_dist, n_matches=n,
+    # the feature's octave in [pred - 1, pred]; best and second at one
+    # level must pass the ratio
+    rm = match_rows(LOCAL,
+                    MatchRows(desc_p, pred, frustum, u, v, ur, radius),
+                    MatchCols(feat_desc, feat_oct, feat_valid, feat_xy[:, 0],
+                              feat_xy[:, 1], feat_ur, feat_taken),
+                    th=TH_HIGH, ratio=nn_ratio, band=(-1, 0))
+    feat_idx, point_of_feat, n = match_resolve(rm.best, rm.dist, rm.has, N)
+    return ProjMatches(feat_idx=feat_idx, dist=rm.dist, n_matches=n,
                        point_of_feat=point_of_feat)

@@ -11,10 +11,13 @@ src/Frame.cc:829-1003), in airdos_tpu's dense form:
    unblurred level image of the left keypoint, parabola fit;
 4. median-based outlier cut: reject SAD >= 1.5 * 1.4 * median.
 
-Step 3 is ``ops/stereo_sad.stereo_sad``, a kernel launch on the card that
-reads the pyramid levels where they lie; its plain version cuts the
-windows by gather from zero-padded level stacks (airdos_tpu's
-``_sad_windows_gather``).  Steps 1-2 and 4 are eager torch.
+Steps 1-2 are one ``ops/match_kernels.match_rows`` call in stereo mode
+(a kernel launch on the card that forms no [N, N] matrix: gate,
+distances, best, far-u second, ratio and mutual check).  Step 3 is
+``ops/stereo_sad.stereo_sad``, a kernel launch on the card that reads
+the pyramid levels where they lie; its plain version cuts the windows by
+gather from zero-padded level stacks (airdos_tpu's
+``_sad_windows_gather``).  Step 4 is eager torch.
 """
 from __future__ import annotations
 
@@ -23,15 +26,15 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from airdos_tpu_torch.ops.hamming_kernels import hamming_matrix
-from airdos_tpu_torch.ops.stereo_sad import _take, stereo_sad
+from airdos_tpu_torch.ops.match_kernels import (STEREO, MatchCols,
+                                                MatchRows, match_rows)
+from airdos_tpu_torch.ops.stereo_sad import stereo_sad
 # exported here as airdos_tpu.matching.stereo exports it
 from airdos_tpu_torch.ops.stereo_sad import stack_pyramid  # noqa: F401
 
 TH_HIGH = 100
 TH_LOW = 50
 TH_ORB = (TH_HIGH + TH_LOW) // 2   # 75
-BIG = 1 << 10
 
 
 class StereoMatches(NamedTuple):
@@ -47,36 +50,20 @@ def stereo_match(xy_l, oct_l, desc_l, valid_l,
     """xy in level-0 coords; pyr_* are the two images' pyramid levels
     (ops/pyramid.Pyramid.images); level_widths [L] int64 actual widths;
     scale_factors [L] float32."""
-    dev = xy_l.device
-    uL, vL = xy_l[:, 0], xy_l[:, 1]
-    uR, vR = xy_r[:, 0], xy_r[:, 1]
     # float32 like airdos_tpu, which passes bf and baseline as f32 scalars
     max_d = float(np.float32(bf) / np.float32(baseline))
 
-    # ---- gating + Hamming (dense) -----------------------------------
-    r_band = 2.0 * scale_factors[oct_r]
-    row_ok = torch.abs(vL[:, None] - vR[None, :]) <= r_band[None, :]
-    oct_ok = torch.abs(oct_l[:, None] - oct_r[None, :]) <= 1
-    disp = uL[:, None] - uR[None, :]
-    disp_ok = (disp >= 0.0) & (disp <= max_d)
-    ok = row_ok & oct_ok & disp_ok & valid_l[:, None] & valid_r[None, :]
-
-    D = hamming_matrix(desc_l, desc_r)
-    D = torch.where(ok, D, torch.full_like(D, BIG))
-    best_r = torch.argmin(D, dim=1)
-    best_dist = _take(D, best_r)
-    # mutual consistency: the matched right keypoint's own best left
-    # keypoint must be this one
-    best_l_of_r = torch.argmin(D, dim=0)
-    mutual = best_l_of_r[best_r] == torch.arange(xy_l.shape[0], device=dev)
-    # ambiguity rejection: a second right candidate at a clearly different
-    # u that is nearly as good makes the disparity unreliable
-    far_u = torch.abs(uR[None, :] - uR[best_r][:, None]) > 1.5
-    D2 = torch.where(far_u, D, torch.full_like(D, BIG))
-    second = torch.amin(D2, dim=1)
-    unambiguous = best_dist.to(torch.float32) < \
-        0.9 * torch.clamp(second, max=256).to(torch.float32)
-    cand_ok = (best_dist < TH_ORB) & mutual & unambiguous
+    # ---- gating + Hamming, best, mutual and unambiguous ---------------
+    # the right keypoint's row band is 2 * scale[octave]; a second right
+    # candidate at a clearly different u (> 1.5 px) that is nearly as good
+    # (best >= 0.9 * min(second, 256)) makes the disparity unreliable; the
+    # matched right keypoint's own best left keypoint must be this one
+    rm = match_rows(STEREO, MatchRows(desc_l, oct_l, valid_l, xy_l[:, 0],
+                                      xy_l[:, 1]),
+                    MatchCols(desc_r, oct_r, valid_r, xy_r[:, 0], xy_r[:, 1],
+                              2.0 * scale_factors[oct_r]),
+                    th=TH_ORB - 1, ratio=0.9, max_d=max_d)
+    best_r, cand_ok = rm.best, rm.has
 
     # ---- sub-pixel SAD (ops/stereo_sad: a kernel launch on the card) --
     best_sad, best_u_r, disparity, accept = stereo_sad(

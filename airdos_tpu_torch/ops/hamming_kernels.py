@@ -1,9 +1,11 @@
 """All-pairs Hamming matrix of 256-bit descriptors: CUDA kernel + plain twin.
 
-The counterpart of airdos_tpu/ops/pallas_kernels.py.  Every matcher of the
-tracking path (stereo, motion-model projection, local-map projection,
-BoW) calls ``hamming_matrix``; triangulation and fusion, where airdos_tpu
-reaches the kernel under jax.vmap, call ``hamming_matrix_batched``.  Both:
+The counterpart of airdos_tpu/ops/pallas_kernels.py.  The loop's Sim3
+match calls ``hamming_matrix`` (the tracking matchers' gated distances
+are ops/match_kernels.match_rows, which forms no matrix; its plain
+version calls ``hamming_matrix_ref``); triangulation and fusion, where
+airdos_tpu reaches the kernel under jax.vmap, call
+``hamming_matrix_batched``.  Both:
 
 - on a CUDA tensor launch the sm_90a kernel of ``csrc/hamming.cu``
   on the calling thread's current stream (built with nvcc at first use

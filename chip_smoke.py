@@ -7,19 +7,21 @@ Run from the repository root.  Phases, each of which fails the run:
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions, whether nvcc is present; a CUDA device is required;
-2. build: the twelve sources of csrc/ (hamming.cu, segment_sum.cu,
+2. build: the thirteen sources of csrc/ (hamming.cu, segment_sum.cu,
    pose_lm.cu, fast.cu, orb_desc.cu, pyramid.cu, select.cu, stereo_sad.cu,
-   disparity.cu, ba_static.cu, ba_points.cu, ba_human.cu) compiled with
-   nvcc for sm_90a, all at once (build seconds);
+   disparity.cu, ba_static.cu, ba_points.cu, ba_human.cu, match.cu)
+   compiled with nvcc for sm_90a, all at once (build seconds);
 3. slice: tracking only, Tracking(cfg, FrontEnd(cfg, "cuda"), SlamMap(),
    local_mapper=None) (airdos_tpu's tracking-only configuration), over 28
    bench frames of the synthetic world at the reference budget (640x360,
    1500 ORB features, 8 levels): every frame OK, >= 5 keyframes, ATE <
-   0.02 m, >= 3 Hamming and >= 2 pose_lm launches on every fused ("fast")
-   frame, and on every frame one pyramid, one fast_nms, one select and
-   one orb_desc launch an image, each over all the image's levels (2
-   each), and one stereo_sad launch (held on every frame of phases 4-5
-   too);
+   0.02 m, >= 2 pose_lm launches on every fused ("fast") frame, and on
+   every fused frame >= 3 match_rows (stereo, motion-model and local-map
+   matches) and >= 2 match_resolve launches and no 2-D Hamming launch,
+   and on every frame one pyramid, one fast_nms, one select and one
+   orb_desc launch an image, each over all the image's levels (2 each),
+   and one stereo_sad launch (the matcher and front-end launches held on
+   every frame of phases 4-5 too);
 4. mapping: System(cfg, device="cuda") over the same 28 frames, quantized
    to uint8 as a dataset's PNGs hold them (phase 14a's in-memory twin),
    with the budgets of bench.py's static configuration: every frame OK, >= 5
@@ -57,12 +59,15 @@ Run from the repository root.  Phases, each of which fails the run:
    all-zero frames, five repeats of frame 17: every frame before the
    blackout OK, LOST during it, OK at the end having relocalized at frame
    >= 21 (BoW candidates -> SearchByBoW -> EPnP RANSAC -> pose LM), a
-   Hamming launch in the relocalizing frame, no TUM step > 0.12 m, ATE <
+   match_rows and a match_resolve launch in the relocalizing frame, no
+   TUM step > 0.12 m, ATE <
    max(2 x the uninterrupted run's on the same frames, 0.05 m); prints
    the EPnP inliers, the candidates tried and the frame's latency;
 7. loop: tests/test_loop_closure.py's pillar orbit (84 frames, Camera.fps
    5, enable_loop_closing) at the bench budget: every frame OK, a loop
-   closed with a loop edge, ATE < 0.15 m, and per frame 45 segment_sum
+   closed with a loop edge, ATE < 0.15 m, a 2-D Hamming (the Sim3
+   match), a batched Hamming and a match_rows (the BoW match) launch in
+   every loop frame, and per frame 45 segment_sum
    launches per static BA solve plus 2020 per loop closure (20 for the
    essential graph, one a step; 2000 for the global BA, 100 a step in four
    calls of five steps); prints the loop's (keyframe, candidate, matches,
@@ -89,7 +94,7 @@ Run from the repository root.  Phases, each of which fails the run:
    index_add_; Hamming: torch.cdist(p=0) on the descriptors unpacked to
    float {0, 1} [.., 256], unpacked outside the timed window; none for
    the pose LM, FAST + NMS, orb_desc, the pyramid, selection,
-   stereo_sad, patch_disparity and the BA kernels):
+   stereo_sad, patch_disparity, the BA kernels and the matcher kernels):
    - the 2-D Hamming kernel at 1536x1536, 2048x1536 and a ragged
      1500x1337 of random words: exact equality;
    - every kernel at every shape the path phases launched it with, on the
@@ -124,7 +129,12 @@ Run from the repository root.  Phases, each of which fails the run:
      Gauss-Newton column, costs, or the three families' LM cost sums,
      which are also held against ops/lm_cost.py's lm_cost_ref of each
      family's cost-mode rho on the card) bit-equal, two launches
-     bit-equal;
+     bit-equal; match_rows (by mode, rows and columns) and match_resolve
+     (by rows, columns and the rotation filter) bit-equal in every
+     output to their plain versions, two launches equal, and beside
+     match_rows the time per call of the eager composition it replaced
+     (its plain version around the 2-D Hamming kernel); the 2-D Hamming
+     kernel at the shapes the loop's Sim3 match launched it with;
 10. determinism: two card runs of the mapping System on the small camera
    over 8 frames give byte-identical TUM and KF/MP/Match dumps, and two
    card runs of the human System (small camera, seed 3, 2 humans, masked,
@@ -161,7 +171,7 @@ Run from the repository root.  Phases, each of which fails the run:
       sections held it meanwhile, the worker's spans and the launches by
       (kernel, thread, stream priority), and fails unless the mapping worker's batched Hamming and
       segment_sum launches went to a stream of lower priority than the
-      tracking thread's 2-D Hamming launches;
+      tracking thread's match_rows launches;
    b. the crowd flagship of phase 5 online (tests/test_online_human.py):
       >= 2 human BA solves through HumanLocalBA.launch, a trajectory
       optimized, ATE < 0.03 m, nothing raised at shutdown;
@@ -453,9 +463,14 @@ def _bhu():
     return bh
 
 
+def _match():
+    from airdos_tpu_torch.ops import match_kernels as mk
+    return mk
+
+
 # the modules that hold the kernels, one nvcc source each
 _MODULES = (_hamming, _segments, _pose, _fast, _orb, _pyr, _sel, _sad, _disp,
-            _bst, _bpt, _bhu)
+            _bst, _bpt, _bhu, _match)
 
 
 def _words(rng, shape):
@@ -1283,6 +1298,138 @@ def _hu_check(args):
     return err, what, kernel, plain
 
 
+# ------------------------------------------------------ matcher kernels
+
+_MATCH_MODES = ("motion", "local", "stereo", "bow")
+# operations counted from csrc/match.cu: the gate of one pair by mode
+# (motion and local: the flags, the octave band's two bounds, the two
+# window subtractions, absolute values and compares, the right-u test;
+# stereo: the band, octave and disparity tests; bow: key equality and
+# signs), one gated pair (8 XORs, 8 popcounts, 7 adds, the key and the
+# two-smallest update), stereo's extra work a gated pair (the far-u test's
+# subtraction, absolute value and compare, and the column minimum's
+# compare), and match_resolve's work a row (the rotation bin and
+# histogram add, the key and its atomicMin, the winner test)
+MATCH_GATE_OPS = (14, 14, 10, 4)
+MATCH_PAIR_OPS = 27
+MATCH_STEREO_PAIR_OPS = 4
+RESOLVE_ROW_OPS = (12, 24)        # without, with the rotation filter
+# bytes a row and a column of match_rows read (the descriptor's 32, the
+# vectors and flags of the mode) and a row writes (best and second 16,
+# their distances 8, has 1)
+MATCH_ROW_BYTES = (57, 57, 49, 41)
+MATCH_COL_BYTES = (54, 54, 53, 41)
+MATCH_OUT_BYTES = 25
+
+
+def _mr_shape(mode, rows, cols, *rest):     # (mode, rows, columns)
+    return (int(mode), rows.desc.shape[0], cols.desc.shape[0])
+
+
+def _mr_fmt(shape) -> str:
+    mode, P, N = shape
+    return f"{_MATCH_MODES[mode]} mode, {P} rows x {N} columns"
+
+
+def _mr_gated(args) -> int:
+    """The pairs inside the gate on these inputs (the plain version's
+    gate)."""
+    mode, rows, cols, th, ratio, band, max_d = args
+    return int(_match().gate(mode, rows, cols, band, max_d).sum())
+
+
+def _mr_bound(shape, args):
+    """Both descriptor sets and the row and column vectors read once, the
+    outputs written once (stereo: each column's argmin too); the gate at
+    every pair and the popcount at the gated pairs, once in every mode
+    (stereo adds the far-u test and the column minimum at the gated pairs:
+    the function needs no second gate or popcount, whatever pass the
+    kernel takes), at the float32 CUDA-core rate (the table lists no
+    int32 rate)."""
+    mode, P, N = shape
+    stereo = mode == _match().STEREO
+    ops = P * N * MATCH_GATE_OPS[mode] + _mr_gated(args) * (
+        MATCH_PAIR_OPS + (MATCH_STEREO_PAIR_OPS if stereo else 0))
+    nbytes = P * (MATCH_ROW_BYTES[mode] + MATCH_OUT_BYTES) \
+        + N * (MATCH_COL_BYTES[mode] + (8 if stereo else 0))
+    return nbytes, ops / FP32_FLOPS
+
+
+def _mr_check(args):
+    """Every output bit-equal to the plain version (pure torch) on the
+    card, two launches equal, and the eager composition the kernel
+    replaced (the plain version around the 2-D Hamming kernel) timed."""
+    import torch
+    mk, hk = _match(), _hamming()
+    got, again = mk.match_rows_cuda(*args), mk.match_rows_cuda(*args)
+    want = mk.match_rows_ref(*args)
+    torch.cuda.synchronize()
+    for name in mk.RowMatches._fields:
+        g, w = getattr(got, name), getattr(want, name)
+        if not torch.equal(g, w):
+            err = int((g.long() - w.long()).abs().max()) if g.numel() else 0
+            _fail(f"match_rows {name} != plain version ({_mr_fmt(_mr_shape(*args))}, "
+                  f"max abs err {err})")
+        if not torch.equal(g, getattr(again, name)):
+            _fail(f"match_rows: two launches differ in {name}")
+    mode, rows, cols, th, ratio, band, max_d = args
+
+    def composition():
+        ok = mk.gate(mode, rows, cols, band, max_d)
+        D = hk.hamming_matrix(rows.desc, cols.desc)
+        D = torch.where(ok, D, torch.full_like(D, mk.BIG))
+        return mk.reduce_gated(mode, D, cols.key, cols.x, th, ratio)
+
+    comp_ms = _cuda_ms(composition)
+    what = (f"bit-equal (best, distance, second, its distance, has, column "
+            f"argmin), two launches equal, {int(got.has.sum())} of "
+            f"{got.has.shape[0]} rows matched, {_mr_gated(args)} gated "
+            f"pairs; the eager composition it replaced (the gate and reductions "
+            f"around the 2-D Hamming kernel) {comp_ms:.4f} ms per call")
+    return 0, what, (lambda: mk.match_rows_cuda(*args)), \
+        (lambda: mk.match_rows_ref(*args))
+
+
+def _rs_shape(best, dist, has, n_feats, ang_ref=None, ang_tab=None):
+    return (best.shape[0], int(n_feats), ang_ref is not None)
+
+
+def _rs_fmt(shape) -> str:
+    P, N, rot = shape
+    return f"P={P} N={N}, rotation filter {'on' if rot else 'off'}"
+
+
+def _rs_bound(shape, args):
+    """best, dist and has read once (with the rotation filter the row
+    angles and the angle table too), feat_idx, point_of_feat and n
+    written once; a row's work at the float32 CUDA-core rate."""
+    P, N, rot = shape
+    return P * 13 + (4 * (P + N) if rot else 0) + 8 * (P + N + 1), \
+        P * RESOLVE_ROW_OPS[rot] / FP32_FLOPS
+
+
+def _rs_check(args):
+    """The three outputs bit-equal to the plain version on the card (the
+    eager composition the kernel replaced), two launches equal."""
+    import torch
+    mk = _match()
+    got, again = mk.match_resolve_cuda(*args), mk.match_resolve_cuda(*args)
+    want = mk.match_resolve_ref(*args)
+    torch.cuda.synchronize()
+    for name, g, w, a in zip(("feat_idx", "point_of_feat", "n"), got, want,
+                             again):
+        if not torch.equal(g, w):
+            _fail(f"match_resolve {name} != plain version "
+                  f"({_rs_fmt(_rs_shape(*args))})")
+        if not torch.equal(g, a):
+            _fail(f"match_resolve: two launches differ in {name}")
+    what = (f"bit-equal (feat_idx, point_of_feat, n = {int(got[2])}), two "
+            f"launches equal; the plain version is the eager composition "
+            f"it replaced")
+    return 0, what, (lambda: mk.match_resolve_cuda(*args)), \
+        (lambda: mk.match_resolve_ref(*args))
+
+
 class _Kernel(NamedTuple):
     """Everything the script knows of one kernel: where it lives, the
     wrapper the main paths' launches are recorded at, how a recorded
@@ -1304,6 +1451,7 @@ class _Kernel(NamedTuple):
     library: Callable               # args -> (callable or None, its name)
     graph_n: int = 100              # launches in the timed CUDA graph
     human_only: bool = False        # launched by the human layer alone
+    loop_only: bool = False         # launched by loop closing alone
     # recorded {shape: [launches, args]} -> {shape: args}: cases the paths
     # did not launch, checked and timed beside them
     variants: Callable = None
@@ -1314,7 +1462,8 @@ KERNELS = (
     _Kernel("hamming_matrix", _hamming, "hamming_matrix_cuda", "launches",
             "airdos_tpu_torch/csrc/hamming.cu",
             "airdos_tpu/ops/pallas_kernels.py:43", _ham_shape, _ham_fmt,
-            _ham_out, _ham_check(False), _ham_bound, _ham_library),
+            _ham_out, _ham_check(False), _ham_bound, _ham_library,
+            loop_only=True),
     _Kernel("hamming_matrix_batched", _hamming,
             "hamming_matrix_batched_cuda", "batched_launches",
             "airdos_tpu_torch/csrc/hamming.cu",
@@ -1406,6 +1555,20 @@ KERNELS = (
             "human families' sums)", _hu_shape,
             _hu_fmt, lambda shape: sum(shape[:3]), _hu_check,
             _hu_bound, _no_library, human_only=True),
+    _Kernel("match_rows", _match, "match_rows_cuda", "launches",
+            "airdos_tpu_torch/csrc/match.cu",
+            "airdos_tpu/ops/pallas_kernels.py:43 (through :59 "
+            "hamming_matrix_auto) with the epilogues of "
+            "airdos_tpu/matching/stereo.py:88, "
+            "airdos_tpu/matching/projection.py:81 and :130, "
+            "airdos_tpu/matching/bow_match.py:31", _mr_shape, _mr_fmt,
+            lambda shape: shape[1] * shape[2], _mr_check, _mr_bound,
+            _no_library),
+    _Kernel("match_resolve", _match, "match_resolve_cuda",
+            "resolve_launches", "airdos_tpu_torch/csrc/match.cu",
+            "airdos_tpu/matching/projection.py:61 _rotation_consistency, "
+            ":41 _resolve_unique", _rs_shape, _rs_fmt,
+            lambda shape: shape[0], _rs_check, _rs_bound, _no_library),
 )
 
 # the BA kernels' launches per solve of the static (local) BA and of the
@@ -1479,12 +1642,18 @@ def phase_build():
 
 def _cloned(x):
     """A recorded argument: tensors (also inside a plain tuple or list, as
-    the pyramid levels and detection maps come) cloned."""
+    the pyramid levels and detection maps come, or a named tuple of
+    tensors, as the matchers' rows and columns) cloned; a named tuple that
+    holds anything else (the human BA's LaunchTables keep their tables'
+    device pointers) is kept as it is."""
     import torch
     if isinstance(x, torch.Tensor):
         return x.clone()
     if type(x) in (tuple, list):
         return type(x)(_cloned(y) for y in x)
+    if isinstance(x, tuple) and hasattr(x, "_fields") and all(
+            y is None or isinstance(y, torch.Tensor) for y in x):
+        return type(x)(*(_cloned(y) for y in x))
     return x
 
 
@@ -1780,6 +1949,21 @@ def _ate(trk, twc):
 # orb_desc launch an image of the stereo pair (each over all the image's
 # levels) and one stereo_sad
 FRONT_END = dict(pyramid=2, fast_nms=2, select=2, orb_desc=2, stereo_sad=1)
+# a fused ("fast") frame's matchers: the stereo, motion-model and
+# local-map match_rows (a fourth with the x2-window retry), the motion
+# and local match_resolve, and no 2-D Hamming kernel (its launches only
+# compare with the kernels' plain versions, and the loop's Sim3 match
+# launches it)
+FUSED_MATCH = dict(match_rows=3, match_resolve=2)
+
+
+def _fused_match_off(per) -> list:
+    """[(frame, {kernel: launches})] of the fused frames in per, [(branch,
+    launches)], whose matchers did not run on FUSED_MATCH alone."""
+    return [(i, {k: d[k] for k in (*FUSED_MATCH, "hamming_matrix")})
+            for i, (branch, d) in enumerate(per) if branch == "fast"
+            and (any(d[k] < n for k, n in FUSED_MATCH.items())
+                 or d["hamming_matrix"])]
 
 
 def _front_end_off(launches) -> list:
@@ -1821,8 +2005,9 @@ def phase_slice(smi: str, frames, twc):
     counts = _counts()
     for i, (state, branch, dt, d) in enumerate(per):
         print(f"[slice] frame {i:2d} {state} {branch:5s} {dt * 1e3:9.2f} ms "
-              f"launches: hamming {d['hamming_matrix']}, pose_lm "
-              f"{d['pose_lm']}, pyramid {d['pyramid']}, fast_nms "
+              f"launches: match_rows {d['match_rows']}, match_resolve "
+              f"{d['match_resolve']}, 2-D hamming {d['hamming_matrix']}, "
+              f"pose_lm {d['pose_lm']}, pyramid {d['pyramid']}, fast_nms "
               f"{d['fast_nms']}, select {d['select']}, orb_desc "
               f"{d['orb_desc']}, stereo_sad {d['stereo_sad']}")
     bad = [i for i, p in enumerate(per) if p[0] != "OK"]
@@ -1832,11 +2017,13 @@ def phase_slice(smi: str, frames, twc):
     if not fast:
         _fail("no frame took the fused (fast) branch")
     few = [i for i, p in enumerate(per)
-           if p[1] == "fast" and (p[3]["hamming_matrix"] < 3
-                                  or p[3]["pose_lm"] < 2)]
+           if p[1] == "fast" and p[3]["pose_lm"] < 2]
     if few:
-        _fail(f"fast frames with < 3 Hamming or < 2 pose_lm kernel "
-              f"launches: {few}")
+        _fail(f"fast frames with < 2 pose_lm kernel launches: {few}")
+    match_off = _fused_match_off([(p[1], p[3]) for p in per])
+    if match_off:
+        _fail(f"fast frames without {FUSED_MATCH} matcher launches or with "
+              f"2-D Hamming launches: {match_off}")
     off = _front_end_off([p[3] for p in per])
     if off:
         _fail(f"frames without {FRONT_END} front-end launches (the "
@@ -1978,11 +2165,15 @@ def phase_mapping(smi: str, frames, twc, twins):
     if fe_off:
         _fail(f"mapping: frames without {FRONT_END} front-end launches: "
               f"{fe_off}")
+    match_off = _fused_match_off([(p["branch"], p["d"]) for p in per])
+    if match_off:
+        _fail(f"mapping: fast frames without {FUSED_MATCH} matcher launches "
+              f"or with 2-D Hamming launches: {match_off}")
     ba_off = _per_solve_off(per, "solves")
     if ba_off:
         _fail(f"mapping: BA kernel launches per solve != {STATIC_SOLVE} at "
               f"(frame, kernel, launches, expected) {ba_off[:8]}")
-    not_here = {k.name for k in KERNELS if k.human_only}
+    not_here = {k.name for k in KERNELS if k.human_only or k.loop_only}
     idle = [k for k, v in counts.items() if v <= 0 and k not in not_here]
     if idle:
         _fail(f"mapping: kernels never launched on the main path: {idle}")
@@ -2116,12 +2307,17 @@ def phase_human(smi: str, frames, twc, twins):
     if fe_off:
         _fail(f"human: flagship frames without {FRONT_END} front-end "
               f"launches: {fe_off}")
+    match_off = _fused_match_off([(p["branch"], p["d"]) for p in per])
+    if match_off:
+        _fail(f"human: fast frames without {FUSED_MATCH} matcher launches "
+              f"or with 2-D Hamming launches: {match_off}")
     ba_off = _per_solve_off(per, "static", "human")
     if ba_off:
         _fail(f"human: BA kernel launches != {STATIC_SOLVE} per static and "
               f"{HUMAN_SOLVE} per human BA solve at (frame, kernel, "
               f"launches, expected) {ba_off[:8]}")
-    idle = [k for k, v in counts.items() if v <= 0]
+    not_here = {k.name for k in KERNELS if k.loop_only}
+    idle = [k for k, v in counts.items() if v <= 0 and k not in not_here]
     if idle:
         _fail(f"human: kernels never launched on the main path: {idle}")
     ate_human = _ate(slam.tracking, twc)
@@ -2215,8 +2411,10 @@ def phase_reloc(smi: str, frames, twc):
         _fail(f"reloc: a TUM step of {steps.max()} m")
     reloc_i = int(trk.last_reloc_frame)
     if per[reloc_i]["branch"] != "reloc" or \
-            per[reloc_i]["d"]["hamming_matrix"] <= 0:
-        _fail(f"reloc: frame {reloc_i} relocalized without a Hamming launch")
+            per[reloc_i]["d"]["match_rows"] <= 0 or \
+            per[reloc_i]["d"]["match_resolve"] <= 0:
+        _fail(f"reloc: frame {reloc_i} relocalized without a match_rows and "
+              f"a match_resolve launch")
     ate_cut = float(ate_rmse(t_cut, gt[:len(t_cut)]))
     _FOR_MESH["reloc_frame"] = reloc_i
     full_frames, _ = _reloc_frames(frames, twc, blank=False)
@@ -2358,8 +2556,10 @@ def phase_loop(smi: str, frames, twc):
         _fail("loop: not one global BA per loop closure")
     loop_frames = [i for i, p in enumerate(per) if p["loops"]]
     if any(per[i]["d"]["hamming_matrix"] <= 0 or
-           per[i]["d"]["hamming_matrix_batched"] <= 0 for i in loop_frames):
-        _fail("loop: a loop frame launched no 2-D or batched Hamming kernel")
+           per[i]["d"]["hamming_matrix_batched"] <= 0 or
+           per[i]["d"]["match_rows"] <= 0 for i in loop_frames):
+        _fail("loop: a loop frame launched no 2-D Hamming (the Sim3 match), "
+              "batched Hamming or match_rows (the BoW match) kernel")
     spans = slam.profiler.report()
     track_ms = [p["ms"] for p in per if not p["kf"]]
     kf_ms = [p["ms"] for i, p in enumerate(per)
@@ -2627,7 +2827,7 @@ def _online_pillar(smi, orbit, orbit_twc, offline_loop, live: bool):
           + ", ".join(f"{k} {v}" for k, v in sorted(tally.items())),
           flush=True)
     track_prio = {p for (name, th, p) in tally if th == "MainThread"
-                  and name == "hamming_matrix"}
+                  and name == "match_rows"}
     worker = {(name, p) for (name, th, p) in tally if th == "mapping"
               and name in ("hamming_matrix_batched", "segment_sum")}
     if not track_prio or {n for n, _ in worker} != \
@@ -2635,7 +2835,7 @@ def _online_pillar(smi, orbit, orbit_twc, offline_loop, live: bool):
         _fail(f"online: launches missing from the tally {tally}")
     if track_prio != {min(track_prio)} or min(track_prio) > \
             TRACKING_PRIORITY:
-        _fail(f"online: tracking's 2-D Hamming launches on priorities "
+        _fail(f"online: tracking's match_rows launches on priorities "
               f"{track_prio}")
     if any(p <= max(track_prio) for _, p in worker):
         _fail(f"online: the mapping worker's launches {worker} are not on "
@@ -3218,7 +3418,9 @@ def phase_profile(smi: str):
 
         mine = "; ".join(
             "{} {} launches, mean device time {}".format(tag, *kernel_ms(tag))
-            for tag in ("hamming_kernel", "segment_sum_", "pose_lm_kernel",
+            for tag in ("hamming_kernel", "match_rows_kernel",
+                        "match_resolve_kernel", "segment_sum_",
+                        "pose_lm_kernel",
                         "pyramid_levels_kernel", "fast_nms_levels_kernel",
                         "select_kernel", "orb_desc_levels_kernel",
                         "stereo_sad_kernel", "patch_disparity_kernel",

@@ -558,15 +558,17 @@ def _vo_frames(n):
 
 
 def test_online_threads_launch_on_their_streams(cuda):
-    """Online, tracking's 2-D Hamming launches go to the tracking thread's
-    high-priority stream, the mapping worker's batched Hamming and
-    segment sums to its own stream of lower priority."""
+    """Online, tracking's matcher launches (match_rows) go to the tracking
+    thread's high-priority stream, the mapping worker's batched Hamming
+    and segment sums to its own stream of lower priority."""
+    import airdos_tpu_torch.ops.match_kernels as mk
     import airdos_tpu_torch.ops.segment_kernels as sk
     from airdos_tpu_torch.slam.system import System
     from airdos_tpu_torch.utils.gate import TRACKING_PRIORITY
     frames = _vo_frames(10)
     hk.reset_launches()
     sk.reset_launches()
+    mk.reset_launches()
     slam = System(_online_config(), device=cuda)
     for i, data in enumerate(frames):
         if i + 1 < len(frames):
@@ -574,9 +576,9 @@ def test_online_threads_launch_on_their_streams(cuda):
         slam.track_stereo(data)
     slam.shutdown()
     assert slam.tracking.state.name == "OK"
-    tally = {**hk.launch_tally(), **sk.launch_tally()}
+    tally = {**hk.launch_tally(), **sk.launch_tally(), **mk.launch_tally()}
     track = {p for (k, th, p) in tally
-             if th == "MainThread" and k == "hamming_matrix"}
+             if th == "MainThread" and k == "match_rows"}
     mapping = {k: p for (k, th, p) in tally if th == "mapping"
                and k in ("hamming_matrix_batched", "segment_sum")}
     assert track == {slam._track_stream.priority}
@@ -646,7 +648,7 @@ def test_kitti_driver_on_the_card_equals_the_in_memory_system(cuda, tmp_path):
     from airdos_tpu_torch.examples import stereo_kitti
     from airdos_tpu_torch.io.png import imwrite
     from airdos_tpu_torch.io.synthetic import SyntheticStereoWorld, small_camera
-    from airdos_tpu_torch.ops import hamming_kernels as hk
+    from airdos_tpu_torch.ops import match_kernels as mk
     from airdos_tpu_torch.slam.system import System
 
     world = SyntheticStereoWorld(seed=0, n_points=200, cam=small_camera())
@@ -667,10 +669,10 @@ def test_kitti_driver_on_the_card_equals_the_in_memory_system(cuda, tmp_path):
         "".join(f"{d.timestamp:.6f}\n" for d in frames))
     yaml = tmp_path / "settings.yaml"
     yaml.write_text(_KITTI_YAML)
-    before = hk.launches()
+    before = mk.launches()
     assert stereo_kitti.main([str(yaml), str(seq),
                               str(tmp_path / "driver.txt")]) == 0
-    assert hk.launches() > before
+    assert mk.launches() > before
     slam = System(SlamConfig.from_yaml(yaml))
     for d in frames:
         slam.track_stereo(d)
@@ -1843,3 +1845,150 @@ def test_ba_kernel_dispatchers_raise_without_their_library(cuda, monkeypatch,
     for call in calls:
         with pytest.raises(FileNotFoundError):
             call()
+
+
+# ------------------------------------------------------ the matcher kernels
+
+def _match_case(rng, mode, P, N, device):
+    """A matcher's rows and columns shaped as the tracking path gives them:
+    columns spread over a 640 x 360 image at 8 octaves; about 70% of the
+    rows derived from a column (its position moved by a few pixels, a few
+    descriptor bits flipped), the rest random; duplicated columns make
+    ties.  -> (MatchRows, MatchCols, th, ratio, band, max_d)"""
+    import airdos_tpu_torch.ops.match_kernels as mk
+    cd = _words(rng, (N, 8))
+    cd[N // 2::7] = cd[N // 2 - 1::7][:len(cd[N // 2::7])]   # duplicates
+    ck = rng.integers(0, 8, N)
+    cx = rng.uniform(0, 640, N).astype(np.float32)
+    cy = rng.uniform(0, 360, N).astype(np.float32)
+    src = rng.integers(0, N, P)
+    derived = rng.uniform(size=P) < 0.7
+    rd = np.where(derived[:, None], cd[src], _words(rng, (P, 8)))
+    flips = rng.integers(0, 32, (P, 8))
+    rd ^= np.where(rng.uniform(size=(P, 8)) < 0.3,
+                   np.left_shift(np.uint32(1), flips.astype(np.uint32)),
+                   np.uint32(0)).astype(np.uint32)
+    rk = np.clip(ck[src] + rng.integers(-1, 2, P), 0, 7)
+    th, ratio, band, max_d = 100, 0.0, (None, None), 0.0
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    if mode == mk.BOW:
+        ck = rng.integers(-1, 12, N)
+        rk = np.where(derived, ck[src], rng.integers(-1, 12, P))
+        rows = mk.MatchRows(t(rd.view(np.int32)), t(rk),
+                            t(rng.uniform(size=P) < 0.95))
+        cols = mk.MatchCols(t(cd.view(np.int32)), t(ck),
+                            t(rng.uniform(size=N) < 0.95))
+        return rows, cols, 49, 0.7, band, max_d
+    if mode == mk.STEREO:
+        rx = (cx[src] + rng.uniform(0, 60, P)).astype(np.float32)
+        ry = (cy[src] + rng.uniform(-2, 2, P)).astype(np.float32)
+        xy_l = np.stack([rx, ry], 1)
+        xy_r = np.stack([cx, cy], 1)
+        rows = mk.MatchRows(t(rd.view(np.int32)), t(rk),
+                            t(rng.uniform(size=P) < 0.95),
+                            t(xy_l)[:, 0], t(xy_l)[:, 1])
+        cols = mk.MatchCols(t(cd.view(np.int32)), t(ck),
+                            t(rng.uniform(size=N) < 0.95),
+                            t(xy_r)[:, 0], t(xy_r)[:, 1],
+                            t((2.0 * 1.2 ** ck).astype(np.float32)))
+        return rows, cols, 74, 0.9, band, 48.0
+    u = (cx[src] + rng.normal(0, 3, P)).astype(np.float32)
+    v = (cy[src] + rng.normal(0, 3, P)).astype(np.float32)
+    cur = np.where(rng.uniform(size=N) < 0.7,
+                   cx - rng.uniform(1, 40, N), -1).astype(np.float32)
+    ur = (u - rng.uniform(1, 40, P)).astype(np.float32)
+    radius = (7.0 * 1.2 ** rk).astype(np.float32)
+    rows = mk.MatchRows(t(rd.view(np.int32)), t(rk),
+                        t(rng.uniform(size=P) < 0.9), t(u), t(v), t(ur),
+                        t(radius))
+    cols = mk.MatchCols(t(cd.view(np.int32)), t(ck),
+                        t(rng.uniform(size=N) < 0.95), t(cx), t(cy), t(cur),
+                        t(rng.uniform(size=N) < 0.1))
+    if mode == mk.LOCAL:
+        return rows, cols, 100, 0.8, (-1, 0), max_d
+    return rows, cols, 100, 0.0, [(0, None), (None, 0), (-1, 1)][P % 3], \
+        max_d
+
+
+_MATCH_SHAPES = [(2048, 1536), (1536, 1536), (37, 45), (1, 70), (300, 1)]
+
+
+@pytest.mark.parametrize("P,N", _MATCH_SHAPES)
+@pytest.mark.parametrize("mode", ["motion", "local", "stereo", "bow"])
+def test_match_rows_kernel_bit_equal_and_deterministic(cuda, mode, P, N):
+    import airdos_tpu_torch.ops.match_kernels as mk
+    m = ("motion", "local", "stereo", "bow").index(mode)
+    rng = np.random.default_rng(P * 31 + N + m)
+    rows, cols, th, ratio, band, max_d = _match_case(rng, m, P, N, cuda)
+    before = mk.launches()
+    got = mk.match_rows(m, rows, cols, th, ratio, band, max_d)
+    again = mk.match_rows(m, rows, cols, th, ratio, band, max_d)
+    torch.cuda.synchronize()
+    assert mk.launches() == before + 2
+    want = mk.match_rows_ref(m, rows, cols, th, ratio, band, max_d)
+    cpu = lambda x: None if x is None else x.cpu()
+    want_cpu = mk.match_rows_ref(m, mk.MatchRows(*map(cpu, rows)),
+                                 mk.MatchCols(*map(cpu, cols)), th, ratio,
+                                 band, max_d)
+    for name in mk.RowMatches._fields:
+        g = getattr(got, name)
+        assert torch.equal(g, getattr(want, name)), name
+        assert torch.equal(g.cpu(), getattr(want_cpu, name)), name
+        assert torch.equal(g, getattr(again, name)), name
+    if P >= 1536:
+        assert int(got.has.sum()) > 50
+
+
+@pytest.mark.parametrize("case", ["path", "ties", "farther than BIG"])
+@pytest.mark.parametrize("rotation", [True, False])
+def test_match_resolve_kernel_bit_equal_and_deterministic(cuda, case,
+                                                          rotation):
+    import airdos_tpu_torch.ops.match_kernels as mk
+    rng = np.random.default_rng(len(case) + rotation)
+    P, N = 2048, 1536
+    best = rng.integers(0, N // 3, P)
+    dist = {"path": rng.integers(0, 101, P), "ties": rng.integers(0, 3, P),
+            "farther than BIG": rng.integers(mk.BIG - 2, mk.BIG + 3, P)}[case]
+    has = rng.uniform(size=P) < 0.6
+    ang_ref = rng.uniform(0, 360, P).astype(np.float32)
+    ang_tab = rng.uniform(0, 360, N).astype(np.float32)
+    ang_tab[best[:P // 2]] = (ang_ref[:P // 2] - 10) % 360   # a dominant bin
+    args = [torch.from_numpy(a).to(cuda) for a in
+            (best, dist.astype(np.int32), has)]
+    angles = [torch.from_numpy(a).to(cuda) for a in (ang_ref, ang_tab)] \
+        if rotation else [None, None]
+    before = mk.resolve_launches()
+    got = mk.match_resolve(*args, N, *angles)
+    again = mk.match_resolve(*args, N, *angles)
+    torch.cuda.synchronize()
+    assert mk.resolve_launches() == before + 2
+    want = mk.match_resolve_ref(*args, N, *angles)
+    want_cpu = mk.match_resolve_ref(
+        *[a.cpu() for a in args], N,
+        *[None if a is None else a.cpu() for a in angles])
+    for g, w, wc, a in zip(got, want, want_cpu, again):
+        assert torch.equal(g, w) and torch.equal(g.cpu(), wc)
+        assert torch.equal(g, a)
+
+
+def test_match_kernels_raise_on_cpu_mixed_inputs(cuda):
+    import airdos_tpu_torch.ops.match_kernels as mk
+    rng = np.random.default_rng(3)
+    rows, cols, th, ratio, band, max_d = _match_case(rng, mk.LOCAL, 64, 80,
+                                                     cuda)
+    with pytest.raises(ValueError):
+        mk.match_rows(mk.LOCAL, rows, cols._replace(ok=cols.ok.cpu()), th,
+                      ratio, band)
+    with pytest.raises(ValueError):
+        mk.match_rows(mk.LOCAL, rows, cols._replace(desc=cols.desc.cpu()),
+                      th, ratio, band)
+    with pytest.raises(ValueError):
+        mk.match_rows(mk.LOCAL, rows._replace(radius=None), cols, th, ratio,
+                      band)
+    best = torch.zeros(64, dtype=torch.int64, device=cuda)
+    dist = torch.zeros(64, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        mk.match_resolve(best, dist, torch.ones(64, dtype=torch.bool), 80)
+    with pytest.raises(ValueError):
+        mk.match_resolve(best, dist.to(torch.int64),
+                         torch.ones(64, dtype=torch.bool, device=cuda), 80)

@@ -1,0 +1,437 @@
+"""csrc/match.cu's plain versions and reduction rules, on the CPU.
+
+- The tracking matchers, which on CPU tensors compose
+  ops/match_kernels.py's plain versions (match_rows_ref, match_resolve_ref)
+  as they compose the kernels on the card, against airdos_tpu's
+  stereo_match, match_last_frame, match_local_points and match_by_bow on
+  the same seeded inputs (ORB features of two rendered frames of the small
+  camera's world, 600 features, 4 levels): every integer output exact.
+- A numpy emulation of the kernels' reductions (lanes striding over the
+  columns with their two smallest packed keys, the warp minimum, stereo's
+  far-u second pass, the column minima as complemented atomicMax in a
+  random order and the last block's mutual check; the resolve kernel's
+  histogram top 3 and its 64-bit key atomicMin in a random order) equal
+  to the plain versions' torch.argmin / amin / scatter reductions, with
+  all-BIG rows and columns, ties, far-u ties and ragged shapes.
+- The float32 roundings the kernels repeat: ratio * second and the
+  rotation bin's scale, as torch rounds a Python scalar.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import airdos_tpu.matching.projection as jproj
+import airdos_tpu_torch.matching.projection as tproj
+import airdos_tpu_torch.ops.match_kernels as mk
+from airdos_tpu.matching.bow_match import match_by_bow as jax_bow
+from airdos_tpu_torch.matching.bow_match import match_by_bow
+from test_torch_matching import (N_LEVELS, SCALES, _last_frame_points,  # noqa: F401
+                                 _run_stereo, _t, scene)
+from test_torch_ops import one_torch_thread  # noqa: F401 (autouse)
+
+LANES = 32
+NONE = mk.BIG << mk.INDEX_BITS          # the (BIG, index 0) key
+MASK = (1 << mk.INDEX_BITS) - 1
+
+
+# ------------------------------------------ the matchers against airdos_tpu
+
+@pytest.mark.parametrize("frame", [0, 1])
+def test_stereo_match_integers_equal_jax(scene, frame):
+    cam, frames = scene
+    inp = frames[frame]
+    got = _run_stereo(inp, cam, "torch")
+    ref = inp["stereo_jax"]
+    assert (ref["best_right"] >= 0).sum() > 100
+    np.testing.assert_array_equal(got["best_right"], ref["best_right"])
+
+
+def _common(cam):
+    return (cam.fx, cam.fy, cam.cx, cam.cy, cam.bf, cam.width, cam.height)
+
+
+@pytest.mark.parametrize("rule", ["within one", "forward", "backward"])
+def test_match_last_frame_exactly_jax(scene, rule):
+    cam, (a, b) = scene
+    xw, valid = _last_frame_points(a, cam)
+    u_right = b["stereo_jax"]["u_right"]
+    taken = np.zeros(len(b["xy_l"]), bool)
+    taken[::11] = True
+    fwd, bwd = rule == "forward", rule == "backward"
+    ref = jproj.match_last_frame(
+        jnp.asarray(xw), jnp.asarray(a["desc_l"]), jnp.asarray(a["oct_l"]),
+        jnp.asarray(a["ang_l"]), jnp.asarray(valid),
+        jnp.asarray(b["Rcw"]), jnp.asarray(b["tcw"]), jnp.asarray(b["xy_l"]),
+        jnp.asarray(u_right), jnp.asarray(b["oct_l"]), jnp.asarray(b["ang_l"]),
+        jnp.asarray(b["desc_l"]), jnp.asarray(b["valid_l"]),
+        jnp.asarray(taken), *_common(cam), jnp.asarray(SCALES), 7.0, fwd, bwd)
+    got = tproj.match_last_frame(
+        _t(xw), _t(a["desc_l"].view(np.int32)), _t(a["oct_l"]).long(),
+        _t(a["ang_l"]), _t(valid), _t(b["Rcw"]), _t(b["tcw"]), _t(b["xy_l"]),
+        _t(u_right), _t(b["oct_l"]).long(), _t(b["ang_l"]),
+        _t(b["desc_l"].view(np.int32)), _t(b["valid_l"]), _t(taken),
+        *_common(cam), _t(SCALES), 7.0, fwd, bwd)
+    assert int(ref.n_matches) > 20
+    assert int(got.n_matches) == int(ref.n_matches)
+    for name in ("feat_idx", "dist", "point_of_feat"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(ref, name)),
+                                      err_msg=name)
+
+
+@pytest.mark.parametrize("th", [1.0, 3.0])
+def test_match_local_points_exactly_jax(scene, th):
+    cam, (a, b) = scene
+    xw, valid = _last_frame_points(a, cam)
+    d = xw - a["ow"][None, :]
+    dist = np.linalg.norm(d, axis=1)
+    normal = (d / np.maximum(dist[:, None], 1e-9)).astype(np.float32)
+    maxd = (1.2 * dist * 1.2 ** a["oct_l"]).astype(np.float32)
+    mind = (0.8 * dist * 1.2 ** a["oct_l"]
+            / 1.2 ** (N_LEVELS - 1)).astype(np.float32)
+    u_right = b["stereo_jax"]["u_right"]
+    taken = np.zeros(len(b["xy_l"]), bool)
+    taken[::7] = True
+    log_scale = float(np.log(1.2))
+    ref = jproj.match_local_points(
+        jnp.asarray(xw), jnp.asarray(a["desc_l"]), jnp.asarray(valid),
+        jnp.asarray(normal), jnp.asarray(maxd), jnp.asarray(mind),
+        jnp.asarray(b["Rcw"]), jnp.asarray(b["tcw"]), jnp.asarray(b["ow"]),
+        jnp.asarray(b["xy_l"]), jnp.asarray(u_right), jnp.asarray(b["oct_l"]),
+        jnp.asarray(b["desc_l"]), jnp.asarray(b["valid_l"]),
+        jnp.asarray(taken), *_common(cam), jnp.asarray(SCALES), log_scale,
+        N_LEVELS, th)
+    got = tproj.match_local_points(
+        _t(xw), _t(a["desc_l"].view(np.int32)), _t(valid), _t(normal),
+        _t(maxd), _t(mind), _t(b["Rcw"]), _t(b["tcw"]), _t(b["ow"]),
+        _t(b["xy_l"]), _t(u_right), _t(b["oct_l"]).long(),
+        _t(b["desc_l"].view(np.int32)), _t(b["valid_l"]), _t(taken),
+        *_common(cam), _t(SCALES), log_scale, N_LEVELS, th)
+    assert int(ref.n_matches) > 20
+    assert int(got.n_matches) == int(ref.n_matches)
+    for name in ("feat_idx", "dist", "point_of_feat"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(ref, name)),
+                                      err_msg=name)
+
+
+def _nodes(desc, valid, rng):
+    """Vocabulary-like node ids: the top three bits of the first word (a
+    3-D point's two views mostly agree), -1 on invalid and a few others."""
+    nodes = ((desc[:, 0] >> 29) & 7).astype(np.int64)
+    nodes[~valid | (rng.uniform(size=len(nodes)) < 0.05)] = -1
+    return nodes
+
+
+@pytest.mark.parametrize("check_rotation", [True, False])
+@pytest.mark.parametrize("nn_ratio", [0.7, 0.75])
+def test_match_by_bow_exactly_jax(scene, check_rotation, nn_ratio):
+    cam, (a, b) = scene
+    rng = np.random.default_rng(5)
+    n1, n2 = _nodes(a["desc_l"], a["valid_l"], rng), \
+        _nodes(b["desc_l"], b["valid_l"], rng)
+    ref = jax_bow(jnp.asarray(a["desc_l"]), jnp.asarray(n1),
+                  jnp.asarray(a["valid_l"]), jnp.asarray(a["ang_l"]),
+                  jnp.asarray(b["desc_l"]), jnp.asarray(n2),
+                  jnp.asarray(b["valid_l"]), jnp.asarray(b["ang_l"]),
+                  nn_ratio=nn_ratio, check_rotation=check_rotation)
+    got = match_by_bow(_t(a["desc_l"].view(np.int32)), _t(n1),
+                       _t(a["valid_l"]), _t(a["ang_l"]),
+                       _t(b["desc_l"].view(np.int32)), _t(n2),
+                       _t(b["valid_l"]), _t(b["ang_l"]),
+                       nn_ratio=nn_ratio, check_rotation=check_rotation)
+    assert int(ref.n_matches) > 20
+    assert int(got.n_matches) == int(ref.n_matches)
+    np.testing.assert_array_equal(got.idx2.numpy(), np.asarray(ref.idx2))
+    np.testing.assert_array_equal(got.idx1_of_2.numpy(),
+                                  np.asarray(ref.idx1_of_2))
+
+
+# ------------------------------------- the kernels' reductions in numpy
+
+def _emulate_rows(mode, G, H, col_key, col_x, th, ratio, rng):
+    """csrc/match.cu match_rows over a gate G [P, N] and distances H: each
+    lane keeps the two smallest keys (distance << 21 | column) of the
+    gated columns it strides over, the warp takes the minima; stereo's
+    second is a second pass over the columns at > 1.5 px from best's u,
+    and its column minima are complemented atomicMax in a random order,
+    decoded and checked for mutuality by the last block."""
+    P, N = G.shape
+    out = {k: np.zeros(P, np.int64) for k in ("best", "dist", "second",
+                                              "second_dist")}
+    has = np.zeros(P, bool)
+    stores = []                                   # (column, ~key)
+    f32 = np.float32
+    for p in range(P):
+        k1, k2 = [NONE] * LANES, [NONE] * LANES
+        for lane in range(LANES):
+            for j in range(lane, N, LANES):
+                if not G[p, j]:
+                    continue
+                key = int(H[p, j]) << mk.INDEX_BITS | j
+                if key < k1[lane]:
+                    k1[lane], k2[lane] = key, k1[lane]
+                elif key < k2[lane]:
+                    k2[lane] = key
+                if mode == mk.STEREO:
+                    stores.append((j, ~(int(H[p, j]) << mk.INDEX_BITS | p)
+                                   & 0xFFFFFFFF))
+        best = min(k1)
+        if mode == mk.STEREO:
+            xb = col_x[best & MASK]
+            cand = [min([int(H[p, j]) << mk.INDEX_BITS | j
+                         for j in range(lane, N, LANES)
+                         if G[p, j] and abs(f32(col_x[j] - xb)) > f32(1.5)],
+                        default=NONE) for lane in range(LANES)]
+        else:
+            cand = [b if a == best else a for a, b in zip(k1, k2)]
+        second = min(cand)
+        bd, bi, sd, si = best >> mk.INDEX_BITS, best & MASK, \
+            second >> mk.INDEX_BITS, second & MASK
+        h = bd <= th
+        fb, rs = f32(bd), f32(ratio)
+        if mode == mk.LOCAL:
+            h = h and not (col_key[bi] == col_key[si] and fb > rs * f32(sd)
+                           and sd < mk.BIG)
+        elif mode == mk.STEREO:
+            h = h and fb < rs * f32(min(sd, 256))
+        elif mode == mk.BOW:
+            h = h and fb < rs * f32(sd)
+        out["best"][p], out["dist"][p] = bi, bd
+        out["second"][p], out["second_dist"][p] = si, sd
+        has[p] = h
+    col_best = np.zeros(0, np.int64)
+    if mode == mk.STEREO:
+        stored = np.zeros(N, np.int64)
+        for i in rng.permutation(len(stores)):
+            j, v = stores[i]
+            stored[j] = max(stored[j], v)
+        col_best = np.where(stored == 0, 0, ~stored & MASK)
+        has &= col_best[out["best"]] == np.arange(P)
+    return out, has, col_best
+
+
+def _rows_case(case, rng):
+    """(G, H, col_key, col_x) for a named case."""
+    P, N = {"ragged": (37, 45), "one column": (19, 1),
+            "one row": (1, 70)}.get(case, (48, 96))
+    G = rng.uniform(size=(P, N)) < 0.3
+    H = rng.integers(0, 257, (P, N))
+    col_key = rng.integers(0, 4, N)
+    col_x = rng.uniform(0, 40, N).astype(np.float32)
+    if case == "all-BIG rows and columns":
+        G[::3] = False
+        G[:, ::4] = False
+    elif case == "ties at best":
+        H = rng.integers(10, 13, (P, N))
+    elif case == "ties at second":
+        H = np.full((P, N), 20)
+        H[:, 5] = 7
+    elif case == "far-u ties":
+        H = rng.integers(30, 33, (P, N))
+        col_x = np.round(rng.uniform(0, 6, N) * 2).astype(np.float32) / 2
+        col_x[::5] += np.float32(1.5)             # exactly 1.5 px apart
+    elif case == "nothing gated":
+        G[:] = False
+    return G, H, col_key, col_x
+
+
+_ROWS_CASES = ["random", "all-BIG rows and columns", "ties at best",
+               "ties at second", "far-u ties", "ragged", "one column",
+               "one row", "nothing gated"]
+
+
+@pytest.mark.parametrize("mode", [mk.LOCAL, mk.STEREO, mk.BOW, mk.MOTION])
+@pytest.mark.parametrize("case", _ROWS_CASES)
+def test_row_reduction_emulation_equals_plain_version(case, mode):
+    rng = np.random.default_rng(10 * _ROWS_CASES.index(case) + mode)
+    G, H, col_key, col_x = _rows_case(case, rng)
+    th, ratio = {mk.MOTION: (100, 0.0), mk.LOCAL: (100, 0.8),
+                 mk.STEREO: (74, 0.9), mk.BOW: (49, 0.7)}[mode]
+    D = torch.where(torch.from_numpy(G), torch.from_numpy(H).to(torch.int32),
+                    torch.full(G.shape, mk.BIG, dtype=torch.int32))
+    want = mk.reduce_gated(mode, D, torch.from_numpy(col_key),
+                           torch.from_numpy(col_x), th, ratio)
+    got, has, col_best = _emulate_rows(mode, G, H, col_key, col_x, th,
+                                       ratio, rng)
+    for name in ("best", "dist", "second", "second_dist"):
+        np.testing.assert_array_equal(got[name], getattr(want, name).numpy(),
+                                      err_msg=name)
+    np.testing.assert_array_equal(has, want.has.numpy())
+    np.testing.assert_array_equal(col_best, want.col_best.numpy())
+    # the plain version is torch.argmin / amin of the gated matrix
+    np.testing.assert_array_equal(got["best"], torch.argmin(D, 1).numpy())
+    np.testing.assert_array_equal(got["dist"], torch.amin(D, 1).numpy())
+    if mode == mk.STEREO:
+        np.testing.assert_array_equal(col_best, torch.argmin(D, 0).numpy())
+
+
+def _bins(ang_ref, ang_cur):
+    """The kernel's rotation bin in numpy float32."""
+    f32 = np.float32
+    rot = (ang_ref - ang_cur).astype(f32)
+    rot = np.where(rot < 0, rot + f32(360), rot).astype(f32)
+    binf = np.rint(rot * f32(mk.HISTO_BINS / 360.0))
+    b = np.where(binf == mk.HISTO_BINS, 0, binf).astype(np.int64)
+    return np.clip(b, 0, mk.HISTO_BINS - 1)
+
+
+def _emulate_resolve(best, dist, has, n_feats, bins, rng):
+    """csrc/match.cu match_resolve: the histogram's top 3 by thread 0
+    (strictly larger wins: ties to the lower bin) with the 0.1 * max cut,
+    then each row's key dist << 32 | row atomicMin-ed in a random order
+    into its feature's slot (unset above any (BIG, row) key)."""
+    keep = np.ones(mk.HISTO_BINS, bool)
+    if bins is not None:
+        hist = np.bincount(bins[has], minlength=mk.HISTO_BINS)
+        top, taken = [], set()
+        for _ in range(3):
+            pick, val = 0, -1
+            for b in range(mk.HISTO_BINS):
+                if b not in taken and hist[b] > val:
+                    pick, val = b, hist[b]
+            taken.add(pick)
+            top.append((pick, val))
+        keep[:] = False
+        cut = np.float32(0.1) * np.float32(top[0][1])
+        for b, v in top:
+            keep[b] = np.float32(v) >= cut
+        has = has & keep[bins]
+    unset = mk.BIG << 32 | 0xFFFFFFFF
+    seg = [unset] * n_feats
+    for p in rng.permutation(len(best)):
+        if has[p]:
+            seg[best[p]] = min(seg[best[p]], int(dist[p]) << 32 | int(p))
+    won = np.array([has[p] and seg[best[p]] == int(dist[p]) << 32 | p
+                    for p in range(len(best))], bool)
+    feat_idx = np.where(won, best, -1)
+    pof = np.array([-1 if s == unset else s & 0xFFFFFFFF for s in seg])
+    return feat_idx, pof, int(won.sum())
+
+
+_RESOLVE_CASES = ["random", "many ties", "farther than BIG", "ragged",
+                  "no claims"]
+
+
+@pytest.mark.parametrize("case", _RESOLVE_CASES)
+@pytest.mark.parametrize("rotation", [False, True])
+def test_resolve_emulation_equals_plain_version(case, rotation):
+    rng = np.random.default_rng(2 * _RESOLVE_CASES.index(case) + rotation)
+    P, n_feats = (77, 13) if case == "ragged" else (300, 64)
+    best = rng.integers(0, n_feats, P)
+    dist = rng.integers(0, 120, P)
+    has = rng.uniform(size=P) < 0.7
+    if case == "many ties":
+        dist = rng.integers(0, 3, P)
+    elif case == "farther than BIG":
+        dist = rng.integers(mk.BIG - 2, mk.BIG + 3, P)
+    elif case == "no claims":
+        has[:] = False
+    ang_ref = rng.uniform(0, 360, P).astype(np.float32)
+    ang_tab = np.where(rng.uniform(size=n_feats) < 0.5,
+                       rng.uniform(0, 360, n_feats),
+                       (ang_ref[:n_feats] - 24) % 360).astype(np.float32)
+    bins = _bins(ang_ref, ang_tab[best]) if rotation else None
+    got = _emulate_resolve(best, dist, has, n_feats, bins, rng)
+    want = mk.match_resolve_ref(
+        torch.from_numpy(best), torch.from_numpy(dist.astype(np.int32)),
+        torch.from_numpy(has), n_feats,
+        torch.from_numpy(ang_ref) if rotation else None,
+        torch.from_numpy(ang_tab))
+    np.testing.assert_array_equal(got[0], want[0].numpy())
+    np.testing.assert_array_equal(got[1], want[1].numpy())
+    assert got[2] == int(want[2])
+
+
+# bin counts: a four-way tie at the top, a tie at the third, a third bin
+# under 0.1 * max, a single bin, and bins 29 and 0 (rot near 360 and 0)
+_HISTS = {"four-way tie": {3: 5, 7: 5, 11: 5, 20: 5},
+          "tie at the third": {2: 9, 4: 3, 8: 3, 9: 3},
+          "cut under 0.1 max": {5: 40, 6: 5, 19: 3},
+          "one bin": {12: 7},
+          "wrap": {0: 6, 29: 6, 15: 1}}
+
+
+@pytest.mark.parametrize("kind", list(_HISTS))
+def test_histogram_top3_ties_and_cut(kind, rng):
+    counts = _HISTS[kind]
+    ang_ref, ang_cur = [], []
+    for b, n in counts.items():
+        rot = (b * 12.0 + rng.uniform(-4, 4, n)) % 360
+        if b == 0:
+            rot = rng.choice([rng.uniform(356.5, 359.9, n),
+                              rng.uniform(0.1, 4, n)])
+        a = rng.uniform(0, 360, n)
+        ang_ref += list(a)
+        ang_cur += list((a - rot) % 360)
+    ang_ref = np.asarray(ang_ref, np.float32)
+    ang_cur = np.asarray(ang_cur, np.float32)
+    has = np.ones(len(ang_ref), bool)
+    has[-1] = False                                # one not counted
+    bins = _bins(ang_ref, ang_cur)
+    want_j = np.asarray(jproj._rotation_consistency(
+        jnp.asarray(ang_ref), jnp.asarray(ang_cur), jnp.asarray(has)))
+    want_t = mk.rotation_consistency(torch.from_numpy(ang_ref),
+                                     torch.from_numpy(ang_cur),
+                                     torch.from_numpy(has)).numpy()
+    np.testing.assert_array_equal(want_t, want_j)
+    # the emulated kernel: one feature a row, so uniqueness keeps them all
+    n = len(ang_ref)
+    feat_idx, _, _ = _emulate_resolve(np.arange(n), np.zeros(n, np.int64),
+                                      has, n, bins, rng)
+    np.testing.assert_array_equal(feat_idx >= 0, want_t)
+    if kind == "cut under 0.1 max":
+        assert not want_t[bins == 19].any() and want_t[bins == 6].all()
+
+
+# --------------------------------------------------------- the roundings
+
+@pytest.mark.parametrize("ratio", [0.7, 0.75, 0.8, 0.9])
+def test_ratio_product_is_float32_of_the_rounded_ratio(ratio):
+    """The kernels' __fmul_rn(float32(ratio), float32(second)) is torch's
+    ratio * second.to(float32), for every second the matchers see."""
+    second = torch.arange(0, mk.BIG + 1, dtype=torch.int32)
+    got = (ratio * second.to(torch.float32)).numpy()
+    want = np.float32(ratio) * second.numpy().astype(np.float32)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def test_bin_scale_product_is_float32(rng):
+    """torch's rot * (30 / 360.0) is the float32 product with the scale
+    rounded to float32 (the kernel's bin_scale), and torch.round is rint."""
+    rot = rng.uniform(0, 360, 100000).astype(np.float32)
+    rot[:7] = [0.0, 6.0, 18.0, 354.0, 359.99997, 12.000001, 17.999998]
+    got = torch.round(torch.from_numpy(rot) * (mk.HISTO_BINS / 360.0))
+    want = np.rint(rot * np.float32(mk.HISTO_BINS / 360.0))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+# ------------------------------------------------------ the dispatchers
+
+def test_cpu_tensors_take_the_plain_versions(scene, monkeypatch):
+    """On CPU tensors the matchers never reach the kernels' wrappers, and
+    the wrappers raise on CPU tensors (no launch is counted)."""
+    cam, (a, b) = scene
+
+    def kernel(*args, **kwargs):
+        raise AssertionError("a kernel wrapper ran on CPU tensors")
+
+    n_rows, n_resolve = mk.launches(), mk.resolve_launches()
+    with monkeypatch.context() as m:
+        m.setattr(mk, "match_rows_cuda", kernel)
+        m.setattr(mk, "match_resolve_cuda", kernel)
+        got = _run_stereo(a, cam, "torch")
+    assert (got["best_right"] >= 0).sum() > 100
+    rows = mk.MatchRows(_t(a["desc_l"].view(np.int32)), _t(a["oct_l"]).long(),
+                        _t(a["valid_l"]))
+    cols = mk.MatchCols(_t(b["desc_l"].view(np.int32)), _t(b["oct_l"]).long(),
+                        _t(b["valid_l"]))
+    with pytest.raises(ValueError):
+        mk.match_rows_cuda(mk.BOW, rows, cols, 49, 0.7)
+    P = rows.desc.shape[0]
+    with pytest.raises(ValueError):
+        mk.match_resolve_cuda(torch.zeros(P, dtype=torch.int64),
+                              torch.zeros(P, dtype=torch.int32),
+                              torch.ones(P, dtype=torch.bool), P)
+    assert (mk.launches(), mk.resolve_launches()) == (n_rows, n_resolve)
