@@ -5,10 +5,10 @@ KF<->Frame, 522-655 KF<->KF) as airdos_tpu/matching/bow_match.py computes
 it: candidates restricted to features sharing the same vocabulary node at
 the feature-grouping level, best Hamming with NN-ratio and
 rotation-histogram checks, then each feature of set 2 keeps its best
-claimant.  The node gate, the distances, best and second and the ratio
-are one ``ops/match_kernels.match_rows`` call in bow mode, the rotation
-histogram and the uniqueness one ``match_resolve`` call: one kernel
-launch each on the card, where no N1 x N2 matrix is formed.
+claimant.  The node gate, the distances, best and second, the ratio,
+the rotation histogram and the uniqueness are one
+``ops/match_kernels.match_rows`` call in bow mode with the resolve: one
+kernel launch on the card, where no N1 x N2 matrix is formed.
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ from typing import NamedTuple
 import torch
 
 from airdos_tpu_torch.ops.match_kernels import (BOW, MatchCols, MatchRows,
-                                                match_resolve, match_rows)
+                                                match_rows)
 
 TH_LOW = 50
 
@@ -33,10 +33,10 @@ def match_by_bow(desc1, nodes1, valid1, ang1,
                  nn_ratio: float = 0.7,
                  check_rotation: bool = True) -> BowMatches:
     """Features of two images with per-feature vocabulary node ids."""
-    N2 = desc2.shape[0]
     rm = match_rows(BOW, MatchRows(desc1, nodes1, valid1),
                     MatchCols(desc2, nodes2, valid2), th=TH_LOW - 1,
-                    ratio=nn_ratio)
-    idx2, idx1_of_2, n = match_resolve(
-        rm.best, rm.dist, rm.has, N2, ang1 if check_rotation else None, ang2)
-    return BowMatches(idx2=idx2, n_matches=n, idx1_of_2=idx1_of_2)
+                    ratio=nn_ratio, resolve=True,
+                    angles=(ang1, ang2) if check_rotation else None,
+                    check=False)
+    return BowMatches(idx2=rm.feat_idx, n_matches=rm.n,
+                      idx1_of_2=rm.point_of_feat)

@@ -8,6 +8,13 @@ each target, search a 3*scale[predicted level] window at levels
 (5.99 mono / 7.8 stereo).  The point table is shared by the batch; each
 target has its own candidate mask.  The host then either merges the hit
 feature's existing point or adds a new observation.
+
+The per-(target, point) prelude (projection, right u, frustum, predicted
+level and radius) is eager torch over [B, P]; the gate, the distances
+and each row's best are one ``ops/match_kernels.match_rows`` call in fuse
+mode: one kernel launch on the card, where no [B, P, N] tensor is
+formed; on the CPU its plain version, the eager composition this module
+had.
 """
 from __future__ import annotations
 
@@ -15,10 +22,10 @@ from typing import NamedTuple
 
 import torch
 
-from airdos_tpu_torch.ops.hamming_kernels import hamming_matrix_batched
+from airdos_tpu_torch.ops.match_kernels import (FUSE, MatchCols, MatchRows,
+                                                match_rows)
 
 TH_LOW = 50
-BIG = 1 << 10
 
 
 class FuseMatches(NamedTuple):
@@ -55,27 +62,11 @@ def fuse_candidates(xw, desc_p, valid_p, normal_p, max_dist_p, min_dist_p,
     pred = torch.ceil(torch.log(torch.clamp(ratio, min=1e-9)) / log_scale) \
         .to(torch.int64)
     pred = torch.clamp(pred, 0, n_levels - 1)
-    radius = (th * scale_factors[pred])[..., None]               # [B, P, 1]
-
-    du = feat_xy[:, None, :, 0] - u[..., None]                   # [B, P, N]
-    dv = feat_xy[:, None, :, 1] - v[..., None]
-    win_ok = (torch.abs(du) < radius) & (torch.abs(dv) < radius)
-    lf = feat_oct[:, None, :]
-    oct_ok = (lf >= pred[..., None] - 1) & (lf <= pred[..., None] + 1)
-
-    # reprojection chi2 per candidate pair
-    s2 = sigma2[feat_oct][:, None, :]
-    e2 = du * du + dv * dv
-    der = feat_ur[:, None, :] - ur[..., None]
-    has_r = (feat_ur >= 0)[:, None, :]
-    chi = torch.where(has_r, (e2 + der * der) / s2, e2 / s2)
-    chi_ok = torch.where(has_r, chi <= 7.8, chi <= 5.99)
+    radius = th * scale_factors[pred]                            # [B, P]
 
     frustum = in_img & dist_ok & view_ok & valid_p
-    ok = win_ok & oct_ok & chi_ok & frustum[..., None] & feat_valid[:, None, :]
-    D = hamming_matrix_batched(desc_p[None], feat_desc)
-    D = torch.where(ok, D, torch.full_like(D, BIG))
-    best = torch.argmin(D, dim=2)
-    bdist = torch.gather(D, 2, best[..., None])[..., 0]
-    feat_idx = torch.where(bdist <= TH_LOW, best, torch.full_like(best, -1))
-    return FuseMatches(feat_idx=feat_idx, dist=bdist)
+    rm = match_rows(FUSE, MatchRows(desc_p, pred, frustum, u, v, ur, radius),
+                    MatchCols(feat_desc, feat_oct, feat_valid,
+                              feat_xy[..., 0], feat_xy[..., 1], feat_ur),
+                    th=TH_LOW, sigma2=sigma2)
+    return FuseMatches(feat_idx=rm.feat_idx, dist=rm.dist)

@@ -12,13 +12,12 @@ points x features:
   ratio within the same level.
 
 The per-point prelude (projection, radius, predicted level, frustum) is
-eager torch over [P] vectors; the gate, the distances, best and second
-and the ratio test are one ``ops/match_kernels.match_rows`` call, the
-rotation histogram and the uniqueness resolution (several points
-claiming one feature: the lowest distance wins, ties to the lowest
-point) one ``match_resolve`` call.  On the card each is one kernel
-launch and no [P, N] matrix is formed; on the CPU they are the plain
-versions.
+eager torch over [P] vectors; the gate, the distances, best and second,
+the ratio test, the rotation histogram and the uniqueness resolution
+(several points claiming one feature: the lowest distance wins, ties to
+the lowest point) are one ``ops/match_kernels.match_rows`` call with the
+resolve.  On the card it is one kernel launch and no [P, N] matrix is
+formed; on the CPU it is the plain version.
 """
 from __future__ import annotations
 
@@ -27,8 +26,7 @@ from typing import NamedTuple
 import torch
 
 from airdos_tpu_torch.ops.match_kernels import (LOCAL, MOTION, MatchCols,
-                                                MatchRows, match_resolve,
-                                                match_rows)
+                                                MatchRows, match_rows)
 from airdos_tpu_torch.ops.match_kernels import \
     resolve_unique as _resolve_unique  # noqa: F401 (airdos_tpu's names)
 from airdos_tpu_torch.ops.match_kernels import \
@@ -64,7 +62,6 @@ def match_last_frame(xw, desc_p, oct_p, ang_p, valid_p,
     """Motion-model search.  xw [P, 3] world points from the last frame
     with their descriptors/octaves/angles; feat_* are current-frame
     features."""
-    N = feat_xy.shape[0]
     u, v, ur, in_img = _project(R, t, xw, fx, fy, cx, cy, bf, width, height)
 
     radius = th * scale_factors[oct_p]                       # [P]
@@ -76,11 +73,10 @@ def match_last_frame(xw, desc_p, oct_p, ang_p, valid_p,
                               radius),
                     MatchCols(feat_desc, feat_oct, feat_valid, feat_xy[:, 0],
                               feat_xy[:, 1], feat_ur, feat_taken),
-                    th=TH_HIGH, band=band)
-    feat_idx, point_of_feat, n = match_resolve(rm.best, rm.dist, rm.has, N,
-                                               ang_p, feat_ang)
-    return ProjMatches(feat_idx=feat_idx, dist=rm.dist, n_matches=n,
-                       point_of_feat=point_of_feat)
+                    th=TH_HIGH, band=band, resolve=True,
+                    angles=(ang_p, feat_ang), check=False)
+    return ProjMatches(feat_idx=rm.feat_idx, dist=rm.dist, n_matches=rm.n,
+                       point_of_feat=rm.point_of_feat)
 
 
 def match_local_points(xw, desc_p, valid_p,
@@ -94,7 +90,6 @@ def match_local_points(xw, desc_p, valid_p,
     """Track-local-map search (SearchByProjection with MapPoints).
     normal_p: mean viewing direction; min/max_dist: scale-invariance range;
     ow: camera centre in world."""
-    N = feat_xy.shape[0]
     u, v, ur, in_img = _project(R, t, xw, fx, fy, cx, cy, bf, width, height)
 
     po = xw - ow[None, :]
@@ -120,7 +115,7 @@ def match_local_points(xw, desc_p, valid_p,
                     MatchRows(desc_p, pred, frustum, u, v, ur, radius),
                     MatchCols(feat_desc, feat_oct, feat_valid, feat_xy[:, 0],
                               feat_xy[:, 1], feat_ur, feat_taken),
-                    th=TH_HIGH, ratio=nn_ratio, band=(-1, 0))
-    feat_idx, point_of_feat, n = match_resolve(rm.best, rm.dist, rm.has, N)
-    return ProjMatches(feat_idx=feat_idx, dist=rm.dist, n_matches=n,
-                       point_of_feat=point_of_feat)
+                    th=TH_HIGH, ratio=nn_ratio, band=(-1, 0), resolve=True,
+                    check=False)
+    return ProjMatches(feat_idx=rm.feat_idx, dist=rm.dist, n_matches=rm.n,
+                       point_of_feat=rm.point_of_feat)

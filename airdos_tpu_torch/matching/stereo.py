@@ -62,7 +62,7 @@ def stereo_match(xy_l, oct_l, desc_l, valid_l,
                                       xy_l[:, 1]),
                     MatchCols(desc_r, oct_r, valid_r, xy_r[:, 0], xy_r[:, 1],
                               2.0 * scale_factors[oct_r]),
-                    th=TH_ORB - 1, ratio=0.9, max_d=max_d)
+                    th=TH_ORB - 1, ratio=0.9, max_d=max_d, check=False)
     best_r, cand_ok = rm.best, rm.has
 
     # ---- sub-pixel SAD (ops/stereo_sad: a kernel launch on the card) --

@@ -94,8 +94,13 @@ class LaunchCounter:
         self._total = 0
         self._tally = collections.Counter()
 
+    _names = threading.local()      # each thread's name, looked up once
+
     def count(self, priority: int) -> None:
-        key = (threading.current_thread().name, priority)
+        name = self._names.__dict__.get("name")
+        if name is None:
+            name = self._names.name = threading.current_thread().name
+        key = (name, priority)
         with self._lock:
             self._total += 1
             self._tally[key] += 1

@@ -16,8 +16,10 @@ Run from the repository root.  Phases, each of which fails the run:
    bench frames of the synthetic world at the reference budget (640x360,
    1500 ORB features, 8 levels): every frame OK, >= 5 keyframes, ATE <
    0.02 m, >= 2 pose_lm launches on every fused ("fast") frame, and on
-   every fused frame >= 3 match_rows (stereo, motion-model and local-map
-   matches) and >= 2 match_resolve launches and no 2-D Hamming launch,
+   every fused frame >= 3 match_rows launches (stereo, motion-model and
+   local-map matches), >= 2 of them with the resolve in the launch
+   (counted as match_resolve: csrc/match.cu has no other kernel) and no
+   2-D Hamming launch,
    and on every frame one pyramid, one fast_nms, one select and one
    orb_desc launch an image, each over all the image's levels (2 each),
    and one stereo_sad launch (the matcher and front-end launches held on
@@ -26,8 +28,10 @@ Run from the repository root.  Phases, each of which fails the run:
    to uint8 as a dataset's PNGs hold them (phase 14a's in-memory twin),
    with the budgets of bench.py's static configuration: every frame OK, >= 5
    keyframes inserted, ATE < 0.02 m, triangulation created points, the
-   static BA solved at every keyframe after the third, batched Hamming
-   launches on every keyframe frame after the first, 45 segment_sum
+   static BA solved at every keyframe after the third, a match_rows
+   launch in fuse mode (fusion) on every keyframe frame after the first,
+   every fusion call one such launch and no batched Hamming launch, the
+   batched Hamming kernel launched (triangulation), 45 segment_sum
    launches per BA solve (3 per Gauss-Newton step), and per solve 34
    static_edge_blocks (15 steps, 17 LM costs in its cost-sum mode, 2
    chi-square passes), 15 landmark_reduce and 15 landmark_backsub
@@ -59,15 +63,17 @@ Run from the repository root.  Phases, each of which fails the run:
    all-zero frames, five repeats of frame 17: every frame before the
    blackout OK, LOST during it, OK at the end having relocalized at frame
    >= 21 (BoW candidates -> SearchByBoW -> EPnP RANSAC -> pose LM), a
-   match_rows and a match_resolve launch in the relocalizing frame, no
+   match_rows launch with the resolve in the relocalizing frame, no
    TUM step > 0.12 m, ATE <
    max(2 x the uninterrupted run's on the same frames, 0.05 m); prints
    the EPnP inliers, the candidates tried and the frame's latency;
 7. loop: tests/test_loop_closure.py's pillar orbit (84 frames, Camera.fps
    5, enable_loop_closing) at the bench budget: every frame OK, a loop
    closed with a loop edge, ATE < 0.15 m, a 2-D Hamming (the Sim3
-   match), a batched Hamming and a match_rows (the BoW match) launch in
-   every loop frame, and per frame 45 segment_sum
+   match), a batched Hamming (triangulation), a match_rows (the BoW
+   match) and a fuse-mode match_rows (SearchAndFuse) launch in every loop
+   frame, every fusion call one fuse-mode match_rows launch and no
+   batched Hamming launch, and per frame 45 segment_sum
    launches per static BA solve plus 2020 per loop closure (20 for the
    essential graph, one a step; 2000 for the global BA, 100 a step in four
    calls of five steps); prints the loop's (keyframe, candidate, matches,
@@ -99,8 +105,8 @@ Run from the repository root.  Phases, each of which fails the run:
      1500x1337 of random words: exact equality;
    - every kernel at every shape the path phases launched it with, on the
      first inputs the path gave it at that shape (recorded while the paths
-     ran): Hamming exact, batched Hamming (triangulation B=4 x 1536x1536,
-     fusion B=9 x 2048x1536 at this budget) exact, segment_sum bit-equal
+     ran): Hamming exact, batched Hamming (triangulation B=4 x 1536x1536
+     at this budget) exact, segment_sum bit-equal
      to its plain version (index_add_) on a CPU copy and two launches
      bit-equal to each other; pose_lm (by edge count, prior on or off)
      within tests/test_torch_pose.py's tolerances of its plain version on
@@ -129,11 +135,17 @@ Run from the repository root.  Phases, each of which fails the run:
      Gauss-Newton column, costs, or the three families' LM cost sums,
      which are also held against ops/lm_cost.py's lm_cost_ref of each
      family's cost-mode rho on the card) bit-equal, two launches
-     bit-equal; match_rows (by mode, rows and columns) and match_resolve
-     (by rows, columns and the rotation filter) bit-equal in every
-     output to their plain versions, two launches equal, and beside
-     match_rows the time per call of the eager composition it replaced
-     (its plain version around the 2-D Hamming kernel); the 2-D Hamming
+     bit-equal; match_rows (by mode, rows, columns, targets, the resolve
+     and its rotation filter; fuse mode at B = 9 and 1 x 2048 x 1536 as
+     fusion and SearchAndFuse launched it) bit-equal in every output to
+     its plain version (the resolve's outputs to match_resolve_ref's), two
+     launches equal, and on tests/torch_match_cases.py's edge cases of the
+     grid of cells in every mode; beside it the time per call of the eager
+     composition it replaced (its plain version around the 2-D Hamming
+     kernel, or the batched one in fuse mode), the full scan's bound (the
+     gate at every pair) beside the bound, and for match_resolve (the launches
+     that ran the resolve) the same call's device time without the
+     resolve; the 2-D Hamming
      kernel at the shapes the loop's Sim3 match launched it with;
 10. determinism: two card runs of the mapping System on the small camera
    over 8 frames give byte-identical TUM and KF/MP/Match dumps, and two
@@ -169,9 +181,10 @@ Run from the repository root.  Phases, each of which fails the run:
       phase 7's keyframes), what the tracking thread waited for on the
       map lock in the stall window's worst frame and which worker
       sections held it meanwhile, the worker's spans and the launches by
-      (kernel, thread, stream priority), and fails unless the mapping worker's batched Hamming and
-      segment_sum launches went to a stream of lower priority than the
-      tracking thread's match_rows launches;
+      (kernel, thread, stream priority), and fails unless the mapping
+      worker's batched Hamming, fuse-mode match_rows and segment_sum
+      launches went to a stream of lower priority than the tracking
+      thread's match_rows launches;
    b. the crowd flagship of phase 5 online (tests/test_online_human.py):
       >= 2 human BA solves through HumanLocalBA.launch, a trajectory
       optimized, ATE < 0.03 m, nothing raised at shutdown;
@@ -1300,134 +1313,234 @@ def _hu_check(args):
 
 # ------------------------------------------------------ matcher kernels
 
-_MATCH_MODES = ("motion", "local", "stereo", "bow")
-# operations counted from csrc/match.cu: the gate of one pair by mode
-# (motion and local: the flags, the octave band's two bounds, the two
-# window subtractions, absolute values and compares, the right-u test;
-# stereo: the band, octave and disparity tests; bow: key equality and
-# signs), one gated pair (8 XORs, 8 popcounts, 7 adds, the key and the
-# two-smallest update), stereo's extra work a gated pair (the far-u test's
-# subtraction, absolute value and compare, and the column minimum's
-# compare), and match_resolve's work a row (the rotation bin and
-# histogram add, the key and its atomicMin, the winner test)
-MATCH_GATE_OPS = (14, 14, 10, 4)
+_MATCH_MODES = ("motion", "local", "stereo", "bow", "fuse")
+# operations counted from csrc/match.cu.  The function's need (the
+# bound): a row's work (its loads, window or bucket, the two warp
+# minima, the ratio test and its outputs), a column's (its cell or bucket:
+# binned once, however many blocks stage it), and at each gated pair the
+# gate (by mode: motion and local the flags, the octave band's two
+# bounds, the two window subtractions, absolute values and compares, the
+# right-u test; stereo the band, octave and disparity tests; bow key
+# equality; fuse the window, the octave band and the chi-square's float32
+# steps) and the pair (8 XORs, 8 popcounts, 7 adds, the key and the
+# two-smallest update), stereo's extra work a gated pair (the far-u
+# test's subtraction, absolute value and compare, and the column
+# minimum's compare), and the resolve's work a row (the rotation bin and
+# histogram add, the key and its atomicMin, the winner test).  The full
+# scan's bound, the gate at every pair, is printed beside it.
+MATCH_GATE_OPS = (14, 14, 10, 4, 24)
 MATCH_PAIR_OPS = 27
 MATCH_STEREO_PAIR_OPS = 4
+MATCH_ROW_OPS = 24
+MATCH_COL_OPS = 8
 RESOLVE_ROW_OPS = (12, 24)        # without, with the rotation filter
 # bytes a row and a column of match_rows read (the descriptor's 32, the
-# vectors and flags of the mode) and a row writes (best and second 16,
-# their distances 8, has 1)
-MATCH_ROW_BYTES = (57, 57, 49, 41)
-MATCH_COL_BYTES = (54, 54, 53, 41)
-MATCH_OUT_BYTES = 25
+# vectors and flags of the mode; fuse: a row's vectors a target, its
+# descriptor once) and a row writes (best and second 16, their distances
+# 8, has 1; fuse: best and feat_idx 16, its distance 4, has 1)
+MATCH_ROW_BYTES = (57, 57, 49, 41, 25)
+MATCH_COL_BYTES = (54, 54, 53, 41, 54)
+MATCH_OUT_BYTES = (25, 25, 25, 25, 21)
 
 
-def _mr_shape(mode, rows, cols, *rest):     # (mode, rows, columns)
-    return (int(mode), rows.desc.shape[0], cols.desc.shape[0])
+def _mr_shape(mode, rows, cols, th, ratio=0.0, band=(None, None),
+              max_d=0.0, resolve=False, angles=None, *rest):
+    """(mode, rows, columns, targets, resolve, rotation filter)"""
+    fuse = int(mode) == _match().FUSE
+    return (int(mode), rows.desc.shape[0], cols.desc.shape[-2],
+            cols.desc.shape[0] if fuse else 1, bool(resolve),
+            angles is not None)
+
+
+def _rs_shape(*args):
+    """match_resolve's shape: match_rows' where it ran the resolve, else
+    None (not recorded)."""
+    shape = _mr_shape(*args)
+    return shape if shape[4] else None
 
 
 def _mr_fmt(shape) -> str:
-    mode, P, N = shape
-    return f"{_MATCH_MODES[mode]} mode, {P} rows x {N} columns"
+    mode, P, N, B, resolve, rot = shape
+    what = f"{_MATCH_MODES[mode]} mode, {P} rows x {N} columns"
+    if mode == _match().FUSE:
+        what += f" x {B} targets"
+    if resolve:
+        what += f", the resolve with the rotation filter {'on' if rot else 'off'}"
+    return what
+
+
+def _mr_args(args, check=True):
+    """The recorded arguments with the inputs checked (the matchers pass
+    check=False)."""
+    return tuple(args[:10]) + (check,)
 
 
 def _mr_gated(args) -> int:
     """The pairs inside the gate on these inputs (the plain version's
     gate)."""
-    mode, rows, cols, th, ratio, band, max_d = args
-    return int(_match().gate(mode, rows, cols, band, max_d).sum())
+    mode, rows, cols, th, ratio, band, max_d, resolve, angles, sigma2 = \
+        args[:10]
+    return int(_match().gate(mode, rows, cols, band, max_d, sigma2).sum())
+
+
+def _mr_bytes(shape) -> int:
+    mode, P, N, B, resolve, rot = shape
+    stereo = mode == _match().STEREO
+    nbytes = B * P * (MATCH_ROW_BYTES[mode] + MATCH_OUT_BYTES[mode]) \
+        + B * N * (MATCH_COL_BYTES[mode] + (8 if stereo else 0))
+    if mode == _match().FUSE:
+        nbytes += 32 * P
+    if resolve:           # the angles read, feat_idx, point_of_feat, n
+        nbytes += (4 * (P + N) if rot else 0) + 8 * (P + N + 1)
+    return nbytes
+
+
+def _mr_ops(shape, args, old=False) -> int:
+    """The function's operations (old: the full scan's count, the gate at
+    every pair and no row, column or resolve work)."""
+    mode, P, N, B, resolve, rot = shape
+    stereo = mode == _match().STEREO
+    gated = _mr_gated(args)
+    pair = MATCH_PAIR_OPS + (MATCH_STEREO_PAIR_OPS if stereo else 0)
+    if old:
+        return B * P * N * MATCH_GATE_OPS[mode] + gated * pair
+    return B * P * MATCH_ROW_OPS + B * N * MATCH_COL_OPS \
+        + gated * (MATCH_GATE_OPS[mode] + pair)
 
 
 def _mr_bound(shape, args):
     """Both descriptor sets and the row and column vectors read once, the
-    outputs written once (stereo: each column's argmin too); the gate at
-    every pair and the popcount at the gated pairs, once in every mode
-    (stereo adds the far-u test and the column minimum at the gated pairs:
-    the function needs no second gate or popcount, whatever pass the
-    kernel takes), at the float32 CUDA-core rate (the table lists no
-    int32 rate)."""
-    mode, P, N = shape
-    stereo = mode == _match().STEREO
-    ops = P * N * MATCH_GATE_OPS[mode] + _mr_gated(args) * (
-        MATCH_PAIR_OPS + (MATCH_STEREO_PAIR_OPS if stereo else 0))
-    nbytes = P * (MATCH_ROW_BYTES[mode] + MATCH_OUT_BYTES) \
-        + N * (MATCH_COL_BYTES[mode] + (8 if stereo else 0))
-    return nbytes, ops / FP32_FLOPS
+    outputs written once (stereo: each column's argmin too); a row's and
+    a column's work and the gate and popcount at the gated pairs only,
+    once in every mode (stereo adds the far-u test and the column minimum
+    at the gated pairs), at the float32 CUDA-core rate (the table lists no
+    int32 rate).  The call's resolve is match_resolve's row."""
+    return _mr_bytes(shape[:4] + (False, False)), \
+        _mr_ops(shape[:4] + (False, False), args) / FP32_FLOPS
+
+
+def _rs_bound(shape, args):
+    """The whole launch with the resolve: match_rows' bound plus best,
+    dist and has read once more (with the rotation filter the row angles
+    and the angle table too), feat_idx, point_of_feat and n written once,
+    and the resolve's work a row."""
+    mode, P, N, B, resolve, rot = shape
+    return _mr_bytes(shape) + 13 * P, \
+        (_mr_ops(shape, args) + P * RESOLVE_ROW_OPS[rot]) / FP32_FLOPS
+
+
+_MR_EDGES = {}                    # the edge cases, once a run
+
+
+def _mr_edges():
+    """tests/torch_match_cases.py's cases (every mode; the path's and the
+    grid's edge cases: windows over the image border, columns on the
+    cells' boundaries, non-finite rows and columns, every column in one
+    cell, empty windows, rows with no gated pair) at 48 x 96 (fuse: 3
+    targets) and 300 x 500: every output bit-equal to the plain version
+    on the card, two launches equal, once a run -> the count."""
+    if "n" in _MR_EDGES:
+        return _MR_EDGES["n"]
+    import torch
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import torch_match_cases as tc
+    mk = _match()
+    n = 0
+    for m in range(len(tc.MODES)):
+        for case in tc.CASES:
+            for P, N in ((48, 96), (300, 500)):
+                rng = np.random.default_rng(
+                    1000 * m + 10 * tc.CASES.index(case) + P)
+                args = tc.args(tc.make(m, case, rng, P, N, 3), "cuda")
+                got, again = mk.match_rows_cuda(*args), \
+                    mk.match_rows_cuda(*args)
+                want = mk.match_rows_ref(*args)
+                torch.cuda.synchronize()
+                for name in mk.RowMatches._fields:
+                    if not torch.equal(getattr(got, name),
+                                       getattr(want, name)):
+                        _fail(f"match_rows {name} != plain version on the "
+                              f"{tc.MODES[m]} {case!r} case, {P} x {N}")
+                    if not torch.equal(getattr(got, name),
+                                       getattr(again, name)):
+                        _fail(f"match_rows: two launches differ in {name} "
+                              f"on the {tc.MODES[m]} {case!r} case")
+                n += 1
+    _MR_EDGES["n"] = n
+    return n
 
 
 def _mr_check(args):
     """Every output bit-equal to the plain version (pure torch) on the
-    card, two launches equal, and the eager composition the kernel
-    replaced (the plain version around the 2-D Hamming kernel) timed."""
+    card, two launches equal, the grid's edge cases once (_mr_edges), and
+    the eager composition the kernel replaced (the plain version's gate
+    and reductions around the 2-D Hamming kernel, or the batched one in
+    fuse mode, and the resolve's plain version) timed."""
     import torch
     mk, hk = _match(), _hamming()
+    args = _mr_args(args)
     got, again = mk.match_rows_cuda(*args), mk.match_rows_cuda(*args)
-    want = mk.match_rows_ref(*args)
+    want = mk.match_rows_ref(*args[:10])
     torch.cuda.synchronize()
+    shape = _mr_shape(*args)
     for name in mk.RowMatches._fields:
         g, w = getattr(got, name), getattr(want, name)
         if not torch.equal(g, w):
-            err = int((g.long() - w.long()).abs().max()) if g.numel() else 0
-            _fail(f"match_rows {name} != plain version ({_mr_fmt(_mr_shape(*args))}, "
+            err = int((g.long() - w.long()).abs().max()) \
+                if g.numel() and g.shape == w.shape else -1
+            _fail(f"match_rows {name} != plain version ({_mr_fmt(shape)}, "
                   f"max abs err {err})")
         if not torch.equal(g, getattr(again, name)):
             _fail(f"match_rows: two launches differ in {name}")
-    mode, rows, cols, th, ratio, band, max_d = args
+    mode, rows, cols, th, ratio, band, max_d, resolve, angles, sigma2 = \
+        args[:10]
 
     def composition():
-        ok = mk.gate(mode, rows, cols, band, max_d)
-        D = hk.hamming_matrix(rows.desc, cols.desc)
+        ok = mk.gate(mode, rows, cols, band, max_d, sigma2)
+        D = hk.hamming_matrix_batched(rows.desc[None], cols.desc) \
+            if mode == mk.FUSE else hk.hamming_matrix(rows.desc, cols.desc)
         D = torch.where(ok, D, torch.full_like(D, mk.BIG))
-        return mk.reduce_gated(mode, D, cols.key, cols.x, th, ratio)
+        rm = mk.reduce_gated(mode, D, cols.key, cols.x, th, ratio)
+        if resolve:
+            mk.match_resolve_ref(rm.best, rm.dist, rm.has, cols.desc.shape[0],
+                                 *(angles or (None, None)))
+        return rm
 
     comp_ms = _cuda_ms(composition)
-    what = (f"bit-equal (best, distance, second, its distance, has, column "
-            f"argmin), two launches equal, {int(got.has.sum())} of "
-            f"{got.has.shape[0]} rows matched, {_mr_gated(args)} gated "
-            f"pairs; the eager composition it replaced (the gate and reductions "
-            f"around the 2-D Hamming kernel) {comp_ms:.4f} ms per call")
+    n_edges = _mr_edges()
+    old_bound = _mr_ops(shape, args, old=True) / FP32_FLOPS * 1e3
+    what = (f"bit-equal ({', '.join(mk.RowMatches._fields)}), two launches "
+            f"equal, {int(got.has.sum())} of {got.has.numel()} rows matched, "
+            f"{_mr_gated(args)} gated pairs; {n_edges} edge cases "
+            f"(tests/torch_match_cases.py) bit-equal; the eager composition "
+            f"it replaced (the gate and reductions around the "
+            f"{'batched ' if mode == mk.FUSE else '2-D '}Hamming kernel"
+            f"{', and the resolve' if resolve else ''}) {comp_ms:.4f} ms per "
+            f"call; the full scan's bound (the gate at every pair) "
+            f"{max(old_bound, _mr_bytes(shape) / HBM_BYTES_PER_S * 1e3) * 1e3:.3f} us")
     return 0, what, (lambda: mk.match_rows_cuda(*args)), \
-        (lambda: mk.match_rows_ref(*args))
-
-
-def _rs_shape(best, dist, has, n_feats, ang_ref=None, ang_tab=None):
-    return (best.shape[0], int(n_feats), ang_ref is not None)
+        (lambda: mk.match_rows_ref(*args[:10]))
 
 
 def _rs_fmt(shape) -> str:
-    P, N, rot = shape
-    return f"P={P} N={N}, rotation filter {'on' if rot else 'off'}"
-
-
-def _rs_bound(shape, args):
-    """best, dist and has read once (with the rotation filter the row
-    angles and the angle table too), feat_idx, point_of_feat and n
-    written once; a row's work at the float32 CUDA-core rate."""
-    P, N, rot = shape
-    return P * 13 + (4 * (P + N) if rot else 0) + 8 * (P + N + 1), \
-        P * RESOLVE_ROW_OPS[rot] / FP32_FLOPS
+    return _mr_fmt(shape) + " (the resolve folded into match_rows' launch)"
 
 
 def _rs_check(args):
-    """The three outputs bit-equal to the plain version on the card (the
-    eager composition the kernel replaced), two launches equal."""
-    import torch
+    """match_rows with the resolve, held as _mr_check holds it; beside
+    it the device time of the same call without the resolve, whose
+    difference is what the folded resolve costs (a launch of its own
+    before it was folded in)."""
     mk = _match()
-    got, again = mk.match_resolve_cuda(*args), mk.match_resolve_cuda(*args)
-    want = mk.match_resolve_ref(*args)
-    torch.cuda.synchronize()
-    for name, g, w, a in zip(("feat_idx", "point_of_feat", "n"), got, want,
-                             again):
-        if not torch.equal(g, w):
-            _fail(f"match_resolve {name} != plain version "
-                  f"({_rs_fmt(_rs_shape(*args))})")
-        if not torch.equal(g, a):
-            _fail(f"match_resolve: two launches differ in {name}")
-    what = (f"bit-equal (feat_idx, point_of_feat, n = {int(got[2])}), two "
-            f"launches equal; the plain version is the eager composition "
-            f"it replaced")
-    return 0, what, (lambda: mk.match_resolve_cuda(*args)), \
-        (lambda: mk.match_resolve_ref(*args))
+    err, what, kernel, plain = _mr_check(args)
+    bare = _mr_args(args)
+    bare = bare[:7] + (False, None) + bare[9:]
+    with_cold, _ = _graph_ms(kernel)
+    bare_cold, _ = _graph_ms(lambda: mk.match_rows_cuda(*bare))
+    what += (f"; device time cold with the resolve {with_cold:.4f} ms, "
+             f"without {bare_cold:.4f} ms: the folded resolve "
+             f"{with_cold - bare_cold:.4f} ms")
+    return err, what, kernel, plain
 
 
 class _Kernel(NamedTuple):
@@ -1561,14 +1674,17 @@ KERNELS = (
             "hamming_matrix_auto) with the epilogues of "
             "airdos_tpu/matching/stereo.py:88, "
             "airdos_tpu/matching/projection.py:81 and :130, "
-            "airdos_tpu/matching/bow_match.py:31", _mr_shape, _mr_fmt,
-            lambda shape: shape[1] * shape[2], _mr_check, _mr_bound,
-            _no_library),
-    _Kernel("match_resolve", _match, "match_resolve_cuda",
+            "airdos_tpu/matching/bow_match.py:31, "
+            "airdos_tpu/matching/fuse.py:27 (:69)", _mr_shape, _mr_fmt,
+            lambda shape: shape[1] * shape[2] * shape[3], _mr_check,
+            _mr_bound, _no_library),
+    # the resolve runs inside match_rows' launch: its launches are the
+    # match_rows launches that ran it, its times the whole launch's
+    _Kernel("match_resolve", _match, "match_rows_cuda",
             "resolve_launches", "airdos_tpu_torch/csrc/match.cu",
             "airdos_tpu/matching/projection.py:61 _rotation_consistency, "
             ":41 _resolve_unique", _rs_shape, _rs_fmt,
-            lambda shape: shape[0], _rs_check, _rs_bound, _no_library),
+            lambda shape: shape[1], _rs_check, _rs_bound, _no_library),
 )
 
 # the BA kernels' launches per solve of the static (local) BA and of the
@@ -1603,7 +1719,41 @@ def _reset_counts() -> None:
 
 
 def _counts() -> dict:
-    return {k.name: getattr(k.module(), k.launches)() for k in KERNELS}
+    """Each kernel's launches, and match_rows' launches in fuse mode
+    ("match_fuse", not a kernel of its own)."""
+    counts = {k.name: getattr(k.module(), k.launches)() for k in KERNELS}
+    counts["match_fuse"] = _match().fuse_launches()
+    return counts
+
+
+@contextlib.contextmanager
+def _fusion_watch():
+    """Every call of fusion's device match (ba_driver's fuse_candidates:
+    a keyframe's neighbourhood fusion and the loop's SearchAndFuse) made
+    while the context is open -> [(match_rows launches in fuse mode,
+    batched Hamming launches)], a call each."""
+    from airdos_tpu_torch.slam import ba_driver
+    fuse = ba_driver.fuse_candidates
+    mk, hk = _match(), _hamming()
+    calls = []
+
+    def watched(*args, **kwargs):
+        f0, h0 = mk.fuse_launches(), hk.batched_launches()
+        out = fuse(*args, **kwargs)
+        calls.append((mk.fuse_launches() - f0, hk.batched_launches() - h0))
+        return out
+
+    ba_driver.fuse_candidates = watched
+    try:
+        yield calls
+    finally:
+        ba_driver.fuse_candidates = fuse
+
+
+def _fusion_off(calls) -> list:
+    """The fusion calls that did not launch exactly one match_rows in fuse
+    mode and no batched Hamming kernel: [(call, (fuse, batched))]."""
+    return [(i, c) for i, c in enumerate(calls) if c != (1, 0)]
 
 
 def _bound(k: _Kernel, shape, args):
@@ -1663,29 +1813,37 @@ def _path_recording():
     that the kernel phase can hold each kernel against its plain version
     on the inputs the main path gave it.  The launch counts are the
     wrappers' own and unchanged."""
-    saved = [(k, getattr(k.module(), k.wrapper)) for k in KERNELS]
+    groups = {}                     # kernels recorded at one wrapper
+    for k in KERNELS:
+        groups.setdefault((k.module, k.wrapper), []).append(k)
+    saved = [(module, wrapper, ks, getattr(module(), wrapper))
+             for (module, wrapper), ks in groups.items()]
     lock = threading.Lock()         # online phases launch from threads
 
-    def recorder(launch, k):
+    def recorder(launch, ks):
         def record(*args):
             with lock:
-                entry = _PATH.setdefault(k.name, {}).setdefault(
-                    k.shape_of(*args), [0, None])
-                entry[0] += 1
-                if entry[1] is None:
-                    entry[1] = tuple(_cloned(x) for x in args)
+                for k in ks:
+                    shape = k.shape_of(*args)
+                    if shape is None:       # not this kernel's launch
+                        continue
+                    entry = _PATH.setdefault(k.name, {}).setdefault(
+                        shape, [0, None])
+                    entry[0] += 1
+                    if entry[1] is None:
+                        entry[1] = tuple(_cloned(x) for x in args)
             return launch(*args)
         return record
 
     @contextlib.contextmanager
     def recording():
-        for k, launch in saved:
-            setattr(k.module(), k.wrapper, recorder(launch, k))
+        for module, wrapper, ks, launch in saved:
+            setattr(module(), wrapper, recorder(launch, ks))
         try:
             yield
         finally:
-            for k, launch in saved:
-                setattr(k.module(), k.wrapper, launch)
+            for module, wrapper, ks, launch in saved:
+                setattr(module(), wrapper, launch)
     return recording()
 
 
@@ -1951,7 +2109,9 @@ def _ate(trk, twc):
 FRONT_END = dict(pyramid=2, fast_nms=2, select=2, orb_desc=2, stereo_sad=1)
 # a fused ("fast") frame's matchers: the stereo, motion-model and
 # local-map match_rows (a fourth with the x2-window retry), the motion
-# and local match_resolve, and no 2-D Hamming kernel (its launches only
+# and local ones with the resolve in their launch (match_resolve counts
+# those: csrc/match.cu has no kernel of its own for it, where a separate
+# match_resolve launched 2 more), and no 2-D Hamming kernel (its launches only
 # compare with the kernels' plain versions, and the loop's Sim3 match
 # launches it)
 FUSED_MATCH = dict(match_rows=3, match_resolve=2)
@@ -2005,8 +2165,8 @@ def phase_slice(smi: str, frames, twc):
     counts = _counts()
     for i, (state, branch, dt, d) in enumerate(per):
         print(f"[slice] frame {i:2d} {state} {branch:5s} {dt * 1e3:9.2f} ms "
-              f"launches: match_rows {d['match_rows']}, match_resolve "
-              f"{d['match_resolve']}, 2-D hamming {d['hamming_matrix']}, "
+              f"launches: match_rows {d['match_rows']} ({d['match_resolve']} "
+              f"with the resolve), 2-D hamming {d['hamming_matrix']}, "
               f"pose_lm {d['pose_lm']}, pyramid {d['pyramid']}, fast_nms "
               f"{d['fast_nms']}, select {d['select']}, orb_desc "
               f"{d['orb_desc']}, stereo_sad {d['stereo_sad']}")
@@ -2123,7 +2283,8 @@ def phase_mapping(smi: str, frames, twc, twins):
     _reset_counts()
     ba_driver.local_bundle_adjust = recorded
     try:
-        per = _track_static(slam, frames)
+        with _fusion_watch() as fusions:
+            per = _track_static(slam, frames)
     finally:
         ba_driver.local_bundle_adjust = solver
     counts = _counts()
@@ -2151,11 +2312,20 @@ def phase_mapping(smi: str, frames, twc, twins):
              and per[i]["solves"] != 1]
     if no_ba:
         _fail(f"mapping: no static BA solve at keyframe frames {no_ba}")
-    no_batched = [i for i in kf_frames[1:]
-                  if per[i]["d"]["hamming_matrix_batched"] < 1]
-    if no_batched:
-        _fail(f"mapping: no batched Hamming launch at keyframe frames "
-              f"{no_batched}")
+    # triangulation's batched Hamming kernel: at the keyframes with
+    # neighbours to triangulate with (fusion, which launched it at every
+    # keyframe frame, launches match_rows in fuse mode)
+    if counts["hamming_matrix_batched"] < 1:
+        _fail("mapping: no batched Hamming launch (triangulation)")
+    no_fuse = [i for i in kf_frames[1:] if per[i]["d"]["match_fuse"] < 1]
+    fusion_off = _fusion_off(fusions)
+    if no_fuse or fusion_off or not fusions:
+        _fail(f"mapping: keyframe frames {no_fuse} without a match_rows "
+              f"launch in fuse mode, or fusion calls (call, (fuse-mode "
+              f"match_rows, batched Hamming launches)) {fusion_off} not "
+              f"(1, 0), of {len(fusions)}")
+    print(f"[mapping] fusion: {len(fusions)} calls, each one match_rows "
+          f"launch in fuse mode and no batched Hamming kernel", flush=True)
     seg_off = [i for i, p in enumerate(per)
                if p["d"]["segment_sum"] != 45 * p["solves"]]
     if seg_off:
@@ -2413,8 +2583,8 @@ def phase_reloc(smi: str, frames, twc):
     if per[reloc_i]["branch"] != "reloc" or \
             per[reloc_i]["d"]["match_rows"] <= 0 or \
             per[reloc_i]["d"]["match_resolve"] <= 0:
-        _fail(f"reloc: frame {reloc_i} relocalized without a match_rows and "
-              f"a match_resolve launch")
+        _fail(f"reloc: frame {reloc_i} relocalized without a match_rows "
+              f"launch with the resolve (the BoW match)")
     ate_cut = float(ate_rmse(t_cut, gt[:len(t_cut)]))
     _FOR_MESH["reloc_frame"] = reloc_i
     full_frames, _ = _reloc_frames(frames, twc, blank=False)
@@ -2502,6 +2672,8 @@ def phase_loop(smi: str, frames, twc):
     loop_closing.LoopCloser.compute_sim3 = compute_sim3
     loop_closing.LoopCloser.correct = correct
     loop_closing.sim3_ransac = sim3_ransac
+    fusion_watch = _fusion_watch()
+    fusions = fusion_watch.__enter__()
     try:
         _reset_counts()
         for data in frames:
@@ -2528,6 +2700,7 @@ def phase_loop(smi: str, frames, twc):
                             d={k: c1[k] - c0[k] for k in c1}))
         counts = _counts()
     finally:
+        fusion_watch.__exit__(None, None, None)
         loop_closing.LoopCloser.compute_sim3 = real_sim3
         loop_closing.LoopCloser.correct = real_correct
         loop_closing.sim3_ransac = real_ransac
@@ -2557,9 +2730,15 @@ def phase_loop(smi: str, frames, twc):
     loop_frames = [i for i, p in enumerate(per) if p["loops"]]
     if any(per[i]["d"]["hamming_matrix"] <= 0 or
            per[i]["d"]["hamming_matrix_batched"] <= 0 or
-           per[i]["d"]["match_rows"] <= 0 for i in loop_frames):
+           per[i]["d"]["match_rows"] <= 0 or per[i]["d"]["match_fuse"] <= 0
+           for i in loop_frames):
         _fail("loop: a loop frame launched no 2-D Hamming (the Sim3 match), "
-              "batched Hamming or match_rows (the BoW match) kernel")
+              "batched Hamming (triangulation), match_rows (the BoW match) "
+              "or match_rows in fuse mode (SearchAndFuse) kernel")
+    fusion_off = _fusion_off(fusions)
+    if fusion_off:
+        _fail(f"loop: fusion calls (call, (fuse-mode match_rows, batched "
+              f"Hamming launches)) {fusion_off} not (1, 0)")
     spans = slam.profiler.report()
     track_ms = [p["ms"] for p in per if not p["kf"]]
     kf_ms = [p["ms"] for i, p in enumerate(per)
@@ -2829,9 +3008,10 @@ def _online_pillar(smi, orbit, orbit_twc, offline_loop, live: bool):
     track_prio = {p for (name, th, p) in tally if th == "MainThread"
                   and name == "match_rows"}
     worker = {(name, p) for (name, th, p) in tally if th == "mapping"
-              and name in ("hamming_matrix_batched", "segment_sum")}
+              and name in ("hamming_matrix_batched", "match_fuse",
+                           "segment_sum")}
     if not track_prio or {n for n, _ in worker} != \
-            {"hamming_matrix_batched", "segment_sum"}:
+            {"hamming_matrix_batched", "match_fuse", "segment_sum"}:
         _fail(f"online: launches missing from the tally {tally}")
     if track_prio != {min(track_prio)} or min(track_prio) > \
             TRACKING_PRIORITY:
@@ -3418,8 +3598,7 @@ def phase_profile(smi: str):
 
         mine = "; ".join(
             "{} {} launches, mean device time {}".format(tag, *kernel_ms(tag))
-            for tag in ("hamming_kernel", "match_rows_kernel",
-                        "match_resolve_kernel", "segment_sum_",
+            for tag in ("hamming_kernel", "match_rows_kernel", "segment_sum_",
                         "pose_lm_kernel",
                         "pyramid_levels_kernel", "fast_nms_levels_kernel",
                         "select_kernel", "orb_desc_levels_kernel",

@@ -559,8 +559,8 @@ def _vo_frames(n):
 
 def test_online_threads_launch_on_their_streams(cuda):
     """Online, tracking's matcher launches (match_rows) go to the tracking
-    thread's high-priority stream, the mapping worker's batched Hamming
-    and segment sums to its own stream of lower priority."""
+    thread's high-priority stream, the mapping worker's fusion (match_rows
+    in fuse mode) and segment sums to its own stream of lower priority."""
     import airdos_tpu_torch.ops.match_kernels as mk
     import airdos_tpu_torch.ops.segment_kernels as sk
     from airdos_tpu_torch.slam.system import System
@@ -580,10 +580,10 @@ def test_online_threads_launch_on_their_streams(cuda):
     track = {p for (k, th, p) in tally
              if th == "MainThread" and k == "match_rows"}
     mapping = {k: p for (k, th, p) in tally if th == "mapping"
-               and k in ("hamming_matrix_batched", "segment_sum")}
+               and k in ("match_fuse", "segment_sum")}
     assert track == {slam._track_stream.priority}
     assert slam._track_stream.priority <= TRACKING_PRIORITY
-    assert set(mapping) == {"hamming_matrix_batched", "segment_sum"}
+    assert set(mapping) == {"match_fuse", "segment_sum"}
     assert min(mapping.values()) > max(track)
 
 
@@ -1939,36 +1939,91 @@ def test_match_rows_kernel_bit_equal_and_deterministic(cuda, mode, P, N):
         assert int(got.has.sum()) > 50
 
 
-@pytest.mark.parametrize("case", ["path", "ties", "farther than BIG"])
+@pytest.mark.parametrize("case", ["path", "ties", "rows at BIG"])
 @pytest.mark.parametrize("rotation", [True, False])
 def test_match_resolve_kernel_bit_equal_and_deterministic(cuda, case,
                                                           rotation):
+    """The resolve folded into match_rows' launch (motion and BoW with the
+    rotation filter or not, local without): feat_idx, point_of_feat and n
+    equal to match_resolve_ref on the kernel's rows, one launch a call."""
     import airdos_tpu_torch.ops.match_kernels as mk
-    rng = np.random.default_rng(len(case) + rotation)
-    P, N = 2048, 1536
-    best = rng.integers(0, N // 3, P)
-    dist = {"path": rng.integers(0, 101, P), "ties": rng.integers(0, 3, P),
-            "farther than BIG": rng.integers(mk.BIG - 2, mk.BIG + 3, P)}[case]
-    has = rng.uniform(size=P) < 0.6
-    ang_ref = rng.uniform(0, 360, P).astype(np.float32)
-    ang_tab = rng.uniform(0, 360, N).astype(np.float32)
-    ang_tab[best[:P // 2]] = (ang_ref[:P // 2] - 10) % 360   # a dominant bin
-    args = [torch.from_numpy(a).to(cuda) for a in
-            (best, dist.astype(np.int32), has)]
-    angles = [torch.from_numpy(a).to(cuda) for a in (ang_ref, ang_tab)] \
-        if rotation else [None, None]
-    before = mk.resolve_launches()
-    got = mk.match_resolve(*args, N, *angles)
-    again = mk.match_resolve(*args, N, *angles)
+    for m in (mk.MOTION, mk.BOW) if rotation else (mk.LOCAL, mk.BOW):
+        rng = np.random.default_rng(len(case) + rotation + 10 * m)
+        rows, cols, th, ratio, band, max_d = _match_case(rng, m, 2048, 1536,
+                                                         cuda)
+        if case == "ties":          # one descriptor: every distance 0
+            one = cols.desc[:1]
+            cols = cols._replace(desc=one.expand(1536, 8).contiguous())
+            rows = rows._replace(desc=one.expand(2048, 8).contiguous())
+        elif case == "rows at BIG":   # rows with no gated pair claim too
+            th = mk.BIG
+        P = rows.desc.shape[0]
+        ang_ref = torch.from_numpy(rng.uniform(0, 360, P).astype(np.float32))
+        ang_tab = torch.from_numpy(rng.uniform(0, 360, 1536).astype(np.float32))
+        angles = (ang_ref.to(cuda), ang_tab.to(cuda)) if rotation else None
+        before = (mk.launches(), mk.resolve_launches())
+        got = mk.match_rows(m, rows, cols, th, ratio, band, max_d, True, angles)
+        again = mk.match_rows(m, rows, cols, th, ratio, band, max_d, True,
+                              angles)
+        torch.cuda.synchronize()
+        assert (mk.launches(), mk.resolve_launches()) == \
+            (before[0] + 2, before[1] + 2)
+        bare = mk.match_rows_ref(m, rows, cols, th, ratio, band, max_d)
+        want = mk.match_resolve_ref(bare.best, bare.dist, bare.has, 1536,
+                                    *(angles or (None, None)))
+        for name, w in zip(("feat_idx", "point_of_feat", "n"), want):
+            assert torch.equal(getattr(got, name), w), (m, name)
+            assert torch.equal(getattr(again, name), w), (m, name)
+        # BoW's ratio test (dist < 0.7 second) drops every exact tie
+        assert int(got.n) > 0 or (case == "ties" and m == mk.BOW)
+
+
+@pytest.mark.parametrize("B,P,N", [(9, 2048, 1536), (1, 2048, 1536),
+                                   (3, 37, 45)])
+def test_match_rows_fuse_kernel_bit_equal_and_deterministic(cuda, B, P, N):
+    """Fuse mode at fusion's shapes (a keyframe's neighbourhood, B = 9,
+    and SearchAndFuse, B = 1): every output bit-equal to the plain
+    version on the card and on the CPU, one launch a call, no batched
+    Hamming launch."""
+    import airdos_tpu_torch.ops.match_kernels as mk
+    import torch_match_cases as tc
+    c = tc.make(mk.FUSE, "path", np.random.default_rng(B * P + N), P, N, B)
+    args = tc.args(c, cuda)
+    before = (mk.launches(), mk.fuse_launches(), hk.batched_launches())
+    got = mk.match_rows(*args)
+    again = mk.match_rows(*args)
     torch.cuda.synchronize()
-    assert mk.resolve_launches() == before + 2
-    want = mk.match_resolve_ref(*args, N, *angles)
-    want_cpu = mk.match_resolve_ref(
-        *[a.cpu() for a in args], N,
-        *[None if a is None else a.cpu() for a in angles])
-    for g, w, wc, a in zip(got, want, want_cpu, again):
-        assert torch.equal(g, w) and torch.equal(g.cpu(), wc)
-        assert torch.equal(g, a)
+    assert (mk.launches(), mk.fuse_launches(), hk.batched_launches()) == \
+        (before[0] + 2, before[1] + 2, before[2])
+    want = mk.match_rows_ref(*args)
+    want_cpu = mk.match_rows_ref(*tc.args(c))
+    for name in mk.RowMatches._fields:
+        g = getattr(got, name)
+        assert torch.equal(g, getattr(want, name)), name
+        assert torch.equal(g.cpu(), getattr(want_cpu, name)), name
+        assert torch.equal(g, getattr(again, name)), name
+    assert int((got.feat_idx >= 0).sum()) > P // 20
+
+
+@pytest.mark.parametrize("case", ["path", "border", "cell boundaries",
+                                  "non-finite", "one cell", "empty windows",
+                                  "no gated pair", "wide windows"])
+@pytest.mark.parametrize("mode", ["motion", "local", "stereo", "bow", "fuse"])
+def test_match_rows_grid_edge_cases_bit_equal(cuda, mode, case):
+    """The grid of cells' edge cases (tests/torch_match_cases.py) in every
+    mode, with the resolve where the mode has it: every output bit-equal
+    to the plain version, two launches equal."""
+    import airdos_tpu_torch.ops.match_kernels as mk
+    import torch_match_cases as tc
+    m = tc.MODES.index(mode)
+    for P, N in ((48, 96), (300, 500)):
+        rng = np.random.default_rng(1000 * m + 10 * tc.CASES.index(case) + P)
+        args = tc.args(tc.make(m, case, rng, P, N, 3), cuda)
+        got, again = mk.match_rows(*args), mk.match_rows(*args)
+        want = mk.match_rows_ref(*args)
+        for name in mk.RowMatches._fields:
+            assert torch.equal(getattr(got, name), getattr(want, name)), name
+            assert torch.equal(getattr(got, name), getattr(again, name)), name
 
 
 def test_match_kernels_raise_on_cpu_mixed_inputs(cuda):
@@ -1985,10 +2040,15 @@ def test_match_kernels_raise_on_cpu_mixed_inputs(cuda):
     with pytest.raises(ValueError):
         mk.match_rows(mk.LOCAL, rows._replace(radius=None), cols, th, ratio,
                       band)
-    best = torch.zeros(64, dtype=torch.int64, device=cuda)
-    dist = torch.zeros(64, dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError):
-        mk.match_resolve(best, dist, torch.ones(64, dtype=torch.bool), 80)
-    with pytest.raises(ValueError):
-        mk.match_resolve(best, dist.to(torch.int64),
-                         torch.ones(64, dtype=torch.bool, device=cuda), 80)
+    angles = (torch.zeros(64, device=cuda), torch.zeros(80, device=cuda))
+    with pytest.raises(ValueError):     # angles on the CPU
+        mk.match_rows(mk.MOTION, rows, cols, th, ratio, band, resolve=True,
+                      angles=(angles[0].cpu(), angles[1]))
+    with pytest.raises(ValueError):     # a table of the rows' length
+        mk.match_rows(mk.MOTION, rows, cols, th, ratio, band, resolve=True,
+                      angles=(angles[0], angles[0]))
+    with pytest.raises(ValueError):     # stereo has no resolve
+        mk.match_rows(mk.STEREO, rows, cols._replace(taken=None), th, ratio,
+                      resolve=True)
+    with pytest.raises(ValueError):     # fuse needs its sigma2 table
+        mk.match_rows(mk.FUSE, rows, cols, th)

@@ -330,6 +330,115 @@ def test_batched_fuse_candidates_matches_jax_vmap(jax_run):
     assert n_m > 50 and share >= 0.99, (share, n_m)
 
 
+def _fuse_composition(xw, desc_p, valid_p, normal_p, max_dist_p, min_dist_p,
+                      R, t, ow, feat_xy, feat_ur, feat_oct, feat_desc,
+                      feat_valid, fx, fy, cx, cy, bf, width, height,
+                      scale_factors, sigma2, log_scale, n_levels, th=3.0):
+    """matching/fuse.py's fuse_candidates as it was before its gate and
+    reductions became match_rows' fuse mode: the eager [B, P, N]
+    composition around the batched Hamming matrix."""
+    from airdos_tpu_torch.ops.hamming_kernels import hamming_matrix_batched
+    xc = torch.einsum("bij,pj->bpi", R, xw) + t[:, None, :]
+    z = xc[..., 2]
+    iz = 1.0 / torch.where(torch.abs(z) < 1e-6, torch.full_like(z, 1e-6), z)
+    u = fx * xc[..., 0] * iz + cx
+    v = fy * xc[..., 1] * iz + cy
+    ur = u - bf * iz
+    in_img = (u >= 0) & (u < width) & (v >= 0) & (v < height) & (z > 0)
+    po = xw[None] - ow[:, None, :]
+    dist3d = torch.linalg.norm(po, dim=-1)
+    dist_ok = (dist3d >= min_dist_p) & (dist3d <= max_dist_p)
+    safe = torch.clamp(dist3d, min=1e-9)
+    view_ok = torch.sum(po * normal_p[None], dim=-1) / safe > 0.5
+    pred = torch.ceil(torch.log(torch.clamp(max_dist_p / safe, min=1e-9))
+                      / log_scale).to(torch.int64)
+    pred = torch.clamp(pred, 0, n_levels - 1)
+    radius = (th * scale_factors[pred])[..., None]
+    du = feat_xy[:, None, :, 0] - u[..., None]
+    dv = feat_xy[:, None, :, 1] - v[..., None]
+    win_ok = (torch.abs(du) < radius) & (torch.abs(dv) < radius)
+    lf = feat_oct[:, None, :]
+    oct_ok = (lf >= pred[..., None] - 1) & (lf <= pred[..., None] + 1)
+    s2 = sigma2[feat_oct][:, None, :]
+    e2 = du * du + dv * dv
+    der = feat_ur[:, None, :] - ur[..., None]
+    has_r = (feat_ur >= 0)[:, None, :]
+    chi = torch.where(has_r, (e2 + der * der) / s2, e2 / s2)
+    chi_ok = torch.where(has_r, chi <= 7.8, chi <= 5.99)
+    frustum = in_img & dist_ok & view_ok & valid_p
+    ok = win_ok & oct_ok & chi_ok & frustum[..., None] & feat_valid[:, None, :]
+    D = hamming_matrix_batched(desc_p[None], feat_desc)
+    D = torch.where(ok, D, torch.full_like(D, 1 << 10))
+    best = torch.argmin(D, dim=2)
+    bdist = torch.gather(D, 2, best[..., None])[..., 0]
+    return torch.where(bdist <= 50, best, torch.full_like(best, -1)), bdist
+
+
+def _random_fuse_args(seed):
+    """Seeded fusion inputs around a synthetic camera: 300 points seen by
+    4 targets of 500 features, a third of the features at a point's
+    projection (a few pixels off, a few descriptor bits flipped)."""
+    rng = np.random.default_rng(seed)
+    P, N, B, L = 300, 500, 4, 8
+    fx = fy = 400.0
+    cx, cy, bf, W, H = 320.0, 180.0, 40.0, 640, 360
+    xw = np.stack([rng.uniform(-3, 3, P), rng.uniform(-2, 2, P),
+                   rng.uniform(2, 12, P)], 1).astype(np.float32)
+    desc = rng.integers(0, 2 ** 32, (P, 8), dtype=np.uint64).astype(np.uint32)
+    R = np.stack([np.eye(3, dtype=np.float32)] * B)
+    t = rng.normal(0, 0.05, (B, 3)).astype(np.float32)
+    xc = xw[None] + t[:, None]
+    u, v = fx * xc[..., 0] / xc[..., 2] + cx, fy * xc[..., 1] / xc[..., 2] + cy
+    src = rng.integers(0, P, (B, N))
+    near = rng.uniform(size=(B, N)) < 0.35
+    bi = np.arange(B)[:, None]
+    fxy = np.where(near[..., None],
+                   np.stack([u[bi, src], v[bi, src]], -1)
+                   + rng.normal(0, 1.5, (B, N, 2)),
+                   rng.uniform([0, 0], [W, H], (B, N, 2))).astype(np.float32)
+    fur = np.where(rng.uniform(size=(B, N)) < 0.7,
+                   fxy[..., 0] - bf / xc[bi, src, 2], -1).astype(np.float32)
+    fdesc = np.where(near[..., None], desc[src],
+                     rng.integers(0, 2 ** 32, (B, N, 8), dtype=np.uint64))
+    flip = np.left_shift(np.uint64(1), rng.integers(0, 32, (B, N, 8))
+                         .astype(np.uint64))
+    fdesc = (fdesc ^ np.where(rng.uniform(size=(B, N, 8)) < 0.2, flip, 0)) \
+        .astype(np.uint32)
+    dist = np.linalg.norm(xw, axis=1)
+    normal = (xw / dist[:, None]).astype(np.float32)
+    scales = (1.2 ** np.arange(L)).astype(np.float32)
+    return [torch.from_numpy(a) for a in (
+        xw, desc.view(np.int32), rng.uniform(size=(B, P)) < 0.8, normal,
+        (dist * 1.3).astype(np.float32), (dist * 0.3).astype(np.float32),
+        R, t, -t, fxy, fur, rng.integers(0, L, (B, N)),
+        fdesc.view(np.int32), rng.uniform(size=(B, N)) < 0.95)] + [
+        fx, fy, cx, cy, bf, W, H, torch.from_numpy(scales),
+        torch.from_numpy(scales * scales), float(np.log(1.2)), L]
+
+
+@pytest.mark.parametrize("inputs", ["neighbourhood", "random"])
+def test_fuse_candidates_equals_the_composition_it_replaced(jax_run, inputs):
+    """On the CPU fuse_candidates runs match_rows' plain version in fuse
+    mode: bit for bit the eager composition fusion had, on a keyframe
+    neighbourhood of the JAX run and on seeded random inputs."""
+    if inputs == "neighbourhood":
+        jmap, _, kf_id = _snapshot(jax_run)
+        kf = jmap.kfs[kf_id]
+        fuser = jbd.Fuser(jax_run["slam"].config, jmap,
+                          jax_run["slam"].frontend.extractor)
+        targets = [jmap.kfs[n] for n in kf.best_covisible(10)][
+            :fuser.max_targets]
+        args = _to_port(jax.device_get(
+            fuser._assemble_neighborhood(kf, targets)[2]))
+    else:
+        args = _random_fuse_args(3)
+    got = fuse_candidates(*args)
+    feat_idx, dist = _fuse_composition(*args)
+    assert int((feat_idx >= 0).sum()) > 20
+    assert torch.equal(got.feat_idx, feat_idx)
+    assert torch.equal(got.dist, dist)
+
+
 # ----------------------------------------------------------- drivers
 def _port_ext(jax_slam):
     return FrontEnd(config_from(jax_slam.config), device="cpu").extractor

@@ -29,6 +29,7 @@ from airdos_tpu_torch.matching.bow_match import match_by_bow
 from test_torch_matching import (N_LEVELS, SCALES, _last_frame_points,  # noqa: F401
                                  _run_stereo, _t, scene)
 from test_torch_ops import one_torch_thread  # noqa: F401 (autouse)
+import torch_match_cases as tcases
 
 LANES = 32
 NONE = mk.BIG << mk.INDEX_BITS          # the (BIG, index 0) key
@@ -151,12 +152,13 @@ def test_match_by_bow_exactly_jax(scene, check_rotation, nn_ratio):
 # ------------------------------------- the kernels' reductions in numpy
 
 def _emulate_rows(mode, G, H, col_key, col_x, th, ratio, rng):
-    """csrc/match.cu match_rows over a gate G [P, N] and distances H: each
-    lane keeps the two smallest keys (distance << 21 | column) of the
-    gated columns it strides over, the warp takes the minima; stereo's
-    second is a second pass over the columns at > 1.5 px from best's u,
-    and its column minima are complemented atomicMax in a random order,
-    decoded and checked for mutuality by the last block."""
+    """csrc/match.cu match_rows' reductions over a gate G [P, N] and
+    distances H, the candidates met in column order: each lane keeps the
+    two smallest keys (distance << 21 | column) of the gated columns it
+    meets, the warp takes the minima; stereo's second is the least of the
+    gated pairs the warp listed at > 1.5 px from best's u, and its column
+    minima are complemented atomicMax in a random order, decoded and
+    checked for mutuality by the last block."""
     P, N = G.shape
     out = {k: np.zeros(P, np.int64) for k in ("best", "dist", "second",
                                               "second_dist")}
@@ -165,6 +167,7 @@ def _emulate_rows(mode, G, H, col_key, col_x, th, ratio, rng):
     f32 = np.float32
     for p in range(P):
         k1, k2 = [NONE] * LANES, [NONE] * LANES
+        listed = []
         for lane in range(LANES):
             for j in range(lane, N, LANES):
                 if not G[p, j]:
@@ -175,15 +178,14 @@ def _emulate_rows(mode, G, H, col_key, col_x, th, ratio, rng):
                 elif key < k2[lane]:
                     k2[lane] = key
                 if mode == mk.STEREO:
+                    listed.append(key)
                     stores.append((j, ~(int(H[p, j]) << mk.INDEX_BITS | p)
                                    & 0xFFFFFFFF))
         best = min(k1)
         if mode == mk.STEREO:
             xb = col_x[best & MASK]
-            cand = [min([int(H[p, j]) << mk.INDEX_BITS | j
-                         for j in range(lane, N, LANES)
-                         if G[p, j] and abs(f32(col_x[j] - xb)) > f32(1.5)],
-                        default=NONE) for lane in range(LANES)]
+            cand = [k for k in listed
+                    if abs(f32(col_x[k & MASK] - xb)) > f32(1.5)] or [NONE]
         else:
             cand = [b if a == best else a for a, b in zip(k1, k2)]
         second = min(cand)
@@ -267,6 +269,28 @@ def test_row_reduction_emulation_equals_plain_version(case, mode):
         np.testing.assert_array_equal(col_best, torch.argmin(D, 0).numpy())
 
 
+@pytest.mark.parametrize("case", _ROWS_CASES)
+def test_fuse_reduction_emulation_equals_plain_version(case):
+    """Fuse mode's reductions (a warp a row of a target: the minimum of
+    the lanes' least keys, feat_idx = best where dist <= TH_LOW) equal the
+    plain version's argmin over a [B, P, N] gated matrix."""
+    rng = np.random.default_rng(7 + _ROWS_CASES.index(case))
+    Gs, Hs = zip(*[_rows_case(case, rng)[:2] for _ in range(3)])
+    G, H = np.stack(Gs), np.stack(Hs)
+    D = torch.where(torch.from_numpy(G), torch.from_numpy(H).to(torch.int32),
+                    torch.full(G.shape, mk.BIG, dtype=torch.int32))
+    want = mk.reduce_gated(mk.FUSE, D, None, None, 50, 0.0)
+    keys = np.where(G, H << mk.INDEX_BITS | np.arange(G.shape[2]), NONE)
+    lanes = [keys[..., lane::LANES].min(-1, initial=NONE)
+             for lane in range(LANES)]
+    best = np.minimum.reduce(lanes)
+    np.testing.assert_array_equal(best & MASK, want.best.numpy())
+    np.testing.assert_array_equal(best >> mk.INDEX_BITS, want.dist.numpy())
+    np.testing.assert_array_equal(
+        np.where(best >> mk.INDEX_BITS <= 50, best & MASK, -1),
+        want.feat_idx.numpy())
+
+
 def _bins(ang_ref, ang_cur):
     """The kernel's rotation bin in numpy float32."""
     f32 = np.float32
@@ -277,36 +301,48 @@ def _bins(ang_ref, ang_cur):
     return np.clip(b, 0, mk.HISTO_BINS - 1)
 
 
+def _top3(hist):
+    """csrc/match.cu resolve_rows' top 3 of a warp of 32 lanes (lane b
+    holds bin b's count, lanes 30 and 31 none): three warp max-reductions
+    of count << 5 | (31 - lane) over the bins not yet taken, so ties go to
+    the lower bin, then the 0.1 * max cut -> keep [30]."""
+    counts = [int(hist[b]) if b < mk.HISTO_BINS else -1 for b in range(32)]
+    taken, val = [False] * 32, [0] * 32
+    cut = None
+    for _ in range(3):
+        top = max((v << 5 | (31 - lane)) if v >= 0 and not taken[lane] else -1
+                  for lane, v in enumerate(counts))
+        if cut is None:
+            cut = np.float32(0.1) * np.float32(top >> 5)
+        taken[31 - (top & 31)] = True
+        val[31 - (top & 31)] = top >> 5
+    return np.array([taken[b] and np.float32(val[b]) >= cut
+                     for b in range(mk.HISTO_BINS)])
+
+
 def _emulate_resolve(best, dist, has, n_feats, bins, rng):
-    """csrc/match.cu match_resolve: the histogram's top 3 by thread 0
-    (strictly larger wins: ties to the lower bin) with the 0.1 * max cut,
-    then each row's key dist << 32 | row atomicMin-ed in a random order
-    into its feature's slot (unset above any (BIG, row) key)."""
+    """csrc/match.cu resolve_rows (the last block of match_rows): each
+    row's bin once (-1 where it claims nothing), the histogram's top 3 by
+    _top3, then each kept row's 32-bit key dist << 21 | row (a row farther
+    than BIG kept out) atomicMin-ed in a random order into its feature's
+    slot (unset: all ones)."""
+    claim = has & (best >= 0) & (best < n_feats)
+    k = np.where(claim, bins if bins is not None else 0, -1)
     keep = np.ones(mk.HISTO_BINS, bool)
     if bins is not None:
-        hist = np.bincount(bins[has], minlength=mk.HISTO_BINS)
-        top, taken = [], set()
-        for _ in range(3):
-            pick, val = 0, -1
-            for b in range(mk.HISTO_BINS):
-                if b not in taken and hist[b] > val:
-                    pick, val = b, hist[b]
-            taken.add(pick)
-            top.append((pick, val))
-        keep[:] = False
-        cut = np.float32(0.1) * np.float32(top[0][1])
-        for b, v in top:
-            keep[b] = np.float32(v) >= cut
-        has = has & keep[bins]
-    unset = mk.BIG << 32 | 0xFFFFFFFF
+        keep = _top3(np.bincount(k[k >= 0], minlength=mk.HISTO_BINS))
+    kept = (k >= 0) & keep[np.maximum(k, 0)] & (dist <= mk.BIG)
+    unset = 0xFFFFFFFF
+    key = (dist.astype(np.int64) << mk.INDEX_BITS | np.arange(len(best)))
+    assert (key[kept] < unset).all()
     seg = [unset] * n_feats
     for p in rng.permutation(len(best)):
-        if has[p]:
-            seg[best[p]] = min(seg[best[p]], int(dist[p]) << 32 | int(p))
-    won = np.array([has[p] and seg[best[p]] == int(dist[p]) << 32 | p
+        if kept[p]:
+            seg[best[p]] = min(seg[best[p]], int(key[p]))
+    won = np.array([kept[p] and seg[best[p]] == key[p]
                     for p in range(len(best))], bool)
     feat_idx = np.where(won, best, -1)
-    pof = np.array([-1 if s == unset else s & 0xFFFFFFFF for s in seg])
+    pof = np.array([-1 if s == unset else s & MASK for s in seg])
     return feat_idx, pof, int(won.sum())
 
 
@@ -385,6 +421,267 @@ def test_histogram_top3_ties_and_cut(kind, rng):
         assert not want_t[bins == 19].any() and want_t[bins == 6].all()
 
 
+# ------------------------------------- the grid of cells, in numpy
+
+REACH = np.float32(2 ** 20)             # csrc/match.cu kReach
+LIST = 64                               # csrc/match.cu kList
+f32 = np.float32
+
+
+def _axis(lo, hi, n):
+    """csrc/match.cu make_axis: (lo, inv, n), a cell at least a pixel."""
+    if not lo <= hi:
+        return f32(0), f32(0), n
+    span = f32(hi - lo)
+    return f32(lo), (f32(n) / span if span > f32(n) else f32(1)), n
+
+
+def _cell(ax, z):
+    """csrc/match.cu cell_of: clamp(floor((z - lo) * inv)), NaN to 0."""
+    lo, inv, n = ax
+    with np.errstate(invalid="ignore", over="ignore"):
+        f = np.floor(f32(f32(z) - lo) * inv)
+    return int(np.fmin(np.fmax(f, f32(0)), f32(n - 1)))
+
+
+def _cell_range(ax, lo, hi):
+    """csrc/match.cu cell_range: widened by a cell, or the whole axis."""
+    if not (abs(lo) < REACH and abs(hi) < REACH):
+        return 0, ax[2] - 1
+    return max(_cell(ax, lo) - 1, 0), min(_cell(ax, hi) + 1, ax[2] - 1)
+
+
+def _bucket(key, n):
+    return ((int(key) % 2 ** 64) * 0x9E3779B97F4A7C15 % 2 ** 64 >> 32) % n
+
+
+def _gate(mode, c, a, cx, cy, cw, ck):
+    """csrc/match.cu gate at one candidate, float32 steps."""
+    with np.errstate(invalid="ignore", over="ignore"):
+        if mode == mk.BOW:
+            return ck == a["key"]
+        if mode == mk.STEREO:
+            if not abs(f32(a["y"] - cy)) <= cw or abs(a["key"] - ck) > 1:
+                return False
+            disp = f32(a["x"] - cx)
+            return f32(0) <= disp <= f32(c["max_d"])
+        du, dv = f32(cx - a["x"]), f32(cy - a["y"])
+        if not (abs(du) < a["radius"] and abs(dv) < a["radius"]):
+            return False
+        if mode == mk.FUSE:
+            if ck < a["key"] - 1 or ck > a["key"] + 1:
+                return False
+            s2 = c["sigma2"][min(max(ck, 0), len(c["sigma2"]) - 1)]
+            e2 = f32(f32(du * du) + f32(dv * dv))
+            if cw >= 0:
+                der = f32(cw - a["ur"])
+                return f32(f32(e2 + f32(der * der)) / s2) <= f32(mk.CHI2_STEREO)
+            return f32(e2 / s2) <= f32(mk.CHI2_MONO)
+        lo, hi = c["band"]
+        if lo is not None and ck < a["key"] + lo:
+            return False
+        if hi is not None and ck > a["key"] + hi:
+            return False
+        return not cw > 0 or abs(f32(a["ur"] - cw)) < a["radius"]
+
+
+def _table(mode, cols, cells, rng):
+    """csrc/match.cu build_table: the valid columns sorted into cells (in
+    a random order within a cell, as the atomics leave them) -> (slots
+    [n] of column indices, start [cells + 1], x axis, y axis, w_max)."""
+    gx, gy = cells
+    valid = cols["ok"].copy()
+    if cols.get("taken") is not None:
+        valid &= ~cols["taken"]
+    if mode == mk.BOW:
+        valid &= cols["key"] >= 0
+        cell = np.array([_bucket(k, gx) for k in cols["key"]])
+        ax = ay = None
+        w_max = None
+    else:
+        x, y = cols["x"], cols["y"]
+        with np.errstate(invalid="ignore"):
+            fx, fy = valid & (np.abs(x) < REACH), valid & (np.abs(y) < REACH)
+        ax = _axis(x[fx].min(), x[fx].max(), gx) if fx.any() else _axis(1, 0, gx)
+        ay = _axis(y[fy].min(), y[fy].max(), gy) if fy.any() else _axis(1, 0, gy)
+        ws = cols["w"][valid]
+        ws = ws[~np.isnan(ws)]
+        w_max = f32(ws.max()) if len(ws) else f32(-np.inf)
+        cell = np.array([_cell(ay, y[j]) * gx + _cell(ax, x[j])
+                         for j in range(len(x))])
+    js = np.nonzero(valid)[0]
+    js = js[np.lexsort((rng.uniform(size=len(js)), cell[js]))]
+    start = np.concatenate([[0], np.cumsum(np.bincount(cell[js],
+                                                       minlength=gx * gy))])
+    return js, start, ax, ay, w_max
+
+
+def _window(mode, c, a, ax, ay, w_max, gx):
+    """A row's candidate slots, in the order its warp's lanes meet them
+    (the ranges of cells concatenated; candidate t to lane t % 32)."""
+    if mode == mk.BOW:
+        b = _bucket(a["key"], gx)
+        return [(b, b, 0, 1)]
+    with np.errstate(invalid="ignore", over="ignore"):
+        if mode == mk.STEREO:
+            xs = (f32(a["x"] - f32(c["max_d"])), a["x"])
+            ys = (f32(a["y"] - w_max), f32(a["y"] + w_max))
+        else:
+            r = a["radius"]
+            xs = (f32(a["x"] - r), f32(a["x"] + r))
+            ys = (f32(a["y"] - r), f32(a["y"] + r))
+    cx0, cx1 = _cell_range(ax, *xs)
+    cy0, cy1 = _cell_range(ay, *ys)
+    return [(cx0, cx1, cy0, max(cy1 - cy0 + 1, 0) if cx1 >= cx0 else 0)]
+
+
+def _emulate_grid(c, cells, rng):
+    """csrc/match.cu match_rows (and its resolve) on numpy case c: the grid
+    of cells, each row's window walked a candidate a lane, the exact gate,
+    the gated columns' distances a column a lane in the order the warp
+    compacted them, the two smallest keys a lane and the warp's minima;
+    stereo's far-u
+    second from the warp's list of gated pairs (a second walk where the
+    list overflows), the column minima as complemented atomicMax in a
+    random order and the last block's mutual check; fuse's batch of
+    targets and feat_idx; the resolve as _emulate_resolve."""
+    mode, rows, cols = c["mode"], c["rows"], c["cols"]
+    fuse = mode == mk.FUSE
+    B = cols["desc"].shape[0] if fuse else 1
+    P = rows["desc"].shape[0]
+    gx, gy = cells
+    out = {k: np.zeros((B, P), np.int64) for k in ("best", "dist", "second",
+                                                    "second_dist")}
+    has = np.zeros((B, P), bool)
+    stores = []
+    for b in range(B):
+        cb = {k: (v[b] if fuse else v) for k, v in cols.items()
+              if v is not None}
+        js, start, ax, ay, w_max = _table(mode, cb, cells, rng)
+        pc = np.array([bin(int(w)).count("1") for w in range(256)])
+        cdesc = cb["desc"].view(np.uint8)
+        rdesc = rows["desc"].view(np.uint8)
+        for p in range(P):
+            a = {k: (v[b, p] if fuse and k != "desc" else v[p])
+                 for k, v in rows.items() if v is not None}
+            ok = a["ok"] and not (mode == mk.BOW and a["key"] < 0)
+            slots = []
+            if ok:
+                for cx0, cx1, cy0, nr in _window(mode, c, a, ax, ay, w_max,
+                                                 gx):
+                    for r in range(nr):
+                        base = (cy0 + r) * gx
+                        slots += list(range(start[base + cx0],
+                                            start[base + cx1 + 1]))
+            k1, k2 = [NONE] * LANES, [NONE] * LANES
+            listed = []
+            gated = [js[s] for s in slots if _gate(
+                mode, c, a, None if mode == mk.BOW else cb["x"][js[s]],
+                None if mode == mk.BOW else cb["y"][js[s]],
+                None if mode == mk.BOW else cb["w"][js[s]], cb["key"][js[s]])]
+            for g, j in enumerate(gated):
+                lane = g % LANES            # the flush's lane of a gated column
+                d = int(pc[rdesc[p] ^ cdesc[j]].sum())
+                key = d << mk.INDEX_BITS | int(j)
+                if key < k1[lane]:
+                    k1[lane], k2[lane] = key, k1[lane]
+                elif key < k2[lane]:
+                    k2[lane] = key
+                if mode == mk.STEREO:
+                    listed.append((key, cb["x"][j]))
+                    stores.append((int(j), ~(d << mk.INDEX_BITS | p)
+                                   & 0xFFFFFFFF))
+            best = min(k1)
+            if mode == mk.STEREO:
+                second = NONE
+                if best != NONE:
+                    # past LIST gated pairs the warp walks its window
+                    # again and meets the same pairs
+                    xb = cb["x"][best & MASK]
+                    with np.errstate(invalid="ignore"):
+                        far = [k for k, x in listed if abs(f32(x - xb)) > f32(1.5)]
+                    second = min(far, default=NONE)
+            else:
+                second = min(b2 if b1 == best else b1 for b1, b2 in zip(k1, k2))
+            bd, bi, sd, si = best >> mk.INDEX_BITS, best & MASK, \
+                second >> mk.INDEX_BITS, second & MASK
+            h = bd <= c["th"]
+            fb, rs = f32(bd), f32(c["ratio"])
+            if mode == mk.LOCAL:
+                h = h and not (cb["key"][bi] == cb["key"][si] and
+                               fb > rs * f32(sd) and sd < mk.BIG)
+            elif mode == mk.STEREO:
+                h = h and fb < rs * f32(min(sd, 256))
+            elif mode == mk.BOW:
+                h = h and fb < rs * f32(sd)
+            out["best"][b, p], out["dist"][b, p] = bi, bd
+            out["second"][b, p], out["second_dist"][b, p] = si, sd
+            has[b, p] = h
+    res = {k: v if fuse else v[0] for k, v in out.items()}
+    has = has if fuse else has[0]
+    if fuse:
+        return dict(best=res["best"], dist=res["dist"], has=has,
+                    feat_idx=np.where(has, res["best"], -1))
+    res["has"] = has
+    N = cols["desc"].shape[0]
+    if mode == mk.STEREO:
+        stored = np.zeros(N, np.int64)
+        for i in rng.permutation(len(stores)):
+            j, v = stores[i]
+            stored[j] = max(stored[j], v)
+        res["col_best"] = np.where(stored == 0, 0, ~stored & MASK)
+        res["has"] = has & (res["col_best"][res["best"]] == np.arange(P))
+    if c["resolve"]:
+        bins = _bins(*(c["angles"][0], c["angles"][1][res["best"]])) \
+            if c["angles"] is not None else None
+        res["feat_idx"], res["point_of_feat"], res["n"] = _emulate_resolve(
+            res["best"], res["dist"], res["has"], N, bins, rng)
+    return res
+
+
+_GRIDS = {"64 x 48": None, "8 x 6": (8, 6), "one cell": (1, 1)}
+
+
+@pytest.mark.parametrize("grid", list(_GRIDS))
+@pytest.mark.parametrize("case", tcases.CASES)
+@pytest.mark.parametrize("mode", tcases.MODES)
+def test_grid_walk_emulation_equals_plain_version(mode, case, grid):
+    """The kernel's walk over its grid of cells, emulated in numpy, gives
+    every output of the plain version (the dense gate and argmins) in
+    every mode, on the grid's edge cases, at the kernel's grid, a coarse
+    one and a single cell (the full scan)."""
+    m = tcases.MODES.index(mode)
+    rng = np.random.default_rng(100 * m + 10 * tcases.CASES.index(case)
+                                + list(_GRIDS).index(grid))
+    c = tcases.make(m, case, rng, 48, 96, 3)
+    cells = _GRIDS[grid] or mk.CELLS[m]
+    if m == mk.BOW and grid == "8 x 6":
+        cells = (7, 1)
+    got = _emulate_grid(c, cells, rng)
+    want = mk.match_rows_ref(*tcases.args(c))
+    for name, g in got.items():
+        np.testing.assert_array_equal(g, getattr(want, name).numpy(),
+                                      err_msg=name)
+    if case == "path":
+        assert want.has.sum() > 5
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_warp_top3_equals_the_stable_sort(seed):
+    """The folded resolve's top 3 (three warp max-reductions) keeps the
+    bins the plain version's stable descending sort keeps, on histograms
+    full of ties."""
+    rng = np.random.default_rng(seed)
+    hist = rng.integers(0, [2, 3, 5, 20, 200, 1][seed], mk.HISTO_BINS)
+    counts = torch.from_numpy(hist)
+    top = torch.sort(counts, descending=True, stable=True)
+    ok = top.values[:3].to(torch.float32) >= \
+        0.1 * top.values[0].to(torch.float32)
+    keep = torch.zeros(mk.HISTO_BINS, dtype=torch.bool)
+    keep[top.indices[:3]] = ok
+    np.testing.assert_array_equal(_top3(hist), keep.numpy())
+
+
 # --------------------------------------------------------- the roundings
 
 @pytest.mark.parametrize("ratio", [0.7, 0.75, 0.8, 0.9])
@@ -410,8 +707,8 @@ def test_bin_scale_product_is_float32(rng):
 # ------------------------------------------------------ the dispatchers
 
 def test_cpu_tensors_take_the_plain_versions(scene, monkeypatch):
-    """On CPU tensors the matchers never reach the kernels' wrappers, and
-    the wrappers raise on CPU tensors (no launch is counted)."""
+    """On CPU tensors the matchers never reach the kernel's wrapper, and
+    the wrapper raises on CPU tensors (no launch is counted)."""
     cam, (a, b) = scene
 
     def kernel(*args, **kwargs):
@@ -420,7 +717,6 @@ def test_cpu_tensors_take_the_plain_versions(scene, monkeypatch):
     n_rows, n_resolve = mk.launches(), mk.resolve_launches()
     with monkeypatch.context() as m:
         m.setattr(mk, "match_rows_cuda", kernel)
-        m.setattr(mk, "match_resolve_cuda", kernel)
         got = _run_stereo(a, cam, "torch")
     assert (got["best_right"] >= 0).sum() > 100
     rows = mk.MatchRows(_t(a["desc_l"].view(np.int32)), _t(a["oct_l"]).long(),
@@ -429,9 +725,6 @@ def test_cpu_tensors_take_the_plain_versions(scene, monkeypatch):
                         _t(b["valid_l"]))
     with pytest.raises(ValueError):
         mk.match_rows_cuda(mk.BOW, rows, cols, 49, 0.7)
-    P = rows.desc.shape[0]
     with pytest.raises(ValueError):
-        mk.match_resolve_cuda(torch.zeros(P, dtype=torch.int64),
-                              torch.zeros(P, dtype=torch.int32),
-                              torch.ones(P, dtype=torch.bool), P)
+        mk.match_rows_cuda(mk.BOW, rows, cols, 49, 0.7, resolve=True)
     assert (mk.launches(), mk.resolve_launches()) == (n_rows, n_resolve)
