@@ -1,6 +1,6 @@
 // The matchers' gate, best / second-best reduction and uniqueness
 // resolution, for sm_90a: one kernel, match_rows, one launch a matcher
-// call, in five modes (motion, local, stereo, bow and fuse).
+// call, in six modes (motion, local, stereo, bow, fuse and epipolar).
 //
 // Replaces the epilogues around the Pallas kernel
 // airdos_tpu/ops/pallas_kernels.py:36 hamming_matrix_pallas (the call at
@@ -10,11 +10,15 @@
 // match_local_points (window, octave band, right-u gate; best, second and
 // level ratio; :61 _rotation_consistency and :41 _resolve_unique) and
 // matching/bow_match.py:31 match_by_bow (node gate, best, second,
-// rotation, uniqueness), and in the mapping's duplicate fusion,
-// matching/fuse.py:27 fuse_candidates (window, octave band, chi-square,
-// best), which airdos_tpu vmaps over a batch of target keyframes.  On the
-// TPU each is the Pallas tile kernel writing the dense [P, N] (fusion:
-// [B, P, N]) distance matrix plus XLA fusions of the gate, argmins and
+// rotation, uniqueness), in the loop's matching/sim3_match.py:31
+// _directional (motion mode's gate and best), in the mapping's duplicate
+// fusion, matching/fuse.py:27 fuse_candidates (window, octave band,
+// chi-square, best), and in triangulation's epipolar search,
+// matching/epipolar.py:36 triangulate_pair (:63-84: the distance to the
+// epipolar line, best), the last two of which airdos_tpu vmaps over a
+// batch of target keyframes.  On the TPU each is the Pallas tile kernel
+// writing the dense [P, N] (fusion, triangulation: [B, P, N]) distance
+// matrix plus XLA fusions of the gate, argmins and
 // scatter-mins.  Here the distances of the pairs that pass the gate are
 // computed where they are reduced, and no such matrix reaches device
 // memory.  The port's plain versions are ops/match_kernels.py
@@ -32,6 +36,9 @@
 //     motion, key_j in [key_p - 1, key_p + 1], and the chi-square test
 //     (e2 + der^2) / sigma2[key_j] <= 7.8 where w_j >= 0, else
 //     e2 / sigma2[key_j] <= 5.99, e2 = du^2 + dv^2, der = w_j - ur_p;
+//   epipolar (row p's line (l0, l1, l2) in target b's image, the columns
+//     of target b, w_j = sigma2[octave_j]): dn = l0 x_j + l1 y_j + l2,
+//     dn^2 / max(l0^2 + l1^2, 1e-12) < 3.84 w_j;
 // and in every mode row p and column j are valid (a column not taken).
 // D[p, j] = popc(desc_p ^ desc_j) over the 8 words where the gate holds,
 // else BIG = 1024 (above any distance, 256 at most).  Per row:
@@ -39,14 +46,16 @@
 //     a row with no gated pair gives index 0 and BIG, as argmin does);
 //   second = argmin over j != best (motion, local, bow), or over the
 //     columns with |x_j - x_best| > 1.5 (stereo), BIG and index 0 where
-//     none is left; fuse has none;
+//     none is left; fuse and epipolar have none;
 //   has = dist <= th and the mode's ratio test: local rejects where the
 //     two share an octave, dist > ratio * second and second < BIG;
 //     stereo keeps dist < ratio * min(second, 256); bow keeps
-//     dist < ratio * second; motion and fuse have none.  Stereo also
-//     needs the mutual check: the best row of column best is p.
+//     dist < ratio * second; motion, fuse and epipolar have none.
+//     Stereo also needs the mutual check: the best row of column best is
+//     p.
 // Stereo writes each column's argmin row too (index 0 for a column with
-// no gated pair); fuse writes feat_idx = best where has, else -1.
+// no gated pair); fuse and epipolar write feat_idx = best where has, else
+// -1.
 //
 // The resolve (motion, local and bow, where asked): the 30-bin rotation
 // histogram of the rows that have a match (bin = rint(((a_ref - a_cur)
@@ -66,24 +75,36 @@
 // distance exceeds BIG never wins, as in the plain version).  Every gate
 // comparison is one float32 subtraction (__fsub_rn, no contraction),
 // fabsf and compare on the operands the plain version uses; fuse's
-// chi-square is torch's float32 steps, each rounded (__fmul_rn, __fadd_rn,
-// __fdiv_rn); the ratio a float32 product (__fmul_rn) of the ratio
+// chi-square and epipolar's distance are torch's float32 steps, each
+// rounded (__fmul_rn, __fadd_rn, __fdiv_rn; nvcc would contract a product
+// and a sum into an FMA); the ratio a float32 product (__fmul_rn) of the ratio
 // rounded to float32 (torch's rounding of a Python scalar) and the
 // distance; so every output is the plain version's, bit for bit.
 //
-// Design.  A block of 8 warps takes rows of one call (fuse: of one target,
-// blockIdx.y).  It first sorts the valid columns of the call into a grid
+// Design.  A block of 8 warps takes rows of one call (fuse, epipolar: of
+// one target, blockIdx.y).  It first sorts the valid columns of the call into a grid
 // of cells in shared memory (ORB-SLAM's Frame::GetFeaturesInArea), a
 // counting sort: each thread's columns loaded together (kPer a thread,
 // every load issued before any is used), the grid's extent from their
 // coordinates (a block reduction, which also finds stereo's widest band
-// w_max), a histogram of cells with each column's rank, its prefix sum
+// or epipolar's largest sigma2, w_max), a histogram of cells with each
+// column's rank, its prefix sum
 // and a scatter of each column's index, x, y, w, key (and angle, for the
 // rotation filter) into its cell's slots.  The columns of one row of
 // cells are then contiguous, so a row's window is one contiguous range
 // of slots a row of cells:
 //   motion, local, fuse: x in [u - r, u + r], y in [v - r, v + r];
 //   stereo: x in [u - max_d, u], y in [v - w_max, v + w_max];
+//   epipolar: the band |l0 x + l1 y + l2| <= h about the row's line, a
+//     range of cells in each row of cells: the x where some y of the row
+//     of cells, widened by a cell above and below, puts the line within
+//     h, clipped to the columns' extent.  h = sqrt(3.84 w_max den) (den
+//     the clamped l0^2 + l1^2) raised by 1e-3 of itself and by 1e-5 of
+//     |l0| max|x| + |l1| max|y| + |l2| over the extent: the gate's three
+//     roundings of dn are within 2^-22 of that sum, so a gated pair lies
+//     inside h with room for this bound's own float32 steps.  A line or
+//     h that is not finite, or a valid column of finite coordinates past
+//     2^20 px, takes every cell;
 //   bow: the cells are buckets of a hash of the key, and a row's window
 //     is its key's bucket (a grid of one cell is the full scan).
 // A window's cell range is widened by one cell on each side, and a cell
@@ -146,7 +167,8 @@ struct RowsParams {
   const uint4* row_desc;   // [P] descriptors (shared by the batch)
   const uint4* col_desc;   // [B, N] descriptors
   long long col_desc_sb;   // descriptors from one target's columns to the next
-  Vec row_x, row_y, row_ur, row_r, row_key, row_ok;
+  Vec row_x, row_y, row_ur, row_r, row_key, row_ok;  // epipolar: the
+                           // line's l0, l1, l2 as row_x, row_y, row_ur
   Vec col_x, col_y, col_w, col_key, col_ok, col_taken;
   Vec ang_ref, ang_tab;    // the resolve's rotation filter (null: off)
   const float* sigma2;     // fuse: [n_levels]
@@ -173,6 +195,7 @@ constexpr int kLocal = 1;
 constexpr int kStereo = 2;
 constexpr int kBow = 3;
 constexpr int kFuse = 4;
+constexpr int kEpi = 5;
 
 constexpr unsigned kBig = 1u << 10;
 constexpr int kIndexBits = 21;
@@ -191,9 +214,16 @@ constexpr float kReach = 1048576.f;             // 2^20 px: binned exactly
 constexpr float kChiStereo = 7.8f;
 constexpr float kChiMono = 5.99f;
 constexpr float kFarU = 1.5f;
+constexpr float kEpiChi2 = 3.84f;
+constexpr float kEpiMinNorm2 = 1e-12f;
 // the resolve's scratch: the counter, then the histogram, then the bins
 constexpr int kHist = 1;
 constexpr int kRowBins = kHist + 32;
+
+// modes whose rows and columns come a batch of targets
+__host__ __device__ constexpr bool batched(int mode) {
+  return mode == kFuse || mode == kEpi;
+}
 
 template <typename T>
 __device__ __forceinline__ T at(const Vec& v, long long b, long long i) {
@@ -254,10 +284,14 @@ struct Table {
   int* slot;           // [N]: each column's rank in its cell, then its slot
 };
 
-// the grid a block built, shared by its warps
+// the grid a block built, shared by its warps; the extent's upper ends
+// and magnitudes, the cells' height and whether a valid column lies past
+// kReach (epipolar's band)
 struct Grid {
   Axis ax, ay;
   float w_max;
+  float x_hi, y_hi, x_mag, y_mag, cell_y;
+  bool wide;
 };
 
 // one row's gate values
@@ -378,6 +412,7 @@ __device__ void build_table(const RowsParams& q, long long b, const Table& t,
   if (MODE != kBow) {
     float x0 = INFINITY, x1 = -INFINITY, y0 = INFINITY, y1 = -INFINITY;
     float wm = -INFINITY;
+    bool wide = false;
     for (int c0 = 0; c0 < N; c0 += kChunk) {
       if (!once) load_chunk<MODE>(q, b, c0, angles, c);
 #pragma unroll
@@ -391,7 +426,10 @@ __device__ void build_table(const RowsParams& q, long long b, const Table& t,
           y0 = fminf(y0, c.y[k]);
           y1 = fmaxf(y1, c.y[k]);
         }
-        if (MODE == kStereo) wm = fmaxf(wm, c.w[k]);
+        if (MODE == kStereo || MODE == kEpi) wm = fmaxf(wm, c.w[k]);
+        if (MODE == kEpi && isfinite(c.x[k]) && isfinite(c.y[k]) &&
+            !(fabsf(c.x[k]) < kReach && fabsf(c.y[k]) < kReach))
+          wide = true;
       }
     }
     x0 = warp_min(x0);
@@ -406,7 +444,7 @@ __device__ void build_table(const RowsParams& q, long long b, const Table& t,
       red[3][warp] = y1;
       red[4][warp] = wm;
     }
-    __syncthreads();
+    const bool any_wide = __syncthreads_or(wide) != 0;
     if (threadIdx.x == 0) {
       for (int k = 1; k < kWarps; ++k) {
         x0 = fminf(x0, red[0][k]);
@@ -418,6 +456,12 @@ __device__ void build_table(const RowsParams& q, long long b, const Table& t,
       g.ax = make_axis(x0, x1, gx);
       g.ay = make_axis(y0, y1, gy);
       g.w_max = wm;
+      g.x_hi = x1;
+      g.y_hi = y1;
+      g.x_mag = fmaxf(fabsf(x0), fabsf(x1));
+      g.y_mag = fmaxf(fabsf(y0), fabsf(y1));
+      g.cell_y = g.ay.inv > 0.f ? __fdiv_rn(1.f, g.ay.inv) : 1.f;
+      g.wide = any_wide;
     }
   }
   __syncthreads();
@@ -479,6 +523,11 @@ __device__ __forceinline__ bool gate(const RowsParams& q, const Row& a,
                                      float cx, float cy, float cw,
                                      long long ck) {
   if (MODE == kBow) return ck == a.key;    // both >= 0 where walked
+  if (MODE == kEpi) {                      // a.r: the clamped l0^2 + l1^2
+    const float dn = __fadd_rn(
+        __fadd_rn(__fmul_rn(a.x, cx), __fmul_rn(a.y, cy)), a.ur);
+    return __fdiv_rn(__fmul_rn(dn, dn), a.r) < __fmul_rn(kEpiChi2, cw);
+  }
   if (MODE == kStereo) {
     if (!(fabsf(__fsub_rn(a.y, cy)) <= cw)) return false;
     const long long dk = a.key - ck;
@@ -505,10 +554,71 @@ __device__ __forceinline__ bool gate(const RowsParams& q, const Row& a,
 }
 
 // a row's window: the rows of cells [cy0, cy0 + n_ranges), each the
-// slots of cells [cx0, cx1]
+// slots of cells [cx0, cx1], or (band, epipolar) the cells of each row
+// that the band of half-width h about the row's line reaches
 struct Window {
   int cx0, cx1, cy0, n_ranges;
+  bool band;
+  float h;
 };
+
+// epipolar: l0^2 + l1^2 clamped below at 1e-12 (a NaN kept), torch's steps
+__device__ __forceinline__ float epi_norm2(float l0, float l1) {
+  const float d = __fadd_rn(__fmul_rn(l0, l0), __fmul_rn(l1, l1));
+  return d < kEpiMinNorm2 ? kEpiMinNorm2 : d;
+}
+
+// epipolar: the band's half-width h in line units, over the columns'
+// largest sigma2 (the header says why it holds every gated pair); not
+// finite where the line, the norm or w_max is not
+__device__ __forceinline__ float band_half_width(const Grid& g, const Row& a) {
+  const float reach = __fadd_rn(
+      __fadd_rn(__fmul_rn(fabsf(a.x), g.x_mag), __fmul_rn(fabsf(a.y), g.y_mag)),
+      fabsf(a.ur));
+  return __fadd_rn(__fmul_rn(sqrtf(__fmul_rn(__fmul_rn(kEpiChi2, g.w_max), a.r)),
+                             1.001f),
+                   __fmul_rn(1e-5f, reach));
+}
+
+// epipolar: the cells [c0, c1] of row of cells cy that the band reaches
+// (c1 < c0: none): the x of the extent where some y in the row, widened
+// by a cell above and below, puts |l0 x + l1 y + l2| within h, widened by
+// a cell each side; every cell where the bound is NaN
+__device__ __forceinline__ void band_cells(const Grid& g, const Row& a,
+                                           float h, int cy, int& c0,
+                                           int& c1) {
+  const float ya =
+      __fadd_rn(g.ay.lo, __fmul_rn(static_cast<float>(cy - 1), g.cell_y));
+  const float yb =
+      __fadd_rn(g.ay.lo, __fmul_rn(static_cast<float>(cy + 2), g.cell_y));
+  const float p = __fmul_rn(a.y, ya), r = __fmul_rn(a.y, yb);
+  // l0 x must lie in [lo_v, hi_v] for some y of the row
+  const float lo_v = __fsub_rn(__fsub_rn(-h, a.ur), fmaxf(p, r));
+  const float hi_v = __fsub_rn(__fsub_rn(h, a.ur), fminf(p, r));
+  float xl, xh;
+  if (a.x > 0.f) {
+    xl = __fdiv_rn(lo_v, a.x);
+    xh = __fdiv_rn(hi_v, a.x);
+  } else if (a.x < 0.f) {
+    xl = __fdiv_rn(hi_v, a.x);
+    xh = __fdiv_rn(lo_v, a.x);
+  } else {                                 // a horizontal line: all or none
+    xl = lo_v <= 0.f && hi_v >= 0.f ? -INFINITY : INFINITY;
+    xh = -xl;
+  }
+  if (isnan(xl) || isnan(xh)) {
+    c0 = 0;
+    c1 = g.ax.n - 1;
+    return;
+  }
+  if (xh < g.ax.lo || xl > g.x_hi) {
+    c0 = 0;
+    c1 = -1;
+    return;
+  }
+  c0 = max(cell_of(g.ax, fmaxf(xl, g.ax.lo)) - 1, 0);
+  c1 = min(cell_of(g.ax, fminf(xh, g.x_hi)) + 1, g.ax.n - 1);
+}
 
 // A warp's lists in shared memory: the gated columns waiting for their
 // distances (and their x, for stereo's list), and stereo's gated pairs.
@@ -565,7 +675,8 @@ __device__ __forceinline__ void flush(const RowsParams& q, const WarpLists& w,
 // prefix offsets.
 template <int MODE, bool FAR>
 __device__ __forceinline__ void walk(const RowsParams& q, const Table& t,
-                                     const Window& wd, const Row& a,
+                                     const Grid& g, const Window& wd,
+                                     const Row& a,
                                      const uint4& a0, const uint4& a1,
                                      const uint4* cdesc, unsigned p,
                                      float xb, unsigned& k1, unsigned& k2,
@@ -577,9 +688,13 @@ __device__ __forceinline__ void walk(const RowsParams& q, const Table& t,
     const int nr = min(32, wd.n_ranges - r0);
     int s = 0, len = 0;
     if (lane < nr) {
-      const int c = (wd.cy0 + r0 + lane) * gx;
-      s = t.start[c + wd.cx0];
-      len = t.start[c + wd.cx1 + 1] - s;
+      const int cy = wd.cy0 + r0 + lane;
+      int cx0 = wd.cx0, cx1 = wd.cx1;
+      if (MODE == kEpi && wd.band) band_cells(g, a, wd.h, cy, cx0, cx1);
+      if (cx1 >= cx0) {
+        s = t.start[cy * gx + cx0];
+        len = t.start[cy * gx + cx1 + 1] - s;
+      }
     }
     int off = len;
     for (int o = 1; o < 32; o <<= 1) {
@@ -788,10 +903,9 @@ __device__ __forceinline__ RowLoad load_row(const RowsParams& q, long long b,
     l.a.x = at<float>(q.row_x, b, p);
     l.a.y = at<float>(q.row_y, b, p);
   }
-  if (MODE != kBow && MODE != kStereo) {
-    l.a.ur = at<float>(q.row_ur, b, p);
+  if (MODE != kBow && MODE != kStereo) l.a.ur = at<float>(q.row_ur, b, p);
+  if (MODE != kBow && MODE != kStereo && MODE != kEpi)
     l.a.r = at<float>(q.row_r, b, p);
-  }
   l.a_ref = rotation ? at<float>(q.ang_ref, 0, p) : 0.f;
   l.d0 = __ldg(q.row_desc + 2 * p);
   l.d1 = __ldg(q.row_desc + 2 * p + 1);
@@ -809,7 +923,7 @@ match_rows_kernel(const RowsParams q) {
   __shared__ float list_x[MODE == kStereo ? kWarps * kList : 1];
   const long long P = q.n_rows;
   const long long b = blockIdx.y;
-  const bool resolve = MODE != kStereo && MODE != kFuse && q.resolve;
+  const bool resolve = MODE != kStereo && !batched(MODE) && q.resolve;
   const bool rotation = resolve && q.ang_ref.p != nullptr;
   const int cells = static_cast<int>(q.grid_x * q.grid_y);
   const Table t = carve(smem, q.n_cols, cells);
@@ -824,15 +938,25 @@ match_rows_kernel(const RowsParams q) {
   for (long long p = p_first; p < P;
        p += static_cast<long long>(gridDim.x) * kWarps) {
     if (p != p_first) next = load_row<MODE>(q, b, p, rotation);
-    const Row a = next.a;
+    Row a = next.a;
+    if (MODE == kEpi) a.r = epi_norm2(a.x, a.y);
     const unsigned char ok = next.ok;
     const float a_ref = next.a_ref;
     const uint4 a0 = next.d0, a1 = next.d1;
-    Window wd{0, 0, 0, 0};
+    Window wd{0, 0, 0, 0, false, 0.f};
     if (MODE == kBow) {
       if (ok != 0 && a.key >= 0) {
         const int c = bucket(a.key, static_cast<int>(q.grid_x));
-        wd = Window{c, c, 0, 1};
+        wd = Window{c, c, 0, 1, false, 0.f};
+      }
+    } else if (MODE == kEpi) {
+      if (ok != 0) {                       // every cell, or the band's
+        wd = Window{0, g.ax.n - 1, 0, g.ay.n, false, 0.f};
+        const float h = band_half_width(g, a);
+        if (!g.wide && isfinite(h)) {
+          wd.band = true;
+          wd.h = h;
+        }
       }
     } else if (ok != 0) {
       float x_lo, x_hi, y_lo, y_hi;
@@ -858,8 +982,8 @@ match_rows_kernel(const RowsParams q) {
     const WarpLists wl{pend + warp * kPend, pend_x + warp * kPend,
                        list_key + (MODE == kStereo ? warp * kList : 0),
                        list_x + (MODE == kStereo ? warp * kList : 0)};
-    walk<MODE, false>(q, t, wd, a, a0, a1, cdesc, static_cast<unsigned>(p),
-                      0.f, k1, k2, wl, n_list);
+    walk<MODE, false>(q, t, g, wd, a, a0, a1, cdesc,
+                      static_cast<unsigned>(p), 0.f, k1, k2, wl, n_list);
     const unsigned best = __reduce_min_sync(kFull, k1);
     unsigned cand = k1 == best ? k2 : k1;
     if (MODE == kStereo) {
@@ -873,20 +997,20 @@ match_rows_kernel(const RowsParams q) {
               cand = min(cand, wl.list_key[i]);
         } else {
           unsigned unused = kNone;
-          walk<MODE, true>(q, t, wd, a, a0, a1, cdesc,
+          walk<MODE, true>(q, t, g, wd, a, a0, a1, cdesc,
                            static_cast<unsigned>(p), xb, cand, unused, wl,
                            n_list);
         }
       }
     }
     const unsigned second =
-        MODE == kFuse ? kNone : __reduce_min_sync(kFull, cand);
+        batched(MODE) ? kNone : __reduce_min_sync(kFull, cand);
     __syncwarp();                      // the lists are reused by the next row
     if (lane == 0) {
       const unsigned bd = best >> kIndexBits, bi = best & kIndexMask;
       const unsigned sd = second >> kIndexBits, si = second & kIndexMask;
       bool h = static_cast<long long>(bd) <= q.th;
-      if (MODE == kFuse) {
+      if (batched(MODE)) {
         const long long o = b * P + p;
         q.idx[o] = bi;
         q.idx[q.n_batch * P + o] = h ? static_cast<long long>(bi) : -1;
@@ -920,7 +1044,7 @@ match_rows_kernel(const RowsParams q) {
       }
     }
   }
-  if (MODE == kFuse || (MODE != kStereo && !resolve)) return;
+  if (batched(MODE) || (MODE != kStereo && !resolve)) return;
 
   // the last block to finish applies the mutual check to every row
   // (stereo) or runs the resolve
@@ -970,7 +1094,7 @@ extern "C" long long airdos_match_scratch(long long mode, long long n_rows,
                                           long long n_cols,
                                           long long resolve) {
   if (mode == kStereo) return n_cols + 1;
-  if (resolve && mode != kFuse) return kRowBins + n_rows;
+  if (resolve && !batched(static_cast<int>(mode))) return kRowBins + n_rows;
   return 0;
 }
 
@@ -982,8 +1106,9 @@ extern "C" int airdos_match_rows(const RowsParams* params, long long smem,
     return static_cast<int>(cudaGetLastError());
   // zero the column keys and the counter (stereo) or the counter and
   // the histogram (the resolve)
-  const size_t words = q.mode == kStereo ? q.n_cols + 1
-                       : (q.resolve && q.mode != kFuse) ? kRowBins : 0;
+  const size_t words =
+      q.mode == kStereo ? q.n_cols + 1
+      : (q.resolve && !batched(static_cast<int>(q.mode))) ? kRowBins : 0;
   if (words) {
     const cudaError_t err =
         cudaMemsetAsync(q.scratch, 0, words * sizeof(unsigned), s);
@@ -996,6 +1121,7 @@ extern "C" int airdos_match_rows(const RowsParams* params, long long smem,
     case kStereo: return launch<kStereo>(q, bytes, s);
     case kBow: return launch<kBow>(q, bytes, s);
     case kFuse: return launch<kFuse>(q, bytes, s);
+    case kEpi: return launch<kEpi>(q, bytes, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

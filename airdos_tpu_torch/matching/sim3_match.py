@@ -5,9 +5,11 @@ Rebuild of ORBmatcher::SearchBySim3 (reference src/ORBmatcher.cc:
 RANSAC Sim3 between two keyframes, project each keyframe's map points
 into the other camera through S12 / S21, gate by the scale-predicted
 window (th = 7.5 * scale[level]), take the best Hamming match under
-TH_HIGH in each direction, and keep the mutually agreeing pairs.  The
-two directions are two masked dense Hamming problems (two launches of the
-2-D kernel on the card); the agreement is a gather-compare.
+TH_HIGH in each direction, and keep the mutually agreeing pairs.  Each
+direction is one match_rows call in motion mode (ops/match_kernels.py:
+the square window strictly inside the radius, the octave band [pred - 1,
+pred], no right-u gate, the best distance <= TH_HIGH; one launch on the
+card, no [P, N] matrix); the agreement is a gather-compare.
 """
 from __future__ import annotations
 
@@ -15,10 +17,10 @@ from typing import NamedTuple
 
 import torch
 
-from airdos_tpu_torch.ops.hamming_kernels import hamming_matrix
+from airdos_tpu_torch.ops.match_kernels import (MOTION, MatchCols,
+                                                MatchRows, match_rows)
 
 TH_HIGH = 100
-BIG = 1 << 10
 
 
 class Sim3Matches(NamedTuple):
@@ -47,19 +49,16 @@ def _directional(x_in_cam, valid_p, desc_p, maxd_p,
                                          torch.full_like(maxd_p, 1e9)) /
                scale_factors[n_levels - 1]) & (dist <= 1.2 * maxd_p)
 
-    radius = th * scale_factors[pred]
-    du = torch.abs(feat_xy[None, :, 0] - u[:, None])
-    dv = torch.abs(feat_xy[None, :, 1] - v[:, None])
-    win_ok = (du < radius[:, None]) & (dv < radius[:, None])
-    lf = feat_oct[None, :]
-    oct_ok = (lf >= pred[:, None] - 1) & (lf <= pred[:, None])
-    ok = (win_ok & oct_ok & (valid_p & in_img & dist_ok)[:, None] &
-          feat_valid[None, :])
-    D = hamming_matrix(desc_p, feat_desc)
-    D = torch.where(ok, D, torch.full_like(D, BIG))
-    best = torch.argmin(D, dim=1)
-    bdist = torch.gather(D, 1, best[:, None])[:, 0]
-    return best, bdist <= TH_HIGH
+    # the window |x - u| < r, |y - v| < r, octaves [pred - 1, pred]; the
+    # right u's all 0: no right-u gate
+    zeros_p = torch.zeros_like(u)
+    m = match_rows(MOTION,
+                   MatchRows(desc_p, pred, valid_p & in_img & dist_ok, u, v,
+                             zeros_p, th * scale_factors[pred]),
+                   MatchCols(feat_desc, feat_oct, feat_valid, feat_xy[:, 0],
+                             feat_xy[:, 1], torch.zeros_like(feat_xy[:, 0])),
+                   TH_HIGH, band=(-1, 0))
+    return m.best, m.has
 
 
 def match_by_sim3(x2_in_c1, valid2, desc2, maxd2,

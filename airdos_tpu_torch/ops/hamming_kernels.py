@@ -1,11 +1,13 @@
 """All-pairs Hamming matrix of 256-bit descriptors: CUDA kernel + plain twin.
 
-The counterpart of airdos_tpu/ops/pallas_kernels.py.  The loop's Sim3
-match calls ``hamming_matrix`` (the tracking matchers' gated distances
-are ops/match_kernels.match_rows, which forms no matrix; its plain
-version calls ``hamming_matrix_ref``); triangulation and fusion, where
-airdos_tpu reaches the kernel under jax.vmap, call
-``hamming_matrix_batched``.  Both:
+The counterpart of airdos_tpu/ops/pallas_kernels.py.  No path of the
+port calls the kernel: every matcher's gated distances (the tracking
+matchers, the loop's Sim3 match, fusion and triangulation, the last two
+where airdos_tpu reaches the Pallas kernel under jax.vmap) are
+ops/match_kernels.match_rows, which forms no matrix and whose plain
+version calls ``hamming_matrix_ref`` / ``hamming_matrix_batched_ref``.
+``hamming_matrix`` and ``hamming_matrix_batched`` stay the Pallas
+kernel's port, held to their plain versions on the card.  Both:
 
 - on a CUDA tensor launch the sm_90a kernel of ``csrc/hamming.cu``
   on the calling thread's current stream (built with nvcc at first use

@@ -2,25 +2,28 @@
 twins.
 
 The stereo, motion-model, local-map and BoW matchers
-(matching/stereo.py, matching/projection.py, matching/bow_match.py) and
-the mapping's duplicate fusion (matching/fuse.py) each compute, over rows
+(matching/stereo.py, matching/projection.py, matching/bow_match.py), the
+loop's Sim3 match (matching/sim3_match.py, on motion mode), the mapping's
+duplicate fusion (matching/fuse.py) and triangulation's epipolar search
+(matching/epipolar.py) each compute, over rows
 (points or left keypoints) and columns (features or right keypoints), the
 Hamming distance of every pair that passes a gate, each row's best (and,
 but in fusion, second-best) column, a threshold and ratio test, then (the
 projection and BoW matchers) a rotation-histogram filter and the
 uniqueness resolution.  airdos_tpu reaches the Pallas Hamming kernel
-there (airdos_tpu/ops/pallas_kernels.py:36; fusion under jax.vmap over
-its target keyframes) and leaves the rest to XLA; here one kernel of
-``csrc/match.cu`` does it all, one launch a matcher call:
+there (airdos_tpu/ops/pallas_kernels.py:36; fusion and triangulation
+under jax.vmap over their target keyframes) and leaves the rest to XLA;
+here one kernel of ``csrc/match.cu`` does it all, one launch a matcher
+call:
 
-- ``match_rows`` in five modes (``MOTION``, ``LOCAL``, ``STEREO``,
-  ``BOW``, ``FUSE``): gate, distances, best, second, the ratio test and,
-  in stereo mode, the column argmin and the mutual check; where asked
-  (``resolve=True``: motion, local, bow) the rotation histogram's three
-  largest bins and the uniqueness resolution in the same launch; in fuse
-  mode a batch of targets (rows [B, P] but the shared descriptors,
-  columns [B, N]) and feat_idx.  No [P, N] or [B, P, N] matrix is
-  written.
+- ``match_rows`` in six modes (``MOTION``, ``LOCAL``, ``STEREO``,
+  ``BOW``, ``FUSE``, ``EPIPOLAR``): gate, distances, best, second, the
+  ratio test and, in stereo mode, the column argmin and the mutual check;
+  where asked (``resolve=True``: motion, local, bow) the rotation
+  histogram's three largest bins and the uniqueness resolution in the
+  same launch; in fuse and epipolar mode a batch of targets (rows [B, P]
+  but the shared descriptors, columns [B, N]) and feat_idx.  No [P, N]
+  or [B, P, N] matrix is written.
 
 The wrapper, on CUDA tensors, launches the sm_90a kernel on the calling
 thread's current stream (built with nvcc at first use into
@@ -46,24 +49,29 @@ from airdos_tpu_torch.ops import cuda_build
 from airdos_tpu_torch.ops.hamming_kernels import (hamming_matrix_batched_ref,
                                                   hamming_matrix_ref)
 
-MOTION, LOCAL, STEREO, BOW, FUSE = 0, 1, 2, 3, 4   # the gate modes
+MOTION, LOCAL, STEREO, BOW, FUSE, EPIPOLAR = 0, 1, 2, 3, 4, 5  # the modes
+BATCHED = (FUSE, EPIPOLAR)                  # a batch of targets
 BIG = 1 << 10                               # a pair outside the gate
 HISTO_BINS = 30
 INDEX_BITS = 21                             # rows and columns < 2^21
 FAR_U = 1.5                                 # stereo: a second at another u
 SECOND_CLAMP = 256                          # stereo: min(second, 256)
 CHI2_STEREO, CHI2_MONO = 7.8, 5.99          # fuse: the chi-square bounds
+EPI_CHI2 = 3.84                             # epipolar: the band's chi-square
+EPI_MIN_NORM2 = 1e-12                       # epipolar: l0^2 + l1^2 floor
 
 # the kernel's grid of cells a mode (x, y: ORB-SLAM's 64 x 48 over the
 # columns' extent; bow: buckets of the key), and its blocks an SM
 CELLS = {MOTION: (64, 48), LOCAL: (64, 48), STEREO: (64, 48),
-         BOW: (256, 1), FUSE: (64, 48)}
+         BOW: (256, 1), FUSE: (64, 48), EPIPOLAR: (64, 48)}
 BLOCKS_PER_SM = 3
 
 
 class MatchRows(NamedTuple):
     """The row side of a match (points, left keypoints or set 1); in fuse
-    mode every field but desc is [B, P], one row a target."""
+    mode every field but desc is [B, P], one row a target; in epipolar
+    mode desc, key and ok are the keyframe's [P], shared by the batch, and
+    line is [B, P, 3]."""
     desc: torch.Tensor                      # [P, 8] int32
     key: torch.Tensor                       # [P] int64: octave or BoW node
     ok: torch.Tensor                        # [P] bool
@@ -71,11 +79,13 @@ class MatchRows(NamedTuple):
     y: Optional[torch.Tensor] = None        # [P] float32 v (not bow)
     ur: Optional[torch.Tensor] = None       # [P] float32 (projection, fuse)
     radius: Optional[torch.Tensor] = None   # [P] float32 (projection, fuse)
+    # epipolar: each row's line (l0, l1, l2) in each target's image
+    line: Optional[torch.Tensor] = None     # [B, P, 3] float32
 
 
 class MatchCols(NamedTuple):
-    """The column side (features, right keypoints or set 2); in fuse mode
-    desc is [B, N, 8] and every other field [B, N]."""
+    """The column side (features, right keypoints or set 2); in fuse and
+    epipolar mode desc is [B, N, 8] and every other field [B, N]."""
     desc: torch.Tensor                      # [N, 8] int32
     key: torch.Tensor                       # [N] int64: octave or BoW node
     ok: torch.Tensor                        # [N] bool
@@ -83,7 +93,7 @@ class MatchCols(NamedTuple):
     y: Optional[torch.Tensor] = None        # [N] float32 (not bow)
     # projection: the feature's right u (gated where > 0); stereo: the
     # row band 2 * scale[octave]; fuse: the right u (chi-square in three
-    # coordinates where >= 0)
+    # coordinates where >= 0); epipolar: sigma2[octave]
     w: Optional[torch.Tensor] = None
     taken: Optional[torch.Tensor] = None    # [N] bool (projection)
 
@@ -95,8 +105,8 @@ class RowMatches(NamedTuple):
     second_dist: torch.Tensor   # [P] int32
     has: torch.Tensor           # [P] bool threshold and ratio (and mutual)
     col_best: torch.Tensor      # [N] int64 column argmin (stereo; else [0])
-    # the resolve: the winning column or -1; fuse: best where has, else
-    # -1 ([B, P]); else [0]
+    # the resolve: the winning column or -1; fuse, epipolar: best where
+    # has, else -1 ([B, P]); else [0]
     feat_idx: torch.Tensor
     point_of_feat: torch.Tensor  # [N] int64 the resolve's winning row (-1)
     n: torch.Tensor             # int64 the resolve's matches (else [0])
@@ -104,8 +114,8 @@ class RowMatches(NamedTuple):
 
 def gate(mode: int, rows: MatchRows, cols: MatchCols, band,
           max_d: float, sigma2=None) -> torch.Tensor:
-    """[P, N] bool (fuse: [B, P, N]): the matchers' gating, as they
-    computed it."""
+    """[P, N] bool (fuse, epipolar: [B, P, N]): the matchers' gating, as
+    they computed it."""
     if mode == BOW:
         return (rows.key[:, None] == cols.key[None, :]) & \
             rows.ok[:, None] & cols.ok[None, :] & \
@@ -120,6 +130,8 @@ def gate(mode: int, rows: MatchRows, cols: MatchCols, band,
             cols.ok[None, :]
     if mode == FUSE:
         return _fuse_gate(rows, cols, sigma2)
+    if mode == EPIPOLAR:
+        return _epipolar_gate(rows, cols)
     r = rows.radius[:, None]
     du = torch.abs(cols.x[None, :] - rows.x[:, None])
     dv = torch.abs(cols.y[None, :] - rows.y[:, None])
@@ -159,15 +171,29 @@ def _fuse_gate(rows: MatchRows, cols: MatchCols, sigma2) -> torch.Tensor:
         cols.ok[:, None, :]
 
 
+def _epipolar_gate(rows: MatchRows, cols: MatchCols) -> torch.Tensor:
+    """[B, P, N]: the squared distance of each column to each row's line
+    under 3.84 sigma2 of the column's octave, as matching/epipolar.py
+    composed it (the epipole test is in cols.ok)."""
+    l0, l1, l2 = rows.line[..., 0:1], rows.line[..., 1:2], \
+        rows.line[..., 2:3]                                      # [B, P, 1]
+    dist_num = l0 * cols.x[:, None, :] + l1 * cols.y[:, None, :] + l2
+    dist2 = dist_num * dist_num / torch.clamp(l0 ** 2 + l1 ** 2,
+                                              min=EPI_MIN_NORM2)
+    return (dist2 < EPI_CHI2 * cols.w[:, None, :]) & \
+        rows.ok[None, :, None] & cols.ok[:, None, :]
+
+
 def reduce_gated(mode: int, D: torch.Tensor, col_key: torch.Tensor,
                  col_x, th: int, ratio: float) -> RowMatches:
     """The plain version's reductions of a gated distance matrix D [P, N]
     (int32, BIG outside the gate): best, the mode's second, the threshold
     and ratio test and, in stereo mode, the column argmin and the mutual
-    check; in fuse mode D is [B, P, N] and the reductions are best, its
-    distance, has and feat_idx.  col_key: the columns' octaves (local
-    mode's level test); col_x: their u (stereo's far-u second)."""
-    if mode == FUSE:
+    check; in fuse and epipolar mode D is [B, P, N] and the reductions
+    are best, its distance, has and feat_idx.  col_key: the columns'
+    octaves (local mode's level test); col_x: their u (stereo's far-u
+    second)."""
+    if mode in BATCHED:
         best = torch.argmin(D, dim=2)
         dist = torch.gather(D, 2, best[..., None])[..., 0]
         none = best.new_zeros(0)
@@ -214,19 +240,19 @@ def match_rows_ref(mode: int, rows: MatchRows, cols: MatchCols, th: int,
                    ratio: float = 0.0, band=(None, None),
                    max_d: float = 0.0, resolve: bool = False, angles=None,
                    sigma2=None) -> RowMatches:
-    """Plain version: the gated [P, N] (fuse: [B, P, N]) distance matrix
-    and its reductions, the matchers' eager composition.  th: the largest
-    distance accepted; band: (lo, hi) octave offsets from the row's key
-    (None: open), for the projection modes; max_d: stereo's largest
-    disparity; resolve: then match_resolve_ref over the columns, with the
-    rotation filter where angles = (row angles [P], column angles [N]);
-    sigma2: fuse's [levels] float32 sigma^2 table."""
+    """Plain version: the gated [P, N] (fuse, epipolar: [B, P, N])
+    distance matrix and its reductions, the matchers' eager composition.
+    th: the largest distance accepted; band: (lo, hi) octave offsets
+    from the row's key (None: open), for the projection modes; max_d:
+    stereo's largest disparity; resolve: then match_resolve_ref over the
+    columns, with the rotation filter where angles = (row angles [P],
+    column angles [N]); sigma2: fuse's [levels] float32 sigma^2 table."""
     ok = gate(mode, rows, cols, band, max_d, sigma2)
     D = hamming_matrix_batched_ref(rows.desc[None], cols.desc) \
-        if mode == FUSE else hamming_matrix_ref(rows.desc, cols.desc)
+        if mode in BATCHED else hamming_matrix_ref(rows.desc, cols.desc)
     D = torch.where(ok, D, torch.full_like(D, BIG))
     rm = reduce_gated(mode, D, cols.key, cols.x, th, ratio)
-    if not resolve or mode == FUSE:
+    if not resolve or mode in BATCHED:
         return rm
     feat_idx, point_of_feat, n = match_resolve_ref(
         rm.best, rm.dist, rm.has, cols.desc.shape[0],
@@ -318,6 +344,7 @@ _empty = {}                     # device -> empty int64 and int32 outputs
 _rows_counter = cuda_build.LaunchCounter()
 _resolve_counter = cuda_build.LaunchCounter()
 _fuse_counter = cuda_build.LaunchCounter()
+_epipolar_counter = cuda_build.LaunchCounter()
 
 
 def launches() -> int:
@@ -337,14 +364,22 @@ def fuse_launches() -> int:
     return _fuse_counter.total
 
 
+def epipolar_launches() -> int:
+    """match_rows launches in epipolar mode since the last
+    reset_launches()."""
+    return _epipolar_counter.total
+
+
 def launch_tally() -> dict:
     """{(kernel, thread name, stream priority): launches} since the last
     reset_launches(), kernel "match_rows" (every launch), "match_resolve"
-    (those that ran the resolve) or "match_fuse" (fuse mode)."""
+    (those that ran the resolve), "match_fuse" (fuse mode) or
+    "match_epipolar" (epipolar mode)."""
     return {(name,) + key: n
             for name, counter in (("match_rows", _rows_counter),
                                   ("match_resolve", _resolve_counter),
-                                  ("match_fuse", _fuse_counter))
+                                  ("match_fuse", _fuse_counter),
+                                  ("match_epipolar", _epipolar_counter))
             for key, n in counter.tally().items()}
 
 
@@ -352,6 +387,7 @@ def reset_launches() -> None:
     _rows_counter.reset()
     _resolve_counter.reset()
     _fuse_counter.reset()
+    _epipolar_counter.reset()
 
 
 def build():
@@ -400,10 +436,10 @@ def _check(mode, rows, cols, resolve, angles, sigma2):
     dev = rows.desc.device
     if not rows.desc.is_cuda:
         raise ValueError(f"rows.desc must be a CUDA tensor, got {dev}")
-    if mode not in (MOTION, LOCAL, STEREO, BOW, FUSE):
+    if mode not in (MOTION, LOCAL, STEREO, BOW, FUSE, EPIPOLAR):
         raise ValueError(f"unknown mode {mode}")
-    fuse = mode == FUSE
-    cdims = 3 if fuse else 2
+    fuse, epi = mode == FUSE, mode == EPIPOLAR
+    cdims = 3 if mode in BATCHED else 2
     for name, x, dims in (("rows.desc", rows.desc, 2),
                           ("cols.desc", cols.desc, cdims)):
         if x.device != dev or x.dtype != torch.int32 or x.dim() != dims \
@@ -412,29 +448,45 @@ def _check(mode, rows, cols, resolve, angles, sigma2):
                              f"{dev}, got {x.dtype} {tuple(x.shape)} on "
                              f"{x.device}")
     P, N = rows.desc.shape[0], cols.desc.shape[-2]
-    B = cols.desc.shape[0] if fuse else None
+    B = cols.desc.shape[0] if mode in BATCHED else None
     if N == 0 or P >= _MAX_INDEX or N >= _MAX_INDEX:
         raise ValueError(f"{P} rows x {N} columns: the kernel takes 1 to "
                          f"{_MAX_INDEX - 1} columns and < {_MAX_INDEX} rows")
     geo, proj = mode != BOW, mode in (MOTION, LOCAL, FUSE)
     missing = [name for name, x, needed in (
-        ("rows.x", rows.x, geo), ("rows.y", rows.y, geo),
+        ("rows.x", rows.x, geo and not epi),
+        ("rows.y", rows.y, geo and not epi),
         ("rows.ur", rows.ur, proj), ("rows.radius", rows.radius, proj),
         ("cols.x", cols.x, geo), ("cols.y", cols.y, geo),
-        ("cols.w", cols.w, geo), ("sigma2", sigma2, fuse)) if needed and x is None]
+        ("cols.w", cols.w, geo), ("sigma2", sigma2, fuse),
+        ("rows.line", rows.line, epi)) if needed and x is None]
     if missing:
         raise ValueError(f"mode {mode} needs {', '.join(missing)}")
     if resolve and mode not in (MOTION, LOCAL, BOW):
         raise ValueError(f"mode {mode} has no resolve")
     f32, b8, i64 = torch.float32, torch.bool, torch.int64
-    lead = (B,) if fuse else ()
-    for name, x, dtype, n in (
-            ("rows.key", rows.key, i64, P), ("rows.ok", rows.ok, b8, P),
-            ("rows.x", rows.x, f32, P), ("rows.y", rows.y, f32, P),
-            ("rows.ur", rows.ur, f32, P), ("rows.radius", rows.radius, f32, P),
-            ("cols.key", cols.key, i64, N), ("cols.ok", cols.ok, b8, N),
-            ("cols.x", cols.x, f32, N), ("cols.y", cols.y, f32, N),
-            ("cols.w", cols.w, f32, N), ("cols.taken", cols.taken, b8, N)):
+    if epi and (rows.line.device != dev or rows.line.dtype != f32
+                or tuple(rows.line.shape) != (B, P, 3)
+                or not rows.line.is_contiguous()):
+        raise ValueError(f"rows.line must be a contiguous float32 "
+                         f"[{B}, {P}, 3] tensor on {dev}, got "
+                         f"{rows.line.dtype} {tuple(rows.line.shape)} on "
+                         f"{rows.line.device}")
+    # fuse: every row vector a target's; epipolar: the rows' key and ok
+    # shared by the batch (their line is checked above)
+    rl, cl = (B,) if fuse else (), (B,) if mode in BATCHED else ()
+    row_vecs = () if epi else (
+        ("rows.x", rows.x, f32, rl, P), ("rows.y", rows.y, f32, rl, P),
+        ("rows.ur", rows.ur, f32, rl, P),
+        ("rows.radius", rows.radius, f32, rl, P))
+    for name, x, dtype, lead, n in (
+            ("rows.key", rows.key, i64, rl, P),
+            ("rows.ok", rows.ok, b8, rl, P), *row_vecs,
+            ("cols.key", cols.key, i64, cl, N),
+            ("cols.ok", cols.ok, b8, cl, N),
+            ("cols.x", cols.x, f32, cl, N), ("cols.y", cols.y, f32, cl, N),
+            ("cols.w", cols.w, f32, cl, N),
+            ("cols.taken", cols.taken, b8, cl, N)):
         if x is not None and (x.device != dev or x.dtype != dtype
                               or tuple(x.shape) != lead + (n,)):
             raise ValueError(f"{name} must be a {dtype} {list(lead + (n,))} "
@@ -464,10 +516,11 @@ def match_rows_cuda(mode: int, rows: MatchRows, cols: MatchCols, th: int,
         _check(mode, rows, cols, resolve, angles, sigma2)
     rd, cd = _aligned(rows.desc), _aligned(cols.desc)
     dev = rd.device
-    fuse, stereo = mode == FUSE, mode == STEREO
+    fuse, stereo, epi = mode == FUSE, mode == STEREO, mode == EPIPOLAR
+    batched = fuse or epi
     resolve = bool(resolve)
     P, N = rows.desc.shape[0], cols.desc.shape[-2]
-    B = cols.desc.shape[0] if fuse else 1
+    B = cols.desc.shape[0] if batched else 1
     gx, gy = CELLS[mode]
     key = (mode, P, N, gx * gy, resolve)
     sizes = _sizes.get(key)
@@ -479,12 +532,12 @@ def match_rows_cuda(mode: int, rows: MatchRows, cols: MatchCols, th: int,
     if smem > _SMEM_LIMIT:
         raise ValueError(f"{N} columns need {smem} bytes of shared memory, "
                          f"over {_SMEM_LIMIT}")
-    # one allocation: int64 best, second (fuse: feat_idx) [BP], stereo's
+    # one allocation: int64 best, second (batched: feat_idx) [BP], stereo's
     # column argmin [N], the resolve's feat_idx [P], point_of_feat [N], n;
     # int32 dist [BP], second [P]; the uint32 scratch; bool has [BP]
     BP = B * P
     n64 = 2 * BP + (N if stereo else 0) + (P + N + 1 if resolve else 0)
-    n32 = BP + (0 if fuse else P)
+    n32 = BP + (0 if batched else P)
     o_dist = 8 * n64
     o_scr = o_dist + 4 * n32
     o_has = o_scr + 4 * n_scr
@@ -501,10 +554,17 @@ def match_rows_cuda(mode: int, rows: MatchRows, cols: MatchCols, th: int,
     if words is None:
         block = ctypes.create_string_buffer(_PARAMS.size)
         words = _local.params = (block, ctypes.addressof(block))
+    if epi:
+        # the line's three coefficients as the rows' x, y and ur vectors
+        ln = rows.line.data_ptr()
+        row_geo = (ln, 3, 3 * P, ln + 4, 3, 3 * P, ln + 8, 3, 3 * P,
+                   *_NONE)
+    else:
+        row_geo = (*_v(rows.x), *_v(rows.y), *_v(rows.ur),
+                   *_v(rows.radius))
     _PARAMS.pack_into(
         words[0], 0, mode, P, N, B,
-        rd.data_ptr(), cd.data_ptr(), N if fuse else 0,
-        *_v(rows.x), *_v(rows.y), *_v(rows.ur), *_v(rows.radius),
+        rd.data_ptr(), cd.data_ptr(), N if batched else 0, *row_geo,
         *_v(rows.key), *_v(rows.ok),
         *_v(cols.x), *_v(cols.y), *_v(cols.w), *_v(cols.key),
         *_v(cols.ok), *_v(cols.taken),
@@ -530,6 +590,8 @@ def match_rows_cuda(mode: int, rows: MatchRows, cols: MatchCols, th: int,
             _resolve_counter.count(prio)
         if fuse:
             _fuse_counter.count(prio)
+        if epi:
+            _epipolar_counter.count(prio)
     elif stereo or resolve:
         idx.zero_()
         if resolve:
@@ -537,7 +599,7 @@ def match_rows_cuda(mode: int, rows: MatchRows, cols: MatchCols, th: int,
     none = _empty.get(dev)
     if none is None:
         none = _empty[dev] = (idx.new_empty(0), dist.new_empty(0))
-    if fuse:
+    if batched:
         best, feat_idx = idx.view(2, B, P)
         return RowMatches(best=best, dist=dist.view(B, P), second=none[0],
                           second_dist=none[1], has=has.view(B, P),
@@ -562,7 +624,8 @@ def match_rows(mode: int, rows: MatchRows, cols: MatchCols, th: int,
                check: bool = True) -> RowMatches:
     """Gate, best and second column, threshold and ratio test (and in
     stereo mode the mutual check; with resolve the rotation filter and
-    uniqueness; in fuse mode a batch of targets) of a matcher: CUDA
+    uniqueness; in fuse and epipolar mode a batch of targets) of a
+    matcher: CUDA
     tensors go to the kernel, CPU tensors to the plain version."""
     if rows.desc.is_cuda:
         return match_rows_cuda(mode, rows, cols, th, ratio, band, max_d,

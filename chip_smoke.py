@@ -7,10 +7,11 @@ Run from the repository root.  Phases, each of which fails the run:
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions, whether nvcc is present; a CUDA device is required;
-2. build: the thirteen sources of csrc/ (hamming.cu, segment_sum.cu,
+2. build: the fourteen sources of csrc/ (hamming.cu, segment_sum.cu,
    pose_lm.cu, fast.cu, orb_desc.cu, pyramid.cu, select.cu, stereo_sad.cu,
-   disparity.cu, ba_static.cu, ba_points.cu, ba_human.cu, match.cu)
-   compiled with nvcc for sm_90a, all at once (build seconds);
+   disparity.cu, ba_static.cu, ba_points.cu, ba_human.cu, match.cu,
+   triangulate.cu) compiled with nvcc for sm_90a, all at once (build
+   seconds);
 3. slice: tracking only, Tracking(cfg, FrontEnd(cfg, "cuda"), SlamMap(),
    local_mapper=None) (airdos_tpu's tracking-only configuration), over 28
    bench frames of the synthetic world at the reference budget (640x360,
@@ -30,8 +31,10 @@ Run from the repository root.  Phases, each of which fails the run:
    keyframes inserted, ATE < 0.02 m, triangulation created points, the
    static BA solved at every keyframe after the third, a match_rows
    launch in fuse mode (fusion) on every keyframe frame after the first,
-   every fusion call one such launch and no batched Hamming launch, the
-   batched Hamming kernel launched (triangulation), 45 segment_sum
+   every fusion call one such launch and no batched Hamming launch, one
+   match_rows launch in epipolar mode and one triangulate launch
+   (triangulation) on each keyframe frame with a neighbour past the
+   stereo baseline and none elsewhere, 45 segment_sum
    launches per BA solve (3 per Gauss-Newton step), and per solve 34
    static_edge_blocks (15 steps, 17 LM costs in its cost-sum mode, 2
    chi-square passes), 15 landmark_reduce and 15 landmark_backsub
@@ -69,11 +72,12 @@ Run from the repository root.  Phases, each of which fails the run:
    the EPnP inliers, the candidates tried and the frame's latency;
 7. loop: tests/test_loop_closure.py's pillar orbit (84 frames, Camera.fps
    5, enable_loop_closing) at the bench budget: every frame OK, a loop
-   closed with a loop edge, ATE < 0.15 m, a 2-D Hamming (the Sim3
-   match), a batched Hamming (triangulation), a match_rows (the BoW
-   match) and a fuse-mode match_rows (SearchAndFuse) launch in every loop
-   frame, every fusion call one fuse-mode match_rows launch and no
-   batched Hamming launch, and per frame 45 segment_sum
+   closed with a loop edge, ATE < 0.15 m, an epipolar match_rows and a
+   triangulate (triangulation), a match_rows (the BoW and Sim3 matches)
+   and a fuse-mode match_rows (SearchAndFuse) launch in every loop frame,
+   every Sim3 match call two match_rows launches (one a direction) and no
+   Hamming launch, every fusion call one fuse-mode match_rows launch and
+   no batched Hamming launch, and per frame 45 segment_sum
    launches per static BA solve plus 2020 per loop closure (20 for the
    essential graph, one a step; 2000 for the global BA, 100 a step in four
    calls of five steps); prints the loop's (keyframe, candidate, matches,
@@ -100,13 +104,16 @@ Run from the repository root.  Phases, each of which fails the run:
    index_add_; Hamming: torch.cdist(p=0) on the descriptors unpacked to
    float {0, 1} [.., 256], unpacked outside the timed window; none for
    the pose LM, FAST + NMS, orb_desc, the pyramid, selection,
-   stereo_sad, patch_disparity, the BA kernels and the matcher kernels):
+   stereo_sad, patch_disparity, the BA kernels, the matcher kernels and
+   triangulate):
    - the 2-D Hamming kernel at 1536x1536, 2048x1536 and a ragged
-     1500x1337 of random words: exact equality;
+     1500x1337 of random words: exact equality; no path launches it, so
+     it is held exact, 2-D and batched, at triangulation's recorded
+     descriptors too (B = 4 x 1536 x 1536 at this budget, and 1536x1536
+     against the first neighbour's);
    - every kernel at every shape the path phases launched it with, on the
      first inputs the path gave it at that shape (recorded while the paths
-     ran): Hamming exact, batched Hamming (triangulation B=4 x 1536x1536
-     at this budget) exact, segment_sum bit-equal
+     ran): segment_sum bit-equal
      to its plain version (index_add_) on a CPU copy and two launches
      bit-equal to each other; pose_lm (by edge count, prior on or off)
      within tests/test_torch_pose.py's tolerances of its plain version on
@@ -137,16 +144,21 @@ Run from the repository root.  Phases, each of which fails the run:
      family's cost-mode rho on the card) bit-equal, two launches
      bit-equal; match_rows (by mode, rows, columns, targets, the resolve
      and its rotation filter; fuse mode at B = 9 and 1 x 2048 x 1536 as
-     fusion and SearchAndFuse launched it) bit-equal in every output to
+     fusion and SearchAndFuse launched it, epipolar mode at B = 4 x 1536
+     x 1536 as triangulation launched it) bit-equal in every output to
      its plain version (the resolve's outputs to match_resolve_ref's), two
      launches equal, and on tests/torch_match_cases.py's edge cases of the
      grid of cells in every mode; beside it the time per call of the eager
      composition it replaced (its plain version around the 2-D Hamming
-     kernel, or the batched one in fuse mode), the full scan's bound (the
-     gate at every pair) beside the bound, and for match_resolve (the launches
-     that ran the resolve) the same call's device time without the
-     resolve; the 2-D Hamming
-     kernel at the shapes the loop's Sim3 match launched it with;
+     kernel, or the batched one in fuse and epipolar mode), the full
+     scan's bound (the gate at every pair) beside the bound, and for
+     match_resolve (the launches that ran the resolve) the same call's
+     device time without the resolve; triangulate (by neighbours, rows
+     and a neighbour's features) bit-equal to its plain version in every
+     output, two launches equal, beside it the per-call time of the eager
+     triangulation it replaced (tests/torch_triangulate_cases.py) and of
+     the whole triangulate_pair against the whole composition on the
+     path's inputs;
 10. determinism: two card runs of the mapping System on the small camera
    over 8 frames give byte-identical TUM and KF/MP/Match dumps, and two
    card runs of the human System (small camera, seed 3, 2 humans, masked,
@@ -182,9 +194,9 @@ Run from the repository root.  Phases, each of which fails the run:
       map lock in the stall window's worst frame and which worker
       sections held it meanwhile, the worker's spans and the launches by
       (kernel, thread, stream priority), and fails unless the mapping
-      worker's batched Hamming, fuse-mode match_rows and segment_sum
-      launches went to a stream of lower priority than the tracking
-      thread's match_rows launches;
+      worker's epipolar and fuse-mode match_rows, triangulate and
+      segment_sum launches went to a stream of lower priority than the
+      tracking thread's match_rows launches;
    b. the crowd flagship of phase 5 online (tests/test_online_human.py):
       >= 2 human BA solves through HumanLocalBA.launch, a trajectory
       optimized, ATE < 0.03 m, nothing raised at shutdown;
@@ -256,7 +268,9 @@ driven and read just after; launches made to compare a kernel with its
 plain version are not counted, nor the single-device solve that
 sub-step 16a compares with; the kernels line's launches add up the
 mapping, human, reloc, loop, map-scale, online, drivers, long-horizon and
-multi-device paths' counts.  Frames are
+multi-device paths' counts.  Over all the paths, every triangulation
+call launches one epipolar match_rows and one triangulate, and no path
+launches the Hamming kernel (2-D or batched).  Frames are
 rendered in a pool of forked processes before any CUDA context exists.
 The last lines are one JSON line listing the kernels, the nvidia-smi
 line, and {"ok": true, "device": {...}}.
@@ -265,7 +279,9 @@ CUDA device is present.
 
 With --profile, phases 1-2 run and then phase_profile instead of the rest:
 synchronized stage timers over the 28 bench frames (tracking stages per
-fused frame, triangulation / fusion / BA solve per keyframe) and a
+fused frame, triangulation (its _assemble, triangulate_pair with its
+epipolar match_rows and triangulate launches, and write-back) / fusion /
+BA solve per keyframe) and a
 torch.profiler trace of each of the last four frames (its device kernel
 count and each port kernel's launches), then the crowd-27 flagship
 run's human BA stages (assembly, solve, write-back) and one more solve of
@@ -304,6 +320,8 @@ SEED = 0
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 # kernel name -> {shape: [launches, first inputs]} on the main paths
 _PATH: dict = {}
+# (B, N1, N2) -> the first triangulate_pair inputs the paths gave
+_FOR_TRI: dict = {}
 # what the single-device phases leave for phase multi-device: the first
 # static BA problem and the ATE of phase mapping, the ATE of phase human,
 # the relocalizing frame of phase reloc, the Sim3 RANSAC inputs of phase
@@ -481,9 +499,14 @@ def _match():
     return mk
 
 
+def _tri():
+    from airdos_tpu_torch.ops import triangulate_kernels as tk
+    return tk
+
+
 # the modules that hold the kernels, one nvcc source each
 _MODULES = (_hamming, _segments, _pose, _fast, _orb, _pyr, _sel, _sad, _disp,
-            _bst, _bpt, _bhu, _match)
+            _bst, _bpt, _bhu, _match, _tri)
 
 
 def _words(rng, shape):
@@ -559,6 +582,30 @@ def _ham_bound(shape, args):
     ba, bb, n, m = shape
     return (32 * (ba * n + bb * m) + 4 * max(ba, bb) * n * m,
             2 * 256 * max(ba, bb) * n * m / INT8_OPS_PER_S)
+
+
+def _ham_variants(batched: bool):
+    """No path launches the Hamming kernel since triangulation's epipolar
+    search and the loop's Sim3 match run on match_rows: the descriptors of
+    the largest epipolar match_rows call the paths recorded (triangulation:
+    the keyframe's rows against its neighbours', B = 4 x 1536 x 1536 at the
+    bench budget; the 2-D kernel against the first neighbour's), or 1536 x
+    1536 random words where none was recorded."""
+    def variants(shapes):
+        import torch
+        mk = _match()
+        epi = [a for sh, (n, a) in _PATH.get("match_rows", {}).items()
+               if sh[0] == mk.EPIPOLAR]
+        if epi:
+            rows, cols = max(epi, key=lambda a: a[2].desc.numel())[1:3]
+            a, b = rows.desc, cols.desc
+        else:
+            rng = np.random.default_rng(SEED)
+            a, b = _words(rng, (1536, 8)), _words(rng, (4, 1536, 8))
+        args = (a[None], b) if batched else (a, b[0].contiguous())
+        key = (_batched_shape if batched else _ham_shape)(*args)
+        return {key: args}
+    return variants
 
 
 def _ham_library(args):
@@ -1313,7 +1360,7 @@ def _hu_check(args):
 
 # ------------------------------------------------------ matcher kernels
 
-_MATCH_MODES = ("motion", "local", "stereo", "bow", "fuse")
+_MATCH_MODES = ("motion", "local", "stereo", "bow", "fuse", "epipolar")
 # operations counted from csrc/match.cu.  The function's need (the
 # bound): a row's work (its loads, window or bucket, the two warp
 # minima, the ratio test and its outputs), a column's (its cell or bucket:
@@ -1322,13 +1369,14 @@ _MATCH_MODES = ("motion", "local", "stereo", "bow", "fuse")
 # bounds, the two window subtractions, absolute values and compares, the
 # right-u test; stereo the band, octave and disparity tests; bow key
 # equality; fuse the window, the octave band and the chi-square's float32
-# steps) and the pair (8 XORs, 8 popcounts, 7 adds, the key and the
-# two-smallest update), stereo's extra work a gated pair (the far-u
+# steps; epipolar the line's distance and its compare) and the pair (8
+# XORs, 8 popcounts, 7 adds, the key and the two-smallest update),
+# stereo's extra work a gated pair (the far-u
 # test's subtraction, absolute value and compare, and the column
 # minimum's compare), and the resolve's work a row (the rotation bin and
 # histogram add, the key and its atomicMin, the winner test).  The full
 # scan's bound, the gate at every pair, is printed beside it.
-MATCH_GATE_OPS = (14, 14, 10, 4, 24)
+MATCH_GATE_OPS = (14, 14, 10, 4, 24, 10)
 MATCH_PAIR_OPS = 27
 MATCH_STEREO_PAIR_OPS = 4
 MATCH_ROW_OPS = 24
@@ -1336,19 +1384,21 @@ MATCH_COL_OPS = 8
 RESOLVE_ROW_OPS = (12, 24)        # without, with the rotation filter
 # bytes a row and a column of match_rows read (the descriptor's 32, the
 # vectors and flags of the mode; fuse: a row's vectors a target, its
-# descriptor once) and a row writes (best and second 16, their distances
-# 8, has 1; fuse: best and feat_idx 16, its distance 4, has 1)
-MATCH_ROW_BYTES = (57, 57, 49, 41, 25)
-MATCH_COL_BYTES = (54, 54, 53, 41, 54)
-MATCH_OUT_BYTES = (25, 25, 25, 25, 21)
+# descriptor once; epipolar: a row's line a target, its descriptor, key
+# and ok once) and a row writes (best and second 16, their distances 8,
+# has 1; fuse, epipolar: best and feat_idx 16, its distance 4, has 1)
+MATCH_ROW_BYTES = (57, 57, 49, 41, 25, 12)
+MATCH_COL_BYTES = (54, 54, 53, 41, 54, 53)
+MATCH_OUT_BYTES = (25, 25, 25, 25, 21, 21)
+MATCH_SHARED_ROW_BYTES = (0, 0, 0, 0, 32, 41)
 
 
 def _mr_shape(mode, rows, cols, th, ratio=0.0, band=(None, None),
               max_d=0.0, resolve=False, angles=None, *rest):
     """(mode, rows, columns, targets, resolve, rotation filter)"""
-    fuse = int(mode) == _match().FUSE
+    batched = int(mode) in _match().BATCHED
     return (int(mode), rows.desc.shape[0], cols.desc.shape[-2],
-            cols.desc.shape[0] if fuse else 1, bool(resolve),
+            cols.desc.shape[0] if batched else 1, bool(resolve),
             angles is not None)
 
 
@@ -1362,7 +1412,7 @@ def _rs_shape(*args):
 def _mr_fmt(shape) -> str:
     mode, P, N, B, resolve, rot = shape
     what = f"{_MATCH_MODES[mode]} mode, {P} rows x {N} columns"
-    if mode == _match().FUSE:
+    if mode in _match().BATCHED:
         what += f" x {B} targets"
     if resolve:
         what += f", the resolve with the rotation filter {'on' if rot else 'off'}"
@@ -1387,9 +1437,8 @@ def _mr_bytes(shape) -> int:
     mode, P, N, B, resolve, rot = shape
     stereo = mode == _match().STEREO
     nbytes = B * P * (MATCH_ROW_BYTES[mode] + MATCH_OUT_BYTES[mode]) \
-        + B * N * (MATCH_COL_BYTES[mode] + (8 if stereo else 0))
-    if mode == _match().FUSE:
-        nbytes += 32 * P
+        + B * N * (MATCH_COL_BYTES[mode] + (8 if stereo else 0)) \
+        + P * MATCH_SHARED_ROW_BYTES[mode]
     if resolve:           # the angles read, feat_idx, point_of_feat, n
         nbytes += (4 * (P + N) if rot else 0) + 8 * (P + N + 1)
     return nbytes
@@ -1475,7 +1524,7 @@ def _mr_check(args):
     card, two launches equal, the grid's edge cases once (_mr_edges), and
     the eager composition the kernel replaced (the plain version's gate
     and reductions around the 2-D Hamming kernel, or the batched one in
-    fuse mode, and the resolve's plain version) timed."""
+    fuse and epipolar mode, and the resolve's plain version) timed."""
     import torch
     mk, hk = _match(), _hamming()
     args = _mr_args(args)
@@ -1498,7 +1547,7 @@ def _mr_check(args):
     def composition():
         ok = mk.gate(mode, rows, cols, band, max_d, sigma2)
         D = hk.hamming_matrix_batched(rows.desc[None], cols.desc) \
-            if mode == mk.FUSE else hk.hamming_matrix(rows.desc, cols.desc)
+            if mode in mk.BATCHED else hk.hamming_matrix(rows.desc, cols.desc)
         D = torch.where(ok, D, torch.full_like(D, mk.BIG))
         rm = mk.reduce_gated(mode, D, cols.key, cols.x, th, ratio)
         if resolve:
@@ -1514,7 +1563,7 @@ def _mr_check(args):
             f"{_mr_gated(args)} gated pairs; {n_edges} edge cases "
             f"(tests/torch_match_cases.py) bit-equal; the eager composition "
             f"it replaced (the gate and reductions around the "
-            f"{'batched ' if mode == mk.FUSE else '2-D '}Hamming kernel"
+            f"{'batched ' if mode in mk.BATCHED else '2-D '}Hamming kernel"
             f"{', and the resolve' if resolve else ''}) {comp_ms:.4f} ms per "
             f"call; the full scan's bound (the gate at every pair) "
             f"{max(old_bound, _mr_bytes(shape) / HBM_BYTES_PER_S * 1e3) * 1e3:.3f} us")
@@ -1543,6 +1592,86 @@ def _rs_check(args):
     return err, what, kernel, plain
 
 
+# ------------------------------------------------------- triangulation
+
+# operations a row of triangulate (counted from csrc/triangulate.cu): the
+# rays and their parallax (~50), the DLT rows, normal equations, damping,
+# inverse and solve (~165), the stereo point (~12), the two views' checks
+# (~80) and the scale test (~26), and atan2f, cosf (twice each) and expf
+# counted at ~20 operations each
+TRI_ROW_OPS = 450
+# bytes a row of a target reads (best 8, dist 4, the neighbour's matched
+# feature: xy 8, octave 8, ur 4, depth 4) and writes (idx2 8, the point
+# 12, three flags 3), and a keyframe row reads once (xy, octave, ur, depth)
+TRI_ROW_BYTES = 36 + 23
+TRI_KF_ROW_BYTES = 24
+
+
+def _tri_shape(best, dist, xy1, oct1, ur1, depth1, R1, t1, xy2, *rest):
+    """(targets, keyframe rows, a neighbour's features)"""
+    return (best.shape[0], best.shape[1], xy2.shape[1])
+
+
+def _tri_fmt(shape) -> str:
+    return f"B={shape[0]} x {shape[1]} rows ({shape[2]} features a neighbour)"
+
+
+def _tri_bound(shape, args):
+    """Each row's inputs read once (its match's feature gathered once),
+    its outputs written once, TRI_ROW_OPS a row at the float32 CUDA-core
+    rate."""
+    B, N1, N2 = shape
+    nbytes = B * N1 * TRI_ROW_BYTES + N1 * TRI_KF_ROW_BYTES + 4 * (24 * B + 15)
+    return nbytes, B * N1 * TRI_ROW_OPS / FP32_FLOPS
+
+
+def _tri_check(args):
+    """Every output bit-equal to triangulate_rows_ref on the card, two
+    launches equal; beside it the per-call time of the eager triangulation
+    it replaced (tests/torch_triangulate_cases.py's composition after its
+    argmin) on the same rows, and of the whole triangulate_pair against
+    the whole composition (the [B, N1, N2] gate around the batched Hamming
+    kernel) on the path's inputs at this shape."""
+    import torch
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import torch_triangulate_cases as ttc
+    tk = _tri()
+    got = tk.triangulate_rows_cuda(*args)
+    again = tk.triangulate_rows_cuda(*args)
+    want = tk.triangulate_rows_ref(*args)
+    torch.cuda.synchronize()
+    err = float((got.points - want.points).abs().nan_to_num(0.0).max()) \
+        if got.points.numel() else 0.0
+    for name in tk.TriangulationResult._fields:
+        g, w = getattr(got, name), getattr(want, name)
+        if not torch.equal(g, w):
+            rows = int((g != w).reshape(g.shape[0], g.shape[1], -1).any(-1)
+                       .sum())
+            _fail(f"triangulate {name} != plain version on {rows} of "
+                  f"{g.shape[0] * g.shape[1]} rows (points' max abs err "
+                  f"{err})")
+        if not torch.equal(g, getattr(again, name)):
+            _fail(f"triangulate: two launches differ in {name}")
+    (best, dist, xy1, oct1, ur1, depth1, R1, t1, xy2, oct2, ur2, depth2, R2,
+     t2, C1w, C2w, fx, fy, cx, cy, bf, sf, s2, ls) = args
+    rows_ms = _cuda_ms(lambda: ttc._composition_rows(
+        best, dist, xy1, oct1, ur1, depth1, R1, t1, xy2, oct2, ur2, depth2,
+        R2, t2, fx, fy, cx, cy, bf, sf, s2, ls))
+    what = (f"bit-equal ({', '.join(tk.TriangulationResult._fields)}), two "
+            f"launches equal, {int(got.valid.sum())} of {got.valid.numel()} "
+            f"rows valid; the eager triangulation it replaced "
+            f"{rows_ms:.4f} ms per call")
+    pair = _FOR_TRI.get(_tri_shape(*args))
+    if pair is not None:
+        from airdos_tpu_torch.matching.epipolar import triangulate_pair
+        new_ms = _cuda_ms(lambda: triangulate_pair(*pair))
+        old_ms = _cuda_ms(lambda: ttc.composition(*pair))
+        what += (f"; triangulate_pair {new_ms:.4f} ms per call against the "
+                 f"composition it replaced {old_ms:.4f} ms")
+    return err, what, (lambda: tk.triangulate_rows_cuda(*args)), \
+        (lambda: tk.triangulate_rows_ref(*args))
+
+
 class _Kernel(NamedTuple):
     """Everything the script knows of one kernel: where it lives, the
     wrapper the main paths' launches are recorded at, how a recorded
@@ -1565,6 +1694,7 @@ class _Kernel(NamedTuple):
     graph_n: int = 100              # launches in the timed CUDA graph
     human_only: bool = False        # launched by the human layer alone
     loop_only: bool = False         # launched by loop closing alone
+    off_path: bool = False          # launched by no path (checked alone)
     # recorded {shape: [launches, args]} -> {shape: args}: cases the paths
     # did not launch, checked and timed beside them
     variants: Callable = None
@@ -1576,13 +1706,13 @@ KERNELS = (
             "airdos_tpu_torch/csrc/hamming.cu",
             "airdos_tpu/ops/pallas_kernels.py:43", _ham_shape, _ham_fmt,
             _ham_out, _ham_check(False), _ham_bound, _ham_library,
-            loop_only=True),
+            off_path=True, variants=_ham_variants(False)),
     _Kernel("hamming_matrix_batched", _hamming,
             "hamming_matrix_batched_cuda", "batched_launches",
             "airdos_tpu_torch/csrc/hamming.cu",
             "airdos_tpu/ops/pallas_kernels.py:43", _batched_shape,
             _batched_fmt, _ham_out, _ham_check(True), _ham_bound,
-            _ham_library),
+            _ham_library, off_path=True, variants=_ham_variants(True)),
     _Kernel("segment_sum", _segments, "segment_sum_cuda", "launches",
             "airdos_tpu_torch/csrc/segment_sum.cu",
             "airdos_tpu/solvers/local_ba.py:119, "
@@ -1675,7 +1805,9 @@ KERNELS = (
             "airdos_tpu/matching/stereo.py:88, "
             "airdos_tpu/matching/projection.py:81 and :130, "
             "airdos_tpu/matching/bow_match.py:31, "
-            "airdos_tpu/matching/fuse.py:27 (:69)", _mr_shape, _mr_fmt,
+            "airdos_tpu/matching/sim3_match.py:31, "
+            "airdos_tpu/matching/fuse.py:27 (:69), "
+            "airdos_tpu/matching/epipolar.py:36 (:63-84)", _mr_shape, _mr_fmt,
             lambda shape: shape[1] * shape[2] * shape[3], _mr_check,
             _mr_bound, _no_library),
     # the resolve runs inside match_rows' launch: its launches are the
@@ -1685,6 +1817,12 @@ KERNELS = (
             "airdos_tpu/matching/projection.py:61 _rotation_consistency, "
             ":41 _resolve_unique", _rs_shape, _rs_fmt,
             lambda shape: shape[1], _rs_check, _rs_bound, _no_library),
+    _Kernel("triangulate", _tri, "triangulate_rows_cuda", "launches",
+            "airdos_tpu_torch/csrc/triangulate.cu",
+            "airdos_tpu/matching/epipolar.py:86-178 (triangulate_pair "
+            "after its argmin)", _tri_shape, _tri_fmt,
+            lambda shape: shape[0] * shape[1], _tri_check, _tri_bound,
+            _no_library),
 )
 
 # the BA kernels' launches per solve of the static (local) BA and of the
@@ -1719,35 +1857,82 @@ def _reset_counts() -> None:
 
 
 def _counts() -> dict:
-    """Each kernel's launches, and match_rows' launches in fuse mode
-    ("match_fuse", not a kernel of its own)."""
+    """Each kernel's launches, and match_rows' launches in fuse and in
+    epipolar mode ("match_fuse", "match_epipolar", not kernels of their
+    own)."""
     counts = {k.name: getattr(k.module(), k.launches)() for k in KERNELS}
     counts["match_fuse"] = _match().fuse_launches()
+    counts["match_epipolar"] = _match().epipolar_launches()
     return counts
 
 
 @contextlib.contextmanager
-def _fusion_watch():
-    """Every call of fusion's device match (ba_driver's fuse_candidates:
-    a keyframe's neighbourhood fusion and the loop's SearchAndFuse) made
-    while the context is open -> [(match_rows launches in fuse mode,
-    batched Hamming launches)], a call each."""
-    from airdos_tpu_torch.slam import ba_driver
-    fuse = ba_driver.fuse_candidates
-    mk, hk = _match(), _hamming()
+def _call_watch(module, name, launches, on_call=None):
+    """Every call of module.name made while the context is open ->
+    [(each of `launches`' counts over the call)], a call each; on_call
+    sees each call's arguments."""
+    fn = getattr(module, name)
     calls = []
 
     def watched(*args, **kwargs):
-        f0, h0 = mk.fuse_launches(), hk.batched_launches()
-        out = fuse(*args, **kwargs)
-        calls.append((mk.fuse_launches() - f0, hk.batched_launches() - h0))
+        c0 = [count() for count in launches]
+        out = fn(*args, **kwargs)
+        calls.append(tuple(count() - c for count, c in zip(launches, c0)))
+        if on_call is not None:
+            on_call(args)
         return out
 
-    ba_driver.fuse_candidates = watched
+    setattr(module, name, watched)
     try:
         yield calls
     finally:
-        ba_driver.fuse_candidates = fuse
+        setattr(module, name, fn)
+
+
+def _triangulation_watch():
+    """Every triangulation call (ba_driver's triangulate_pair) -> [(match_rows
+    launches in epipolar mode, triangulate launches, Hamming launches 2-D
+    and batched)], a call each; each path's first inputs at a shape kept
+    for the kernel phase."""
+    from airdos_tpu_torch.slam import ba_driver
+    mk, tk, hk = _match(), _tri(), _hamming()
+
+    def keep(args):
+        B, N1, N2 = args[8].shape[0], args[0].shape[0], args[8].shape[1]
+        if (B, N1, N2) not in _FOR_TRI:
+            _FOR_TRI[(B, N1, N2)] = tuple(_cloned(a) for a in args)
+
+    return _call_watch(ba_driver, "triangulate_pair",
+                       (mk.epipolar_launches, tk.launches,
+                        lambda: hk.launches() + hk.batched_launches()), keep)
+
+
+def _fusion_watch():
+    """Every call of fusion's device match (ba_driver's fuse_candidates:
+    a keyframe's neighbourhood fusion and the loop's SearchAndFuse) ->
+    [(match_rows launches in fuse mode, batched Hamming launches)], a call
+    each."""
+    from airdos_tpu_torch.slam import ba_driver
+    mk, hk = _match(), _hamming()
+    return _call_watch(ba_driver, "fuse_candidates",
+                       (mk.fuse_launches, hk.batched_launches))
+
+
+def _sim3_watch():
+    """Every call of the loop's Sim3 match (loop_closing's match_by_sim3)
+    -> [(match_rows launches, Hamming launches 2-D and batched)], a call
+    each."""
+    from airdos_tpu_torch.slam import loop_closing
+    mk, hk = _match(), _hamming()
+    return _call_watch(loop_closing, "match_by_sim3",
+                       (mk.launches,
+                        lambda: hk.launches() + hk.batched_launches()))
+
+
+def _triangulation_off(calls) -> list:
+    """The triangulation calls that did not launch exactly one match_rows
+    in epipolar mode, one triangulate and no Hamming kernel."""
+    return [(i, c) for i, c in enumerate(calls) if c != (1, 1, 0)]
 
 
 def _fusion_off(calls) -> list:
@@ -1897,7 +2082,7 @@ def phase_kernel(smi: str):
     for k in KERNELS:
         name = k.name
         shapes = _PATH.get(name, {})
-        if not shapes:
+        if not shapes and not k.off_path:
             _fail(f"{name}: no launch recorded on the main paths")
         if k.variants is not None:
             shapes = {**shapes, **{sh: [0, args] for sh, args
@@ -2111,8 +2296,7 @@ FRONT_END = dict(pyramid=2, fast_nms=2, select=2, orb_desc=2, stereo_sad=1)
 # local-map match_rows (a fourth with the x2-window retry), the motion
 # and local ones with the resolve in their launch (match_resolve counts
 # those: csrc/match.cu has no kernel of its own for it, where a separate
-# match_resolve launched 2 more), and no 2-D Hamming kernel (its launches only
-# compare with the kernels' plain versions, and the loop's Sim3 match
+# match_resolve launched 2 more), and no 2-D Hamming kernel (no path
 # launches it)
 FUSED_MATCH = dict(match_rows=3, match_resolve=2)
 
@@ -2312,11 +2496,20 @@ def phase_mapping(smi: str, frames, twc, twins):
              and per[i]["solves"] != 1]
     if no_ba:
         _fail(f"mapping: no static BA solve at keyframe frames {no_ba}")
-    # triangulation's batched Hamming kernel: at the keyframes with
-    # neighbours to triangulate with (fusion, which launched it at every
-    # keyframe frame, launches match_rows in fuse mode)
-    if counts["hamming_matrix_batched"] < 1:
-        _fail("mapping: no batched Hamming launch (triangulation)")
+    # triangulation: one epipolar match_rows and one triangulate launch
+    # at each keyframe with a neighbour past the stereo baseline (the
+    # early keyframes, a few cm apart, have none and launch nothing; the
+    # paths' triangulation watch holds each call to one of each), none
+    # elsewhere; no path launches the Hamming kernel
+    tri = {i: (p["d"]["match_epipolar"], p["d"]["triangulate"])
+           for i, p in enumerate(per)}
+    tri_off = [(i, t) for i, t in tri.items()
+               if t not in ((0, 0), (1, 1)) or (t == (1, 1) and i not in
+                                                kf_frames[1:])]
+    if tri_off or not any(t == (1, 1) for t in tri.values()):
+        _fail(f"mapping: frames (frame, (epipolar match_rows, triangulate "
+              f"launches)) {tri_off} not one of each at a keyframe and none "
+              f"elsewhere, or no keyframe triangulated")
     no_fuse = [i for i in kf_frames[1:] if per[i]["d"]["match_fuse"] < 1]
     fusion_off = _fusion_off(fusions)
     if no_fuse or fusion_off or not fusions:
@@ -2325,7 +2518,10 @@ def phase_mapping(smi: str, frames, twc, twins):
               f"match_rows, batched Hamming launches)) {fusion_off} not "
               f"(1, 0), of {len(fusions)}")
     print(f"[mapping] fusion: {len(fusions)} calls, each one match_rows "
-          f"launch in fuse mode and no batched Hamming kernel", flush=True)
+          f"launch in fuse mode and no batched Hamming kernel; "
+          f"triangulation at keyframe frames "
+          f"{[i for i, t in tri.items() if t == (1, 1)]}, one epipolar "
+          f"match_rows and one triangulate launch each", flush=True)
     seg_off = [i for i, p in enumerate(per)
                if p["d"]["segment_sum"] != 45 * p["solves"]]
     if seg_off:
@@ -2343,7 +2539,8 @@ def phase_mapping(smi: str, frames, twc, twins):
     if ba_off:
         _fail(f"mapping: BA kernel launches per solve != {STATIC_SOLVE} at "
               f"(frame, kernel, launches, expected) {ba_off[:8]}")
-    not_here = {k.name for k in KERNELS if k.human_only or k.loop_only}
+    not_here = {k.name for k in KERNELS
+                if k.human_only or k.loop_only or k.off_path}
     idle = [k for k, v in counts.items() if v <= 0 and k not in not_here]
     if idle:
         _fail(f"mapping: kernels never launched on the main path: {idle}")
@@ -2486,7 +2683,7 @@ def phase_human(smi: str, frames, twc, twins):
         _fail(f"human: BA kernel launches != {STATIC_SOLVE} per static and "
               f"{HUMAN_SOLVE} per human BA solve at (frame, kernel, "
               f"launches, expected) {ba_off[:8]}")
-    not_here = {k.name for k in KERNELS if k.loop_only}
+    not_here = {k.name for k in KERNELS if k.loop_only or k.off_path}
     idle = [k for k, v in counts.items() if v <= 0 and k not in not_here]
     if idle:
         _fail(f"human: kernels never launched on the main path: {idle}")
@@ -2672,8 +2869,8 @@ def phase_loop(smi: str, frames, twc):
     loop_closing.LoopCloser.compute_sim3 = compute_sim3
     loop_closing.LoopCloser.correct = correct
     loop_closing.sim3_ransac = sim3_ransac
-    fusion_watch = _fusion_watch()
-    fusions = fusion_watch.__enter__()
+    fusion_watch, sim3_watch = _fusion_watch(), _sim3_watch()
+    fusions, sim3s = fusion_watch.__enter__(), sim3_watch.__enter__()
     try:
         _reset_counts()
         for data in frames:
@@ -2700,6 +2897,7 @@ def phase_loop(smi: str, frames, twc):
                             d={k: c1[k] - c0[k] for k in c1}))
         counts = _counts()
     finally:
+        sim3_watch.__exit__(None, None, None)
         fusion_watch.__exit__(None, None, None)
         loop_closing.LoopCloser.compute_sim3 = real_sim3
         loop_closing.LoopCloser.correct = real_correct
@@ -2728,17 +2926,23 @@ def phase_loop(smi: str, frames, twc):
     if slam.global_ba.n_runs != lc.n_loops_closed:
         _fail("loop: not one global BA per loop closure")
     loop_frames = [i for i, p in enumerate(per) if p["loops"]]
-    if any(per[i]["d"]["hamming_matrix"] <= 0 or
-           per[i]["d"]["hamming_matrix_batched"] <= 0 or
+    if any(per[i]["d"]["match_epipolar"] <= 0 or
+           per[i]["d"]["triangulate"] <= 0 or
            per[i]["d"]["match_rows"] <= 0 or per[i]["d"]["match_fuse"] <= 0
            for i in loop_frames):
-        _fail("loop: a loop frame launched no 2-D Hamming (the Sim3 match), "
-              "batched Hamming (triangulation), match_rows (the BoW match) "
-              "or match_rows in fuse mode (SearchAndFuse) kernel")
+        _fail("loop: a loop frame launched no epipolar match_rows and "
+              "triangulate (triangulation), match_rows (the BoW and Sim3 "
+              "matches) or match_rows in fuse mode (SearchAndFuse)")
+    sim3_off = [(i, c) for i, c in enumerate(sim3s) if c != (2, 0)]
+    if not sim3s or sim3_off:
+        _fail(f"loop: Sim3 match calls (call, (match_rows, Hamming "
+              f"launches)) {sim3_off} not (2, 0), of {len(sim3s)}")
     fusion_off = _fusion_off(fusions)
     if fusion_off:
         _fail(f"loop: fusion calls (call, (fuse-mode match_rows, batched "
               f"Hamming launches)) {fusion_off} not (1, 0)")
+    print(f"[loop] the Sim3 match: {len(sim3s)} calls, each two match_rows "
+          f"launches and no Hamming kernel", flush=True)
     spans = slam.profiler.report()
     track_ms = [p["ms"] for p in per if not p["kf"]]
     kf_ms = [p["ms"] for i, p in enumerate(per)
@@ -3008,10 +3212,10 @@ def _online_pillar(smi, orbit, orbit_twc, offline_loop, live: bool):
     track_prio = {p for (name, th, p) in tally if th == "MainThread"
                   and name == "match_rows"}
     worker = {(name, p) for (name, th, p) in tally if th == "mapping"
-              and name in ("hamming_matrix_batched", "match_fuse",
+              and name in ("match_epipolar", "triangulate", "match_fuse",
                            "segment_sum")}
     if not track_prio or {n for n, _ in worker} != \
-            {"hamming_matrix_batched", "match_fuse", "segment_sum"}:
+            {"match_epipolar", "triangulate", "match_fuse", "segment_sum"}:
         _fail(f"online: launches missing from the tally {tally}")
     if track_prio != {min(track_prio)} or min(track_prio) > \
             TRACKING_PRIORITY:
@@ -3517,6 +3721,7 @@ def phase_profile(smi: str):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    import airdos_tpu_torch.matching.epipolar as epipolar
     import airdos_tpu_torch.slam.ba_driver as ba_driver
     import airdos_tpu_torch.slam.frame as frame_mod
     import airdos_tpu_torch.slam.fused as fused
@@ -3543,7 +3748,17 @@ def phase_profile(smi: str):
         (fused, "match_local_points", "local-map match"),
         (fused, "pose_optimize", "pose LM")]
     lm = slam.local_mapper
+    tri = lm.triangulator
+    # triangulation's parts: the host's assembly under the map lock, the
+    # prelude's eager ops (triangulate_pair less its two launches), the
+    # two launches, the copy back (the rest) and the write-back
     map_stages = [(lm, "triangulator", "triangulation"),
+                  (tri, "_assemble", "  of which _assemble"),
+                  (ba_driver, "triangulate_pair",
+                   "  of which triangulate_pair"),
+                  (epipolar, "match_rows", "    of which epipolar match_rows"),
+                  (epipolar, "triangulate_rows", "    of which triangulate"),
+                  (tri, "_write_back", "  of which the write-back"),
                   (lm, "fuser", "fusion"),
                   (ba_driver, "local_bundle_adjust", "BA solve")]
     for obj, attr, name in track_stages + map_stages:
@@ -3598,7 +3813,8 @@ def phase_profile(smi: str):
 
         mine = "; ".join(
             "{} {} launches, mean device time {}".format(tag, *kernel_ms(tag))
-            for tag in ("hamming_kernel", "match_rows_kernel", "segment_sum_",
+            for tag in ("hamming_kernel", "match_rows_kernel",
+                        "triangulate_kernel", "segment_sum_",
                         "pose_lm_kernel",
                         "pyramid_levels_kernel", "fast_nms_levels_kernel",
                         "select_kernel", "orb_desc_levels_kernel",
@@ -4504,7 +4720,7 @@ def _path_phases(smi: str, frames, twc, cli):
     long_world, long_frames, long_twc = _phase("render long-110",
                                                _long_horizon_frames)
     memory = {}
-    with _path_recording():
+    with _path_recording(), _triangulation_watch() as triangulations:
         _phase("slice", phase_slice, smi, frames, twc)
         launches = _phase("mapping", phase_mapping, smi,
                           [_twin(d) for d in frames], twc, memory)
@@ -4524,6 +4740,17 @@ def _path_phases(smi: str, frames, twc, cli):
                           twc, crowd, crowd_twc)]
     for c in counts:
         launches = {k: launches[k] + c[k] for k in launches}
+    tri_off = _triangulation_off(triangulations)
+    if tri_off or not triangulations:
+        _fail(f"triangulation calls (call, (epipolar match_rows, triangulate, "
+              f"Hamming launches)) {tri_off[:8]} not (1, 1, 0), of "
+              f"{len(triangulations)}")
+    ham = {k.name: launches[k.name] for k in KERNELS if k.off_path}
+    if any(ham.values()):
+        _fail(f"the paths launched the Hamming kernel: {ham}")
+    print(f"[paths] triangulation: {len(triangulations)} calls, each one "
+          f"epipolar match_rows and one triangulate launch; no path launched "
+          f"the Hamming kernel {ham}", flush=True)
     return launches, (snap, extractor)
 
 

@@ -2008,7 +2008,8 @@ def test_match_rows_fuse_kernel_bit_equal_and_deterministic(cuda, B, P, N):
 @pytest.mark.parametrize("case", ["path", "border", "cell boundaries",
                                   "non-finite", "one cell", "empty windows",
                                   "no gated pair", "wide windows"])
-@pytest.mark.parametrize("mode", ["motion", "local", "stereo", "bow", "fuse"])
+@pytest.mark.parametrize("mode", ["motion", "local", "stereo", "bow", "fuse",
+                                  "epipolar"])
 def test_match_rows_grid_edge_cases_bit_equal(cuda, mode, case):
     """The grid of cells' edge cases (tests/torch_match_cases.py) in every
     mode, with the resolve where the mode has it: every output bit-equal
@@ -2052,3 +2053,170 @@ def test_match_kernels_raise_on_cpu_mixed_inputs(cuda):
                       resolve=True)
     with pytest.raises(ValueError):     # fuse needs its sigma2 table
         mk.match_rows(mk.FUSE, rows, cols, th)
+    with pytest.raises(ValueError):     # epipolar needs its lines
+        mk.match_rows(mk.EPIPOLAR, rows, cols, th)
+
+
+@pytest.mark.parametrize("B,P,N", [(4, 1536, 1536), (4, 640, 640),
+                                   (3, 37, 45), (1, 300, 1)])
+def test_match_rows_epipolar_kernel_bit_equal_and_deterministic(cuda, B, P,
+                                                                 N):
+    """Epipolar mode at triangulation's shapes (4 neighbours of 1536
+    features, long-110's 640): every output bit-equal to the plain
+    version on the card and on the CPU, one launch a call, counted as
+    epipolar, no Hamming launch."""
+    import airdos_tpu_torch.ops.match_kernels as mk
+    import torch_match_cases as tc
+    c = tc.make(mk.EPIPOLAR, "path", np.random.default_rng(B * P + N), P, N,
+                B)
+    args = tc.args(c, cuda)
+    before = (mk.launches(), mk.epipolar_launches(), hk.launches(),
+              hk.batched_launches())
+    got = mk.match_rows(*args)
+    again = mk.match_rows(*args)
+    torch.cuda.synchronize()
+    assert (mk.launches(), mk.epipolar_launches(), hk.launches(),
+            hk.batched_launches()) == (before[0] + 2, before[1] + 2,
+                                       before[2], before[3])
+    want = mk.match_rows_ref(*args)
+    want_cpu = mk.match_rows_ref(*tc.args(c))
+    for name in mk.RowMatches._fields:
+        g = getattr(got, name)
+        assert torch.equal(g, getattr(want, name)), name
+        assert torch.equal(g.cpu(), getattr(want_cpu, name)), name
+        assert torch.equal(g, getattr(again, name)), name
+    if P >= 640:
+        assert int(got.has.sum()) > P // 20
+
+
+def _scene_on(device, *args, **kwargs):
+    import torch_triangulate_cases as ttc
+    return [a.to(device) if torch.is_tensor(a) else a
+            for a in ttc.scene(*args, **kwargs)]
+
+
+@pytest.mark.parametrize("case", ["path", "same pose", "long-110"])
+def test_triangulate_kernel_bit_equal_to_plain_version(cuda, case):
+    """triangulate (csrc/triangulate.cu) on the rows triangulate_pair
+    hands it, 4 neighbours of 1536 features (a neighbour at the
+    keyframe's pose: the stereo points; long-110's 640): every output
+    bit-equal to triangulate_rows_ref on the card, two launches equal."""
+    import airdos_tpu_torch.matching.epipolar as epi
+    import airdos_tpu_torch.ops.triangulate_kernels as tk
+    n = 640 if case == "long-110" else 1536
+    args = _scene_on(cuda, 11, B=4, N1=n, N2=n, same_pose=case == "same pose")
+    seen = []
+    rows = epi.triangulate_rows
+
+    def spy(*a):
+        seen.append(a)
+        return rows(*a)
+
+    epi.triangulate_rows = spy
+    try:
+        epi.triangulate_pair(*args)
+    finally:
+        epi.triangulate_rows = rows
+    a = seen[0]
+    before = tk.launches()
+    got, again = tk.triangulate_rows(*a), tk.triangulate_rows(*a)
+    want = tk.triangulate_rows_ref(*a)
+    torch.cuda.synchronize()
+    assert tk.launches() == before + 2
+    for name in tk.TriangulationResult._fields:
+        g = getattr(got, name)
+        assert torch.equal(g, getattr(want, name)), name
+        assert torch.equal(g, getattr(again, name)), name
+    assert int(got.valid.sum()) > 50
+
+
+def test_triangulate_pair_launches_its_two_kernels(cuda, monkeypatch):
+    """triangulate_pair on the card: one epipolar match_rows and one
+    triangulate launch, no Hamming launch, and the outputs of the same
+    call with both kernels' plain versions on the card."""
+    import airdos_tpu_torch.matching.epipolar as epi
+    import airdos_tpu_torch.ops.match_kernels as mk
+    import airdos_tpu_torch.ops.triangulate_kernels as tk
+    args = _scene_on(cuda, 12, B=4, N1=1536, N2=1536)
+    before = (mk.launches(), mk.epipolar_launches(), tk.launches(),
+              hk.launches(), hk.batched_launches())
+    got = epi.triangulate_pair(*args)
+    torch.cuda.synchronize()
+    assert (mk.launches(), mk.epipolar_launches(), tk.launches(),
+            hk.launches(), hk.batched_launches()) == \
+        (before[0] + 1, before[1] + 1, before[2] + 1, before[3], before[4])
+    monkeypatch.setattr(mk, "match_rows_cuda",
+                        lambda *a, **k: mk.match_rows_ref(*a[:10]))
+    monkeypatch.setattr(tk, "triangulate_rows_cuda", tk.triangulate_rows_ref)
+    want = epi.triangulate_pair(*args)
+    for name in tk.TriangulationResult._fields:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert int(got.valid.sum()) > 100
+
+
+def test_triangulate_kernel_rejects_what_it_does_not_take(cuda):
+    import airdos_tpu_torch.matching.epipolar as epi
+    import airdos_tpu_torch.ops.triangulate_kernels as tk
+    args = _scene_on(cuda, 13, B=2, N1=64, N2=60)
+    seen = []
+    rows = epi.triangulate_rows
+    epi.triangulate_rows = lambda *a: seen.append(a) or rows(*a)
+    try:
+        epi.triangulate_pair(*args)
+    finally:
+        epi.triangulate_rows = rows
+    a = list(seen[0])
+    for i, bad in ((2, a[2].cpu()), (1, a[1].long()), (8, a[8][:, :10]),
+                   (12, a[12].double()), (0, a[0][:1])):
+        with pytest.raises(ValueError):
+            tk.triangulate_rows(*(a[:i] + [bad] + a[i + 1:]))
+
+
+def test_match_by_sim3_on_match_rows_on_the_card(cuda):
+    """The loop's Sim3 match on the card: two match_rows launches (one a
+    direction), no Hamming launch, and the plain versions' result on the
+    card."""
+    import airdos_tpu_torch.matching.sim3_match as sm
+    import airdos_tpu_torch.ops.match_kernels as mk
+    rng = np.random.default_rng(14)
+    N = 1536
+    pts = np.stack([rng.uniform(-4, 4, N), rng.uniform(-3, 3, N),
+                    rng.uniform(3, 25, N)], 1).astype(np.float32)
+    fx = fy = 400.0
+    cx, cy, w, h = 320.0, 180.0, 640, 360
+    R2 = np.array([[np.cos(0.1), 0, np.sin(0.1)], [0, 1, 0],
+                   [-np.sin(0.1), 0, np.cos(0.1)]], np.float32)
+    t2 = np.array([0.5, 0.1, -0.3], np.float32)
+    x2 = pts @ R2.T + t2
+    x1_in_c2 = x2.astype(np.float32)
+    x2_in_c1 = pts.astype(np.float32)
+
+    def feats(xc):
+        return np.stack([fx * xc[:, 0] / xc[:, 2] + cx,
+                         fy * xc[:, 1] / xc[:, 2] + cy], 1).astype(np.float32)
+
+    k = rng.integers(0, 6, N)
+    desc = rng.integers(0, 2 ** 32, (N, 8), dtype=np.uint64).astype(np.uint32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    d = t(desc.view(np.int32))
+    maxd1 = (np.linalg.norm(x1_in_c2, axis=1) * 1.05 * 1.2 ** k)
+    maxd2 = (np.linalg.norm(x2_in_c1, axis=1) * 1.05 * 1.2 ** k)
+    valid = t(rng.uniform(size=N) < 0.9)
+    args = [t(x2_in_c1), valid, d, t(maxd2.astype(np.float32)), t(x1_in_c2),
+            valid, d, t(maxd1.astype(np.float32)), t(feats(pts)), t(k), d,
+            valid, t(feats(x2)), t(k), d, valid, fx, fy, cx, cy, w, h,
+            t(np.asarray([1.2 ** i for i in range(8)], np.float32)),
+            float(np.log(1.2)), 8]
+    before = (mk.launches(), hk.launches(), hk.batched_launches())
+    got = sm.match_by_sim3(*args)
+    torch.cuda.synchronize()
+    assert (mk.launches(), hk.launches(), hk.batched_launches()) == \
+        (before[0] + 2, before[1], before[2])
+    cuda_fn = mk.match_rows_cuda
+    mk.match_rows_cuda = lambda *a, **kw: mk.match_rows_ref(*a[:10])
+    try:
+        want = sm.match_by_sim3(*args)
+    finally:
+        mk.match_rows_cuda = cuda_fn
+    assert torch.equal(got.idx2_of_1, want.idx2_of_1)
+    assert int(got.n_matches) == int(want.n_matches) > N // 4

@@ -19,6 +19,10 @@ into the port with ``convert.map_from``.  Stated tolerances:
   The 3x3 normal equations of near-parallel rays are ill-conditioned: a
   float64 run of the port's formula lies ~7e-4 m from BOTH float32 results
   at the worst point, so 1e-4 m is below float32's floor there.
+- batched triangulate_pair against the eager composition it replaced
+  (tests/test_torch_triangulate_kernels.py) on the same keyframes: the
+  search's argmin and distance equal, the rest within that file's
+  tolerance.
 - batched fuse_candidates against jax.vmap: match indices equal on >= 99%
   of the slots the write-back acts on (points not yet observed by the
   target) and on >= 95% of all matched slots.  A point seen at octave 1
@@ -307,6 +311,26 @@ def test_batched_triangulate_pair_matches_jax_vmap(jax_run):
     both = out.valid.numpy() & np.asarray(ref.valid)
     assert both.sum() > 20, both.sum()
     assert np.abs(out.points.numpy()[both] - ref.points[both]).max() < 2e-3
+
+
+def test_triangulate_pair_equals_the_composition_on_a_neighbourhood(
+        jax_run, monkeypatch):
+    """On the CPU triangulate_pair runs match_rows' epipolar mode and
+    triangulate_rows_ref: on a keyframe and its 4 neighbours of the JAX
+    run, the search's argmin and distance bit for bit the eager
+    composition it replaced (tests/test_torch_triangulate_kernels.py),
+    the triangulation within that file's stated tolerance."""
+    from test_torch_triangulate_kernels import (_search_of,
+                                                assert_close_where_valid,
+                                                composition)
+    jmap, _, kf_id = _snapshot(jax_run)
+    kf = jmap.kfs[kf_id]
+    nbrs = [jmap.kfs[n] for n in kf.best_covisible(4)]
+    args = _to_port(_tri_inputs(kf, nbrs, jax_run["slam"]))
+    got, best, dist = _search_of(args, monkeypatch)
+    want, idx2, want_dist = composition(*args)
+    assert torch.equal(best, idx2) and torch.equal(dist, want_dist)
+    assert_close_where_valid(got, want, "neighbourhood")
 
 
 def test_batched_fuse_candidates_matches_jax_vmap(jax_run):

@@ -149,6 +149,140 @@ def test_match_by_bow_exactly_jax(scene, check_rotation, nn_ratio):
                                   np.asarray(ref.idx1_of_2))
 
 
+# ------------------------------------------ the loop's Sim3 match
+
+def _sim3_directional(x_in_cam, valid_p, desc_p, maxd_p, feat_xy, feat_oct,
+                      feat_desc, feat_valid, fx, fy, cx, cy, width, height,
+                      scale_factors, log_scale, n_levels, th):
+    """matching/sim3_match.py's _directional as it was before it ran on
+    match_rows: the masked dense [P, N] Hamming matrix and its argmin."""
+    from airdos_tpu_torch.ops.hamming_kernels import hamming_matrix
+    z = x_in_cam[:, 2]
+    iz = 1.0 / torch.where(torch.abs(z) < 1e-9, torch.full_like(z, 1e-9), z)
+    u = fx * x_in_cam[:, 0] * iz + cx
+    v = fy * x_in_cam[:, 1] * iz + cy
+    in_img = (u >= 0) & (u < width) & (v >= 0) & (v < height) & (z > 0)
+    dist = torch.linalg.norm(x_in_cam, dim=-1)
+    ratio = maxd_p / torch.where(dist < 1e-9, torch.full_like(dist, 1e-9), dist)
+    pred = torch.ceil(torch.log(torch.clamp(ratio, min=1e-9)) / log_scale)
+    pred = torch.clamp(pred, 0, n_levels - 1).to(torch.int64)
+    dist_ok = (dist >= 0.8 * torch.where(maxd_p > 0, maxd_p,
+                                         torch.full_like(maxd_p, 1e9)) /
+               scale_factors[n_levels - 1]) & (dist <= 1.2 * maxd_p)
+    radius = th * scale_factors[pred]
+    du = torch.abs(feat_xy[None, :, 0] - u[:, None])
+    dv = torch.abs(feat_xy[None, :, 1] - v[:, None])
+    win_ok = (du < radius[:, None]) & (dv < radius[:, None])
+    lf = feat_oct[None, :]
+    oct_ok = (lf >= pred[:, None] - 1) & (lf <= pred[:, None])
+    ok = (win_ok & oct_ok & (valid_p & in_img & dist_ok)[:, None] &
+          feat_valid[None, :])
+    D = hamming_matrix(desc_p, feat_desc)
+    D = torch.where(ok, D, torch.full_like(D, mk.BIG))
+    best = torch.argmin(D, dim=1)
+    bdist = torch.gather(D, 1, best[:, None])[:, 0]
+    return best, bdist <= 100
+
+
+def _sim3_inputs(case):
+    """match_by_sim3's positional arguments: tests/test_sim3_match.py's
+    two-camera geometry (64 points, the true Sim3 or one 3.6 m off, every
+    descriptor shared by both keyframes, octave 0) or seeded random
+    inputs (600 points a keyframe, 8 octaves, noisy projections, a
+    quarter of the descriptors and a fifth of the octaves random,
+    repeated words)."""
+    fx = fy = 320.0
+    cx, cy, w, h = 160.0, 120.0, 320, 240
+    if case in ("test_sim3_match", "bad sim3"):
+        rng = np.random.default_rng(0)
+        N, L = 64, 4
+        pts = np.stack([rng.uniform(-3, 3, N), rng.uniform(-2, 2, N),
+                        rng.uniform(5, 15, N)], axis=1).astype(np.float32)
+    else:
+        rng = np.random.default_rng(int(case[-1]))
+        N, L = 600, 8
+        pts = np.stack([rng.uniform(-4, 4, N), rng.uniform(-3, 3, N),
+                        rng.uniform(3, 25, N)], axis=1).astype(np.float32)
+    ang = 0.1
+    R2 = np.array([[np.cos(ang), 0, np.sin(ang)], [0, 1, 0],
+                   [-np.sin(ang), 0, np.cos(ang)]], np.float32)
+    t2 = np.array([0.5, 0.1, -0.3], np.float32)
+    x1, x2 = pts, (R2 @ pts.T).T + t2
+    R12, t12 = R2.T, -R2.T @ t2
+    if case == "bad sim3":
+        t12 = t12 + np.array([3.0, 2.0, 0.0], np.float32)
+
+    def feats(xc):
+        return np.stack([fx * xc[:, 0] / xc[:, 2] + cx,
+                         fy * xc[:, 1] / xc[:, 2] + cy], 1).astype(np.float32)
+
+    desc = rng.integers(0, 2 ** 32, (N, 8), dtype=np.uint64).astype(np.uint32)
+    x2_in_c1 = ((x2 @ R12.T) + t12).astype(np.float32)
+    x1_in_c2 = ((x1 - t12) @ R12).astype(np.float32)
+    maxd1 = np.linalg.norm(x1_in_c2, axis=1).astype(np.float32)
+    maxd2 = np.linalg.norm(x2_in_c1, axis=1).astype(np.float32)
+    xy1, xy2 = feats(x1), feats(x2)
+    oct1 = oct2 = np.zeros(N, np.int64)
+    valid1 = valid2 = np.ones(N, bool)
+    desc1 = desc2 = desc
+    if N == 600:
+        xy1 = (xy1 + rng.normal(0, 1.0, xy1.shape)).astype(np.float32)
+        xy2 = (xy2 + rng.normal(0, 1.0, xy2.shape)).astype(np.float32)
+        # a point's predicted level k + 1 from its max distance, its
+        # features at k (a fifth at random levels)
+        k = rng.integers(0, L - 2, N)
+        oct1, oct2 = [np.where(rng.uniform(size=N) < 0.2,
+                               rng.integers(0, L, N), k) for _ in range(2)]
+        maxd1 = (maxd1 * 1.05 * 1.2 ** k).astype(np.float32)
+        maxd2 = (maxd2 * 1.05 * 1.2 ** k).astype(np.float32)
+        valid1, valid2 = rng.uniform(size=N) < 0.9, rng.uniform(size=N) < 0.9
+        desc2 = np.where(rng.uniform(size=(N, 1)) < 0.25,
+                         rng.integers(0, 2 ** 32, (N, 8), dtype=np.uint64),
+                         desc).astype(np.uint32)
+        desc2[7::7] = desc2[:-7:7]
+    t = torch.from_numpy
+    d1, d2 = t(desc1.view(np.int32)), t(desc2.view(np.int32))
+    scale_factors = t(np.asarray([1.2 ** i for i in range(L)], np.float32))
+    return [t(x2_in_c1), t(valid2), d2, t(maxd2), t(x1_in_c2), t(valid1), d1,
+            t(maxd1), t(xy1), t(oct1), d1, t(valid1), t(xy2), t(oct2), d2,
+            t(valid2), fx, fy, cx, cy, w, h, scale_factors,
+            float(np.log(1.2)), L]
+
+
+@pytest.mark.parametrize("case", ["test_sim3_match", "bad sim3", "random 1",
+                                  "random 2"])
+def test_match_by_sim3_equals_the_two_hamming_composition(case,
+                                                          monkeypatch):
+    """On the CPU match_by_sim3 runs match_rows' plain version in motion
+    mode (band [-1, 0], no right-u gate, TH_HIGH): each direction's best
+    and has, and the mutual matches, bit for bit the composition around
+    two 2-D Hamming matrices it replaced."""
+    import airdos_tpu_torch.matching.sim3_match as sm
+    args = _sim3_inputs(case)
+    calls = []
+    directional = sm._directional
+
+    def both(*a):
+        got = directional(*a)
+        calls.append((got, _sim3_directional(*a)))
+        return got
+
+    monkeypatch.setattr(sm, "_directional", both)
+    res = sm.match_by_sim3(*args)
+    assert len(calls) == 2
+    for (best, has), (want_best, want_has) in calls:
+        assert torch.equal(best, want_best) and torch.equal(has, want_has)
+    bestA, hasA = calls[0][1]
+    bestB, hasB = calls[1][1]
+    f1 = torch.arange(bestB.shape[0])
+    agree = hasB & hasA[bestB] & (bestA[bestB] == f1)
+    assert torch.equal(res.idx2_of_1,
+                       torch.where(agree, bestB, torch.full_like(bestB, -1)))
+    assert int(res.n_matches) == int(agree.sum())
+    if case != "bad sim3":
+        assert int(res.n_matches) > 20
+
+
 # ------------------------------------- the kernels' reductions in numpy
 
 def _emulate_rows(mode, G, H, col_key, col_x, th, ratio, rng):
@@ -457,9 +591,13 @@ def _bucket(key, n):
 
 def _gate(mode, c, a, cx, cy, cw, ck):
     """csrc/match.cu gate at one candidate, float32 steps."""
-    with np.errstate(invalid="ignore", over="ignore"):
+    with np.errstate(invalid="ignore", over="ignore", divide="ignore"):
         if mode == mk.BOW:
             return ck == a["key"]
+        if mode == mk.EPIPOLAR:
+            l0, l1, l2 = a["line"]
+            dn = f32(f32(f32(l0 * cx) + f32(l1 * cy)) + l2)
+            return f32(f32(dn * dn) / a["den"]) < f32(f32(mk.EPI_CHI2) * cw)
         if mode == mk.STEREO:
             if not abs(f32(a["y"] - cy)) <= cw or abs(a["key"] - ck) > 1:
                 return False
@@ -488,7 +626,9 @@ def _gate(mode, c, a, cx, cy, cw, ck):
 def _table(mode, cols, cells, rng):
     """csrc/match.cu build_table: the valid columns sorted into cells (in
     a random order within a cell, as the atomics leave them) -> (slots
-    [n] of column indices, start [cells + 1], x axis, y axis, w_max)."""
+    [n] of column indices, start [cells + 1], x axis, y axis, w_max, the
+    rest of the Grid: the extent's upper ends and magnitudes, the cells'
+    height, whether a valid finite column lies past REACH)."""
     gx, gy = cells
     valid = cols["ok"].copy()
     if cols.get("taken") is not None:
@@ -497,13 +637,24 @@ def _table(mode, cols, cells, rng):
         valid &= cols["key"] >= 0
         cell = np.array([_bucket(k, gx) for k in cols["key"]])
         ax = ay = None
-        w_max = None
+        w_max = extra = None
     else:
         x, y = cols["x"], cols["y"]
         with np.errstate(invalid="ignore"):
             fx, fy = valid & (np.abs(x) < REACH), valid & (np.abs(y) < REACH)
-        ax = _axis(x[fx].min(), x[fx].max(), gx) if fx.any() else _axis(1, 0, gx)
-        ay = _axis(y[fy].min(), y[fy].max(), gy) if fy.any() else _axis(1, 0, gy)
+        x0, x1 = (x[fx].min(), x[fx].max()) if fx.any() else \
+            (f32(np.inf), f32(-np.inf))
+        y0, y1 = (y[fy].min(), y[fy].max()) if fy.any() else \
+            (f32(np.inf), f32(-np.inf))
+        ax, ay = _axis(x0, x1, gx), _axis(y0, y1, gy)
+        with np.errstate(invalid="ignore"):
+            far = valid & np.isfinite(x) & np.isfinite(y) & \
+                ~((np.abs(x) < REACH) & (np.abs(y) < REACH))
+        extra = dict(x_hi=f32(x1), y_hi=f32(y1),
+                     x_mag=max(abs(f32(x0)), abs(f32(x1))),
+                     y_mag=max(abs(f32(y0)), abs(f32(y1))),
+                     cell_y=f32(1) / ay[1] if ay[1] > 0 else f32(1),
+                     wide=bool(far.any()))
         ws = cols["w"][valid]
         ws = ws[~np.isnan(ws)]
         w_max = f32(ws.max()) if len(ws) else f32(-np.inf)
@@ -513,15 +664,64 @@ def _table(mode, cols, cells, rng):
     js = js[np.lexsort((rng.uniform(size=len(js)), cell[js]))]
     start = np.concatenate([[0], np.cumsum(np.bincount(cell[js],
                                                        minlength=gx * gy))])
-    return js, start, ax, ay, w_max
+    return js, start, ax, ay, w_max, extra
 
 
-def _window(mode, c, a, ax, ay, w_max, gx):
+def _epi_norm2(l0, l1):
+    """csrc/match.cu epi_norm2: max(l0^2 + l1^2, 1e-12), a NaN kept."""
+    with np.errstate(invalid="ignore", over="ignore"):
+        d = f32(f32(l0 * l0) + f32(l1 * l1))
+    return f32(mk.EPI_MIN_NORM2) if d < f32(mk.EPI_MIN_NORM2) else d
+
+
+def _band_half_width(a, w_max, g):
+    """csrc/match.cu band_half_width in float32 steps."""
+    l0, l1, l2 = a["line"]
+    with np.errstate(invalid="ignore", over="ignore"):
+        reach = f32(f32(f32(abs(l0) * g["x_mag"]) + f32(abs(l1) * g["y_mag"]))
+                    + abs(l2))
+        return f32(f32(np.sqrt(f32(f32(f32(mk.EPI_CHI2) * w_max) * a["den"]))
+                       * f32(1.001)) + f32(f32(1e-5) * reach))
+
+
+def _band_cells(a, h, cy, ax, ay, g, widen=1):
+    """csrc/match.cu band_cells: the cells of row of cells cy that the
+    band reaches, widened by `widen` cells (the kernel's 1) in x and in
+    y -> (c0, c1), c1 < c0 where none."""
+    l0, l1, l2 = a["line"]
+    with np.errstate(invalid="ignore", over="ignore", divide="ignore"):
+        ya = f32(ay[0] + f32(f32(cy - widen) * g["cell_y"]))
+        yb = f32(ay[0] + f32(f32(cy + 1 + widen) * g["cell_y"]))
+        p, r = f32(l1 * ya), f32(l1 * yb)
+        lo_v = f32(f32(-h - l2) - max(p, r))
+        hi_v = f32(f32(h - l2) - min(p, r))
+        if l0 > 0:
+            xl, xh = f32(lo_v / l0), f32(hi_v / l0)
+        elif l0 < 0:
+            xl, xh = f32(hi_v / l0), f32(lo_v / l0)
+        else:
+            xl = f32(-np.inf) if lo_v <= 0 and hi_v >= 0 else f32(np.inf)
+            xh = -xl
+    if np.isnan(xl) or np.isnan(xh):
+        return 0, ax[2] - 1
+    if xh < ax[0] or xl > g["x_hi"]:
+        return 0, -1
+    return (max(_cell(ax, max(xl, ax[0])) - widen, 0),
+            min(_cell(ax, min(xh, g["x_hi"])) + widen, ax[2] - 1))
+
+
+def _window(mode, c, a, ax, ay, w_max, gx, g=None, widen=1):
     """A row's candidate slots, in the order its warp's lanes meet them
     (the ranges of cells concatenated; candidate t to lane t % 32)."""
     if mode == mk.BOW:
         b = _bucket(a["key"], gx)
         return [(b, b, 0, 1)]
+    if mode == mk.EPIPOLAR:
+        h = _band_half_width(a, w_max, g)
+        if g["wide"] or not np.isfinite(h):
+            return [(0, ax[2] - 1, 0, ay[2])]
+        return [(c0, c1, cy, int(c1 >= c0)) for cy in range(ay[2])
+                for c0, c1 in [_band_cells(a, h, cy, ax, ay, g, widen)]]
     with np.errstate(invalid="ignore", over="ignore"):
         if mode == mk.STEREO:
             xs = (f32(a["x"] - f32(c["max_d"])), a["x"])
@@ -535,7 +735,7 @@ def _window(mode, c, a, ax, ay, w_max, gx):
     return [(cx0, cx1, cy0, max(cy1 - cy0 + 1, 0) if cx1 >= cx0 else 0)]
 
 
-def _emulate_grid(c, cells, rng):
+def _emulate_grid(c, cells, rng, widen=1):
     """csrc/match.cu match_rows (and its resolve) on numpy case c: the grid
     of cells, each row's window walked a candidate a lane, the exact gate,
     the gated columns' distances a column a lane in the order the warp
@@ -544,10 +744,13 @@ def _emulate_grid(c, cells, rng):
     second from the warp's list of gated pairs (a second walk where the
     list overflows), the column minima as complemented atomicMax in a
     random order and the last block's mutual check; fuse's batch of
-    targets and feat_idx; the resolve as _emulate_resolve."""
+    targets and feat_idx, and epipolar's (each row's line a target, its
+    band's cells a row of cells, widened by `widen` cells); the resolve as
+    _emulate_resolve."""
     mode, rows, cols = c["mode"], c["rows"], c["cols"]
     fuse = mode == mk.FUSE
-    B = cols["desc"].shape[0] if fuse else 1
+    batched = mode in mk.BATCHED
+    B = cols["desc"].shape[0] if batched else 1
     P = rows["desc"].shape[0]
     gx, gy = cells
     out = {k: np.zeros((B, P), np.int64) for k in ("best", "dist", "second",
@@ -555,20 +758,22 @@ def _emulate_grid(c, cells, rng):
     has = np.zeros((B, P), bool)
     stores = []
     for b in range(B):
-        cb = {k: (v[b] if fuse else v) for k, v in cols.items()
+        cb = {k: (v[b] if batched else v) for k, v in cols.items()
               if v is not None}
-        js, start, ax, ay, w_max = _table(mode, cb, cells, rng)
+        js, start, ax, ay, w_max, gd = _table(mode, cb, cells, rng)
         pc = np.array([bin(int(w)).count("1") for w in range(256)])
         cdesc = cb["desc"].view(np.uint8)
         rdesc = rows["desc"].view(np.uint8)
         for p in range(P):
-            a = {k: (v[b, p] if fuse and k != "desc" else v[p])
-                 for k, v in rows.items() if v is not None}
+            a = {k: (v[b, p] if (fuse and k != "desc") or k == "line"
+                     else v[p]) for k, v in rows.items() if v is not None}
+            if mode == mk.EPIPOLAR:
+                a["den"] = _epi_norm2(*a["line"][:2])
             ok = a["ok"] and not (mode == mk.BOW and a["key"] < 0)
             slots = []
             if ok:
                 for cx0, cx1, cy0, nr in _window(mode, c, a, ax, ay, w_max,
-                                                 gx):
+                                                 gx, gd, widen):
                     for r in range(nr):
                         base = (cy0 + r) * gx
                         slots += list(range(start[base + cx0],
@@ -617,9 +822,9 @@ def _emulate_grid(c, cells, rng):
             out["best"][b, p], out["dist"][b, p] = bi, bd
             out["second"][b, p], out["second_dist"][b, p] = si, sd
             has[b, p] = h
-    res = {k: v if fuse else v[0] for k, v in out.items()}
-    has = has if fuse else has[0]
-    if fuse:
+    res = {k: v if batched else v[0] for k, v in out.items()}
+    has = has if batched else has[0]
+    if batched:
         return dict(best=res["best"], dist=res["dist"], has=has,
                     feat_idx=np.where(has, res["best"], -1))
     res["has"] = has
@@ -664,6 +869,31 @@ def test_grid_walk_emulation_equals_plain_version(mode, case, grid):
                                       err_msg=name)
     if case == "path":
         assert want.has.sum() > 5
+
+
+@pytest.mark.parametrize("widen", [0, 2])
+def test_epipolar_band_widened_or_not_keeps_every_gated_pair(widen):
+    """Epipolar mode's band (csrc/match.cu band_cells), emulated with the
+    cells' widening the kernel does not have (0: the band's own cells; 2:
+    two cells each side), gives every output of the plain version on every
+    case: the band's half-width margins alone hold every gated pair, the
+    kernel's cell each side is room to spare.  Shrunk by a cell (-1) the
+    emulation loses pairs, so these cases can see a band too narrow."""
+    m = mk.EPIPOLAR
+    lost = []
+    for case in tcases.CASES:
+        rng = np.random.default_rng(300 + tcases.CASES.index(case))
+        c = tcases.make(m, case, rng, 48, 96, 3)
+        want = mk.match_rows_ref(*tcases.args(c))
+        for w in (widen, -1):
+            got = _emulate_grid(c, mk.CELLS[m], rng, widen=w)
+            same = all(np.array_equal(g, getattr(want, name).numpy())
+                       for name, g in got.items())
+            if w == widen:
+                assert same, case
+            elif not same:
+                lost.append(case)
+    assert len(lost) >= 4, lost
 
 
 @pytest.mark.parametrize("seed", range(6))

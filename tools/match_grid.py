@@ -15,13 +15,15 @@ of csrc/match.cu written and built at run time into _build/variants/).  Prints, 
 1. check: every mode on every case of tests/torch_match_cases.py at 48 x
    96 (fuse: B = 3) and on the "path" and "wide windows" cases at the
    path's shapes (stereo, motion, BoW 1536 x 1536, local 2048 x 1536,
-   fuse B = 9 and 1 x 2048 x 1536): every output bit-equal to
+   fuse B = 9 and 1 x 2048 x 1536, epipolar B = 4 x 1536 x 1536): every
+   output bit-equal to
    match_rows_ref on the card, two
    launches equal; under the grid of csrc/match.cu's defaults and under a
    single cell (the full scan);
 2. grid: each mode's device time at its path shape (chip_smoke.py's CUDA
    graph of 100 launches, L2 cold and hot) under grids of 1 x 1 (the full
-   scan), 32 x 24, 64 x 48 and 128 x 96 cells, BoW under 1, 64, 256 and
+   scan; epipolar: the exact gate at every pair), 32 x 24, 64 x 48 and
+   128 x 96 cells, BoW under 1, 64, 256 and
    1024 buckets, and under 2, 3, 4 and 8 blocks an SM;
 3. host: the wrapper's host time a call (the median of 200 calls, the
    inputs checked and not) beside its device time;
@@ -44,7 +46,7 @@ from chip_smoke import _cuda_ms, _graph_ms, _nvidia_smi  # noqa: E402
 
 PATH_SHAPES = {"stereo": (1536, 1536, 1), "motion": (1536, 1536, 1),
                "local": (2048, 1536, 1), "bow": (1536, 1536, 1),
-               "fuse": (2048, 1536, 9)}
+               "fuse": (2048, 1536, 9), "epipolar": (1536, 1536, 4)}
 
 
 def _equal(mk, args, label):
