@@ -23,8 +23,9 @@ a function with the single-device solver's arguments and result.
 
 Per-rank ``segment_sum`` launches: 45 a local BA solve, 60 a human BA
 solve (three over the static shard and one over the replicated human
-families a step), ``global_ba.launches_per_step(cg_iters)`` a global BA
-step.
+families a step), 4 a global BA step, beside its CG's schur_point and
+schur_camera in their raw mode, cg_iters each a step
+(``global_ba.launches_per_step``).
 """
 from __future__ import annotations
 

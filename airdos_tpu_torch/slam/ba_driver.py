@@ -66,7 +66,7 @@ from airdos_tpu_torch.slam.map import (BODY1, BODY2, MAIN_SKELETON, N_PARTS,
 from airdos_tpu_torch.solvers.global_ba import global_bundle_adjust
 from airdos_tpu_torch.solvers.human_ba import human_bundle_adjust
 from airdos_tpu_torch.solvers.local_ba import local_bundle_adjust
-from airdos_tpu_torch.utils.gate import (BACKGROUND_WAIT_S, WORKER_PRIORITY,
+from airdos_tpu_torch.utils.gate import (WORKER_PRIORITY, gap_waiter,
                                          gate_wait, new_stream, on_stream)
 from airdos_tpu_torch.utils.obs import span
 
@@ -1056,23 +1056,23 @@ def solve_global_ba(cam_R, cam_t, cam_fixed, pts, pvalid,
     chunk // 2 Huber steps then the rest plain, the later ones plain only.
     Each call is a fresh global_bundle_adjust (lambda restarts at 1e-6,
     the inlier set and the starting cost are recomputed), so the chunks
-    are not one 20-step solve.  launches_per_step(cg_iters) segment sums
-    a step.  Returns (R, t, points) on the device.  Before each call the
+    are not one 20-step solve.  A step launches launches_per_step(
+    cg_iters): 4 segment sums, and cg_iters schur_point and schur_camera
+    (the CG).  Returns (R, t, points) on the device.  Before each call the
     abort flag (a threading.Event) is checked, as the reference polls
     mbStopGBA between iterations (Optimizer.cc:121-129): once it is set
     no further call starts, and the last finished call's result is
     returned, or None if none finished.  With a gate (online) each
-    Gauss-Newton step first waits for tracking's frame to end (at most
-    BACKGROUND_WAIT_S): the solve runs in the background, and its launch
-    loop would otherwise contend with tracking's for the host
-    (utils/gate.py).  With a mesh each call is sharded over it (the edge
+    Gauss-Newton step first waits for a gap between tracking's frames,
+    one step a gap (``gap_waiter``, at most BACKGROUND_WAIT_S): the solve
+    runs in the background, and its launch loop would otherwise contend
+    with tracking's for the host (utils/gate.py).  With a mesh each call is sharded over it (the edge
     arrays padded to a multiple of its size): every rank launches
-    launches_per_step(cg_iters) segment sums a step, and rank 0 waits on
-    the gate for all."""
+    launches_per_step(cg_iters) a step (the CG's two kernels in their raw
+    mode), and rank 0 waits on the gate for all."""
     out = None
     R, t, ps = cam_R, cam_t, pts
-    hook = None if gate is None else \
-        (lambda: gate_wait(gate, BACKGROUND_WAIT_S))
+    hook = gap_waiter(gate)
     for ci in range(max(1, -(-n_iters // chunk))):
         if abort is not None and abort.is_set():
             break

@@ -370,6 +370,15 @@ class System:
         return img[..., :3].astype(np.float32) @ w
 
     def _track(self, data: FrameData):
+        """One frame; online, inside the tracking gate's frame, which the
+        background global BA waits out (utils/gate.py)."""
+        gate = self.tracking.device_gate
+        if gate is None:
+            return self._track_frame(data)
+        with gate.frame():
+            return self._track_frame(data)
+
+    def _track_frame(self, data: FrameData):
         if data.image_left.ndim == 3 or data.image_right.ndim == 3:
             data = dataclasses.replace(data,
                                        image_left=self._to_gray(data.image_left),

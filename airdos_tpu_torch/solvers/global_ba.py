@@ -16,21 +16,27 @@ outliers.
   sums in a run-dependent order): per Gauss-Newton step one camera-keyed
   launch for Hcc | bc, one point-keyed for Hpp | bp, one camera-keyed for
   the reduced right-hand side's correction and the preconditioner's
-  D_corr side by side, two per CG iteration (point-keyed, then
-  camera-keyed) and one point-keyed for the back-substitution:
-  ``launches_per_step(cg_iters)`` = 4 + 2 cg_iters, 100 at 48 iterations.
+  D_corr side by side, and one point-keyed for the back-substitution.
   The camera and point segment indices are built once per call.
-- The CG's dot products are ``torch.sum`` over fixed shapes (a fixed
-  order on one device; not XLA's order, so the packages agree within a
-  tolerance, not bit for bit).
+- The CG is two launches an iteration (``ops/ba_global``): the point
+  half ``schur_point`` walks the point-keyed index, the camera half
+  ``schur_camera`` walks the camera-keyed one and runs the CG update in
+  its last block.  Each walk reads Wcp in its own order, gathered once a
+  step.  Its dot products sum in one fixed order (``fixed_dot``; not
+  XLA's order, so the packages agree within a tolerance, not bit for
+  bit).  ``launches_per_step(cg_iters)`` counts a step's launches.
 - The loop never reads a device value on the host.
 - Multi-device (airdos_tpu's ``axis_name``): given a mesh ``group``
   (``parallel/mesh.py``) and shard-local edge tables, every segment sum
-  above (the two per CG iteration too) and the LM costs are
-  psum-reduced over the mesh, and the CG state stays replicated, so its
-  dot products need no exchange.  Each shard's segment indices are its
-  own: every rank launches ``launches_per_step(cg_iters)`` segment sums
-  a step.  See ``parallel.sharded_ba.sharded_global_bundle_adjust``.
+  above and the LM costs are psum-reduced over the mesh, and the CG state
+  stays replicated, so its dot products need no exchange.  The CG's two
+  kernels run in their raw mode, which leaves the shard's sums before
+  Hpp^-1 and before the update: each is psum-reduced, and Hpp^-1 and the
+  update run eagerly on every rank as the kernels' plain versions
+  (``ops.ba_global.matvec``, ``cg_update``: the single device's order).  Each
+  shard's segment indices are its own: every rank launches
+  ``launches_per_step(cg_iters)`` a step.  See
+  ``parallel.sharded_ba.sharded_global_bundle_adjust``.
 """
 from __future__ import annotations
 
@@ -39,6 +45,9 @@ from typing import NamedTuple
 import torch
 
 from airdos_tpu_torch.geometry.se3 import se3_compose, se3_exp
+from airdos_tpu_torch.ops.ba_global import (cg_start, cg_update, make_walk,
+                                            matvec, schur_camera, schur_point,
+                                            walk_rows)
 from airdos_tpu_torch.ops.segment_kernels import make_segments, segment_sum
 from airdos_tpu_torch.solvers.local_ba import (CHI2_MONO, CHI2_STEREO,
                                                _identity, _proj_residual)
@@ -52,9 +61,10 @@ class GlobalBAResult(NamedTuple):
     edge_inlier: torch.Tensor  # [E] bool
 
 
-def launches_per_step(cg_iters: int = 48) -> int:
-    """segment_sum launches of one Gauss-Newton step."""
-    return 4 + 2 * cg_iters
+def launches_per_step(cg_iters: int = 48) -> dict:
+    """Each kernel's launches in one Gauss-Newton step."""
+    return {"segment_sum": 4, "schur_point": cg_iters,
+            "schur_camera": cg_iters}
 
 
 def global_bundle_adjust(
@@ -94,6 +104,9 @@ def global_bundle_adjust(
     base = e_valid & point_valid[e_pt]
     seg_c = make_segments(e_cam, C, base)
     seg_p = make_segments(e_pt, P, base)
+    walk_c = make_walk(seg_c, e_pt)       # the CG's walks of both indices
+    walk_p = make_walk(seg_p, e_cam)
+    free_c = cam_free[:, 0]
 
     def chi2_all(R, t, pts):
         e, _, _, z = _proj_residual(R[e_cam], t[e_cam], pts[e_pt], e_obs,
@@ -147,39 +160,20 @@ def global_bundle_adjust(
         D = D * cam_free[:, :, None] + eye6[None] * (1.0 - cam_free[:, :, None])
         D_inv = inv6x6(D + 1e-6 * eye6[None])
 
-        def schur_matvec(x):
-            """S x without forming S: a gather and a segment sum each way."""
-            x = x * cam_free
-            y = torch.einsum("ekl,ek->el", Wcp, x[e_cam])    # [E, 3]
-            z = torch.einsum("plm,pm->pl", Hpp_inv,
-                             psum(segment_sum(y, seg_p)))
-            back = psum(segment_sum(torch.einsum("ekl,el->ek", Wcp, z[e_pt]),
-                                    seg_c))
-            Sx = torch.einsum("ckl,cl->ck", Hcc_d, x) - back
-            return Sx * cam_free + x * (1.0 - cam_free)
-
-        def precond(r):
-            return torch.einsum("ckl,cl->ck", D_inv, r)
-
         # --- preconditioned CG on the reduced camera system ------------
-        x = torch.zeros((C, 6), dtype=dtype, device=dev)
-        r = b_red
-        z = precond(r)
-        p = z
-        rz = torch.sum(r * z)
-        zero = torch.zeros((), dtype=dtype, device=dev)
+        w_p, w_c = walk_rows(Wcp, walk_p), walk_rows(Wcp, walk_c)
+        state = cg_start(b_red, D_inv)
         for _ in range(cg_iters):
-            Ap = schur_matvec(p)
-            pAp = torch.sum(p * Ap)
-            alpha = torch.where(torch.abs(pAp) > 1e-20, rz / pAp, zero)
-            x = x + alpha * p
-            r = r - alpha * Ap
-            z = precond(r)
-            rz_new = torch.sum(r * z)
-            beta = torch.where(torch.abs(rz) > 1e-20, rz_new / rz, zero)
-            p = z + beta * p
-            rz = rz_new
-        dx_c = x * cam_free
+            if group is None:
+                z = schur_point(w_p, walk_p, state.p, free_c, Hpp_inv)
+                schur_camera(w_c, walk_c, z, state, Hcc_d, D_inv, free_c)
+            else:       # a mesh rank: the shard's sums, then psum
+                z = matvec(Hpp_inv, psum(schur_point(
+                    w_p, walk_p, state.p, free_c, Hpp_inv, raw=True)))
+                back = psum(schur_camera(w_c, walk_c, z, state, Hcc_d, D_inv,
+                                         free_c, raw=True))
+                cg_update(state, back, Hcc_d, D_inv, free_c)
+        dx_c = state.x * cam_free
 
         # back-substitute points
         y = torch.einsum("ekl,ek->el", Wcp, dx_c[e_cam])

@@ -19,8 +19,18 @@ Gauss-Newton step: on an NVIDIA H100 80GB HBM3 at 700 W their launch
 loops beside the tracking thread's made the worst tracking frame of a
 loop closure 4.3 x the median frame, and 1.8 x with the step waits
 (medians of two runs each; PERF.md section 6).  The global BA, which no
-one waits for, waits out the whole window (``BACKGROUND_WAIT_S``), so it
-runs between tracking frames.
+one waits for, starts each step only in a gap between the tracking
+thread's whole frames (``System._track`` inside ``TrackingGate.frame``),
+one step a gap (``gap_waiter``): beside the other threads a step's
+launch loop took 80-170 ms of CPU, so a second step in the same gap
+would run on into the next frame.  Waiting for the device window alone let its steps fill
+the rest of every frame, where the keyframe work (``track.kf``, host
+bookkeeping under the map lock) then ran 3-4 x its length: on the same
+card, pillar-84 live at 5 fps, the worst frame of a loop closure's
+stall window was 292.6-510.7 ms that way and 193.0-220.9 ms with a wait
+for the whole frame (tools/online_stall_ab.py).  When no frame has
+ended for ``BACKGROUND_IDLE_S`` the tracking thread is taken as idle and
+a step starts in the same gap.
 
 The device half: online, the tracking thread launches on one stream of
 high priority (``TRACKING_PRIORITY``, negative: CUDA schedules its blocks
@@ -36,16 +46,20 @@ from __future__ import annotations
 
 import contextlib
 import threading
+import time
 from typing import Optional
 
 import torch
 
 TRACKING_PRIORITY = -1     # CUDA: a lower number is a higher priority
 WORKER_PRIORITY = 0
-# the longest a background solve's step waits for tracking's window to
-# close: longer than a frame, bounded so that a stalled tracking thread
-# cannot hold the solve forever
+# the longest a background solve's step waits for a gap between
+# tracking's frames: longer than a frame, bounded so that a stalled
+# tracking thread cannot hold the solve forever
 BACKGROUND_WAIT_S = 2.0
+# a gap this long with no frame: tracking is idle (longer than the gap
+# between frames at 5 fps, ~140 ms)
+BACKGROUND_IDLE_S = 0.25
 
 
 class TrackingGate:
@@ -53,6 +67,10 @@ class TrackingGate:
         self._clear = threading.Event()
         self._clear.set()
         self._timeout = timeout
+        self._frames = threading.Condition()
+        self._in_frame = False
+        self._ended = 0                # frames ended
+        self._t_end = float("-inf")    # time.monotonic() at the last end
 
     # ---- tracking side: context manager around the device window -----
     def __enter__(self):
@@ -63,9 +81,43 @@ class TrackingGate:
         self._clear.set()
         return False
 
+    @contextlib.contextmanager
+    def frame(self):
+        """Tracking side: around the whole frame, the device window
+        included."""
+        with self._frames:
+            self._in_frame = True
+        try:
+            yield self
+        finally:
+            with self._frames:
+                self._in_frame = False
+                self._ended += 1
+                self._t_end = time.monotonic()
+                self._frames.notify_all()
+
     # ---- worker side: call right before launching device work --------
     def wait(self, timeout=None):
         self._clear.wait(self._timeout if timeout is None else timeout)
+
+    def wait_gap(self, seen: int, timeout: float, idle: float) -> int:
+        """Until the tracking thread is between frames and a frame has
+        ended since `seen` (a count this returned before) or none has
+        ended for `idle` s; at most `timeout` s.  Returns the count of
+        frames ended."""
+        deadline = time.monotonic() + timeout
+        with self._frames:
+            while True:
+                now = time.monotonic()
+                if not self._in_frame and (self._ended > seen or
+                                           now - self._t_end >= idle):
+                    break
+                if now >= deadline:
+                    break
+                wake = deadline if self._in_frame else \
+                    min(deadline, self._t_end + idle)
+                self._frames.wait(wake - now)
+            return self._ended
 
 
 def gate_wait(gate, timeout=None) -> None:
@@ -74,6 +126,20 @@ def gate_wait(gate, timeout=None) -> None:
     no gate is installed (offline / single-thread)."""
     if gate is not None:
         gate.wait(timeout)
+
+
+def gap_waiter(gate, timeout: float = BACKGROUND_WAIT_S,
+               idle: float = BACKGROUND_IDLE_S):
+    """A background solve's step hook: each call waits for a gap between
+    the tracking thread's frames that no earlier call began in (or for
+    `idle` s with no frame), at most `timeout` s; None without a gate."""
+    if gate is None:
+        return None
+    seen = [-1]
+
+    def wait():
+        seen[0] = gate.wait_gap(seen[0], timeout, idle)
+    return wait
 
 
 def new_stream(device, priority: int) -> Optional["torch.cuda.Stream"]:

@@ -7,11 +7,11 @@ Run from the repository root.  Phases, each of which fails the run:
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions, whether nvcc is present; a CUDA device is required;
-2. build: the fourteen sources of csrc/ (hamming.cu, segment_sum.cu,
+2. build: the sixteen sources of csrc/ (hamming.cu, segment_sum.cu,
    pose_lm.cu, fast.cu, orb_desc.cu, pyramid.cu, select.cu, stereo_sad.cu,
    disparity.cu, ba_static.cu, ba_points.cu, ba_human.cu, match.cu,
-   triangulate.cu) compiled with nvcc for sm_90a, all at once (build
-   seconds);
+   triangulate.cu, ba_global.cu, sim3_edges.cu) compiled with nvcc for
+   sm_90a, all at once (build seconds);
 3. slice: tracking only, Tracking(cfg, FrontEnd(cfg, "cuda"), SlamMap(),
    local_mapper=None) (airdos_tpu's tracking-only configuration), over 28
    bench frames of the synthetic world at the reference budget (640x360,
@@ -78,9 +78,12 @@ Run from the repository root.  Phases, each of which fails the run:
    every Sim3 match call two match_rows launches (one a direction) and no
    Hamming launch, every fusion call one fuse-mode match_rows launch and
    no batched Hamming launch, and per frame 45 segment_sum
-   launches per static BA solve plus 2020 per loop closure (20 for the
-   essential graph, one a step; 2000 for the global BA, 100 a step in four
-   calls of five steps); prints the loop's (keyframe, candidate, matches,
+   launches per static BA solve plus 100 per loop closure (20 for the
+   essential graph, one a step; 80 for the global BA, 4 a step in four
+   calls of five steps), and per loop closure 41 sim3_edges launches (a
+   Gauss-Newton and a cost launch a step of the essential graph, and its
+   first cost) and 960 schur_point and 960 schur_camera launches (48 each
+   a global BA step); prints the loop's (keyframe, candidate, matches,
    loop points), the loop spans and the per-frame latency medians;
 8. map scale: the global BA in GlobalBA's schedule over
    tests/test_global_ba.py's corridor at C = 1000 keyframes, P = 100,000
@@ -88,9 +91,11 @@ Run from the repository root.  Phases, each of which fails the run:
    same 1000 keyframes with one loop edge (D = 7000): every free keyframe
    moves, the global BA cuts the reprojection chi2 a hundredfold (its
    error to the truth is printed: see phase_map_scale), the essential
-   graph halves the loop end's error, two card runs bit-equal, 2000 and
-   20 segment_sum launches a solve; prints solve times, device busy time
-   (torch.profiler) and peak memory;
+   graph halves the loop end's error, two card runs bit-equal; a global
+   BA solve launches 80 segment_sum, 960 schur_point and 960 schur_camera,
+   an essential graph 20 segment_sum and 41 sim3_edges and runs no
+   autograd pass; prints solve times, device busy time (torch.profiler)
+   and peak memory;
 9. kernel: each kernel against its plain torch version, with per-call
    times of both (CUDA events, median of 20 samples of 10 back-to-back
    calls) and the kernel's device time (CUDA events around a CUDA graph of
@@ -104,8 +109,8 @@ Run from the repository root.  Phases, each of which fails the run:
    index_add_; Hamming: torch.cdist(p=0) on the descriptors unpacked to
    float {0, 1} [.., 256], unpacked outside the timed window; none for
    the pose LM, FAST + NMS, orb_desc, the pyramid, selection,
-   stereo_sad, patch_disparity, the BA kernels, the matcher kernels and
-   triangulate):
+   stereo_sad, patch_disparity, the BA kernels, the matcher kernels,
+   triangulate and the loop solvers' kernels):
    - the 2-D Hamming kernel at 1536x1536, 2048x1536 and a ragged
      1500x1337 of random words: exact equality; no path launches it, so
      it is held exact, 2-D and batched, at triangulation's recorded
@@ -158,7 +163,18 @@ Run from the repository root.  Phases, each of which fails the run:
      output, two launches equal, beside it the per-call time of the eager
      triangulation it replaced (tests/torch_triangulate_cases.py) and of
      the whole triangulate_pair against the whole composition on the
-     path's inputs;
+     path's inputs; schur_point and schur_camera (by edges, points,
+     cameras and raw mode; each launch of schur_camera on its own copy of
+     the recorded CG state) bit-equal to their plain versions on a CPU
+     copy (whose segment sums are index_add_ in walk order), two launches
+     bit-equal, schur_point beside the eager composition it replaced;
+     sim3_edges (by vertices, edges and mode): the cost within SYSTEM_RTOL
+     of its plain version's (the residuals' torch.sum) on the card, the
+     system held to the plain version in float64 (the reverse-mode
+     Jacobians and scatter_values) edge by edge, J^T J within SYSTEM_RTOL
+     of its largest entry and J^T e within SYSTEM_RTOL |J| |e| + F32_FLOOR
+     |J| (the edge's translation scale), or no farther from it than twice
+     the plain version in float32 is; two launches bit-equal;
 10. determinism: two card runs of the mapping System on the small camera
    over 8 frames give byte-identical TUM and KF/MP/Match dumps, and two
    card runs of the human System (small camera, seed 3, 2 humans, masked,
@@ -195,7 +211,9 @@ Run from the repository root.  Phases, each of which fails the run:
       sections held it meanwhile, the worker's spans and the launches by
       (kernel, thread, stream priority), and fails unless the mapping
       worker's epipolar and fuse-mode match_rows, triangulate and
-      segment_sum launches went to a stream of lower priority than the
+      segment_sum launches, the essential graph's sim3_edges (in the
+      mapping worker) and the global BA's schur_point and schur_camera
+      (in its thread) went to a stream of lower priority than the
       tracking thread's match_rows launches;
    b. the crowd flagship of phase 5 online (tests/test_online_human.py):
       >= 2 human BA solves through HumanLocalBA.launch, a trajectory
@@ -243,8 +261,10 @@ Run from the repository root.  Phases, each of which fails the run:
    4), else 4 virtual ranks on cuda:0 (AIRDOS_TORCH_VIRTUAL_DEVICES=4, set
    for this phase only); it prints which mesh it ran and each sub-step's
    time.  Every sharded run counts 45 segment_sum launches a local BA
-   solve, 60 a human BA solve and 100 a global BA step on each rank's
-   thread:
+   solve, 60 a human BA solve and 4 a global BA step on each rank's
+   thread, and a global BA step 48 schur_point and 48 schur_camera
+   launches in their raw mode (the shard's sums, psummed; Hpp^-1 and the
+   CG update eager on every rank; 8 each in g's dry run):
    a. the first static BA problem phase 4 solved, sharded: within
       tests/test_sharded_ba.py's tolerances of the single-device solve (R
       2e-4, t 2e-3 m, inlier agreement > 0.98), two runs bit-equal;
@@ -504,9 +524,19 @@ def _tri():
     return tk
 
 
+def _bgl():
+    from airdos_tpu_torch.ops import ba_global as bg
+    return bg
+
+
+def _pgk():
+    from airdos_tpu_torch.ops import pose_graph_kernels as pk
+    return pk
+
+
 # the modules that hold the kernels, one nvcc source each
 _MODULES = (_hamming, _segments, _pose, _fast, _orb, _pyr, _sel, _sad, _disp,
-            _bst, _bpt, _bhu, _match, _tri)
+            _bst, _bpt, _bhu, _match, _tri, _bgl, _pgk)
 
 
 def _words(rng, shape):
@@ -1672,6 +1702,249 @@ def _tri_check(args):
         (lambda: tk.triangulate_rows_ref(*args))
 
 
+# --------------------------------------------- the loop correction's solvers
+
+# float32 operations a unit of work, counted from csrc/ba_global.cu: a
+# point-walk row (the masked camera step 6, Wcp^T x
+# 18 products and 15 sums, the point's sum 3) and a point's Hpp^-1 (15); a
+# camera-walk row (Wcp z: 18 products, 12 sums, the camera's sum 6) and a
+# camera's Ap, its share of the dot products and its CG update (Hcc_d xm
+# 66, Ap 24, p.Ap 11, x 12, r 12, D^-1 r 66, r.z 11, p 12, the two fixed
+# sums 2)
+SCHUR_POINT_ROW, SCHUR_POINT_HINV = 42, 15
+SCHUR_CAMERA_ROW, SCHUR_CAMERA_CAM = 36, 222
+# sim3_edges' float32 operations an edge, counted from csrc/sim3_edges.cu
+# as (value, shared, tangent): an add, multiply, divide, square root or
+# transcendental is one operation (its least), a negation, clamp or
+# comparison none.  A dual number's value costs what its float does; its
+# tangent in one direction a sum 1 (0 beside a constant), a product 3 (1
+# by a constant), a quotient 3 (1 by a constant), sqrt, sin, cos, exp and
+# log 1, atan2 3; each derivative's factor that no direction changes (a
+# reciprocal, 1 / 2 sqrt, a sine for a cosine not also taken, atan2's x /
+# n and y / n) is shared, once an edge.  The residual but so3_log and V:
+# sim3_inverse (1 + 15 + 3 values), compose twice (45 + 15 + 6 + 1 each),
+# the scale's log (1) and V v = t by the adjugate (27 + 6 + 18 values, 36
+# tangent operations): 205 values, 291 tangent operations.  so3_log's
+# generic, small-angle and near-pi branches; V in its regimes by (sigma
+# small, theta small), W^2 as w w^T - |w|^2 I and V's 9 distinct products.
+# A Gauss-Newton edge: its values once, the shared factors once, 14
+# tangents, w J (98), J^T w J's 105 distinct entries (7 products, 6 sums)
+# and J^T w e's 14; a cost edge: its values, |e|^2 (13), times w, its sum.
+SIM3_CORE = (205, 2, 291)
+SIM3_LOG = {"generic": (21, 9, 36), "small": (22, 8, 36),
+            "near_pi": (38, 18, 68)}
+SIM3_V = {(True, True): (38, 2, 68), (True, False): (43, 4, 78),
+          (False, True): (42, 4, 70), (False, False): (56, 6, 112)}
+SIM3_SYSTEM = 98 + 105 * 13 + 14 * 13
+SIM3_COST = 15
+
+
+def _on_cpu(x):
+    """A recorded argument copied to the CPU (tensors, and named tuples of
+    tensors and ints such as a Walk or a CGState)."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_on_cpu(y) for y in x))
+    return x
+
+
+def _sp_shape(w_p, walk, x, cam_free, hpp_inv, raw):  # (E, P, C, raw)
+    return (w_p.shape[0], walk.n, x.shape[0], int(raw))
+
+
+def _sc_shape(w_c, walk, z, *rest):                   # (E, P, C, raw)
+    return (w_c.shape[0], z.shape[0], walk.n, int(rest[-1]))
+
+
+def _schur_fmt(shape) -> str:
+    E, P, C, raw = shape
+    return (f"E={E} P={P} C={C}" + (" raw (a mesh rank's sums)" if raw
+                                    else ""))
+
+
+def _walked(walk) -> str:
+    return (f"{int(walk.offsets[-1])} rows walked, longest segment "
+            f"{int(walk.offsets.diff().max())}")
+
+
+def _sp_check(args):
+    """Bit-equal to schur_point_ref on a CPU copy (its segment sums are
+    index_add_ in walk order, atomics on the card), two launches bit-equal;
+    beside it the per-call time of the eager composition it replaced: the
+    gather, products, point-keyed segment_sum and Hpp^-1 einsum."""
+    import torch
+    bg, sk = _bgl(), _segments()
+    got = bg.schur_point_cuda(*args)
+    again = bg.schur_point_cuda(*args)
+    want = bg.schur_point_ref(*(_on_cpu(a) for a in args))
+    torch.cuda.synchronize()
+    err = float((got.cpu() - want).abs().max()) if got.numel() else 0.0
+    if not _bits_equal(got.cpu(), want):
+        _fail(f"schur_point != plain version (max abs err {err})")
+    if not _bits_equal(got, again):
+        _fail("schur_point: two launches differ")
+    w_p, walk, x, cam_free, hpp_inv, raw = args
+    E = w_p.shape[0]
+    wcp = w_p.reshape(E, 6, 3)
+    key = walk.key
+    seg = sk.Segments(key=key, perm=torch.arange(E, dtype=torch.int32,
+                                                 device=key.device),
+                      offsets=walk.offsets, n=walk.n)
+    cam = walk.other.long()
+
+    def old():
+        xm = x * cam_free[:, None]
+        y = torch.einsum("ekl,ek->el", wcp, xm[cam])
+        sums = sk.segment_sum(y, seg)
+        return sums if raw else torch.einsum("plm,pm->pl", hpp_inv, sums)
+
+    old_ms = _cuda_ms(old)
+    what = (f"bit-equal to the plain version on a CPU copy, two launches "
+            f"bit-equal; {_walked(walk)}; the eager composition it replaced "
+            f"{old_ms:.4f} ms per call")
+    return err, what, (lambda: bg.schur_point_cuda(*args)), \
+        (lambda: bg.schur_point_ref(*args))
+
+
+def _sc_check(args):
+    """The CG update (or, raw, the sums) bit-equal to schur_camera_ref on a
+    CPU copy, two launches bit-equal, each launch on its own copy of the
+    recorded CG state."""
+    import torch
+    bg = _bgl()
+    w_c, walk, z, state, hcc_d, d_inv, cam_free, raw = args
+
+    def call(fn, st, where=lambda a: a):
+        return fn(*(where(a) for a in (w_c, walk, z)), st,
+                  *(where(a) for a in (hcc_d, d_inv, cam_free)), raw)
+
+    s1, s2, s3 = _cloned(state), _cloned(state), _on_cpu(state)
+    o1 = call(bg.schur_camera_cuda, s1)
+    o2 = call(bg.schur_camera_cuda, s2)
+    o3 = call(bg.schur_camera_ref, s3, _on_cpu)
+    torch.cuda.synchronize()
+    got, again, want = ((o,) if raw else tuple(o[:4]) for o in (o1, o2, o3))
+    err = max(float((a.cpu() - b).abs().max()) for a, b in zip(got, want))
+    if not all(_bits_equal(a.cpu(), b) for a, b in zip(got, want)):
+        _fail(f"schur_camera != plain version (max abs err {err})")
+    if not all(_bits_equal(a, b) for a, b in zip(got, again)):
+        _fail("schur_camera: two launches differ")
+    if not raw and int(s1.count) != 0:
+        _fail("schur_camera: the last block left its counter set")
+    what = (f"bit-equal to the plain version on a CPU copy "
+            f"({'back' if raw else 'x, r, p, rz'}), two launches bit-equal; "
+            f"{_walked(walk)}")
+    sk_, sp_ = _cloned(state), _cloned(state)
+    return err, what, (lambda: call(bg.schur_camera_cuda, sk_)), \
+        (lambda: call(bg.schur_camera_ref, sp_))
+
+
+def _sp_bound(shape, args):
+    """The walked rows (72 B of Wcp, 4 of the camera) read once, the
+    offsets, x, cam_free and Hpp^-1 read once, z written once."""
+    E, P, C, raw = shape
+    kept = int(args[1].offsets[-1])
+    nbytes = 76 * kept + 4 * (P + 1) + 28 * C + (0 if raw else 36 * P) + \
+        12 * P
+    ops = kept * SCHUR_POINT_ROW + (0 if raw else P * SCHUR_POINT_HINV)
+    return nbytes, ops / FP32_FLOPS
+
+
+def _sc_bound(shape, args):
+    """The walked rows (72 B of Wcp, 4 of the point) read once, the
+    offsets and z read once; raw: back written once; else Hcc_d, D^-1,
+    cam_free, x, r, p and rz read once and x, r, p, rz written once."""
+    E, P, C, raw = shape
+    kept = int(args[1].offsets[-1])
+    nbytes = 76 * kept + 4 * (C + 1) + 12 * P + \
+        (24 * C if raw else 292 * C + 144 * C + 8)
+    ops = kept * SCHUR_CAMERA_ROW + (0 if raw else C * SCHUR_CAMERA_CAM)
+    return nbytes, ops / FP32_FLOPS
+
+
+def _s3_shape(R, t, s, e_i, *rest):          # (K, E, cost)
+    return (t.shape[0], e_i.shape[0], int(rest[-1]))
+
+
+def _s3_fmt(shape) -> str:
+    K, E, cost = shape
+    return f"K={K} E={E} {'cost' if cost else 'Gauss-Newton'} mode"
+
+
+def _s3_check(args):
+    """The cost within SYSTEM_RTOL of the plain version's (the residuals'
+    torch.sum) on the card; the system held to the plain version in
+    float64 (its reverse-mode Jacobians and scatter_values) edge by edge:
+    J^T J within SYSTEM_RTOL of its largest entry, J^T e within SYSTEM_RTOL
+    of |J| |e| plus F32_FLOOR of |J| times its translation scale, or no
+    farther than twice the plain version in float32 is
+    (pose_graph_kernels.held, edge_gaps); two launches bit-equal."""
+    import torch
+    pk = _pgk()
+    got = pk.sim3_edges_cuda(*args)
+    again = pk.sim3_edges_cuda(*args)
+    want = pk.sim3_edges_ref(*args)
+    torch.cuda.synchronize()
+    if not _bits_equal(got, again):
+        _fail("sim3_edges: two launches differ")
+    if not bool(torch.isfinite(got).all()):
+        _fail("sim3_edges: non-finite outputs")
+    err = float((got - want).abs().max())
+    if args[-1]:
+        gap = err / max(float(want.abs()), 1e-30)
+        if not gap <= pk.SYSTEM_RTOL:
+            _fail(f"sim3_edges cost: {gap} of itself from the plain version "
+                  f"(> {pk.SYSTEM_RTOL})")
+        what = f"cost within {gap:.2e} of the plain version's"
+    else:
+        ok, mine, plain = pk.held(got, *args[:9])
+        direct = pk.system_gap(got, want, *args[:9])
+        gaps = (f"J^T J {mine[0]:.3g}, J^T e {mine[1]:.3g} of an edge's "
+                f"tolerance from the plain version in float64, the plain "
+                f"version in float32 {plain[0]:.3g}, {plain[1]:.3g}; from "
+                f"it {direct[0]:.3g}, {direct[1]:.3g}")
+        if not ok:
+            _fail(f"sim3_edges: {gaps} (> 1 and twice the plain "
+                  f"version's)")
+        what = gaps
+    what += ", two launches bit-equal"
+    return err, what, (lambda: pk.sim3_edges_cuda(*args)), \
+        (lambda: pk.sim3_edges_ref(*args))
+
+
+def _s3_ops(args, cost) -> int:
+    """sim3_edges' operations on these inputs: each edge at the branches
+    its residual takes (theta = |e[3:6]| and sigma = e[6] of the plain
+    version's residuals, float32 on the card)."""
+    import torch
+    pk = _pgk()
+    e = pk.residuals(*args[:8])
+    theta = torch.linalg.norm(e[:, 3:6], dim=1)
+    log_pi = torch.cos(theta) < -0.999
+    log_small = ~log_pi & (torch.sin(theta).abs() < 1e-6)
+    small_s = (e[:, 6].abs() < 1e-6).tolist()
+    small_t = (theta * theta < 1e-8).tolist()
+    logs = ["near_pi" if p else "small" if q else "generic"
+            for p, q in zip(log_pi.tolist(), log_small.tolist())]
+    ops = 0
+    for lg, ss, st in zip(logs, small_s, small_t):
+        v, sh, d = (a + b + c for a, b, c in zip(
+            SIM3_CORE, SIM3_LOG[lg], SIM3_V[(ss, st)]))
+        ops += v + SIM3_COST if cost else v + sh + 14 * d + SIM3_SYSTEM
+    return ops
+
+
+def _s3_bound(shape, args):
+    """The vertices (52 B) and each edge's indices, measurement and weight
+    (64 B) read once, the system (840 B an edge) or the cost written once;
+    the operations _s3_ops counts."""
+    K, E, cost = shape
+    nbytes = 52 * K + 64 * E + (4 if cost else 840 * E)
+    return nbytes, _s3_ops(args, cost) / FP32_FLOPS
+
+
 class _Kernel(NamedTuple):
     """Everything the script knows of one kernel: where it lives, the
     wrapper the main paths' launches are recorded at, how a recorded
@@ -1823,6 +2096,25 @@ KERNELS = (
             "after its argmin)", _tri_shape, _tri_fmt,
             lambda shape: shape[0] * shape[1], _tri_check, _tri_bound,
             _no_library),
+    _Kernel("schur_point", _bgl, "schur_point_cuda", "point_launches",
+            "airdos_tpu_torch/csrc/ba_global.cu",
+            "airdos_tpu/solvers/global_ba.py:113 schur_matvec (the gather, "
+            "point-keyed scatter-add and Hpp^-1 of :115-118)", _sp_shape,
+            _schur_fmt, lambda shape: shape[1], _sp_check, _sp_bound,
+            _no_library, loop_only=True),
+    _Kernel("schur_camera", _bgl, "schur_camera_cuda", "camera_launches",
+            "airdos_tpu_torch/csrc/ba_global.cu",
+            "airdos_tpu/solvers/global_ba.py:113 schur_matvec (the "
+            "camera-keyed scatter-add and Hcc_d x of :119-122), :133 "
+            "precond, :143 cg_body", _sc_shape, _schur_fmt,
+            lambda shape: shape[2], _sc_check, _sc_bound, _no_library,
+            loop_only=True),
+    _Kernel("sim3_edges", _pgk, "sim3_edges_cuda", "launches",
+            "airdos_tpu_torch/csrc/sim3_edges.cu",
+            "airdos_tpu/solvers/pose_graph.py:27 _edge_residual, :59 "
+            "edge_system (jacfwd), :77-78 J^T W J and J^T W e, :96 cost",
+            _s3_shape, _s3_fmt, lambda shape: shape[1], _s3_check,
+            _s3_bound, _no_library, loop_only=True),
 )
 
 # the BA kernels' launches per solve of the static (local) BA and of the
@@ -2837,6 +3129,7 @@ def phase_loop(smi: str, frames, twc):
     candidate."""
     from airdos_tpu_torch.slam import loop_closing
     from airdos_tpu_torch.slam.system import System
+    from airdos_tpu_torch.solvers.global_ba import launches_per_step
 
     slam = System(_loop_config(), device="cuda")
     snaps = []
@@ -2917,12 +3210,24 @@ def phase_loop(smi: str, frames, twc):
     ate = _ate(slam.tracking, twc)
     if not ate < 0.15:
         _fail(f"loop: ATE {ate} m >= 0.15 m")
-    per_loop = 20 + 2000                 # essential graph + global BA
+    # a closure: the essential graph (20 steps: a segment sum, a
+    # Gauss-Newton and a cost sim3_edges each, and a first cost) and the
+    # global BA (20 steps)
+    per_loop = {k: 20 * n for k, n in launches_per_step(48).items()}
+    per_loop["segment_sum"] += 20
+    per_loop["sim3_edges"] = 1 + 2 * 20
     seg_off = [i for i, p in enumerate(per) if p["d"]["segment_sum"]
-               != 45 * p["static"] + per_loop * p["loops"]]
+               != 45 * p["static"] + per_loop["segment_sum"] * p["loops"]]
     if seg_off:
         _fail(f"loop: segment_sum launches != 45 per static BA solve + "
-              f"{per_loop} per loop closure at frames {seg_off}")
+              f"{per_loop['segment_sum']} per loop closure at frames "
+              f"{seg_off}")
+    solver_off = [(i, k, p["d"][k]) for i, p in enumerate(per)
+                  for k in ("schur_point", "schur_camera", "sim3_edges")
+                  if p["d"][k] != per_loop[k] * p["loops"]]
+    if solver_off:
+        _fail(f"loop: (frame, kernel, launches) {solver_off} not {per_loop} "
+              f"per loop closure")
     if slam.global_ba.n_runs != lc.n_loops_closed:
         _fail("loop: not one global BA per loop closure")
     loop_frames = [i for i, p in enumerate(per) if p["loops"]]
@@ -3224,6 +3529,17 @@ def _online_pillar(smi, orbit, orbit_twc, offline_loop, live: bool):
     if any(p <= max(track_prio) for _, p in worker):
         _fail(f"online: the mapping worker's launches {worker} are not on "
               f"a stream of lower priority than tracking's {track_prio}")
+    # the loop correction's solvers: the essential graph in the mapping
+    # worker, the global BA in its background thread
+    solvers = {(name, th, p) for (name, th, p) in tally
+               if name in ("schur_point", "schur_camera", "sim3_edges")}
+    want = {("sim3_edges", "mapping"), ("schur_point", "global-ba"),
+            ("schur_camera", "global-ba")}
+    if {(n, th) for n, th, _ in solvers} != want or \
+            any(p <= max(track_prio) for _, _, p in solvers):
+        _fail(f"online: the loop solvers' launches by (kernel, thread, "
+              f"priority) {sorted(solvers)}, not {sorted(want)} on a stream "
+              f"of lower priority than tracking's {track_prio}")
 
 
 def _online_human(smi, crowd, crowd_twc):
@@ -3508,10 +3824,10 @@ def phase_map_scale(smi: str):
     _reset_counts()
     secs, outs = _timed_device(lambda: solve_global_ba(*dev, *cam))
     launches = _counts()
-    want = 2 * 20 * launches_per_step(48)
-    if launches["segment_sum"] != want:
-        _fail(f"map scale: {launches['segment_sum']} segment_sum launches in "
-              f"two global BAs, not {want}")
+    want = {k: 2 * 20 * n for k, n in launches_per_step(48).items()}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        _fail(f"map scale: launches in two global BAs {got}, not {want}")
     (R1, t1, p1), (R2, t2, p2) = outs
     if not (torch.equal(R1, R2) and torch.equal(t1, t2)
             and torch.equal(p1, p2)):
@@ -3530,11 +3846,13 @@ def phase_map_scale(smi: str):
     busy, n_k = _busy_ms(lambda: solve_global_ba(*dev, *cam))
     print(f"[map-scale] global BA (4 calls x 5 steps, 48 CG iterations): "
           f"{[round(s, 3) for s in secs]} s per solve, two runs bit-equal, "
-          f"{launches['segment_sum'] // 2} segment_sum launches each "
-          f"(camera-keyed {C} x 42 | 42 | 6, point-keyed {P} x 12 | 3 over "
-          f"{E} rows); device busy {busy:.2f} ms in {n_k} kernels "
-          f"(torch.profiler, a third solve); every free keyframe moved; "
-          f"reprojection chi2 {chi0:.6g} -> {chi1:.6g}; mean centre error to "
+          f"each {launches['segment_sum'] // 2} segment_sum launches "
+          f"(camera-keyed {C} x 42 | 42, point-keyed {P} x 12 | 3 over "
+          f"{E} rows), {launches['schur_point'] // 2} schur_point and "
+          f"{launches['schur_camera'] // 2} schur_camera; device busy "
+          f"{busy:.2f} ms in {n_k} kernels (torch.profiler, a third "
+          f"solve); every free keyframe moved; reprojection chi2 "
+          f"{chi0:.6g} -> {chi1:.6g}; mean centre error to "
           f"the truth {e0.mean():.4f} -> {e1.mean():.4f} m over all "
           f"keyframes, {e0[:200].mean():.4f} -> {e1[:200].mean():.4f} m over "
           f"the first 200 on {smi}", flush=True)
@@ -3557,13 +3875,22 @@ def phase_map_scale(smi: str):
                       np.ones(C, np.float32), np.ones(C, bool))]
     _reset_counts()
     torch.cuda.reset_peak_memory_stats()
-    secs, outs = _timed_device(lambda: optimize_essential_graph(*args))
+    real_grad = torch.autograd.grad
+    grads = []
+    torch.autograd.grad = lambda *a, **k: grads.append(1) or \
+        real_grad(*a, **k)
+    try:
+        secs, outs = _timed_device(lambda: optimize_essential_graph(*args))
+    finally:
+        torch.autograd.grad = real_grad
     eg = _counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     launches = {k: launches[k] + eg[k] for k in launches}
-    if eg["segment_sum"] != 40:
-        _fail(f"map scale: {eg['segment_sum']} segment_sum launches in two "
-              f"essential graphs, not 40")
+    want = {"segment_sum": 2 * 20, "sim3_edges": 2 * (1 + 2 * 20)}
+    got = {k: eg[k] for k in want}
+    if got != want or grads:
+        _fail(f"map scale: launches in two essential graphs {got}, not "
+              f"{want}; {len(grads)} autograd passes")
     if not all(torch.equal(a, b) for a, b in zip(*outs)):
         _fail("map scale: two card runs of the essential graph differ")
     t_out = outs[0][1].cpu().numpy()
@@ -3577,8 +3904,10 @@ def phase_map_scale(smi: str):
     busy, n_k = _busy_ms(lambda: optimize_essential_graph(*args))
     print(f"[map-scale] essential graph K {C} (D {7 * C}), E {C} edges, 20 "
           f"LM steps: {[round(s, 3) for s in secs]} s per solve, two runs "
-          f"bit-equal, 20 segment_sum launches each (one compact segment "
-          f"sum of the 14x14 + 14 entries of every edge a step); peak "
+          f"bit-equal, each 20 segment_sum launches (one compact segment "
+          f"sum of the 14x14 + 14 entries of every edge a step) and 41 "
+          f"sim3_edges (a Gauss-Newton and a cost launch a step, a first "
+          f"cost), no autograd pass; peak "
           f"device memory {peak:.2f} GiB; device busy {busy:.2f} ms in "
           f"{n_k} kernels; loop end error {err0:.4f} -> {err1:.4f} m on "
           f"{smi}", flush=True)
@@ -4432,14 +4761,15 @@ def phase_long_horizon(smi: str, world, frames, twc):
     return counts
 
 
-def _rank_launches(sk, n: int) -> dict:
-    """segment_sum launches since the last reset by mesh rank: rank 0 is
+def _rank_launches(module, n: int, kernel: str) -> dict:
+    """A kernel's launches since the last reset by mesh rank: rank 0 is
     this thread, rank r > 0 the thread Mesh.run names "<this>:rank<r>"."""
     me = threading.current_thread().name
     names = [me] + [f"{me}:rank{r}" for r in range(1, n)]
     by = collections.Counter()
-    for (_, thread, _), k in sk.launch_tally().items():
-        by[thread] += k
+    for (name, thread, _), k in module.launch_tally().items():
+        if name == kernel:
+            by[thread] += k
     return [by.get(name, 0) for name in names] + \
         [k for t, k in by.items() if t not in names]
 
@@ -4453,6 +4783,7 @@ def phase_multi_device(smi: str, frames, twc, crowd, crowd_twc):
     import torch
     from airdos_tpu_torch import graft_entry
     from airdos_tpu_torch.convert import to_device
+    from airdos_tpu_torch.ops import ba_global as bg
     from airdos_tpu_torch.ops import segment_kernels as sk
     from airdos_tpu_torch.parallel import mesh as pmesh
     from airdos_tpu_torch.parallel.sharded_ba import (
@@ -4476,10 +4807,11 @@ def phase_multi_device(smi: str, frames, twc, crowd, crowd_twc):
         runs[fn.__qualname__.split(".")[0]] += 1
         return plain_run(self, fn, *args, **kwargs)
 
-    def each_rank(what: str, per_rank: int):
-        got = _rank_launches(sk, n)
+    def each_rank(what: str, per_rank: int, module=sk,
+                  kernel="segment_sum"):
+        got = _rank_launches(module, n, kernel)
         if got != [per_rank] * n:
-            _fail(f"multi-device {what}: segment_sum launches by rank "
+            _fail(f"multi-device {what}: {kernel} launches by rank "
                   f"{got}, not {per_rank} on each of {n}")
 
     def step_a(mesh):
@@ -4594,7 +4926,11 @@ def phase_multi_device(smi: str, frames, twc, crowd, crowd_twc):
         secs, outs = _timed_device(
             lambda: solve_global_ba(*dev, *cam, mesh=mesh))
         counts = _counts()
-        each_rank("d (global BA, two runs)", 2 * 20 * launches_per_step(48))
+        per_step = launches_per_step(48)
+        each_rank("d (global BA, two runs)", 2 * 20 * per_step["segment_sum"])
+        for kernel in ("schur_point", "schur_camera"):
+            each_rank("d (global BA, two runs, raw mode)",
+                      2 * 20 * per_step[kernel], bg, kernel)
         (R1, t1, p1), (R2, t2, p2) = outs
         if not (torch.equal(R1, R2) and torch.equal(t1, t2)
                 and torch.equal(p1, p2)):
@@ -4611,9 +4947,12 @@ def phase_multi_device(smi: str, frames, twc, crowd, crowd_twc):
         print(f"[multi-device] d: map-scale global BA, C {len(arrays[0])}, "
               f"P {len(arrays[3])}, E {E} ({len(dev[5]) // n} a rank): "
               f"{[round(x, 3) for x in secs]} s per solve, two runs "
-              f"bit-equal, {n} x {20 * launches_per_step(48)} segment_sum "
-              f"launches each; chi2 {chi0:.6g} -> {chi1:.6g}; largest gap "
-              f"to phase map scale's single-device solve: R "
+              f"bit-equal, each {n} x {20 * per_step['segment_sum']} "
+              f"segment_sum launches and {n} x {20 * per_step['schur_point']}"
+              f" schur_point and schur_camera in raw mode (the sums psummed, "
+              f"Hpp^-1 and the CG update eager on every rank); chi2 "
+              f"{chi0:.6g} -> {chi1:.6g}; largest gap to phase map "
+              f"scale's single-device solve: R "
               f"{np.abs(R - R8).max():.2e}, t {np.abs(t - t8).max():.2e} m, "
               f"centre {np.linalg.norm(ctr - ctr8, axis=1).max():.2e} m",
               flush=True)
@@ -4669,7 +5008,10 @@ def phase_multi_device(smi: str, frames, twc, crowd, crowd_twc):
         graft_entry.dryrun_multichip(n, device="cuda")
         _sync()
         counts = _counts()
-        each_rank("g (dry run)", 12 + 2 * launches_per_step(8) + 8)
+        each_rank("g (dry run)",
+                  12 + 2 * launches_per_step(8)["segment_sum"] + 8)
+        for kernel in ("schur_point", "schur_camera"):
+            each_rank("g (dry run, raw mode)", 2 * 8, bg, kernel)
         print(f"[multi-device] g: graft_entry.dryrun_multichip({n}) passed; "
               f"launches {counts}", flush=True)
         return counts

@@ -425,7 +425,7 @@ def test_sharded_local_ba_on_the_card(cuda, monkeypatch, ranks):
 
 def test_global_ba_segment_sums_bitwise_and_deterministic(cuda, monkeypatch):
     """Every segment sum of a global BA step on the card, at its camera-
-    and point-keyed shapes (42, 12, 42, 3, 6, 3 columns), bit-equal to the
+    and point-keyed shapes (42, 12, 42, 3 columns), bit-equal to the
     plain version on a CPU copy; two solves bit-equal."""
     import airdos_tpu_torch.ops.segment_kernels as sk
     from airdos_tpu_torch.solvers import global_ba as gba
@@ -447,8 +447,8 @@ def test_global_ba_segment_sums_bitwise_and_deterministic(cuda, monkeypatch):
     monkeypatch.setattr(gba, "segment_sum", real)
     res2 = gba.global_bundle_adjust(*dev, 300.0, 300.0, 160.0, 120.0, 60.0,
                                     iters1=1, iters2=1)
-    assert len(seen) == 2 * gba.launches_per_step(48)
-    assert {k for (_, k), _ in seen} == {42, 12, 3, 6}
+    assert len(seen) == 2 * gba.launches_per_step(48)["segment_sum"]
+    assert {k for (_, k), _ in seen} == {42, 12, 3}
     assert all(ok for _, ok in seen)
     for a, b in zip(res1, res2):
         assert torch.equal(a, b)
@@ -2220,3 +2220,140 @@ def test_match_by_sim3_on_match_rows_on_the_card(cuda):
         mk.match_rows_cuda = cuda_fn
     assert torch.equal(got.idx2_of_1, want.idx2_of_1)
     assert int(got.n_matches) == int(want.n_matches) > N // 4
+
+
+# ------------------------------------------- the loop correction's solvers
+
+def _reduced_system(cuda, C, P, E, seed=0):
+    """A seeded reduced camera system as a global BA step hands its CG
+    (tests/test_torch_loop_kernels.py's, at the card's sizes): the walks'
+    rows of Wcp, Hpp^-1, Hcc_d, D^-1, cam_free (camera 0 fixed) and
+    b_red; a tenth of the edges and 5% of the points invalid."""
+    import airdos_tpu_torch.ops.ba_global as bg
+    from airdos_tpu_torch.ops.segment_kernels import make_segments
+    rng = np.random.default_rng(seed)
+    e_cam = rng.integers(0, C, E)
+    e_pt = rng.integers(0, P, E)
+    pv = rng.random(P) > 0.05
+    base = (rng.random(E) > 0.1) & pv[e_pt]
+    wcp = rng.standard_normal((E, 6, 3)).astype(np.float32)
+    A = rng.standard_normal((P, 3, 3)) * 0.05
+    hinv = (A @ A.transpose(0, 2, 1) + 0.02 * np.eye(3)) * pv[:, None, None]
+    B = rng.standard_normal((C, 6, 6))
+    hcc = B @ B.transpose(0, 2, 1) + 400.0 * np.eye(6)
+    cf = np.ones(C)
+    cf[0] = 0.0
+    dinv = np.linalg.inv(hcc)
+    dinv[0] = np.eye(6)
+    b = rng.standard_normal((C, 6)) * cf[:, None]
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(cuda, dtype)
+
+    ec, ep, keep = t(e_cam, torch.int64), t(e_pt, torch.int64), \
+        t(base, torch.bool)
+    wc = bg.make_walk(make_segments(ec, C, keep), ep)
+    wp = bg.make_walk(make_segments(ep, P, keep), ec)
+    W = t(wcp)
+    return dict(w_p=bg.walk_rows(W, wp), w_c=bg.walk_rows(W, wc), wp=wp,
+                wc=wc, hinv=t(hinv), hcc=t(hcc), dinv=t(dinv), cf=t(cf),
+                b=t(b))
+
+
+def _cpu(x):
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_cpu(y) for y in x))
+    return x
+
+
+@pytest.mark.parametrize("C,P,E", [(1000, 100_000, 300_000),
+                                   (64, 6000, 20_000), (12, 300, 2000)])
+def test_schur_kernels_equal_plain_versions(cuda, C, P, E):
+    """schur_point and schur_camera at the map scale's and the pillar
+    orbit's sizes: 48 CG iterations, each output and the CG state bit-equal
+    to the plain versions on a CPU copy (their segment sums are
+    index_add_ in walk order); raw modes bit-equal too; the last block
+    leaves its counter at zero; one launch a call each."""
+    import airdos_tpu_torch.ops.ba_global as bg
+    s = _reduced_system(cuda, C, P, E)
+    st = bg.cg_start(s["b"], s["dinv"])
+    sc = _cpu(st)
+    host = {k: _cpu(v) for k, v in s.items()}
+    for _ in range(48):
+        n0 = (bg.point_launches(), bg.camera_launches())
+        z = bg.schur_point(s["w_p"], s["wp"], st.p, s["cf"], s["hinv"])
+        zc = bg.schur_point(host["w_p"], host["wp"], sc.p, host["cf"],
+                            host["hinv"])
+        raw = bg.schur_point(s["w_p"], s["wp"], st.p, s["cf"], s["hinv"],
+                             raw=True)
+        rawc = bg.schur_point(host["w_p"], host["wp"], sc.p, host["cf"],
+                              host["hinv"], raw=True)
+        back = bg.schur_camera(s["w_c"], s["wc"], z, st, s["hcc"],
+                               s["dinv"], s["cf"], raw=True)
+        bg.schur_camera(s["w_c"], s["wc"], z, st, s["hcc"], s["dinv"],
+                        s["cf"])
+        backc = bg.schur_camera(host["w_c"], host["wc"], zc, sc, host["hcc"],
+                                host["dinv"], host["cf"], raw=True)
+        bg.schur_camera(host["w_c"], host["wc"], zc, sc, host["hcc"],
+                        host["dinv"], host["cf"])
+        torch.cuda.synchronize()
+        assert (bg.point_launches(), bg.camera_launches()) == \
+            (n0[0] + 2, n0[1] + 2)
+        assert torch.equal(z.cpu(), zc) and torch.equal(raw.cpu(), rawc)
+        assert torch.equal(back.cpu(), backc)
+        for a, b in zip(st[:4], sc[:4]):
+            assert torch.equal(a.cpu(), b)
+        assert int(st.count) == 0
+    assert torch.isfinite(st.x).all()
+
+
+@pytest.mark.parametrize("K,E,regime", [(1000, 1000, "chain"),
+                                        (64, 300, "chain"),
+                                        (64, 300, "pi")])
+def test_sim3_edges_kernel_within_tolerance_of_plain_version(cuda, K, E,
+                                                              regime):
+    """sim3_edges at the map scale's and the pillar orbit's sizes, in both
+    modes: the cost within SYSTEM_RTOL of the plain version's (the
+    residuals' torch.sum) on the card, the system held to the plain
+    version in float64 (pose_graph_kernels.held: within each edge's
+    tolerance, or twice the float32 plain version's gap), two
+    launches bit-equal, one launch a call."""
+    import airdos_tpu_torch.ops.pose_graph_kernels as pk
+    from airdos_tpu_torch.geometry.se3 import so3_exp
+    rng = np.random.default_rng(K + E)
+
+    def rot(w):
+        return so3_exp(torch.tensor(np.asarray(w), dtype=torch.float32))
+
+    R = torch.stack([rot(rng.normal(0, 0.4, 3)) for _ in range(K)])
+    t = torch.tensor(rng.normal(0, 2, (K, 3)), dtype=torch.float32)
+    e_i = torch.tensor(rng.integers(0, K, E), dtype=torch.int32)
+    e_j = torch.tensor((e_i.numpy() + rng.integers(1, K, E)) % K,
+                       dtype=torch.int32)
+    rel = R[e_j.long()] @ R[e_i.long()].transpose(1, 2)     # Rj Ri^T
+    if regime == "pi":
+        axis = np.array([0.6, 0.48, 0.64])
+        Rm = torch.stack([rot(axis * (np.pi - d)) @ r for d, r in
+                          zip(rng.uniform(1e-3, 3e-2, E), rel)])
+    else:
+        Rm = torch.stack([rot(rng.normal(0, 0.01, 3)) @ r for r in rel])
+    tm = torch.tensor(rng.normal(0, 1, (E, 3)), dtype=torch.float32)
+    w = torch.tensor(rng.random(E) > 0.05, dtype=torch.float32)
+    args = [x.to(cuda).contiguous() for x in
+            (R, t, torch.ones(K), e_i, e_j, Rm, tm, torch.ones(E), w)]
+    for cost in (False, True):
+        n0 = pk.launches()
+        got = pk.sim3_edges(*args, cost)
+        again = pk.sim3_edges(*args, cost)
+        want = pk.sim3_edges_ref(*args, cost)
+        torch.cuda.synchronize()
+        assert pk.launches() == n0 + 2
+        assert torch.equal(got, again) and torch.isfinite(got).all()
+        if cost:
+            assert float((got - want).abs()) <= \
+                pk.SYSTEM_RTOL * float(want.abs())
+        else:
+            ok, mine, plain = pk.held(got, *args)
+            assert ok, (mine, plain)

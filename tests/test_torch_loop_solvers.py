@@ -380,8 +380,8 @@ def test_global_bundle_adjust_matches_jax(problem, iters, monkeypatch):
     monkeypatch.setattr(tgba, "segment_sum",
                         lambda *a: calls.append(1) or real(*a))
     got = tgba.global_bundle_adjust(*(_t(a) for a in arrays), *scalars, **kw)
-    assert len(calls) == tgba.launches_per_step(48) * sum(iters) \
-        == 100 * sum(iters)
+    assert len(calls) == tgba.launches_per_step(48)["segment_sum"] * \
+        sum(iters) == 4 * sum(iters)
     np.testing.assert_allclose(got.R.numpy(), np.asarray(want.R), atol=1e-4)
     np.testing.assert_allclose(got.t.numpy(), np.asarray(want.t), atol=1e-4)
     np.testing.assert_array_equal(got.edge_inlier.numpy(),
@@ -419,7 +419,7 @@ def test_global_ba_sums_no_padding_edge():
 def test_global_ba_chunk_schedule_matches_jax(monkeypatch):
     """GlobalBA's schedule: four solver calls of five steps, the first
     with 2 Huber + 3 plain steps, each call a fresh solve (airdos_tpu
-    slam/ba_driver.py:1256-1274); 100 segment sums a step, 2000 in all."""
+    slam/ba_driver.py:1256-1274); 4 segment sums a step, 80 in all."""
     from airdos_tpu_torch.slam import ba_driver as tbd
     rng = np.random.default_rng(2)
     args = _corridor(rng, C=24, P=400)
@@ -436,7 +436,7 @@ def test_global_ba_chunk_schedule_matches_jax(monkeypatch):
     monkeypatch.setattr(tgba, "segment_sum",
                         lambda *a: calls.append(1) or real(*a))
     Rt, tt, pt = tbd.solve_global_ba(*(_t(a) for a in arrays), *scalars)
-    assert len(calls) == 2000
+    assert len(calls) == 80
     np.testing.assert_allclose(Rt.numpy(), np.asarray(R), atol=1e-4)
     np.testing.assert_allclose(tt.numpy(), np.asarray(t), atol=1e-4)
     twice = np.bincount(arrays[6], minlength=len(arrays[3])) >= 2

@@ -25,7 +25,9 @@ a global BA runs), and tests/test_online_human.py on the small camera.
 How the online System keeps up with frames fed faster than its workers
 run: the mapping pass skips fusion, the static BA and keyframe culling
 while keyframes wait, and a human BA a whole cadence late makes tracking
-wait for it.  Also: a worker's exception is raised by ``drain_mapping``, ``shutdown``
+wait for it.  The background global BA's steps wait out the tracking
+thread's whole frame (the gate's frame, which an online System holds
+around each frame).  Also: a worker's exception is raised by ``drain_mapping``, ``shutdown``
 and the BAs' ``join``, and the state the threads share (the launch
 counters, the vocabulary's one-time device upload, the span and event
 logs) holds under many threads.
@@ -55,7 +57,7 @@ from airdos_tpu_torch.slam.loop_closing import LoopCloser
 from airdos_tpu_torch.slam.map import KeyFrame
 from airdos_tpu_torch.slam.system import System
 from airdos_tpu_torch.slam.tracking import Tracking
-from airdos_tpu_torch.utils.gate import TrackingGate
+from airdos_tpu_torch.utils.gate import TrackingGate, gap_waiter
 from airdos_tpu_torch.utils.obs import EventLog, Profiler
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -317,6 +319,79 @@ def test_online_mode_tracks_with_the_mapping_worker(vo_frames):
     assert slam._map_thread is None
     assert slam.tracking.state.name == "OK"
     assert slam.map.n_keyframes() >= 2
+
+
+def _waiter_returns(hook):
+    """Run a step hook in a thread; the times it returned (perf_counter)
+    in a list that fills when it returns."""
+    returned = []
+
+    def run():
+        hook()
+        returned.append(time.perf_counter())
+    th = threading.Thread(target=run)
+    th.start()
+    return th, returned
+
+
+def test_gap_waiter_takes_one_step_a_gap_between_whole_frames():
+    """The background global BA's step hook: a step waits while the
+    tracking thread is anywhere in its frame, also outside the device
+    window; a second step waits for the next gap, or for the idle time
+    when no frame comes; every wait is bounded; no gate, no hook."""
+    gate = TrackingGate()
+    hook = gap_waiter(gate, timeout=30.0, idle=0.5)
+    with gate.frame():
+        th, returned = _waiter_returns(hook)
+        with gate:                      # the device window opens and ends
+            time.sleep(0.05)
+        time.sleep(0.2)                 # the rest of the frame
+        assert not returned
+        t_end = time.perf_counter()
+    th.join(10.0)
+    assert returned and returned[0] >= t_end
+    # the same gap: the next step waits for the next frame's end
+    th, returned = _waiter_returns(hook)
+    time.sleep(0.1)
+    assert not returned
+    with gate.frame():
+        time.sleep(0.05)
+        assert not returned
+        t_end = time.perf_counter()
+    th.join(10.0)
+    assert returned and returned[0] >= t_end
+    # no frame comes: the idle time, from the last frame's end
+    t0 = time.perf_counter()
+    hook()
+    assert 0.3 <= time.perf_counter() - t0 < 5.0
+    # a frame that outlasts the wait
+    short = gap_waiter(gate, timeout=0.1, idle=0.5)
+    with gate.frame():
+        t0 = time.perf_counter()
+        short()
+        assert 0.1 <= time.perf_counter() - t0 < 5.0
+    assert gap_waiter(None) is None
+
+
+def test_online_system_tracks_inside_the_frame_gate(vo_frames):
+    """Online, each frame runs inside the tracking gate's frame, which is
+    closed between frames and counts them; offline there is no gate."""
+    slam = System(small_config(), device="cpu")
+    gate = slam.tracking.device_gate
+    inside = []
+    track = slam.tracking.track
+
+    def watched(data):
+        inside.append(gate._in_frame)
+        return track(data)
+    slam.tracking.track = watched
+    for data, _ in vo_frames[:3]:
+        slam.track_stereo(data)
+        assert not gate._in_frame
+    slam.shutdown()
+    assert inside == [True] * 3 and gate._ended == 3
+    assert System(small_config(online=False),
+                  device="cpu").tracking.device_gate is None
 
 
 def test_online_reset_restarts_tracking(vo_frames):
