@@ -3,13 +3,14 @@
 Rebuild of DBoW2's TemplatedVocabulary (reference Thirdparty/DBoW2) as
 airdos_tpu/bow/vocabulary.py holds it: a k-branching, L-level tree of
 binary ORB descriptors with TF-IDF weights and L1 scoring, kept as flat
-arrays.  The descent of a whole frame's descriptors runs batched on the
-vocabulary's torch device (plain torch; its Hopper kernel is ROADMAP
-Hopper queue item 6).  Training (binary k-medoids by bit majority) is
-host numpy and gives the same tree as airdos_tpu from the same
-descriptors and seed.  The DBoW2 text (ORBvoc.txt) and binary
-(to_binary.cc) files load with numpy host parsers, as in airdos_tpu; the
-text loader keeps a ``<path>.npz`` cache beside the file.
+arrays.  The descent of a whole frame's descriptors runs on the
+vocabulary's torch device: one launch of csrc/voc_transform.cu on the
+card, its plain version (ops/voc_kernels.py) on the CPU.  Training
+(binary k-medoids by bit majority) is host numpy and gives the same
+tree as airdos_tpu from the same descriptors and seed.  The DBoW2 text
+(ORBvoc.txt) and binary (to_binary.cc) files load with numpy host
+parsers, as in airdos_tpu; the text loader keeps a ``<path>.npz`` cache
+beside the file.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ import numpy as np
 import torch
 
 from airdos_tpu_torch.convert import desc_to_tensor, resolve_device
-from airdos_tpu_torch.ops.hamming_kernels import _popcount32
+from airdos_tpu_torch.ops import voc_kernels as vk
 
 
 def _pack_u32(desc_u8: np.ndarray) -> np.ndarray:
@@ -66,8 +67,8 @@ class Vocabulary:
 
     # -------------------------------------------------------------- device
     def _device_tables(self):
-        """The tree on the device, uploaded once: children, node words
-        (uint32 values in int64), word ids, groups.  Online, the tracking
+        """The tree on the device, uploaded once, as int32: children, node
+        words (bit views), word ids, groups.  Online, the tracking
         thread (BoW tracking, relocalization) and the mapping worker (the
         database, loop detection) read the tables from their own streams,
         and either may come first: the upload runs once under a lock, and
@@ -80,7 +81,9 @@ class Vocabulary:
             with self._tables_lock:
                 if self._tables is None:
                     up = tuple(
-                        torch.from_numpy(x.astype(np.int64)).to(self.device)
+                        torch.from_numpy(np.ascontiguousarray(x).view(
+                            np.int32) if x.dtype == np.uint32 else
+                            x.astype(np.int32)).to(self.device)
                         for x in (self.children, self.node_desc32,
                                   self.word_id, self._group_of_node))
                     if self.device.type == "cuda":
@@ -101,23 +104,9 @@ class Vocabulary:
 
     def _transform_device(self, desc32: torch.Tensor):
         """desc32 [N, 8] int32 bit views -> (word ids [N], node at the
-        feature level [N]).  Batched tree descent: at each level gather the
-        k children's descriptors and take the Hamming argmin (first index
-        on ties, like jnp.argmin)."""
-        children, node_desc, word_id, group_of = self._device_tables()
-        N = desc32.shape[0]
-        d64 = desc32.to(torch.int64) & 0xFFFFFFFF
-        cur = torch.zeros(N, dtype=torch.int64, device=desc32.device)
-        for _ in range(self.depth):
-            ch = children[cur]                          # [N, k]
-            cd = node_desc[torch.clamp(ch, min=0)]      # [N, k, 8]
-            dist = _popcount32(cd ^ d64[:, None, :]).sum(-1)
-            dist = torch.where(ch >= 0, dist, torch.full_like(dist, 1 << 20))
-            best = torch.argmin(dist, dim=-1)
-            nxt = torch.gather(ch, 1, best[:, None])[:, 0]
-            # stop at leaves (stay put when no children)
-            cur = torch.where((ch >= 0).any(dim=-1), nxt, cur)
-        return word_id[cur], group_of[cur]
+        feature level [N]), int32: the tree descent (first child on ties,
+        like jnp.argmin), one voc_transform launch on a CUDA tensor."""
+        return vk.voc_transform(*self._device_tables(), desc32, self.depth)
 
     # ---------------------------------------------------------------- api
     def transform(self, desc32: np.ndarray, valid: Optional[np.ndarray] = None

@@ -19,7 +19,9 @@ a function with the single-device solver's arguments and result.
   order, the first largest count wins, and the winner's refine runs
   replicated: the same winner, inliers and pose as the single-device
   ``epnp_ransac`` / ``sim3_ransac`` on the same table, whose argmax also
-  keeps the first largest.  H must be a multiple of the mesh size.
+  keeps the first largest.  H must be a multiple of the mesh size.  On
+  the card each rank's hypotheses are one launch of csrc/ransac.cu in
+  hypotheses mode and the refine one launch in refine mode.
 
 Per-rank ``segment_sum`` launches: 45 a local BA solve, 60 a human BA
 solve (three over the static shard and one over the replicated human
@@ -33,12 +35,11 @@ import torch
 
 from airdos_tpu_torch.geometry.se3 import se3_compose, se3_exp, so3_hat
 from airdos_tpu_torch.parallel.mesh import Mesh, make_mesh  # noqa: F401
-from airdos_tpu_torch.solvers.align import horn_align
 from airdos_tpu_torch.solvers.epnp import epnp_hypotheses, epnp_refine
 from airdos_tpu_torch.solvers.global_ba import global_bundle_adjust
 from airdos_tpu_torch.solvers.human_ba import human_bundle_adjust
 from airdos_tpu_torch.solvers.local_ba import local_bundle_adjust
-from airdos_tpu_torch.solvers.sim3 import sim3_inlier_test, sim3_refine
+from airdos_tpu_torch.solvers.sim3 import sim3_hypotheses, sim3_refine
 
 
 def _check_axis(mesh: Mesh, axis: str) -> None:
@@ -137,12 +138,11 @@ def sharded_epnp_ransac(mesh: Mesh, axis: str = "edges"):
         n_per_rank = sample_idx.shape[0] // mesh.size
 
         def shard_fn(group, pw, uv, valid, max_err2, samples_s):
-            Rs, ts, inls = epnp_hypotheses(pw, uv, valid, max_err2,
-                                           samples_s, fx, fy, cx, cy)
+            Rs, ts, inls, counts = epnp_hypotheses(pw, uv, valid, max_err2,
+                                                   samples_s, fx, fy, cx, cy)
             packed = torch.cat([Rs.reshape(-1, 9), ts,
                                 inls.to(pw.dtype)], dim=1)
-            win, best = _champion(group, torch.sum(inls, dim=-1), packed,
-                                  n_per_rank)
+            win, best = _champion(group, counts, packed, n_per_rank)
             return epnp_refine(pw, uv, valid, max_err2,
                                win[:9].reshape(3, 3), win[9:12],
                                win[12:] > 0.5, best, fx, fy, cx, cy)
@@ -164,17 +164,15 @@ def sharded_sim3_ransac(mesh: Mesh, axis: str = "edges",
         n_per_rank = sample_idx.shape[0] // mesh.size
 
         def shard_fn(group, x1, x2, valid, max_err1, max_err2, samples_s):
-            reproj = sim3_inlier_test(x1, x2, valid, max_err1, max_err2,
-                                      fx, fy, cx, cy)
-            idx = samples_s.to(torch.int64)
-            Rs, ts, ss = horn_align(x1[idx], x2[idx], fix_scale=fix_scale)
-            inls = reproj(Rs, ts, ss)
+            Rs, ts, ss, inls, counts = sim3_hypotheses(
+                x1, x2, valid, max_err1, max_err2, samples_s, fx, fy, cx, cy,
+                fix_scale)
             packed = torch.cat([Rs.reshape(-1, 9), ts, ss[:, None],
                                 inls.to(x1.dtype)], dim=1)
-            win, best = _champion(group, torch.sum(inls, dim=-1), packed,
-                                  n_per_rank)
-            return sim3_refine(x1, x2, reproj, win[:9].reshape(3, 3),
-                               win[9:12], win[12], win[13:] > 0.5, best,
+            win, best = _champion(group, counts, packed, n_per_rank)
+            return sim3_refine(x1, x2, valid, max_err1, max_err2,
+                               win[:9].reshape(3, 3), win[9:12], win[12],
+                               win[13:] > 0.5, best, fx, fy, cx, cy,
                                fix_scale)
 
         return mesh.run(shard_fn, (x1, x2, valid, max_err1, max_err2),

@@ -31,8 +31,9 @@ queue, and keyframe insertion waits on its state; the human BA and the
 global BA after a loop run in background threads, the global BA
 abortable by a later loop or ``reset``; each worker launches on its own
 stream of priority 0 and takes the map lock only around its host map
-sections (utils/gate.py).  For a caller that feeds frames faster than the
-workers run, two departures from airdos_tpu: while keyframes wait in its
+sections, and the objects alive at the start stay out of the garbage
+collector's scans until ``shutdown`` (utils/gate.py).  For a caller that
+feeds frames faster than the workers run, two departures from airdos_tpu: while keyframes wait in its
 queue the mapping worker skips fusion, the static BA and keyframe
 culling, as the reference's LocalMapping::Run does; and a human BA a whole
 cadence period late makes tracking wait for it.  One more deliberate
@@ -65,7 +66,8 @@ from airdos_tpu_torch.slam.local_mapping import LocalMapper
 from airdos_tpu_torch.slam.map import SlamMap
 from airdos_tpu_torch.slam.tracking import Tracking, TrackState
 from airdos_tpu_torch.utils.gate import (TRACKING_PRIORITY, WORKER_PRIORITY,
-                                         TrackingGate, new_stream, on_stream)
+                                         TrackingGate, freeze_heap,
+                                         new_stream, on_stream, thaw_heap)
 from airdos_tpu_torch.utils.obs import EventLog, Profiler, span
 
 
@@ -120,6 +122,7 @@ class System:
         self._map_thread = None
         self._worker_error = None     # the worker's first exception
         self._track_stream = None     # online, on the card
+        self._heap_frozen = False     # online: a freeze_heap hold
         if online:
             self._start_online()
         # place recognition: the vocabulary vocabulary_path names (by
@@ -139,6 +142,11 @@ class System:
                     else load_dbow2_text)
             self.vocabulary = load(p, device=self.device)
             self._init_place_recognition()
+        if online:
+            # a garbage collection over the objects alive now would hold
+            # the interpreter lock against tracking (utils/gate.py)
+            freeze_heap()
+            self._heap_frozen = True
 
     def _start_online(self):
         """The online threading: the tracking gate and stream, the mapping
@@ -533,7 +541,8 @@ class System:
     def shutdown(self):
         """Stop the mapping worker once it has processed the keyframes
         queued, wait for the background human BA and global BA, then for
-        the card; raises the first exception one of them raised."""
+        the card, and thaw the heap frozen at the start (online); raises
+        the first exception one of them raised."""
         joins = [self._join_mapping_worker, self.global_ba.join]
         if self.human_ba is not None:
             joins.insert(1, self.human_ba.join)
@@ -545,6 +554,9 @@ class System:
                 first = first or e
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        if self._heap_frozen:
+            self._heap_frozen = False
+            thaw_heap()
         if self.viewer is not None:
             self.viewer.close()
         if first is not None:

@@ -7,11 +7,12 @@ Run from the repository root.  Phases, each of which fails the run:
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions, whether nvcc is present; a CUDA device is required;
-2. build: the sixteen sources of csrc/ (hamming.cu, segment_sum.cu,
+2. build: the nineteen sources of csrc/ (hamming.cu, segment_sum.cu,
    pose_lm.cu, fast.cu, orb_desc.cu, pyramid.cu, select.cu, stereo_sad.cu,
    disparity.cu, ba_static.cu, ba_points.cu, ba_human.cu, match.cu,
-   triangulate.cu, ba_global.cu, sim3_edges.cu) compiled with nvcc for
-   sm_90a, all at once (build seconds);
+   triangulate.cu, ba_global.cu, sim3_edges.cu, ransac.cu, sim3_opt.cu,
+   voc_transform.cu) compiled with nvcc for sm_90a, all at once (build
+   seconds);
 3. slice: tracking only, Tracking(cfg, FrontEnd(cfg, "cuda"), SlamMap(),
    local_mapper=None) (airdos_tpu's tracking-only configuration), over 28
    bench frames of the synthetic world at the reference budget (640x360,
@@ -66,10 +67,12 @@ Run from the repository root.  Phases, each of which fails the run:
    all-zero frames, five repeats of frame 17: every frame before the
    blackout OK, LOST during it, OK at the end having relocalized at frame
    >= 21 (BoW candidates -> SearchByBoW -> EPnP RANSAC -> pose LM), a
-   match_rows launch with the resolve in the relocalizing frame, no
-   TUM step > 0.12 m, ATE <
+   match_rows launch with the resolve, a voc_transform and the EPnP
+   RANSAC's epnp_hypotheses and epnp_refine launches (one each a
+   candidate) in the relocalizing frame, no TUM step > 0.12 m, ATE <
    max(2 x the uninterrupted run's on the same frames, 0.05 m); prints
-   the EPnP inliers, the candidates tried and the frame's latency;
+   the EPnP inliers, the candidates tried and the frame's latency beside
+   the eager RANSAC's (PERF.md);
 7. loop: tests/test_loop_closure.py's pillar orbit (84 frames, Camera.fps
    5, enable_loop_closing) at the bench budget: every frame OK, a loop
    closed with a loop edge, ATE < 0.15 m, an epipolar match_rows and a
@@ -83,8 +86,12 @@ Run from the repository root.  Phases, each of which fails the run:
    calls of five steps), and per loop closure 41 sim3_edges launches (a
    Gauss-Newton and a cost launch a step of the essential graph, and its
    first cost) and 960 schur_point and 960 schur_camera launches (48 each
-   a global BA step); prints the loop's (keyframe, candidate, matches,
-   loop points), the loop spans and the per-frame latency medians;
+   a global BA step), and in every loop frame the Sim3 RANSAC's
+   horn_hypotheses and horn_refine (as many of one as of the other) and
+   a sim3_opt launch; prints the loop's (keyframe, candidate, matches,
+   loop points), the loop spans (sim3.ransac, sim3.optimize and
+   loop.detect beside the eager versions', PERF.md) and the per-frame
+   latency medians;
 8. map scale: the global BA in GlobalBA's schedule over
    tests/test_global_ba.py's corridor at C = 1000 keyframes, P = 100,000
    points, ~300 observations a keyframe, and the essential graph over the
@@ -110,7 +117,8 @@ Run from the repository root.  Phases, each of which fails the run:
    float {0, 1} [.., 256], unpacked outside the timed window; none for
    the pose LM, FAST + NMS, orb_desc, the pyramid, selection,
    stereo_sad, patch_disparity, the BA kernels, the matcher kernels,
-   triangulate and the loop solvers' kernels):
+   triangulate, the loop solvers' kernels, the RANSACs, sim3_opt and
+   voc_transform):
    - the 2-D Hamming kernel at 1536x1536, 2048x1536 and a ragged
      1500x1337 of random words: exact equality; no path launches it, so
      it is held exact, 2-D and batched, at triangulation's recorded
@@ -175,6 +183,21 @@ Run from the repository root.  Phases, each of which fails the run:
      of its largest entry and J^T e within SYSTEM_RTOL |J| |e| + F32_FLOOR
      |J| (the edge's translation scale), or no farther from it than twice
      the plain version in float32 is; two launches bit-equal;
+     epnp_hypotheses and horn_hypotheses (by hypotheses, points, and for
+     Horn fix_scale) against their plain versions (EPnP with the kernel's
+     rule for the eigensolver's choices, canonical=True; EPnP solves in
+     float64, Horn in float32) (ops/ransac_kernels.hypotheses_held): the
+     degenerate samples NaN with no inliers in both, the counts equal on
+     >= 90% of the hypotheses, the poses within 5e-4 on the well-posed
+     samples (where the plain version solved in float32 and in float64
+     agree within 2.5e-4); epnp_refine and horn_refine (by points) within
+     1e-4 (R, t, s of itself) or, ill-conditioned, twice the plain
+     version's own float32 gap, >= 99% of the inlier flags (refine_held);
+     sim3_opt (by pairs, fix_scale, iterations) within 1e-4 (R, t, s of
+     itself) and >= 99% of the flags of optimize_sim3_ref; voc_transform
+     (by descriptors and tree) bit-equal, also on a random full tree of k
+     10 and depth 6 (1,111,111 nodes, ORBvoc's shape) from SEED; each two
+     launches bit-equal;
 10. determinism: two card runs of the mapping System on the small camera
    over 8 frames give byte-identical TUM and KF/MP/Match dumps, and two
    card runs of the human System (small camera, seed 3, 2 humans, masked,
@@ -278,19 +301,25 @@ Run from the repository root.  Phases, each of which fails the run:
       keyframe moved, two runs bit-equal; the largest gap to phase 8's
       single-device solve and the solve times;
    e. phase 6's blackout with Device.NChips = 4: relocalized through the
-      sharded EPnP RANSAC at phase 6's frame;
+      sharded EPnP RANSAC at phase 6's frame, an epnp_hypotheses and an
+      epnp_refine launch a rank a RANSAC;
    f. the Sim3 RANSAC of phase 7's first closed loop, sharded: equal to
-      sim3_ransac;
+      sim3_ransac, a horn_hypotheses and a horn_refine launch a rank;
    g. airdos_tpu_torch.graft_entry.dryrun_multichip(4) on the card.
 
 Each path's kernel launch counts are set to 0 just before the path is
 driven and read just after; launches made to compare a kernel with its
 plain version are not counted, nor the single-device solve that
-sub-step 16a compares with; the kernels line's launches add up the
-mapping, human, reloc, loop, map-scale, online, drivers, long-horizon and
-multi-device paths' counts.  Over all the paths, every triangulation
-call launches one epipolar match_rows and one triangulate, and no path
-launches the Hamming kernel (2-D or batched).  Frames are
+sub-step 16a compares with, nor 16f's single-device RANSAC; the kernels
+line's launches add up the mapping, human, reloc, loop, map-scale,
+online, drivers, long-horizon and multi-device paths' counts.  Over all
+the paths, every triangulation call launches one epipolar match_rows and
+one triangulate, every relocalization RANSAC one epnp_hypotheses and one
+epnp_refine, every Sim3 RANSAC one horn_hypotheses and one horn_refine,
+every OptimizeSim3 one sim3_opt and every Vocabulary.transform one
+voc_transform (each counted on its calling thread), and no path launches
+the Hamming kernel (2-D or batched); 16e launches the EPnP modes and 16f
+the Horn modes once a rank a RANSAC.  Frames are
 rendered in a pool of forked processes before any CUDA context exists.
 The last lines are one JSON line listing the kernels, the nvidia-smi
 line, and {"ok": true, "device": {...}}.
@@ -303,10 +332,14 @@ fused frame, triangulation (its _assemble, triangulate_pair with its
 epipolar match_rows and triangulate launches, and write-back) / fusion /
 BA solve per keyframe) and a
 torch.profiler trace of each of the last four frames (its device kernel
-count and each port kernel's launches), then the crowd-27 flagship
-run's human BA stages (assembly, solve, write-back) and one more solve of
-its last window under torch.profiler (device busy time and the kernels
-that hold it); it checks nothing and prints no result line.
+count and each port kernel's launches), relocalization's and
+ComputeSim3's stages (geometry_split: the relocalizing frame of phase 6's
+blackout and pillar-84's ComputeSim3 calls, each stage synchronized with
+its launches, the frame's and each ComputeSim3's device busy time), then
+the crowd-27 flagship run's human BA stages (assembly, solve, write-back)
+and one more solve of its last window under torch.profiler (device busy
+time and the kernels that hold it); it checks nothing and prints no
+result line.
 """
 from __future__ import annotations
 
@@ -534,9 +567,24 @@ def _pgk():
     return pk
 
 
+def _rsk():
+    from airdos_tpu_torch.ops import ransac_kernels as rk
+    return rk
+
+
+def _s3o():
+    from airdos_tpu_torch.ops import sim3_opt_kernels as so
+    return so
+
+
+def _voc():
+    from airdos_tpu_torch.ops import voc_kernels as vk
+    return vk
+
+
 # the modules that hold the kernels, one nvcc source each
 _MODULES = (_hamming, _segments, _pose, _fast, _orb, _pyr, _sel, _sad, _disp,
-            _bst, _bpt, _bhu, _match, _tri, _bgl, _pgk)
+            _bst, _bpt, _bhu, _match, _tri, _bgl, _pgk, _rsk, _s3o, _voc)
 
 
 def _words(rng, shape):
@@ -1945,6 +1993,346 @@ def _s3_bound(shape, args):
     return nbytes, _s3_ops(args, cost) / FP32_FLOPS
 
 
+# --------------------------- relocalization's and the loop's geometry
+
+# Operations counted from csrc/ransac.cu and csrc/small_eig.cuh.  A Jacobi
+# sweep of an N x N matrix: N (N - 1) / 2 rotations of 18 N + 20 float64
+# operations; every decomposition is counted at one sweep (they stop when
+# the off-diagonal is zero, after several: the bound is a lower bound).
+# EPnP's dense work but its sweeps (M^T M 80, the canonical basis 912, G
+# and rho 606, two candidates of 6 Gauss-Newton steps with their 4 x 4
+# solves, x, c1, M, Horn's N, quaternion and t: 2 x 4,180 less their
+# sweep, the control points and A^-1 170), and its float64 operations a
+# point of the set (centroid 7, covariance 22, alphas and the 56 sums
+# 182, the two candidates' errors 60); Horn's dense work but its sweep
+# (N, quaternion, s, t) and a point's sums (13 + 39); the inlier tests'
+# float32 operations a point and hypothesis (EPnP 30, Horn's mutual test
+# 80).
+def _jacobi_sweep(N: int) -> int:
+    return N * (N - 1) // 2 * (18 * N + 20)
+
+
+EPNP_DENSE = 80 + 912 + 606 + 2 * (4180 - _jacobi_sweep(4)) + 170 + \
+    _jacobi_sweep(12) + 3 * _jacobi_sweep(4) + _jacobi_sweep(3)
+EPNP_POINT = 7 + 22 + 182 + 60
+EPNP_TEST = 30
+HORN_DENSE = 100 + _jacobi_sweep(4)
+HORN_POINT = 13 + 39
+HORN_TEST = 80
+# csrc/sim3_opt.cu: a pair's Gauss-Newton pass (residuals and Jacobians
+# 400, H and g 280) and cost pass (70), a step's solve and two poses (730)
+SIM3_OPT_PAIR_STEP = 680 + 70
+SIM3_OPT_PAIR_COST = 70
+SIM3_OPT_STEP = 730
+# csrc/voc_transform.cu: a child's XOR, popcount and sum of 8 words and
+# its compare
+VOC_CHILD_OPS = 26
+
+
+def _eh_shape(pw, uv, valid, max_err2, sample_idx, *rest):   # (H, n)
+    return (sample_idx.shape[0], pw.shape[0])
+
+
+def _er_shape(pw, *rest):                                     # (n,)
+    return (pw.shape[0],)
+
+
+def _hh_shape(x1, x2, valid, g1, g2, sample_idx, *rest):      # (H, n, fix)
+    return (sample_idx.shape[0], x1.shape[0], bool(rest[-1]))
+
+
+def _hr_shape(x1, *rest):                                     # (n, fix)
+    return (x1.shape[0], bool(rest[-1]))
+
+
+def _hyp_fmt(shape) -> str:
+    return f"H={shape[0]} n={shape[1]}" + \
+        (f" fix_scale={shape[2]}" if len(shape) > 2 else "")
+
+
+def _refine_fmt(shape) -> str:
+    return f"n={shape[0]}" + (f" fix_scale={shape[1]}" if len(shape) > 1
+                              else "")
+
+
+def _as64(args, idx):
+    """args with the float32 tensors at positions idx in float64."""
+    return tuple(a.double() if i in idx else a for i, a in enumerate(args))
+
+
+def _launches_equal(got, again) -> bool:
+    import torch
+    return all(torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0))
+               if a.is_floating_point() else torch.equal(a, b)
+               for a, b in zip(got, again))
+
+
+def _hyp_stats(st, other: str) -> str:
+    return (f"{st['hypotheses']} hypotheses, {st['degenerate']} degenerate "
+            f"(NaN and no inliers in both), counts equal to the plain "
+            f"version's on {st['count_share']:.4f} (to it solved in "
+            f"{other}: {st['count_share_other']:.4f}), poses within "
+            f"{st['pose_gap']:.2e} of it on the {st['well_posed']} well-posed "
+            f"samples (median {st['pose_gap_median']:.1e} over all)")
+
+
+def _eh_check(args):
+    """EPnP hypotheses against the plain version with the kernel's rule
+    for the eigensolver's choices (canonical=True), the well-posed
+    samples told by it solved in float32
+    (ops/ransac_kernels.hypotheses_held); two launches bit-equal."""
+    import torch
+    from airdos_tpu_torch.solvers import epnp as ep
+    rk = _rsk()
+    got = rk.epnp_hypotheses_cuda(*args)
+    again = rk.epnp_hypotheses_cuda(*args)
+    plain = ep.epnp_hypotheses_ref(*args, canonical=True)
+    other = ep.epnp_hypotheses_ref(*args, canonical=True,
+                                   solve_dtype=torch.float32)
+    torch.cuda.synchronize()
+    if not _launches_equal(got, again):
+        _fail("epnp_hypotheses: two launches differ")
+    held, st = rk.hypotheses_held(got, plain, other, args[4])
+    if not held:
+        _fail(f"epnp_hypotheses: not held to its plain version: {st}")
+    return st["pose_gap"], _hyp_stats(st, "float32") + \
+        ", two launches bit-equal", \
+        (lambda: rk.epnp_hypotheses_cuda(*args)), \
+        (lambda: ep.epnp_hypotheses_ref(*args, canonical=True))
+
+
+def _refine_stats(st) -> str:
+    return (f"R within {st['R_gap']:.2e}, t {st['t_gap']:.2e} m, s "
+            f"{st['s_gap']:.2e} of the plain version (which is "
+            f"{st['plain_float32_gap']:.2e} from itself in float64), inlier "
+            f"flags equal on {st['inlier_share']:.4f}, inliers "
+            f"{st['n_inliers']}, two launches bit-equal")
+
+
+def _er_check(args):
+    """The EPnP refine against the plain version (canonical=True) within
+    ops/ransac_kernels.refine_held's tolerances; two launches bit-equal."""
+    import torch
+    from airdos_tpu_torch.solvers import epnp as ep
+    rk = _rsk()
+    got = rk.epnp_refine_cuda(*args)
+    again = rk.epnp_refine_cuda(*args)
+    plain = ep.epnp_refine_ref(*args, canonical=True)
+    plain64 = ep.epnp_refine_ref(*_as64(args, (0, 1, 3, 4, 5)),
+                                 canonical=True)
+    torch.cuda.synchronize()
+    if not _launches_equal(got, again):
+        _fail("epnp_refine: two launches differ")
+    held, st = rk.refine_held(got, plain, plain64)
+    if not held:
+        _fail(f"epnp_refine: not held to its plain version: {st}")
+    return max(st["R_gap"], st["t_gap"]), _refine_stats(st), \
+        (lambda: rk.epnp_refine_cuda(*args)), \
+        (lambda: ep.epnp_refine_ref(*args, canonical=True))
+
+
+def _hh_check(args):
+    """Horn hypotheses against the plain version, the well-posed samples
+    told by it solved in float64 (ops/ransac_kernels.hypotheses_held); two
+    launches bit-equal."""
+    import torch
+    from airdos_tpu_torch.solvers import sim3 as s3
+    rk = _rsk()
+    got = rk.horn_hypotheses_cuda(*args)
+    again = rk.horn_hypotheses_cuda(*args)
+    plain = s3.sim3_hypotheses_ref(*args)
+    plain64 = s3.sim3_hypotheses_ref(*_as64(args, (0, 1, 3, 4)))
+    torch.cuda.synchronize()
+    if not _launches_equal(got, again):
+        _fail("horn_hypotheses: two launches differ")
+    held, st = rk.hypotheses_held(got, plain, plain64, args[5])
+    if not held:
+        _fail(f"horn_hypotheses: not held to its plain version: {st}")
+    return st["pose_gap"], _hyp_stats(st, "float64") + \
+        ", two launches bit-equal", \
+        (lambda: rk.horn_hypotheses_cuda(*args)), \
+        (lambda: s3.sim3_hypotheses_ref(*args))
+
+
+def _hr_check(args):
+    """The Horn refine against the plain version within
+    ops/ransac_kernels.refine_held's tolerances; two launches bit-equal."""
+    import torch
+    from airdos_tpu_torch.solvers import sim3 as s3
+    rk = _rsk()
+    got = rk.horn_refine_cuda(*args)
+    again = rk.horn_refine_cuda(*args)
+    plain = s3.sim3_refine_ref(*args)
+    plain64 = s3.sim3_refine_ref(*_as64(args, (0, 1, 3, 4, 5, 6, 7)))
+    torch.cuda.synchronize()
+    if not _launches_equal(got, again):
+        _fail("horn_refine: two launches differ")
+    held, st = rk.refine_held(got, plain, plain64)
+    if not held:
+        _fail(f"horn_refine: not held to its plain version: {st}")
+    return max(st["R_gap"], st["t_gap"]), _refine_stats(st), \
+        (lambda: rk.horn_refine_cuda(*args)), \
+        (lambda: s3.sim3_refine_ref(*args))
+
+
+def _eh_bound(shape, args):
+    """pw, uv, valid and the gate read once (25 B a point), the samples
+    (16 B) and each hypothesis's pose, flags and count written once; the
+    float64 work of EPNP_DENSE a hypothesis and EPNP_POINT a sample point,
+    the float32 inlier test of every point by every hypothesis."""
+    H, n = shape
+    nbytes = 25 * n + 16 * H + H * (48 + n + 8)
+    return nbytes, H * (EPNP_DENSE + 4 * EPNP_POINT) / FP64_FLOPS + \
+        H * n * EPNP_TEST / FP32_FLOPS
+
+
+def _er_bound(shape, args):
+    (n,) = shape
+    nbytes = 26 * n + 48 + 48 + n + 8
+    return nbytes, (EPNP_DENSE + n * EPNP_POINT) / FP64_FLOPS + \
+        n * EPNP_TEST / FP32_FLOPS
+
+
+def _hh_bound(shape, args):
+    H, n, _ = shape
+    nbytes = 33 * n + 12 * H + H * (52 + n + 8)
+    return nbytes, H * (HORN_DENSE + 3 * HORN_POINT) / FP64_FLOPS + \
+        H * n * HORN_TEST / FP32_FLOPS
+
+
+def _hr_bound(shape, args):
+    n, _ = shape
+    nbytes = 34 * n + 52 + 52 + n + 8
+    return nbytes, (HORN_DENSE + n * HORN_POINT) / FP64_FLOPS + \
+        n * HORN_TEST / FP32_FLOPS
+
+
+def _so_shape(R0, t0, s0, x1, *rest):          # (n, fix_scale, n_iters)
+    return (x1.shape[0], bool(rest[-2]), int(rest[-1]))
+
+
+def _so_fmt(shape) -> str:
+    return f"n={shape[0]} fix_scale={shape[1]} n_iters={shape[2]}"
+
+
+def _so_check(args):
+    """Within ops/sim3_opt_kernels' tolerances of optimize_sim3_ref on the
+    card (R 1e-4, t 1e-4 m, s 1e-4 of itself, >= 99% of the inlier
+    flags); two launches bit-equal."""
+    import torch
+    so = _s3o()
+    got = so.sim3_opt_cuda(*args)
+    again = so.sim3_opt_cuda(*args)
+    want = so.optimize_sim3_ref(*args)
+    torch.cuda.synchronize()
+    if not _launches_equal(got, again):
+        _fail("sim3_opt: two launches differ")
+    held, st = so.held(got, want)
+    if not held:
+        _fail(f"sim3_opt: not held to its plain version: {st}")
+    return max(st["R_gap"], st["t_gap"]), (
+        f"R within {st['R_gap']:.2e}, t {st['t_gap']:.2e} m, s "
+        f"{st['s_gap']:.2e} of the plain version, inlier flags equal on "
+        f"{st['inlier_share']:.4f}, inliers {st['n_inliers']}, two launches "
+        f"bit-equal"), (lambda: so.sim3_opt_cuda(*args)), \
+        (lambda: so.optimize_sim3_ref(*args))
+
+
+def _so_bound(shape, args):
+    """The pairs' inputs (49 B a pair) and the start read once, the pose,
+    flags and count written once; per step a Gauss-Newton and a cost pass
+    over the pairs and the solve, plus each stage's first cost and the two
+    re-checks, in float64."""
+    n, _, iters = shape
+    steps = iters // 2 + iters
+    nbytes = 49 * n + 52 + 52 + n + 8
+    ops = n * (steps * SIM3_OPT_PAIR_STEP + 4 * SIM3_OPT_PAIR_COST) + \
+        steps * SIM3_OPT_STEP
+    return nbytes, ops / FP64_FLOPS
+
+
+def _vt_shape(children, node_desc, word_id, group_of, desc, depth):
+    return (desc.shape[0], children.shape[0], children.shape[1], int(depth))
+
+
+def _vt_fmt(shape) -> str:
+    N, nodes, k, depth = shape
+    return f"N={N} descriptors, tree of {nodes} nodes (k={k}, depth={depth})"
+
+
+def _vt_check(args):
+    """Bit-equal to voc_transform_ref on the card, two launches equal."""
+    import torch
+    vk = _voc()
+    got = vk.voc_transform_cuda(*args)
+    again = vk.voc_transform_cuda(*args)
+    want = vk.voc_transform_ref(*args)
+    torch.cuda.synchronize()
+    for name, g, a, w in zip(("word ids", "groups"), got, again, want):
+        if not torch.equal(g, w):
+            _fail(f"voc_transform {name} != plain version on "
+                  f"{int((g != w).sum())} of {g.numel()} descriptors")
+        if not torch.equal(g, a):
+            _fail(f"voc_transform: two launches differ in {name}")
+    return 0, "bit-equal (word ids, groups), two launches equal", \
+        (lambda: vk.voc_transform_cuda(*args)), \
+        (lambda: vk.voc_transform_ref(*args))
+
+
+def _vt_bound(shape, args):
+    """What these descriptors' descents need: each distinct node they
+    visit, its k child ids and its existing children's descriptors read
+    once, the descriptors read and the ids written once; VOC_CHILD_OPS a
+    child a descriptor a level (at the float32 CUDA-core rate)."""
+    import torch
+    children, node_desc, word_id, group_of, desc, depth = args
+    N, _, k, _ = shape
+    vk = _voc()
+    d64 = desc.to(torch.int64) & 0xFFFFFFFF
+    cur = torch.zeros(N, dtype=torch.int64, device=desc.device)
+    visited = []
+    for _ in range(depth):
+        ch = children[cur]
+        has = ch >= 0
+        visited.append(torch.unique(cur[has.any(-1)]))
+        cd = node_desc[torch.clamp(ch, min=0)].to(torch.int64) & 0xFFFFFFFF
+        dist = vk._popcount32(cd ^ d64[:, None, :]).sum(-1)
+        dist = torch.where(has, dist, torch.full_like(dist, vk.MISSING))
+        nxt = torch.gather(ch, 1, torch.argmin(dist, -1)[:, None])[:, 0]
+        cur = torch.where(has.any(-1), nxt.to(torch.int64), cur)
+    nodes = torch.unique(torch.cat(visited)) if visited else cur[:0]
+    n_children = int((children[nodes] >= 0).sum()) if len(nodes) else 0
+    leaves = int(torch.unique(cur).numel())
+    nbytes = 4 * k * len(nodes) + 32 * n_children + 8 * leaves + 32 * N + 8 * N
+    return nbytes, N * depth * k * VOC_CHILD_OPS / FP32_FLOPS
+
+
+def _vt_variants(shapes):
+    """A random full tree of k 10 and depth 6 (1,111,111 nodes, 35.6 MB of
+    node descriptors), the shape of ORB-SLAM2's ORBvoc (not in the
+    repository), made from SEED, at the paths' largest descriptor batch."""
+    import torch
+    from airdos_tpu_torch.bow.vocabulary import Vocabulary
+    k, depth = 10, 6
+    nodes = (k ** (depth + 1) - 1) // (k - 1)
+    internal = (k ** depth - 1) // (k - 1)
+    rng = np.random.default_rng(SEED)
+    children = np.full((nodes, k), -1, np.int32)
+    children[:internal] = np.arange(internal)[:, None] * k + 1 + np.arange(k)
+    desc = rng.integers(0, 2 ** 32, (nodes, 8), dtype=np.uint64) \
+        .astype(np.uint32)
+    word_id = np.full(nodes, -1, np.int32)
+    word_id[internal:] = np.arange(nodes - internal)
+    voc = Vocabulary(k=k, depth=depth, node_desc32=desc, children=children,
+                     word_id=word_id,
+                     weights=np.ones(nodes - internal, np.float32),
+                     n_words=nodes - internal, feature_level=2, device="cuda")
+    N = max((sh[0] for sh in shapes), default=2000)
+    words = rng.integers(0, 2 ** 32, (N, 8), dtype=np.uint64).astype(np.uint32)
+    d = torch.from_numpy(words.view(np.int32)).cuda()
+    return {(N, nodes, k, depth): (*voc._device_tables(), d, depth)}
+
+
 class _Kernel(NamedTuple):
     """Everything the script knows of one kernel: where it lives, the
     wrapper the main paths' launches are recorded at, how a recorded
@@ -1967,6 +2355,7 @@ class _Kernel(NamedTuple):
     graph_n: int = 100              # launches in the timed CUDA graph
     human_only: bool = False        # launched by the human layer alone
     loop_only: bool = False         # launched by loop closing alone
+    reloc_only: bool = False        # launched by relocalization alone
     off_path: bool = False          # launched by no path (checked alone)
     # recorded {shape: [launches, args]} -> {shape: args}: cases the paths
     # did not launch, checked and timed beside them
@@ -2115,6 +2504,39 @@ KERNELS = (
             "edge_system (jacfwd), :77-78 J^T W J and J^T W e, :96 cost",
             _s3_shape, _s3_fmt, lambda shape: shape[1], _s3_check,
             _s3_bound, _no_library, loop_only=True),
+    _Kernel("epnp_hypotheses", _rsk, "epnp_hypotheses_cuda",
+            "epnp_hypotheses_launches", "airdos_tpu_torch/csrc/ransac.cu",
+            "airdos_tpu/solvers/epnp.py:147 epnp_ransac (one_hyp :167, "
+            "epnp_pose :90, its eigh :30 and :98)", _eh_shape, _hyp_fmt,
+            lambda shape: shape[0] * shape[1], _eh_check, _eh_bound,
+            _no_library, reloc_only=True),
+    _Kernel("epnp_refine", _rsk, "epnp_refine_cuda", "epnp_refine_launches",
+            "airdos_tpu_torch/csrc/ransac.cu",
+            "airdos_tpu/solvers/epnp.py:171-185 (epnp_ransac's refine)",
+            _er_shape, _refine_fmt, lambda shape: shape[0], _er_check,
+            _er_bound, _no_library, reloc_only=True),
+    _Kernel("horn_hypotheses", _rsk, "horn_hypotheses_cuda",
+            "horn_hypotheses_launches", "airdos_tpu_torch/csrc/ransac.cu",
+            "airdos_tpu/solvers/sim3.py:33 sim3_ransac (one_hyp :65), "
+            "airdos_tpu/solvers/align.py:16 horn_align (eigh :47)",
+            _hh_shape, _hyp_fmt, lambda shape: shape[0] * shape[1],
+            _hh_check, _hh_bound, _no_library, loop_only=True),
+    _Kernel("horn_refine", _rsk, "horn_refine_cuda", "horn_refine_launches",
+            "airdos_tpu_torch/csrc/ransac.cu",
+            "airdos_tpu/solvers/sim3.py:70-78 (sim3_ransac's refine)",
+            _hr_shape, _refine_fmt, lambda shape: shape[0], _hr_check,
+            _hr_bound, _no_library, loop_only=True),
+    _Kernel("sim3_opt", _s3o, "sim3_opt_cuda", "launches",
+            "airdos_tpu_torch/csrc/sim3_opt.cu",
+            "airdos_tpu/solvers/sim3.py:82 optimize_sim3 (its two "
+            "lax.fori_loops of jacfwd Gauss-Newton steps)", _so_shape,
+            _so_fmt, lambda shape: shape[0], _so_check, _so_bound,
+            _no_library, graph_n=20, loop_only=True),
+    _Kernel("voc_transform", _voc, "voc_transform_cuda", "launches",
+            "airdos_tpu_torch/csrc/voc_transform.cu",
+            "airdos_tpu/bow/vocabulary.py:75 _transform_device", _vt_shape,
+            _vt_fmt, lambda shape: shape[0], _vt_check, _vt_bound,
+            _no_library, variants=_vt_variants),
 )
 
 # the BA kernels' launches per solve of the static (local) BA and of the
@@ -2219,6 +2641,53 @@ def _sim3_watch():
     return _call_watch(loop_closing, "match_by_sim3",
                        (mk.launches,
                         lambda: hk.launches() + hk.batched_launches()))
+
+
+def _own(tally, name):
+    """name's launches from the calling thread so far: online mode's
+    threads launch at once, so a call's launches are its own thread's."""
+    def count():
+        me = threading.current_thread().name
+        return sum(n for (k, th, _), n in tally().items()
+                   if k == name and th == me)
+    return count
+
+
+@contextlib.contextmanager
+def _geometry_watch():
+    """Every relocalization RANSAC (tracking's epnp_ransac: the single-
+    device one), loop closing's Sim3 RANSAC and OptimizeSim3, and every
+    Vocabulary.transform -> {what: [(its kernels' launches from the
+    calling thread over the call)], a call each}."""
+    from airdos_tpu_torch.bow.vocabulary import Vocabulary
+    from airdos_tpu_torch.slam import loop_closing, tracking
+    rk, so, vk = _rsk(), _s3o(), _voc()
+    with _call_watch(tracking, "epnp_ransac",
+                     (_own(rk.launch_tally, "epnp_hypotheses"),
+                      _own(rk.launch_tally, "epnp_refine"))) as pnp, \
+            _call_watch(loop_closing, "sim3_ransac",
+                        (_own(rk.launch_tally, "horn_hypotheses"),
+                         _own(rk.launch_tally, "horn_refine"))) as sim3, \
+            _call_watch(loop_closing, "optimize_sim3",
+                        (_own(so.launch_tally, "sim3_opt"),)) as opt, \
+            _call_watch(Vocabulary, "transform",
+                        (_own(vk.launch_tally, "voc_transform"),)) as voc:
+        yield {"EPnP RANSAC": (pnp, (1, 1)), "Sim3 RANSAC": (sim3, (1, 1)),
+               "OptimizeSim3": (opt, (1,)), "Vocabulary.transform":
+               (voc, (1,))}
+
+
+def _geometry_off(watched) -> list:
+    """The calls of _geometry_watch that did not launch their kernels once
+    each (EPnP: hypotheses and refine; Sim3: Horn's two modes;
+    OptimizeSim3: sim3_opt; transform: voc_transform), or a kind with no
+    call: [(what, call, launches)]."""
+    off = []
+    for what, (calls, want) in watched.items():
+        if not calls:
+            off.append((what, None, None))
+        off += [(what, i, c) for i, c in enumerate(calls) if c != want]
+    return off
 
 
 def _triangulation_off(calls) -> list:
@@ -2831,8 +3300,8 @@ def phase_mapping(smi: str, frames, twc, twins):
     if ba_off:
         _fail(f"mapping: BA kernel launches per solve != {STATIC_SOLVE} at "
               f"(frame, kernel, launches, expected) {ba_off[:8]}")
-    not_here = {k.name for k in KERNELS
-                if k.human_only or k.loop_only or k.off_path}
+    not_here = {k.name for k in KERNELS if k.human_only or k.loop_only
+                or k.reloc_only or k.off_path}
     idle = [k for k, v in counts.items() if v <= 0 and k not in not_here]
     if idle:
         _fail(f"mapping: kernels never launched on the main path: {idle}")
@@ -2975,7 +3444,8 @@ def phase_human(smi: str, frames, twc, twins):
         _fail(f"human: BA kernel launches != {STATIC_SOLVE} per static and "
               f"{HUMAN_SOLVE} per human BA solve at (frame, kernel, "
               f"launches, expected) {ba_off[:8]}")
-    not_here = {k.name for k in KERNELS if k.loop_only or k.off_path}
+    not_here = {k.name for k in KERNELS
+                if k.loop_only or k.reloc_only or k.off_path}
     idle = [k for k, v in counts.items() if v <= 0 and k not in not_here]
     if idle:
         _fail(f"human: kernels never launched on the main path: {idle}")
@@ -3074,6 +3544,11 @@ def phase_reloc(smi: str, frames, twc):
             per[reloc_i]["d"]["match_resolve"] <= 0:
         _fail(f"reloc: frame {reloc_i} relocalized without a match_rows "
               f"launch with the resolve (the BoW match)")
+    d = per[reloc_i]["d"]
+    if d["epnp_hypotheses"] <= 0 or d["epnp_refine"] != \
+            d["epnp_hypotheses"] or d["voc_transform"] <= 0:
+        _fail(f"reloc: frame {reloc_i} relocalized without the EPnP "
+              f"RANSAC's two launches a candidate and a voc_transform: {d}")
     ate_cut = float(ate_rmse(t_cut, gt[:len(t_cut)]))
     _FOR_MESH["reloc_frame"] = reloc_i
     full_frames, _ = _reloc_frames(frames, twc, blank=False)
@@ -3086,7 +3561,10 @@ def phase_reloc(smi: str, frames, twc):
     print(f"[reloc] relocalized at frame {reloc_i} against keyframe "
           f"{per[reloc_i]['ref']}: {trk.reloc_tried} candidates tried, "
           f"EPnP RANSAC inliers {trk.reloc_inliers}, frame latency "
-          f"{per[reloc_i]['ms']:.2f} ms; max TUM step {steps.max():.4f} m; "
+          f"{per[reloc_i]['ms']:.2f} ms (145.21 ms with the eager RANSAC), "
+          f"{d['epnp_hypotheses']} epnp_hypotheses, {d['epnp_refine']} "
+          f"epnp_refine and {d['voc_transform']} voc_transform launches; "
+          f"max TUM step {steps.max():.4f} m; "
           f"ATE {ate_cut:.6f} m (uninterrupted {ate_full:.6f} m); launches "
           f"{counts} on {smi}", flush=True)
     return counts
@@ -3231,6 +3709,13 @@ def phase_loop(smi: str, frames, twc):
     if slam.global_ba.n_runs != lc.n_loops_closed:
         _fail("loop: not one global BA per loop closure")
     loop_frames = [i for i, p in enumerate(per) if p["loops"]]
+    geo = [(i, {k: per[i]["d"][k] for k in ("horn_hypotheses",
+                                            "horn_refine", "sim3_opt")})
+           for i in loop_frames]
+    if any(min(c.values()) <= 0 or c["horn_hypotheses"] != c["horn_refine"]
+           for _, c in geo):
+        _fail(f"loop: a loop frame without the Sim3 RANSAC's two launches "
+              f"and a sim3_opt: {geo}")
     if any(per[i]["d"]["match_epipolar"] <= 0 or
            per[i]["d"]["triangulate"] <= 0 or
            per[i]["d"]["match_rows"] <= 0 or per[i]["d"]["match_fuse"] <= 0
@@ -3266,6 +3751,14 @@ def phase_loop(smi: str, frames, twc):
         for k, v in sorted(spans.items())
         if k.startswith(("map.loop_closing", "loop.", "sim3.", "gba.",
                          "map.static_ba", "track.step"))), flush=True)
+    med = {k: v["median_s"] * 1e3 for k, v in spans.items()}
+    print(f"[loop] beside the eager versions' (median ms, PERF.md): "
+          f"sim3.ransac {med.get('sim3.ransac', float('nan')):.2f} (9.93), "
+          f"sim3.optimize {med.get('sim3.optimize', float('nan')):.2f} "
+          f"(79.22 / 116.70), loop.detect "
+          f"{med.get('loop.detect', float('nan')):.2f} (8.69); the loop "
+          f"frames' launches of the new kernels {geo} on {smi}",
+          flush=True)
     return counts, snaps[0][:3], slam.frontend.extractor, \
         dict(track_ms=track_ms, all_ms=[p["ms"] for p in per],
              loop_ms=[per[i]["ms"] for i in loop_frames],
@@ -3396,6 +3889,56 @@ def _feed(frames, fps):
         yield data
 
 
+class _GcPauses:
+    """Every collection of Python's cyclic garbage collector while the
+    block runs, as (thread, generation, start, end) on time.time(), the
+    event log's clock.  A collection holds the interpreter lock, so every
+    other thread's Python waits for its end."""
+
+    def __init__(self):
+        self.pauses, self._t0 = [], None
+
+    def _callback(self, phase, info):
+        if phase == "start":
+            self._t0 = time.time()
+        elif self._t0 is not None:
+            self.pauses.append((threading.current_thread().name,
+                                info["generation"], self._t0, time.time()))
+            self._t0 = None
+
+    def __enter__(self):
+        import gc
+        self.tracked = len(gc.get_objects())
+        self.frozen = gc.get_freeze_count()
+        gc.callbacks.append(self._callback)
+        return self
+
+    def __exit__(self, *exc):
+        import gc
+        gc.callbacks.remove(self._callback)
+        return False
+
+    def within(self, t_end: float, seconds: float) -> str:
+        """The collections that overlapped the frame that ended at t_end
+        after `seconds`."""
+        t0 = t_end - seconds
+        hits = [(min(b, t_end) - max(a, t0), th, g)
+                for th, g, a, b in self.pauses if a < t_end and b > t0]
+        return ", ".join(f"{th} generation {g} {d * 1e3:.2f} ms"
+                         for d, th, g in sorted(hits, reverse=True)) or "none"
+
+    def summary(self) -> str:
+        out = []
+        for g in (0, 1, 2):
+            d = [b - a for _, gen, a, b in self.pauses if gen == g]
+            if d:
+                out.append(f"generation {g}: {len(d)}, {sum(d) * 1e3:.2f} "
+                           f"ms in all, longest {max(d) * 1e3:.2f} ms")
+        return (f"{self.tracked} objects tracked and {self.frozen} frozen "
+                f"at the start; "
+                + ("; ".join(out) or "no collection"))
+
+
 def _run_online_pillar(orbit, fps):
     """The pillar orbit through the online System at the bench budget,
     fed by _feed(orbit, fps), frame i + 1 prefetched before frame i.
@@ -3422,25 +3965,28 @@ def _run_online_pillar(orbit, fps):
         return n
     trk.mapping_queue_len_fn = read_queue
     states, load = [], []
-    for i, data in enumerate(_feed(orbit, fps)):
-        if i + 1 < len(orbit):
-            slam.prefetch(orbit[i + 1])
-        k0, r0 = slam.map.next_kf_id, refused[0]
-        slam.track_stereo(data)
-        states.append(trk.state.name)
-        load.append((slam.map.next_kf_id - k0, refused[0] - r0,
-                     queue_len()))
-    slam.shutdown()
+    with _GcPauses() as gc_pauses:
+        for i, data in enumerate(_feed(orbit, fps)):
+            if i + 1 < len(orbit):
+                slam.prefetch(orbit[i + 1])
+            k0, r0 = slam.map.next_kf_id, refused[0]
+            slam.track_stereo(data)
+            states.append(trk.state.name)
+            load.append((slam.map.next_kf_id - k0, refused[0] - r0,
+                         queue_len()))
+        slam.shutdown()
     times, stamps, loop_stamps = _frame_events(slam)
     med = float(np.median(times[20:]))
     sel = _stall_window(times, stamps, loop_stamps)
-    worst, waits = None, "none"
+    worst, waits, gc_worst = None, "none", "none"
     if sel.any():
         i = np.flatnonzero(sel)[np.argmax(times[sel])]
         worst, waits = float(times[i]), _lock_waits(lock, stamps[i], times[i])
+        gc_worst = gc_pauses.within(stamps[i], times[i])
     return slam, states, dict(times=times, med=med, sel=sel, worst=worst,
                               waits=waits, bound=max(3.0 * med, med + 0.5),
-                              load=np.asarray(load))
+                              load=np.asarray(load), gc=gc_pauses.summary(),
+                              gc_worst=gc_worst, gc_log=gc_pauses)
 
 
 def _mapping_load(st) -> str:
@@ -3473,6 +4019,9 @@ def _online_pillar(smi, orbit, orbit_twc, offline_loop, live: bool):
           f"{lc.closed if lc else None}, global BA runs "
           f"{slam.global_ba.n_runs} (aborted {slam.global_ba.n_aborted}); "
           f"launches {counts}")
+    if not st["gc_log"].frozen:
+        _fail(f"online {feed}: the System froze no object against the "
+              f"garbage collector's scans")
     if states[-1] != "OK":
         _fail(f"online {feed}: the last pillar frame is {states[-1]}")
     if lc is None or lc.n_loops_closed < 1:
@@ -3498,7 +4047,10 @@ def _online_pillar(smi, orbit, orbit_twc, offline_loop, live: bool):
           f"{smi}", flush=True)
     print(f"[online] stall window frames (ms): "
           f"{[round(float(x) * 1e3, 1) for x in stalled]}; in the worst "
-          f"{st['waits']}", flush=True)
+          f"{st['waits']}; garbage collections in the worst: "
+          f"{st['gc_worst']}", flush=True)
+    print(f"[online] garbage collections over the run: {st['gc']}",
+          flush=True)
     print(f"[online] mapping load online: {_mapping_load(st)}; offline in "
           f"phase loop: keyframes inserted {off['n_kfs']}", flush=True)
     if worst is not None and not worst < st["bound"]:
@@ -4056,7 +4608,7 @@ def phase_profile(smi: str):
     import airdos_tpu_torch.slam.fused as fused
     from airdos_tpu_torch.slam.system import System
 
-    frames, _ = _bench_frames(N_FRAMES)
+    frames, twc = _bench_frames(N_FRAMES)
     slam = System(_bench_config(), device="cuda")
     acc = collections.defaultdict(float)
 
@@ -4167,6 +4719,10 @@ def phase_profile(smi: str):
                    + "\n" + ka.table(sort_by="count", row_limit=25))
     print(f"[profile] tables in {out}", flush=True)
 
+    # relocalization's and ComputeSim3's stages
+    orbit, _ = _orbit_frames(N_ORBIT)
+    geometry_split(smi, frames, twc, orbit, counts=_counts)
+
     # the flagship's human BA stages: assembly and write-back on the host,
     # the solve ending in its one copy back (a device sync)
     crowd, _ = _crowd_frames(N_CROWD)
@@ -4202,6 +4758,179 @@ def phase_profile(smi: str):
           f"{busy_ms / wall_ms:.4f}); most device time: " + "; ".join(
               f"{name[:60]} {ms:.2f} ms" for name, ms in top) +
           f" on {smi}", flush=True)
+
+
+GEOMETRY_STAGES = (
+    # (owner, attribute, stage), the owners by module path
+    ("airdos_tpu_torch.bow.vocabulary:Vocabulary", "transform",
+     "BoW transform"),
+    ("airdos_tpu_torch.slam.keyframe_db:KeyFrameDatabase",
+     "detect_reloc_candidates", "reloc candidates"),
+    ("airdos_tpu_torch.slam.tracking", "match_by_bow", "SearchByBoW"),
+    ("airdos_tpu_torch.slam.tracking", "epnp_ransac", "EPnP RANSAC"),
+    ("airdos_tpu_torch.slam.tracking:Tracking", "_opt_pose_with_assoc",
+     "pose optimization"),
+    ("airdos_tpu_torch.slam.tracking:Tracking", "_reloc_expand",
+     "projection expansion"),
+    ("airdos_tpu_torch.slam.loop_closing:LoopCloser", "compute_sim3",
+     "ComputeSim3"),
+    ("airdos_tpu_torch.slam.loop_closing", "match_by_bow",
+     "  of which SearchByBoW"),
+    ("airdos_tpu_torch.slam.loop_closing", "sim3_ransac",
+     "  of which Sim3 RANSAC"),
+    ("airdos_tpu_torch.slam.loop_closing", "optimize_sim3",
+     "  of which OptimizeSim3"))
+
+
+def _owner(path: str):
+    import importlib
+    mod, _, cls = path.partition(":")
+    obj = importlib.import_module(mod)
+    return getattr(obj, cls) if cls else obj
+
+
+def geometry_split(smi: str, frames, twc, orbit, counts=None,
+                   busy: bool = True) -> dict:
+    """Where relocalization's and ComputeSim3's time goes: phase reloc's
+    blackout and the pillar orbit through Systems whose GEOMETRY_STAGES
+    are each timed with a synchronize on both sides (and, with counts, its
+    kernel launches counted).  Prints the relocalizing frame's stages and
+    the ComputeSim3 calls' (medians), the spans sim3.* and loop.detect,
+    and with busy the relocalizing frame's and each ComputeSim3's device
+    busy time (torch.profiler, device activity only, in a second run of
+    the blackout and inline in the orbit).  Returns them as a dict.  Also
+    run by tools/reloc_loop_ab.py on an older checkout, hence the owners
+    by name and counts optional."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from airdos_tpu_torch.slam.system import System
+    counts = counts or (lambda: {})
+    rec = []                       # (frame, stage, ms, launches, busy ms)
+    at = {"frame": -1, "profile": None}
+
+    def timed(stage, fn):
+        def wrapped(*args, **kwargs):
+            torch.cuda.synchronize()
+            c0, t0 = counts(), time.perf_counter()
+            prof = None
+            if at["profile"] == stage:
+                prof = profile(activities=[ProfilerActivity.CUDA])
+                prof.__enter__()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            dev = None
+            if prof is not None:
+                prof.__exit__(None, None, None)
+                dev = sum(e.time_range.elapsed_us() for e in prof.events()
+                          if e.device_type ==
+                          torch.autograd.DeviceType.CUDA) / 1e3
+            c1 = counts()
+            rec.append((at["frame"], stage, ms,
+                        {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]},
+                        dev))
+            return out
+        return wrapped
+
+    saved = [(_owner(o), a, getattr(_owner(o), a))
+             for o, a, _ in GEOMETRY_STAGES]
+    for (obj, attr, fn), (_, _, stage) in zip(saved, GEOMETRY_STAGES):
+        setattr(obj, attr, timed(stage, fn))
+    out = {}
+    try:
+        cut, _ = _reloc_frames(frames, twc, blank=True)
+
+        def blackout(profile_at=None):
+            slam = System(_bench_config(), device="cuda")
+            per = []
+            for i, data in enumerate(cut):
+                at["frame"] = i
+                prof = None
+                if i == profile_at:
+                    prof = profile(activities=[ProfilerActivity.CUDA])
+                    prof.__enter__()
+                torch.cuda.synchronize()
+                c0, t0 = counts(), time.perf_counter()
+                slam.track_stereo(data)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                c1 = counts()
+                dev = None
+                if prof is not None:
+                    prof.__exit__(None, None, None)
+                    evs = [e for e in prof.events() if e.device_type ==
+                           torch.autograd.DeviceType.CUDA]
+                    dev = (sum(e.time_range.elapsed_us() for e in evs)
+                           / 1e3, len(evs))
+                per.append((ms, {k: c1[k] - c0[k] for k in c1
+                                 if c1[k] != c0[k]}, dev))
+            return slam.tracking.last_reloc_frame, per
+
+        ri, per = blackout()
+        if not 0 <= ri < len(per):
+            raise RuntimeError(f"the blackout did not relocalize ({ri})")
+        ri = int(ri)
+        stages = [(st, ms, d) for f, st, ms, d, _ in rec if f == ri]
+        out["reloc"] = dict(frame=ri, ms=per[ri][0], launches=per[ri][1],
+                            stages=collections.defaultdict(float))
+        for st, ms, _ in stages:
+            out["reloc"]["stages"][st] += ms
+        print(f"[split] the relocalizing frame {ri} of phase reloc's "
+              f"blackout: {per[ri][0]:.2f} ms, launches {per[ri][1]}; "
+              f"synchronized stages (calls, ms, launches) on {smi}:")
+        for st in dict.fromkeys(st for st, _, _ in stages):
+            ms = [m for x, m, _ in stages if x == st]
+            la = collections.Counter()
+            for x, _, d in stages:
+                if x == st:
+                    la.update(d)
+            print(f"[split]   {st:28s} {len(ms):3d} {sum(ms):9.2f} ms "
+                  f"{dict(la)}")
+        if busy:
+            rec.clear()
+            ri2, per2 = blackout(profile_at=ri)
+            if ri2 == ri and per2[ri][2] is not None:
+                busy_ms, n_k = per2[ri][2]
+                out["reloc"]["busy_ms"] = busy_ms
+                print(f"[split]   under torch.profiler (a second run): "
+                      f"{n_k} device kernels, device busy {busy_ms:.2f} ms "
+                      f"of {per2[ri][0]:.2f} ms")
+
+        rec.clear()
+        at["profile"] = "ComputeSim3" if busy else None
+        slam = System(_loop_config(), device="cuda")
+        for i, data in enumerate(orbit):
+            at["frame"] = i
+            slam.track_stereo(data)
+        at["profile"] = None
+        calls = [r for r in rec if r[1] == "ComputeSim3"]
+        print(f"[split] pillar-{len(orbit)}: {len(calls)} ComputeSim3 calls "
+              f"at frames {[r[0] for r in calls]}, loops closed "
+              f"{slam.loop_closer.n_loops_closed}; synchronized stages "
+              f"(calls, median ms, launches of the first) on {smi}:")
+        out["sim3"] = {}
+        for _, _, stage in GEOMETRY_STAGES[6:]:
+            rows = [r for r in rec if r[1] == stage]
+            if not rows:
+                continue
+            med = float(np.median([r[2] for r in rows]))
+            out["sim3"][stage.strip()] = med
+            dev = [r[4] for r in rows if r[4] is not None]
+            extra = (f", device busy median {np.median(dev):.2f} ms "
+                     f"(under torch.profiler)" if dev else "")
+            print(f"[split]   {stage:28s} {len(rows):3d} {med:9.2f} ms "
+                  f"{rows[0][3]}{extra}")
+        spans = slam.profiler.report()
+        out["spans"] = {k: v["median_s"] * 1e3 for k, v in spans.items()
+                        if k.startswith(("sim3.", "loop."))}
+        print("[split]   spans (median ms): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in sorted(out["spans"].items())),
+            flush=True)
+    finally:
+        for obj, attr, fn in saved:
+            setattr(obj, attr, fn)
+    return out
 
 
 def _settings_yaml(cfg) -> str:
@@ -4975,14 +5704,18 @@ def phase_multi_device(smi: str, frames, twc, crowd, crowd_twc):
                 any(s != "LOST" for s in states[N_GOOD:N_GOOD + N_BLANK]) \
                 or states[-1] != "OK" or trk.last_reloc_frame != want \
                 or trk._sharded_pnp is None \
-                or runs["sharded_epnp_ransac"] < 1:
+                or runs["sharded_epnp_ransac"] < 1 \
+                or counts["epnp_hypotheses"] != \
+                n * runs["sharded_epnp_ransac"] \
+                or counts["epnp_refine"] != counts["epnp_hypotheses"]:
             _fail(f"multi-device e: states {states}, relocalized at "
                   f"{trk.last_reloc_frame} (phase reloc {want}), sharded "
                   f"runs {dict(runs)}")
         print(f"[multi-device] e: blackout, Device.NChips {n}: relocalized "
               f"at frame {trk.last_reloc_frame} as phase reloc, through "
               f"{runs['sharded_epnp_ransac']} sharded EPnP RANSAC calls "
-              f"({trk.reloc_inliers} inliers); launches {counts}",
+              f"({trk.reloc_inliers} inliers), each an epnp_hypotheses and "
+              f"an epnp_refine launch a rank; launches {counts}",
               flush=True)
         return counts
 
@@ -4990,7 +5723,15 @@ def phase_multi_device(smi: str, frames, twc, crowd, crowd_twc):
         """Phase loop's Sim3 RANSAC, sharded: equal to sim3_ransac."""
         args, kwargs = _FOR_MESH["sim3"]
         single = sim3_ransac(*args, **kwargs)
+        _sync()
+        _reset_counts()
         sharded = sharded_sim3_ransac(mesh, **kwargs)(*args)
+        _sync()
+        counts = _counts()
+        if counts["horn_hypotheses"] != n or counts["horn_refine"] != n:
+            _fail(f"multi-device f: the sharded Sim3 RANSAC launched "
+                  f"{counts['horn_hypotheses']} horn_hypotheses and "
+                  f"{counts['horn_refine']} horn_refine, not one each a rank")
         differ = [f for f, x, y in zip(single._fields, sharded, single)
                   if not torch.equal(x, y)]
         if differ:
@@ -4998,9 +5739,10 @@ def phase_multi_device(smi: str, frames, twc, crowd, crowd_twc):
         print(f"[multi-device] f: Sim3 RANSAC of phase loop's closed loop "
               f"({args[0].shape[0]} matches, {args[3].shape[0]} hypotheses)"
               f": sharded result equal to sim3_ransac (winner "
-              f"{int(single.best)}, {int(single.n_inliers)} inliers)",
+              f"{int(single.best)}, {int(single.n_inliers)} inliers), a "
+              f"horn_hypotheses and a horn_refine launch a rank",
               flush=True)
-        return dict.fromkeys(_counts(), 0)
+        return counts
 
     def step_g(mesh):
         """graft_entry.dryrun_multichip on the card."""
@@ -5062,7 +5804,8 @@ def _path_phases(smi: str, frames, twc, cli):
     long_world, long_frames, long_twc = _phase("render long-110",
                                                _long_horizon_frames)
     memory = {}
-    with _path_recording(), _triangulation_watch() as triangulations:
+    with _path_recording(), _triangulation_watch() as triangulations, \
+            _geometry_watch() as geometry:
         _phase("slice", phase_slice, smi, frames, twc)
         launches = _phase("mapping", phase_mapping, smi,
                           [_twin(d) for d in frames], twc, memory)
@@ -5087,6 +5830,13 @@ def _path_phases(smi: str, frames, twc, cli):
         _fail(f"triangulation calls (call, (epipolar match_rows, triangulate, "
               f"Hamming launches)) {tri_off[:8]} not (1, 1, 0), of "
               f"{len(triangulations)}")
+    geo_off = _geometry_off(geometry)
+    if geo_off:
+        _fail(f"(call kind, call, launches) {geo_off[:8]} not one launch of "
+              f"each of its kernels")
+    print("[paths] " + "; ".join(
+        f"{what}: {len(calls)} calls, each {want} launches of its kernels"
+        for what, (calls, want) in geometry.items()), flush=True)
     ham = {k.name: launches[k.name] for k in KERNELS if k.off_path}
     if any(ham.values()):
         _fail(f"the paths launched the Hamming kernel: {ham}")

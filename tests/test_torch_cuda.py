@@ -2357,3 +2357,172 @@ def test_sim3_edges_kernel_within_tolerance_of_plain_version(cuda, K, E,
         else:
             ok, mine, plain = pk.held(got, *args)
             assert ok, (mine, plain)
+
+
+# ---------------------------- relocalization's and the loop's geometry
+
+def _ransac_cases():
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch_ransac_cases as trc
+    return trc
+
+
+def _on(arrays, dev, f64=False):
+    out = []
+    for a in arrays:
+        t = torch.from_numpy(np.array(a)).to(dev)
+        out.append(t.double() if f64 and t.dtype == torch.float32 else t)
+    return out
+
+
+@pytest.mark.parametrize("n,H,distinct", [(200, 256, True), (60, 256, False),
+                                          (15, 64, False)])
+def test_epnp_ransac_kernels_within_tolerance_of_plain_version(cuda, n, H,
+                                                               distinct):
+    import airdos_tpu_torch.ops.ransac_kernels as rk
+    from airdos_tpu_torch.solvers import epnp as ep
+    trc = _ransac_cases()
+    case = trc.pnp_case(n, n=n, n_out=n // 5, H=H, distinct=distinct)
+    pw, uv, valid, gate, smp = _on(case, cuda)
+    cam = (trc.FX, trc.FY, trc.CX, trc.CY)
+    got = rk.epnp_hypotheses_cuda(pw, uv, valid, gate, smp, *cam)
+    again = rk.epnp_hypotheses_cuda(pw, uv, valid, gate, smp, *cam)
+    plain = ep.epnp_hypotheses_ref(pw, uv, valid, gate, smp, *cam,
+                                   canonical=True)
+    other = ep.epnp_hypotheses_ref(pw, uv, valid, gate, smp, *cam,
+                                   canonical=True, solve_dtype=torch.float32)
+    p64, u64, _, g64, _ = _on(case, cuda, f64=True)
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        assert torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0))
+    held, stats = rk.hypotheses_held(got, plain, other, smp)
+    assert held, stats
+    best = torch.argmax(got[-1])
+    args = (pw, uv, valid, gate, got[0][best], got[1][best], got[2][best],
+            *cam)
+    args64 = (p64, u64, valid, g64, got[0][best].double(),
+              got[1][best].double(), got[2][best], *cam)
+    held, stats = rk.refine_held(rk.epnp_refine_cuda(*args),
+                                 ep.epnp_refine_ref(*args, canonical=True),
+                                 ep.epnp_refine_ref(*args64, canonical=True))
+    assert held, stats
+    before = (rk.epnp_hypotheses_launches(), rk.epnp_refine_launches())
+    res = ep.epnp_ransac(pw, uv, valid, gate, smp, *cam)
+    torch.cuda.synchronize()
+    assert (rk.epnp_hypotheses_launches(), rk.epnp_refine_launches()) == \
+        (before[0] + 1, before[1] + 1)
+    assert int(res.n_inliers) >= n - n // 5 - 3
+
+
+@pytest.mark.parametrize("fix_scale", [True, False])
+@pytest.mark.parametrize("n,distinct", [(150, True), (25, False)])
+def test_horn_ransac_kernels_within_tolerance_of_plain_version(cuda, n,
+                                                               distinct,
+                                                               fix_scale):
+    import airdos_tpu_torch.ops.ransac_kernels as rk
+    from airdos_tpu_torch.solvers import sim3 as s3
+    trc = _ransac_cases()
+    case = trc.sim3_case(n, n=n, n_out=n // 5, H=256,
+                         scale=1.0 if fix_scale else 1.3, distinct=distinct)
+    x1, x2, valid, g1, g2, smp = _on(case, cuda)
+    cam = (trc.FX, trc.FY, trc.CX, trc.CY)
+    args = (x1, x2, valid, g1, g2, smp, *cam, fix_scale)
+    got = rk.horn_hypotheses_cuda(*args)
+    again = rk.horn_hypotheses_cuda(*args)
+    plain = s3.sim3_hypotheses_ref(*args)
+    a64 = _on(case, cuda, f64=True)
+    plain64 = s3.sim3_hypotheses_ref(*a64[:5], smp, *cam, fix_scale)
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        assert torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0))
+    held, stats = rk.hypotheses_held(got, plain, plain64, smp)
+    assert held, stats
+    best = torch.argmax(got[-1])
+    rargs = (x1, x2, valid, g1, g2, got[0][best], got[1][best], got[2][best],
+             got[3][best], *cam, fix_scale)
+    rargs64 = (*a64[:5], *(x.double() for x in rargs[5:8]), rargs[8],
+               *cam, fix_scale)
+    held, stats = rk.refine_held(rk.horn_refine_cuda(*rargs),
+                                 s3.sim3_refine_ref(*rargs),
+                                 s3.sim3_refine_ref(*rargs64))
+    assert held, stats
+    before = (rk.horn_hypotheses_launches(), rk.horn_refine_launches())
+    s3.sim3_ransac(x1, x2, valid, smp, g1, g2, *cam, fix_scale=fix_scale)
+    torch.cuda.synchronize()
+    assert (rk.horn_hypotheses_launches(), rk.horn_refine_launches()) == \
+        (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("fix_scale", [True, False])
+@pytest.mark.parametrize("n", [40, 300, 1200])
+def test_sim3_opt_kernel_within_tolerance_of_plain_version(cuda, n,
+                                                           fix_scale):
+    import airdos_tpu_torch.ops.sim3_opt_kernels as so
+    from airdos_tpu_torch.solvers.sim3 import optimize_sim3
+    trc = _ransac_cases()
+    case = _on(trc.opt_case(n, n=n, scale=1.0 if fix_scale else 1.1), cuda)
+    args = (*case, trc.FX, trc.FY, trc.CX, trc.CY, 10.0, fix_scale, 10)
+    got = so.sim3_opt_cuda(*args)
+    again = so.sim3_opt_cuda(*args)
+    want = so.optimize_sim3_ref(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    held, stats = so.held(got, want)
+    assert held, stats
+    before = so.launches()
+    optimize_sim3(*args[:14], th2=10.0, fix_scale=fix_scale)
+    torch.cuda.synchronize()
+    assert so.launches() == before + 1
+
+
+@pytest.mark.parametrize("k,depth,n", [(8, 3, 1500), (10, 4, 2000),
+                                       (10, 6, 2000), (3, 1, 7)])
+def test_voc_transform_kernel_bit_equal_to_plain_version(cuda, k, depth, n):
+    import airdos_tpu_torch.ops.voc_kernels as vk
+    from airdos_tpu_torch.bow.vocabulary import Vocabulary
+    trc = _ransac_cases()
+    children, desc, word_id = trc.full_tree(k * 10 + depth, k, depth)
+    children[1, k // 2:] = -1               # a node with fewer children
+    voc = Vocabulary(k=k, depth=depth, node_desc32=desc, children=children,
+                     word_id=word_id, weights=np.ones(int((word_id >= 0)
+                                                          .sum()), np.float32),
+                     n_words=int((word_id >= 0).sum()), feature_level=2,
+                     device="cuda")
+    d = torch.from_numpy(trc.words(n, n).view(np.int32)).to(cuda)
+    tables = voc._device_tables()
+    before = vk.launches()
+    got = vk.voc_transform(*tables, d, depth)
+    again = vk.voc_transform(*tables, d, depth)
+    torch.cuda.synchronize()
+    assert vk.launches() == before + 2
+    want = vk.voc_transform_ref(*tables, d, depth)
+    for a, b, c in zip(got, again, want):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_ransac_and_voc_kernels_reject_what_they_do_not_take(cuda):
+    import airdos_tpu_torch.ops.ransac_kernels as rk
+    import airdos_tpu_torch.ops.voc_kernels as vk
+    trc = _ransac_cases()
+    pw, uv, valid, gate, smp = _on(trc.pnp_case(1, n=30, n_out=3, H=8),
+                                   cuda)
+    cam = (trc.FX, trc.FY, trc.CX, trc.CY)
+    with pytest.raises(ValueError):
+        rk.epnp_hypotheses_cuda(pw, uv, valid, gate, smp.long(), *cam)
+    with pytest.raises(ValueError):
+        rk.epnp_hypotheses_cuda(pw.double(), uv, valid, gate, smp, *cam)
+    with pytest.raises(ValueError):
+        rk.epnp_hypotheses_cuda(pw, uv[:, :1].contiguous(), valid, gate,
+                                smp, *cam)
+    with pytest.raises(ValueError):
+        rk.epnp_refine_cuda(pw, uv, valid, gate, torch.eye(3, device=cuda),
+                            torch.zeros(3, device=cuda), valid[:5], *cam)
+    ch = torch.full((1, 20), -1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):          # k above the kernel's 16
+        vk.voc_transform_cuda(ch, torch.zeros((1, 8), dtype=torch.int32,
+                                              device=cuda),
+                              ch[:, 0].contiguous(), ch[:, 0].contiguous(),
+                              smp.reshape(-1)[:8].reshape(1, 8), 1)

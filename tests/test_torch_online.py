@@ -33,6 +33,7 @@ counters, the vocabulary's one-time device upload, the span and event
 logs) holds under many threads.
 """
 import copy
+import gc
 import sys
 import threading
 import time
@@ -57,6 +58,7 @@ from airdos_tpu_torch.slam.loop_closing import LoopCloser
 from airdos_tpu_torch.slam.map import KeyFrame
 from airdos_tpu_torch.slam.system import System
 from airdos_tpu_torch.slam.tracking import Tracking
+from airdos_tpu_torch.utils import gate as gate_mod
 from airdos_tpu_torch.utils.gate import TrackingGate, gap_waiter
 from airdos_tpu_torch.utils.obs import EventLog, Profiler
 
@@ -319,6 +321,30 @@ def test_online_mode_tracks_with_the_mapping_worker(vo_frames):
     assert slam._map_thread is None
     assert slam.tracking.state.name == "OK"
     assert slam.map.n_keyframes() >= 2
+
+
+def test_online_system_freezes_the_heap_until_shutdown(vo_frames):
+    """Online, the objects alive when the System starts stay out of the
+    garbage collector's scans until its shutdown; the holds nest; an
+    offline System freezes nothing."""
+    holds = gate_mod._frozen[0]
+    System(small_config(online=False), device="cpu")
+    assert gate_mod._frozen[0] == holds
+    slam = System(small_config(), device="cpu")
+    assert gate_mod._frozen[0] == holds + 1 and gc.get_freeze_count() > 0
+    for data, _ in vo_frames[:2]:
+        slam.track_stereo(data)
+    gate_mod.freeze_heap()               # a second online System's hold
+    slam.shutdown()
+    assert gate_mod._frozen[0] == holds + 1 and gc.get_freeze_count() > 0
+    slam.shutdown()                      # a second shutdown thaws nothing
+    assert gate_mod._frozen[0] == holds + 1
+    gate_mod.thaw_heap()
+    assert gate_mod._frozen[0] == holds
+    if holds == 0:
+        assert gc.get_freeze_count() == 0
+        gate_mod.thaw_heap()             # an unmatched thaw is a no-op
+        assert gate_mod._frozen[0] == 0
 
 
 def _waiter_returns(hook):

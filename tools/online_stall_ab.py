@@ -25,9 +25,10 @@ synchronization instead of spinning (CU_CTX_SCHED_BLOCKING_SYNC), for
 every run of the call.
 
 Each run prints its median frame, p90, worst stall frame and bound, the
-loop solvers' spans, and for the three slowest frames of the stall window
-the tracking thread's wall and CPU time, its own spans, and every other
-thread's spans that overlapped the frame (ms of overlap).  The last lines
+loop solvers' spans, the garbage collector's collections over the run,
+and for the three slowest frames of the stall window the tracking
+thread's wall and CPU time, its own spans, every other thread's spans
+that overlapped the frame (ms of overlap) and the collections that did.  The last lines
 give each mode's medians over its runs.  It checks nothing.
 """
 from __future__ import annotations
@@ -206,10 +207,13 @@ def main():
             f"{key} {v:.2f}" for key, v in row.items())
             + f" ms; loops {lc.closed if lc else None}, states "
             f"{dict(collections.Counter(states))}; "
-            f"{chip_smoke._mapping_load(st)} on {smi}", flush=True)
+            f"{chip_smoke._mapping_load(st)}; garbage collections "
+            f"{st['gc']} on {smi}", flush=True)
         sel = np.flatnonzero(st["sel"])
         for i in sel[np.argsort(times[sel])[::-1][:3]]:
-            print(f"[stall-ab]   frame {i}: {_frame_parts(spans, frames[i])}",
+            w0, w1 = frames[i][:2]
+            print(f"[stall-ab]   frame {i}: {_frame_parts(spans, frames[i])}"
+                  f"; garbage collections {st['gc_log'].within(w1, w1 - w0)}",
                   flush=True)
     for mode in modes:
         r = rows[mode]
