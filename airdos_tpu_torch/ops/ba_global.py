@@ -7,15 +7,16 @@ by preconditioned CG without forming S: each iteration is S p, two
 gathers and two scatter-adds over the edge table, and the CG's vector
 algebra.  Here an iteration is two launches:
 
-- ``schur_point`` (the point half): for each point, the sum over its
+- schur_point (the point half): for each point, the sum over its
   edges of Wcp_e^T (p * cam_free)[cam_e], in the edges' order in the
   point-keyed segment index (``make_segments``), times Hpp^-1: z [P, 3].
-- ``schur_camera`` (the camera half and the CG update): for each camera,
+- schur_camera (the camera half and the CG update): for each camera,
   back = the sum over its edges of Wcp_e z[pt_e] in the camera-keyed
   index's order, Ap = (Hcc_d xm - back) cam_free + xm (1 - cam_free) with
-  xm = p cam_free (global_ba.py:152-159); then the last block to finish
-  runs the update over all cameras: alpha, x, r, z = D^-1 r, r.z, beta
-  and p, with the 1e-20 guards of global_ba.py:174 and :179.
+  xm = p cam_free (global_ba.py:152-159); then, after a grid barrier,
+  every block runs the update for its own cameras: alpha, x, r, z = D^-1
+  r, r.z, and after a second barrier beta and p, with the 1e-20 guards of
+  global_ba.py:174 and :179.
 
 Each walk reads Wcp as rows of 18 floats in its own order: ``walk_rows``
 gathers them once a Gauss-Newton step.  The segments' rows outside
@@ -29,15 +30,18 @@ the plain versions' order, so the kernels' outputs are bit-equal to the
 plain versions' (csrc/ba_global.cu says how).
 
 With ``raw=True`` each kernel leaves a mesh rank's sums, before Hpp^-1
-and before the update: the caller psums them and finishes the iteration
-itself (solvers/global_ba.py eagerly, on every rank).  ``matvec`` by
+and before the update (the camera launch stops before its first grid
+barrier): the caller psums them and finishes the iteration itself
+(solvers/global_ba.py eagerly, on every rank).  ``matvec`` by
 Hpp^-1 and ``cg_update`` are those steps in the kernels' order.
 
-On CUDA tensors each wrapper launches its entry point of
-``csrc/ba_global.cu`` on the calling thread's current stream (built with
-nvcc at first use into ``airdos_tpu_torch/_build/``, bound through
-ctypes) or raises, and counts the launch, by thread and stream priority
-too; on CPU tensors it runs the plain version (any float dtype).
+``point_half`` and ``camera_half`` prepare one Gauss-Newton step's
+halves: on CUDA tensors a ``PointLaunch`` / ``CameraLaunch``, which checks
+every tensor once and then only launches its entry point of
+``csrc/ba_global.cu`` on the stream that was current when it was made
+(built with nvcc at first use into ``airdos_tpu_torch/_build/``, bound
+through ctypes) and counts the launch, by thread and stream priority
+too; on CPU tensors the plain versions (any float dtype).
 """
 from __future__ import annotations
 
@@ -50,7 +54,7 @@ from airdos_tpu_torch.ops import cuda_build
 from airdos_tpu_torch.ops.cuda_build import check_tensor
 from airdos_tpu_torch.ops.segment_kernels import Segments, segment_sum_ref
 
-LANES = 256                    # the update's lanes: csrc/ba_global.cu kThreads
+LANES = 256            # the dot products' lanes: csrc/ba_global.cu kThreads
 GUARD = 1e-20                  # global_ba.py:174, :179
 
 
@@ -79,16 +83,15 @@ def walk_rows(wcp: torch.Tensor, walk: Walk) -> torch.Tensor:
 
 
 class CGState(NamedTuple):
-    """The CG's state, updated in place by ``schur_camera``: x, r, p [C,
-    6], rz [1]; ap [C, 6] and part [C] are scratch, count [1] int32 the
-    last block's counter (zero between launches)."""
+    """The CG's state, updated in place by ``camera_half``: x, r, p [C,
+    6], rz [1]; ap [C, 6] and part [2, C] (each camera's p.Ap, then its
+    r.z) are scratch."""
     x: torch.Tensor
     r: torch.Tensor
     p: torch.Tensor
     rz: torch.Tensor
     ap: torch.Tensor
     part: torch.Tensor
-    count: torch.Tensor
 
 
 # ------------------------------------------------------------ plain version
@@ -135,9 +138,7 @@ def cg_start(b_red: torch.Tensor, d_inv: torch.Tensor) -> CGState:
     C = b_red.shape[0]
     return CGState(x=torch.zeros_like(b_red), r=b_red.clone(), p=z,
                    rz=fixed_dot(b_red, z), ap=torch.empty_like(b_red),
-                   part=b_red.new_empty(C),
-                   count=torch.zeros(1, dtype=torch.int32,
-                                     device=b_red.device))
+                   part=b_red.new_empty(2, C))
 
 
 def point_sums_ref(w_p, walk_p: Walk, x, cam_free):
@@ -203,12 +204,14 @@ def schur_camera_ref(w_c, walk_c, z, state, hcc_d, d_inv, cam_free,
 
 _SOURCE = cuda_build.CSRC / "ba_global.cu"
 _SIGNATURES = {
-    "airdos_schur_point": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
+    "airdos_schur_point": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
     + [ctypes.c_void_p] * 2,
-    "airdos_schur_camera": [ctypes.c_void_p] * 13 + [ctypes.c_int] * 2
-    + [ctypes.c_void_p] * 2,
+    "airdos_schur_camera": [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4
+    + [ctypes.c_void_p],
+    "airdos_schur_residency": [ctypes.c_void_p],
 }
 _lib = None                      # the loaded library, once built
+_residency = {}                  # device index -> camera blocks the card holds
 
 _point_counter = cuda_build.LaunchCounter()
 _camera_counter = cuda_build.LaunchCounter()
@@ -251,6 +254,29 @@ def _library():
     return _lib
 
 
+def camera_grid_cap(device: torch.device) -> int:
+    """The camera blocks `device` holds at once (its SMs times the blocks
+    an SM holds): the cooperative launch's largest grid.  Sets the
+    kernel's shared memory there, once a device; raises where the device
+    cannot launch a cooperative grid."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    cap = _residency.get(index)
+    if cap is None:
+        out = (ctypes.c_int * 3)()
+        with cuda_build.on_device(torch.device("cuda", index)):
+            err = _library().airdos_schur_residency(out)
+        if err != 0:
+            raise RuntimeError(f"schur_camera residency query failed: "
+                               f"cudaError {err}")
+        if not out[0] or out[2] < 1:
+            raise RuntimeError(f"cuda:{index} cannot launch schur_camera's "
+                               f"cooperative grid (cooperative launch "
+                               f"{out[0]}, blocks an SM {out[2]})")
+        cap = _residency[index] = out[1] * out[2]
+    return cap
+
+
 def _check_walk(name, w, walk: Walk, dev):
     E = w.shape[0]
     check_tensor(f"{name} rows", w, torch.float32, (E, 18), dev)
@@ -259,91 +285,140 @@ def _check_walk(name, w, walk: Walk, dev):
                  (walk.n + 1,), dev)
     if E * 18 >= 2 ** 31:
         raise ValueError(f"{E} edges exceed the kernels' indexing")
+    if w.data_ptr() % 16:
+        raise ValueError(f"{name} rows must start on 16 bytes (the "
+                         f"kernels' async copies)")
 
 
-def schur_point_cuda(w_p, walk_p, x, cam_free, hpp_inv, raw=False):
-    """Launch the point half on the current stream: schur_point_ref's z
-    (or, raw, its sums)."""
-    dev = x.device
-    if not x.is_cuda:
-        raise ValueError(f"x must be a CUDA tensor, got {dev}")
-    C, P = x.shape[0], walk_p.n
-    _check_walk("point walk", w_p, walk_p, dev)
-    check_tensor("x", x, torch.float32, (C, 6), dev)
-    check_tensor("cam_free", cam_free, torch.float32, (C,), dev)
-    check_tensor("hpp_inv", hpp_inv, torch.float32, (P, 3, 3), dev)
-    out = torch.empty((P, 3), dtype=torch.float32, device=dev)
-    if P == 0:                  # the entry point would launch nothing
+def _on_card(name, t):
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+
+
+class PointLaunch:
+    """The point half on the card for fixed inputs, checked once: each
+    call launches csrc/ba_global.cu's schur_point with x as it then is on
+    the stream current at construction, and returns schur_point_ref's z
+    (into one buffer, rewritten by the next call) or, raw, its sums (a new
+    tensor)."""
+
+    def __init__(self, w_p, walk_p: Walk, x, cam_free, hpp_inv):
+        dev = x.device
+        C, P = x.shape[0], walk_p.n
+        _check_walk("point walk", w_p, walk_p, dev)
+        check_tensor("x", x, torch.float32, (C, 6), dev)
+        check_tensor("cam_free", cam_free, torch.float32, (C,), dev)
+        check_tensor("hpp_inv", hpp_inv, torch.float32, (P, 3, 3), dev)
+        if x.data_ptr() % 8:
+            raise ValueError("x must start on 8 bytes (the kernel's "
+                             "8-byte loads)")
+        _on_card("x", x)
+        self.w_p, self.walk_p, self.x = w_p, walk_p, x
+        self.cam_free, self.hpp_inv = cam_free, hpp_inv
+        self.n_points = P
+        self.z = torch.empty((P, 3), dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream(dev)
+        self._stream, self._priority = stream.cuda_stream, stream.priority
+        self._on_device = cuda_build.on_device(dev)
+        self._fn = _library().airdos_schur_point if P else None
+        self._args = (w_p.data_ptr(), walk_p.other.data_ptr(),
+                      walk_p.offsets.data_ptr(), x.data_ptr(),
+                      cam_free.data_ptr(), hpp_inv.data_ptr(), P,
+                      w_p.shape[0])
+
+    def __call__(self, raw=False):
+        out = torch.empty_like(self.z) if raw else self.z
+        if self._fn is None:        # no point: the kernel launches nothing
+            return out
+        with self._on_device:
+            err = self._fn(*self._args, int(raw), out.data_ptr(),
+                           self._stream)
+        if err != 0:
+            raise RuntimeError(f"schur_point kernel launch failed: cudaError "
+                               f"{err}")
+        _point_counter.count(self._priority)
         return out
-    stream = torch.cuda.current_stream(dev)
-    with cuda_build.on_device(dev):
-        err = _library().airdos_schur_point(
-            w_p.data_ptr(), walk_p.other.data_ptr(),
-            walk_p.offsets.data_ptr(), x.data_ptr(), cam_free.data_ptr(),
-            hpp_inv.data_ptr(), P, int(raw), out.data_ptr(),
-            stream.cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"schur_point kernel launch failed: cudaError "
-                           f"{err}")
-    _point_counter.count(stream.priority)
-    return out
 
 
-def schur_camera_cuda(w_c, walk_c, z, state, hcc_d, d_inv, cam_free,
-                      raw=False):
-    """Launch the camera half on the current stream: the CG update into
-    state (or, raw, the sums back [C, 6])."""
-    dev = z.device
-    if not z.is_cuda:
-        raise ValueError(f"z must be a CUDA tensor, got {dev}")
-    C, P = walk_c.n, z.shape[0]
-    _check_walk("camera walk", w_c, walk_c, dev)
-    check_tensor("z", z, torch.float32, (P, 3), dev)
-    for name, t, shape in (("x", state.x, (C, 6)), ("r", state.r, (C, 6)),
-                           ("p", state.p, (C, 6)), ("rz", state.rz, (1,)),
-                           ("ap", state.ap, (C, 6)), ("part", state.part,
-                                                      (C,)),
-                           ("hcc_d", hcc_d, (C, 6, 6)),
-                           ("d_inv", d_inv, (C, 6, 6)),
-                           ("cam_free", cam_free, (C,))):
-        check_tensor(name, t, torch.float32, shape, dev)
-    check_tensor("count", state.count, torch.int32, (1,), dev)
-    back = torch.empty((C, 6), dtype=torch.float32, device=dev) if raw \
-        else state.ap
-    if C == 0:                  # the entry point would launch nothing
-        return back if raw else state
-    stream = torch.cuda.current_stream(dev)
-    with cuda_build.on_device(dev):
-        err = _library().airdos_schur_camera(
-            w_c.data_ptr(), walk_c.other.data_ptr(),
-            walk_c.offsets.data_ptr(), z.data_ptr(), hcc_d.data_ptr(),
-            d_inv.data_ptr(), cam_free.data_ptr(), state.x.data_ptr(),
-            state.r.data_ptr(), state.p.data_ptr(), state.rz.data_ptr(),
-            back.data_ptr(), state.part.data_ptr(), C, int(raw),
-            state.count.data_ptr(), stream.cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"schur_camera kernel launch failed: cudaError "
-                           f"{err}")
-    _camera_counter.count(stream.priority)
-    return back if raw else state
+class CameraLaunch:
+    """The camera half and the CG update on the card for fixed inputs,
+    checked once: each call launches csrc/ba_global.cu's schur_camera on
+    z (the point half's buffer, or any [P, 3] tensor, checked then) on the
+    stream current at construction; the update goes into state (returned)
+    or, raw, the sums back [C, 6] are returned (a new tensor)."""
+
+    def __init__(self, w_c, walk_c: Walk, state: CGState, hcc_d, d_inv,
+                 cam_free, n_points: int):
+        dev = state.x.device
+        C = walk_c.n
+        _check_walk("camera walk", w_c, walk_c, dev)
+        for name, t, shape in (("x", state.x, (C, 6)), ("r", state.r, (C, 6)),
+                               ("p", state.p, (C, 6)), ("rz", state.rz, (1,)),
+                               ("ap", state.ap, (C, 6)),
+                               ("part", state.part, (2, C)),
+                               ("hcc_d", hcc_d, (C, 6, 6)),
+                               ("d_inv", d_inv, (C, 6, 6)),
+                               ("cam_free", cam_free, (C,))):
+            check_tensor(name, t, torch.float32, shape, dev)
+        _on_card("x", state.x)
+        self.w_c, self.walk_c, self.state = w_c, walk_c, state
+        self.hcc_d, self.d_inv, self.cam_free = hcc_d, d_inv, cam_free
+        self.n_points, self._dev = n_points, dev
+        stream = torch.cuda.current_stream(dev)
+        self._stream, self._priority = stream.cuda_stream, stream.priority
+        self._on_device = cuda_build.on_device(dev)
+        self._fn = None
+        if C:
+            self._fn = _library().airdos_schur_camera
+            self.grid = min(C, camera_grid_cap(dev))
+        self._pointer = (w_c.data_ptr(), walk_c.other.data_ptr(),
+                         walk_c.offsets.data_ptr())
+        self._rest = (hcc_d.data_ptr(), d_inv.data_ptr(),
+                      cam_free.data_ptr(), state.x.data_ptr(),
+                      state.r.data_ptr(), state.p.data_ptr(),
+                      state.rz.data_ptr())
+        self._z = None              # the z last checked
+
+    def __call__(self, z, raw=False):
+        if z is not self._z:
+            check_tensor("z", z, torch.float32, (self.n_points, 3), self._dev)
+            self._z = z
+        back = torch.empty_like(self.state.ap) if raw else self.state.ap
+        if self._fn is None:        # no camera: the kernel launches nothing
+            return back if raw else self.state
+        with self._on_device:
+            err = self._fn(*self._pointer, z.data_ptr(), *self._rest,
+                           back.data_ptr(), self.state.part.data_ptr(),
+                           self.walk_c.n, self.w_c.shape[0], int(raw),
+                           self.grid, self._stream)
+        if err != 0:
+            raise RuntimeError(f"schur_camera kernel launch failed: cudaError "
+                               f"{err}")
+        _camera_counter.count(self._priority)
+        return back if raw else self.state
 
 
-def schur_point(w_p, walk_p, x, cam_free, hpp_inv, raw=False):
-    """z = Hpp^-1 (the sum over each point's edges of Wcp_e^T (x
-    cam_free)[cam_e]) [P, 3]; raw: the sums alone.  w_p: walk_rows of the
-    point walk.  CUDA tensors go to the kernel, CPU tensors to the plain
-    version."""
+def point_half(w_p, walk_p, x, cam_free, hpp_inv):
+    """The point half for a Gauss-Newton step's CG: a callable (raw=False)
+    -> z = Hpp^-1 (the sum over each point's edges of Wcp_e^T (x
+    cam_free)[cam_e]) [P, 3], or raw the sums alone, with x as it is at
+    the call.  w_p: walk_rows of the point walk.  CUDA tensors: a
+    PointLaunch (raises on what the kernel does not take); CPU tensors:
+    the plain version."""
     if x.is_cuda:
-        return schur_point_cuda(w_p, walk_p, x, cam_free, hpp_inv, raw)
-    return schur_point_ref(w_p, walk_p, x, cam_free, hpp_inv, raw)
+        return PointLaunch(w_p, walk_p, x, cam_free, hpp_inv)
+    return lambda raw=False: schur_point_ref(w_p, walk_p, x, cam_free,
+                                             hpp_inv, raw)
 
 
-def schur_camera(w_c, walk_c, z, state, hcc_d, d_inv, cam_free, raw=False):
-    """One CG iteration's camera half and update, in place into state (the
-    state is returned); raw: the sums back = W z [C, 6] alone, state
-    untouched.  w_c: walk_rows of the camera walk."""
-    if z.is_cuda:
-        return schur_camera_cuda(w_c, walk_c, z, state, hcc_d, d_inv,
-                                 cam_free, raw)
-    return schur_camera_ref(w_c, walk_c, z, state, hcc_d, d_inv, cam_free,
-                            raw)
+def camera_half(w_c, walk_c, state, hcc_d, d_inv, cam_free, n_points):
+    """The camera half and update for a Gauss-Newton step's CG: a callable
+    (z, raw=False) -> state, updated in place by one iteration; raw: the
+    sums back = W z [C, 6] alone, state untouched.  w_c: walk_rows of the
+    camera walk.  CUDA tensors: a CameraLaunch; CPU tensors: the plain
+    version."""
+    if state.x.is_cuda:
+        return CameraLaunch(w_c, walk_c, state, hcc_d, d_inv, cam_free,
+                            n_points)
+    return lambda z, raw=False: schur_camera_ref(w_c, walk_c, z, state, hcc_d,
+                                                 d_inv, cam_free, raw)

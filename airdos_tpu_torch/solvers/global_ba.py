@@ -20,11 +20,13 @@ outliers.
   The camera and point segment indices are built once per call.
 - The CG is two launches an iteration (``ops/ba_global``): the point
   half ``schur_point`` walks the point-keyed index, the camera half
-  ``schur_camera`` walks the camera-keyed one and runs the CG update in
-  its last block.  Each walk reads Wcp in its own order, gathered once a
-  step.  Its dot products sum in one fixed order (``fixed_dot``; not
-  XLA's order, so the packages agree within a tolerance, not bit for
-  bit).  ``launches_per_step(cg_iters)`` counts a step's launches.
+  ``schur_camera`` walks the camera-keyed one and runs the CG update
+  across its grid.  Both are prepared once a step (``point_half``,
+  ``camera_half``: the tensors checked once), so an iteration only
+  launches.  Each walk reads Wcp in its own order, gathered once a step.
+  Its dot products sum in one fixed order (``fixed_dot``; not XLA's
+  order, so the packages agree within a tolerance, not bit for bit).
+  ``launches_per_step(cg_iters)`` counts a step's launches.
 - The loop never reads a device value on the host.
 - Multi-device (airdos_tpu's ``axis_name``): given a mesh ``group``
   (``parallel/mesh.py``) and shard-local edge tables, every segment sum
@@ -45,8 +47,8 @@ from typing import NamedTuple
 import torch
 
 from airdos_tpu_torch.geometry.se3 import se3_compose, se3_exp
-from airdos_tpu_torch.ops.ba_global import (cg_start, cg_update, make_walk,
-                                            matvec, schur_camera, schur_point,
+from airdos_tpu_torch.ops.ba_global import (camera_half, cg_start, cg_update,
+                                            make_walk, matvec, point_half,
                                             walk_rows)
 from airdos_tpu_torch.ops.segment_kernels import make_segments, segment_sum
 from airdos_tpu_torch.solvers.local_ba import (CHI2_MONO, CHI2_STEREO,
@@ -163,15 +165,14 @@ def global_bundle_adjust(
         # --- preconditioned CG on the reduced camera system ------------
         w_p, w_c = walk_rows(Wcp, walk_p), walk_rows(Wcp, walk_c)
         state = cg_start(b_red, D_inv)
+        point = point_half(w_p, walk_p, state.p, free_c, Hpp_inv)
+        camera = camera_half(w_c, walk_c, state, Hcc_d, D_inv, free_c, P)
         for _ in range(cg_iters):
             if group is None:
-                z = schur_point(w_p, walk_p, state.p, free_c, Hpp_inv)
-                schur_camera(w_c, walk_c, z, state, Hcc_d, D_inv, free_c)
+                camera(point())
             else:       # a mesh rank: the shard's sums, then psum
-                z = matvec(Hpp_inv, psum(schur_point(
-                    w_p, walk_p, state.p, free_c, Hpp_inv, raw=True)))
-                back = psum(schur_camera(w_c, walk_c, z, state, Hcc_d, D_inv,
-                                         free_c, raw=True))
+                z = matvec(Hpp_inv, psum(point(raw=True)))
+                back = psum(camera(z, raw=True))
                 cg_update(state, back, Hcc_d, D_inv, free_c)
         dx_c = state.x * cam_free
 

@@ -172,10 +172,13 @@ Run from the repository root.  Phases, each of which fails the run:
      triangulation it replaced (tests/torch_triangulate_cases.py) and of
      the whole triangulate_pair against the whole composition on the
      path's inputs; schur_point and schur_camera (by edges, points,
-     cameras and raw mode; each launch of schur_camera on its own copy of
-     the recorded CG state) bit-equal to their plain versions on a CPU
-     copy (whose segment sums are index_add_ in walk order), two launches
-     bit-equal, schur_point beside the eager composition it replaced;
+     cameras and raw mode, recorded at their prepared launchers' calls;
+     each launch of schur_camera on its own copy of the recorded CG state)
+     bit-equal to their plain versions on a CPU copy (whose segment sums
+     are index_add_ in walk order), two launches
+     bit-equal, the per-call time of a launch prepared once beside the
+     one-shot call's, schur_point beside the eager composition it
+     replaced;
      sim3_edges (by vertices, edges and mode): the cost within SYSTEM_RTOL
      of its plain version's (the residuals' torch.sum) on the card, the
      system held to the plain version in float64 (the reverse-mode
@@ -1798,6 +1801,19 @@ def _on_cpu(x):
     return x
 
 
+def _sp_view(launch, raw=False):
+    """A PointLaunch call (the solver's, prepared once a step) as
+    schur_point_ref's arguments."""
+    return (launch.w_p, launch.walk_p, launch.x, launch.cam_free,
+            launch.hpp_inv, raw)
+
+
+def _sc_view(launch, z, raw=False):
+    """A CameraLaunch call as schur_camera_ref's arguments."""
+    return (launch.w_c, launch.walk_c, z, launch.state, launch.hcc_d,
+            launch.d_inv, launch.cam_free, raw)
+
+
 def _sp_shape(w_p, walk, x, cam_free, hpp_inv, raw):  # (E, P, C, raw)
     return (w_p.shape[0], walk.n, x.shape[0], int(raw))
 
@@ -1817,6 +1833,18 @@ def _walked(walk) -> str:
             f"{int(walk.offsets.diff().max())}")
 
 
+def _sp_once(w_p, walk, x, cam_free, hpp_inv, raw):
+    """One launch of schur_point through a PointLaunch made for it (on the
+    stream current now: a graph's capture stream too)."""
+    return _bgl().PointLaunch(w_p, walk, x, cam_free, hpp_inv)(raw)
+
+
+def _sc_once(w_c, walk, z, state, hcc_d, d_inv, cam_free, raw):
+    """One launch of schur_camera through a CameraLaunch made for it."""
+    return _bgl().CameraLaunch(w_c, walk, state, hcc_d, d_inv, cam_free,
+                               z.shape[0])(z, raw)
+
+
 def _sp_check(args):
     """Bit-equal to schur_point_ref on a CPU copy (its segment sums are
     index_add_ in walk order, atomics on the card), two launches bit-equal;
@@ -1824,8 +1852,8 @@ def _sp_check(args):
     gather, products, point-keyed segment_sum and Hpp^-1 einsum."""
     import torch
     bg, sk = _bgl(), _segments()
-    got = bg.schur_point_cuda(*args)
-    again = bg.schur_point_cuda(*args)
+    got = _sp_once(*args)
+    again = _sp_once(*args)
     want = bg.schur_point_ref(*(_on_cpu(a) for a in args))
     torch.cuda.synchronize()
     err = float((got.cpu() - want).abs().max()) if got.numel() else 0.0
@@ -1849,10 +1877,13 @@ def _sp_check(args):
         return sums if raw else torch.einsum("plm,pm->pl", hpp_inv, sums)
 
     old_ms = _cuda_ms(old)
+    launch = bg.PointLaunch(*args[:5])
+    prepared_ms = _cuda_ms(lambda: launch(raw))
     what = (f"bit-equal to the plain version on a CPU copy, two launches "
-            f"bit-equal; {_walked(walk)}; the eager composition it replaced "
-            f"{old_ms:.4f} ms per call")
-    return err, what, (lambda: bg.schur_point_cuda(*args)), \
+            f"bit-equal; {_walked(walk)}; prepared once (the solver's "
+            f"PointLaunch) {prepared_ms:.4f} ms per call; the eager "
+            f"composition it replaced {old_ms:.4f} ms per call")
+    return err, what, (lambda: _sp_once(*args)), \
         (lambda: bg.schur_point_ref(*args))
 
 
@@ -1869,8 +1900,8 @@ def _sc_check(args):
                   *(where(a) for a in (hcc_d, d_inv, cam_free)), raw)
 
     s1, s2, s3 = _cloned(state), _cloned(state), _on_cpu(state)
-    o1 = call(bg.schur_camera_cuda, s1)
-    o2 = call(bg.schur_camera_cuda, s2)
+    o1 = call(_sc_once, s1)
+    o2 = call(_sc_once, s2)
     o3 = call(bg.schur_camera_ref, s3, _on_cpu)
     torch.cuda.synchronize()
     got, again, want = ((o,) if raw else tuple(o[:4]) for o in (o1, o2, o3))
@@ -1879,13 +1910,16 @@ def _sc_check(args):
         _fail(f"schur_camera != plain version (max abs err {err})")
     if not all(_bits_equal(a, b) for a, b in zip(got, again)):
         _fail("schur_camera: two launches differ")
-    if not raw and int(s1.count) != 0:
-        _fail("schur_camera: the last block left its counter set")
+    sk_, sp_ = _cloned(state), _cloned(state)
+    launch = bg.CameraLaunch(w_c, walk, _cloned(state), hcc_d, d_inv,
+                             cam_free, z.shape[0])
+    prepared_ms = _cuda_ms(lambda: launch(z, raw))
     what = (f"bit-equal to the plain version on a CPU copy "
             f"({'back' if raw else 'x, r, p, rz'}), two launches bit-equal; "
-            f"{_walked(walk)}")
-    sk_, sp_ = _cloned(state), _cloned(state)
-    return err, what, (lambda: call(bg.schur_camera_cuda, sk_)), \
+            f"{_walked(walk)}; {launch.grid} blocks (cooperative); "
+            f"prepared once (the "
+            f"solver's CameraLaunch) {prepared_ms:.4f} ms per call")
+    return err, what, (lambda: call(_sc_once, sk_)), \
         (lambda: call(bg.schur_camera_ref, sp_))
 
 
@@ -1902,8 +1936,11 @@ def _sp_bound(shape, args):
 
 def _sc_bound(shape, args):
     """The walked rows (72 B of Wcp, 4 of the point) read once, the
-    offsets and z read once; raw: back written once; else Hcc_d, D^-1,
-    cam_free, x, r, p and rz read once and x, r, p, rz written once."""
+    offsets and z read once; raw: back written once; else the update's
+    inputs Hcc_d, D^-1, cam_free, x, r, p and rz read once and x, r, p, rz
+    written once.  The scratch (ap, and the cameras' partial dot products
+    that every block of the update sums from L2) is not the function's
+    and is not counted."""
     E, P, C, raw = shape
     kept = int(args[1].offsets[-1])
     nbytes = 76 * kept + 4 * (C + 1) + 12 * P + \
@@ -2343,6 +2380,7 @@ class _Kernel(NamedTuple):
     name: str
     module: Callable                # () -> the wrapper's module
     wrapper: str                    # the launching function recorded
+                                    # (Class.method: a launcher's)
     launches: str                   # the module's launch count
     source: str
     replaces: str
@@ -2360,6 +2398,9 @@ class _Kernel(NamedTuple):
     # recorded {shape: [launches, args]} -> {shape: args}: cases the paths
     # did not launch, checked and timed beside them
     variants: Callable = None
+    # the wrapper's call (args, kwargs) -> the arguments recorded, checked
+    # and keyed (None: the call's own positional arguments)
+    view: Callable = None
 
 
 # every kernel of the port, in the kernels line's order
@@ -2485,19 +2526,19 @@ KERNELS = (
             "after its argmin)", _tri_shape, _tri_fmt,
             lambda shape: shape[0] * shape[1], _tri_check, _tri_bound,
             _no_library),
-    _Kernel("schur_point", _bgl, "schur_point_cuda", "point_launches",
+    _Kernel("schur_point", _bgl, "PointLaunch.__call__", "point_launches",
             "airdos_tpu_torch/csrc/ba_global.cu",
             "airdos_tpu/solvers/global_ba.py:113 schur_matvec (the gather, "
             "point-keyed scatter-add and Hpp^-1 of :115-118)", _sp_shape,
             _schur_fmt, lambda shape: shape[1], _sp_check, _sp_bound,
-            _no_library, loop_only=True),
-    _Kernel("schur_camera", _bgl, "schur_camera_cuda", "camera_launches",
+            _no_library, loop_only=True, view=_sp_view),
+    _Kernel("schur_camera", _bgl, "CameraLaunch.__call__", "camera_launches",
             "airdos_tpu_torch/csrc/ba_global.cu",
             "airdos_tpu/solvers/global_ba.py:113 schur_matvec (the "
             "camera-keyed scatter-add and Hcc_d x of :119-122), :133 "
             "precond, :143 cg_body", _sc_shape, _schur_fmt,
             lambda shape: shape[2], _sc_check, _sc_bound, _no_library,
-            loop_only=True),
+            loop_only=True, view=_sc_view),
     _Kernel("sim3_edges", _pgk, "sim3_edges_cuda", "launches",
             "airdos_tpu_torch/csrc/sim3_edges.cu",
             "airdos_tpu/solvers/pose_graph.py:27 _edge_residual, :59 "
@@ -2762,34 +2803,41 @@ def _path_recording():
     groups = {}                     # kernels recorded at one wrapper
     for k in KERNELS:
         groups.setdefault((k.module, k.wrapper), []).append(k)
-    saved = [(module, wrapper, ks, getattr(module(), wrapper))
-             for (module, wrapper), ks in groups.items()]
+    saved = []
+    for (module, wrapper), ks in groups.items():
+        owner = module()            # a dotted wrapper: a class's method
+        *path, attr = wrapper.split(".")
+        for name in path:
+            owner = getattr(owner, name)
+        saved.append((owner, attr, ks, getattr(owner, attr)))
     lock = threading.Lock()         # online phases launch from threads
 
     def recorder(launch, ks):
-        def record(*args):
+        def record(*args, **kwargs):
             with lock:
                 for k in ks:
-                    shape = k.shape_of(*args)
+                    view = args if k.view is None else k.view(*args,
+                                                               **kwargs)
+                    shape = k.shape_of(*view)
                     if shape is None:       # not this kernel's launch
                         continue
                     entry = _PATH.setdefault(k.name, {}).setdefault(
                         shape, [0, None])
                     entry[0] += 1
                     if entry[1] is None:
-                        entry[1] = tuple(_cloned(x) for x in args)
-            return launch(*args)
+                        entry[1] = tuple(_cloned(x) for x in view)
+            return launch(*args, **kwargs)
         return record
 
     @contextlib.contextmanager
     def recording():
-        for module, wrapper, ks, launch in saved:
-            setattr(module(), wrapper, recorder(launch, ks))
+        for owner, attr, ks, launch in saved:
+            setattr(owner, attr, recorder(launch, ks))
         try:
             yield
         finally:
-            for module, wrapper, ks, launch in saved:
-                setattr(module(), wrapper, launch)
+            for owner, attr, ks, launch in saved:
+                setattr(owner, attr, launch)
     return recording()
 
 

@@ -2224,18 +2224,22 @@ def test_match_by_sim3_on_match_rows_on_the_card(cuda):
 
 # ------------------------------------------- the loop correction's solvers
 
-def _reduced_system(cuda, C, P, E, seed=0):
+def _reduced_system(cuda, C, P, E, seed=0, hub=0):
     """A seeded reduced camera system as a global BA step hands its CG
     (tests/test_torch_loop_kernels.py's, at the card's sizes): the walks'
     rows of Wcp, Hpp^-1, Hcc_d, D^-1, cam_free (camera 0 fixed) and
-    b_red; a tenth of the edges and 5% of the points invalid."""
+    b_red; a tenth of the edges and 5% of the points invalid; with hub,
+    point 0 valid and on the first hub edges, all kept."""
     import airdos_tpu_torch.ops.ba_global as bg
     from airdos_tpu_torch.ops.segment_kernels import make_segments
     rng = np.random.default_rng(seed)
     e_cam = rng.integers(0, C, E)
     e_pt = rng.integers(0, P, E)
+    e_pt[:hub] = 0
     pv = rng.random(P) > 0.05
+    pv[0] |= hub > 0
     base = (rng.random(E) > 0.1) & pv[e_pt]
+    base[:hub] = True
     wcp = rng.standard_normal((E, 6, 3)).astype(np.float32)
     A = rng.standard_normal((P, 3, 3)) * 0.05
     hinv = (A @ A.transpose(0, 2, 1) + 0.02 * np.eye(3)) * pv[:, None, None]
@@ -2274,30 +2278,30 @@ def test_schur_kernels_equal_plain_versions(cuda, C, P, E):
     """schur_point and schur_camera at the map scale's and the pillar
     orbit's sizes: 48 CG iterations, each output and the CG state bit-equal
     to the plain versions on a CPU copy (their segment sums are
-    index_add_ in walk order); raw modes bit-equal too; the last block
-    leaves its counter at zero; one launch a call each."""
+    index_add_ in walk order, as the kernels add them); raw modes bit-equal
+    too; one launch a call each."""
     import airdos_tpu_torch.ops.ba_global as bg
     s = _reduced_system(cuda, C, P, E)
     st = bg.cg_start(s["b"], s["dinv"])
     sc = _cpu(st)
     host = {k: _cpu(v) for k, v in s.items()}
+    point = bg.point_half(s["w_p"], s["wp"], st.p, s["cf"], s["hinv"])
+    camera = bg.camera_half(s["w_c"], s["wc"], st, s["hcc"], s["dinv"],
+                            s["cf"], P)
+    point_c = bg.point_half(host["w_p"], host["wp"], sc.p, host["cf"],
+                            host["hinv"])
+    camera_c = bg.camera_half(host["w_c"], host["wc"], sc, host["hcc"],
+                              host["dinv"], host["cf"], P)
     for _ in range(48):
         n0 = (bg.point_launches(), bg.camera_launches())
-        z = bg.schur_point(s["w_p"], s["wp"], st.p, s["cf"], s["hinv"])
-        zc = bg.schur_point(host["w_p"], host["wp"], sc.p, host["cf"],
-                            host["hinv"])
-        raw = bg.schur_point(s["w_p"], s["wp"], st.p, s["cf"], s["hinv"],
-                             raw=True)
-        rawc = bg.schur_point(host["w_p"], host["wp"], sc.p, host["cf"],
-                              host["hinv"], raw=True)
-        back = bg.schur_camera(s["w_c"], s["wc"], z, st, s["hcc"],
-                               s["dinv"], s["cf"], raw=True)
-        bg.schur_camera(s["w_c"], s["wc"], z, st, s["hcc"], s["dinv"],
-                        s["cf"])
-        backc = bg.schur_camera(host["w_c"], host["wc"], zc, sc, host["hcc"],
-                                host["dinv"], host["cf"], raw=True)
-        bg.schur_camera(host["w_c"], host["wc"], zc, sc, host["hcc"],
-                        host["dinv"], host["cf"])
+        z = point()
+        zc = point_c()
+        raw = point(raw=True)
+        rawc = point_c(raw=True)
+        back = camera(z, raw=True)
+        camera(z)
+        backc = camera_c(zc, raw=True)
+        camera_c(zc)
         torch.cuda.synchronize()
         assert (bg.point_launches(), bg.camera_launches()) == \
             (n0[0] + 2, n0[1] + 2)
@@ -2305,8 +2309,82 @@ def test_schur_kernels_equal_plain_versions(cuda, C, P, E):
         assert torch.equal(back.cpu(), backc)
         for a, b in zip(st[:4], sc[:4]):
             assert torch.equal(a.cpu(), b)
-        assert int(st.count) == 0
     assert torch.isfinite(st.x).all()
+
+
+@pytest.mark.parametrize("C,P,E,hub", [(1500, 20_000, 90_000, 0),
+                                       (12, 300, 2000, 700), (1, 50, 400, 0),
+                                       (64, 6000, 40_000, 900)])
+def test_schur_kernels_at_the_edges_of_their_design(cuda, C, P, E, hub):
+    """More cameras than the cooperative grid has warps (1500 against at
+    most 8 a block on the card's SMs), a point on more edges than
+    schur_point stages at once (700, 900 against 320 rows), one camera:
+    8 CG iterations through the prepared halves (as the solver runs
+    them), the state bit-equal to the plain versions' after each, raw
+    sums too, and every launch bit-equal to a second one on a copy."""
+    import airdos_tpu_torch.ops.ba_global as bg
+    s = _reduced_system(cuda, C, P, E, hub=hub)
+    if hub:
+        assert int(s["wp"].offsets[1] - s["wp"].offsets[0]) >= hub
+    st = bg.cg_start(s["b"], s["dinv"])
+    sc = _cpu(st)
+    host = {k: _cpu(v) for k, v in s.items()}
+    point = bg.point_half(s["w_p"], s["wp"], st.p, s["cf"], s["hinv"])
+    camera = bg.camera_half(s["w_c"], s["wc"], st, s["hcc"], s["dinv"],
+                            s["cf"], P)
+    assert isinstance(point, bg.PointLaunch)
+    assert isinstance(camera, bg.CameraLaunch) and camera.grid <= C
+    for _ in range(8):
+        raw = point(raw=True)
+        assert torch.equal(raw, point(raw=True))
+        assert torch.equal(raw.cpu(), bg.schur_point_ref(
+            host["w_p"], host["wp"], sc.p, host["cf"], host["hinv"], True))
+        z = point()
+        zc = bg.schur_point_ref(host["w_p"], host["wp"], sc.p, host["cf"],
+                                host["hinv"])
+        assert torch.equal(z.cpu(), zc)
+        back = camera(z, raw=True)
+        assert torch.equal(back, camera(z, raw=True))
+        assert torch.equal(back.cpu(), bg.camera_sums_ref(host["w_c"],
+                                                          host["wc"], zc))
+        twin = bg.CGState(*(t.clone() for t in st))
+        bg.CameraLaunch(s["w_c"], s["wc"], twin, s["hcc"], s["dinv"],
+                        s["cf"], P)(z)
+        camera(z)
+        bg.schur_camera_ref(host["w_c"], host["wc"], zc, sc, host["hcc"],
+                            host["dinv"], host["cf"])
+        torch.cuda.synchronize()
+        for a, b, c in zip(st[:4], twin[:4], sc[:4]):
+            assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+    assert torch.isfinite(st.x).all()
+
+
+def test_schur_launchers_reject_what_they_do_not_take(cuda):
+    """The prepared launchers on the card: a wrong dtype, a wrong shape,
+    a CPU tensor among the inputs or an x off 8 bytes raises when the
+    launcher is made."""
+    import airdos_tpu_torch.ops.ba_global as bg
+    s = _reduced_system(cuda, 12, 300, 2000)
+    st = bg.cg_start(s["b"], s["dinv"])
+    with pytest.raises(ValueError):
+        bg.PointLaunch(s["w_p"], s["wp"], st.p.double(), s["cf"], s["hinv"])
+    with pytest.raises(ValueError):
+        bg.PointLaunch(s["w_p"], s["wp"], st.p, s["cf"], s["hinv"][:-1])
+    with pytest.raises(ValueError):
+        bg.PointLaunch(s["w_p"], s["wp"], st.p, s["cf"].cpu(), s["hinv"])
+    odd = torch.zeros(12 * 6 + 1, device=cuda)[1:].view(12, 6)
+    with pytest.raises(ValueError, match="8 bytes"):
+        bg.PointLaunch(s["w_p"], s["wp"], odd, s["cf"], s["hinv"])
+    with pytest.raises(ValueError):
+        bg.CameraLaunch(s["w_c"], s["wc"], st._replace(part=st.part[0]),
+                        s["hcc"], s["dinv"], s["cf"], 300)
+    with pytest.raises(ValueError):
+        bg.CameraLaunch(s["w_c"], s["wc"], st, s["hcc"].double(), s["dinv"],
+                        s["cf"], 300)
+    camera = bg.CameraLaunch(s["w_c"], s["wc"], st, s["hcc"], s["dinv"],
+                             s["cf"], 300)
+    with pytest.raises(ValueError):
+        camera(torch.zeros(299, 3, device=cuda))
 
 
 @pytest.mark.parametrize("K,E,regime", [(1000, 1000, "chain"),

@@ -4,7 +4,8 @@ ops/ba_global.py) and the essential graph's Sim(3) edge system
 (csrc/sim3_edges.cu, ops/pose_graph_kernels.py).  Stated tolerances:
 
 - fixed_sum / fixed_dot against a scalar float32 walk of the kernels'
-  lanes and tree: bit-equal.
+  lanes and tree: bit-equal.  camera_sums_ref against a numpy loop in
+  schur_camera's walk order, at segment lengths 0 to 900: bit-equal.
 - schur_point + schur_camera against the composition they replaced (the
   einsums, segment sums and torch.sum dot products of
   solvers/global_ba.py before them, kept here as ``_old_cg``) on a
@@ -14,8 +15,11 @@ ops/ba_global.py) and the essential graph's Sim(3) edge system
   float32 one iteration within 1e-5 and 48 within 1e-3 (CG carries each
   iteration's rounding on).
 - raw modes: the sums, which matvec by Hpp^-1 and cg_update turn into
-  the non-raw results bit for bit.  Rows outside ``base`` (NaN here) are read
-  by no segment.
+  the non-raw results bit for bit; the halves prepared once a step
+  (point_half, camera_half) give the bits of halves prepared anew each
+  call, and the card's prepared launchers raise on a CPU tensor, a wrong
+  dtype or shape, or an x off 8 bytes.
+  Rows outside ``base`` (NaN here) are read by no segment.
 - global_bundle_adjust through them against airdos_tpu's on the corridor
   at C 12, P 300: cameras within 1e-4, points seen twice within 1e-3 m,
   edge inliers equal (tests/test_torch_loop_solvers.py's limits); 48
@@ -102,6 +106,48 @@ def test_fixed_sum_is_the_kernels_lane_order(n):
     assert bg.fixed_dot(_t(a), _t(b)).numpy()[0] == _lane_sum(rows)
 
 
+def _numpy_walk_sums(y, offsets):
+    """csrc/ba_global.cu's camera order, one float32 operation at a time:
+    each segment's rows added in walk order from 0."""
+    y = np.asarray(y, np.float32)
+    out = np.zeros((len(offsets) - 1, y.shape[1]), np.float32)
+    for s in range(len(offsets) - 1):
+        for i in range(offsets[s], offsets[s + 1]):
+            out[s] = (out[s] + y[i]).astype(np.float32)
+    return out
+
+
+@pytest.mark.parametrize("length", [0, 1, 31, 32, 33, 300, 900])
+def test_camera_sums_are_the_kernels_walk_order(length):
+    """camera_sums_ref against a numpy loop in schur_camera's order (each
+    camera's rows in walk order, as its warp's six lanes add them across
+    32-row rounds and 320-row buffers), bit for bit: a segment of `length`
+    rows between segments of 0, 5 and 70 rows, rows of mixed magnitudes
+    and signs, and rows past the last segment (none of its)."""
+    rng = np.random.default_rng(length)
+    sizes = [5, length, 0, 70]
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
+    E = int(offsets[-1]) + 7
+    P = 50
+    w = (rng.standard_normal((E, 18)) * 10.0 ** rng.integers(-3, 3, (E, 1))
+         ).astype(np.float32)
+    pt = rng.integers(0, P, E).astype(np.int32)
+    z = rng.standard_normal((P, 3)).astype(np.float32)
+    key = np.repeat(np.arange(len(sizes) + 1), sizes + [7])
+    walk = bg.Walk(rows=torch.arange(E), other=_t(pt), key=_t(key),
+                   offsets=_t(offsets), n=len(sizes))
+    got = bg.camera_sums_ref(_t(w), walk, _t(z))
+    W = w.reshape(E, 6, 3)
+    zg = z[pt]
+    y = W[:, :, 0] * zg[:, 0:1]
+    for m in range(1, 3):
+        y = (y + W[:, :, m] * zg[:, m:m + 1]).astype(np.float32)
+    want = _numpy_walk_sums(y, offsets)
+    assert got.dtype == torch.float32 and got.shape == (len(sizes), 6)
+    assert np.array_equal(got.numpy().view(np.int32), want.view(np.int32))
+    assert not got[2].any()
+
+
 # ------------------------------------------------------ the CG half-steps
 
 def _reduced_system(dtype, C=12, P=300, E=2000, seed=0):
@@ -186,18 +232,17 @@ def _new_cg(s, iters, raw=False):
     walk_p = bg.make_walk(s["seg_p"], s["e_cam"])
     w_p, w_c = bg.walk_rows(s["wcp"], walk_p), bg.walk_rows(s["wcp"], walk_c)
     state = bg.cg_start(s["b_red"], s["d_inv"])
-    for _ in range(iters):
+    for _ in range(iters):          # the halves prepared anew each call
+        point = bg.point_half(w_p, walk_p, state.p, s["cam_free"],
+                              s["hpp_inv"])
+        camera = bg.camera_half(w_c, walk_c, state, s["hcc_d"], s["d_inv"],
+                                s["cam_free"], s["hpp_inv"].shape[0])
         if raw:
-            z = bg.matvec(s["hpp_inv"], bg.schur_point(
-                w_p, walk_p, state.p, s["cam_free"], s["hpp_inv"], raw=True))
-            back = bg.schur_camera(w_c, walk_c, z, state, s["hcc_d"],
-                                   s["d_inv"], s["cam_free"], raw=True)
+            z = bg.matvec(s["hpp_inv"], point(raw=True))
+            back = camera(z, raw=True)
             bg.cg_update(state, back, s["hcc_d"], s["d_inv"], s["cam_free"])
         else:
-            z = bg.schur_point(w_p, walk_p, state.p, s["cam_free"],
-                               s["hpp_inv"])
-            bg.schur_camera(w_c, walk_c, z, state, s["hcc_d"], s["d_inv"],
-                            s["cam_free"])
+            camera(point())
     return state.x, state.r, state.p, state.rz[0]
 
 
@@ -226,13 +271,38 @@ def test_raw_modes_give_the_same_bits():
             assert torch.equal(x, y)
 
 
+def test_prepared_halves_give_the_one_shot_bits():
+    """point_half / camera_half, made once and called each iteration (the
+    solver's loop), against the halves prepared anew for each call, raw
+    and fused, over 5 iterations: bit-equal."""
+    s = _reduced_system(torch.float32)
+    walk_c = bg.make_walk(s["seg_c"], s["e_pt"])
+    walk_p = bg.make_walk(s["seg_p"], s["e_cam"])
+    w_p, w_c = bg.walk_rows(s["wcp"], walk_p), bg.walk_rows(s["wcp"], walk_c)
+    for raw in (False, True):
+        state = bg.cg_start(s["b_red"], s["d_inv"])
+        point = bg.point_half(w_p, walk_p, state.p, s["cam_free"],
+                              s["hpp_inv"])
+        camera = bg.camera_half(w_c, walk_c, state, s["hcc_d"], s["d_inv"],
+                                s["cam_free"], 300)
+        for _ in range(5):
+            if raw:
+                z = bg.matvec(s["hpp_inv"], point(raw=True))
+                bg.cg_update(state, camera(z, raw=True), s["hcc_d"],
+                             s["d_inv"], s["cam_free"])
+            else:
+                assert camera(point()) is state
+        want = _new_cg(s, 5, raw=raw)
+        for a, b in zip((state.x, state.r, state.p, state.rz[0]), want):
+            assert torch.equal(a, b)
+
+
 def test_points_outside_every_segment_get_zero():
     s = _reduced_system(torch.float32)
     walk_p = bg.make_walk(s["seg_p"], s["e_cam"])
     w_p = bg.walk_rows(s["wcp"], walk_p)
     x = torch.randn(12, 6)
-    z = bg.schur_point(w_p, walk_p, x, s["cam_free"], s["hpp_inv"],
-                       raw=True)
+    z = bg.point_half(w_p, walk_p, x, s["cam_free"], s["hpp_inv"])(raw=True)
     kept = torch.zeros(300, dtype=torch.bool)
     kept[s["e_pt"][s["base"]]] = True
     moved = torch.zeros(300, dtype=torch.bool)  # an edge to a free camera
@@ -253,10 +323,15 @@ def test_global_ba_through_the_kernels_matches_jax(monkeypatch):
         def call(*a, **k):
             calls[name] += 1
             return fn(*a, **k)
-        monkeypatch.setattr(tgba, name, call)
+        return call
 
-    for name in calls:
-        counted(name, getattr(tgba, name))
+    monkeypatch.setattr(tgba, "segment_sum",
+                        counted("segment_sum", tgba.segment_sum))
+    for name, half in (("schur_point", "point_half"),
+                       ("schur_camera", "camera_half")):
+        make = getattr(tgba, half)
+        monkeypatch.setattr(tgba, half, lambda *a, name=name, make=make:
+                            counted(name, make(*a)))
     got = tgba.global_bundle_adjust(*(_t(a) for a in arrays), *scalars, **kw)
     per_step = tgba.launches_per_step(48)
     assert calls == {k: n * 5 for k, n in per_step.items()}
@@ -293,16 +368,19 @@ def test_sharded_global_ba_runs_the_raw_halves(monkeypatch):
     g1 = tgba.global_bundle_adjust(*targs, *scalars, iters1=3, iters2=4,
                                    cg_iters=32)
     raws = []
-    real = (tgba.schur_point, tgba.schur_camera)
 
-    def watch(fn):
-        def call(*a, raw=False, **k):
-            raws.append(raw)
-            return fn(*a, raw=raw, **k)
-        return call
+    def watch(make):
+        def prepared(*args):
+            half = make(*args)
 
-    monkeypatch.setattr(tgba, "schur_point", watch(real[0]))
-    monkeypatch.setattr(tgba, "schur_camera", watch(real[1]))
+            def call(*a, raw=False):
+                raws.append(raw)
+                return half(*a, raw=raw)
+            return call
+        return prepared
+
+    monkeypatch.setattr(tgba, "point_half", watch(tgba.point_half))
+    monkeypatch.setattr(tgba, "camera_half", watch(tgba.camera_half))
     mesh = tsb.make_mesh(n, "cpu")
     run = tsb.sharded_global_bundle_adjust(mesh, iters1=3, iters2=4,
                                            cg_iters=32)
@@ -502,13 +580,63 @@ def test_wrappers_raise_on_cpu_kernels():
     plain versions through the dispatchers."""
     s = _reduced_system(torch.float32)
     walk_p = bg.make_walk(s["seg_p"], s["e_cam"])
-    with pytest.raises(ValueError):
-        bg.schur_point_cuda(bg.walk_rows(s["wcp"], walk_p), walk_p,
-                            torch.zeros(12, 6), s["cam_free"], s["hpp_inv"])
+    walk_c = bg.make_walk(s["seg_c"], s["e_pt"])
+    with pytest.raises(ValueError, match="CUDA"):
+        bg.PointLaunch(bg.walk_rows(s["wcp"], walk_p), walk_p,
+                       torch.zeros(12, 6), s["cam_free"], s["hpp_inv"])
+    with pytest.raises(ValueError, match="CUDA"):
+        bg.CameraLaunch(bg.walk_rows(s["wcp"], walk_c), walk_c, bg.cg_start(
+            s["b_red"], s["d_inv"]), s["hcc_d"], s["d_inv"], s["cam_free"],
+            300)
     per_edge = _edges("generic")
     with pytest.raises(ValueError):
         pgk.sim3_edges_cuda(*(_t(a) for a in _vertex_form(per_edge)),
                             torch.ones(24))
+
+
+def _launch_inputs():
+    s = _reduced_system(torch.float32)
+    walk_c = bg.make_walk(s["seg_c"], s["e_pt"])
+    walk_p = bg.make_walk(s["seg_p"], s["e_cam"])
+    state = bg.cg_start(s["b_red"], s["d_inv"])
+    point = dict(w_p=bg.walk_rows(s["wcp"], walk_p), walk_p=walk_p,
+                 x=state.p, cam_free=s["cam_free"], hpp_inv=s["hpp_inv"])
+    camera = dict(w_c=bg.walk_rows(s["wcp"], walk_c), walk_c=walk_c,
+                  state=state, hcc_d=s["hcc_d"], d_inv=s["d_inv"],
+                  cam_free=s["cam_free"], n_points=300)
+    return point, camera
+
+
+@pytest.mark.parametrize("half,name,bad", [
+    ("point", None, None), ("point", "x", "dtype"),
+    ("point", "hpp_inv", "shape"), ("point", "cam_free", "shape"),
+    ("point", "x", "align"),
+    ("camera", None, None), ("camera", "hcc_d", "dtype"),
+    ("camera", "d_inv", "shape"), ("camera", "state", "shape")])
+def test_prepared_launchers_raise(half, name, bad):
+    """PointLaunch and CameraLaunch (what point_half / camera_half make on
+    CUDA tensors) check every tensor once, when made: a CPU tensor, a
+    wrong dtype, a wrong shape or an x that does not start on 8 bytes (the
+    point kernel's float2 loads) raises ValueError, and nothing falls back
+    to the plain version."""
+    point, camera = _launch_inputs()
+    args = point if half == "point" else camera
+    if name == "state":
+        st = args["state"]
+        args["state"] = st._replace(part=st.part[0])       # [C], not [2, C]
+    elif bad == "dtype":
+        args[name] = args[name].double()
+    elif bad == "shape":
+        args[name] = args[name][:-1]
+    elif bad == "align":
+        x = args[name]
+        args[name] = torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(
+            x.shape)                    # contiguous, 4 bytes off
+    cls = bg.PointLaunch if half == "point" else bg.CameraLaunch
+    match = "8 bytes" if bad == "align" else \
+        {"state": "part"}.get(name, name) or "CUDA"
+    with pytest.raises(ValueError, match=match):
+        cls(**args)
 
 
 def test_system_gap_measures_each_edge_in_its_units():

@@ -1,7 +1,8 @@
 """Where a launch of pose_lm, select, orb_desc, static_edge_blocks,
 fast_nms, pyramid, landmark_reduce, landmark_backsub, human_edge_blocks,
-stereo_sad or patch_disparity spends its time on the card, from clock64()
-stamps in an instrumented copy of the kernel's source.
+stereo_sad, patch_disparity, schur_point or schur_camera spends its time
+on the card, from clock64() stamps in an instrumented copy of the
+kernel's source.
 
     python3 tools/kernel_split.py [--parent DIR] [--only KERNEL ...]
 
@@ -49,6 +50,22 @@ point on the inputs below, and the stamps are read once a launch.
   a 640x360 texture and its copy shifted 7 px: cycles a keypoint's lane 0
   in the header's loads, the staging of its windows, the SAD sums and the
   finish (minimum, parabola, tests, stores);
+- schur_camera and schur_point (csrc/ba_global.cu) on seeded reduced
+  camera systems at the map scale's (C 1000, P 100,000, E 298,380),
+  pillar's (C 64, P 8192, E 45,000), the online pillar's (C 32, P 4096,
+  E 16,384), a map-scale mesh rank's (E 74,595) and the dry run's rank's
+  (C 4, P 32, E 64) sizes: cycles a camera's warp (lane 0) in the
+  walk's loads, the rows' y, the chain of adds with Ap and q, the wait
+  at the grid barriers and the update's three parts, and a point warp's
+  lane 0 in the staging and the gathers with products; with --parent,
+  the parent's design (a block a camera: loads and y, the six threads'
+  chain, Ap, q and the counter, the last block's update; a thread a
+  point: its walk) on the same inputs, each after one CG iteration
+  bit-equal to the plain versions, and both sources' device times, also
+  in raw mode; and the device times of a variant of schur_camera that
+  sums a camera's rows over 32 lanes in float64 and a halving tree,
+  rounded once (``camera_lanes``, held bit-equal to
+  ``camera_sums_lanes_ref``), the order the shipped kernel does not take;
 - patch_disparity (csrc/disparity.cu) at 40 torso probes on a 640x360
   8-bit texture and its copy shifted 13 px, and on the same texture in
   fractions: cycles a probe's thread 0 in the loads and shared stores to
@@ -1341,9 +1358,398 @@ def split_disp(parent, cases) -> None:
                 dk._kernel = shipped
 
 
+# ------------------------------------------------ schur_point, schur_camera
+
+def _slot_sums(cond: str, slots) -> str:
+    """`if (cond) { g_split[k] += slots[k] ...; count }`: totals kept in
+    the kernel's own variables."""
+    adds = "".join(f"    atomicAdd(&g_split[{k}], static_cast<unsigned long "
+                   f"long>({v}));\n" for k, v in enumerate(slots))
+    return (f"  if ({cond}) {{\n{adds}    atomicAdd(&g_split[7], 1ull);\n"
+            f"  }}\n")
+
+
+SC_PARENT_PARTS = ("loads and rows' y", "the six threads' chain",
+                   "Ap, q and the counter", "the last block's update")
+SC_PARTS = ("walk loads", "rows' y", "the six lanes' chain, Ap and q",
+            "grid barriers", "p.Ap's fixed sum", "x, r, z and r.z",
+            "r.z's fixed sum and p")
+SP_PARENT_PARTS = ("the walk (loads and products)",)
+SP_PARTS = ("staging", "gathers and products")
+
+
+def camera_parent(src: str) -> str:
+    """The parent's csrc/ba_global.cu (a block a camera, the update in the last
+    block): slots 0-3 a camera's thread 0 (each chunk's loads and rows' y
+    to the barrier, the chain of adds to the next barrier, Ap, q and the
+    counter, and in the last block the update)."""
+    return _insert(src, [
+        ("namespace {\n", WARP_HEAD),
+        ("  const int begin = a.offsets[c];\n  const int end = a.offsets[c + 1];\n",
+         "  long long t_load = 0, t_sum = 0, t_wait = 0, t_upd = 0;\n"
+         "  long long t0 = clock64();\n"
+         "  const int begin = a.offsets[c];\n  const int end = a.offsets[c + 1];\n"),
+        ("    __syncthreads();\n    if (t < 6) {\n",
+         "    __syncthreads();\n    const long long t1 = clock64();\n"
+         "    t_load += t1 - t0;\n    if (t < 6) {\n"),
+        ("    __syncthreads();  // the chunk is read before the next one lands\n  }\n",
+         "    __syncthreads();  // the chunk is read before the next one lands\n"
+         "    t0 = clock64();\n    t_sum += t0 - t1;\n  }\n"),
+        ("  __syncthreads();\n  if (!last) return;\n  __threadfence();\n"
+         "  cg_update(a, red);\n}\n",
+         "  __syncthreads();\n  t_wait += clock64() - t0;\n  if (last) {\n"
+         "    __threadfence();\n    const long long tu = clock64();\n"
+         "    cg_update(a, red);\n    t_upd += clock64() - tu;\n  }\n"
+         + _slot_sums("t == 0", ["t_load", "t_sum", "t_wait", "t_upd"])
+         + "}\n"),
+    ])
+
+
+def camera_new(src: str) -> str:
+    """This csrc/ba_global.cu (a warp a camera, the update across the
+    cooperative grid): slots 0-6 a warp's lane 0 over its cameras (the
+    walk's loads: offsets, the rows and points staged, z gathered, to
+    the buffer's barrier; the rows' y; the chain of adds in walk order
+    with Ap and q; the wait at the two grid barriers; the update: p.Ap's
+    fixed sum with alpha, the cameras' x, r, z and r.z, then r.z's fixed
+    sum with beta and p)."""
+    return _insert(src, [
+        ("namespace {\n", WARP_HEAD),
+        ("                                            float back[6]) {\n"
+         "  const int begin = a.offsets[c];\n",
+         "                                            float back[6], long long& tl,\n"
+         "                                            long long& ty, long long& ts) {\n"
+         "  long long t0 = clock64();\n  const int begin = a.offsets[c];\n"),
+        ("    copies_done();\n    __syncwarp();\n#pragma unroll 4\n",
+         "    copies_done();\n    __syncwarp();\n    const long long t1 = clock64();\n"
+         "    tl += t1 - t0;\n#pragma unroll 4\n"),
+        ("    __syncwarp();\n    if (lane < 6) {       // in walk order",
+         "    __syncwarp();\n    const long long t2 = clock64();\n"
+         "    ty += t2 - t1;\n    if (lane < 6) {       // in walk order"),
+        ("    __syncwarp();   // the buffer is read before the next rows land\n  }\n",
+         "    __syncwarp();   // the buffer is read before the next rows land\n"
+         "    t0 = clock64();\n    ts += t0 - t2;\n  }\n"),
+        ("  for (int k = 0; k < 6; ++k) back[k] = __shfl_sync(kAll, acc, k);\n}\n",
+         "  for (int k = 0; k < 6; ++k) back[k] = __shfl_sync(kAll, acc, k);\n"
+         "  ts += clock64() - t0;\n}\n"),
+        ("  Cam kept;                // the warp's last camera, for the update\n",
+         "  Cam kept;                // the warp's last camera, for the update\n"
+         "  long long t_load = 0, t_y = 0, t_sum = 0, t_wait = 0, t_fs1 = 0,\n"
+         "            t_upd = 0, t_fs2 = 0;\n"),
+        ("      camera_sums(a, c, buf, rows, lane, back);\n",
+         "      camera_sums(a, c, buf, rows, lane, back, t_load, t_y, t_sum);\n"),
+        ("    camera_sums(a, c, buf, rows, lane, back);\n    const float nf",
+         "    camera_sums(a, c, buf, rows, lane, back, t_load, t_y, t_sum);\n"
+         "    const long long tq = clock64();\n    const float nf"),
+        ("    kept.ap = ap;\n  }\n",
+         "    kept.ap = ap;\n    t_sum += clock64() - tq;\n  }\n"),
+        ("  grid.sync();             // every camera's p.Ap is written\n",
+         "  long long tb = clock64();\n"
+         "  grid.sync();             // every camera's p.Ap is written\n"
+         "  t_wait += clock64() - tb;\n  tb = clock64();\n"),
+        ("  const float alpha = fabsf(pap) > kGuard ? __fdiv_rn(rz, pap) : 0.0f;\n",
+         "  const float alpha = fabsf(pap) > kGuard ? __fdiv_rn(rz, pap) : 0.0f;\n"
+         "  t_fs1 += clock64() - tb;\n  tb = clock64();\n"),
+        ("  grid.sync();             // every camera's r.z is written\n",
+         "  t_upd += clock64() - tb;\n  tb = clock64();\n"
+         "  grid.sync();             // every camera's r.z is written\n"
+         "  t_wait += clock64() - tb;\n  tb = clock64();\n"),
+        ("  if (blockIdx.x == 0 && threadIdx.x == 0) a.rz[0] = rz_new;\n}\n",
+         "  if (blockIdx.x == 0 && threadIdx.x == 0) a.rz[0] = rz_new;\n"
+         "  t_fs2 += clock64() - tb;\n"
+         + _slot_sums("lane == 0 && first < C",
+                      ["t_load", "t_y", "t_sum", "t_wait", "t_fs1", "t_upd",
+                       "t_fs2"]) + "}\n"),
+    ])
+
+
+def camera_lanes(src: str) -> str:
+    """This csrc/ba_global.cu with schur_camera's sums over lanes: lane j
+    adds the y of a camera's rows j, j + 32, ... in float64 from 0, then a
+    halving tree over the 32 lanes in float64, rounded to float32 once
+    (the buffer's rows a multiple of 32, so that a row keeps its lane)."""
+    head = "    if (lane < 6) {       // in walk order"
+    tail = "    __syncwarp();   // the buffer is read before the next rows land\n"
+    i = src.index(head)
+    src = src[:i] + src[src.index(tail, i):]
+    return _insert(src, [
+        ("namespace {\n", WARP_HEAD),
+        ("  float acc = 0.0f;        // lane k < 6: back[k]\n",
+         "  double acc[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};\n"),
+        ("      for (int m = 0; m < 3; ++m) wi[m] = make_float2(y[2 * m], "
+         "y[2 * m + 1]);\n",
+         "      for (int k = 0; k < 6; ++k)\n"
+         "        acc[k] = __dadd_rn(acc[k], static_cast<double>(y[k]));\n"),
+        ("  for (int k = 0; k < 6; ++k) back[k] = __shfl_sync(kAll, acc, k);\n",
+         "  for (int off = 16; off > 0; off >>= 1) {\n"
+         "#pragma unroll\n"
+         "    for (int k = 0; k < 6; ++k)\n"
+         "      acc[k] = __dadd_rn(acc[k], __shfl_down_sync(kAll, acc[k], off));\n"
+         "  }\n"
+         "#pragma unroll\n"
+         "  for (int k = 0; k < 6; ++k)\n"
+         "    back[k] = __double2float_rn(__shfl_sync(kAll, acc[k], 0));\n"),
+        ("  const int rows = ((share - 4) / kCamRowFloats) & ~3;\n",
+         "  const int rows = ((share - 4) / kCamRowFloats) & ~31;\n"),
+    ])
+
+
+def camera_sums_lanes_ref(w_c, walk_c, z, wide=True):
+    """camera_lanes' sums [C, 6] in torch: a camera's row at position i
+    goes to lane i % 32; a lane adds its rows' y in sequence from 0 in
+    float64 (wide=False: in y's dtype), then a halving tree over the
+    lanes, rounded once."""
+    import torch
+    zg = z[walk_c.other.long()]
+    W = w_c.reshape(-1, 6, 3)
+    y = W[:, :, 0] * zg[:, 0:1]
+    for m in range(1, 3):
+        y = y + W[:, :, m] * zg[:, m:m + 1]
+    n, E, dtype = walk_c.n, y.shape[0], y.dtype
+    key = walk_c.key
+    mine = key < n
+    key, y = key[mine], y[mine].double() if wide else y[mine]
+    pos = torch.arange(E, device=y.device)[mine] - walk_c.offsets.long()[key]
+    slot, rnd = key * 32 + pos % 32, pos // 32
+    acc = y.new_zeros(n * 32, 6)
+    for k in range(int(rnd.max()) + 1 if rnd.numel() else 0):
+        at = rnd == k                  # each (camera, lane) once a round
+        acc[slot[at]] = acc[slot[at]] + y[at]
+    acc = acc.reshape(n, 32, 6)
+    for off in (16, 8, 4, 2, 1):
+        acc = acc[:, :off] + acc[:, off:2 * off]
+    return acc[:, 0].to(dtype)
+
+
+def point_parent(src: str) -> str:
+    """The parent's schur_point (a thread a point, scalar row loads): slot 0 a
+    warp's lane 0 in its point's walk (the loads and products
+    interleaved)."""
+    return _insert(src, [
+        ("namespace {\n", WARP_HEAD),
+        ("  float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;\n  const int end = offsets[p + 1];\n",
+         "  const long long t0 = clock64();\n"
+         "  float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;\n  const int end = offsets[p + 1];\n"),
+        ("  float* o = out + static_cast<int64_t>(p) * 3;\n",
+         "  const long long t1 = clock64();\n"
+         + _warp_sums("(threadIdx.x & 31) == 0", ["t0", "t1"])
+         + "  float* o = out + static_cast<int64_t>(p) * 3;\n"),
+    ])
+
+
+def point_new(src: str) -> str:
+    """This schur_point (the block's span staged): slots 0-1 a warp's lane
+    0 (the staging's copies to the block barrier, each chunk; the rows'
+    gathers and products to the next barrier)."""
+    return _insert(src, [
+        ("namespace {\n", WARP_HEAD),
+        ("  float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;\n  for (int s = span0;",
+         "  long long t_stage = 0, t_rows = 0;\n  long long t0 = clock64();\n"
+         "  float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;\n  for (int s = span0;"),
+        ("    copies_done();\n    __syncthreads();\n    const int i1",
+         "    copies_done();\n    __syncthreads();\n"
+         "    const long long t1 = clock64();\n    t_stage += t1 - t0;\n"
+         "    const int i1"),
+        ("    __syncthreads();  // the buffers are read before the next rows land\n  }\n",
+         "    __syncthreads();  // the buffers are read before the next rows land\n"
+         "    t0 = clock64();\n    t_rows += t0 - t1;\n  }\n"
+         + _slot_sums("(threadIdx.x & 31) == 0", ["t_stage", "t_rows"])),
+    ])
+
+
+SCHUR_SHAPES = (("map scale", 1000, 100_000, 298_380),
+                ("pillar", 64, 8192, 45_000),
+                ("online", 32, 4096, 16_384),
+                ("a mesh rank", 1000, 100_000, 74_595),
+                ("the dry run's rank", 4, 32, 64))
+
+
+def _schur_problem(rng, C, P, E):
+    """A seeded reduced camera system at a path's size (tests/
+    test_torch_cuda.py's: random edges, a tenth of them and 5% of the
+    points outside the walks, camera 0 fixed): the walks' rows of Wcp,
+    Hpp^-1, Hcc_d, D^-1, cam_free and b_red on the card."""
+    import torch
+    from airdos_tpu_torch.ops import ba_global as bg
+    from airdos_tpu_torch.ops.segment_kernels import make_segments
+    e_cam, e_pt = rng.integers(0, C, E), rng.integers(0, P, E)
+    pv = rng.random(P) > 0.05
+    base = (rng.random(E) > 0.1) & pv[e_pt]
+    A = rng.standard_normal((P, 3, 3)) * 0.05
+    hinv = (A @ A.transpose(0, 2, 1) + 0.02 * np.eye(3)) * pv[:, None, None]
+    B = rng.standard_normal((C, 6, 6))
+    hcc = B @ B.transpose(0, 2, 1) + 400.0 * np.eye(6)
+    cf = np.ones(C)
+    cf[0] = 0.0
+    dinv = np.linalg.inv(hcc)
+    dinv[0] = np.eye(6)
+    t = lambda a, dt=torch.float32: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a)).to("cuda", dt)
+    ec, ep = t(e_cam, torch.int64), t(e_pt, torch.int64)
+    keep = t(base, torch.bool)
+    wc = bg.make_walk(make_segments(ec, C, keep), ep)
+    wp = bg.make_walk(make_segments(ep, P, keep), ec)
+    W = t(rng.standard_normal((E, 6, 3)))
+    return dict(w_p=bg.walk_rows(W, wp), w_c=bg.walk_rows(W, wc), wp=wp,
+                wc=wc, hinv=t(hinv), hcc=t(hcc), dinv=t(dinv), cf=t(cf),
+                b=t(rng.standard_normal((C, 6)) * cf[:, None]))
+
+
+def _schur_launchers(dll, prob, parent: bool):
+    """point() and camera(state) through a build's C entry points (the
+    parent's point takes no row count, its camera a counter where this
+    one takes its grid)."""
+    import torch
+    from airdos_tpu_torch.ops import ba_global as bg
+    sig = bg._SIGNATURES
+    pt = _entry(dll, "airdos_schur_point", [ctypes.c_void_p] * 6
+                + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 if parent
+                else sig["airdos_schur_point"])
+    cam_sig = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 2
+               + [ctypes.c_void_p] * 2) if parent \
+        else sig["airdos_schur_camera"]
+    cam = _entry(dll, "airdos_schur_camera", cam_sig)
+    C, P = prob["wc"].n, prob["wp"].n
+    grid = 0
+    if not parent:
+        res = _entry(dll, "airdos_schur_residency",
+                     sig["airdos_schur_residency"])
+        out = (ctypes.c_int * 3)()
+        if res(out):
+            raise SystemExit("schur_camera residency query failed")
+        grid = min(C, out[1] * out[2])
+    count = torch.zeros(1, dtype=torch.int32, device="cuda")
+    z = torch.empty((P, 3), device="cuda")
+    stream = (lambda: torch.cuda.current_stream().cuda_stream)
+    x0 = bg.cg_start(prob["b"], prob["dinv"]).p
+
+    sizes = (P,) if parent else (P, prob["w_p"].shape[0])   # this: and E
+
+    def point(raw=0):
+        err = pt(prob["w_p"].data_ptr(), prob["wp"].other.data_ptr(),
+                 prob["wp"].offsets.data_ptr(), x0.data_ptr(),
+                 prob["cf"].data_ptr(), prob["hinv"].data_ptr(), *sizes, raw,
+                 z.data_ptr(), stream())
+        if err:
+            raise SystemExit(f"schur_point: cudaError {err}")
+        return z
+
+    def camera(st, raw=0):
+        part = st.part[0] if parent else st.part    # the parent's: [C]
+        last = (raw, count.data_ptr(), stream()) if parent \
+            else (prob["w_c"].shape[0], raw, grid, stream())
+        err = cam(prob["w_c"].data_ptr(), prob["wc"].other.data_ptr(),
+                  prob["wc"].offsets.data_ptr(), z.data_ptr(),
+                  prob["hcc"].data_ptr(), prob["dinv"].data_ptr(),
+                  prob["cf"].data_ptr(), st.x.data_ptr(), st.r.data_ptr(),
+                  st.p.data_ptr(), st.rz.data_ptr(), st.ap.data_ptr(),
+                  part.data_ptr(), C, *last)
+        if err:
+            raise SystemExit(f"schur_camera: cudaError {err}")
+        return st
+    return point, camera, x0
+
+
+def _schur_wants(prob, x0, z):
+    """The plain versions' z and CG state after one iteration from
+    cg_start, on CPU copies (their segment sums are index_add_ in walk
+    order there, atomics on the card), on the card."""
+    from airdos_tpu_torch.ops import ba_global as bg
+
+    def cpu(x):
+        if isinstance(x, tuple):
+            return type(x)(*(cpu(y) for y in x))
+        return x.cpu() if hasattr(x, "cpu") else x
+    p = {k: cpu(v) for k, v in prob.items()}
+    zc = bg.schur_point_ref(p["w_p"], p["wp"], x0.cpu(), p["cf"], p["hinv"])
+    st = bg.cg_start(p["b"], p["dinv"])
+    bg.schur_camera_ref(p["w_c"], p["wc"], z.cpu(), st, p["hcc"], p["dinv"],
+                        p["cf"])
+    return zc.cuda(), bg.CGState(*(t.cuda() for t in st))
+
+
+def _time_lanes(text: str, problems) -> None:
+    """camera_lanes' device times (raw and not) at each size, each launch
+    first held bit-equal to camera_sums_lanes_ref and the update after it
+    to schur_camera_ref's on those sums."""
+    from airdos_tpu_torch.ops import ba_global as bg
+    dll = _build(camera_lanes(text), "ba_global_lanes")
+    shipped = bg.camera_sums_ref
+    for size, prob in problems:
+        point, camera, x0 = _schur_launchers(dll, prob, False)
+        z = point()
+        st = camera(bg.cg_start(prob["b"], prob["dinv"]))
+        bg.camera_sums_ref = camera_sums_lanes_ref
+        try:
+            zc, want = _schur_wants(prob, x0, z)
+        finally:
+            bg.camera_sums_ref = shipped
+        _bits_check((z,) + tuple(st[:4]), (zc,) + tuple(want[:4]),
+                    "schur_camera (lanes, float64)")
+        cc, ch = _graph_ms(lambda: camera(st))
+        rcc, rch = _graph_ms(lambda: camera(st, 1))
+        print(f"[time] schur (lanes, float64) {size}: C {prob['wc'].n} "
+              f"E {prob['w_c'].shape[0]}: schur_camera cold {cc:.4f} ms "
+              f"(hot {ch:.4f}); raw cold {rcc:.4f} ms (hot {rch:.4f})",
+              flush=True)
+
+
+def split_schur(parent, problems) -> None:
+    """schur_point and schur_camera at the map scale's, pillar's, the
+    online pillar's, a map-scale mesh rank's and the dry run's rank's
+    sizes: the stamped copies (the parent's when given,
+    then this one's), each checked after one CG iteration against its
+    plain version (the sums in walk order in both), then the
+    unstamped sources' device times (chip_smoke's CUDA graph, cold and
+    hot) at each size, also in raw mode."""
+    from airdos_tpu_torch.ops import ba_global as bg
+    srcs = _sources(parent, "ba_global.cu")
+    for label, text in srcs:
+        if not label:
+            _time_lanes(text, problems)
+        old = bool(label)
+        tag = "parent" if old else "this"
+        builds = [(camera_parent if old else camera_new)(text),
+                  (point_parent if old else point_new)(text), text]
+        dlls = [_build(b, f"ba_global_{tag}_{i}")
+                for i, b in enumerate(builds)]
+        for size, prob in problems:
+            what = (f"{size}: C {prob['wc'].n} P {prob['wp'].n} E "
+                    f"{prob['w_c'].shape[0]} ({int(prob['wc'].offsets[-1])} "
+                    f"walked)")
+            for i, dll in enumerate(dlls):
+                point, camera, x0 = _schur_launchers(dll, prob, old)
+                z = point()
+                st = camera(bg.cg_start(prob["b"], prob["dinv"]))
+                zc, want = _schur_wants(prob, x0, z)
+                _bits_check((z,) + tuple(st[:4]), (zc,) + tuple(want[:4]),
+                            "schur halves" + label)
+                if i < 2:                      # a stamped copy
+                    dll.split_reset()
+                    run = (lambda: camera(st)) if i == 0 else point
+                    ms = _events_ms(run)
+                    name = ("schur_camera" if i == 0 else "schur_point") \
+                        + label
+                    parts = [[SC_PARTS, SC_PARENT_PARTS],
+                             [SP_PARTS, SP_PARENT_PARTS]][i][old]
+                    _print_split(name, what, ms, _read(dll), parts)
+                    continue
+                pc, ph = _graph_ms(point)
+                cc, ch = _graph_ms(lambda: camera(st))
+                rpc, rph = _graph_ms(lambda: point(1))
+                rcc, rch = _graph_ms(lambda: camera(st, 1))
+                point()                      # z again, for the next launches
+                print(f"[time] schur ({tag}) {what}: schur_point cold "
+                      f"{pc:.4f} ms (hot {ph:.4f}), schur_camera cold "
+                      f"{cc:.4f} ms (hot {ch:.4f}); raw: schur_point cold "
+                      f"{rpc:.4f} ms (hot {rph:.4f}), schur_camera cold "
+                      f"{rcc:.4f} ms (hot {rch:.4f})", flush=True)
+
+
 SPLITS = ("pose_lm", "select", "orb_desc", "static_edge_blocks", "fast_nms",
           "pyramid", "landmark",
-          "human_edge_blocks", "stereo_sad", "patch_disparity")
+          "human_edge_blocks", "stereo_sad", "patch_disparity", "schur_point",
+          "schur_camera")
 
 
 def main(argv=None) -> None:
@@ -1352,7 +1758,7 @@ def main(argv=None) -> None:
     ap.add_argument("--parent", type=Path, default=None,
                     help="an unpacked checkout of the commit before a "
                          "kernel's redesign (landmark, stereo_sad, "
-                         "patch_disparity)")
+                         "patch_disparity, schur_point / schur_camera)")
     ap.add_argument("--only", nargs="+", choices=SPLITS, default=SPLITS,
                     help="the kernels to split (default: all)")
     args = ap.parse_args(argv)
@@ -1389,6 +1795,10 @@ def main(argv=None) -> None:
         rng = np.random.default_rng(9)
         split_sad(args.parent, [_sad_problem(rng),
                                 _sad_problem(rng, 240, 320, 4, 640)])
+    if only & {"schur_point", "schur_camera"}:      # split together
+        rng = np.random.default_rng(21)
+        split_schur(args.parent, [(size, _schur_problem(rng, C, P, E))
+                                  for size, C, P, E in SCHUR_SHAPES])
     if "patch_disparity" in only:
         rng = np.random.default_rng(3)
         split_disp(args.parent, [
