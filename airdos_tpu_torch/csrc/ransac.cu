@@ -12,14 +12,21 @@
 // sim3_hypotheses_ref / sim3_refine_ref) run them as batched eager torch:
 // a batched eigh, solve_ex and ~200 small ops a RANSAC.
 //
-// A block a hypothesis (hypotheses mode: H blocks over sample_idx [H, m])
-// or one block over all n points (refine mode, weights inl_b + 1e-6 in
-// float32).  The sums over the block's points (the sample's m or all n)
-// are fixed-order block sums (small_eig.cuh block_sum); the dense work
-// runs in float64 on thread 0 (small_eig.cuh: cyclic Jacobi, Gaussian
-// elimination); the pose is rounded once to float32, and the block's
-// threads run the inlier test of all n points in float32 and count the
-// inliers by a block sum.
+// EPnP: a warp a hypothesis (hypotheses mode: H warps, four a block, over
+// sample_idx [H, 4]) or one warp over all n points (refine mode, weights
+// inl_b + 1e-6 in float32).  The sums over the warp's points (the
+// sample's 4 or all n) are fixed-order warp sums (small_eig.cuh
+// warp_sum); the dense work runs in float64: the 3 x 3 PCA and the 4 x 4
+// inverse on lane 0, M^T M's and the canonical basis's eigenvectors on the
+// whole warp (small_eig.cuh warp_jacobi_eigh, a round-robin order), the
+// two candidates (Gauss-Newton on the betas, Horn's 4 x 4 Jacobi) on
+// lanes 0 and 1 side by side; the pose is rounded once to float32, and
+// the warp's lanes run the inlier test of all n points in float32 and
+// count the inliers by a warp sum.
+// Horn: a block a hypothesis (H blocks over sample_idx [H, 3]) or one
+// block over all n points (refine mode); the sums are fixed-order block
+// sums (small_eig.cuh block_sum), the dense work float64 on thread 0
+// (small_eig.cuh: cyclic Jacobi), the inlier test by the block.
 //
 // EPnP (solvers/epnp.py epnp_pose):
 //   c0 = sum w P / sum w; C = sum wn (P - c0)(P - c0)^T; its 3 x 3 Jacobi
@@ -38,7 +45,7 @@
 //   Horn's M come from 16 more sums taken once (sum wn alpha_j and sum wn
 //   (P - c0) alpha_j^T, with sum wn (P - c0) = 0 taken as exact), and the
 //   positive-depth flip negates both; Horn's R, t; the weighted
-//   reprojection error of each candidate over the points (a block sum),
+//   reprojection error of each candidate over the points (a warp sum),
 //   and the pick err0 <= err1.  Inliers: err2 < max_err2 and z > 0 (z
 //   the guarded depth).
 // Horn (solvers/align.py horn_align): c1, c2 = sum w x / sum w; M = sum
@@ -69,10 +76,17 @@
 // its m points and all n points once (20 or 24 bytes a point, 5 KB at n
 // 200) and writes n flags; its float64 work is ~1e5 operations in the
 // 12 x 12 Jacobi (EPnP) or ~3e3 (Horn), 2.6e7 for 256 EPnP hypotheses,
-// 0.8 us at 34 TFLOP/s.  The chain of dependent float64 operations on
-// thread 0 (the Jacobi sweeps) is what a launch costs, with the block's
-// other threads idle meanwhile: the hypotheses run side by side, one
-// block each, so the launch takes one hypothesis's chain.
+// 0.8 us at 34 TFLOP/s.  A launch costs one hypothesis's chain of
+// dependent float64 operations, the hypotheses side by side.  Horn's is
+// short, on thread 0.  EPnP's was ~0.5 ms on thread 0 (its 12 x 12
+// Jacobi's ~400 rotations one after another, each ~60 dependent updates
+// through shared memory); on a warp a step's six rotations and their
+// ~100 updates run at once, 11 steps a sweep, so the chain is a step's:
+// a rotation's hypot, division and reciprocal square root, then a
+// lane's share of the updates (~1,300 cycles a step on the card, ~110
+// steps; tools/kernel_split.py).  The candidates' chains run side by side,
+// and the sums keep 14 partial sums a lane at a time where thread 0 kept
+// 56.
 //
 // The C entry points launch on the caller's stream, allocate nothing, do
 // not synchronise, and return cudaGetLastError().
@@ -85,7 +99,7 @@
 // the layout of ops/ransac_kernels.py _PARAMS
 struct RansacParams {
   long long n;               // points
-  long long n_hyp;           // blocks: hypotheses, or 1 in refine mode
+  long long n_hyp;           // hypotheses, or 1 in refine mode
   long long refine;          // 0: hypotheses mode, 1: refine mode
   long long fix_scale;       // Horn: s = 1
   const float* a;            // EPnP: pw [n, 3]; Horn: x1 [n, 3]
@@ -108,28 +122,16 @@ struct RansacParams {
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;            // Horn: a block's threads
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxSums = 56;
+constexpr int kHornSums = 10;
 
-// the block's sums and what thread 0 hands to the other threads
+// Horn's block sums and what thread 0 hands to the other threads
 struct Shared {
-  double scratch[kMaxSums * kWarps];
-  double out[kMaxSums];
-  double cps[4][3];          // EPnP: the control points
-  double Ainv[4][4];         // EPnP: the barycentric system's inverse
-  double Rc[2][3][3];        // EPnP: the two candidates
-  double tc[2][3];
+  double scratch[kHornSums * kWarps];
+  double out[kHornSums];
   float Rf[9], tf[3], sf;    // the block's pose, rounded
   int bad;                   // a degenerate sample
-};
-
-// thread 0's dense work (shared memory: one block's, not one thread's
-// local memory on every thread)
-struct Dense {
-  double A[12][12];
-  double V[12][12];
-  double w[12];
 };
 
 __device__ __forceinline__ double guard(double z) {
@@ -140,10 +142,10 @@ __device__ __forceinline__ float guardf(float z) {
   return fabsf(z) < 1e-9f ? 1e-9f : z;
 }
 
-// point j of the block's set: the sample's j-th index, or j itself
+// point j of hypothesis h's set: the sample's j-th index, or j itself
 __device__ __forceinline__ long long point_of(const RansacParams& q, int m,
-                                              long long j) {
-  return q.refine ? j : static_cast<long long>(q.samples[blockIdx.x * m + j]);
+                                              long long j, long long h) {
+  return q.refine ? j : static_cast<long long>(q.samples[h * m + j]);
 }
 
 // the weight of point gi: 1 for a sample, inl_b + 1e-6 (float32) in refine
@@ -153,10 +155,11 @@ __device__ __forceinline__ double weight_of(const RansacParams& q,
                   : 1.0;
 }
 
-// thread 0: does the sample repeat an index or leave [0, n)?
-__device__ __forceinline__ bool degenerate(const RansacParams& q, int m) {
+// does hypothesis h's sample repeat an index or leave [0, n)?
+__device__ __forceinline__ bool degenerate(const RansacParams& q, int m,
+                                           long long h) {
   if (q.refine) return false;
-  const int* idx = q.samples + blockIdx.x * m;
+  const int* idx = q.samples + h * m;
   for (int i = 0; i < m; ++i) {
     if (idx[i] < 0 || idx[i] >= q.n) return true;
     for (int j = 0; j < i; ++j)
@@ -165,23 +168,72 @@ __device__ __forceinline__ bool degenerate(const RansacParams& q, int m) {
   return false;
 }
 
-__device__ __forceinline__ void round_pose(Shared& sh, const double (&R)[3][3],
-                                           const double (&t)[3], double s) {
+__device__ __forceinline__ void round_pose(float (&Rf)[9], float (&tf)[3],
+                                           const double (&R)[3][3],
+                                           const double (&t)[3]) {
   for (int i = 0; i < 3; ++i) {
-    for (int j = 0; j < 3; ++j) sh.Rf[3 * i + j] = static_cast<float>(R[i][j]);
-    sh.tf[i] = static_cast<float>(t[i]);
+    for (int j = 0; j < 3; ++j) Rf[3 * i + j] = static_cast<float>(R[i][j]);
+    tf[i] = static_cast<float>(t[i]);
   }
-  sh.sf = static_cast<float>(s);
 }
 
-__device__ __forceinline__ void nan_pose(Shared& sh) {
+__device__ __forceinline__ void nan_pose(float (&Rf)[9], float (&tf)[3]) {
   const float nan = nanf("");
-  for (int i = 0; i < 9; ++i) sh.Rf[i] = nan;
-  for (int i = 0; i < 3; ++i) sh.tf[i] = nan;
-  sh.sf = nan;
+  for (int i = 0; i < 9; ++i) Rf[i] = nan;
+  for (int i = 0; i < 3; ++i) tf[i] = nan;
 }
 
 // ------------------------------------------------------------------ EPnP
+
+constexpr int kLanes = small::kLanes;    // a warp's lanes (1 in a host build)
+constexpr int kHypsPerBlock = 4;         // hypotheses mode: a warp each
+constexpr int kSums = 56;                // M^T M's 40, sum wn alpha 4, Horn's M 12
+constexpr int kChunk = 14;               // sums a pass over the points
+static_assert(kSums == 4 * kChunk, "epnp_warp sums four chunks");
+
+// a hypothesis's state, in shared memory, one a warp
+struct EpnpWarp {
+  double A[12][12];          // M^T M (the solver's scratch)
+  double V[12][12];          // its eigenvectors, ascending
+  double w[12];
+  double rot[2][6];          // the solver's rotations of a step
+  double B[4][4], Q[4][4], ev[4], rot4[2][2];   // the canonical basis
+  double G[6][4][4], rho[6]; // the control-point distance system
+  double sums[kSums];
+  double cps[4][3];          // the control points
+  double Ainv[4][4];         // the barycentric system's inverse
+  double Rc[2][3][3], tc[2][3];   // the two candidates
+  float Rf[9], tf[3];        // the warp's pose, rounded
+};
+
+// pair pr < 10 of the control points a <= c: (0,0) (0,1) ... (3,3)
+__device__ __forceinline__ void pair_le(int pr, int& a, int& c) {
+  a = pr < 4 ? 0 : pr < 7 ? 1 : pr < 9 ? 2 : 3;
+  c = a + pr - (4 * a - a * (a - 1) / 2);
+}
+
+// pair pr < 6 of the control points i < j: (0,1) (0,2) (0,3) (1,2) (1,3) (2,3)
+__device__ __forceinline__ void pair_lt(int pr, int& i, int& j) {
+  i = pr < 3 ? 0 : pr < 5 ? 1 : 2;
+  j = i + 1 + pr - (3 * i - i * (i - 1) / 2);
+}
+
+// sum k of a point: w alpha_a alpha_c {1, du, dv, du^2 + dv^2} for the 10
+// pairs a <= c (k < 40), wn alpha_a (40-43), wn (P - c0)_r alpha_a (44-55)
+__device__ __forceinline__ double point_sum(int k, double w, double wn,
+                                            const double (&al)[4],
+                                            const double (&e)[3], double du,
+                                            double dv, double dd) {
+  if (k < 40) {
+    int a, c;
+    pair_le(k / 4, a, c);
+    const double waa = w * al[a] * al[c];
+    const int part = k % 4;
+    return part == 0 ? waa : part == 1 ? waa * du : part == 2 ? waa * dv : waa * dd;
+  }
+  if (k < 44) return wn * al[k - 40];
+  return wn * e[(k - 44) / 4] * al[(k - 44) % 4];
+}
 
 // Gauss-Newton on f_p(b) = b^T G_p b - rho_p from b (solvers/epnp.py
 // _betas_gn): 6 steps, each a damped 4 x 4 solve
@@ -216,131 +268,149 @@ __device__ void betas_gn(const double (&G)[6][4][4], const double (&rho)[6],
   }
 }
 
-// thread 0: from M^T M's sums and the control points, the two candidates'
-// R, t into sh.Rc, sh.tc (solvers/epnp.py epnp_pose after _build_M)
-__device__ void epnp_candidates(const RansacParams& q, Shared& sh, Dense& d,
-                                const double (&sums)[kMaxSums],
-                                const double (&cps)[4][3],
-                                const double (&c0)[3]) {
-  const double fx = q.fx, fy = q.fy;
-  // M^T M from the 10 pairs j <= k of 4 sums each
-  int pair = 0;
-  for (int j = 0; j < 4; ++j)
-    for (int k = j; k < 4; ++k, ++pair) {
-      const double* S = sums + 4 * pair;
-      const double blk[3][3] = {{fx * fx * S[0], 0.0, fx * S[1]},
-                                {0.0, fy * fy * S[0], fy * S[2]},
-                                {fx * S[1], fy * S[2], S[3]}};
-      for (int a = 0; a < 3; ++a)
-        for (int c = 0; c < 3; ++c) {
-          d.A[3 * j + a][3 * k + c] = blk[a][c];
-          d.A[3 * k + c][3 * j + a] = blk[a][c];
-        }
-    }
-  small::jacobi_eigh<12>(d.A, d.V, d.w);
-  if (!q.refine || q.n == 4) {
-    // a minimal sample: the null space's own basis, the principal axes of
-    // diag(1, ..., 12) restricted to it (solvers/epnp.py
-    // canonical_null_basis), so that the hypothesis does not depend on
-    // which eigenvectors the solver picked in it
-    double B[4][4], Q[4][4], ev[4];
-    for (int a = 0; a < 4; ++a)
-      for (int b = 0; b < 4; ++b) {
-        double v = 0.0;
-        for (int r = 0; r < 12; ++r) v += d.V[r][a] * (r + 1.0) * d.V[r][b];
-        B[a][b] = v;
-      }
-    small::jacobi_eigh<4>(B, Q, ev);
-    for (int r = 0; r < 12; ++r) {
-      double row[4];
-      for (int b = 0; b < 4; ++b)
-        row[b] = d.V[r][0] * Q[0][b] + d.V[r][1] * Q[1][b] + d.V[r][2] * Q[2][b] +
-                 d.V[r][3] * Q[3][b];
-      for (int b = 0; b < 4; ++b) d.V[r][b] = row[b];
-    }
-  }
-  // the null-space basis: v[k][cp][c] = V[3 cp + c][k], k < 4
-  const int pairs[6][2] = {{0, 1}, {0, 2}, {0, 3}, {1, 2}, {1, 3}, {2, 3}};
-  double G[6][4][4], rho[6];
+// one lane: candidate cand's R, t into s.Rc, s.tc (solvers/epnp.py
+// epnp_pose after the null space: the case-1 start on basis cand, the
+// betas, the camera-frame points' centroid and Horn's M from the sums,
+// the positive-depth flip, Horn's R).  Not inlined, as control_points:
+// its one-lane arrays take their own registers, not the warp code's.
+__device__ __noinline__ void epnp_candidate(EpnpWarp& s, const double (&c0)[3],
+                                            int cand) {
+  double num = 0.0, den = 0.0;
   for (int p = 0; p < 6; ++p) {
-    const int i = pairs[p][0], j = pairs[p][1];
-    double dv[4][3];
-    for (int k = 0; k < 4; ++k)
-      for (int c = 0; c < 3; ++c) dv[k][c] = d.V[3 * i + c][k] - d.V[3 * j + c][k];
-    for (int k = 0; k < 4; ++k)
-      for (int l = 0; l < 4; ++l)
-        G[p][k][l] = dv[k][0] * dv[l][0] + dv[k][1] * dv[l][1] + dv[k][2] * dv[l][2];
-    double r = 0.0;
-    for (int c = 0; c < 3; ++c) {
-      const double e = cps[i][c] - cps[j][c];
-      r += e * e;
-    }
-    rho[p] = r;
+    num += s.rho[p] * s.G[p][cand][cand];
+    den += s.G[p][cand][cand] * s.G[p][cand][cand];
   }
-  const double* Am = sums + 40;           // sum wn alpha_j
-  const double* Bm = sums + 44;           // sum wn (P - c0)_r alpha_j: [r][j]
-  for (int cand = 0; cand < 2; ++cand) {
-    double num = 0.0, den = 0.0;
-    for (int p = 0; p < 6; ++p) {
-      num += rho[p] * G[p][cand][cand];
-      den += G[p][cand][cand] * G[p][cand][cand];
-    }
-    double b[4] = {0.0, 0.0, 0.0, 0.0};
-    b[cand] = sqrt(num / fmax(den, 1e-12));
-    betas_gn(G, rho, b);
-    double x[4][3];                       // camera-frame control points
-    for (int j = 0; j < 4; ++j)
-      for (int c = 0; c < 3; ++c) {
-        double v = 0.0;
-        for (int k = 0; k < 4; ++k) v += d.V[3 * j + c][k] * b[k];
-        x[j][c] = v;
-      }
-    double c1[3], M[3][3];
+  double b[4] = {0.0, 0.0, 0.0, 0.0};
+  b[cand] = sqrt(num / fmax(den, 1e-12));
+  betas_gn(s.G, s.rho, b);
+  double x[4][3];                         // camera-frame control points
+  for (int j = 0; j < 4; ++j)
     for (int c = 0; c < 3; ++c) {
       double v = 0.0;
-      for (int j = 0; j < 4; ++j) v += Am[j] * x[j][c];
-      c1[c] = v;
+      for (int k = 0; k < 4; ++k) v += s.V[3 * j + c][k] * b[k];
+      x[j][c] = v;
     }
-    // positive depth: sum w pc_z = sum w * c1_z; the flip negates pc
-    const double sgn = c1[2] < 0.0 ? -1.0 : 1.0;
-    for (int r = 0; r < 3; ++r)
-      for (int c = 0; c < 3; ++c) {
-        double v = 0.0;
-        for (int j = 0; j < 4; ++j) v += Bm[4 * r + j] * x[j][c];
-        M[r][c] = sgn * v;
-      }
-    for (int c = 0; c < 3; ++c) c1[c] *= sgn;
-    double R[3][3];
-    small::horn_rotation(M, R);
-    for (int i = 0; i < 3; ++i) {
-      for (int c = 0; c < 3; ++c) sh.Rc[cand][i][c] = R[i][c];
-      sh.tc[cand][i] = c1[i] - (R[i][0] * c0[0] + R[i][1] * c0[1] + R[i][2] * c0[2]);
+  const double* Am = s.sums + 40;         // sum wn alpha_j
+  const double* Bm = s.sums + 44;         // sum wn (P - c0)_r alpha_j: [r][j]
+  double c1[3], M[3][3];
+  for (int c = 0; c < 3; ++c) {
+    double v = 0.0;
+    for (int j = 0; j < 4; ++j) v += Am[j] * x[j][c];
+    c1[c] = v;
+  }
+  // positive depth: sum w pc_z = sum w * c1_z; the flip negates pc
+  const double sgn = c1[2] < 0.0 ? -1.0 : 1.0;
+  for (int r = 0; r < 3; ++r)
+    for (int c = 0; c < 3; ++c) {
+      double v = 0.0;
+      for (int j = 0; j < 4; ++j) v += Bm[4 * r + j] * x[j][c];
+      M[r][c] = sgn * v;
     }
+  for (int c = 0; c < 3; ++c) c1[c] *= sgn;
+  double R[3][3];
+  small::horn_rotation(M, R);
+  for (int i = 0; i < 3; ++i) {
+    for (int c = 0; c < 3; ++c) s.Rc[cand][i][c] = R[i][c];
+    s.tc[cand][i] = c1[i] - (R[i][0] * c0[0] + R[i][1] * c0[1] + R[i][2] * c0[2]);
   }
 }
 
-// the block's EPnP over its m points, rounded into sh.Rf, sh.tf
-__device__ void epnp_block(const RansacParams& q, Shared& sh, Dense& d,
-                           long long m) {
-  const int tid = threadIdx.x;
+// one lane: the control points c0 + sqrt(lambda) e by PCA of the points'
+// covariance s6 (each axis's largest component positive), and the
+// barycentric system's inverse, into s.cps and s.Ainv
+__device__ __noinline__ void control_points(EpnpWarp& s, const double (&s6)[6],
+                                            const double (&c0)[3]) {
+  double C[3][3] = {{s6[0], s6[1], s6[2]},
+                    {s6[1], s6[3], s6[4]},
+                    {s6[2], s6[4], s6[5]}};
+  double E[3][3], lam[3];
+  small::jacobi_eigh<3>(C, E, lam);
+  for (int i = 0; i < 3; ++i) {   // each axis's largest component > 0
+    int r = 0;
+    for (int k = 1; k < 3; ++k)
+      if (fabs(E[k][i]) > fabs(E[r][i])) r = k;
+    if (E[r][i] < 0.0)
+      for (int k = 0; k < 3; ++k) E[k][i] = -E[k][i];
+  }
+  for (int c = 0; c < 3; ++c) s.cps[0][c] = c0[c];
+  for (int i = 0; i < 3; ++i) {
+    const double l = sqrt(fmax(lam[2 - i], 1e-12));
+    for (int c = 0; c < 3; ++c) s.cps[1 + i][c] = c0[c] + l * E[c][2 - i];
+  }
+  double A[4][4], I[4][4];
+  for (int r = 0; r < 4; ++r)
+    for (int j = 0; j < 4; ++j) {
+      A[r][j] = (r < 3 ? s.cps[j][r] : 1.0) + (r == j ? 1e-9 : 0.0);
+      I[r][j] = r == j ? 1.0 : 0.0;
+    }
+  small::gauss_solve<4, 4>(A, I);
+  for (int r = 0; r < 4; ++r)
+    for (int j = 0; j < 4; ++j) s.Ainv[r][j] = I[r][j];
+}
+
+// sums [C kChunk, (C + 1) kChunk) over the warp's points: each lane its
+// points in turn, then a warp sum of each, into s.sums (lane 0); a chunk
+// at a time, so that its partial sums are all that a lane keeps in
+// registers.
+template <int C>
+__device__ __forceinline__ void sums_chunk(const RansacParams& q, EpnpWarp& s,
+                                        const double (&c0)[3], double wsum,
+                                        long long m, int mi, long long h,
+                                        int lane, int span) {
+  double Ai[4][4];
+  for (int r = 0; r < 4; ++r)
+    for (int j = 0; j < 4; ++j) Ai[r][j] = s.Ainv[r][j];
+  double acc[kChunk];
+#pragma unroll
+  for (int i = 0; i < kChunk; ++i) acc[i] = 0.0;
+  for (long long j = lane; j < m; j += kLanes) {
+    const long long gi = point_of(q, mi, j, h);
+    const double w = weight_of(q, gi), wn = w / wsum;
+    const double P[4] = {__ldg(q.a + 3 * gi), __ldg(q.a + 3 * gi + 1),
+                         __ldg(q.a + 3 * gi + 2), 1.0};
+    double al[4];
+    for (int r = 0; r < 4; ++r)
+      al[r] = Ai[r][0] * P[0] + Ai[r][1] * P[1] + Ai[r][2] * P[2] + Ai[r][3] * P[3];
+    const double e[3] = {P[0] - c0[0], P[1] - c0[1], P[2] - c0[2]};
+    const double du = static_cast<double>(q.cx) - __ldg(q.b + 2 * gi);
+    const double dv = static_cast<double>(q.cy) - __ldg(q.b + 2 * gi + 1);
+    const double dd = du * du + dv * dv;
+#pragma unroll
+    for (int i = 0; i < kChunk; ++i)
+      acc[i] += point_sum(C * kChunk + i, w, wn, al, e, du, dv, dd);
+  }
+#pragma unroll
+  for (int i = 0; i < kChunk; ++i) {
+    const double t = small::warp_sum(acc[i], span);
+    if (lane == 0) s.sums[C * kChunk + i] = t;
+  }
+}
+
+// the warp's EPnP of hypothesis h over its m points, rounded into s.Rf,
+// s.tf (solvers/epnp.py epnp_pose)
+__device__ void epnp_warp(const RansacParams& q, EpnpWarp& s, long long m,
+                          long long h, int lane) {
+  const int mi = static_cast<int>(q.refine ? 0 : m);
+  int span = 1;                           // lanes that hold a point
+  while (span < m && span < kLanes) span *= 2;
   // centroid
   double s4[4] = {0.0, 0.0, 0.0, 0.0};
-  for (long long j = tid; j < m; j += blockDim.x) {
-    const long long gi = point_of(q, static_cast<int>(m), j);
+  for (long long j = lane; j < m; j += kLanes) {
+    const long long gi = point_of(q, mi, j, h);
     const double w = weight_of(q, gi);
     s4[0] += w;
-    for (int c = 0; c < 3; ++c) s4[1 + c] += w * q.a[3 * gi + c];
+    for (int c = 0; c < 3; ++c) s4[1 + c] += w * __ldg(q.a + 3 * gi + c);
   }
-  small::block_sum<4>(s4, sh.scratch, sh.out);
+  for (int k = 0; k < 4; ++k) s4[k] = small::warp_sum(s4[k], span);
   const double wsum = fmax(s4[0], 1e-12);
   const double c0[3] = {s4[1] / wsum, s4[2] / wsum, s4[3] / wsum};
   // the points' covariance
   double s6[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
-  for (long long j = tid; j < m; j += blockDim.x) {
-    const long long gi = point_of(q, static_cast<int>(m), j);
+  for (long long j = lane; j < m; j += kLanes) {
+    const long long gi = point_of(q, mi, j, h);
     const double wn = weight_of(q, gi) / wsum;
     double e[3];
-    for (int c = 0; c < 3; ++c) e[c] = q.a[3 * gi + c] - c0[c];
+    for (int c = 0; c < 3; ++c) e[c] = __ldg(q.a + 3 * gi + c) - c0[c];
     s6[0] += wn * e[0] * e[0];
     s6[1] += wn * e[0] * e[1];
     s6[2] += wn * e[0] * e[2];
@@ -348,122 +418,165 @@ __device__ void epnp_block(const RansacParams& q, Shared& sh, Dense& d,
     s6[4] += wn * e[1] * e[2];
     s6[5] += wn * e[2] * e[2];
   }
-  small::block_sum<6>(s6, sh.scratch, sh.out);
-  // thread 0: control points by PCA and the barycentric system
-  if (tid == 0) {
-    double C[3][3] = {{s6[0], s6[1], s6[2]},
-                      {s6[1], s6[3], s6[4]},
-                      {s6[2], s6[4], s6[5]}};
-    double E[3][3], lam[3];
-    small::jacobi_eigh<3>(C, E, lam);
-    for (int i = 0; i < 3; ++i) {   // each axis's largest component > 0
-      int r = 0;
-      for (int k = 1; k < 3; ++k)
-        if (fabs(E[k][i]) > fabs(E[r][i])) r = k;
-      if (E[r][i] < 0.0)
-        for (int k = 0; k < 3; ++k) E[k][i] = -E[k][i];
-    }
-    for (int c = 0; c < 3; ++c) sh.cps[0][c] = c0[c];
-    for (int i = 0; i < 3; ++i) {
-      const double l = sqrt(fmax(lam[2 - i], 1e-12));
-      for (int c = 0; c < 3; ++c) sh.cps[1 + i][c] = c0[c] + l * E[c][2 - i];
-    }
-    double A[4][4], I[4][4];
-    for (int r = 0; r < 4; ++r)
-      for (int j = 0; j < 4; ++j) {
-        A[r][j] = (r < 3 ? sh.cps[j][r] : 1.0) + (r == j ? 1e-9 : 0.0);
-        I[r][j] = r == j ? 1.0 : 0.0;
-      }
-    small::gauss_solve<4, 4>(A, I);
-    for (int r = 0; r < 4; ++r)
-      for (int j = 0; j < 4; ++j) sh.Ainv[r][j] = I[r][j];
+  for (int k = 0; k < 6; ++k) s6[k] = small::warp_sum(s6[k], span);
+  // lane 0: control points by PCA and the barycentric system
+  if (lane == 0) control_points(s, s6, c0);
+  __syncwarp();
+  // the 56 sums, kChunk a pass over the warp's points
+  sums_chunk<0>(q, s, c0, wsum, m, mi, h, lane, span);
+  sums_chunk<1>(q, s, c0, wsum, m, mi, h, lane, span);
+  sums_chunk<2>(q, s, c0, wsum, m, mi, h, lane, span);
+  sums_chunk<3>(q, s, c0, wsum, m, mi, h, lane, span);
+  __syncwarp();
+  // M^T M from the 10 pairs j <= k of 4 sums each: a 3 x 3 block a pair,
+  // {{fx^2 S0, 0, fx S1}, {0, fy^2 S0, fy S2}, {fx S1, fy S2, S3}}
+  const double fx = q.fx, fy = q.fy;
+  for (int e = lane; e < 144; e += kLanes) {
+    const int row = e / 12, col = e % 12;
+    const int j = row / 3, a = row % 3, k = col / 3, c = col % 3;
+    const int lo = j < k ? j : k, hi = j < k ? k : j;
+    const double* S = s.sums + 4 * (4 * lo - lo * (lo - 1) / 2 + hi - lo);
+    double v = 0.0;
+    if (a == c)
+      v = a == 0 ? fx * fx * S[0] : a == 1 ? fy * fy * S[0] : S[3];
+    else if (a + c == 2)
+      v = fx * S[1];
+    else if (a + c == 3)
+      v = fy * S[2];
+    s.A[row][col] = v;
   }
-  __syncthreads();
-  // M^T M's 40 sums, sum wn alpha (4) and sum wn (P - c0) alpha^T (12)
-  double s[kMaxSums];
-  for (int k = 0; k < kMaxSums; ++k) s[k] = 0.0;
-  for (long long j = tid; j < m; j += blockDim.x) {
-    const long long gi = point_of(q, static_cast<int>(m), j);
-    const double w = weight_of(q, gi), wn = w / wsum;
-    const double P[4] = {q.a[3 * gi], q.a[3 * gi + 1], q.a[3 * gi + 2], 1.0};
-    double al[4];
-    for (int r = 0; r < 4; ++r)
-      al[r] = sh.Ainv[r][0] * P[0] + sh.Ainv[r][1] * P[1] +
-              sh.Ainv[r][2] * P[2] + sh.Ainv[r][3] * P[3];
-    const double du = static_cast<double>(q.cx) - q.b[2 * gi];
-    const double dv = static_cast<double>(q.cy) - q.b[2 * gi + 1];
-    const double dd = du * du + dv * dv;
-    int pair = 0;
-    for (int a = 0; a < 4; ++a)
-      for (int c = a; c < 4; ++c, ++pair) {
-        const double waa = w * al[a] * al[c];
-        s[4 * pair] += waa;
-        s[4 * pair + 1] += waa * du;
-        s[4 * pair + 2] += waa * dv;
-        s[4 * pair + 3] += waa * dd;
+  __syncwarp();
+  small::warp_jacobi_eigh<12>(s.A, s.V, s.w, s.rot, lane);
+  if (!q.refine || q.n == 4) {
+    // a minimal sample: the null space's own basis, the principal axes of
+    // diag(1, ..., 12) restricted to it (solvers/epnp.py
+    // canonical_null_basis), so that the hypothesis does not depend on
+    // which eigenvectors the solver picked in it
+    for (int e = lane; e < 16; e += kLanes) {
+      const int a = e / 4, b = e % 4;
+      if (a > b) continue;
+      double v = 0.0;
+      for (int r = 0; r < 12; ++r) v += s.V[r][a] * (r + 1.0) * s.V[r][b];
+      s.B[a][b] = s.B[b][a] = v;
+    }
+    __syncwarp();
+    small::warp_jacobi_eigh<4>(s.B, s.Q, s.ev, s.rot4, lane);
+    constexpr int kRows = (48 + kLanes - 1) / kLanes;
+    double row[kRows];
+#pragma unroll
+    for (int n = 0; n < kRows; ++n) {
+      const int e = lane + n * kLanes, r = e / 4, b = e % 4;
+      if (e < 48)
+        row[n] = s.V[r][0] * s.Q[0][b] + s.V[r][1] * s.Q[1][b] +
+                 s.V[r][2] * s.Q[2][b] + s.V[r][3] * s.Q[3][b];
+    }
+    __syncwarp();
+#pragma unroll
+    for (int n = 0; n < kRows; ++n) {
+      const int e = lane + n * kLanes;
+      if (e < 48) s.V[e / 4][e % 4] = row[n];
+    }
+    __syncwarp();
+  }
+  // the null-space basis v[k][cp][c] = V[3 cp + c][k], k < 4: G and rho
+  for (int e = lane; e < 102; e += kLanes) {
+    if (e < 96) {
+      const int p = e / 16, k = e / 4 % 4, l = e % 4;
+      int i, j;
+      pair_lt(p, i, j);
+      double dk[3], dl[3];
+      for (int c = 0; c < 3; ++c) {
+        dk[c] = s.V[3 * i + c][k] - s.V[3 * j + c][k];
+        dl[c] = s.V[3 * i + c][l] - s.V[3 * j + c][l];
       }
-    for (int a = 0; a < 4; ++a) {
-      s[40 + a] += wn * al[a];
-      for (int r = 0; r < 3; ++r) s[44 + 4 * r + a] += wn * (P[r] - c0[r]) * al[a];
+      s.G[p][k][l] = dk[0] * dl[0] + dk[1] * dl[1] + dk[2] * dl[2];
+    } else {
+      int i, j;
+      pair_lt(e - 96, i, j);
+      double r = 0.0;
+      for (int c = 0; c < 3; ++c) {
+        const double d = s.cps[i][c] - s.cps[j][c];
+        r += d * d;
+      }
+      s.rho[e - 96] = r;
     }
   }
-  small::block_sum<kMaxSums>(s, sh.scratch, sh.out);
-  if (tid == 0) epnp_candidates(q, sh, d, s, sh.cps, c0);
-  __syncthreads();
+  __syncwarp();
+  // the two candidates side by side, a lane each
+  for (int cand = lane; cand < 2; cand += kLanes) epnp_candidate(s, c0, cand);
+  __syncwarp();
   // each candidate's weighted reprojection error over the points
   double e2[2] = {0.0, 0.0};
-  for (long long j = tid; j < m; j += blockDim.x) {
-    const long long gi = point_of(q, static_cast<int>(m), j);
+  for (long long j = lane; j < m; j += kLanes) {
+    const long long gi = point_of(q, mi, j, h);
     const double w = weight_of(q, gi);
-    const double P[3] = {q.a[3 * gi], q.a[3 * gi + 1], q.a[3 * gi + 2]};
+    const double P[3] = {__ldg(q.a + 3 * gi), __ldg(q.a + 3 * gi + 1),
+                         __ldg(q.a + 3 * gi + 2)};
     for (int cand = 0; cand < 2; ++cand) {
       double xc[3];
       for (int i = 0; i < 3; ++i)
-        xc[i] = sh.Rc[cand][i][0] * P[0] + sh.Rc[cand][i][1] * P[1] +
-                sh.Rc[cand][i][2] * P[2] + sh.tc[cand][i];
+        xc[i] = s.Rc[cand][i][0] * P[0] + s.Rc[cand][i][1] * P[1] +
+                s.Rc[cand][i][2] * P[2] + s.tc[cand][i];
       const double z = guard(xc[2]);
-      const double u = q.fx * xc[0] / z + q.cx - q.b[2 * gi];
-      const double v = q.fy * xc[1] / z + q.cy - q.b[2 * gi + 1];
+      const double u = q.fx * xc[0] / z + q.cx - __ldg(q.b + 2 * gi);
+      const double v = q.fy * xc[1] / z + q.cy - __ldg(q.b + 2 * gi + 1);
       e2[cand] += w * (u * u + v * v);
     }
   }
-  small::block_sum<2>(e2, sh.scratch, sh.out);
-  if (tid == 0) {
+  e2[0] = small::warp_sum(e2[0], span);
+  e2[1] = small::warp_sum(e2[1], span);
+  if (lane == 0) {
     const int k = e2[0] <= e2[1] ? 0 : 1;
-    double R[3][3], t[3];
-    for (int i = 0; i < 3; ++i) {
-      for (int c = 0; c < 3; ++c) R[i][c] = sh.Rc[k][i][c];
-      t[i] = sh.tc[k][i];
-    }
-    round_pose(sh, R, t, 1.0);
+    round_pose(s.Rf, s.tf, s.Rc[k], s.tc[k]);
   }
-  __syncthreads();
+  __syncwarp();
 }
 
-// the inlier test of all n points against the block's pose (float32):
-// flags into out_inl, the count returned to every thread (and, in refine
-// mode, the count of inl_b as cnt_b)
-__device__ double epnp_inliers(const RansacParams& q, Shared& sh,
-                               unsigned char* out_inl, double& cnt_b) {
-  double cnt[2] = {0.0, 0.0};
-  const float* R = sh.Rf;
-  const float* t = sh.tf;
-  for (long long i = threadIdx.x; i < q.n; i += blockDim.x) {
-    const float p0 = q.a[3 * i], p1 = q.a[3 * i + 1], p2 = q.a[3 * i + 2];
-    const float x = R[0] * p0 + R[1] * p1 + R[2] * p2 + t[0];
-    const float y = R[3] * p0 + R[4] * p1 + R[5] * p2 + t[1];
-    const float z = guardf(R[6] * p0 + R[7] * p1 + R[8] * p2 + t[2]);
-    const float du = q.fx * x / z + q.cx - q.b[2 * i];
-    const float dv = q.fy * y / z + q.cy - q.b[2 * i + 1];
-    const float err2 = du * du + dv * dv;
-    const bool inl = q.valid[i] && err2 < q.gate1[i] && z > 0.f;
-    out_inl[i] = inl;
-    cnt[0] += inl ? 1.0 : 0.0;
-    if (q.refine) cnt[1] += q.inl_b[i] ? 1.0 : 0.0;
+// the warp's inlier test of all n points against its pose (float32):
+// flags into out_inl; the count (and, in refine mode, inl_b's as cnt_b)
+// on every lane
+__device__ double epnp_inliers(const RansacParams& q, const EpnpWarp& s,
+                               unsigned char* out_inl, int lane,
+                               double& cnt_b) {
+  double cnt = 0.0, cb = 0.0;
+  const float* R = s.Rf;
+  const float* t = s.tf;
+  float Rr[9], tr[3];                   // the pose in registers
+  for (int k = 0; k < 9; ++k) Rr[k] = R[k];
+  for (int k = 0; k < 3; ++k) tr[k] = t[k];
+  constexpr int kBatch = 4;             // points a lane loads at once
+  for (long long i0 = lane; i0 < q.n; i0 += kBatch * kLanes) {
+    float pt[kBatch][6], gate[kBatch];
+    bool ok[kBatch], was[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {  // the batch's loads first
+      const long long i = i0 + u * kLanes;
+      const bool in = i < q.n;
+      for (int c = 0; c < 3; ++c) pt[u][c] = in ? __ldg(q.a + 3 * i + c) : 0.f;
+      for (int c = 0; c < 2; ++c) pt[u][3 + c] = in ? __ldg(q.b + 2 * i + c) : 0.f;
+      gate[u] = in ? __ldg(q.gate1 + i) : 0.f;
+      ok[u] = in && __ldg(q.valid + i);
+      was[u] = in && q.refine && __ldg(q.inl_b + i);
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const long long i = i0 + u * kLanes;
+      if (i >= q.n) break;
+      const float p0 = pt[u][0], p1 = pt[u][1], p2 = pt[u][2];
+      const float x = Rr[0] * p0 + Rr[1] * p1 + Rr[2] * p2 + tr[0];
+      const float y = Rr[3] * p0 + Rr[4] * p1 + Rr[5] * p2 + tr[1];
+      const float z = guardf(Rr[6] * p0 + Rr[7] * p1 + Rr[8] * p2 + tr[2]);
+      const float du = q.fx * x / z + q.cx - pt[u][3];
+      const float dv = q.fy * y / z + q.cy - pt[u][4];
+      const float err2 = du * du + dv * dv;
+      const bool inl = ok[u] && err2 < gate[u] && z > 0.f;
+      out_inl[i] = inl;
+      cnt += inl ? 1.0 : 0.0;
+      cb += was[u] ? 1.0 : 0.0;
+    }
   }
-  small::block_sum<2>(cnt, sh.scratch, sh.out);
-  cnt_b = cnt[1];
-  return cnt[0];
+  cnt_b = small::warp_sum(cb);
+  return small::warp_sum(cnt);
 }
 
 // ------------------------------------------------------------------ Horn
@@ -472,7 +585,7 @@ __device__ void horn_block(const RansacParams& q, Shared& sh, long long m) {
   const int tid = threadIdx.x;
   double s7[7] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
   for (long long j = tid; j < m; j += blockDim.x) {
-    const long long gi = point_of(q, static_cast<int>(m), j);
+    const long long gi = point_of(q, static_cast<int>(m), j, blockIdx.x);
     const double w = weight_of(q, gi);
     s7[0] += w;
     for (int c = 0; c < 3; ++c) {
@@ -487,7 +600,7 @@ __device__ void horn_block(const RansacParams& q, Shared& sh, long long m) {
   double s10[10];
   for (int k = 0; k < 10; ++k) s10[k] = 0.0;
   for (long long j = tid; j < m; j += blockDim.x) {
-    const long long gi = point_of(q, static_cast<int>(m), j);
+    const long long gi = point_of(q, static_cast<int>(m), j, blockIdx.x);
     const double wn = weight_of(q, gi) / wsum;
     double q1[3], q2[3];
     for (int c = 0; c < 3; ++c) {
@@ -514,7 +627,8 @@ __device__ void horn_block(const RansacParams& q, Shared& sh, long long m) {
     double t[3];
     for (int i = 0; i < 3; ++i)
       t[i] = c1[i] - s * (R[i][0] * c2[0] + R[i][1] * c2[1] + R[i][2] * c2[2]);
-    round_pose(sh, R, t, s);
+    round_pose(sh.Rf, sh.tf, R, t);
+    sh.sf = static_cast<float>(s);
   }
   __syncthreads();
 }
@@ -551,9 +665,9 @@ __device__ double horn_inliers(const RansacParams& q, Shared& sh,
   return cnt[0];
 }
 
-// ---------------------------------------------------------- both kernels
+// ---------------------------------------------------------- the kernels
 
-// the block's outputs: a hypothesis's, or refine's keep-if-no-worse
+// Horn's block outputs: a hypothesis's, or refine's keep-if-no-worse
 __device__ void finish(const RansacParams& q, Shared& sh, double cnt,
                        double cnt_b, unsigned char* out_inl) {
   const long long h = blockIdx.x;
@@ -568,31 +682,44 @@ __device__ void finish(const RansacParams& q, Shared& sh, double cnt,
   }
 }
 
-__global__ void __launch_bounds__(kThreads) epnp_kernel(const RansacParams q) {
-  __shared__ Shared sh;
-  __shared__ Dense d;
-  const long long m = q.refine ? q.n : 4;
-  if (threadIdx.x == 0) sh.bad = degenerate(q, 4);
-  __syncthreads();
-  if (sh.bad) {
-    if (threadIdx.x == 0) nan_pose(sh);
-    __syncthreads();
+// a warp a hypothesis: kHypsPerBlock a block of hypotheses mode, one in
+// refine mode
+__global__ void __launch_bounds__(kHypsPerBlock * 32) epnp_kernel(const RansacParams q) {
+  __shared__ EpnpWarp ws[kHypsPerBlock];
+  const int lane = static_cast<int>(threadIdx.x) % kLanes;
+  const int warp = static_cast<int>(threadIdx.x) / kLanes;
+  const long long h = static_cast<long long>(blockIdx.x) * (blockDim.x / kLanes) + warp;
+  if (h >= q.n_hyp) return;                // the whole warp
+  EpnpWarp& s = ws[warp];
+  if (degenerate(q, 4, h)) {
+    if (lane == 0) nan_pose(s.Rf, s.tf);
+    __syncwarp();
   } else {
-    epnp_block(q, sh, d, m);
+    epnp_warp(q, s, q.refine ? q.n : 4, h, lane);
   }
-  unsigned char* out_inl = q.inliers + blockIdx.x * q.n;
+  unsigned char* out_inl = q.inliers + h * q.n;
   double cnt_b = 0.0;
-  const double cnt = epnp_inliers(q, sh, out_inl, cnt_b);
-  finish(q, sh, cnt, cnt_b, out_inl);
+  const double cnt = epnp_inliers(q, s, out_inl, lane, cnt_b);
+  const bool keep = !q.refine || cnt >= cnt_b;
+  if (!keep)
+    for (long long i = lane; i < q.n; i += kLanes) out_inl[i] = q.inl_b[i];
+  if (lane == 0) {
+    for (int k = 0; k < 9; ++k) q.R[9 * h + k] = keep ? s.Rf[k] : q.R_b[k];
+    for (int k = 0; k < 3; ++k) q.t[3 * h + k] = keep ? s.tf[k] : q.t_b[k];
+    q.counts[h] = static_cast<long long>(keep ? cnt : cnt_b);
+  }
 }
 
 __global__ void __launch_bounds__(kThreads) horn_kernel(const RansacParams q) {
   __shared__ Shared sh;
   const long long m = q.refine ? q.n : 3;
-  if (threadIdx.x == 0) sh.bad = degenerate(q, 3);
+  if (threadIdx.x == 0) sh.bad = degenerate(q, 3, blockIdx.x);
   __syncthreads();
   if (sh.bad) {
-    if (threadIdx.x == 0) nan_pose(sh);
+    if (threadIdx.x == 0) {
+      nan_pose(sh.Rf, sh.tf);
+      sh.sf = nanf("");
+    }
     __syncthreads();
   } else {
     horn_block(q, sh, m);
@@ -610,7 +737,9 @@ __global__ void __launch_bounds__(kThreads) horn_kernel(const RansacParams q) {
 extern "C" int airdos_ransac_epnp(const RansacParams* params, void* stream) {
   const RansacParams& q = *params;
   if (q.n <= 0 || q.n_hyp <= 0) return static_cast<int>(cudaGetLastError());
-  epnp_kernel<<<static_cast<unsigned>(q.n_hyp), kThreads, 0,
+  const long long per_block = q.refine ? 1 : kHypsPerBlock;
+  const unsigned blocks = static_cast<unsigned>((q.n_hyp + per_block - 1) / per_block);
+  epnp_kernel<<<blocks, static_cast<unsigned>(32 * per_block), 0,
                 static_cast<cudaStream_t>(stream)>>>(q);
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,10 +9,11 @@ the root, as airdos_tpu/bow/vocabulary.py:75 _transform_device does.
   distances (1 << 20 for a missing child) and the first argmin, and stay
   put at a leaf; a few eager ops a level.
 - ``voc_transform`` on a CUDA descriptor tensor launches
-  ``csrc/voc_transform.cu`` (a thread a descriptor walks the whole tree)
-  on the calling thread's current stream, or raises, and counts the
-  launch, by thread and stream priority too; on a CPU tensor it runs the
-  plain version.
+  ``csrc/voc_transform.cu`` (the tree's first ``staged_nodes`` nodes in
+  each block's shared memory, a lane a child and a group of lanes a
+  descriptor walking the whole tree) on the calling thread's current
+  stream, or raises, and counts the launch, by thread and stream priority
+  too; on a CPU tensor it runs the plain version.
 
 The tree is the vocabulary's device tables (int32: children [nodes, k],
 node descriptors [nodes, 8] as bit views, word ids and groups [nodes]).
@@ -30,6 +31,26 @@ from airdos_tpu_torch.ops.hamming_kernels import _popcount32
 
 MISSING = 1 << 20            # a missing child's distance
 MAX_K = 16                   # csrc/voc_transform.cu kMaxK
+STAGE_BUDGET = 48 * 1024     # csrc/voc_transform.cu kStageBudget: shared bytes
+
+
+def _round16(nbytes: int) -> int:
+    return (nbytes + 15) // 16 * 16
+
+
+def stage_bytes(staged: int, k: int) -> int:
+    """Shared bytes of `staged` nodes in csrc/voc_transform.cu's layout:
+    descriptors, child ids, word ids and groups, each 16-byte aligned."""
+    return 32 * staged + _round16(4 * k * staged) + 2 * _round16(4 * staged)
+
+
+def staged_nodes(nodes: int, k: int) -> int:
+    """How many of a tree's first nodes the kernel stages: all of them, or
+    as many as STAGE_BUDGET holds."""
+    s = min(nodes, STAGE_BUDGET // (4 * k + 40))
+    while stage_bytes(s, k) > STAGE_BUDGET:
+        s -= 1
+    return s
 
 
 def voc_transform_ref(children, node_desc, word_id, group_of,
@@ -53,8 +74,8 @@ def voc_transform_ref(children, node_desc, word_id, group_of,
 
 # ------------------------------------------------------------------ kernel
 
-# csrc/voc_transform.cu VocParams: 3 counts and 7 pointers
-_PARAMS = struct.Struct("<10q")
+# csrc/voc_transform.cu VocParams: 4 counts and 7 pointers
+_PARAMS = struct.Struct("<11q")
 _SOURCE = cuda_build.CSRC / "voc_transform.cu"
 _SIGNATURES = {"airdos_voc_transform": [ctypes.c_void_p, ctypes.c_void_p]}
 _lib = None                     # the loaded library, once built
@@ -104,13 +125,20 @@ def voc_transform_cuda(children, node_desc, word_id, group_of,
     if not 0 < k <= MAX_K or nodes == 0:
         raise ValueError(f"a tree of {nodes} nodes with k = {k}: the kernel "
                          f"takes 1 <= k <= {MAX_K} and a root")
+    for name, x in (("children", children), ("node_desc", node_desc),
+                    ("word_id", word_id), ("group_of", group_of),
+                    ("desc32", desc32)):
+        if x.data_ptr() % 16:            # the 16-byte copies and loads
+            raise ValueError(f"{name} must start on 16 bytes")
+    staged = staged_nodes(nodes, k)
     n = desc32.shape[0]
     out = torch.empty((2, n), dtype=i32, device=dev)
     if n:
         if _lib is None:
             _lib = cuda_build.library(_SOURCE, _SIGNATURES)
         block = ctypes.create_string_buffer(_PARAMS.pack(
-            n, k, int(depth), children.data_ptr(), node_desc.data_ptr(),
+            n, k, int(depth), staged, children.data_ptr(),
+            node_desc.data_ptr(),
             word_id.data_ptr(), group_of.data_ptr(), desc32.data_ptr(),
             out.data_ptr(), out.data_ptr() + 4 * n))
         stream = torch.cuda.current_stream(dev)

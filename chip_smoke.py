@@ -199,8 +199,9 @@ Run from the repository root.  Phases, each of which fails the run:
      sim3_opt (by pairs, fix_scale, iterations) within 1e-4 (R, t, s of
      itself) and >= 99% of the flags of optimize_sim3_ref; voc_transform
      (by descriptors and tree) bit-equal, also on a random full tree of k
-     10 and depth 6 (1,111,111 nodes, ORBvoc's shape) from SEED; each two
-     launches bit-equal;
+     10 and depth 6 (1,111,111 nodes, ORBvoc's shape, its levels past the
+     staged nodes read from global memory) from SEED; each two launches
+     bit-equal;
 10. determinism: two card runs of the mapping System on the small camera
    over 8 frames give byte-identical TUM and KF/MP/Match dumps, and two
    card runs of the human System (small camera, seed 3, 2 humans, masked,
@@ -2311,7 +2312,9 @@ def _vt_check(args):
                   f"{int((g != w).sum())} of {g.numel()} descriptors")
         if not torch.equal(g, a):
             _fail(f"voc_transform: two launches differ in {name}")
-    return 0, "bit-equal (word ids, groups), two launches equal", \
+    nodes, k = args[0].shape
+    return 0, (f"bit-equal (word ids, groups), two launches equal; "
+               f"{vk.staged_nodes(nodes, k)} of {nodes} nodes staged"), \
         (lambda: vk.voc_transform_cuda(*args)), \
         (lambda: vk.voc_transform_ref(*args))
 

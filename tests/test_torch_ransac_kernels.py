@@ -31,6 +31,7 @@ seeds).  Stated tolerances:
 - The wrappers: CPU tensors take the plain versions and count no launch;
   a kernel wrapper raises ValueError on a CPU tensor.
 """
+import ctypes
 import sys
 from pathlib import Path
 
@@ -85,6 +86,21 @@ extern "C" void host_epnp(const RansacParams* p) {
 }
 extern "C" void host_horn(const RansacParams* p) {
   for (long long b = 0; b < p->n_hyp; ++b) { blockIdx.x = b; horn_kernel(*p); }
+}
+template <int N>
+int eigh_on_a_lane(const double* a, double* v, double* w) {
+  static double A[N][N], V[N][N], W[N], rot[2][N / 2];
+  for (int i = 0; i < N * N; ++i) A[i / N][i % N] = a[i];
+  const int sweeps = small::warp_jacobi_eigh<N>(A, V, W, rot, 0);
+  for (int i = 0; i < N * N; ++i) v[i] = V[i / N][i % N];
+  for (int i = 0; i < N; ++i) w[i] = W[i];
+  return sweeps;
+}
+extern "C" int host_eigh12(const double* a, double* v, double* w) {
+  return eigh_on_a_lane<12>(a, v, w);
+}
+extern "C" int host_eigh4(const double* a, double* v, double* w) {
+  return eigh_on_a_lane<4>(a, v, w);
 }
 """
     return kh.build("ransac.cu", glue, tmp_path_factory.mktemp("ransac"))
@@ -189,6 +205,106 @@ def test_epnp_kernel_source_on_the_host_matches_plain_version(host_ransac):
     assert float((r[0][0] - w[0]).abs().max()) < 1e-5
     assert float((r[1][0] - w[1]).abs().max()) < 1e-5
     assert torch.equal(r[2][0], w[2]) and int(r[3][0]) == int(w[3])
+
+
+def _mtm_cases():
+    """EPnP's M^T M (float64, solvers/epnp.py's plain steps, canonical
+    PCA axes): minimal samples (a 4-dimensional null space, its
+    eigenvalues within ~1e-12 of each other), all n = 483 points at 0.5
+    px, and a synthetic matrix of M^T M's scale with a null pair 1e-12
+    apart and a near-repeated pair above it."""
+    out = []
+    pw, uv, _, _, smp = trc.pnp_case(13, n=483, n_out=0, noise=0.5, H=6)
+    sets = [(pw[s], uv[s]) for s in smp] + [(pw, uv)]
+    for P, U in sets:
+        P = torch.from_numpy(P).double()[None]
+        U = torch.from_numpy(U).double()[None]
+        w = torch.ones(P.shape[:2], dtype=torch.float64)
+        cps = ep._control_points(P, w, canonical=True)
+        M = ep._build_M(ep._barycentric(P, cps), U, w, *CAM)
+        out.append((f"n {P.shape[1]}", (M.transpose(-1, -2) @ M)[0]))
+    rng = np.random.default_rng(14)
+    Q, _ = np.linalg.qr(rng.standard_normal((12, 12)))
+    lam = np.array([0.0, 1e-12, 3.0, 3.0 + 1e-9, 10, 40, 1e2, 3e2, 1e3, 4e3,
+                    2e4, 1e5]) * 30.0
+    out.append(("pairs", torch.from_numpy((Q * lam) @ Q.T)))
+    return out
+
+
+MTM = _mtm_cases()
+
+
+@pytest.mark.parametrize("case", MTM, ids=[c[0] for c in MTM])
+def test_round_robin_eigh_on_a_lane_matches_torch(host_ransac, case):
+    """small_eig.cuh warp_jacobi_eigh<12> (the host build: one lane takes
+    the warp's steps) converges within its sweep limit and matches
+    torch.linalg.eigh in float64: eigenvalues within 1e-10 of the matrix's
+    norm, A V = V diag(w) and V^T V = I within 1e-10, the four smallest
+    eigenvectors' span (EPnP's null space) within 1e-8 of torch's."""
+    _, A = case
+    A = (A + A.T) / 2
+    a = A.contiguous().clone()
+    v, w = torch.empty(12, 12, dtype=torch.float64), torch.empty(
+        12, dtype=torch.float64)
+    sweeps = host_ransac.host_eigh12(ctypes.c_void_p(a.data_ptr()),
+                                     ctypes.c_void_p(v.data_ptr()),
+                                     ctypes.c_void_p(w.data_ptr()))
+    assert 0 < sweeps < 50
+    wt, vt = torch.linalg.eigh(A)
+    norm = float(torch.linalg.matrix_norm(A, 2))
+    assert torch.all(w[1:] >= w[:-1])
+    assert float((w - wt).abs().max()) < 1e-10 * norm
+    assert float((A @ v - v * w).abs().max()) < 1e-10 * norm
+    assert float((v.T @ v - torch.eye(12, dtype=torch.float64)).abs().max()) \
+        < 1e-10
+    null, null_t = v[:, :4], vt[:, :4]
+    assert float((null @ null.T - null_t @ null_t.T).abs().max()) < 1e-8
+
+
+def test_round_robin_eigh_rules(host_ransac):
+    """The rules it keeps from jacobi_eigh: a diagonal matrix takes no
+    sweep, ties keep the lower column first, a non-finite matrix gives
+    NaN; a rotation at an exact tie of tiny entries stays finite; and the
+    4 x 4 solve (the canonical basis's) matches torch."""
+    def eigh(fn, a):
+        n = a.shape[0]
+        a = a.double().contiguous().clone()
+        v = torch.empty(n, n, dtype=torch.float64)
+        w = torch.empty(n, dtype=torch.float64)
+        sweeps = fn(ctypes.c_void_p(a.data_ptr()), ctypes.c_void_p(
+            v.data_ptr()), ctypes.c_void_p(w.data_ptr()))
+        return sweeps, v, w
+
+    d = torch.tensor([3.0, 1.0, 2.0, 1.0, 5.0, 0.5, 2.0, 7.0, 1.0, 4.0,
+                      6.0, 0.25], dtype=torch.float64)
+    sweeps, v, w = eigh(host_ransac.host_eigh12, torch.diag(d))
+    assert sweeps == 0
+    assert w.tolist() == sorted(d.tolist())
+    order = sorted(range(12), key=lambda i: (d[i], i))      # stable
+    assert torch.equal(v, torch.eye(12, dtype=torch.float64)[:, order])
+    bad = torch.eye(12, dtype=torch.float64)
+    bad[3, 5] = bad[5, 3] = float("inf")
+    _, v, w = eigh(host_ransac.host_eigh12, bad)
+    assert torch.isnan(v).all() and torch.isnan(w).all()
+    # a pair at an exact tie with an off-diagonal whose square underflows:
+    # the rotation stays finite (45 degrees), the eigenvalues 1 -+ 1e-170
+    tie = torch.diag(torch.tensor([1.0, 1.0, 2.0, 3.0], dtype=torch.float64))
+    tie[0, 1] = tie[1, 0] = 1e-170
+    _, v, w = eigh(host_ransac.host_eigh4, tie)
+    assert torch.isfinite(v).all()
+    assert float((w - torch.tensor([1.0, 1.0, 2.0, 3.0],
+                                   dtype=torch.float64)).abs().max()) < 1e-15
+    assert float((v.T @ v - torch.eye(4, dtype=torch.float64)).abs().max()) \
+        < 1e-15
+    rng = np.random.default_rng(15)
+    B = torch.from_numpy(rng.standard_normal((4, 4)))
+    B = B @ B.T
+    sweeps, v, w = eigh(host_ransac.host_eigh4, B)
+    wt, vt = torch.linalg.eigh(B)
+    assert 0 < sweeps < 50
+    assert float((w - wt).abs().max()) < 1e-12 * float(wt.abs().max())
+    assert float(((v.T @ vt).abs() - torch.eye(4, dtype=torch.float64))
+                 .abs().max()) < 1e-10
 
 
 # ------------------------------------------------------------------ Horn

@@ -99,6 +99,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import os
+import struct
 import subprocess
 import sys
 from pathlib import Path
@@ -187,11 +188,21 @@ def select_new(src: str) -> str:
     ])
 
 
-def _build(text: str, name: str) -> ctypes.CDLL:
+def _build(text: str, name: str, include=None, headers=None) -> ctypes.CDLL:
     """Build a copy of a source into _build/split/ with the port's nvcc
-    command (the headers of csrc/) and load it."""
+    command (the headers of csrc/, or of `include`: a parent's, or
+    `headers` {name: text}: a variant's, copied into a directory of the
+    copy's own) and load it."""
     from airdos_tpu_torch.ops import cuda_build
     out_dir = cuda_build.BUILD_DIR / "split"
+    if include is not None or headers:
+        out_dir = out_dir / name
+        out_dir.mkdir(parents=True, exist_ok=True)
+        if include is not None:
+            for header in Path(include).glob("*.cuh"):
+                (out_dir / header.name).write_text(header.read_text())
+        for hname, htext in (headers or {}).items():
+            (out_dir / hname).write_text(htext)
     out_dir.mkdir(parents=True, exist_ok=True)
     src = out_dir / f"{name}.cu"
     src.write_text(text)
@@ -206,6 +217,31 @@ def _build(text: str, name: str) -> ctypes.CDLL:
     if hasattr(dll, "split_read"):
         dll.split_read.argtypes = [ctypes.c_void_p]
     return dll
+
+
+def cuda_build_dir() -> Path:
+    from airdos_tpu_torch.ops import cuda_build
+    return cuda_build.BUILD_DIR
+
+
+def _ptxas(text: str, name: str, include=None) -> None:
+    """Print what `nvcc -Xptxas -v` reports of a source's kernels:
+    registers, stack frame, spill stores and loads, shared memory (the
+    headers of csrc/ or of the directory `include`)."""
+    from airdos_tpu_torch.ops import cuda_build
+    out_dir = cuda_build.BUILD_DIR / "split" / "ptxas" / name
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src = out_dir / f"{name}.cu"
+    src.write_text(text)
+    cmd = [cuda_build.nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+           "-std=c++17", "-O3", "-Xptxas", "-v", "-c", "-o",
+           str(out_dir / f"{name}.o"), "-I", str(include or cuda_build.CSRC),
+           str(src)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    lines = [ln.strip() for ln in res.stderr.splitlines()
+             if "Compiling entry function" in ln or "registers" in ln
+             or "spill" in ln or "Function properties" in ln]
+    print(f"[ptxas] {name}:\n  " + "\n  ".join(lines), flush=True)
 
 
 def _read(dll) -> list:
@@ -1746,10 +1782,521 @@ def split_schur(parent, problems) -> None:
                       f"{rcc:.4f} ms (hot {rch:.4f})", flush=True)
 
 
+# ----------------------------------------------------- voc_transform, epnp
+
+VOC_BUDGETS_KB = (0, 8, 16, 32, 48)   # shared budgets timed
+VOC_PARTS = ("the staging trip (and the descriptor's loads)",
+             "the walk and the stores")
+VOC_PARENT_PARTS = ("the descriptor's loads", "the walk and the stores")
+
+
+def voc_new(src: str) -> str:
+    """This csrc/voc_transform.cu: slots 0-1 a warp's lane 0 (the staging's
+    copies with the descriptor's loads, to the block barrier; the walk
+    and the stores)."""
+    return _insert(src, [
+        ("namespace {\n\nconstexpr int kThreads", WARP_HEAD + "\nconstexpr int kThreads"),
+        ("  const int k = static_cast<int>(q.k);\n  const long long S = q.staged;\n",
+         "  const long long t0 = clock64();\n"
+         "  const int k = static_cast<int>(q.k);\n  const long long S = q.staged;\n"),
+        ("  stage_wait();\n  __syncthreads();\n",
+         "  stage_wait();\n  __syncthreads();\n  const long long t1 = clock64();\n"),
+        ("    q.groups[i] = cur < S ? sgroup[cur] : q.group_of[cur];\n  }\n}\n",
+         "    q.groups[i] = cur < S ? sgroup[cur] : q.group_of[cur];\n  }\n"
+         "  const long long t2 = clock64();\n"
+         + _warp_sums("(threadIdx.x & 31) == 0", ["t0", "t1", "t2"]) + "}\n"),
+    ])
+
+
+def voc_parent(src: str) -> str:
+    """The parent's csrc/voc_transform.cu (a thread a descriptor): slots
+    0-1 a warp's lane 0 (the descriptor's loads; the walk and the
+    stores)."""
+    return _insert(src, [
+        ("namespace {\n", WARP_HEAD),
+        ("  if (i >= q.n) return;\n  unsigned d[8];\n",
+         "  if (i >= q.n) return;\n  const long long t0 = clock64();\n"
+         "  unsigned d[8];\n"),
+        ("  const int k = static_cast<int>(q.k);\n  long long cur = 0;\n",
+         "  const int k = static_cast<int>(q.k);\n  long long cur = 0;\n"
+         "  const long long t1 = clock64();\n"),
+        ("  q.groups[i] = q.group_of[cur];\n}\n",
+         "  q.groups[i] = q.group_of[cur];\n  const long long t2 = clock64();\n"
+         + _warp_sums("(threadIdx.x & 31) == 0", ["t0", "t1", "t2"]) + "}\n"),
+    ])
+
+
+def _voc_problems():
+    """[(label, (children, node_desc, word_id, group_of, desc, depth))] on
+    the card: a scene vocabulary as System trains it (k 8, depth 3, from
+    2,400 descriptors clustered around 40 centres) at N 1536 and 640
+    query descriptors, and chip_smoke's random k 10 / depth 6 tree (ORBvoc's
+    shape) at N 1536."""
+    import torch
+    from airdos_tpu_torch.bow.vocabulary import train_vocabulary
+    from chip_smoke import _vt_variants
+    rng = np.random.default_rng(21)
+    centres = rng.integers(0, 256, (40, 32), dtype=np.uint8)
+    flip = lambda n, p: np.packbits(rng.random((n, 32, 8)) < p,  # noqa: E731
+                                    axis=-1)[..., 0]
+    train = centres[rng.integers(0, 40, 2400)] ^ flip(2400, 0.08)
+    voc = train_vocabulary(train, k=8, depth=3, device="cuda")
+    out = []
+    for n in (1536, 640):
+        query = centres[rng.integers(0, 40, n)] ^ flip(n, 0.1)
+        d = torch.from_numpy(np.ascontiguousarray(query).view(np.int32)
+                             .reshape(n, 8)).cuda()
+        out.append((f"scene tree of {len(voc.word_id)} nodes (k 8, depth 3), "
+                    f"N {n}", (*voc._device_tables(), d, 3)))
+    for key, args in _vt_variants([(1536,)]).items():
+        out.append((f"random tree of {key[1]} nodes (k 10, depth 6), "
+                    f"N {key[0]}", args))
+    return out
+
+
+def split_voc(parent, problems) -> None:
+    """voc_transform on the scene trees and the random k 10 / depth 6
+    tree: the stamped copies (the parent's when given, then this one's),
+    each held bit-equal to voc_transform_ref, then the unstamped sources'
+    device times (cold and hot), this one's also with nothing staged."""
+    import torch
+    from airdos_tpu_torch.ops import voc_kernels as vk
+    for label, text in _sources(parent, "voc_transform.cu"):
+        old = bool(label)
+        tag = "parent" if old else "this"
+        _ptxas(text, f"voc_transform_{tag}")
+        dlls = [_build((voc_parent if old else voc_new)(text),
+                       f"voc_{tag}_split"), _build(text, f"voc_{tag}")]
+        for what, args in problems:
+            children, node_desc, word_id, group_of, desc, depth = args
+            nodes, k = children.shape
+            want = vk.voc_transform_ref(*args)
+            for i, dll in enumerate(dlls):
+                fn = _entry(dll, "airdos_voc_transform",
+                            [ctypes.c_void_p, ctypes.c_void_p])
+                out = torch.empty((2, desc.shape[0]), dtype=torch.int32,
+                                  device="cuda")
+
+                def launch(staged=None):
+                    counts = (desc.shape[0], k, depth) + (
+                        () if old else (vk.staged_nodes(nodes, k)
+                                        if staged is None else staged,))
+                    block = ctypes.create_string_buffer(struct.pack(
+                        f"<{len(counts) + 7}q", *counts,
+                        *(t.data_ptr() for t in (children, node_desc,
+                                                 word_id, group_of, desc)),
+                        out.data_ptr(), out.data_ptr() + 4 * desc.shape[0]))
+                    err = fn(ctypes.addressof(block),
+                             torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        raise SystemExit(f"voc_transform: cudaError {err}")
+                    return out
+                launch()
+                torch.cuda.synchronize()
+                if not (torch.equal(out[0], want[0])
+                        and torch.equal(out[1], want[1])):
+                    raise SystemExit(f"voc_transform{label}: not bit-equal "
+                                     f"to the plain version ({what})")
+                if i == 0:
+                    dll.split_reset()
+                    ms = _events_ms(launch)
+                    _print_split("voc_transform" + label, what, ms,
+                                 _read(dll), VOC_PARENT_PARTS if old
+                                 else VOC_PARTS)
+                    continue
+                cold, hot = _graph_ms(launch)
+                extra = ""
+                if not old:
+                    launch(0)
+                    torch.cuda.synchronize()
+                    if not torch.equal(out[0], want[0]):
+                        raise SystemExit("voc_transform with nothing "
+                                         "staged: not bit-equal")
+                    staged = vk.staged_nodes(nodes, k)
+                    extra = (f"; {staged} nodes staged "
+                             f"({vk.stage_bytes(staged, k)} bytes a block)")
+                    for kb in VOC_BUDGETS_KB:   # the budget's choice
+                        sb = min(nodes, kb * 1024 // (4 * k + 40))
+                        while vk.stage_bytes(sb, k) > kb * 1024:
+                            sb -= 1
+                        cb, hb = _graph_ms(lambda: launch(sb))
+                        extra += (f"; {kb} KB ({sb} nodes): cold {cb:.4f} "
+                                  f"ms (hot {hb:.4f})")
+                print(f"[time] voc_transform ({tag}) {what}: cold "
+                      f"{cold:.4f} ms (hot {hot:.4f}){extra}", flush=True)
+
+
+EP_PARTS = ("the sums", "the 12 x 12 solve", "the canonical basis, G and rho",
+            "the candidates and their errors", "the inlier test and stores")
+EP_PARENT_PARTS = ("the sums", "the 12 x 12 Jacobi",
+                   "the canonical basis, G, rho and the candidates",
+                   "the errors", "the inlier test and stores")
+
+
+def epnp_new(src: str) -> str:
+    """This csrc/ransac.cu's epnp_kernel (a warp a hypothesis): slots 0-4
+    a warp's lane 0 (the sums to M^T M; the 12 x 12 solve; the canonical
+    basis, G and rho; the candidates and their errors with the pose;
+    the inlier test and the stores), 5 the 12 x 12 solve's sweeps, 6
+    the warps, 7 the warps that solved."""
+    return _insert(src, [
+        ("namespace {\n", WARP_HEAD),
+        ("  const int mi = static_cast<int>(q.refine ? 0 : m);\n",
+         "  const int mi = static_cast<int>(q.refine ? 0 : m);\n"
+         "  const long long t0 = clock64();\n"),
+        ("  // M^T M from the 10 pairs j <= k of 4 sums each",
+         "  const long long t1 = clock64();\n"
+         "  // M^T M from the 10 pairs j <= k of 4 sums each"),
+        ("  small::warp_jacobi_eigh<12>(s.A, s.V, s.w, s.rot, lane);\n",
+         "  const int sweeps = small::warp_jacobi_eigh<12>(s.A, s.V, s.w, s.rot, lane);\n"
+         "  const long long t2 = clock64();\n"),
+        ("  // the two candidates side by side, a lane each\n",
+         "  const long long t3 = clock64();\n"
+         "  // the two candidates side by side, a lane each\n"),
+        ("    round_pose(s.Rf, s.tf, s.Rc[k], s.tc[k]);\n  }\n  __syncwarp();\n}\n",
+         "    round_pose(s.Rf, s.tf, s.Rc[k], s.tc[k]);\n  }\n  __syncwarp();\n"
+         "  const long long t4 = clock64();\n"
+         "  if (lane == 0) {\n"
+         "    atomicAdd(&g_split[0], static_cast<unsigned long long>(t1 - t0));\n"
+         "    atomicAdd(&g_split[1], static_cast<unsigned long long>(t2 - t1));\n"
+         "    atomicAdd(&g_split[2], static_cast<unsigned long long>(t3 - t2));\n"
+         "    atomicAdd(&g_split[3], static_cast<unsigned long long>(t4 - t3));\n"
+         "    atomicAdd(&g_split[5], static_cast<unsigned long long>(sweeps));\n"
+         "    atomicAdd(&g_split[7], 1ull);\n  }\n}\n"),
+        ("  unsigned char* out_inl = q.inliers + h * q.n;\n",
+         "  const long long ti = clock64();\n"
+         "  unsigned char* out_inl = q.inliers + h * q.n;\n"),
+        ("    q.counts[h] = static_cast<long long>(keep ? cnt : cnt_b);\n  }\n}\n\n"
+         "__global__ void __launch_bounds__(kThreads) horn_kernel",
+         "    q.counts[h] = static_cast<long long>(keep ? cnt : cnt_b);\n  }\n"
+         "  if (lane == 0) {\n"
+         "    atomicAdd(&g_split[4], static_cast<unsigned long long>(clock64() - ti));\n"
+         "    atomicAdd(&g_split[6], 1ull);\n  }\n}\n\n"
+         "__global__ void __launch_bounds__(kThreads) horn_kernel"),
+    ])
+
+
+def epnp_parent(src: str) -> str:
+    """The parent's epnp_kernel (a block a hypothesis, the dense work on
+    thread 0): slots 0-4 a block's thread 0 (the sums to M^T M; the 12 x
+    12 Jacobi; the canonical basis, G, rho and the candidates; the
+    errors with the pose; the inlier test and the stores), 6 and 7 the
+    blocks."""
+    return _insert(src, [
+        ("namespace {\n", HEAD),
+        ("  const int tid = threadIdx.x;\n  // centroid\n",
+         "  const int tid = threadIdx.x;\n  const long long t0 = clock64();\n"
+         "  // centroid\n"),
+        ("  small::jacobi_eigh<12>(d.A, d.V, d.w);\n",
+         "  const long long tj = clock64();\n"
+         "  small::jacobi_eigh<12>(d.A, d.V, d.w);\n"
+         "  s_split[1] = clock64() - tj;\n"),
+        ("  if (tid == 0) epnp_candidates(q, sh, d, s, sh.cps, c0);\n",
+         "  const long long t1 = clock64();\n"
+         "  if (tid == 0) epnp_candidates(q, sh, d, s, sh.cps, c0);\n"
+         "  const long long t2 = clock64();\n"),
+        ("    round_pose(sh, R, t, 1.0);\n  }\n  __syncthreads();\n}\n",
+         "    round_pose(sh, R, t, 1.0);\n  }\n  __syncthreads();\n"
+         "  if (tid == 0) {\n"
+         "    atomicAdd(&g_split[0], static_cast<unsigned long long>(t1 - t0));\n"
+         "    atomicAdd(&g_split[1], static_cast<unsigned long long>(s_split[1]));\n"
+         "    atomicAdd(&g_split[2], static_cast<unsigned long long>(t2 - t1 - s_split[1]));\n"
+         "    atomicAdd(&g_split[3], static_cast<unsigned long long>(clock64() - t2));\n"
+         "    atomicAdd(&g_split[7], 1ull);\n  }\n}\n"),
+        ("  unsigned char* out_inl = q.inliers + blockIdx.x * q.n;\n"
+         "  double cnt_b = 0.0;\n  const double cnt = epnp_inliers(",
+         "  const long long ti = clock64();\n"
+         "  unsigned char* out_inl = q.inliers + blockIdx.x * q.n;\n"
+         "  double cnt_b = 0.0;\n  const double cnt = epnp_inliers("),
+        ("  finish(q, sh, cnt, cnt_b, out_inl);\n}\n\n"
+         "__global__ void __launch_bounds__(kThreads) horn_kernel",
+         "  finish(q, sh, cnt, cnt_b, out_inl);\n"
+         "  if (threadIdx.x == 0) {\n"
+         "    atomicAdd(&g_split[4], static_cast<unsigned long long>(clock64() - ti));\n"
+         "    atomicAdd(&g_split[6], 1ull);\n  }\n}\n\n"
+         "__global__ void __launch_bounds__(kThreads) horn_kernel"),
+    ])
+
+
+def _epnp_problems():
+    """[(label, refine, args)]: relocalization's hypotheses (H 256 n 483),
+    a mesh rank's (H 64) and the dry run's (H 16 n 48), and the refines
+    at n 483 and 48 from each scene's best hypothesis, on the card
+    (tests/torch_ransac_cases.py pnp_case, 0.5 px noise, a fifth of the
+    points moved 20-60 px)."""
+    import torch
+    sys.path.insert(0, str(REPO / "tests"))
+    import torch_ransac_cases as trc
+    from airdos_tpu_torch.solvers import epnp as ep
+    cam = (trc.FX, trc.FY, trc.CX, trc.CY)
+    out = []
+    for seed, n, hs in ((3, 483, (256, 64)), (4, 48, (16,))):
+        pw, uv, valid, gate, smp = (torch.from_numpy(np.array(a)).cuda()
+                                    for a in trc.pnp_case(
+                                        seed, n=n, n_out=n // 5, H=max(hs)))
+        for H in hs:
+            out.append((f"hypotheses H {H} n {n}", False,
+                        (pw, uv, valid, gate, smp[:H].contiguous(), *cam)))
+        plain = ep.epnp_hypotheses_ref(pw, uv, valid, gate, smp, *cam,
+                                       canonical=True)
+        best = int(torch.argmax(plain[3]))
+        out.append((f"refine n {n}", True,
+                    (pw, uv, valid, gate, plain[0][best].contiguous(),
+                     plain[1][best].contiguous(),
+                     plain[2][best].contiguous(), *cam)))
+    return out
+
+
+def epnp_variants(text: str, header: str):
+    """[(name, source, small_eig.cuh)] variants of this epnp_kernel, timed
+    beside it and not shipped: the round-robin solver not inlined; its
+    rotation by jacobi_eigh's formulas (three divisions and two square
+    roots) in place of a hypot, a division and a reciprocal square root,
+    or from two reciprocal square roots (c = sqrt((1 + |h| / r) /
+    2), s = sign(h) apq / (r c) by rsqrt of h^2 + 4 apq^2 and of c^2);
+    its sweeps and steps kept rolled (no unrolling of the 11 steps of a
+    sweep); the kernel held to 128 registers a thread (launch bounds of 4
+    blocks an SM)."""
+    noinline = ("__device__ int warp_jacobi_eigh(",
+                "__device__ __noinline__ int warp_jacobi_eigh(")
+    formulas = ("""    const double a2 = apq + apq;
+    t = (h < 0.0 ? -a2 : a2) / (fabs(h) + hypot(h, a2));
+  }
+  c = rsqrt(1.0 + t * t);""", """    const double theta = 0.5 * h / apq;
+    t = 1.0 / (fabs(theta) + sqrt(1.0 + theta * theta));
+    if (theta < 0.0) t = -t;
+  }
+  c = 1.0 / sqrt(1.0 + t * t);""")
+    two_rsqrt = ("""  const double h = aqq - app;
+  double t;
+  if (fabs(h) + g == fabs(h)) {
+    t = apq / h;
+  } else {
+    const double a2 = apq + apq;
+    t = (h < 0.0 ? -a2 : a2) / (fabs(h) + hypot(h, a2));
+  }
+  c = rsqrt(1.0 + t * t);
+  s = t * c;""", """  const double h = aqq - app;
+  const double ir = rsqrt(h * h + 4.0 * apq * apq);
+  const double x = 0.5 + 0.5 * fabs(h) * ir;
+  const double ic = rsqrt(x);
+  c = x * ic;
+  s = (h < 0.0 ? -apq : apq) * ir * ic;""")
+    rolled = [("    for (int r = 0; r < N - 1; ++r) {   // a step",
+               "#pragma unroll 1\n    for (int r = 0; r < N - 1; ++r) {   // a step"),
+              ("  for (; sweep < kMaxSweeps; ++sweep) {   // a sweep",
+               "#pragma unroll 1\n  for (; sweep < kMaxSweeps; ++sweep) {   // a sweep")]
+    bounds = ("__launch_bounds__(kHypsPerBlock * 32) epnp_kernel",
+              "__launch_bounds__(kHypsPerBlock * 32, 4) epnp_kernel")
+
+    out = []
+    for name, edits, src_edits in (("solver not inlined", [noinline], []),
+                                   ("jacobi_eigh's formulas", [formulas], []),
+                                   ("two reciprocal square roots",
+                                    [two_rsqrt], []),
+                                   ("steps not unrolled", rolled, []),
+                                   ("128 registers", [], [bounds])):
+        h, t = header, text
+        for a, b in edits:
+            if h.count(a) != 1:
+                raise SystemExit(f"epnp variant {name}: anchor not found")
+            h = h.replace(a, b)
+        for a, b in src_edits:
+            if t.count(a) != 1:
+                raise SystemExit(f"epnp variant {name}: anchor not found")
+            t = t.replace(a, b)
+        out.append((name, t, h))
+    return out
+
+
+SOLVE_C = """
+extern "C" int solve_read(unsigned long long* host) {
+  return static_cast<int>(cudaMemcpyFromSymbol(host, g_solve, sizeof(g_solve)));
+}
+"""
+
+
+def solver_split(header: str) -> str:
+    """small_eig.cuh with the 12 x 12 round-robin solve's steps stamped:
+    g_solve[0-1] lane 0's cycles in the rotations to the warp barrier and
+    in its item (a block of A, a run of V) to the next barrier, [3] the
+    steps."""
+    edits = [
+        ("namespace small {\n",
+         "__device__ unsigned long long g_solve[4];\nnamespace small {\n"),
+        ("  int sweep = 0;\n  for (; sweep < kMaxSweeps; ++sweep) {   // a sweep\n",
+         "  long long solve_t[4] = {0, 0, 0, 0};\n"
+         "  int sweep = 0;\n  for (; sweep < kMaxSweeps; ++sweep) {   // a sweep\n"),
+        ("    for (int r = 0; r < N - 1; ++r) {   // a step\n",
+         "    for (int r = 0; r < N - 1; ++r) {   // a step\n"
+         "      const long long ta = clock64();\n"),
+        ("        rot[1][P] = s;\n      }\n      __syncwarp();\n",
+         "        rot[1][P] = s;\n      }\n      __syncwarp();\n"
+         "      const long long tb = clock64();\n"),
+        ("      __syncwarp();\n    }\n  }\n  // ascending,",
+         "      __syncwarp();\n"
+         "      solve_t[0] += tb - ta;\n      solve_t[1] += clock64() - tb;\n"
+         "      solve_t[3] += 1;\n"
+         "    }\n  }\n"
+         "  if (lane == 0 && N == 12)\n"
+         "    for (int k = 0; k < 4; ++k)\n"
+         "      atomicAdd(&g_solve[k], static_cast<unsigned long long>(solve_t[k]));\n"
+         "  // ascending,"),
+    ]
+    for a, b in edits:
+        if header.count(a) != 1:
+            raise SystemExit(f"solver_split: anchor not found once: {a!r}")
+        header = header.replace(a, b)
+    return header
+
+
+def _time_solver_split(text: str, problems) -> None:
+    """The 12 x 12 solve's steps split (solver_split) at each problem."""
+    import torch
+    from airdos_tpu_torch.ops import ransac_kernels as rk
+    header = (REPO / "airdos_tpu_torch" / "csrc" / "small_eig.cuh").read_text()
+    dll = _build(epnp_new(text) + SOLVE_C, "ransac_solver_split",
+                 headers={"small_eig.cuh": solver_split(header)})
+    dll.solve_read.argtypes = [ctypes.c_void_p]
+    for what, refine, args in problems:
+        shipped = rk._lib
+        rk._lib = dll
+        for name, argtypes in rk._SIGNATURES.items():
+            _entry(dll, name, argtypes)
+        try:
+            before = (ctypes.c_ulonglong * 4)()
+            dll.solve_read(before)
+            (rk.epnp_refine_cuda(*args) if refine
+             else rk.epnp_hypotheses_cuda(*args))
+            torch.cuda.synchronize()
+            after = (ctypes.c_ulonglong * 4)()
+            dll.solve_read(after)
+        finally:
+            rk._lib = shipped
+        d = [a - b for a, b in zip(after, before)]
+        steps = max(d[3], 1)
+        print(f"[split] epnp 12 x 12 solve {what}: cycles a step (lane 0, "
+              f"{steps} steps over the launch's warps): the rotations to "
+              f"the barrier {d[0] / steps:.0f}, its block of A and run of "
+              f"V to the barrier {d[1] / steps:.0f}", flush=True)
+
+
+def split_epnp(parent, problems) -> None:
+    """epnp_hypotheses and epnp_refine at the paths' shapes: the stamped
+    copies (the parent's when given, then this one's), each held to its
+    plain version (ops/ransac_kernels hypotheses_held / refine_held), then
+    the unstamped sources' device times (cold and hot)."""
+    import torch
+    from airdos_tpu_torch.ops import ransac_kernels as rk
+    from airdos_tpu_torch.solvers import epnp as ep
+    for label, text in _sources(parent, "ransac.cu"):
+        old = bool(label)
+        tag = "parent" if old else "this"
+        inc = parent / "airdos_tpu_torch" / "csrc" if old else None
+        _ptxas(text, f"ransac_{tag}", inc)
+        dlls = [_build((epnp_parent if old else epnp_new)(text),
+                       f"ransac_{tag}_split", inc),
+                _build(text, f"ransac_{tag}", inc)]
+        for what, refine, args in problems:
+            if refine:
+                plain = ep.epnp_refine_ref(*args, canonical=True)
+                plain64 = ep.epnp_refine_ref(*(
+                    a.double() if i in (0, 1, 3, 4, 5) else a
+                    for i, a in enumerate(args)), canonical=True)
+            else:
+                plain = ep.epnp_hypotheses_ref(*args, canonical=True)
+                other = ep.epnp_hypotheses_ref(*args, canonical=True,
+                                               solve_dtype=torch.float32)
+            for i, dll in enumerate(dlls):
+                shipped = rk._lib
+                rk._lib = dll
+                for name, argtypes in rk._SIGNATURES.items():
+                    _entry(dll, name, argtypes)
+                try:
+                    run = (lambda: rk.epnp_refine_cuda(*args)) if refine \
+                        else (lambda: rk.epnp_hypotheses_cuda(*args))
+                    got = run()
+                    torch.cuda.synchronize()
+                    held, st = (rk.refine_held(got, plain, plain64) if refine
+                                else rk.hypotheses_held(got, plain, other,
+                                                        args[4]))
+                    if not held:
+                        raise SystemExit(f"epnp{label} {what}: not held to "
+                                         f"its plain version: {st}")
+                    if i == 0:
+                        dll.split_reset()
+                        ms = _events_ms(run)
+                        acc = _read(dll)
+                        n = max(acc[7], 1)
+                        parts = EP_PARENT_PARTS if old else EP_PARTS
+                        per = ", ".join(
+                            f"{k} {acc[j] / max(acc[6 if j == 4 else 7], 1):.0f}"
+                            for j, k in enumerate(parts))
+                        sweeps = "" if old else \
+                            f"; sweeps of the 12 x 12 solve {acc[5] / n:.2f}"
+                        print(f"[split] epnp{label} {what}: {ms * 1e3:.1f} us "
+                              f"a launch (CUDA events, 20 back to back; the "
+                              f"stamped copy); cycles a hypothesis ("
+                              f"{'thread 0' if old else 'lane 0'}, mean of "
+                              f"{n // 21} a launch): {per}{sweeps}; held: "
+                              f"{st}", flush=True)
+                        continue
+                    cold, hot = _graph_ms(run)
+                    print(f"[time] epnp ({tag}) {what}: cold {cold:.4f} ms "
+                          f"(hot {hot:.4f})", flush=True)
+                finally:
+                    rk._lib = shipped
+        if old:
+            continue
+        _time_solver_split(text, problems)
+        header = (REPO / "airdos_tpu_torch" / "csrc" /
+                  "small_eig.cuh").read_text()
+        for j, (vname, vtext, vheader) in enumerate(
+                epnp_variants(text, header)):
+            dll = _build(vtext, f"ransac_variant_{j}",
+                         headers={"small_eig.cuh": vheader})
+            _ptxas(vtext, f"ransac_variant_{j}",
+                   cuda_build_dir() / "split" / f"ransac_variant_{j}")
+            for what, refine, args in problems:
+                shipped = rk._lib
+                rk._lib = dll
+                for name, argtypes in rk._SIGNATURES.items():
+                    _entry(dll, name, argtypes)
+                try:
+                    run = (lambda: rk.epnp_refine_cuda(*args)) if refine \
+                        else (lambda: rk.epnp_hypotheses_cuda(*args))
+                    got = run()
+                    again = run()
+                    torch.cuda.synchronize()
+                    if refine:
+                        plain = ep.epnp_refine_ref(*args, canonical=True)
+                        plain64 = ep.epnp_refine_ref(*(
+                            a.double() if i in (0, 1, 3, 4, 5) else a
+                            for i, a in enumerate(args)), canonical=True)
+                        held, st = rk.refine_held(got, plain, plain64)
+                    else:
+                        plain = ep.epnp_hypotheses_ref(*args, canonical=True)
+                        other = ep.epnp_hypotheses_ref(
+                            *args, canonical=True, solve_dtype=torch.float32)
+                        held, st = rk.hypotheses_held(got, plain, other,
+                                                      args[4])
+                    same = all(torch.equal(a.nan_to_num(7.0),
+                                           b.nan_to_num(7.0))
+                               if a.is_floating_point() else torch.equal(a, b)
+                               for a, b in zip(got, again))
+                    cold, hot = _graph_ms(run)
+                    print(f"[time] epnp variant ({vname}) {what}: cold "
+                          f"{cold:.4f} ms (hot {hot:.4f}); held {held}, two "
+                          f"launches equal {same}: {st}", flush=True)
+                finally:
+                    rk._lib = shipped
+
+
+
 SPLITS = ("pose_lm", "select", "orb_desc", "static_edge_blocks", "fast_nms",
           "pyramid", "landmark",
           "human_edge_blocks", "stereo_sad", "patch_disparity", "schur_point",
-          "schur_camera")
+          "schur_camera", "voc_transform", "epnp")
 
 
 def main(argv=None) -> None:
@@ -1799,6 +2346,10 @@ def main(argv=None) -> None:
         rng = np.random.default_rng(21)
         split_schur(args.parent, [(size, _schur_problem(rng, C, P, E))
                                   for size, C, P, E in SCHUR_SHAPES])
+    if "voc_transform" in only:
+        split_voc(args.parent, _voc_problems())
+    if "epnp" in only:
+        split_epnp(args.parent, _epnp_problems())
     if "patch_disparity" in only:
         rng = np.random.default_rng(3)
         split_disp(args.parent, [
